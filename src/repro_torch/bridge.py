@@ -1,0 +1,51 @@
+"""Carry ``repro`` parameters into the port.
+
+``params_from_numpy`` takes the tree ``repro``'s ``LM.init`` returns, with
+its leaves converted to numpy arrays (nested dicts and lists, per-stage
+leaves stacked on a leading layer axis), and returns the port's tree with
+the same names, shapes and stacking. It checks the tree against the port's
+``LM.param_spec`` so a mismatch fails loudly. bfloat16 leaves (numpy's
+``ml_dtypes`` bfloat16) go through float32, which is exact.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.model import LM
+
+
+def _to_tensor(a, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    # a writable copy; bf16 widens to f32, which is exact
+    a = np.array(a, dtype=np.float32 if a.dtype.name == "bfloat16"
+                 else a.dtype)
+    return torch.from_numpy(a).to(dtype).to(device)
+
+
+def params_from_numpy(tree, cfg, device="cuda"):
+    """``repro`` params as numpy (nested dicts/lists) -> the port's params
+    for ``cfg`` on ``device``."""
+    device = resolve_device(device)
+    spec = LM(cfg, device="cpu").param_spec()
+
+    def conv(node, sp, path):
+        if isinstance(sp, dict):
+            if not isinstance(node, dict) or set(node) != set(sp):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(f"{path or 'params'}: expected keys "
+                                 f"{sorted(sp)}, got {got}")
+            return {k: conv(node[k], sp[k], f"{path}/{k}") for k in sp}
+        if isinstance(sp, list):
+            if not isinstance(node, (list, tuple)) or len(node) != len(sp):
+                raise ValueError(f"{path}: expected {len(sp)} stages")
+            return [conv(n, s, f"{path}[{i}]")
+                    for i, (n, s) in enumerate(zip(node, sp))]
+        shape, dtype, _ = sp
+        if tuple(np.shape(node)) != tuple(shape):
+            raise ValueError(f"{path}: shape {tuple(np.shape(node))} != "
+                             f"{tuple(shape)}")
+        return _to_tensor(node, dtype, device)
+
+    return conv(tree, spec, "")

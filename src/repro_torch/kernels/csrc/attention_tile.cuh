@@ -1,0 +1,246 @@
+// Streaming-softmax attention over key tiles, shared by the decode and the
+// flash kernels.
+//
+// A CTA owns up to kMaxRows query rows (each a head_dim vector) and walks a
+// range of keys in tiles of kTileK. Per tile it stages K and V in shared
+// memory as float32; each warp then takes its rows one at a time: lane i
+// scores key i (QK^T in f32), the warp reduces the tile max and sum with
+// shuffles, and lane i accumulates head dims i, i+32, ... of P V. The
+// running (m, l, acc) of every row lives in shared memory across tiles.
+//
+// Masking is explicit: a key is valid for a row iff its position is >= 0,
+// not after the query (causal) and inside the window. A masked key gets
+// p = 0 exactly (never exp(-1e30 - -1e30)), so a row with no valid key
+// keeps l = 0 and is written as 0. A tile whose keys are invalid for every
+// row of the CTA is skipped before its K/V are read.
+#pragma once
+
+#include <climits>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace attn {
+
+constexpr int kTileK = 32;     // keys per tile: lane i scores key i
+constexpr int kMaxRows = 64;   // query rows per CTA
+constexpr float kNeg = -1e30f;
+
+template <typename T> struct Elem;
+
+template <> struct Elem<float> {
+  static __device__ __forceinline__ float load(float x) { return x; }
+  static __device__ __forceinline__ float store(float x) { return x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <> struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
+    return __float2bfloat16(x);
+  }
+  // P is rounded to V's type before P V, as the TPU kernel does
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+};
+
+struct Smem {
+  long long* roff;   // rows: element offset of each row in q and out
+  float* q;          // rows x hd
+  float* acc;        // rows x hd, unnormalised P V
+  float* k;          // kTileK x (hd + 1): odd pitch, lane-per-key reads
+                     // fall on distinct banks
+  float* v;          // kTileK x hd
+  float* m;          // rows: running max
+  float* l;          // rows: running sum of p
+  int* qpos;         // rows: query position
+  int* kpos;         // kTileK: key positions of the current tile (-1 = none)
+  int* bounds;       // [min, max] query position of the CTA's rows
+};
+
+__host__ __device__ inline size_t smem_bytes(int rows, int hd) {
+  return sizeof(long long) * rows +
+         sizeof(float) * (2 * rows * hd + kTileK * (hd + 1) + kTileK * hd +
+                          2 * rows) +
+         sizeof(int) * (rows + kTileK + 2);
+}
+
+__device__ inline Smem carve(unsigned char* base, int rows, int hd) {
+  Smem s;
+  s.roff = reinterpret_cast<long long*>(base);
+  s.q = reinterpret_cast<float*>(s.roff + rows);
+  s.acc = s.q + rows * hd;
+  s.k = s.acc + rows * hd;
+  s.v = s.k + kTileK * (hd + 1);
+  s.m = s.v + kTileK * hd;
+  s.l = s.m + rows;
+  s.qpos = reinterpret_cast<int*>(s.l + rows);
+  s.kpos = s.qpos + rows;
+  s.bounds = s.kpos + kTileK;
+  return s;
+}
+
+// After the caller filled roff/qpos for rows [0, nrows): stage q, reset the
+// softmax state and record the query-position bounds.
+template <typename T>
+__device__ void load_rows(const Smem& s, const T* __restrict__ q, int nrows,
+                          int hd) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < nrows * hd; e += blockDim.x) {
+    const int r = e / hd, d = e - r * hd;
+    s.q[e] = Elem<T>::load(q[s.roff[r] + d]);
+    s.acc[e] = 0.f;
+  }
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+    s.m[r] = kNeg;
+    s.l[r] = 0.f;
+  }
+  if (threadIdx.x == 0) {
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int r = 0; r < nrows; ++r) {
+      lo = min(lo, s.qpos[r]);
+      hi = max(hi, s.qpos[r]);
+    }
+    s.bounds[0] = lo;
+    s.bounds[1] = hi;
+  }
+  __syncthreads();
+}
+
+// Copy nk key rows (row stride `stride` elements, 16-byte vectors) into a
+// float tile with row pitch `pitch`; rows nk..kTileK-1 are zeroed.
+template <typename T>
+__device__ void load_tile(float* dst, int pitch, const T* __restrict__ src,
+                          long long stride, int nk, int hd) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int nv = hd / kVec;
+  for (int e = threadIdx.x; e < kTileK * nv; e += blockDim.x) {
+    const int key = e / nv, d0 = (e - key * nv) * kVec;
+    float* o = dst + key * pitch + d0;
+    if (key < nk) {
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(src + key * stride + d0);
+      const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) o[j] = Elem<T>::load(x[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) o[j] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ bool key_valid(int p, int qp, bool causal,
+                                          int window) {
+  return p >= 0 && (!causal || p <= qp) && (window <= 0 || p > qp - window);
+}
+
+// Walk keys [key_lo, key_hi). Key positions come from kpos_g (per-key
+// array, -1 = empty) or, when kpos_g is null, are the key indices.
+// LD = head dims per lane (hd <= 32 * LD).
+template <typename T, int LD>
+__device__ void attend(const Smem& s, const T* __restrict__ kbase,
+                       const T* __restrict__ vbase, long long stride,
+                       const int* __restrict__ kpos_g, int key_lo,
+                       int key_hi, int nrows, int hd, bool causal,
+                       int window, float scale) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int qmin = s.bounds[0], qmax = s.bounds[1];
+  for (int k0 = key_lo; k0 < key_hi; k0 += kTileK) {
+    const int nk = min(kTileK, key_hi - k0);
+    const int tid = static_cast<int>(threadIdx.x);
+    int live = 0;
+    if (tid < kTileK) {
+      int p = -1;
+      if (tid < nk) p = kpos_g ? kpos_g[k0 + tid] : k0 + tid;
+      s.kpos[tid] = p;
+      // the rows' positions span [qmin, qmax]: a key outside every row's
+      // band cannot be valid for any row
+      live = p >= 0 && (!causal || p <= qmax) &&
+             (window <= 0 || p > qmin - window);
+    }
+    if (!__syncthreads_or(live)) continue;
+    load_tile<T>(s.k, hd + 1, kbase + k0 * stride, stride, nk, hd);
+    load_tile<T>(s.v, hd, vbase + k0 * stride, stride, nk, hd);
+    __syncthreads();
+    const int p = s.kpos[lane];
+    for (int r = warp; r < nrows; r += nwarps) {
+      const bool ok = key_valid(p, s.qpos[r], causal, window);
+      float sc = kNeg;
+      if (ok) {
+        const float* qr = s.q + r * hd;
+        const float* kr = s.k + lane * (hd + 1);
+        float dot = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
+        sc = dot * scale;
+      }
+      float mt = sc;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+      const float m_prev = s.m[r];
+      const float m_new = fmaxf(m_prev, mt);
+      const float pe = ok ? expf(sc - m_new) : 0.f;
+      const float alpha = expf(m_prev - m_new);
+      float ps = pe;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      const float pr = Elem<T>::round(pe);
+      float* accr = s.acc + r * hd;
+      float a[LD];
+#pragma unroll
+      for (int i = 0; i < LD; ++i) {
+        const int d = lane + 32 * i;
+        a[i] = d < hd ? accr[d] * alpha : 0.f;
+      }
+#pragma unroll 4
+      for (int j = 0; j < kTileK; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pr, j);
+        const float* vr = s.v + j * hd;
+#pragma unroll
+        for (int i = 0; i < LD; ++i) {
+          const int d = lane + 32 * i;
+          if (d < hd) a[i] = fmaf(pj, vr[d], a[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < LD; ++i) {
+        const int d = lane + 32 * i;
+        if (d < hd) accr[d] = a[i];
+      }
+      __syncwarp();
+      if (lane == 0) {
+        s.m[r] = m_new;
+        s.l[r] = s.l[r] * alpha + ps;
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__device__ void store_rows(const Smem& s, T* __restrict__ out, int nrows,
+                           int hd) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < nrows * hd; e += blockDim.x) {
+    const int r = e / hd;
+    const float l = s.l[r];
+    out[s.roff[r] + (e - r * hd)] = Elem<T>::store(l > 0.f ? s.acc[e] / l : 0.f);
+  }
+}
+
+// Opt a kernel into more than the default 48 KB of dynamic shared memory.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace attn

@@ -1,0 +1,148 @@
+"""Cached GQA attention of a T-token chunk against a per-slot ring cache.
+
+Port of ``repro.kernels.decode_attention.decode_attention``. The kernel is
+``csrc/decode_attention.cu`` (one CTA per (slot, KV head, key split)
+folding the T x G query rows of that KV head; streaming softmax over key
+tiles; tiles no row may see are skipped; the splits are combined by
+log-sum-exp in a second kernel). ``decode_attention_plain`` is the same
+function in plain PyTorch: the CPU path and the kernel's reference.
+
+Contract shared by both: q (B, T, H, hd) or (B, H, hd) (T = 1); k, v
+(B, W, KV, hd); q_pos (B,) chunk start positions (token i sits at start +
+i) or (B, T) per-token positions; k_pos (B, W) int32 with -1 = empty slot.
+A key is visible to a query iff 0 <= k_pos <= q_pos (and k_pos > q_pos -
+window). Rows with no visible key are 0.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import (LAUNCHES, build, check_cuda_inputs,
+                                 raise_on_error)
+
+NEG_INF = -1e30
+
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+             + [ctypes.c_float, ctypes.c_void_p])
+_TILE_K = 32          # keys per tile in the kernel
+_ROWS_PER_CTA = 64    # query rows per CTA in the kernel
+
+
+def query_positions(q_pos, t: int) -> torch.Tensor:
+    """(B,) chunk starts -> (B, T) per-token positions; (B, T) as-is."""
+    qp = q_pos.to(torch.int32)
+    if qp.dim() == 1:
+        qp = qp[:, None] + torch.arange(t, dtype=torch.int32,
+                                        device=qp.device)[None, :]
+    return qp
+
+
+def _visible(k_pos, qp, window: Optional[int]) -> torch.Tensor:
+    """(B, T, W) key visibility for per-token query positions qp (B, T)."""
+    kp = k_pos[:, None, :]
+    valid = (kp >= 0) & (kp <= qp[:, :, None])
+    if window is not None:
+        valid &= kp > (qp[:, :, None] - window)
+    return valid
+
+
+def decode_attention_plain(q, k, v, q_pos, k_pos, *,
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Dense f32 version (``repro.kernels.ref.decode_attention_ref``'s
+    arithmetic), with rows that see no key pinned to 0 as the kernel
+    writes them. q: (B, T, H, hd)."""
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else hd ** -0.5
+    qp = query_positions(q_pos, t)
+    qg = q.reshape(b, t, kv, g, hd).float()
+    s = torch.einsum("btkgd,bckd->btkgc", qg, k.float()) * scale
+    valid = _visible(k_pos, qp, window)                  # (B, T, W)
+    s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = p * valid.any(dim=-1)[:, :, None, None, None]
+    o = torch.einsum("btkgc,bckd->btkgd", p, v.float())
+    return o.reshape(b, t, h, hd).to(q.dtype)
+
+
+def _lib():
+    lib = build.load("decode_attention")
+    for fn in (lib.decode_attention_bf16, lib.decode_attention_f32):
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_len(b: int, t: int, h: int, kv: int, w: int, sms: int) -> int:
+    """Keys per split: enough splits that the grid has ~4 CTAs per SM,
+    each split a whole number of 32-key tiles."""
+    ctas = b * kv * _cdiv(t * (h // kv), _ROWS_PER_CTA)
+    splits = max(1, min(_cdiv(w, _TILE_K), _cdiv(4 * sms, ctas)))
+    return _cdiv(_cdiv(w, splits), _TILE_K) * _TILE_K
+
+
+def _launch(q, k, v, qp, kp, window: Optional[int], scale: float):
+    b, t, h, hd = q.shape
+    w, kv = k.shape[1], k.shape[2]
+    check_cuda_inputs("decode_attention", {"q": q, "k": k, "v": v},
+                      {"q_pos": qp, "k_pos": kp}, hd)
+    if k.shape != (b, w, kv, hd) or v.shape != k.shape or h % kv \
+            or qp.shape != (b, t) or kp.shape != (b, w):
+        raise ValueError(
+            f"decode_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}"
+            f", v {tuple(v.shape)}, q_pos {tuple(qp.shape)}, k_pos "
+            f"{tuple(kp.shape)} do not form a (B,T,H,hd)/(B,W,KV,hd) ring")
+    out = torch.empty_like(q)
+    if out.numel() == 0 or w == 0:
+        return out.zero_()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    chunk = split_len(b, t, h, kv, w, sms)
+    nsplit = _cdiv(w, chunk)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_part = torch.empty((b * t * h, nsplit), **f32)
+    l_part = torch.empty((b * t * h, nsplit), **f32)
+    acc_part = torch.empty((b * t * h, nsplit, hd), **f32)
+    lib = _lib()
+    fn = (lib.decode_attention_bf16 if q.dtype == torch.bfloat16
+          else lib.decode_attention_f32)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
+                 kp.data_ptr(), out.data_ptr(), m_part.data_ptr(),
+                 l_part.data_ptr(), acc_part.data_ptr(), b, t, h, kv, w, hd,
+                 chunk, window if window is not None else 0, scale,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on_error("decode_attention", err)
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_attention(q, k, v, q_pos, k_pos, *, window: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the CUDA kernel for CUDA tensors, run the plain version for
+    CPU tensors. Returns attention output shaped like q."""
+    no_time = q.dim() == 3
+    if no_time:
+        q = q[:, None]
+    t, hd = q.shape[1], q.shape[3]
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive or None (got {window})")
+    scale = scale if scale is not None else hd ** -0.5
+    qp = query_positions(q_pos, t)
+    if q.device.type == "cpu":
+        out = decode_attention_plain(q, k, v, qp, k_pos, window=window,
+                                     scale=scale)
+    elif q.is_cuda:
+        out = _launch(q.contiguous(), k, v, qp.contiguous(),
+                      k_pos.contiguous(), window, scale)
+    else:
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    return out[:, 0] if no_time else out

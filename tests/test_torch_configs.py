@@ -1,0 +1,43 @@
+"""The port's configs are field-equal to ``repro``'s, and the port imports
+neither JAX nor ``repro``."""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro import configs as jax_configs  # noqa: E402
+from repro_torch import configs as torch_configs  # noqa: E402
+
+NAMES = jax_configs.ARCHS.names()
+
+
+def test_same_registry():
+    assert torch_configs.ARCHS.names() == NAMES
+    assert torch_configs.ASSIGNED_ARCHS == jax_configs.ASSIGNED_ARCHS
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_config_and_reduced_field_equal(name):
+    ours, theirs = torch_configs.get_config(name), jax_configs.get_config(name)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    if hasattr(theirs, "reduced"):
+        red = ours.reduced()
+        assert dataclasses.asdict(red) == dataclasses.asdict(theirs.reduced())
+        assert red.param_dtype == "float32"
+        for prop in ("resolved_head_dim", "padded_vocab"):
+            assert getattr(red, prop) == getattr(theirs.reduced(), prop)
+
+
+def test_port_imports_no_jax_and_no_repro():
+    src = Path(__file__).resolve().parents[1] / "src"
+    code = ("import sys, repro_torch, repro_torch.serving.engine, "
+            "repro_torch.bridge, repro_torch.configs; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'repro.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=src,
+                   timeout=120)

@@ -1,0 +1,153 @@
+"""The port's LM against ``repro``'s on weights carried across by
+``repro_torch.bridge``: full forward, prefill (logits and installed
+cache) and cached decode, in f32 on the CPU. Tolerance 1e-4 on logits of
+order 1: the same f32 arithmetic, summed in another order (flash/dense
+attention, BLAS)."""
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs.base import ModelConfig, dense_stages  # noqa: E402
+from repro.models.model import LM as JaxLM  # noqa: E402
+from repro_torch import configs as tcfg  # noqa: E402
+from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.models.model import LM  # noqa: E402
+
+TOL = 1e-4
+
+
+def _tiny(window=None):
+    return dict(name="tiny", family="dense", source="t", num_layers=3,
+                d_model=48, num_heads=4, num_kv_heads=2, head_dim=12,
+                d_ff=96, vocab_size=128, param_dtype="float32",
+                use_qk_norm=window is not None)
+
+
+def _configs(which):
+    """(repro config, port config) with equal fields."""
+    if which == "smollm_reduced":
+        return (jax_get_config("smollm-135m").reduced(),
+                tcfg.get_config("smollm-135m").reduced())
+    window = 6 if which == "tiny_window" else None
+    jc = ModelConfig(**_tiny(window), stages=dense_stages(3, window=window))
+    tc = tcfg.ModelConfig(**_tiny(window),
+                          stages=tcfg.dense_stages(3, window=window))
+    return jc, tc
+
+
+# the tiny dense config runs windowed with qk-norm (ring narrower than the
+# prompt: masked install); smollm's reduced config covers the plain ring
+CONFIGS = ["tiny_window", "smollm_reduced"]
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(which):
+    """(repro LM, its params, port LM, bridged params), built once per
+    config; tests read them and never write."""
+    jc, tc = _configs(which)
+    jlm = JaxLM(jc, kv_chunk=8)
+    jparams = jax.jit(lambda k: jlm.init(k)[0])(jax.random.PRNGKey(0))
+    if tc.use_qk_norm:        # non-trivial qk-norm scales
+        for st in jparams["stages"]:
+            for key in ("q_scale", "k_scale"):
+                leaf = st["b0"]["mixer"][key]
+                st["b0"]["mixer"][key] = leaf + 0.1 * jnp.arange(
+                    leaf.size, dtype=leaf.dtype).reshape(leaf.shape) / leaf.size
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tc, "cpu")
+    return jlm, jparams, LM(tc, device="cpu"), tparams
+
+
+def _tokens(b, s, vocab, seed=1):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("which", CONFIGS)
+def test_forward_logits_match_repro(which):
+    jlm, jp, lm, tp = _pair(which)
+    tok = _tokens(2, 11, lm.cfg.vocab_size)
+    theirs = jax.jit(lambda p, t: jlm.forward(p, {"tokens": t})[0])(jp, tok)
+    ours, _ = lm.forward(tp, {"tokens": torch.from_numpy(tok)})
+    assert tuple(ours.shape) == (2, 11, lm.cfg.padded_vocab)
+    assert np.max(np.abs(ours.numpy() - np.asarray(theirs))) < TOL
+
+
+@pytest.mark.parametrize("which", CONFIGS)
+def test_prefill_and_decode_match_repro(which):
+    """Prefill a right-padded batch with per-row lengths, then decode four
+    tokens at per-row positions: logits and installed positions agree."""
+    jlm, jp, lm, tp = _pair(which)
+    width, s = 16, 8
+    lengths = np.asarray([8, 6], np.int32)
+    tok = _tokens(2, s, lm.cfg.vocab_size)
+    jpre = jax.jit(lambda p, t, n: jlm.prefill(
+        p, {"tokens": t}, cache_width=width, lengths=n))
+    jlog, jcache = jpre(jp, tok, lengths)
+    tlog, tcache = lm.prefill(tp, {"tokens": torch.from_numpy(tok)},
+                              cache_width=width,
+                              lengths=torch.from_numpy(lengths))
+    assert np.max(np.abs(tlog.numpy() - np.asarray(jlog))) < TOL
+    np.testing.assert_array_equal(tcache[0][0]["pos"].numpy(),
+                                  np.asarray(jcache[0][0]["pos"]))
+    jstep = jax.jit(lambda p, c, t, pos: jlm.decode_step(p, c, t, pos))
+    pos = lengths.copy()
+    nxt = _tokens(2, 4, lm.cfg.vocab_size, seed=2)
+    for i in range(4):
+        feed = nxt[:, i:i + 1]
+        jl, jcache = jstep(jp, jcache, feed, pos)
+        tl, tcache = lm.decode_step(tp, tcache, torch.from_numpy(feed),
+                                    torch.from_numpy(pos))
+        assert np.max(np.abs(tl.numpy() - np.asarray(jl))) < TOL, i
+        pos = pos + 1
+    np.testing.assert_array_equal(tcache[0][0]["pos"].numpy(),
+                                  np.asarray(jcache[0][0]["pos"]))
+
+
+def test_prefill_then_decode_matches_full_forward():
+    """The deployment identity of tests/test_serving.py, within the port:
+    prefill(S) + decode(t) logits equal forward(S + t)."""
+    lm = LM(_configs("tiny")[1], device="cpu")
+    tp = lm.init(0)
+    total, prompt = 12, 8
+    tok = torch.from_numpy(_tokens(2, total, 100))
+    full, _ = lm.forward(tp, {"tokens": tok})
+    logits_p, caches = lm.prefill(tp, {"tokens": tok[:, :prompt]},
+                                  cache_width=total)
+    assert (logits_p[:, -1] - full[:, prompt - 1]).abs().max() < 1e-4
+    for t in range(prompt, total):
+        step, caches = lm.decode_step(tp, caches, tok[:, t:t + 1], t)
+        assert (step[:, 0] - full[:, t]).abs().max() < 1e-4, t
+
+
+def test_init_and_bridge_agree_on_the_tree():
+    """``LM.init`` builds ``repro``'s tree (names, shapes, stacking); the
+    bridge refuses a tree that is not it."""
+    jlm, jp, lm, tp = _pair("smollm_reduced")
+    ours = lm.init(0)
+    flat_t = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda x: tuple(x.shape), ours,
+                     is_leaf=lambda x: isinstance(x, torch.Tensor)),
+        is_leaf=lambda x: isinstance(x, tuple))
+    flat_j = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda x: tuple(x.shape), jp),
+        is_leaf=lambda x: isinstance(x, tuple))
+    assert flat_t == flat_j
+    bad = jax.tree.map(np.asarray, jp)
+    bad["stages"][0]["b0"]["mixer"]["wq"] = bad["stages"][0]["b0"]["mixer"][
+        "wq"][:, :-1]
+    with pytest.raises(ValueError, match="wq"):
+        params_from_numpy(bad, lm.cfg, "cpu")
+
+
+def test_default_device_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(tcfg.get_config("smollm-135m"))
