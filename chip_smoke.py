@@ -9,7 +9,8 @@ without them. Phases, each fatal on failure:
 2. each kernel against its plain PyTorch version on the card, in bf16 at
    the serving path's shapes, with its time, the plain version's, the time
    of one PyTorch library call computing the same function (a yardstick
-   the port never calls) and its bound on this card;
+   the port never calls; for the paged kernel, attention over the context
+   gathered beforehand, gather excluded) and its bound on this card;
 3. smollm-135m at full width (30 layers, random weights from a seed):
    prefill-then-decode logits equal a full forward, and the GPU forward
    equals the plain CPU forward in f32;
@@ -17,9 +18,19 @@ without them. Phases, each fatal on failure:
    steps per host sync) serves 18 requests; every request finishes, the
    streams equal a 1-step engine's, greedy tokens agree with a
    teacher-forced forward, and the launch counters show every prefill
-   and decode attention went through the kernels.
+   and decode attention went through the kernels;
+5. a paged ``ServingEngine`` (block size 16, chunked prefill of 128-token
+   chunks, prefix sharing, K = 4) serves two waves: 12 requests, 6 of them
+   sharing a 256-token prefix, then 2 higher-class requests once all 8
+   slots decode (swap preemption), then a prompt that is exactly the
+   prefix (copy-on-write of a retained block) and the prefix plus a tail.
+   Every request finishes, the allocator's invariants hold after each
+   wave, the streams equal a K = 1 paged engine's and an uncontended
+   engine's (nothing preempted), greedy tokens agree with a teacher-forced
+   forward, and every paged attention call (30 per decode step and per
+   chunk) went through ``paged_decode_attention``.
 
-With ``--profile`` it then serves the same trace once more under
+With ``--profile`` it then serves the phase-4 trace once more under
 ``torch.profiler`` and prints the device's busy time by kernel against
 the unprofiled run's wall time (the idle share).
 
@@ -233,6 +244,125 @@ def check_flash(torch, timer, dev):
                 bound_ms=bound, bound_by=by, library_ms=lib_ms)
 
 
+def _paged_pool(rng, fills, bs, m, n_blocks, holes=()):
+    """Block tables and per-token positions for ``fills`` tokens per slot
+    over shuffled pool blocks (block 0 is trash; a fill of 0 is a freed
+    slot, its row all -1); ``holes`` (slot, entry) punch -1 into a row."""
+    order = iter(rng.permutation(np.arange(1, n_blocks)))
+    pos = np.full((n_blocks, bs), -1, np.int32)
+    bt = np.full((len(fills), m), -1, np.int32)
+    for s, fill in enumerate(fills):
+        for j in range(-(-fill // bs)):
+            blk = next(order)
+            bt[s, j] = blk
+            tok = np.arange(j * bs, min(fill, (j + 1) * bs))
+            pos[blk, tok - j * bs] = tok
+    for s, j in holes:
+        bt[s, j] = -1
+    return pos, bt
+
+
+def check_paged(torch, timer, dev):
+    from repro_torch.kernels.decode_attention import (
+        gather_paged_kv, paged_decode_attention, paged_decode_attention_plain)
+    import torch.nn.functional as F
+
+    b, kv, g, hd, max_seq = 8, 3, 3, 64, 1024
+    h = kv * g
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # per slot: 1, 17, 200, 480 and 1000 tokens, a freed slot, a table
+    # with holes, and one more partial fill
+    fills = [1, 17, 200, 480, 1000, 0, 700, 333]
+    holes = [(6, 3), (6, 10), (6, 20)]
+
+    def case(bs, n_layers=1):
+        m = max_seq // bs
+        n_blocks = b * m + 1
+        pos, bt = _paged_pool(rng, fills, bs, m, n_blocks, holes)
+        k, v = (torch.randn((n_layers, n_blocks, bs, kv, hd), generator=gen,
+                            device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        return (k, v, torch.from_numpy(pos).to(dev),
+                torch.from_numpy(bt).to(dev))
+
+    q_pos = torch.tensor([max(f - 1, 0) for f in fills], dtype=torch.int32,
+                         device=dev)
+    ks, vs, k_pos, bt = case(16, LAYERS)
+    q1 = torch.randn((LAYERS, b, 1, h, hd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    # chunked prefill: 128 tokens at 256..383 of slot 4, its table cut to
+    # the 512 positions below the next power of two (the engine's ctx)
+    qc = torch.randn((1, 128, h, hd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    cases = [("bs=16 T=1", q1[0], ks[0], vs[0], q_pos, k_pos, bt, None),
+             ("bs=16 T=1 window=256", q1[0], ks[0], vs[0], q_pos, k_pos, bt,
+              256),
+             ("bs=16 T=128 chunk", qc, ks[0], vs[0],
+              torch.tensor([256], dtype=torch.int32, device=dev), k_pos,
+              bt[4:5, :32].contiguous(), None)]
+    for bs in (8, 32):
+        k2, v2, p2, bt2 = case(bs)
+        cases.append((f"bs={bs} T=1", q1[0], k2[0], v2[0], q_pos, p2, bt2,
+                      None))
+    errs = []
+    for label, q, k, v, qp, kp, table, window in cases:
+        out = paged_decode_attention(q, k, v, qp, kp, table, window=window)
+        torch.cuda.synchronize()
+        ref = paged_decode_attention_plain(q, k, v, qp, kp, table,
+                                           window=window)
+        err = (out.float() - ref.float()).abs().max().item()
+        print(f"  paged_decode_attention {label}: max|kernel - plain| = "
+              f"{err:.3e} (tol {BF16_TOL})")
+        if not err < BF16_TOL:
+            raise AssertionError(f"paged_decode_attention {label} disagrees")
+        if q.shape[0] == b and not torch.all(out[5] == 0):
+            raise AssertionError("paged_decode_attention: freed slot not 0")
+        errs.append(err)
+
+    def kern(i):
+        j = i % LAYERS
+        return paged_decode_attention(q1[j], ks[j], vs[j], q_pos, k_pos, bt)
+
+    def plain(i):
+        j = i % LAYERS
+        return paged_decode_attention_plain(q1[j], ks[j], vs[j], q_pos,
+                                            k_pos, bt)
+
+    # the yardstick reads a context gathered beforehand: no single PyTorch
+    # call attends through block tables
+    _, ctx_pos = gather_paged_kv(ks[0], k_pos, bt)
+    visible = (ctx_pos >= 0) & (ctx_pos <= q_pos[:, None])
+    mask = visible[:, None, None, :]
+    qt = [q1[i].transpose(1, 2) for i in range(LAYERS)]
+    kt = [gather_paged_kv(ks[i], k_pos, bt)[0].transpose(1, 2)
+          for i in range(LAYERS)]
+    vt = [gather_paged_kv(vs[i], k_pos, bt)[0].transpose(1, 2)
+          for i in range(LAYERS)]
+
+    def library(i):
+        j = i % LAYERS
+        return F.scaled_dot_product_attention(qt[j], kt[j], vt[j],
+                                              attn_mask=mask, enable_gqa=True)
+
+    ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
+    # the bytes this input needs: q, out, q_pos, the tables, one position
+    # per token of each table block, and the K/V rows some query may see
+    live = int(visible.sum())
+    table_blocks = int((bt >= 0).sum())
+    nbytes = (2 * _nbytes(q1[0]) + _nbytes(q_pos, bt)
+              + table_blocks * k_pos.shape[1] * k_pos.element_size()
+              + 2 * live * kv * hd * ks.element_size())
+    flops = 4 * live * h * hd
+    bound, by = _bound_ms(nbytes, flops)
+    print(f"  paged_decode_attention B={b} bs={k_pos.shape[1]} M=64 KV={kv} G={g} hd={hd} "
+          f"T=1 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on "
+          f"the pre-gathered context (gather excluded) {lib_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}; {nbytes} B, {flops} flop)")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms)
+
+
 # -- phase 3: model ---------------------------------------------------------------
 
 def check_model(torch, dev, seed):
@@ -328,7 +458,8 @@ def check_engine(torch, dev, seed, smi):
     launches = dict(LAUNCHES)
     n_layers = cfg.num_layers
     want = {"flash_attention": n_layers * eng.admissions,
-            "decode_attention": n_layers * eng.decode_steps}
+            "decode_attention": n_layers * eng.decode_steps,
+            "paged_decode_attention": 0}
     print(f"  launches on the main path: {launches} (expected {want}: "
           f"{n_layers} per admission x {eng.admissions}, {n_layers} per "
           f"decode step x {eng.decode_steps})")
@@ -379,6 +510,163 @@ def check_engine(torch, dev, seed, smi):
           f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms"
           f", max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
           f"slots, {stats['decode_ms_per_token']:.2f} ms per token")
+    return stats, launches
+
+
+def _paged_trace(seed, vocab):
+    """Wave 1 (priority 0): 6 prompts sharing one 256-token prefix (two
+    128-token chunks) with tails of 16-200 tokens, 6 unique prompts of
+    16-480 tokens; one of each kind sampled at 0.8. Then 2 unique prompts
+    at priority 1. Wave 2: the prefix itself, and the prefix plus a
+    64-token tail. 32 new tokens each."""
+    rng = np.random.default_rng(seed + 1)
+    pre = rng.integers(0, vocab, 256).astype(np.int32)
+
+    def rand(n):
+        return rng.integers(0, vocab, int(n)).astype(np.int32)
+
+    wave1 = []
+    for i in range(6):
+        wave1.append((np.concatenate([pre, rand(rng.integers(16, 201))]),
+                      0.8 if i == 1 else 0.0))
+        wave1.append((rand(rng.integers(16, 481)), 0.8 if i == 4 else 0.0))
+    hi = [(rand(rng.integers(16, 481)), 0.0) for _ in range(2)]
+    wave2 = [(pre.copy(), 0.0), (np.concatenate([pre, rand(64)]), 0.0)]
+    return wave1, hi, wave2
+
+
+def _serve_waves(engine, trace, max_new, contended):
+    """Wave 1; with ``contended``, step until all 8 slots decode, then the
+    priority-1 requests (else they go in up front, so nothing is
+    preempted); drain; check invariants; wave 2; drain; check. Returns
+    the requests in submission order and the wall time."""
+    wave1, hi, wave2 = trace
+    t0 = time.perf_counter()
+
+    def submit(reqs, priority=0):
+        return [engine.submit(p, max_new_tokens=max_new, temperature=t,
+                              priority=priority) for p, t in reqs]
+
+    ids = submit(wave1)
+    if contended:
+        for _ in range(1000):
+            if engine.metrics()["live"]["decoding"] == engine.batch_slots:
+                break
+            if not engine.pending:
+                raise AssertionError("wave 1 drained before 8 slots decoded")
+            engine.step()
+        else:
+            raise AssertionError("8 slots never decoded at once")
+    ids += submit(hi, priority=1)
+    done = engine.run()
+    engine.assert_invariants()
+    ids += submit(wave2)
+    done.update(engine.run())
+    engine.assert_invariants()
+    wall = time.perf_counter() - t0
+    if sorted(done) != sorted(ids) or any(done[i].status != "done"
+                                          for i in ids):
+        raise AssertionError("not every request finished")
+    return [done[i] for i in ids], wall
+
+
+def check_paged_engine(torch, dev, seed, smi):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("smollm-135m")
+    lm = LM(cfg, device=dev)
+    params = lm.init(seed)
+    trace = _paged_trace(seed, cfg.vocab_size)
+    max_new = 32
+    kw = dict(batch_slots=8, max_seq_len=1024, seed=seed,
+              cache_backend="paged", block_size=16, chunk_tokens=128,
+              prefix_sharing=True)
+    eng = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    chunks = [0]
+    run_chunk = eng._run_chunk
+
+    def counted(c, *args):
+        chunks[0] += 1
+        return run_chunk(c, *args)
+
+    eng._run_chunk = counted
+    torch.cuda.synchronize()
+    reset_launches()
+    out, wall = _serve_waves(eng, trace, max_new, contended=True)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    n_layers = cfg.num_layers
+    want = {"paged_decode_attention":
+            n_layers * (eng.decode_steps + chunks[0]),
+            "flash_attention": 0, "decode_attention": 0}
+    print(f"  launches on the paged path: {launches} (expected {want}: "
+          f"{n_layers} per decode step x {eng.decode_steps} + per chunk x "
+          f"{chunks[0]})")
+    if launches != want:
+        raise AssertionError("launch counts do not match the paged path")
+    be = eng.backend
+    seen = dict(preemptions=eng.preemptions, swap_ins=be.swap_ins,
+                cow_copies=be.cow_copies,
+                retained_block_hits=be.retained_block_hits,
+                prefill_tokens_skipped=eng.prefill_tokens_skipped)
+    print(f"  paths taken: {seen} (prefill tokens "
+          f"{eng.prefill_tokens_total}, look-ahead dispatches "
+          f"{eng.lookahead_dispatches}, peak blocks {be.peak_blocks_in_use}"
+          f" of {be.num_blocks - 1})")
+    if min(seen.values()) < 1:
+        raise AssertionError("the trace missed a paged path")
+
+    one = ServingEngine(lm, params, max_decode_steps=1, **kw)
+    ref1, _ = _serve_waves(one, trace, max_new, contended=True)
+    calm = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    ref2, _ = _serve_waves(calm, trace, max_new, contended=False)
+    if calm.preemptions:
+        raise AssertionError("the uncontended engine preempted")
+    for label, ref in (("K=1", ref1), ("uncontended", ref2)):
+        for a, b in zip(out, ref):
+            if not np.array_equal(a.output, b.output):
+                raise AssertionError(f"paged stream != {label} stream "
+                                     f"(request {a.request_id})")
+    print(f"  K=4 streams equal the K=1 engine's and the uncontended "
+          f"engine's token for token ({sum(len(r.output) for r in out)} "
+          f"tokens; {sum(r.preemptions for r in out)} preemptions here, "
+          f"{one.preemptions} in the K=1 run)")
+
+    wave1, hi, wave2 = trace
+    reqs = wave1 + hi + wave2
+    checked = agree = 0
+    for r, (prompt, temp) in zip(out, reqs):
+        if temp > 0:
+            continue
+        ctx = torch.from_numpy(np.concatenate([prompt, r.output[:-1]])
+                               .astype(np.int32))[None].to(dev)
+        logits, _ = lm.forward(params, {"tokens": ctx})
+        tail = logits[0, len(prompt) - 1:].float()
+        top2 = torch.topk(tail, 2, dim=-1).values
+        sure = ((top2[:, 0] - top2[:, 1]) > BF16_LOGIT_TOL).cpu().numpy()
+        pred = tail.argmax(-1).cpu().numpy()
+        checked += int(sure.sum())
+        agree += int((pred[sure] == r.output[sure]).sum())
+    print(f"  greedy tokens vs teacher-forced forward: {agree}/{checked} "
+          f"agree where the margin exceeds {BF16_LOGIT_TOL}")
+    if checked == 0 or agree != checked:
+        raise AssertionError("paged engine tokens disagree with the model")
+
+    gen = sum(len(r.output) for r in out)
+    ttft = sorted(r.ttft_s * 1e3 for r in out)
+    step_ms = eng.decode_s / eng.decode_steps * 1e3
+    stats = dict(requests=len(out), generated_tokens=gen, wall_s=wall,
+                 tokens_per_s=gen / wall, ttft_ms_p50=statistics.median(ttft),
+                 ttft_ms_max=ttft[-1], decode_ms_per_step=step_ms,
+                 decode_steps=eng.decode_steps, chunks=chunks[0],
+                 host_syncs=eng.host_syncs, launches=launches, **seen)
+    print(f"  paged engine [{smi}]: {gen} tokens in {wall:.3f} s = "
+          f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} "
+          f"ms, max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
+          f"slots; {chunks[0]} chunks")
     return stats, launches
 
 
@@ -461,13 +749,19 @@ def main() -> int:
     print("[2] kernels vs plain versions (bf16)")
     timer = Timer(torch)
     results = {"decode_attention": check_decode(torch, timer, dev),
-               "flash_attention": check_flash(torch, timer, dev)}
+               "flash_attention": check_flash(torch, timer, dev),
+               "paged_decode_attention": check_paged(torch, timer, dev)}
     print("[3] model: smollm-135m, 30 layers, full width")
     check_model(torch, dev, args.seed)
     print("[4] engine: ring, 8 slots, max_seq_len 1024, K=4")
     stats, launches = check_engine(torch, dev, args.seed, smi)
+    print("[5] engine: paged, block 16, chunks of 128, prefix sharing, K=4")
+    paged_stats, paged_launches = check_paged_engine(torch, dev, args.seed,
+                                                     smi)
+    launches["paged_decode_attention"] = \
+        paged_launches["paged_decode_attention"]
     if args.profile:
-        print("[5] profile of the phase-4 trace")
+        print("[6] profile of the phase-4 trace")
         stats["profile"] = profile_engine(torch, dev, args.seed,
                                           stats["wall_s"])
 
@@ -476,6 +770,9 @@ def main() -> int:
                              "src/repro/kernels/decode_attention.py:136"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:122"),
+        "paged_decode_attention": (
+            "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:282"),
     }
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name],
@@ -484,7 +781,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kind": kind, "torch": torch.__version__,
-                       "kernels": kernels, "engine": stats}, f, indent=1)
+                       "kernels": kernels, "engine": stats,
+                       "paged_engine": paged_stats}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

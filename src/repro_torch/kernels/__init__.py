@@ -12,7 +12,8 @@ from typing import Dict
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
+                             "paged_decode_attention": 0}
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
 

@@ -1,18 +1,23 @@
-// Streaming-softmax attention over key tiles, shared by the decode and the
-// flash kernels.
+// Streaming-softmax attention over key tiles, shared by the ring decode,
+// the paged decode and the flash kernels.
 //
 // A CTA owns up to kMaxRows query rows (each a head_dim vector) and walks a
-// range of keys in tiles of kTileK. Per tile it stages K and V in shared
-// memory as float32; each warp then takes its rows one at a time: lane i
-// scores key i (QK^T in f32), the warp reduces the tile max and sum with
-// shuffles, and lane i accumulates head dims i, i+32, ... of P V. The
-// running (m, l, acc) of every row lives in shared memory across tiles.
+// range of keys in tiles of kTileK. Where key j lives is a policy (the Keys
+// template parameter of attend): a strided range for the ring and for
+// flash, a block-table lookup for the paged pool. Per tile, lane i of the
+// first warp asks the policy for key i's position and element offset; then
+// K and V are staged in shared memory as float32, and each warp takes its
+// rows one at a time: lane i scores key i (QK^T in f32), the warp reduces
+// the tile max and sum with shuffles, and lane i accumulates head dims
+// i, i+32, ... of P V. The running (m, l, acc) of every row lives in shared
+// memory across tiles.
 //
 // Masking is explicit: a key is valid for a row iff its position is >= 0,
 // not after the query (causal) and inside the window. A masked key gets
 // p = 0 exactly (never exp(-1e30 - -1e30)), so a row with no valid key
-// keeps l = 0 and is written as 0. A tile whose keys are invalid for every
-// row of the CTA is skipped before its K/V are read.
+// keeps l = 0 and is written as 0. A key no row of the CTA can see (empty
+// slot, table hole, outside every row's band) is never read, and a tile
+// with no such key is skipped after its positions are read.
 #pragma once
 
 #include <climits>
@@ -56,12 +61,13 @@ struct Smem {
   float* m;          // rows: running max
   float* l;          // rows: running sum of p
   int* qpos;         // rows: query position
+  long long* koff;   // kTileK: element offset of each key's row in k and v
   int* kpos;         // kTileK: key positions of the current tile (-1 = none)
   int* bounds;       // [min, max] query position of the CTA's rows
 };
 
 __host__ __device__ inline size_t smem_bytes(int rows, int hd) {
-  return sizeof(long long) * rows +
+  return sizeof(long long) * (rows + kTileK) +
          sizeof(float) * (2 * rows * hd + kTileK * (hd + 1) + kTileK * hd +
                           2 * rows) +
          sizeof(int) * (rows + kTileK + 2);
@@ -70,7 +76,8 @@ __host__ __device__ inline size_t smem_bytes(int rows, int hd) {
 __device__ inline Smem carve(unsigned char* base, int rows, int hd) {
   Smem s;
   s.roff = reinterpret_cast<long long*>(base);
-  s.q = reinterpret_cast<float*>(s.roff + rows);
+  s.koff = s.roff + rows;
+  s.q = reinterpret_cast<float*>(s.koff + kTileK);
   s.acc = s.q + rows * hd;
   s.k = s.acc + rows * hd;
   s.v = s.k + kTileK * (hd + 1);
@@ -109,19 +116,20 @@ __device__ void load_rows(const Smem& s, const T* __restrict__ q, int nrows,
   __syncthreads();
 }
 
-// Copy nk key rows (row stride `stride` elements, 16-byte vectors) into a
-// float tile with row pitch `pitch`; rows nk..kTileK-1 are zeroed.
+// Copy the current tile's keys (row of key i at src + s.koff[i], 16-byte
+// vectors) into a float tile with row pitch `pitch`; keys with position -1
+// are not read and stay zero.
 template <typename T>
 __device__ void load_tile(float* dst, int pitch, const T* __restrict__ src,
-                          long long stride, int nk, int hd) {
+                          const Smem& s, int hd) {
   constexpr int kVec = 16 / sizeof(T);
   const int nv = hd / kVec;
   for (int e = threadIdx.x; e < kTileK * nv; e += blockDim.x) {
     const int key = e / nv, d0 = (e - key * nv) * kVec;
     float* o = dst + key * pitch + d0;
-    if (key < nk) {
+    if (s.kpos[key] >= 0) {
       const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + key * stride + d0);
+          *reinterpret_cast<const uint4*>(src + s.koff[key] + d0);
       const T* x = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int j = 0; j < kVec; ++j) o[j] = Elem<T>::load(x[j]);
@@ -132,20 +140,50 @@ __device__ void load_tile(float* dst, int pitch, const T* __restrict__ src,
   }
 }
 
+// Key addressing for a contiguous run of keys: key j's row is at
+// base + j * stride, its position kpos[j] (-1 = empty), or j itself when
+// kpos is null (flash: keys sit at positions 0..Sk-1).
+struct StridedKeys {
+  long long base, stride;
+  const int* __restrict__ kpos;
+  __device__ __forceinline__ int locate(int j, long long& off) const {
+    off = base + j * stride;
+    return kpos ? kpos[j] : j;
+  }
+};
+
+// Key addressing through a block table: logical key j of a slot is token
+// j % bs of pool block table[j / bs]; -1 in the table is a hole (no key,
+// nothing read). Pool rows are (N, bs, KV, hd), positions (N, bs).
+struct PagedKeys {
+  const int* __restrict__ table;   // the slot's row of block ids
+  const int* __restrict__ kpos;    // (N, bs)
+  int bs;
+  long long tok_stride, head_off;  // KV * hd, kv_head * hd
+  __device__ __forceinline__ int locate(int j, long long& off) const {
+    const int lb = j / bs;
+    const int blk = table[lb];
+    off = 0;
+    if (blk < 0) return -1;
+    const long long tok = static_cast<long long>(blk) * bs + (j - lb * bs);
+    off = tok * tok_stride + head_off;
+    return kpos[tok];
+  }
+};
+
 __device__ __forceinline__ bool key_valid(int p, int qp, bool causal,
                                           int window) {
   return p >= 0 && (!causal || p <= qp) && (window <= 0 || p > qp - window);
 }
 
-// Walk keys [key_lo, key_hi). Key positions come from kpos_g (per-key
-// array, -1 = empty) or, when kpos_g is null, are the key indices.
-// LD = head dims per lane (hd <= 32 * LD).
-template <typename T, int LD>
-__device__ void attend(const Smem& s, const T* __restrict__ kbase,
-                       const T* __restrict__ vbase, long long stride,
-                       const int* __restrict__ kpos_g, int key_lo,
-                       int key_hi, int nrows, int hd, bool causal,
-                       int window, float scale) {
+// Walk keys [key_lo, key_hi); `keys` (StridedKeys, PagedKeys) says where
+// each key's K/V row lives and what its position is. LD = head dims per
+// lane (hd <= 32 * LD).
+template <typename T, int LD, typename Keys>
+__device__ void attend(const Smem& s, const T* __restrict__ k,
+                       const T* __restrict__ v, const Keys& keys,
+                       int key_lo, int key_hi, int nrows, int hd,
+                       bool causal, int window, float scale) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int qmin = s.bounds[0], qmax = s.bounds[1];
@@ -155,16 +193,19 @@ __device__ void attend(const Smem& s, const T* __restrict__ kbase,
     int live = 0;
     if (tid < kTileK) {
       int p = -1;
-      if (tid < nk) p = kpos_g ? kpos_g[k0 + tid] : k0 + tid;
-      s.kpos[tid] = p;
+      long long off = 0;
+      if (tid < nk) p = keys.locate(k0 + tid, off);
       // the rows' positions span [qmin, qmax]: a key outside every row's
-      // band cannot be valid for any row
+      // band cannot be valid for any row, so it is dropped here and read
+      // by no one
       live = p >= 0 && (!causal || p <= qmax) &&
              (window <= 0 || p > qmin - window);
+      s.kpos[tid] = live ? p : -1;
+      s.koff[tid] = off;
     }
     if (!__syncthreads_or(live)) continue;
-    load_tile<T>(s.k, hd + 1, kbase + k0 * stride, stride, nk, hd);
-    load_tile<T>(s.v, hd, vbase + k0 * stride, stride, nk, hd);
+    load_tile<T>(s.k, hd + 1, k, s, hd);
+    load_tile<T>(s.v, hd, v, s, hd);
     __syncthreads();
     const int p = s.kpos[lane];
     for (int r = warp; r < nrows; r += nwarps) {
@@ -232,6 +273,50 @@ __device__ void store_rows(const Smem& s, T* __restrict__ out, int nrows,
     const int r = e / hd;
     const float l = s.l[r];
     out[s.roff[r] + (e - r * hd)] = Elem<T>::store(l > 0.f ? s.acc[e] / l : 0.f);
+  }
+}
+
+// Flash decoding: a CTA that walked one split of the key axis writes its
+// rows' partial (max, sum, unnormalised P V) to f32 scratch laid out as
+// m_part, l_part (rows, nsplit) and acc_part (rows, nsplit, hd), where the
+// output row is roff / hd.
+__device__ inline void store_split(const Smem& s, int nrows, int hd,
+                                   int split, int nsplit,
+                                   float* __restrict__ m_part,
+                                   float* __restrict__ l_part,
+                                   float* __restrict__ acc_part) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < nrows * hd; e += blockDim.x) {
+    const int r = e / hd;
+    const long long row = s.roff[r] / hd;
+    acc_part[(row * nsplit + split) * hd + (e - r * hd)] = s.acc[e];
+  }
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+    const long long row = s.roff[r] / hd;
+    m_part[row * nsplit + split] = s.m[r];
+    l_part[row * nsplit + split] = s.l[r];
+  }
+}
+
+// One CTA per output row: rescale each split by exp(m_split - max) and
+// normalise. A split that saw no key has m = -1e30, l = 0, acc = 0.
+template <typename T>
+__global__ void combine_kernel(const float* __restrict__ m_part,
+                               const float* __restrict__ l_part,
+                               const float* __restrict__ acc_part,
+                               T* __restrict__ out, int nsplit, int hd) {
+  const long long row = blockIdx.x;
+  const float* m = m_part + row * nsplit;
+  const float* l = l_part + row * nsplit;
+  float mx = kNeg;
+  for (int i = 0; i < nsplit; ++i) mx = fmaxf(mx, m[i]);
+  float sum = 0.f;
+  for (int i = 0; i < nsplit; ++i) sum += l[i] * expf(m[i] - mx);
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float a = 0.f;
+    for (int i = 0; i < nsplit; ++i)
+      a += acc_part[(row * nsplit + i) * hd + d] * expf(m[i] - mx);
+    out[row * hd + d] = Elem<T>::store(sum > 0.f ? a / sum : 0.f);
   }
 }
 

@@ -54,43 +54,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long base =
       static_cast<long long>(b) * w * stride + static_cast<long long>(kvh) * hd;
   const int lo = split * split_len, hi = min(w, lo + split_len);
-  attend<T, LD>(s, k + base, v + base, stride,
-                k_pos + static_cast<long long>(b) * w, lo, hi, nrows, hd,
-                /*causal=*/true, window, scale);
-  __syncthreads();
-  // partials of output row (roff / hd) for this split
-  for (int e = threadIdx.x; e < nrows * hd; e += blockDim.x) {
-    const int r = e / hd;
-    const long long row = s.roff[r] / hd;
-    acc_part[(row * nsplit + split) * hd + (e - r * hd)] = s.acc[e];
-  }
-  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
-    const long long row = s.roff[r] / hd;
-    m_part[row * nsplit + split] = s.m[r];
-    l_part[row * nsplit + split] = s.l[r];
-  }
-}
-
-// One CTA per output row: rescale each split by exp(m_split - max) and
-// normalise. A split that saw no key has m = -1e30, l = 0, acc = 0.
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ m_part,
-                               const float* __restrict__ l_part,
-                               const float* __restrict__ acc_part,
-                               T* __restrict__ out, int nsplit, int hd) {
-  const long long row = blockIdx.x;
-  const float* m = m_part + row * nsplit;
-  const float* l = l_part + row * nsplit;
-  float mx = kNeg;
-  for (int i = 0; i < nsplit; ++i) mx = fmaxf(mx, m[i]);
-  float sum = 0.f;
-  for (int i = 0; i < nsplit; ++i) sum += l[i] * expf(m[i] - mx);
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float a = 0.f;
-    for (int i = 0; i < nsplit; ++i)
-      a += acc_part[(row * nsplit + i) * hd + d] * expf(m[i] - mx);
-    out[row * hd + d] = Elem<T>::store(sum > 0.f ? a / sum : 0.f);
-  }
+  const StridedKeys keys{base, stride, k_pos + static_cast<long long>(b) * w};
+  attend<T, LD>(s, k, v, keys, lo, hi, nrows, hd, /*causal=*/true, window,
+                scale);
+  store_split(s, nrows, hd, split, nsplit, m_part, l_part, acc_part);
 }
 
 template <typename T, int LD>

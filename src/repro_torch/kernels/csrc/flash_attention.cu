@@ -50,8 +50,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long stride = static_cast<long long>(kvh_n) * hd;
   const long long base = static_cast<long long>(b) * sk * stride +
                          static_cast<long long>(head / (h / kvh_n)) * hd;
-  attend<T, LD>(s, k + base, v + base, stride, nullptr, lo, hi, nrows, hd,
-                causal != 0, window, scale);
+  const StridedKeys keys{base, stride, nullptr};
+  attend<T, LD>(s, k, v, keys, lo, hi, nrows, hd, causal != 0, window,
+                scale);
   store_rows<T>(s, out, nrows, hd);
 }
 

@@ -1,17 +1,24 @@
-"""Cached GQA attention of a T-token chunk against a per-slot ring cache.
+"""Cached GQA attention of a T-token chunk against a per-slot ring cache
+or a paged block pool.
 
-Port of ``repro.kernels.decode_attention.decode_attention``. The kernel is
-``csrc/decode_attention.cu`` (one CTA per (slot, KV head, key split)
-folding the T x G query rows of that KV head; streaming softmax over key
-tiles; tiles no row may see are skipped; the splits are combined by
-log-sum-exp in a second kernel). ``decode_attention_plain`` is the same
-function in plain PyTorch: the CPU path and the kernel's reference.
+Port of ``repro.kernels.decode_attention.decode_attention`` and
+``paged_decode_attention``. The kernels are ``csrc/decode_attention.cu``
+and ``csrc/paged_decode_attention.cu`` (one CTA per (slot, KV head, key
+split) folding the T x G query rows of that KV head; streaming softmax
+over key tiles; keys and tiles no row may see are not read; the splits are
+combined by log-sum-exp in a second kernel). The paged kernel differs only
+in where key j lives: token j % bs of pool block ``block_tables[b, j //
+bs]``. ``decode_attention_plain`` and ``paged_decode_attention_plain`` are
+the same functions in plain PyTorch: the CPU path and the kernels'
+references.
 
-Contract shared by both: q (B, T, H, hd) or (B, H, hd) (T = 1); k, v
-(B, W, KV, hd); q_pos (B,) chunk start positions (token i sits at start +
-i) or (B, T) per-token positions; k_pos (B, W) int32 with -1 = empty slot.
-A key is visible to a query iff 0 <= k_pos <= q_pos (and k_pos > q_pos -
-window). Rows with no visible key are 0.
+Ring contract: q (B, T, H, hd) or (B, H, hd) (T = 1); k, v (B, W, KV, hd);
+q_pos (B,) chunk start positions (token i sits at start + i) or (B, T)
+per-token positions; k_pos (B, W) int32 with -1 = empty slot. A key is
+visible to a query iff 0 <= k_pos <= q_pos (and k_pos > q_pos - window).
+Rows with no visible key are 0. Paged contract: the same, with k, v the
+pool (N, bs, KV, hd), k_pos (N, bs) and block_tables (B, M) int32 (-1 = a
+hole: no key).
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ NEG_INF = -1e30
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_void_p])
 _TILE_K = 32          # keys per tile in the kernel
 _ROWS_PER_CTA = 64    # query rows per CTA in the kernel
 
@@ -90,6 +99,19 @@ def split_len(b: int, t: int, h: int, kv: int, w: int, sms: int) -> int:
     return _cdiv(_cdiv(w, splits), _TILE_K) * _TILE_K
 
 
+def _split_scratch(q, kv: int, w: int):
+    """Keys per split of a ``w``-key axis and the f32 partials the splits
+    write for the combine kernel: (split_len, m_part, l_part, acc_part)."""
+    b, t, h, hd = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    chunk = split_len(b, t, h, kv, w, sms)
+    nsplit = _cdiv(w, chunk)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (chunk, torch.empty((b * t * h, nsplit), **f32),
+            torch.empty((b * t * h, nsplit), **f32),
+            torch.empty((b * t * h, nsplit, hd), **f32))
+
+
 def _launch(q, k, v, qp, kp, window: Optional[int], scale: float):
     b, t, h, hd = q.shape
     w, kv = k.shape[1], k.shape[2]
@@ -104,13 +126,7 @@ def _launch(q, k, v, qp, kp, window: Optional[int], scale: float):
     out = torch.empty_like(q)
     if out.numel() == 0 or w == 0:
         return out.zero_()
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    chunk = split_len(b, t, h, kv, w, sms)
-    nsplit = _cdiv(w, chunk)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty((b * t * h, nsplit), **f32)
-    l_part = torch.empty((b * t * h, nsplit), **f32)
-    acc_part = torch.empty((b * t * h, nsplit, hd), **f32)
+    chunk, m_part, l_part, acc_part = _split_scratch(q, kv, w)
     lib = _lib()
     fn = (lib.decode_attention_bf16 if q.dtype == torch.bfloat16
           else lib.decode_attention_f32)
@@ -145,4 +161,102 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window: Optional[int] = None,
                       k_pos.contiguous(), window, scale)
     else:
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    return out[:, 0] if no_time else out
+
+
+# -- paged pool ----------------------------------------------------------------
+
+def gather_paged_kv(pool, pos, block_tables):
+    """Flatten a paged pool into per-slot contiguous context
+    (``repro.kernels.ref.gather_paged_kv``). pool (N, bs, ...), pos (N, bs),
+    block_tables (B, M) (-1 = hole) -> (ctx (B, M*bs, ...), ctx_pos
+    (B, M*bs)); a hole's tokens carry position -1."""
+    bt = block_tables.long()
+    b, m = bt.shape
+    bs = pool.shape[1]
+    safe = bt.clamp(min=0)
+    ctx = pool[safe].reshape((b, m * bs) + tuple(pool.shape[2:]))
+    ctx_pos = torch.where(bt[:, :, None] >= 0, pos[safe],
+                          torch.full_like(pos[safe], -1))
+    return ctx, ctx_pos.reshape(b, m * bs)
+
+
+def paged_decode_attention_plain(q, k, v, q_pos, k_pos, block_tables, *,
+                                 window: Optional[int] = None,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """``repro.kernels.ref.paged_decode_attention_ref``'s arithmetic: gather
+    each slot's blocks, then the ring plain version (a row that sees no key
+    is 0). q: (B, T, H, hd)."""
+    kc, pc = gather_paged_kv(k, k_pos, block_tables)
+    vc, _ = gather_paged_kv(v, k_pos, block_tables)
+    return decode_attention_plain(q, kc, vc, q_pos, pc, window=window,
+                                  scale=scale)
+
+
+def _paged_lib():
+    lib = build.load("paged_decode_attention")
+    for fn in (lib.paged_decode_attention_bf16,
+               lib.paged_decode_attention_f32):
+        fn.argtypes = _PAGED_ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch_paged(q, k, v, qp, kp, bt, window: Optional[int], scale: float):
+    b, t, h, hd = q.shape
+    n, bs, kv = k.shape[0], k.shape[1], k.shape[2]
+    m = bt.shape[-1]
+    check_cuda_inputs("paged_decode_attention", {"q": q, "k": k, "v": v},
+                      {"q_pos": qp, "k_pos": kp, "block_tables": bt}, hd)
+    if k.shape != (n, bs, kv, hd) or v.shape != k.shape or h % kv \
+            or qp.shape != (b, t) or kp.shape != (n, bs) \
+            or bt.shape != (b, m):
+        raise ValueError(
+            f"paged_decode_attention: shapes q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}, q_pos {tuple(qp.shape)}"
+            f", k_pos {tuple(kp.shape)}, block_tables {tuple(bt.shape)} do "
+            f"not form (B,T,H,hd)/(N,bs,KV,hd)/(B,M)")
+    out = torch.empty_like(q)
+    if out.numel() == 0 or m * bs == 0:
+        return out.zero_()
+    chunk, m_part, l_part, acc_part = _split_scratch(q, kv, m * bs)
+    lib = _paged_lib()
+    fn = (lib.paged_decode_attention_bf16 if q.dtype == torch.bfloat16
+          else lib.paged_decode_attention_f32)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
+                 kp.data_ptr(), bt.data_ptr(), out.data_ptr(),
+                 m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+                 b, t, h, kv, bs, m, hd, chunk,
+                 window if window is not None else 0, scale,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on_error("paged_decode_attention", err)
+    LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention(q, k, v, q_pos, k_pos, block_tables, *,
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the paged CUDA kernel for CUDA tensors, run the plain version
+    for CPU tensors. Returns attention output shaped like q."""
+    no_time = q.dim() == 3
+    if no_time:
+        q = q[:, None]
+    t, hd = q.shape[1], q.shape[3]
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive or None (got {window})")
+    scale = scale if scale is not None else hd ** -0.5
+    qp = query_positions(q_pos, t)
+    if q.device.type == "cpu":
+        out = paged_decode_attention_plain(q, k, v, qp, k_pos, block_tables,
+                                           window=window, scale=scale)
+    elif q.is_cuda:
+        out = _launch_paged(q.contiguous(), k, v, qp.contiguous(),
+                            k_pos.contiguous(), block_tables.contiguous(),
+                            window, scale)
+    else:
+        raise ValueError(
+            f"paged_decode_attention: unsupported device {q.device}")
     return out[:, 0] if no_time else out

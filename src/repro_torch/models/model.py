@@ -1,5 +1,6 @@
 """The LM: stages of attention blocks, full-sequence forward / prefill,
-chunked prefill and one-token decode over the ring KV cache.
+chunked prefill and one-token decode over a KV-cache layout (ring or
+paged, from ``serving.kv_cache``).
 
 Port of ``repro.models.model.LM`` for attention (GQA) stages with SwiGLU
 MLPs, no modality frontend: the dense configs, ``smollm-135m`` among them.

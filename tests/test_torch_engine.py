@@ -151,28 +151,44 @@ def test_keyed_sampler_is_a_pure_function_of_its_key():
 
 
 def test_engine_edges_and_later_slices():
+    """Oversized prompts, cancel (queued, and mid-prefill on the chunked
+    paged engine), max_new_tokens=0 and an EOS stop, on the ring and the
+    paged backend; speculation, faults and meshes are later slices and
+    still raise."""
     _, _, lm, tp = _models()
-    eng = ServingEngine(lm, tp, batch_slots=2, max_seq_len=32, eos_id=None)
-    with pytest.raises(ValueError, match="exceeds max_seq_len"):
-        eng.submit(np.zeros(30, np.int32), max_new_tokens=8)
-    r0 = eng.submit(PROMPTS[0], max_new_tokens=0)
-    r1 = eng.submit(PROMPTS[1], max_new_tokens=4)
-    r2 = eng.submit(PROMPTS[2], max_new_tokens=4)
-    r3 = eng.submit(PROMPTS[3], max_new_tokens=4)
-    assert eng.cancel(r3) and not eng.cancel(999)
-    done = eng.run()
-    assert done[r0].output.size == 0 and done[r0].status == "done"
-    assert done[r3].status == "cancelled"
-    first = int(done[r1].output[0])
-    stop = ServingEngine(lm, tp, batch_slots=2, max_seq_len=32, eos_id=first)
-    rid = stop.submit(PROMPTS[1], max_new_tokens=4)
-    assert stop.run()[rid].output.tolist() == [first]
-    m = eng.metrics()
-    assert m["terminal"] == {"done": 3, "cancelled": 1}
-    assert 0 < m["occupancy"] <= 1
-    for kw in (dict(chunk_tokens=8), dict(speculative_tokens=2),
+    for backend in (dict(), dict(cache_backend="paged", block_size=8,
+                                 chunk_tokens=8)):
+        eng = ServingEngine(lm, tp, batch_slots=2, max_seq_len=32,
+                            eos_id=None, **backend)
+        with pytest.raises(ValueError, match="exceeds max_seq_len"):
+            eng.submit(np.zeros(30, np.int32), max_new_tokens=8)
+        r0 = eng.submit(PROMPTS[0], max_new_tokens=0)
+        r1 = eng.submit(PROMPTS[1], max_new_tokens=4)
+        r2 = eng.submit(PROMPTS[2], max_new_tokens=4)
+        r3 = eng.submit(PROMPTS[3], max_new_tokens=4)
+        assert eng.cancel(r3) and not eng.cancel(999)
+        done = eng.run()
+        assert done[r0].output.size == 0 and done[r0].status == "done"
+        assert done[r2].status == "done" and len(done[r2].output) == 4
+        assert done[r3].status == "cancelled"
+        first = int(done[r1].output[0])
+        stop = ServingEngine(lm, tp, batch_slots=2, max_seq_len=32,
+                             eos_id=first, **backend)
+        rid = stop.submit(PROMPTS[1], max_new_tokens=4)
+        assert stop.run()[rid].output.tolist() == [first]
+        m = eng.metrics()
+        assert m["terminal"] == {"done": 3, "cancelled": 1}
+        assert 0 < m["occupancy"] <= 1
+        if backend:
+            # 17 new tokens in 8-token chunks: mid-prefill after one step
+            r4 = eng.submit(PROMPTS[4], max_new_tokens=4)
+            eng.step()
+            assert eng.metrics()["live"]["prefilling"] == 1
+            assert eng.cancel(r4)
+            assert eng.run()[r4].failure_reason == "cancelled: mid-prefill"
+            eng.assert_invariants()
+            assert eng.backend.blocks_in_use == 0
+    for kw in (dict(speculative_tokens=2), dict(fault_plan=object()),
                dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             ServingEngine(lm, tp, **kw)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ServingEngine(lm, tp, cache_backend="paged")

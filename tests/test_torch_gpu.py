@@ -18,6 +18,8 @@ from repro_torch import configs as tcfg  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 
@@ -34,6 +36,22 @@ DECODE_CASES = [
     (2, 64, 8, 2, 64, 16, 48, 48, 8),         # chunk + window + g=4
     (1, 96, 3, 1, 32, None, 70, 70, 16),      # MQA, bigger chunk
     (1, 64, 48, 1, 64, None, 64, 64, 2),      # 96 rows: two row tiles
+]
+
+# (h, kv, hd, bs, window, fills, t): the block sizes and cases of
+# tests/test_paged_decode_attention.py, chunk queries (t > 1, including one
+# of more than 64 rows) and a pool with a freed slot
+PAGED_CASES = [
+    (4, 4, 32, 16, None, (64, 64), 1),
+    (4, 2, 32, 16, None, (26, 64), 1),
+    (3, 1, 32, 16, None, (48, 5), 1),
+    (4, 4, 32, 16, 24, (64, 64), 1),
+    (8, 2, 64, 32, 16, (96, 40), 1),
+    (4, 2, 16, 8, None, (1, 63), 1),
+    (4, 2, 32, 16, None, (40, 64), 8),
+    (8, 2, 64, 32, 16, (96, 40), 8),
+    (9, 3, 64, 16, None, (200, 0, 17), 40),   # 120 rows, a freed slot
+    (9, 3, 64, 8, None, (300, 33), 1),
 ]
 
 # (b, sq, sk, h, kv, hd, window)
@@ -95,6 +113,49 @@ def test_decode_kernel_empty_rows_are_zero(cuda):
     assert out[0].abs().sum() > 0 and not out[1].any()
 
 
+def _pool(dev, dt, h, kv, hd, bs, fills, t):
+    """A shuffled pool as the engine leaves it (block 0 is trash, a slot's
+    token p at (table[p // bs], p % bs)); a fill of 0 is a freed slot (its
+    row all -1). The t-token chunk of each slot ends at its last token."""
+    rng = np.random.default_rng(7)
+    m = max(-(-f // bs) for f in fills)
+    n = sum(-(-f // bs) for f in fills) + 2
+    order = rng.permutation(np.arange(1, n))
+    pos = np.full((n, bs), -1, np.int32)
+    bt = np.full((len(fills), m), -1, np.int32)
+    it = iter(order)
+    for s, fill in enumerate(fills):
+        for j in range(-(-fill // bs)):
+            blk = next(it)
+            bt[s, j] = blk
+            tok = np.arange(j * bs, min(fill, (j + 1) * bs))
+            pos[blk, tok - j * bs] = tok
+    q = rng.standard_normal((len(fills), t, h, hd))
+    k, v = (rng.standard_normal((n, bs, kv, hd)) for _ in range(2))
+    q_pos = np.asarray([max(f - t, 0) for f in fills], np.int32)
+    return (*(torch.from_numpy(a).to(dev, dt) for a in (q, k, v)),
+            *(torch.from_numpy(a).to(dev) for a in (q_pos, pos, bt)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=[str(c) for c in PAGED_CASES])
+def test_paged_kernel_matches_plain(cuda, case, dtype):
+    h, kv, hd, bs, window, fills, t = case
+    dt = getattr(torch, dtype)
+    q, k, v, q_pos, pos, bt = _pool(cuda, dt, h, kv, hd, bs, fills, t)
+    n = LAUNCHES["paged_decode_attention"]
+    out = paged_decode_attention(q, k, v, q_pos, pos, bt, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_decode_attention"] == n + 1
+    plain = paged_decode_attention_plain(q, k, v, q_pos, pos, bt,
+                                         window=window)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    assert (out.float() - plain.float()).abs().max().item() < tol
+    for s, fill in enumerate(fills):
+        if fill == 0:
+            assert not out[s].any()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES, ids=[str(c) for c in FLASH_CASES])
 def test_flash_kernel_matches_plain(cuda, case, dtype):
@@ -148,7 +209,53 @@ def test_engine_on_gpu_goes_through_the_kernels(cuda):
         reset_launches()
         done = eng.run()
         assert LAUNCHES == {"flash_attention": 3 * eng.admissions,
-                            "decode_attention": 3 * eng.decode_steps}
+                            "decode_attention": 3 * eng.decode_steps,
+                            "paged_decode_attention": 0}
+        outs.append([done[i].output for i in ids])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_paged_engine_on_gpu_goes_through_the_paged_kernel(cuda):
+    """A tiny model served on the card with the paged backend and chunked
+    prefill (prefixes shared): K=4 streams equal K=1 streams, and every
+    decode step and every chunk launched the paged kernel once per layer,
+    nothing else."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServingEngine
+
+    cfg = tcfg.ModelConfig(
+        name="tiny", family="dense", source="t", num_layers=3, d_model=64,
+        num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=96,
+        stages=tcfg.dense_stages(3), param_dtype="float32")
+    lm = LM(cfg, device=cuda)
+    params = lm.init(0)
+    rng = np.random.default_rng(1)
+    pre = rng.integers(0, 96, 16).astype(np.int32)
+    prompts = [np.concatenate([pre, rng.integers(0, 96, n)]).astype(np.int32)
+               for n in (3, 9, 0)] + [rng.integers(0, 96, 20).astype(np.int32)]
+    outs = []
+    for k in (1, 4):
+        eng = ServingEngine(lm, params, batch_slots=2, max_seq_len=64,
+                            max_decode_steps=k, cache_backend="paged",
+                            block_size=8, chunk_tokens=8)
+        chunks = [0]
+        run_chunk = eng._run_chunk
+
+        def counted(c, *args, run_chunk=run_chunk, chunks=chunks):
+            chunks[0] += 1
+            return run_chunk(c, *args)
+
+        eng._run_chunk = counted
+        ids = [eng.submit(p, max_new_tokens=6, temperature=0.7 * (i % 2))
+               for i, p in enumerate(prompts)]
+        reset_launches()
+        done = eng.run()
+        assert LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
+                            "paged_decode_attention":
+                            3 * (eng.decode_steps + chunks[0])}
+        eng.assert_invariants()
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
