@@ -28,11 +28,30 @@ without them. Phases, each fatal on failure:
    wave, the streams equal a K = 1 paged engine's and an uncontended
    engine's (nothing preempted), greedy tokens agree with a teacher-forced
    forward, and every paged attention call (30 per decode step and per
-   chunk) went through ``paged_decode_attention``.
+   chunk) went through ``paged_decode_attention``;
+6. the one-shot cascade: ``CascadeEngine`` on 64 queries of 128 tokens,
+   smollm-135m as the cloud (seed) and its 4-layer edge draft (seed + 1),
+   thresholds between the edge confidences' tertiles, compact and lockstep
+   at capacity_frac 0.5: all three routes occur, routes agree, the
+   kernel's counts equal the host's, predictions agree wherever the
+   cloud's top-2 margin clears the bf16 logits tolerance, and each query
+   gates through one ``cascade_gate`` launch;
+7. the generative cascade: ``CascadeServingEngine`` (ring, 8 slots,
+   max_seq_len 1024, K = 4) serves 24 requests of 16-480 tokens with
+   tertile thresholds, the first accepted and the first escalated one
+   sampled at 0.8: every request finishes, each route takes at least
+   4, dropped outputs are empty, accepted and escalated streams equal
+   standalone edge and cloud engines' token for token, every gate is one
+   ``cascade_gate`` launch and every prefill and decode attention a kernel
+   launch.
 
-With ``--profile`` it then serves the phase-4 trace once more under
-``torch.profiler`` and prints the device's busy time by kernel against
-the unprofiled run's wall time (the idle share).
+Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
+T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
+bf16, against ``torch.logsumexp`` as the library yardstick.
+
+With ``--profile`` it then serves the phase-4 and phase-7 traces once
+more under ``torch.profiler`` and prints the device's busy time by kernel
+against the unprofiled run's wall time (the idle share).
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. TF32 is off for every f32 product.
@@ -49,11 +68,16 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12        # H100 SXM f32 peak outside the tensor cores
 BF16_TOL = 2e-2                # bf16 output rounding + P rounded to bf16
 # logits of two bf16 paths through 30 layers (flash over the whole
 # sequence vs prefill + cached decode) differ by activation roundings
 BF16_LOGIT_TOL = 0.25
 F32_LOGIT_TOL = 2e-3           # the same, in f32: summation order only
+# the gate's confidence, kernel vs plain (relative): f32 summation order;
+# bf16 as repro holds its kernel (both read the same bf16 logits)
+GATE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+GATE_MARGIN = 1e-3             # no confidence this close (relative) to a threshold
 LAYERS = 30                    # distinct inputs per timing loop (cold L2)
 
 
@@ -363,6 +387,94 @@ def check_paged(torch, timer, dev):
                 bound_ms=bound, bound_by=by, library_ms=lib_ms)
 
 
+def _tertiles(conf):
+    """hi/lo midway between neighbouring sorted confidences at the
+    tertiles, or at the nearest split (up to 2 away) whose neighbours lie
+    farther than GATE_MARGIN (relative) from the midpoint; fails if a
+    confidence still lies that close to either."""
+    srt = np.sort(np.asarray(conf, np.float64))
+    n = len(srt)
+
+    def cut(k):
+        cands = [j for j in (k, k - 1, k + 1, k - 2, k + 2) if 0 < j < n]
+        wide = [j for j in cands if srt[j] / srt[j - 1] > 1 + 4 * GATE_MARGIN]
+        i = wide[0] if wide else cands[0]
+        return float((srt[i] + srt[i - 1]) / 2)
+
+    hi, lo = cut(2 * n // 3), cut(n // 3)
+    for th in (hi, lo):
+        if np.min(np.abs(srt - th)) <= GATE_MARGIN * th:
+            raise AssertionError(f"a confidence lies within {GATE_MARGIN} "
+                                 f"of the threshold {th:.6g}")
+    return hi, lo
+
+
+def check_cascade_gate(torch, timer, dev):
+    from repro_torch.kernels.cascade_gate import (cascade_gate,
+                                                  cascade_gate_plain)
+
+    v = 49152                      # smollm-135m's padded vocab
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [(t, v, dt) for t in (1, 64) for dt in ("float32", "bfloat16")]
+    cases += [(100, 500, "float32"), (7, 8000, "float32")]
+    errs = []
+    for t, vv, dtype in cases:
+        x = (torch.randn((t, vv), generator=gen, device=dev) * 3).to(
+            getattr(torch, dtype))
+        conf0 = cascade_gate_plain(x, 1.0, 0.0)[0].cpu().numpy()
+        hi, lo = _tertiles(conf0) if t >= 3 else (2.0, 0.0)
+        conf, routes, counts = cascade_gate(x, hi=hi, lo=lo)
+        torch.cuda.synchronize()
+        pconf, proutes, pcounts = cascade_gate_plain(x, hi, lo)
+        rel = ((conf - pconf).abs() / pconf).max().item()
+        err = (conf - pconf).abs().max().item()
+        near = (((pconf - hi).abs() < GATE_MARGIN * hi)
+                | ((pconf - lo).abs() < GATE_MARGIN * max(lo, 1e-30)))
+        print(f"  cascade_gate T={t} V={vv} {dtype}: max|kernel - plain| = "
+              f"{err:.3e} ({rel:.3e} relative, tol {GATE_TOL[dtype]}); "
+              f"counts {counts.tolist()}")
+        if not rel < GATE_TOL[dtype]:
+            raise AssertionError(f"cascade_gate T={t} {dtype} disagrees")
+        if (near.any() or int(counts.sum()) != t
+                or not torch.equal(routes, proutes)
+                or not torch.equal(counts, pcounts)):
+            raise AssertionError(f"cascade_gate T={t} {dtype}: routes or "
+                                 f"counts disagree")
+        errs.append(err)
+
+    times = {}
+    for t in (1, 64):
+        for dtype in ("float32", "bfloat16"):
+            xs = (torch.randn((LAYERS, t, v), generator=gen, device=dev)
+                  * 3).to(getattr(torch, dtype))
+
+            def kern(i):
+                return cascade_gate(xs[i % LAYERS], hi=0.5, lo=0.1)
+
+            def plain(i):
+                return cascade_gate_plain(xs[i % LAYERS], 0.5, 0.1)
+
+            def library(i):
+                return torch.logsumexp(xs[i % LAYERS], dim=-1)
+
+            ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
+            # logits read once; conf and routes written once, 3 counts
+            nbytes = _nbytes(xs[0]) + t * 8 + 12
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 4 * t * v / F32_FLOPS_PER_S * 1e3   # max, sub, exp, add
+            bound = max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            times[(t, dtype)] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bound_ms=bound,
+                                     bound_by=by)
+            print(f"  cascade_gate T={t} V={v} {dtype}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, logsumexp {lib_ms:.4f} ms, bound"
+                  f" {bound:.4f} ms ({by}; {nbytes} B)")
+    # the line's numbers: the serving gate's shape and type, (1, V) bf16
+    return dict(max_abs_err=max(errs), **times[(1, "bfloat16")]), \
+        {f"T={t} {dt}": r for (t, dt), r in times.items()}
+
+
 # -- phase 3: model ---------------------------------------------------------------
 
 def check_model(torch, dev, seed):
@@ -459,7 +571,7 @@ def check_engine(torch, dev, seed, smi):
     n_layers = cfg.num_layers
     want = {"flash_attention": n_layers * eng.admissions,
             "decode_attention": n_layers * eng.decode_steps,
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, "cascade_gate": 0}
     print(f"  launches on the main path: {launches} (expected {want}: "
           f"{n_layers} per admission x {eng.admissions}, {n_layers} per "
           f"decode step x {eng.decode_steps})")
@@ -601,7 +713,7 @@ def check_paged_engine(torch, dev, seed, smi):
     n_layers = cfg.num_layers
     want = {"paged_decode_attention":
             n_layers * (eng.decode_steps + chunks[0]),
-            "flash_attention": 0, "decode_attention": 0}
+            "flash_attention": 0, "decode_attention": 0, "cascade_gate": 0}
     print(f"  launches on the paged path: {launches} (expected {want}: "
           f"{n_layers} per decode step x {eng.decode_steps} + per chunk x "
           f"{chunks[0]})")
@@ -670,25 +782,225 @@ def check_paged_engine(torch, dev, seed, smi):
     return stats, launches
 
 
-def profile_engine(torch, dev, seed, wall_s):
-    """Device busy time of the phase-4 trace (K=4 engine), by kernel name,
-    from torch.profiler; idle share against the unprofiled wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# -- phases 6 and 7: the edge/cloud cascade ----------------------------------------
+
+def _cascade_models(torch, dev, seed):
+    """smollm-135m as the cloud (seed) and its 4-layer edge draft (seed + 1),
+    random weights, bf16."""
+    from repro_torch.cascade import edge_variant
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
-    from repro_torch.serving import ServingEngine
 
     cfg = get_config("smollm-135m")
-    lm = LM(cfg, device=dev)
-    params = lm.init(seed)
-    reqs = _trace(seed, cfg.vocab_size)
-    eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=1024,
-                        seed=seed, max_decode_steps=4)
+    cloud, edge = LM(cfg, device=dev), LM(edge_variant(cfg, layers=4),
+                                          device=dev)
+    return edge, cloud, edge.init(seed + 1), cloud.init(seed)
+
+
+def check_cascade_oneshot(torch, dev, seed, models):
+    """``CascadeEngine`` on 64 queries of 128 tokens, compact and lockstep
+    at capacity_frac 0.5, thresholds at the edge confidences' tertiles."""
+    from repro_torch.cascade import CascadeLM
+    from repro_torch.cascade.gate import (ESCALATE, confidence_from_logits,
+                                          make_thresholds)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import CascadeEngine
+
+    edge, cloud, ep, cp = models
+    b, s = 64, 128
+    tokens = np.random.default_rng(seed + 6).integers(
+        0, cloud.cfg.vocab_size, (b, s)).astype(np.int32)
+    tok = torch.from_numpy(tokens).to(dev)
+    el, _ = edge.forward(ep, {"tokens": tok}, last_only=True)
+    hi, lo = _tertiles(confidence_from_logits(el[:, 0]).cpu().numpy())
+    cl, _ = cloud.forward(cp, {"tokens": tok}, last_only=True)
+    top2 = torch.topk(cl[:, 0].float(), 2, dim=-1).values
+    cloud_sure = ((top2[:, 0] - top2[:, 1]) > BF16_LOGIT_TOL).cpu().numpy()
+    cas = CascadeLM(edge, cloud, thresholds=make_thresholds(hi, lo),
+                    capacity_frac=0.5)
+    runs, launches = {}, 0
+    for name, compact in (("compact", True), ("lockstep", False)):
+        eng = CascadeEngine(cas, ep, cp, compact=compact)
+        torch.cuda.synchronize()
+        reset_launches()
+        out = eng.query(tokens)
+        got = dict(LAUNCHES)
+        want = {"cascade_gate": 1, "flash_attention": edge.cfg.num_layers
+                + cloud.cfg.num_layers, "decode_attention": 0,
+                "paged_decode_attention": 0}
+        if got != want:
+            raise AssertionError(f"one-shot {name}: launches {got} != {want}")
+        launches += got["cascade_gate"]
+        routes = out["routes"]
+        host = [int((routes == r).sum()) for r in range(3)]
+        kern = [int(out[k]) for k in ("accept", "drop", "escalate")]
+        if host != kern or min(host) == 0:
+            raise AssertionError(f"one-shot {name}: kernel counts {kern}, "
+                                 f"host counts {host}")
+        conf = out["conf"].astype(np.float64)
+        if min(np.min(np.abs(conf - hi) / hi),
+               np.min(np.abs(conf - lo) / lo)) <= GATE_MARGIN:
+            raise AssertionError(f"one-shot {name}: a confidence lies near "
+                                 f"a threshold")
+        runs[name] = out
+        print(f"  one-shot {name}: {b} queries x {s} tokens in "
+              f"{out['latency_s'] * 1e3:.1f} ms; accept/drop/escalate "
+              f"{kern}; wan_bytes {int(out['wan_bytes'])}; launches {got}")
+    a, c = runs["compact"], runs["lockstep"]
+    esc = a["routes"] == ESCALATE
+    cap = cas.capacity(b)
+    if not np.array_equal(a["routes"], c["routes"]) or esc.sum() > cap:
+        raise AssertionError("one-shot: routes differ, or escalations "
+                             "exceed the capacity")
+    # edge rows: the same edge forward in both; escalated rows: the cloud
+    # GEMM runs at M = cap and M = 64, so only confident rows must agree
+    same = ~esc | cloud_sure
+    if not np.array_equal(a["pred"][same], c["pred"][same]):
+        raise AssertionError("one-shot: compact pred != lockstep pred")
+    print(f"  one-shot compact == lockstep: routes on all {b} rows, pred on "
+          f"{int(same.sum())} rows ({int((esc & ~cloud_sure).sum())} "
+          f"escalated rows within {BF16_LOGIT_TOL} of a cloud tie skipped); "
+          f"thresholds hi {hi:.6g}, lo {lo:.6g}")
+    return launches, dict(
+        queries=b, tokens_per_query=s, hi=hi, lo=lo, capacity=cap,
+        routes=[int(n) for n in np.bincount(a["routes"], minlength=3)],
+        compact_ms=a["latency_s"] * 1e3, lockstep_ms=c["latency_s"] * 1e3,
+        compact_wan_bytes=int(a["wan_bytes"]),
+        lockstep_wan_bytes=int(c["wan_bytes"]))
+
+
+def _cascade_prompts(seed, vocab):
+    rng = np.random.default_rng(seed + 7)
+    return [rng.integers(0, vocab, int(n)).astype(np.int32)
+            for n in rng.integers(16, 481, 24)]
+
+
+def _cascade_trace(probe, prompts):
+    """Thresholds at the tertiles of the edge confidences of ``prompts``
+    (through ``probe``'s gate), and the trace: greedy, but for the first
+    prompt that will be accepted and the first that will be escalated,
+    sampled at 0.8, so both engines serve a sampled stream."""
+    conf = [probe._gate(p)[0] for p in prompts]
+    hi, lo = _tertiles(conf)
+    first = {}
+    for i, c in enumerate(conf):
+        first.setdefault("accept" if c >= hi else
+                         "drop" if c < lo else "escalate", i)
+    sampled = {first["accept"], first["escalate"]}
+    return hi, lo, [(p, 0.8 if i in sampled else 0.0)
+                    for i, p in enumerate(prompts)]
+
+
+def check_cascade_serving(torch, dev, seed, smi, models):
+    """``CascadeServingEngine`` (ring, 8 slots, max_seq_len 1024, K = 4) on
+    24 requests: routes, launches, and streams against standalone edge and
+    cloud engines."""
+    from repro_torch.cascade import CascadeLM
+    from repro_torch.cascade.gate import make_thresholds
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import CascadeServingEngine, ServingEngine
+
+    edge, cloud, ep, cp = models
+    max_new = 32
+    kw = dict(batch_slots=8, max_seq_len=1024, max_decode_steps=4)
+    probe = CascadeServingEngine(CascadeLM(edge, cloud), ep, cp, seed=seed,
+                                 **kw)
+    hi, lo, reqs = _cascade_trace(
+        probe, _cascade_prompts(seed, cloud.cfg.vocab_size))
+    del probe
+    cas = CascadeLM(edge, cloud, thresholds=make_thresholds(hi, lo))
+    eng = CascadeServingEngine(cas, ep, cp, seed=seed, **kw)
+    gate_s = []
+    gate = eng._gate
+
+    def timed(prompt):          # host floats come back: the gate has synced
+        t0 = time.perf_counter()
+        out = gate(prompt)
+        gate_s.append(time.perf_counter() - t0)
+        return out
+
+    eng._gate = timed
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=max_new, temperature=t)
+           for p, t in reqs]
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    out = [done[i] for i in ids]
+    if sorted(done) != sorted(ids) or any(r.status != "done" for r in out):
+        raise AssertionError("not every cascade request finished")
+    routes = {k: sum(r.route == k for r in out)
+              for k in ("accept", "escalate", "drop", "failover")}
+    if min(routes["accept"], routes["escalate"], routes["drop"]) < 4:
+        raise AssertionError(f"routes {routes}: each needs >= 4 requests")
+    for r in out:
+        if len(r.output) != (0 if r.route == "drop" else max_new):
+            raise AssertionError(f"request {r.request_id} ({r.route}) has "
+                                 f"{len(r.output)} tokens")
+    el, cl = edge.cfg.num_layers, cloud.cfg.num_layers
+    ee, ce = eng.edge_engine, eng.cloud_engine
+    gated = len(gate_s)
+    want = {"cascade_gate": gated,
+            "flash_attention": el * (gated + ee.admissions)
+            + cl * ce.admissions,
+            "decode_attention": el * ee.decode_steps + cl * ce.decode_steps,
+            "paged_decode_attention": 0}
+    print(f"  launches on the cascade path: {launches} (expected {want}: "
+          f"{gated} gated, {ee.admissions} edge and {ce.admissions} cloud "
+          f"admissions, {ee.decode_steps} edge and {ce.decode_steps} cloud "
+          f"decode steps)")
+    if launches != want or gated != len(reqs) or ee.admissions != \
+            routes["accept"] or ce.admissions != routes["escalate"]:
+        raise AssertionError("launch counts do not match the cascade path")
+
+    for route, lm, params, s in (("accept", edge, ep, seed),
+                                 ("escalate", cloud, cp, seed + 1)):
+        mine = [(r, q) for r, q in zip(out, reqs) if r.route == route]
+        ref, _ = _serve(ServingEngine(lm, params, seed=s, **kw),
+                        [q for _, q in mine], max_new)
+        for (r, _), x in zip(mine, ref):
+            if not np.array_equal(r.output, x.output):
+                raise AssertionError(f"cascade {route} stream != standalone "
+                                     f"engine (request {r.request_id})")
+    sampled = [r.route for r, (_, t) in zip(out, reqs) if t > 0]
+    if sorted(sampled) != ["accept", "escalate"]:
+        raise AssertionError(f"sampled requests took routes {sampled}")
+    print(f"  accepted and escalated streams equal standalone edge (seed "
+          f"{seed}) and cloud (seed {seed + 1}) engines token for token "
+          f"(one of each sampled at 0.8); dropped outputs empty")
+
+    gen = sum(len(r.output) for r in out)
+    ttft = sorted(r.ttft_s * 1e3 for r in out if r.route != "drop")
+    m = eng.metrics
+    stats = dict(requests=len(out), generated_tokens=gen, wall_s=wall,
+                 tokens_per_s=gen / wall, ttft_ms_p50=statistics.median(ttft),
+                 ttft_ms_max=ttft[-1],
+                 gate_ms_per_request=sum(gate_s) * 1e3 / gated,
+                 routes=routes, wan_bytes=m.wan_bytes, hi=hi, lo=lo,
+                 trace=reqs,
+                 edge_decode_steps=ee.decode_steps,
+                 cloud_decode_steps=ce.decode_steps, launches=launches)
+    print(f"  cascade engine [{smi}]: {gen} tokens in {wall:.3f} s = "
+          f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms,"
+          f" max {ttft[-1]:.1f} ms; gate {stats['gate_ms_per_request']:.2f} "
+          f"ms per request (edge prefill + kernel); routes {routes}; "
+          f"wan_bytes {m.wan_bytes}")
+    return launches["cascade_gate"], stats
+
+
+def _device_profile(torch, serve, wall_s):
+    """Device busy time of ``serve()`` (which returns its wall time), by
+    kernel name, from torch.profiler; idle share against the unprofiled
+    wall time ``wall_s``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, prof_wall = _serve(eng, reqs, 32)
+        prof_wall = serve()
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -714,12 +1026,52 @@ def profile_engine(torch, dev, seed, wall_s):
                      for us, n, name in rows[:12]])
 
 
+def profile_engine(torch, dev, seed, wall_s):
+    """The phase-4 trace (K=4 ring engine) under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("smollm-135m")
+    lm = LM(cfg, device=dev)
+    params = lm.init(seed)
+    reqs = _trace(seed, cfg.vocab_size)
+    eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=1024,
+                        seed=seed, max_decode_steps=4)
+    return _device_profile(torch, lambda: _serve(eng, reqs, 32)[1], wall_s)
+
+
+def profile_cascade(torch, dev, seed, stats):
+    """The phase-7 trace (generative cascade, phase 7's thresholds) under
+    the profiler."""
+    from repro_torch.cascade import CascadeLM
+    from repro_torch.cascade.gate import make_thresholds
+    from repro_torch.serving import CascadeServingEngine
+
+    edge, cloud, ep, cp = _cascade_models(torch, dev, seed)
+    reqs = stats["trace"]
+    cas = CascadeLM(edge, cloud,
+                    thresholds=make_thresholds(stats["hi"], stats["lo"]))
+    eng = CascadeServingEngine(cas, ep, cp, seed=seed, batch_slots=8,
+                               max_seq_len=1024, max_decode_steps=4)
+
+    def serve():
+        t0 = time.perf_counter()
+        for p, t in reqs:
+            eng.submit(p, max_new_tokens=32, temperature=t)
+        eng.run()
+        return time.perf_counter() - t0
+
+    return _device_profile(torch, serve, stats["wall_s"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the full record here (JSON)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the phase-4 trace on the device")
+                    help="also profile the phase-4 and phase-7 traces "
+                         "on the device")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -746,11 +1098,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
 
-    print("[2] kernels vs plain versions (bf16)")
+    print("[2] kernels vs plain versions (bf16; the gate also f32)")
     timer = Timer(torch)
     results = {"decode_attention": check_decode(torch, timer, dev),
                "flash_attention": check_flash(torch, timer, dev),
                "paged_decode_attention": check_paged(torch, timer, dev)}
+    results["cascade_gate"], gate_times = check_cascade_gate(torch, timer,
+                                                             dev)
     print("[3] model: smollm-135m, 30 layers, full width")
     check_model(torch, dev, args.seed)
     print("[4] engine: ring, 8 slots, max_seq_len 1024, K=4")
@@ -760,12 +1114,27 @@ def main() -> int:
                                                      smi)
     launches["paged_decode_attention"] = \
         paged_launches["paged_decode_attention"]
+    models = _cascade_models(torch, dev, args.seed)
+    print("[6] cascade, one-shot: smollm-135m cloud, 4-layer edge draft, "
+          "64 queries x 128 tokens")
+    oneshot_gates, oneshot_stats = check_cascade_oneshot(torch, dev,
+                                                         args.seed, models)
+    print("[7] cascade, generative: ring, 8 slots, max_seq_len 1024, K=4, "
+          "24 requests")
+    serving_gates, cascade_stats = check_cascade_serving(
+        torch, dev, args.seed, smi, models)
+    launches["cascade_gate"] = oneshot_gates + serving_gates
+    del models
     if args.profile:
-        print("[6] profile of the phase-4 trace")
+        print("[8] profiles of the phase-4 and phase-7 traces")
         stats["profile"] = profile_engine(torch, dev, args.seed,
                                           stats["wall_s"])
+        cascade_stats["profile"] = profile_cascade(torch, dev, args.seed,
+                                                   cascade_stats)
 
     meta = {
+        "cascade_gate": ("src/repro_torch/kernels/csrc/cascade_gate.cu",
+                         "src/repro/kernels/cascade_gate.py:85"),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:136"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -781,8 +1150,12 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kind": kind, "torch": torch.__version__,
-                       "kernels": kernels, "engine": stats,
-                       "paged_engine": paged_stats}, f, indent=1)
+                       "kernels": kernels, "cascade_gate_times": gate_times,
+                       "engine": stats, "paged_engine": paged_stats,
+                       "cascade_oneshot": oneshot_stats,
+                       "cascade_engine": {k: v for k, v in
+                                          cascade_stats.items()
+                                          if k != "trace"}}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -299,6 +299,10 @@ class ServingEngine:
         r.enqueue_s = time.perf_counter()
         self._queue.append(r)
 
+    def queue_depth(self) -> int:
+        """Requests waiting in the engine's own queue (resumes included)."""
+        return len(self._queue)
+
     @property
     def pending(self) -> bool:
         """Work outstanding: queued, prefilling or decoding requests."""

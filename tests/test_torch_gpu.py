@@ -7,7 +7,10 @@ runs on a machine with only PyTorch:
 
 Tolerances: f32 1e-4 (summation order), bf16 2e-2 (bf16 output rounding,
 and the kernel rounds P to bf16 before P V where the plain version keeps
-f32). TF32 is off for the f32 comparisons.
+f32). TF32 is off for the f32 comparisons. The cascade gate's confidence:
+1e-5 relative in f32 and 1e-2 in bf16 (both read the same bf16 values;
+the sums run in another order), routes and counts equal on rows away from
+the thresholds.
 """
 import numpy as np
 import pytest
@@ -16,6 +19,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs as tcfg  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kernels.cascade_gate import (  # noqa: E402
+    cascade_gate, cascade_gate_plain)
+from repro_torch.kernels.cascade_gate import _launch as _gate_launch  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -53,6 +59,12 @@ PAGED_CASES = [
     (9, 3, 64, 16, None, (200, 0, 17), 40),   # 120 rows, a freed slot
     (9, 3, 64, 8, None, (300, 33), 1),
 ]
+
+# (t, v, misaligned): the serving gate (t = 1) and the one-shot batch at
+# smollm's padded vocab, repro's ragged sweep shapes, and the scalar path
+# (V not a multiple of the 16-byte vector, or a row start off 16 bytes)
+GATE_CASES = [(1, 49152, False), (64, 49152, False), (100, 500, False),
+              (7, 8000, False), (3, 501, False), (5, 1024, True)]
 
 # (b, sq, sk, h, kv, hd, window)
 FLASH_CASES = [
@@ -173,6 +185,37 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert (out.float() - plain.float()).abs().max().item() < tol
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GATE_CASES, ids=[str(c) for c in GATE_CASES])
+def test_cascade_gate_kernel_matches_plain(cuda, case, dtype):
+    t, v, misaligned = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cpu").manual_seed(t + v)
+    x = (torch.randn((t, v), generator=gen) * 3).to(cuda, dt)
+    if misaligned:
+        buf = torch.empty(t * v + 1, dtype=dt, device=cuda)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(t, v)
+    conf0 = cascade_gate_plain(x, 1.0, 0.0)[0]
+    srt = conf0.sort().values
+    hi = float(srt[(2 * t) // 3]) * (1 + 1e-3) if t > 1 else 2.0
+    lo = float(srt[t // 3]) * (1 - 1e-3) if t > 1 else 0.0
+    n = LAUNCHES["cascade_gate"]
+    conf, routes, counts = cascade_gate(x, hi=hi, lo=lo)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cascade_gate"] == n + 1
+    pconf, proutes, pcounts = cascade_gate_plain(x, hi, lo)
+    tol = 1e-2 if dt == torch.bfloat16 else 1e-5
+    assert ((conf - pconf).abs() / pconf).max().item() < tol
+    assert int(counts.sum()) == t
+    assert counts.tolist() == [int((routes == r).sum()) for r in range(3)]
+    near = (((pconf - hi).abs() < 1e-5 * hi)
+            | ((pconf - lo).abs() < 1e-5 * max(lo, 1e-30)))
+    assert torch.equal(routes[~near], proutes[~near])
+    if not near.any():
+        assert torch.equal(counts, pcounts)
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn((1, 8, 2, 12), device=cuda)        # head_dim 12
     with pytest.raises(ValueError, match="head_dim"):
@@ -183,6 +226,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError, match="dtype"):
         decode_attention(q, k, k, torch.zeros((1,), dtype=torch.int32,
                                               device=cuda), pos)
+    with pytest.raises(TypeError, match="dtype"):
+        cascade_gate(torch.zeros((2, 8), dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        _gate_launch(torch.zeros((2, 8)), 0.8, 0.1)
 
 
 def test_engine_on_gpu_goes_through_the_kernels(cuda):
@@ -210,7 +257,7 @@ def test_engine_on_gpu_goes_through_the_kernels(cuda):
         done = eng.run()
         assert LAUNCHES == {"flash_attention": 3 * eng.admissions,
                             "decode_attention": 3 * eng.decode_steps,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0, "cascade_gate": 0}
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
@@ -254,8 +301,62 @@ def test_paged_engine_on_gpu_goes_through_the_paged_kernel(cuda):
         done = eng.run()
         assert LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
                             "paged_decode_attention":
-                            3 * (eng.decode_steps + chunks[0])}
+                            3 * (eng.decode_steps + chunks[0]),
+                            "cascade_gate": 0}
         eng.assert_invariants()
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+def test_cascade_on_gpu_gates_through_the_kernel(cuda):
+    """A tiny cascade served on the card: one ``cascade_gate`` launch per
+    gated request and per one-shot batch; accepted and escalated streams
+    equal standalone edge (seed 0) and cloud (seed 1) engines'."""
+    from repro_torch.cascade import CascadeLM, edge_variant
+    from repro_torch.cascade.gate import make_thresholds
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.serving import (CascadeEngine, CascadeServingEngine,
+                                     ServingEngine)
+
+    cloud_cfg = tcfg.ModelConfig(
+        name="tiny", family="dense", source="t", num_layers=2, d_model=64,
+        num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=96,
+        stages=tcfg.dense_stages(2), param_dtype="float32")
+    edge, cloud = (LM(edge_variant(cloud_cfg, layers=1), device=cuda),
+                   LM(cloud_cfg, device=cuda))
+    ep, cp = edge.init(1), cloud.init(0)
+    prompts = [np.random.default_rng(i).integers(0, 96, n).astype(np.int32)
+               for i, n in enumerate((5, 12, 20, 9, 17, 4, 14, 7, 11))]
+    kw = dict(batch_slots=2, max_seq_len=32)
+    probe = CascadeServingEngine(CascadeLM(edge, cloud), ep, cp, **kw)
+    conf = sorted(probe._gate(p)[0] for p in prompts)
+    th = make_thresholds(hi=(conf[5] + conf[6]) / 2, lo=(conf[2] + conf[3]) / 2)
+    cas = CascadeLM(edge, cloud, thresholds=th)
+    eng = CascadeServingEngine(cas, ep, cp, **kw)
+    ids = [eng.submit(p, max_new_tokens=4, temperature=0.7 * (i % 2))
+           for i, p in enumerate(prompts)]
+    reset_launches()
+    done = eng.run()
+    assert LAUNCHES["cascade_gate"] == len(prompts)
+    assert LAUNCHES["flash_attention"] == (
+        1 * (len(prompts) + eng.edge_engine.admissions)
+        + 2 * eng.cloud_engine.admissions)
+    for route, lm, params, seed in (("accept", edge, ep, 0),
+                                    ("escalate", cloud, cp, 1)):
+        mine = [(i, p) for i, p in zip(ids, prompts)
+                if done[i].route == route]
+        assert mine
+        ref = ServingEngine(lm, params, seed=seed, **kw)
+        rids = [ref.submit(p, max_new_tokens=4,
+                           temperature=0.7 * (ids.index(i) % 2))
+                for i, p in mine]
+        out = ref.run()
+        for (i, _), r in zip(mine, rids):
+            np.testing.assert_array_equal(done[i].output, out[r].output)
+    reset_launches()
+    one = CascadeEngine(cas, ep, cp).query(
+        np.random.default_rng(9).integers(0, 96, (8, 10)))
+    assert LAUNCHES["cascade_gate"] == 1
+    assert int(one["accept"] + one["drop"] + one["escalate"]) == 8
