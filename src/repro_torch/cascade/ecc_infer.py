@@ -106,8 +106,7 @@ class CascadeLM:
         cap = self.capacity(b)
         edge_last, conf, routes, counts = self._edge_gate(edge_params, batch)
         routing = compact_escalations(routes == ESCALATE, cap)
-        cloud_batch = {k: gather_compacted(v, routing, cap)
-                       for k, v in batch.items() if k != "labels"}
+        cloud_batch = {"tokens": gather_compacted(tokens, routing, cap)}
         cloud_logits, _ = self.cloud.forward(cloud_params, cloud_batch,
                                              last_only=True)
         final = scatter_back(edge_last, cloud_logits[:, 0], routing)

@@ -9,7 +9,7 @@ its arithmetic in float32, so both packages move them identically.
 ``gate_logits`` is how the cascade gates: one call of the ``cascade_gate``
 kernel (its plain version for CPU tensors) gives the confidences, routes
 and route counts. ``confidence_from_logits`` and ``basic_gate`` are the
-unfused functions it is held against.
+unfused steps of the kernel's plain version, which they share.
 """
 from __future__ import annotations
 
@@ -18,7 +18,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.cascade_gate import as_f32, cascade_gate
+from repro_torch.kernels.cascade_gate import (as_f32, cascade_gate,
+                                              max_softmax_conf,
+                                              routes_from_conf)
 
 ACCEPT, DROP, ESCALATE = 0, 1, 2
 
@@ -36,9 +38,7 @@ def make_thresholds(hi: float = 0.8, lo: float = 0.1) -> GateThresholds:
 
 def basic_gate(conf: torch.Tensor, th: GateThresholds) -> torch.Tensor:
     """conf: (...,) f32 in [0, 1] -> route codes (ACCEPT/DROP/ESCALATE)."""
-    return torch.where(conf >= th.hi, ACCEPT,
-                       torch.where(conf < th.lo, DROP, ESCALATE)).to(
-                           torch.int32)
+    return routes_from_conf(conf, th.hi, th.lo)
 
 
 def gate_counts(routes: torch.Tensor) -> dict:
@@ -78,7 +78,7 @@ def adaptive_thresholds(state: APState, eil_edge: float, eil_cloud: float, *,
 
 def confidence_from_logits(logits: torch.Tensor) -> torch.Tensor:
     """Max-softmax confidence over the final axis, f32."""
-    return torch.softmax(logits.float(), dim=-1).max(dim=-1).values
+    return max_softmax_conf(logits)
 
 
 def gate_logits(logits: torch.Tensor, th: GateThresholds):

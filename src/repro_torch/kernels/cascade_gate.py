@@ -34,18 +34,29 @@ def as_f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def cascade_gate_plain(logits, hi: float, lo: float):
-    """f32 version with the kernel's formula: (conf, routes, counts).
+def max_softmax_conf(logits):
+    """Max-softmax confidence over the final axis, f32.
 
     softmax's entry at the row max is exp(0) / sum_v exp(x_v - m), i.e.
-    1 / sum_v exp(x_v - m); the sum is at least 1, so the kernel's clamp
-    at 1e-30 never binds. (Not ``torch.exp``: on the CPU build with MKL,
-    its first multithreaded call in a process can return elements off by
-    ~1e-4 relative; softmax's own exp does not.)"""
+    the kernel's 1 / sum_v exp(x_v - m); the sum is at least 1, so the
+    kernel's clamp at 1e-30 never binds. (Not ``torch.exp``: on the CPU
+    build with MKL, its first multithreaded call in a process can return
+    elements off by ~1e-4 relative; softmax's own exp does not.)"""
+    return torch.softmax(logits.float(), dim=-1).max(dim=-1).values
+
+
+def routes_from_conf(conf, hi: float, lo: float):
+    """Route codes, int32: 0 accept (conf >= hi), 1 drop (conf < lo), else
+    2 escalate, against ``hi`` and ``lo`` rounded to float32."""
     hi, lo = as_f32(hi), as_f32(lo)
-    conf = torch.softmax(logits.float(), dim=-1).max(dim=-1).values
-    routes = torch.where(conf >= hi, 0,
-                         torch.where(conf < lo, 1, 2)).to(torch.int32)
+    return torch.where(conf >= hi, 0,
+                       torch.where(conf < lo, 1, 2)).to(torch.int32)
+
+
+def cascade_gate_plain(logits, hi: float, lo: float):
+    """f32 version with the kernel's formula: (conf, routes, counts)."""
+    conf = max_softmax_conf(logits)
+    routes = routes_from_conf(conf, hi, lo)
     counts = torch.stack([(routes == r).sum() for r in range(3)])
     return conf, routes, counts.to(torch.int32)
 

@@ -104,15 +104,11 @@ class CascadeEngine:
         self.metrics = CascadeMetrics()
         self._step = cascade.serve_step if compact else cascade.lockstep_step
 
-    def query(self, tokens: np.ndarray, extra: Dict = None) -> dict:
+    def query(self, tokens: np.ndarray) -> dict:
         """tokens: (B, S) one-shot queries -> predictions + route info, as
         numpy arrays."""
-        dev = self.cascade.edge.device
         batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int32),
-                                           device=dev)}
-        if extra:
-            batch.update({k: torch.as_tensor(np.asarray(v), device=dev)
-                          for k, v in extra.items()})
+                                           device=self.cascade.edge.device)}
         t0 = time.time()
         out = self._step(self.edge_params, self.cloud_params, batch)
         out = {k: v.cpu().numpy() for k, v in out.items()}
@@ -164,16 +160,12 @@ class CascadeServingEngine:
                  batch_slots: int = 8, max_seq_len: int = 256,
                  eos_id: Optional[int] = None, seed: int = 0,
                  cache_backend="ring", block_size: int = 16,
-                 num_pool_blocks: Optional[int] = None,
-                 truncate_prompts: bool = False,
                  chunk_tokens: Optional[int] = None,
-                 token_budget: Optional[int] = None,
                  prefix_sharing: bool = True,
                  max_decode_steps: int = 1,
                  fault_plan=None,
                  breaker_failure_threshold: int = 3,
                  breaker_cooldown: int = 4,
-                 admission_policy: Optional[str] = None,
                  speculative_tokens: int = 0,
                  mesh=None, rules=None):
         later = {"speculative_tokens": speculative_tokens or None,
@@ -185,7 +177,6 @@ class CascadeServingEngine:
                     f"slices of the port")
         self.cascade = cascade
         self.max_seq_len = max_seq_len
-        self.truncate_prompts = truncate_prompts
         self.metrics = CascadeMetrics()
         # the ``edge`` seam of ``fault_plan`` models an edge-engine outage
         # at the gate; the breaker turns repeated outages into wholesale
@@ -199,12 +190,9 @@ class CascadeServingEngine:
         self._degradation_s = 0.0
         engine_kw = dict(batch_slots=batch_slots, max_seq_len=max_seq_len,
                          eos_id=eos_id, cache_backend=cache_backend,
-                         block_size=block_size,
-                         num_pool_blocks=num_pool_blocks,
-                         chunk_tokens=chunk_tokens, token_budget=token_budget,
+                         block_size=block_size, chunk_tokens=chunk_tokens,
                          prefix_sharing=prefix_sharing,
-                         max_decode_steps=max_decode_steps,
-                         admission_policy=admission_policy)
+                         max_decode_steps=max_decode_steps)
         self.edge_engine = ServingEngine(cascade.edge, edge_params,
                                          seed=seed, **engine_kw)
         self.cloud_engine = ServingEngine(cascade.cloud, cloud_params,
@@ -234,7 +222,7 @@ class CascadeServingEngine:
         edge engine's buckets, so an over-long prompt fails here with the
         engine-level message."""
         prompt = validate_prompt(prompt, max_new_tokens, self.max_seq_len,
-                                 self.truncate_prompts)
+                                 truncate=False)
         rid = self._next_id
         self._next_id += 1
         r = CascadeRequest(rid, prompt, priority=priority,
