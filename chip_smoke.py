@@ -43,15 +43,31 @@ without them. Phases, each fatal on failure:
    4, dropped outputs are empty, accepted and escalated streams equal
    standalone edge and cloud engines' token for token, every gate is one
    ``cascade_gate`` launch and every prefill and decode attention a kernel
-   launch.
+   launch;
+8. the RG-LRU hybrid recurrentgemma-9b at full width: cut to 4 layers in
+   f32 (weights from the CPU generator, its rate printed), the GPU forward
+   equals the plain CPU forward and a right-padded prefill with
+   ``lengths`` keeps the unpadded prefill's recurrent state; then all 38
+   layers in bf16 (10.4 B weights made on the card), prefill-then-decode
+   logits equal a full forward;
+9. a ``ServingEngine`` (ring, 8 slots, max_seq_len 4096, so each
+   attention layer's 2048-wide ring wraps; K = 4) serves 12 requests of
+   2-3000 tokens, none a bucket size, one sampled: every request
+   finishes, the streams equal a 1-step engine's, greedy tokens agree with
+   a teacher-forced forward, and every RG-LRU prefill scan, prefill
+   attention and decode attention went through the kernels.
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
-bf16, against ``torch.logsumexp`` as the library yardstick.
+bf16, against ``torch.logsumexp`` as the library yardstick; ``rglru_scan``
+at (1, 512, 4096) and (1, 4096, 4096) in f32 (no library call computes a
+linear recurrence); and ``decode_attention`` and ``flash_attention`` at
+recurrentgemma-9b's hd 256, 16 heads over one KV head, window 2048,
+against SDPA.
 
-With ``--profile`` it then serves the phase-4 and phase-7 traces once
-more under ``torch.profiler`` and prints the device's busy time by kernel
-against the unprofiled run's wall time (the idle share).
+With ``--profile`` it then serves the phase-9, phase-4 and phase-7 traces
+once more under ``torch.profiler`` and prints the device's busy time by
+kernel against the unprofiled run's wall time (the idle share).
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. TF32 is off for every f32 product.
@@ -80,6 +96,24 @@ F32_LOGIT_TOL = 2e-3           # the same, in f32: summation order only
 GATE_TOL = {"float32": 1e-5, "bfloat16": 1e-5}
 GATE_MARGIN = 1e-3             # no confidence this close (relative) to a threshold
 LAYERS = 30                    # distinct inputs per timing loop (cold L2)
+# the RG-LRU scan, kernel vs plain, per element relative to max(1, |h|):
+# the chunked scan composes the same f32 steps in another order
+RGLRU_TOL = 1e-5
+# recurrentgemma-9b in bf16 through 38 layers (flash over the sequence vs
+# prefill + cached decode): activation roundings, as BF16_LOGIT_TOL
+HYBRID_LOGIT_TOL = 0.25
+# recurrent state of a padded prefill vs the unpadded one, f32 at 4
+# layers, relative to max(1, |state|): GEMMs at other M sum in another
+# order
+STATE_TOL = 1e-3
+# attention at recurrentgemma-9b's shapes: a row sees up to 2048 keys, so
+# its outputs average to ~0.03 and BF16_TOL would pass a dropped key split.
+# f32 on the same values: summation order only (tests/test_torch_gpu.py's
+# bound). bf16: per query row, |kernel - plain| / |plain| over its heads
+# and dims, where one output rounding is ~2^-9 and a split of 32 keys
+# missed or a band edge off by a tile is ~0.1
+ATTN_F32_TOL = 1e-4
+ATTN_ROW_REL_TOL = 1e-2
 
 
 def _smi() -> str:
@@ -476,6 +510,197 @@ def check_cascade_gate(torch, timer, dev):
         {f"T={t} {dt}": r for (t, dt), r in times.items()}
 
 
+def check_rglru(torch, timer, dev, reports):
+    """``rglru_scan`` against its plain version at the hybrid prefill's
+    shapes (B = 1, W = 4096; S = 512 and 4096) and an odd (2, 77, 4000),
+    all with h0 != 0; timed at the two serving shapes."""
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def inputs(n, b, s, w):
+        # a in [0.8, 1): the model's decays; long memory, |h| up to ~30
+        a = 0.8 + 0.1999 * torch.rand((n, b, s, w), generator=gen,
+                                      device=dev)
+        x = torch.randn((n, b, s, w), generator=gen, device=dev)
+        return a, x, torch.randn((n, b, w), generator=gen, device=dev)
+
+    for line in reports.get("rglru_scan", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  rglru_scan build: {line.strip()}")
+    errs, times = [], {}
+    for b, s, w in ((1, 512, 4096), (1, 4096, 4096), (2, 77, 4000)):
+        a, x, h0 = inputs(1, b, s, w)
+        h, h_last = rglru_scan(a[0], x[0], h0[0])
+        torch.cuda.synchronize()
+        ph, ph_last = rglru_scan_plain(a[0], x[0], h0[0])
+        rel = max(((out - ref).abs() / ref.abs().clamp_min(1)).max().item()
+                  for out, ref in ((h, ph), (h_last, ph_last)))
+        err = (h - ph).abs().max().item()
+        print(f"  rglru_scan ({b}, {s}, {w}) f32, h0 != 0: max|kernel - "
+              f"plain| = {err:.3e}, {rel:.3e} of max(1, |h|) (tol "
+              f"{RGLRU_TOL}); max|h| {ph.abs().max().item():.2f}")
+        if not rel <= RGLRU_TOL:
+            raise AssertionError(f"rglru_scan ({b}, {s}, {w}) disagrees")
+        errs.append(err)
+        if b > 1:
+            continue
+        n_in = LAYERS if s <= 512 else 3        # both beyond L2 at S = 4096
+        a, x, h0 = inputs(n_in, b, s, w)
+
+        def kern(i):
+            return rglru_scan(a[i % n_in], x[i % n_in], h0[i % n_in])
+
+        def plain(i):
+            return rglru_scan_plain(a[i % n_in], x[i % n_in], h0[i % n_in])
+
+        ms, plain_ms = timer(kern), timer(plain, n=5)
+        # a and b read, h written, h0 read, h_last written; a mul and an
+        # add per element on the f32 CUDA cores
+        nbytes = 12 * b * s * w + 8 * b * w
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * b * s * w / F32_FLOPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        times[s] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, library_ms=None)
+        print(f"  rglru_scan ({b}, {s}, {w}) f32: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library: none (no PyTorch call computes a "
+              f"linear recurrence), bound {bound:.4f} ms ({by}; {nbytes} B)")
+        del a, x, h0
+    # the line's numbers: the longest prefill bucket of the hybrid trace
+    return dict(max_abs_err=max(errs), **times[4096]), \
+        {f"S={s}": r for s, r in times.items()}
+
+
+def _check_hd256(torch, name, kernel, plain, inputs, rows):
+    """Hold ``kernel`` against ``plain`` on bf16 ``inputs`` (the main
+    path's dtype) and on the same values in f32. The output's first
+    ``rows`` dims index query rows, each of (heads, hd); rows that see no
+    key must be 0 in both. Returns the bf16 max abs error."""
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        xs = [x.to(dt) for x in inputs]
+        got = kernel(*xs).float()
+        torch.cuda.synchronize()
+        ref = plain(*xs).float()
+        diff = got - ref
+        err = diff.abs().max().item()
+        num = diff.flatten(rows).norm(dim=-1)
+        den = ref.flatten(rows).norm(dim=-1)
+        seen = den > 0
+        rel = (num[seen] / den[seen]).max().item()
+        stray = num[~seen].max().item() if bool((~seen).any()) else 0.0
+        print(f"  {name} hd=256 G=16 KV=1 window=2048 {str(dt)[6:]}: "
+              f"max|plain| {ref.abs().max().item():.3e}, RMS(plain) "
+              f"{ref.square().mean().sqrt().item():.3e}, max|kernel - plain|"
+              f" {err:.3e}, max row |kernel - plain|/|plain| {rel:.3e}, "
+              f"rows seeing no key {int((~seen).sum())} (|kernel| "
+              f"{stray:.1e})")
+        ok = (rel < ATTN_ROW_REL_TOL if dt == torch.bfloat16
+              else err < ATTN_F32_TOL)
+        if not ok or stray != 0:
+            raise AssertionError(
+                f"{name} at hd 256 disagrees in {dt} (tol: bf16 row "
+                f"{ATTN_ROW_REL_TOL}, f32 abs {ATTN_F32_TOL})")
+        errs[dt] = err
+        del got, ref, diff
+    return errs[torch.bfloat16]
+
+
+def check_attention_hd256(torch, timer, dev):
+    """``decode_attention`` and ``flash_attention`` at recurrentgemma-9b's
+    local attention (hd 256, 16 query heads over one KV head, window 2048)
+    against their plain versions, timed against SDPA as the yardstick."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    import torch.nn.functional as F
+
+    kv, g, hd, window = 1, 16, 256, 2048
+    h = kv * g
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    # decode: 8 slots on a 2048-wide ring, partly filled, wrapped, empty
+    b, w = 8, 2048
+    totals = [300, 2048, 2900, 0, 17, 1500, 4000, 2100]
+    k_pos = torch.full((b, w), -1, dtype=torch.int32)
+    for i, total in enumerate(totals):
+        tok = torch.arange(max(0, total - w), total, dtype=torch.int32)
+        k_pos[i, tok % w] = tok
+    k_pos = k_pos.to(dev)
+    q_pos = torch.tensor(totals, dtype=torch.int32, device=dev)
+    ks, vs = (torch.randn((LAYERS, b, w, kv, hd), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    q1 = torch.randn((LAYERS, b, 1, h, hd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    err = _check_hd256(torch, "decode_attention", lambda *x: decode_attention(
+        *x, q_pos, k_pos, window=window), lambda *x: decode_attention_plain(
+        *x, q_pos, k_pos, window=window), (q1[0], ks[0], vs[0]), rows=1)
+    visible = ((k_pos >= 0) & (k_pos <= q_pos[:, None])
+               & (k_pos > q_pos[:, None] - window))
+    mask = visible[:, None, None, :]
+    qt = [q1[i].transpose(1, 2) for i in range(LAYERS)]
+    kt = [ks[i].transpose(1, 2) for i in range(LAYERS)]
+    vt = [vs[i].transpose(1, 2) for i in range(LAYERS)]
+    ms = timer(lambda i: decode_attention(
+        q1[i % LAYERS], ks[i % LAYERS], vs[i % LAYERS], q_pos, k_pos,
+        window=window))
+    plain_ms = timer(lambda i: decode_attention_plain(
+        q1[i % LAYERS], ks[i % LAYERS], vs[i % LAYERS], q_pos, k_pos,
+        window=window))
+    lib_ms = timer(lambda i: F.scaled_dot_product_attention(
+        qt[i % LAYERS], kt[i % LAYERS], vt[i % LAYERS], attn_mask=mask,
+        enable_gqa=True))
+    live = int(visible.sum())
+    nbytes = (2 * _nbytes(q1[0]) + _nbytes(q_pos, k_pos)
+              + 2 * live * kv * hd * 2)
+    bound, by = _bound_ms(nbytes, 4 * live * h * hd)
+    out["decode_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound, bound_by=by,
+                                   library_ms=lib_ms)
+    print(f"  decode_attention B={b} W={w} KV={kv} G={g} hd={hd} T=1 "
+          f"window={window} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {nbytes} B)")
+    del ks, vs, q1, qt, kt, vt
+    # flash: one 4096-token prefill bucket, band of 2048 keys per query
+    s, n_in = 4096, 3
+    qs = torch.randn((n_in, 1, s, h, hd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    ks, vs = (torch.randn((n_in, 1, s, kv, hd), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    err = _check_hd256(torch, "flash_attention", lambda *x: flash_attention(
+        *x, causal=True, window=window), lambda *x: flash_attention_plain(
+        *x, causal=True, window=window), (qs[0], ks[0], vs[0]), rows=2)
+    pos = torch.arange(s, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    qt = [qs[i].transpose(1, 2) for i in range(n_in)]
+    kt = [ks[i].transpose(1, 2) for i in range(n_in)]
+    vt = [vs[i].transpose(1, 2) for i in range(n_in)]
+    ms = timer(lambda i: flash_attention(qs[i % n_in], ks[i % n_in],
+                                         vs[i % n_in], causal=True,
+                                         window=window), n=5)
+    plain_ms = timer(lambda i: flash_attention_plain(
+        qs[i % n_in], ks[i % n_in], vs[i % n_in], causal=True,
+        window=window), n=5)
+    lib_ms = timer(lambda i: F.scaled_dot_product_attention(
+        qt[i % n_in], kt[i % n_in], vt[i % n_in], attn_mask=band,
+        enable_gqa=True), n=5)
+    pairs = int(band.sum())
+    nbytes = 2 * _nbytes(qs[0]) + _nbytes(ks[0], vs[0])
+    bound, by = _bound_ms(nbytes, 4 * pairs * h * hd)
+    out["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound, bound_by=by,
+                                  library_ms=lib_ms)
+    print(f"  flash_attention B=1 S={s} H={h} KV={kv} hd={hd} window="
+          f"{window} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"(band mask) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+          f"{nbytes} B, {4 * pairs * h * hd} flop)")
+    return out
+
+
 # -- phase 3: model ---------------------------------------------------------------
 
 def check_model(torch, dev, seed):
@@ -509,7 +734,7 @@ def check_model(torch, dev, seed):
         if dtype == "float32":
             # the whole model through the kernels vs the plain CPU path
             cpu = LM(cfg, device="cpu")
-            ref, _ = cpu.forward(_to_cpu(params),
+            ref, _ = cpu.forward(_to_device(params, "cpu"),
                                  {"tokens": tokens[:1].cpu()})
             gpu_err = (full[:1].cpu() - ref).abs().max().item()
             print(f"  smollm-135m float32: GPU kernels vs CPU plain forward "
@@ -519,12 +744,12 @@ def check_model(torch, dev, seed):
         del params, caches, full
 
 
-def _to_cpu(tree):
+def _to_device(tree, dev):
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_cpu(v) for v in tree]
-    return tree.cpu()
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 # -- phase 4: engine --------------------------------------------------------------
@@ -572,7 +797,7 @@ def check_engine(torch, dev, seed, smi):
     n_layers = cfg.num_layers
     want = {"flash_attention": n_layers * eng.admissions,
             "decode_attention": n_layers * eng.decode_steps,
-            "paged_decode_attention": 0, "cascade_gate": 0}
+            "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0}
     print(f"  launches on the main path: {launches} (expected {want}: "
           f"{n_layers} per admission x {eng.admissions}, {n_layers} per "
           f"decode step x {eng.decode_steps})")
@@ -714,7 +939,8 @@ def check_paged_engine(torch, dev, seed, smi):
     n_layers = cfg.num_layers
     want = {"paged_decode_attention":
             n_layers * (eng.decode_steps + chunks[0]),
-            "flash_attention": 0, "decode_attention": 0, "cascade_gate": 0}
+            "flash_attention": 0, "decode_attention": 0, "cascade_gate": 0,
+            "rglru_scan": 0}
     print(f"  launches on the paged path: {launches} (expected {want}: "
           f"{n_layers} per decode step x {eng.decode_steps} + per chunk x "
           f"{chunks[0]})")
@@ -828,7 +1054,7 @@ def check_cascade_oneshot(torch, dev, seed, models):
         got = dict(LAUNCHES)
         want = {"cascade_gate": 1, "flash_attention": edge.cfg.num_layers
                 + cloud.cfg.num_layers, "decode_attention": 0,
-                "paged_decode_attention": 0}
+                "paged_decode_attention": 0, "rglru_scan": 0}
         if got != want:
             raise AssertionError(f"one-shot {name}: launches {got} != {want}")
         launches += got["cascade_gate"]
@@ -947,7 +1173,7 @@ def check_cascade_serving(torch, dev, seed, smi, models):
             "flash_attention": el * (gated + ee.admissions)
             + cl * ce.admissions,
             "decode_attention": el * ee.decode_steps + cl * ce.decode_steps,
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, "rglru_scan": 0}
     print(f"  launches on the cascade path: {launches} (expected {want}: "
           f"{gated} gated, {ee.admissions} edge and {ce.admissions} cloud "
           f"admissions, {ee.decode_steps} edge and {ce.decode_steps} cloud "
@@ -989,6 +1215,239 @@ def check_cascade_serving(torch, dev, seed, smi, models):
           f"ms per request (edge prefill + kernel); routes {routes}; "
           f"wan_bytes {m.wan_bytes}")
     return launches["cascade_gate"], stats
+
+
+# -- phases 8 and 9: the RG-LRU hybrid, recurrentgemma-9b ---------------------
+
+def _hybrid_cfg(dtype: str, cut: bool = False):
+    """recurrentgemma-9b at full width in ``dtype``; ``cut`` keeps one
+    (rec, rec, attn) repeat and one trailing rec block (4 layers)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              param_dtype=dtype)
+    if cut:
+        cfg = dataclasses.replace(
+            cfg, num_layers=4, stages=tuple(dataclasses.replace(st, repeat=1)
+                                            for st in cfg.stages))
+    return cfg
+
+
+def _mixer_counts(cfg):
+    """(RG-LRU blocks, attention blocks) of a config."""
+    n = {"rglru": 0, "attn": 0}
+    for st in cfg.stages:
+        for bdef in st.blocks:
+            n[bdef.mixer] += st.repeat
+    return n["rglru"], n["attn"]
+
+
+def _tree_numel(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_numel(v) for v in tree)
+    return tree.numel()
+
+
+def _state_err(caches, ref, row, lm):
+    """Max over RG-LRU blocks of |state - ref| / max(1, max|ref|) for one
+    batch row of ``caches`` against row 0 of ``ref``."""
+    worst = 0.0
+    for st, c, r in zip(lm.cfg.stages, caches, ref):
+        for bi, bdef in enumerate(st.blocks):
+            if bdef.mixer != "rglru":
+                continue
+            for key in ("h", "conv"):
+                x = c[bi][key][:, row].float()
+                y = r[bi][key][:, 0].float()
+                scale = max(1.0, y.abs().max().item())
+                worst = max(worst, (x - y).abs().max().item() / scale)
+    return worst
+
+
+def check_hybrid_model(torch, dev, seed):
+    """recurrentgemma-9b at full width, depth cut to 4 layers, in f32: the
+    card's forward (through the kernels) against the CPU plain forward,
+    and a right-padded prefill with ``lengths`` against the unpadded
+    prefill's recurrent state."""
+    from repro_torch.models.model import LM
+
+    cfg = _hybrid_cfg("float32", cut=True)
+    cpu = LM(cfg, device="cpu")
+    t0 = time.perf_counter()
+    cpu_params = cpu.init(seed)
+    init_s = time.perf_counter() - t0
+    n = _tree_numel(cpu_params)
+    print(f"  weight init, CPU generator: {n / 1e9:.3f} B values in "
+          f"{init_s:.1f} s ({n / init_s / 1e6:.0f} M/s; the 10.4 B of the "
+          f"full depth would take ~{10.4e9 * init_s / n:.0f} s)")
+    lm = LM(cfg, device=dev)
+    params = _to_device(cpu_params, dev)
+    tokens = np.random.default_rng(seed + 8).integers(
+        0, cfg.vocab_size, (1, 40)).astype(np.int32)
+    tok = torch.from_numpy(tokens).to(dev)
+    full, _ = lm.forward(params, {"tokens": tok})
+    ref, _ = cpu.forward(cpu_params, {"tokens": tok.cpu()})
+    err = (full.cpu() - ref).abs().max().item()
+    print(f"  recurrentgemma-9b 4 layers f32: GPU kernels vs CPU plain "
+          f"forward max|diff| = {err:.3e} (tol {F32_LOGIT_TOL}; max|logit| "
+          f"{ref.abs().max().item():.2f})")
+    if not err < F32_LOGIT_TOL:
+        raise AssertionError("hybrid GPU forward != CPU plain forward")
+    del ref, cpu_params
+    # two prompts right-padded to the 64 bucket in one batch, with lengths
+    lengths = (3, 37)
+    padded = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+    for row, length in enumerate(lengths):
+        padded[row, :length] = tok[0, :length]
+    lp, caches = lm.prefill(params, {"tokens": padded}, cache_width=64,
+                            lengths=torch.tensor(lengths, dtype=torch.int32,
+                                                 device=dev))
+    worst = logit_err = 0.0
+    for row, length in enumerate(lengths):
+        lu, ref_caches = lm.prefill(params, {"tokens": tok[:, :length]},
+                                    cache_width=64)
+        worst = max(worst, _state_err(caches, ref_caches, row, lm))
+        logit_err = max(logit_err, (lp[row, length - 1] - lu[0, -1])
+                        .abs().max().item())
+    print(f"  padded prefill with lengths {lengths} vs unpadded: recurrent "
+          f"state {worst:.3e} of max(1, |state|) (tol {STATE_TOL}), logits "
+          f"at the last real token {logit_err:.3e} (tol {F32_LOGIT_TOL})")
+    if not (worst < STATE_TOL and logit_err < F32_LOGIT_TOL):
+        raise AssertionError("padded prefill state != unpadded state")
+    return dict(layers=cfg.num_layers, init_cpu_s=init_s, init_values=n,
+                gpu_vs_cpu_err=err, padded_state_err=worst,
+                padded_logit_err=logit_err)
+
+
+def hybrid_full_depth(torch, dev, seed):
+    """recurrentgemma-9b at full width and depth in bf16, weights made on
+    the card: prefill then decode equals the full forward."""
+    from repro_torch.models.model import LM
+
+    cfg = _hybrid_cfg("bfloat16")
+    lm = LM(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init(seed, on_device=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = _tree_numel(params)
+    print(f"  weight init on the card (torch.Generator(device='cuda')): "
+          f"{n / 1e9:.3f} B values, {2 * n / 1e9:.1f} GB bf16, in "
+          f"{init_s:.1f} s")
+    tokens = torch.from_numpy(np.random.default_rng(seed + 9).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(dev)
+    prompt = 24
+    full, _ = lm.forward(params, {"tokens": tokens})
+    logits, caches = lm.prefill(params, {"tokens": tokens[:, :prompt]},
+                                cache_width=64)
+    err = (logits[:, -1] - full[:, prompt - 1]).abs().max().item()
+    for t in range(prompt, tokens.shape[1]):
+        step, caches = lm.decode_step(params, caches, tokens[:, t:t + 1], t)
+        err = max(err, (step[:, 0] - full[:, t]).abs().max().item())
+    scale = full.float().abs().max().item()
+    print(f"  recurrentgemma-9b 38 layers bf16: prefill+decode vs forward "
+          f"max|diff| = {err:.3e} (tol {HYBRID_LOGIT_TOL}; max|logit| "
+          f"{scale:.2f})")
+    if not (np.isfinite(scale) and err < HYBRID_LOGIT_TOL):
+        raise AssertionError("hybrid prefill+decode != forward (bf16)")
+    return lm, params, dict(init_device_s=init_s, init_values=n,
+                            prefill_decode_err=err, max_logit=scale)
+
+
+def _hybrid_trace(seed, vocab):
+    """12 prompts: a 2-token one, ~2300 and ~2900 tokens (longer than the
+    2048 window), 9 drawn from 3-3000, none a bucket size (a power of
+    two); the sixth sampled at 0.8."""
+    rng = np.random.default_rng(seed + 14)
+    lengths = [2, 2300, 2900]
+    while len(lengths) < 12:
+        n = int(rng.integers(3, 3001))
+        if n & (n - 1):
+            lengths.append(n)
+    lengths = [lengths[i] for i in rng.permutation(12)]
+    return [(rng.integers(0, vocab, n).astype(np.int32),
+             0.8 if i == 5 else 0.0) for i, n in enumerate(lengths)]
+
+
+def check_hybrid_engine(torch, dev, seed, smi, lm, params):
+    """recurrentgemma-9b served by the ring ``ServingEngine`` (8 slots,
+    max_seq_len 4096: each attention layer's ring is 2048 wide and wraps;
+    K = 4): streams, launches, and greedy tokens against a teacher-forced
+    forward."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import ServingEngine
+
+    reqs = _hybrid_trace(seed, lm.cfg.vocab_size)
+    max_new = 32
+    kw = dict(batch_slots=8, max_seq_len=4096, seed=seed)
+    _serve(ServingEngine(lm, params, max_decode_steps=4, **kw),
+           [(r[0][:20], 0.0) for r in reqs[:2]], 4)          # warm-up
+    eng = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    torch.cuda.synchronize()
+    reset_launches()
+    out, wall = _serve(eng, reqs, max_new)
+    launches = dict(LAUNCHES)
+    n_rec, n_attn = _mixer_counts(lm.cfg)
+    want = {"rglru_scan": n_rec * eng.admissions,
+            "flash_attention": n_attn * eng.admissions,
+            "decode_attention": n_attn * eng.decode_steps,
+            "paged_decode_attention": 0, "cascade_gate": 0}
+    print(f"  launches on the hybrid path: {launches} (expected {want}: "
+          f"{n_rec} scans and {n_attn} flash per admission x "
+          f"{eng.admissions}, {n_attn} per decode step x "
+          f"{eng.decode_steps})")
+    if launches != want:
+        raise AssertionError("launch counts do not match the hybrid path")
+
+    one = ServingEngine(lm, params, max_decode_steps=1, **kw)
+    ref, _ = _serve(one, reqs, max_new)
+    for a, b in zip(out, ref):
+        if not np.array_equal(a.output, b.output):
+            raise AssertionError(f"hybrid K=4 stream != K=1 stream (request "
+                                 f"{a.request_id})")
+    print(f"  K=4 streams equal K=1 streams token for token "
+          f"({sum(len(r.output) for r in out)} tokens; prompt lengths "
+          f"{[len(p) for p, _ in reqs]})")
+
+    checked = agree = 0
+    for r, (prompt, temp) in zip(out, reqs):
+        if temp > 0:
+            continue
+        ctx = torch.from_numpy(np.concatenate([prompt, r.output[:-1]])
+                               .astype(np.int32))[None].to(dev)
+        logits, _ = lm.forward(params, {"tokens": ctx})
+        tail = logits[0, len(prompt) - 1:].float()
+        del logits
+        top2 = torch.topk(tail, 2, dim=-1).values
+        sure = ((top2[:, 0] - top2[:, 1]) > HYBRID_LOGIT_TOL).cpu().numpy()
+        pred = tail.argmax(-1).cpu().numpy()
+        checked += int(sure.sum())
+        agree += int((pred[sure] == r.output[sure]).sum())
+    print(f"  greedy tokens vs teacher-forced forward: {agree}/{checked} "
+          f"agree where the margin exceeds {HYBRID_LOGIT_TOL}")
+    if checked == 0 or agree != checked:
+        raise AssertionError("hybrid engine tokens disagree with the model")
+
+    gen = sum(len(r.output) for r in out)
+    ttft = sorted(r.ttft_s * 1e3 for r in out)
+    step_ms = eng.decode_s / eng.decode_steps * 1e3
+    stats = dict(requests=len(out), generated_tokens=gen, wall_s=wall,
+                 tokens_per_s=gen / wall, ttft_ms_p50=statistics.median(ttft),
+                 ttft_ms_max=ttft[-1], decode_ms_per_step=step_ms,
+                 decode_ms_per_token=eng.decode_s * 1e3 / gen,
+                 decode_steps=eng.decode_steps, admissions=eng.admissions,
+                 host_syncs=eng.host_syncs, launches=launches,
+                 greedy_checked=checked,
+                 prompt_lengths=[len(p) for p, _ in reqs])
+    print(f"  hybrid engine [{smi}]: {gen} tokens in {wall:.3f} s = "
+          f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms"
+          f", max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
+          f"slots, {stats['decode_ms_per_token']:.2f} ms per token")
+    return stats, launches, reqs
 
 
 def _device_profile(torch, serve, wall_s):
@@ -1042,6 +1501,15 @@ def profile_engine(torch, dev, seed, wall_s):
     return _device_profile(torch, lambda: _serve(eng, reqs, 32)[1], wall_s)
 
 
+def profile_hybrid(torch, dev, seed, lm, params, reqs, wall_s):
+    """The phase-9 trace (hybrid ring engine, K=4) under the profiler."""
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=4096,
+                        seed=seed, max_decode_steps=4)
+    return _device_profile(torch, lambda: _serve(eng, reqs, 32)[1], wall_s)
+
+
 def profile_cascade(torch, dev, seed, stats):
     """The phase-7 trace (generative cascade, phase 7's thresholds) under
     the profiler."""
@@ -1071,9 +1539,14 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the full record here (JSON)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the phase-4 and phase-7 traces "
-                         "on the device")
+                    help="also profile the phase-4, phase-7 and phase-9 "
+                         "traces on the device")
     args = ap.parse_args()
+    t_start = time.perf_counter()
+
+    def phase(text):             # a phase header, with the seconds so far
+        print(f"{text} [{time.perf_counter() - t_start:.1f} s]")
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1087,7 +1560,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = _smi()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1] card: {kind} (nvidia-smi: {smi}); torch {torch.__version__}"
+    phase(f"[1] card: {kind} (nvidia-smi: {smi}); torch {torch.__version__}"
           f", CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     reports = build.build_all()
@@ -1099,35 +1572,56 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
 
-    print("[2] kernels vs plain versions (bf16; the gate also f32)")
+    phase("[2] kernels vs plain versions (bf16; the gate also f32; the "
+          "RG-LRU scan f32)")
     timer = Timer(torch)
     results = {"decode_attention": check_decode(torch, timer, dev),
                "flash_attention": check_flash(torch, timer, dev),
                "paged_decode_attention": check_paged(torch, timer, dev)}
     results["cascade_gate"], gate_times = check_cascade_gate(torch, timer,
                                                              dev)
-    print("[3] model: smollm-135m, 30 layers, full width")
+    results["rglru_scan"], rglru_times = check_rglru(torch, timer, dev,
+                                                     reports)
+    hd256_times = check_attention_hd256(torch, timer, dev)
+    phase("[3] model: smollm-135m, 30 layers, full width")
     check_model(torch, dev, args.seed)
-    print("[4] engine: ring, 8 slots, max_seq_len 1024, K=4")
+    phase("[4] engine: ring, 8 slots, max_seq_len 1024, K=4")
     stats, launches = check_engine(torch, dev, args.seed, smi)
-    print("[5] engine: paged, block 16, chunks of 128, prefix sharing, K=4")
+    phase("[5] engine: paged, block 16, chunks of 128, prefix sharing, K=4")
     paged_stats, paged_launches = check_paged_engine(torch, dev, args.seed,
                                                      smi)
     launches["paged_decode_attention"] = \
         paged_launches["paged_decode_attention"]
     models = _cascade_models(torch, dev, args.seed)
-    print("[6] cascade, one-shot: smollm-135m cloud, 4-layer edge draft, "
+    phase("[6] cascade, one-shot: smollm-135m cloud, 4-layer edge draft, "
           "64 queries x 128 tokens")
     oneshot_gates, oneshot_stats = check_cascade_oneshot(torch, dev,
                                                          args.seed, models)
-    print("[7] cascade, generative: ring, 8 slots, max_seq_len 1024, K=4, "
+    phase("[7] cascade, generative: ring, 8 slots, max_seq_len 1024, K=4, "
           "24 requests")
     serving_gates, cascade_stats = check_cascade_serving(
         torch, dev, args.seed, smi, models)
     launches["cascade_gate"] = oneshot_gates + serving_gates
     del models
+    phase("[8] hybrid model: recurrentgemma-9b at full width (4 layers f32, "
+          "then 38 layers bf16)")
+    hybrid_stats = check_hybrid_model(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+    hlm, hparams, full_stats = hybrid_full_depth(torch, dev, args.seed)
+    hybrid_stats.update(full_stats)
+    phase("[9] hybrid engine: recurrentgemma-9b, ring, 8 slots, max_seq_len "
+          "4096, K=4, 12 requests")
+    hybrid_engine, hybrid_launches, hybrid_reqs = check_hybrid_engine(
+        torch, dev, args.seed, smi, hlm, hparams)
+    launches["rglru_scan"] = hybrid_launches["rglru_scan"]
     if args.profile:
-        print("[8] profiles of the phase-4 and phase-7 traces")
+        phase("[10] profiles of the phase-9, phase-4 and phase-7 traces")
+        hybrid_engine["profile"] = profile_hybrid(
+            torch, dev, args.seed, hlm, hparams, hybrid_reqs,
+            hybrid_engine["wall_s"])
+    del hlm, hparams
+    torch.cuda.empty_cache()
+    if args.profile:
         stats["profile"] = profile_engine(torch, dev, args.seed,
                                           stats["wall_s"])
         cascade_stats["profile"] = profile_cascade(torch, dev, args.seed,
@@ -1143,6 +1637,8 @@ def main() -> int:
         "paged_decode_attention": (
             "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
             "src/repro/kernels/decode_attention.py:282"),
+        "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                       "src/repro/kernels/rglru_scan.py:77"),
     }
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name],
@@ -1152,11 +1648,16 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kind": kind, "torch": torch.__version__,
                        "kernels": kernels, "cascade_gate_times": gate_times,
+                       "rglru_scan_times": rglru_times,
+                       "attention_hd256": hd256_times,
+                       "hybrid_model": hybrid_stats,
+                       "hybrid_engine": hybrid_engine,
                        "engine": stats, "paged_engine": paged_stats,
                        "cascade_oneshot": oneshot_stats,
                        "cascade_engine": {k: v for k, v in
                                           cascade_stats.items()
                                           if k != "trace"}}, f, indent=1)
+    phase("all phases passed")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

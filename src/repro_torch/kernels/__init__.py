@@ -14,7 +14,7 @@ import torch
 
 LAUNCHES: Dict[str, int] = {"cascade_gate": 0, "decode_attention": 0,
                              "flash_attention": 0,
-                             "paged_decode_attention": 0}
+                             "paged_decode_attention": 0, "rglru_scan": 0}
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
 
@@ -26,7 +26,8 @@ def reset_launches() -> None:
 
 def check_cuda_tensors(name: str, floats: dict, ints: dict) -> None:
     """Validate what every kernel takes: one CUDA device, one float dtype
-    (bf16 or f32) for ``floats``, int32 for ``ints``, all contiguous."""
+    (bf16 or f32) for ``floats``, int32 for ``ints``, all contiguous. A
+    kernel that takes f32 only checks that on top."""
     tensors = {**floats, **ints}
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":

@@ -1,7 +1,8 @@
-"""Core layers: RMSNorm, SwiGLU, embeddings, RoPE, soft-capping.
+"""Core layers: RMSNorm, SwiGLU, GeGLU, embeddings, RoPE, soft-capping.
 
 Port of ``repro.models.layers`` with the same numerics: norms and the
-SwiGLU gate run in float32 and cast back, RoPE angles are float32.
+SwiGLU and GeGLU gates run in float32 and cast back, RoPE angles are
+float32.
 """
 from __future__ import annotations
 
@@ -30,6 +31,15 @@ def swiglu(params, x):
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
+    return h @ params["w_down"]
+
+
+def gelu_mlp(params, x):
+    """GeGLU: the tanh-approximate GELU of the gate in f32, cast back, times
+    the up projection, then projected down."""
+    g = x @ params["w_gate"]
+    u = x @ params["w_up"]
+    h = F.gelu(g.float(), approximate="tanh").to(x.dtype) * u
     return h @ params["w_down"]
 
 

@@ -1,14 +1,16 @@
-"""The LM: stages of attention blocks, full-sequence forward / prefill,
-chunked prefill and one-token decode over a KV-cache layout (ring or
-paged, from ``serving.kv_cache``).
+"""The LM: stages of attention and RG-LRU blocks, full-sequence forward /
+prefill, chunked prefill and one-token decode over a KV-cache layout (ring
+or paged, from ``serving.kv_cache``).
 
-Port of ``repro.models.model.LM`` for attention (GQA) stages with SwiGLU
-MLPs, no modality frontend: the dense configs, ``smollm-135m`` among them.
-Parameters are the same nested dicts as ``repro``'s, with per-stage
-leaves stacked on a leading layer axis, so ``repro_torch.bridge`` maps
-one onto the other by name. ``repro``'s ``lax.scan`` over stacked layers
-is a Python loop over the layer index here; caches keep the same stacked
-(L, B, W, ...) layout and are updated in place.
+Port of ``repro.models.model.LM`` for text-only models whose blocks mix
+with GQA attention or the RG-LRU recurrence and whose MLPs are SwiGLU or
+GeGLU: the dense configs (``smollm-135m`` among them) and the hybrid
+``recurrentgemma-9b``. Parameters are the same nested dicts as
+``repro``'s, with per-stage leaves stacked on a leading layer axis, so
+``repro_torch.bridge`` maps one onto the other by name. ``repro``'s
+``lax.scan`` over stacked layers is a Python loop over the layer index
+here; caches keep the same stacked (L, B, ...) layout (K/V rings for
+attention, ``h`` and ``conv`` state for RG-LRU) and are updated in place.
 """
 from __future__ import annotations
 
@@ -17,9 +19,12 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, SWIGLU, ModelConfig
+from repro_torch.configs.base import (ATTN, GELU_MLP, RGLRU, SWIGLU,
+                                      ModelConfig)
 from repro_torch.models import attention as att
-from repro_torch.models.layers import embed, rmsnorm, softcap, swiglu, unembed
+from repro_torch.models import recurrent as rec
+from repro_torch.models.layers import (embed, gelu_mlp, rmsnorm, softcap,
+                                       swiglu, unembed)
 
 Params = Dict[str, Any]
 
@@ -38,20 +43,23 @@ def _attn_width(window: Optional[int], cache_width: int) -> int:
 
 
 class LM:
-    """A dense GQA language model on one device (default "cuda")."""
+    """A text-only language model of GQA-attention and RG-LRU blocks on one
+    device (default "cuda")."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.frontend.kind != "none" or cfg.moe is not None \
                 or cfg.mla is not None or cfg.mtp_depth:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves text-only dense GQA models; "
-                "frontends, MoE, MLA and MTP are later slices")
+                f"{cfg.name}: the port serves text-only models; frontends, "
+                "MoE, MLA and MTP are later slices")
         for stage in cfg.stages:
             for bdef in stage.blocks:
-                if bdef.mixer != ATTN or bdef.mlp != SWIGLU:
+                if bdef.mixer not in (ATTN, RGLRU) \
+                        or bdef.mlp not in (SWIGLU, GELU_MLP):
                     raise NotImplementedError(
                         f"{cfg.name}: block ({bdef.mixer}, {bdef.mlp}) is a "
-                        "later slice; the port runs attention + SwiGLU")
+                        "later slice; the port runs attention or RG-LRU "
+                        "mixers with SwiGLU or GeGLU MLPs")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -61,9 +69,9 @@ class LM:
 
     # -- parameters -----------------------------------------------------------
     def param_spec(self) -> Params:
-        """The parameter tree as (shape, dtype, init std) leaves — the same
-        names, shapes and stacking as ``repro``'s ``LM.init`` (std 0 means
-        zeros)."""
+        """The parameter tree as (shape, dtype, init) leaves — the same
+        names, shapes and stacking as ``repro``'s ``LM.init``. init is a
+        normal std (0 means zeros) or ``recurrent.LAMBDA_INIT``."""
         cfg, dt, f32 = self.cfg, self.dtype, torch.float32
         d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
         hd, ff, vocab = cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab
@@ -72,16 +80,20 @@ class LM:
         for stage in cfg.stages:
             n = stage.repeat
 
-            def block():
-                mixer = {
-                    "wq": ((n, d, h, hd), dt, d ** -0.5),
-                    "wk": ((n, d, kv, hd), dt, d ** -0.5),
-                    "wv": ((n, d, kv, hd), dt, d ** -0.5),
-                    "wo": ((n, h, hd, d), dt, (h * hd) ** -0.5),
-                }
-                if cfg.use_qk_norm:
-                    mixer["q_scale"] = ((n, hd), f32, 0.0)
-                    mixer["k_scale"] = ((n, hd), f32, 0.0)
+            def block(bdef):
+                if bdef.mixer == RGLRU:
+                    mixer = rec.param_spec(cfg, n, dt)
+                else:
+                    mixer = {
+                        "wq": ((n, d, h, hd), dt, d ** -0.5),
+                        "wk": ((n, d, kv, hd), dt, d ** -0.5),
+                        "wv": ((n, d, kv, hd), dt, d ** -0.5),
+                        "wo": ((n, h, hd, d), dt, (h * hd) ** -0.5),
+                    }
+                    if cfg.use_qk_norm:
+                        mixer["q_scale"] = ((n, hd), f32, 0.0)
+                        mixer["k_scale"] = ((n, hd), f32, 0.0)
+                # SwiGLU and GeGLU have the same three leaves
                 return {
                     "norm1": {"scale": ((n, d), f32, 0.0)},
                     "mixer": mixer,
@@ -91,18 +103,22 @@ class LM:
                             "w_down": ((n, ff, d), dt, ff ** -0.5)},
                 }
 
-            stages.append({f"b{i}": block() for i in range(len(stage.blocks))})
+            stages.append({f"b{i}": block(bdef)
+                           for i, bdef in enumerate(stage.blocks)})
         spec["stages"] = stages
         spec["final_norm"] = {"scale": ((d,), f32, 0.0)}
         if not cfg.tie_embeddings:
             spec["unembed"] = {"table": ((vocab, d), dt, d ** -0.5)}
         return spec
 
-    def init(self, seed: int) -> Params:
-        """Random parameters from a CPU ``torch.Generator`` seeded with
-        ``seed`` (the same values on every device), moved to the model's
-        device. Normal(0, std) in float32, then cast, as ``repro`` does."""
-        gen = torch.Generator(device="cpu").manual_seed(seed)
+    def init(self, seed: int, on_device: bool = False) -> Params:
+        """Random parameters, normal(0, std) in float32 and then cast, as
+        ``repro`` does. By default from a CPU ``torch.Generator`` seeded
+        with ``seed`` (the same values on every device), moved to the
+        model's device; with ``on_device`` from a generator on the model's
+        device (much faster at billions of parameters, other values)."""
+        gen_dev = self.device if on_device else torch.device("cpu")
+        gen = torch.Generator(device=gen_dev).manual_seed(seed)
 
         def make(leaf):
             if isinstance(leaf, dict):
@@ -110,11 +126,13 @@ class LM:
             if isinstance(leaf, list):
                 return [make(v) for v in leaf]
             shape, dtype, std = leaf
-            if std == 0.0:
-                x = torch.zeros(shape, dtype=torch.float32)
+            if std == rec.LAMBDA_INIT:
+                x = rec.init_lambda(shape, gen, gen_dev)
+            elif std == 0.0:
+                x = torch.zeros(shape, dtype=torch.float32, device=gen_dev)
             else:
-                x = torch.randn(shape, generator=gen,
-                                dtype=torch.float32) * std
+                x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                                device=gen_dev).mul_(std)
             return x.to(dtype).to(self.device)
 
         return make(self.param_spec())
@@ -130,8 +148,9 @@ class LM:
             logits = logits * (cfg.d_model ** -0.5)
         return softcap(logits, cfg.logit_softcap)
 
-    def _mlp(self, p, x):
-        return x + swiglu(p["mlp"], rmsnorm(p["norm2"], x, self.cfg.rms_eps))
+    def _mlp(self, bdef, p, x):
+        mlp = swiglu if bdef.mlp == SWIGLU else gelu_mlp
+        return x + mlp(p["mlp"], rmsnorm(p["norm2"], x, self.cfg.rms_eps))
 
     def _head(self, params, x, last_only: bool, logits_index):
         x = rmsnorm(params["final_norm"], x, self.cfg.rms_eps)
@@ -149,7 +168,8 @@ class LM:
         """Returns (logits, caches or None). ``last_only`` unembeds only
         the final position, ``logits_index`` (B,) only the given one;
         ``lengths`` (B,) keeps right-pad rows out of the ring at install
-        (see ``attention._fill_slots``)."""
+        (see ``attention._fill_slots``) and out of the recurrent state
+        (identity steps past each row's length)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -162,14 +182,19 @@ class LM:
                 for bi, bdef in enumerate(stage.blocks):
                     p = _layer(sp[f"b{bi}"], li)
                     h = rmsnorm(p["norm1"], x, cfg.rms_eps)
-                    y, (k, v) = att.attn_forward(p["mixer"], cfg, h,
-                                                 positions,
-                                                 window=bdef.window)
-                    x = x + y
-                    if want_cache:
-                        att.cache_fill(_layer(caches[si][bi], li), k, v, s,
-                                       lengths)
-                    x = self._mlp(p, x)
+                    if bdef.mixer == RGLRU:
+                        y, state = rec.rglru_block_forward(
+                            p["mixer"], cfg, h, lengths)
+                        if want_cache:
+                            _store(_layer(caches[si][bi], li), state)
+                    else:
+                        y, (k, v) = att.attn_forward(p["mixer"], cfg, h,
+                                                     positions,
+                                                     window=bdef.window)
+                        if want_cache:
+                            att.cache_fill(_layer(caches[si][bi], li), k, v,
+                                           s, lengths)
+                    x = self._mlp(bdef, p, x + y)
         return self._head(params, x, last_only, logits_index), caches
 
     def prefill(self, params, batch, cache_width: int,
@@ -181,28 +206,43 @@ class LM:
 
     # -- decode -------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int) -> List[Any]:
-        """Per stage, a tuple over blocks of dicts of stacked (L, B, W, ...)
-        ring tensors; positions start at -1 (empty)."""
+        """Per stage, a tuple over blocks of dicts of stacked (L, B, ...)
+        tensors: K/V rings (positions start at -1, empty) for attention,
+        a zero ``h`` and ``conv`` state for RG-LRU."""
         cfg = self.cfg
         caches = []
         for stage in cfg.stages:
             blocks = []
             for bdef in stage.blocks:
-                one = att.init_kv_cache(
-                    batch, _attn_width(bdef.window, seq_len),
-                    cfg.num_kv_heads, cfg.resolved_head_dim, self.dtype,
-                    self.device)
+                if bdef.mixer == RGLRU:
+                    one = rec.rglru_state_spec(cfg, batch, self.dtype,
+                                               self.device)
+                else:
+                    one = att.init_kv_cache(
+                        batch, _attn_width(bdef.window, seq_len),
+                        cfg.num_kv_heads, cfg.resolved_head_dim, self.dtype,
+                        self.device)
                 blocks.append({k: v[None].repeat(
                     (stage.repeat,) + (1,) * v.dim()) for k, v in one.items()})
             caches.append(tuple(blocks))
         return caches
 
+    def chunk_incompatible_mixer(self) -> Optional[str]:
+        """The first mixer kind that cannot take multi-token prompt chunks
+        (recurrent state folds tokens strictly in sequence), or None when
+        every block is attention. One-token decode works for every mixer."""
+        for stage in self.cfg.stages:
+            for bdef in stage.blocks:
+                if bdef.mixer != ATTN:
+                    return bdef.mixer
+        return None
+
     def decode_step(self, params, caches, tokens, cur_pos, *,
                     layout=None, block_tables=None, valid=None):
         """One-token decode. tokens (B, 1); ``cur_pos`` scalar or (B,);
         ``valid`` (B, 1): False rows compute logits but leave the cache
-        untouched. Returns (logits (B, 1, V), caches), the caches updated
-        in place."""
+        (and the recurrent state) untouched. Returns (logits (B, 1, V),
+        caches), the caches updated in place."""
         return self.prefill_chunk(params, caches, tokens, cur_pos,
                                   layout=layout, block_tables=block_tables,
                                   valid=valid)
@@ -213,19 +253,38 @@ class LM:
         """Resume prefill with a T-token chunk per slot starting at
         ``start_pos`` (T = 1 is ``decode_step``). ``valid`` (B, T) masks
         right-pad tokens out of the cache; ``logits_index`` (B,) unembeds
-        one chunk position per row. Returns (logits, caches)."""
+        one chunk position per row. Chunks longer than one token need
+        attention mixers. Returns (logits, caches)."""
         cfg = self.cfg
-        b = tokens.shape[0]
+        b, t = tokens.shape
+        if t > 1:
+            bad = self.chunk_incompatible_mixer()
+            if bad is not None:
+                raise NotImplementedError(
+                    f"prefill_chunk needs attention mixers "
+                    f"(got {bad!r}); chunk length must be 1")
         start = att.positions_1d(start_pos, b, tokens.device)
         x = embed(params["embed"], tokens)
         for stage, sp, sc in zip(cfg.stages, params["stages"], caches):
             for li in range(stage.repeat):
                 for bi, bdef in enumerate(stage.blocks):
                     p = _layer(sp[f"b{bi}"], li)
+                    c = _layer(sc[bi], li)
                     h = rmsnorm(p["norm1"], x, cfg.rms_eps)
-                    y, _ = att.attn_decode(
-                        p["mixer"], cfg, h, _layer(sc[bi], li), start,
-                        window=bdef.window, layout=layout,
-                        block_tables=block_tables, valid=valid)
-                    x = self._mlp(p, x + y)
+                    if bdef.mixer == RGLRU:
+                        y, state = rec.rglru_block_decode(p["mixer"], cfg, h,
+                                                          c, valid)
+                        _store(c, state)
+                    else:
+                        y, _ = att.attn_decode(
+                            p["mixer"], cfg, h, c, start,
+                            window=bdef.window, layout=layout,
+                            block_tables=block_tables, valid=valid)
+                    x = self._mlp(bdef, p, x + y)
         return self._head(params, x, False, logits_index), caches
+
+
+def _store(cache: dict, state: dict) -> None:
+    """Write a block's new recurrent state into its cache views, in place."""
+    for key, value in state.items():
+        cache[key].copy_(value)

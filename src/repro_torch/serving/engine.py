@@ -144,6 +144,13 @@ class ServingEngine:
                  draft_model=None, draft_params=None,
                  speculative_tokens: int = 0, fault_plan=None,
                  mesh=None, rules=None):
+        if speculative_tokens > 0 and draft_model is not None:
+            bad = lm.chunk_incompatible_mixer()
+            if bad is not None:
+                raise NotImplementedError(
+                    f"speculative verification is a multi-token chunk query;"
+                    f" the target's {bad!r} mixer folds tokens sequentially "
+                    f"— use speculative_tokens=0")
         later = {"draft_model": draft_model, "draft_params": draft_params,
                  "speculative_tokens": speculative_tokens or None,
                  "fault_plan": fault_plan, "mesh": mesh, "rules": rules}
@@ -236,13 +243,12 @@ class ServingEngine:
         if not (1 <= chunk_tokens <= self.max_seq_len):
             raise ValueError(f"chunk_tokens ({chunk_tokens}) must be in "
                              f"[1, max_seq_len={self.max_seq_len}]")
-        for stage in self.lm.cfg.stages:
-            for bdef in stage.blocks:
-                if bdef.mixer != "attn":
-                    raise NotImplementedError(
-                        f"chunked prefill needs attention mixers (got "
-                        f"{bdef.mixer!r}); recurrent state folds tokens "
-                        f"sequentially — use chunk_tokens=None")
+        bad = self.lm.chunk_incompatible_mixer()
+        if bad is not None:
+            raise NotImplementedError(
+                f"chunked prefill needs attention mixers (got "
+                f"{bad!r}); recurrent state folds tokens "
+                f"sequentially — use chunk_tokens=None")
 
     def _validate_chunk_layout(self) -> None:
         if isinstance(self.backend.layout, RingLayout) and self._windowed:
@@ -361,12 +367,12 @@ class ServingEngine:
 
     def _admit_impl(self, tokens, length: int, slot: int, max_new: int,
                     temp: float, rid: int, table_row) -> None:
-        """Prefill one bucketed prompt and install it into ``slot``. True
-        lengths are threaded only for windowed models (a window-wide ring
-        would otherwise keep the padded bucket's tail)."""
-        lengths = (torch.full((1,), length, dtype=torch.int32,
-                              device=self.device)
-                   if self._windowed else None)
+        """Prefill one bucketed prompt and install it into ``slot``. The
+        true length keeps the bucket's pad tokens out of what is kept: a
+        window-wide ring would keep the padded tail, and recurrent state
+        would fold the pads in."""
+        lengths = torch.full((1,), length, dtype=torch.int32,
+                             device=self.device)
         logits, one_caches = self.lm.prefill(
             self.params, {"tokens": tokens}, cache_width=self.max_seq_len,
             lengths=lengths, logits_index=length - 1)

@@ -46,20 +46,18 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.models.attention import positions_1d
 
 
-def _map_kv_dicts(fn, tree, other=None):
-    """Apply ``fn`` at each per-block cache dict (the ones holding "pos"),
-    keeping the model's list/tuple nesting around them."""
+def _map_block_dicts(fn, tree, other=None):
+    """Apply ``fn`` at each per-block cache dict (every dict of the tree:
+    its leaves are (L, B, ...) tensors), keeping the model's list/tuple
+    nesting around them. Which mixers a backend may hold is its
+    constructor's check."""
     if isinstance(tree, dict):
-        if "pos" not in tree:
-            raise NotImplementedError(
-                f"cache dict without positions (keys={sorted(tree)}): the "
-                "paged layout supports attention caches only")
         return fn(tree) if other is None else fn(tree, other)
     if isinstance(tree, (list, tuple)):
         if other is None:
-            sub = [_map_kv_dicts(fn, x) for x in tree]
+            sub = [_map_block_dicts(fn, x) for x in tree]
         else:
-            sub = [_map_kv_dicts(fn, x, y) for x, y in zip(tree, other)]
+            sub = [_map_block_dicts(fn, x, y) for x, y in zip(tree, other)]
         return type(tree)(sub)
     raise NotImplementedError(f"unsupported cache node: {type(tree)}")
 
@@ -68,7 +66,7 @@ def _leaves(tree):
     """The tensors (or (shape, dtype) protos) of a cache tree with their
     dict key, in order."""
     out = []
-    _map_kv_dicts(lambda d: out.extend(d.items()), tree)
+    _map_block_dicts(lambda d: out.extend(d.items()), tree)
     return out
 
 
@@ -307,7 +305,7 @@ def _cache_proto(lm, max_seq_len: int):
     """The per-request cache structure as (shape, dtype) leaves, from the
     model's own ``init_cache(1, max_seq_len)``: (L, 1, W, ...) per leaf."""
     caches = lm.init_cache(1, max_seq_len)
-    return _map_kv_dicts(
+    return _map_block_dicts(
         lambda d: {k: (tuple(v.shape), v.dtype) for k, v in d.items()},
         caches)
 
@@ -319,12 +317,13 @@ def _install(dst, src, slot: int) -> None:
         for key, g in d.items():
             g[:, slot].copy_(s[key][:, 0])
         return d
-    _map_kv_dicts(put, dst, src)
+    _map_block_dicts(put, dst, src)
 
 
 class RingCache(KVCacheBackend):
     """Every slot owns a full ``max_seq_len``-wide line (or a window-wide
-    one for windowed layers) in each layer's ring."""
+    one for windowed layers) in each attention layer's ring, and its row
+    of each RG-LRU layer's state; admission overwrites both."""
 
     def __init__(self, lm, *, batch_slots: int, max_seq_len: int):
         self.layout = RING
@@ -358,29 +357,29 @@ class RingCache(KVCacheBackend):
         def wipe(d):
             d["pos"][:, slot] = -1
             return d
-        _map_kv_dicts(wipe, cache_state["caches"])
+        _map_block_dicts(wipe, cache_state["caches"])
         return cache_state
 
     def slot_view(self, cache_state, slot, ctx=None):
         """The slot's line, first ``ctx`` columns, as a contiguous copy
         (the ring kernel takes contiguous K/V). Chunked prefill needs
-        unwindowed layers (the engine checks), so position ``p`` is at
-        column ``p`` and the first ``ctx`` columns are the positions below
-        ``ctx``."""
+        unwindowed attention layers only (the engine checks), so position
+        ``p`` is at column ``p`` and the first ``ctx`` columns are the
+        positions below ``ctx``."""
         def view(d):
             out = {}
             for key, g in d.items():
                 width = g.shape[2] if ctx is None else min(ctx, g.shape[2])
                 out[key] = g[:, slot:slot + 1, :width].contiguous()
             return out
-        return _map_kv_dicts(view, cache_state["caches"]), None
+        return _map_block_dicts(view, cache_state["caches"]), None
 
     def slot_update(self, cache_state, slot, view_caches):
         def upd(d, v):
             for key, g in d.items():
                 g[:, slot:slot + 1, :v[key].shape[2]].copy_(v[key])
             return d
-        _map_kv_dicts(upd, cache_state["caches"], view_caches)
+        _map_block_dicts(upd, cache_state["caches"], view_caches)
         return cache_state
 
     def hbm_bytes(self) -> int:
@@ -415,7 +414,7 @@ class HostSwapHandle:
                                        pin_memory=True)
                     out[key] = host.copy_(t, non_blocking=True)
                 return out
-            self._host = _map_kv_dicts(pin, dev_caches)
+            self._host = _map_block_dicts(pin, dev_caches)
             self._event = torch.cuda.Event()
             self._event.record()
             self._dev = dev_caches      # alive until the copy is done
@@ -535,7 +534,7 @@ class PagedCache(KVCacheBackend):
                                            dtype=dtype, device=dev)
             return out
 
-        caches = _map_kv_dicts(pool, self._proto)
+        caches = _map_block_dicts(pool, self._proto)
         tables = torch.full((self.batch_slots, self.blocks_per_slot), -1,
                             dtype=torch.int32, device=dev)
         return {"caches": caches, "tables": tables}
@@ -739,7 +738,7 @@ class PagedCache(KVCacheBackend):
             for leaf in d.values():
                 leaf[:, dst] = leaf[:, src]
             return d
-        _map_kv_dicts(copy, cache_state["caches"])
+        _map_block_dicts(copy, cache_state["caches"])
         return cache_state
 
     @property
@@ -792,7 +791,7 @@ class PagedCache(KVCacheBackend):
         if blocks is None:
             raise RuntimeError(f"slot {slot} holds no blocks to swap out")
         idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
-        gathered = _map_kv_dicts(
+        gathered = _map_block_dicts(
             lambda d: {k: leaf.index_select(1, idx) for k, leaf in d.items()},
             cache_state["caches"])
         host = {"n_blocks": len(blocks), "caches": HostSwapHandle(gathered)}
@@ -856,7 +855,7 @@ class PagedCache(KVCacheBackend):
                 leaf.index_copy_(1, idx, h[key].to(leaf.device))
             return d
 
-        _map_kv_dicts(scatter, cache_state["caches"],
+        _map_block_dicts(scatter, cache_state["caches"],
                       resolve_swap_caches(host_kv))
         cache_state["tables"][slot] = torch.from_numpy(self._row(fresh)).to(
             cache_state["tables"].device)
@@ -927,7 +926,7 @@ class PagedCache(KVCacheBackend):
             def clear(d):
                 d["pos"][:, blocks] = -1
                 return d
-            _map_kv_dicts(clear, cache_state["caches"])
+            _map_block_dicts(clear, cache_state["caches"])
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
         cache_state["tables"][idx] = torch.from_numpy(rows).to(dev)
         return cache_state
@@ -970,7 +969,7 @@ class PagedCache(KVCacheBackend):
                     leaf[:, phys, off] = o[key][:, 0][:, ok].to(leaf.dtype)
             return c
 
-        _map_kv_dicts(fill, cache_state["caches"], one_caches)
+        _map_block_dicts(fill, cache_state["caches"], one_caches)
         cache_state["tables"][slot] = row
         return cache_state
 

@@ -10,7 +10,9 @@ and the kernel rounds P to bf16 before P V where the plain version keeps
 f32). TF32 is off for the f32 comparisons. The cascade gate's confidence:
 1e-5 relative in f32 and in bf16 (both sides read the same bf16 values,
 which f32 holds exactly, and sum in f32; only the order differs), routes
-and counts equal on rows away from the thresholds.
+and counts equal on rows away from the thresholds. The RG-LRU scan (f32
+only): 1e-5 * max(1, |h|) per element (the chunked scan composes the same
+steps in another order).
 """
 import numpy as np
 import pytest
@@ -28,6 +30,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    rglru_scan, rglru_scan_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -42,6 +46,10 @@ DECODE_CASES = [
     (2, 64, 8, 2, 64, 16, 48, 48, 8),         # chunk + window + g=4
     (1, 96, 3, 1, 32, None, 70, 70, 16),      # MQA, bigger chunk
     (1, 64, 48, 1, 64, None, 64, 64, 2),      # 96 rows: two row tiles
+    # recurrentgemma-9b's local attention: hd 256, 16 query heads over one
+    # KV head, window 2048 on a 2048-wide ring, partly filled and wrapped
+    (2, 2048, 16, 1, 256, 2048, 700, 700, 1),
+    (2, 2048, 16, 1, 256, 2048, 2048, 2900, 1),
 ]
 
 # (h, kv, hd, bs, window, fills, t): the block sizes and cases of
@@ -75,7 +83,13 @@ FLASH_CASES = [
     (1, 1, 96, 4, 2, 32, None),               # right-aligned single query
     (1, 70, 90, 4, 2, 64, 16),                # right-aligned, windowed
     (1, 48, 48, 2, 2, 256, None),             # hd 256
+    (1, 2300, 2300, 16, 1, 256, 2048),        # recurrentgemma's window
 ]
+
+# (b, s, w): the serving shape, odd S and W with B > 1, one step, one
+# chunk, and a ragged channel tile
+RGLRU_CASES = [(1, 512, 4096), (2, 77, 4000), (3, 1, 129), (2, 16, 128),
+               (4, 1000, 257), (1, 4096, 4096)]
 
 
 @pytest.fixture
@@ -215,6 +229,23 @@ def test_cascade_gate_kernel_matches_plain(cuda, case, dtype):
         assert torch.equal(counts, pcounts)
 
 
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=[str(c) for c in RGLRU_CASES])
+def test_rglru_scan_kernel_matches_plain(cuda, case):
+    b, s, w = case
+    gen = torch.Generator(device="cpu").manual_seed(s + w)
+    a = (0.8 + 0.1999 * torch.rand((b, s, w), generator=gen)).to(cuda)
+    x = torch.randn((b, s, w), generator=gen).to(cuda)
+    h0 = torch.randn((b, w), generator=gen).to(cuda)
+    n = LAUNCHES["rglru_scan"]
+    h, h_last = rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan"] == n + 1
+    ph, ph_last = rglru_scan_plain(a, x, h0)
+    for out, ref in ((h, ph), (h_last, ph_last)):
+        assert torch.all((out - ref).abs() <= 1e-5 * ref.abs().clamp_min(1))
+    assert torch.equal(h[:, -1], h_last)
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn((1, 8, 2, 12), device=cuda)        # head_dim 12
     with pytest.raises(ValueError, match="head_dim"):
@@ -229,6 +260,13 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         cascade_gate(torch.zeros((2, 8), dtype=torch.float16, device=cuda))
     with pytest.raises(ValueError, match="one CUDA device"):
         _gate_launch(torch.zeros((2, 8)), 0.8, 0.1)
+    a = torch.rand((1, 4, 8), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        rglru_scan(a.bfloat16(), a.bfloat16(), a[:, 0].bfloat16())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rglru_scan(a, a, a[:, 0].cpu())
+    with pytest.raises(ValueError, match="shapes"):
+        rglru_scan(a, a[:, :3], a[:, 0])
 
 
 def test_engine_on_gpu_goes_through_the_kernels(cuda):
@@ -256,6 +294,45 @@ def test_engine_on_gpu_goes_through_the_kernels(cuda):
         done = eng.run()
         assert LAUNCHES == {"flash_attention": 3 * eng.admissions,
                             "decode_attention": 3 * eng.decode_steps,
+                            "paged_decode_attention": 0, "cascade_gate": 0,
+                            "rglru_scan": 0}
+        outs.append([done[i].output for i in ids])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_hybrid_engine_on_gpu_goes_through_the_kernels(cuda):
+    """A tiny hybrid model (rglru, rglru, attn window 8; GeGLU) served on
+    the card: K=4 streams equal K=1 streams, every RG-LRU prefill scan
+    and every prefill and decode attention was a kernel launch."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServingEngine
+
+    base = tcfg.base
+    rec = base.BlockDef(mixer=base.RGLRU, mlp=base.GELU_MLP)
+    att = base.BlockDef(mixer=base.ATTN, mlp=base.GELU_MLP, window=8)
+    cfg = tcfg.ModelConfig(
+        name="tiny-hybrid", family="hybrid", source="t", num_layers=3,
+        d_model=64, num_heads=4, num_kv_heads=1, head_dim=16, d_ff=128,
+        vocab_size=96, stages=(base.Stage(blocks=(rec, rec, att),
+                                          repeat=1),),
+        param_dtype="float32", logit_softcap=30.0)
+    lm = LM(cfg, device=cuda)
+    params = lm.init(0)
+    prompts = [np.random.default_rng(i).integers(0, 96, n).astype(np.int32)
+               for i, n in enumerate((5, 12, 20, 2, 16))]
+    outs = []
+    for k in (1, 4):
+        eng = ServingEngine(lm, params, batch_slots=2, max_seq_len=64,
+                            max_decode_steps=k)
+        ids = [eng.submit(p, max_new_tokens=6, temperature=0.7 * (i % 2))
+               for i, p in enumerate(prompts)]
+        reset_launches()
+        done = eng.run()
+        assert LAUNCHES == {"flash_attention": eng.admissions,
+                            "decode_attention": eng.decode_steps,
+                            "rglru_scan": 2 * eng.admissions,
                             "paged_decode_attention": 0, "cascade_gate": 0}
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
@@ -301,7 +378,7 @@ def test_paged_engine_on_gpu_goes_through_the_paged_kernel(cuda):
         assert LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
                             "paged_decode_attention":
                             3 * (eng.decode_steps + chunks[0]),
-                            "cascade_gate": 0}
+                            "cascade_gate": 0, "rglru_scan": 0}
         eng.assert_invariants()
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
