@@ -5,12 +5,18 @@ Run from the repository root: ``python3 chip_smoke.py [--out FILE.json]``.
 It needs a CUDA GPU and ``nvcc``, and fails (nonzero exit, no result line)
 without them. Phases, each fatal on failure:
 
-1. print the card and build every kernel from ``src/repro_torch/kernels``;
+1. print the card, build every kernel from ``src/repro_torch/kernels`` and
+   print each kernel function's registers and spills as ptxas reports
+   them (a bf16 tensor-core variant that spills fails the phase);
 2. each kernel against its plain PyTorch version on the card, in bf16 at
    the serving path's shapes, with its time, the plain version's, the time
    of one PyTorch library call computing the same function (a yardstick
    the port never calls; for the paged kernel, attention over the context
-   gathered beforehand, gather excluded) and its bound on this card;
+   gathered beforehand, gather excluded) and its bound on this card. The
+   ring decode and flash kernels are held per query row in bf16 and on
+   the same values in f32 at every shape, with flash's TFLOP/s in the
+   band, the decode's GB/s, its key splits and the bytes of its f32
+   partials;
 3. smollm-135m at full width (30 layers, random weights from a seed):
    prefill-then-decode logits equal a full forward, and the GPU forward
    equals the plain CPU forward in f32;
@@ -65,6 +71,10 @@ linear recurrence); and ``decode_attention`` and ``flash_attention`` at
 recurrentgemma-9b's hd 256, 16 heads over one KV head, window 2048,
 against SDPA.
 
+Phase 2 then times the bf16 flash kernel at every launch shape and the
+ring decode at several keys per split, at the same two shapes, with the
+floor of each (the launch rules' picks are marked).
+
 With ``--profile`` it then serves the phase-9, phase-4 and phase-7 traces
 once more under ``torch.profiler`` and prints the device's busy time by
 kernel against the unprofiled run's wall time (the idle share).
@@ -106,12 +116,13 @@ HYBRID_LOGIT_TOL = 0.25
 # layers, relative to max(1, |state|): GEMMs at other M sum in another
 # order
 STATE_TOL = 1e-3
-# attention at recurrentgemma-9b's shapes: a row sees up to 2048 keys, so
-# its outputs average to ~0.03 and BF16_TOL would pass a dropped key split.
-# f32 on the same values: summation order only (tests/test_torch_gpu.py's
-# bound). bf16: per query row, |kernel - plain| / |plain| over its heads
-# and dims, where one output rounding is ~2^-9 and a split of 32 keys
-# missed or a band edge off by a tile is ~0.1
+# the ring decode and flash kernels at every phase-2 shape: a row that sees
+# hundreds of keys averages to ~0.03, so BF16_TOL alone would pass a
+# dropped key split or a wrong fragment layout. f32 on the same values:
+# summation order only (tests/test_torch_gpu.py's bound). bf16: per query
+# row, |kernel - plain| / |plain| over its heads and dims, where one output
+# rounding is ~2^-9 and a missed tile of keys or a band edge off by a tile
+# is ~0.1
 ATTN_F32_TOL = 1e-4
 ATTN_ROW_REL_TOL = 1e-2
 
@@ -173,6 +184,15 @@ def _nbytes(*ts) -> int:
 
 # -- phase 2: kernels ----------------------------------------------------------
 
+def _ring_split(torch, b, t, h, kv, w, hd, dev):
+    """The bf16 ring kernel's splits at this shape and the f32 partial
+    bytes they write (none with one split: the CTA writes the output)."""
+    from repro_torch.kernels.decode_attention import ring_split_len
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nsplit = -(-w // ring_split_len(b, t, h, kv, w, hd, sms))
+    return nsplit, (b * t * h * nsplit * (hd + 2) * 4 if nsplit > 1 else 0)
+
+
 def check_decode(torch, timer, dev):
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain)
@@ -200,19 +220,15 @@ def check_decode(torch, timer, dev):
     errs = []
     cases = [("T=1", q1[0], q_pos, None), ("T=1 window=256", q1[0], q_pos, 256),
              ("T=16", q16, torch.clamp(q_pos - 15, min=0), None)]
+    # slot 3's ring is empty: its rows see no key and must be 0
     for label, q, qp, window in cases:
-        out = decode_attention(q, ks[0], vs[0], qp, k_pos, window=window)
-        torch.cuda.synchronize()
-        ref = decode_attention_plain(q, ks[0], vs[0], qp, k_pos,
-                                     window=window)
-        err = (out.float() - ref.float()).abs().max().item()
-        print(f"  decode_attention {label}: max|kernel - plain| = {err:.3e}"
-              f" (tol {BF16_TOL})")
-        if not err < BF16_TOL:
-            raise AssertionError(f"decode_attention {label} disagrees")
-        if not torch.all(out[3] == 0):
-            raise AssertionError("decode_attention: empty ring row not 0")
-        errs.append(err)
+        errs.append(_check_rows(
+            torch, f"decode_attention hd={hd} {label}",
+            lambda *x, qp=qp, window=window: decode_attention(
+                *x, qp, k_pos, window=window),
+            lambda *x, qp=qp, window=window: decode_attention_plain(
+                *x, qp, k_pos, window=window),
+            (q, ks[0], vs[0]), rows=2, bf16_abs=BF16_TOL))
 
     def kern(i):
         return decode_attention(q1[i % LAYERS], ks[i % LAYERS],
@@ -240,11 +256,15 @@ def check_decode(torch, timer, dev):
               + 2 * live * kv * hd * 2)
     flops = 4 * live * h * hd
     bound, by = _bound_ms(nbytes, flops)
+    nsplit, part = _ring_split(torch, b, 1, h, kv, w, hd, dev)
     print(f"  decode_attention B={b} W={w} KV={kv} G={g} hd={hd} T=1 bf16: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-          f"ms, bound {bound:.4f} ms ({by}; {nbytes} B, {flops} flop)")
+          f"ms, bound {bound:.4f} ms ({by}; {nbytes} B, {flops} flop); "
+          f"{nbytes / ms / 1e6:.1f} GB/s; {nsplit} key splits, {part} B of "
+          f"f32 partials")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=lib_ms)
+                bound_ms=bound, bound_by=by, library_ms=lib_ms), \
+        dict(gb_per_s=nbytes / ms / 1e6, splits=nsplit, partial_bytes=part)
 
 
 def check_flash(torch, timer, dev):
@@ -260,15 +280,13 @@ def check_flash(torch, timer, dev):
                         dtype=torch.bfloat16)
         k, v = (torch.randn((1, s, kv, hd), generator=gen, device=dev,
                             dtype=torch.bfloat16) for _ in range(2))
-        out = flash_attention(q, k, v, causal=True, window=window)
-        torch.cuda.synchronize()
-        ref = flash_attention_plain(q, k, v, causal=True, window=window)
-        err = (out.float() - ref.float()).abs().max().item()
-        print(f"  flash_attention S={s} window={window}: max|kernel - plain|"
-              f" = {err:.3e} (tol {BF16_TOL})")
-        if not err < BF16_TOL:
-            raise AssertionError(f"flash_attention S={s} disagrees")
-        errs.append(err)
+        errs.append(_check_rows(
+            torch, f"flash_attention hd={hd} S={s} window={window}",
+            lambda *x, window=window: flash_attention(
+                *x, causal=True, window=window),
+            lambda *x, window=window: flash_attention_plain(
+                *x, causal=True, window=window),
+            (q, k, v), rows=2, bf16_abs=BF16_TOL))
     s = 512
     qs = torch.randn((LAYERS, 1, s, h, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
@@ -298,9 +316,11 @@ def check_flash(torch, timer, dev):
     bound, by = _bound_ms(nbytes, flops)
     print(f"  flash_attention B=1 S={s} H={h} KV={kv} hd={hd} causal bf16: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-          f"ms, bound {bound:.4f} ms ({by}; {nbytes} B, {flops} flop)")
+          f"ms, bound {bound:.4f} ms ({by}; {nbytes} B, {flops} flop); "
+          f"{flops / ms / 1e9:.1f} TFLOP/s in the band")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=lib_ms)
+                bound_ms=bound, bound_by=by, library_ms=lib_ms), \
+        dict(tflop_per_s=flops / ms / 1e9)
 
 
 def _paged_pool(rng, fills, bs, m, n_blocks, holes=()):
@@ -510,7 +530,7 @@ def check_cascade_gate(torch, timer, dev):
         {f"T={t} {dt}": r for (t, dt), r in times.items()}
 
 
-def check_rglru(torch, timer, dev, reports):
+def check_rglru(torch, timer, dev):
     """``rglru_scan`` against its plain version at the hybrid prefill's
     shapes (B = 1, W = 4096; S = 512 and 4096) and an odd (2, 77, 4000),
     all with h0 != 0; timed at the two serving shapes."""
@@ -525,9 +545,6 @@ def check_rglru(torch, timer, dev, reports):
         x = torch.randn((n, b, s, w), generator=gen, device=dev)
         return a, x, torch.randn((n, b, w), generator=gen, device=dev)
 
-    for line in reports.get("rglru_scan", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  rglru_scan build: {line.strip()}")
     errs, times = [], {}
     for b, s, w in ((1, 512, 4096), (1, 4096, 4096), (2, 77, 4000)):
         a, x, h0 = inputs(1, b, s, w)
@@ -573,11 +590,13 @@ def check_rglru(torch, timer, dev, reports):
         {f"S={s}": r for s, r in times.items()}
 
 
-def _check_hd256(torch, name, kernel, plain, inputs, rows):
+def _check_rows(torch, name, kernel, plain, inputs, rows, bf16_abs=None):
     """Hold ``kernel`` against ``plain`` on bf16 ``inputs`` (the main
-    path's dtype) and on the same values in f32. The output's first
-    ``rows`` dims index query rows, each of (heads, hd); rows that see no
-    key must be 0 in both. Returns the bf16 max abs error."""
+    path's dtype), per query row to ATTN_ROW_REL_TOL (and to ``bf16_abs``
+    absolute where given), and on the same values in f32 to ATTN_F32_TOL.
+    The output's first ``rows`` dims index query rows, each of (heads, hd);
+    rows that see no key must be 0 in both. Returns the bf16 max abs
+    error."""
     errs = {}
     for dt in (torch.bfloat16, torch.float32):
         xs = [x.to(dt) for x in inputs]
@@ -590,19 +609,24 @@ def _check_hd256(torch, name, kernel, plain, inputs, rows):
         den = ref.flatten(rows).norm(dim=-1)
         seen = den > 0
         rel = (num[seen] / den[seen]).max().item()
-        stray = num[~seen].max().item() if bool((~seen).any()) else 0.0
-        print(f"  {name} hd=256 G=16 KV=1 window=2048 {str(dt)[6:]}: "
-              f"max|plain| {ref.abs().max().item():.3e}, RMS(plain) "
+        stray = (got.flatten(rows)[~seen].abs().max().item()
+                 if bool((~seen).any()) else 0.0)
+        print(f"  {name} {str(dt)[6:]}: max|plain| "
+              f"{ref.abs().max().item():.3e}, RMS(plain) "
               f"{ref.square().mean().sqrt().item():.3e}, max|kernel - plain|"
               f" {err:.3e}, max row |kernel - plain|/|plain| {rel:.3e}, "
               f"rows seeing no key {int((~seen).sum())} (|kernel| "
               f"{stray:.1e})")
-        ok = (rel < ATTN_ROW_REL_TOL if dt == torch.bfloat16
-              else err < ATTN_F32_TOL)
+        if dt == torch.bfloat16:
+            ok = rel < ATTN_ROW_REL_TOL and (bf16_abs is None
+                                             or err < bf16_abs)
+        else:
+            ok = err < ATTN_F32_TOL
         if not ok or stray != 0:
             raise AssertionError(
-                f"{name} at hd 256 disagrees in {dt} (tol: bf16 row "
-                f"{ATTN_ROW_REL_TOL}, f32 abs {ATTN_F32_TOL})")
+                f"{name} disagrees in {dt} (tol: bf16 row "
+                f"{ATTN_ROW_REL_TOL}, abs {bf16_abs}; f32 abs "
+                f"{ATTN_F32_TOL})")
         errs[dt] = err
         del got, ref, diff
     return errs[torch.bfloat16]
@@ -635,9 +659,11 @@ def check_attention_hd256(torch, timer, dev):
                           dtype=torch.bfloat16) for _ in range(2))
     q1 = torch.randn((LAYERS, b, 1, h, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
-    err = _check_hd256(torch, "decode_attention", lambda *x: decode_attention(
-        *x, q_pos, k_pos, window=window), lambda *x: decode_attention_plain(
-        *x, q_pos, k_pos, window=window), (q1[0], ks[0], vs[0]), rows=1)
+    err = _check_rows(
+        torch, f"decode_attention hd={hd} G={g} KV={kv} window={window}",
+        lambda *x: decode_attention(*x, q_pos, k_pos, window=window),
+        lambda *x: decode_attention_plain(*x, q_pos, k_pos, window=window),
+        (q1[0], ks[0], vs[0]), rows=2)
     visible = ((k_pos >= 0) & (k_pos <= q_pos[:, None])
                & (k_pos > q_pos[:, None] - window))
     mask = visible[:, None, None, :]
@@ -657,12 +683,17 @@ def check_attention_hd256(torch, timer, dev):
     nbytes = (2 * _nbytes(q1[0]) + _nbytes(q_pos, k_pos)
               + 2 * live * kv * hd * 2)
     bound, by = _bound_ms(nbytes, 4 * live * h * hd)
+    nsplit, part = _ring_split(torch, b, 1, h, kv, w, hd, dev)
     out["decode_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                    bound_ms=bound, bound_by=by,
-                                   library_ms=lib_ms)
+                                   library_ms=lib_ms,
+                                   gb_per_s=nbytes / ms / 1e6, splits=nsplit,
+                                   partial_bytes=part)
     print(f"  decode_attention B={b} W={w} KV={kv} G={g} hd={hd} T=1 "
           f"window={window} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {nbytes} B)")
+          f"ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {nbytes} B)"
+          f"; {nbytes / ms / 1e6:.1f} GB/s; {nsplit} key splits, {part} B "
+          f"of f32 partials")
     del ks, vs, q1, qt, kt, vt
     # flash: one 4096-token prefill bucket, band of 2048 keys per query
     s, n_in = 4096, 3
@@ -670,9 +701,11 @@ def check_attention_hd256(torch, timer, dev):
                      dtype=torch.bfloat16)
     ks, vs = (torch.randn((n_in, 1, s, kv, hd), generator=gen, device=dev,
                           dtype=torch.bfloat16) for _ in range(2))
-    err = _check_hd256(torch, "flash_attention", lambda *x: flash_attention(
-        *x, causal=True, window=window), lambda *x: flash_attention_plain(
-        *x, causal=True, window=window), (qs[0], ks[0], vs[0]), rows=2)
+    err = _check_rows(
+        torch, f"flash_attention hd={hd} G={g} KV={kv} S={s} window={window}",
+        lambda *x: flash_attention(*x, causal=True, window=window),
+        lambda *x: flash_attention_plain(*x, causal=True, window=window),
+        (qs[0], ks[0], vs[0]), rows=2)
     pos = torch.arange(s, device=dev)
     band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
                                              - window)
@@ -691,14 +724,101 @@ def check_attention_hd256(torch, timer, dev):
     pairs = int(band.sum())
     nbytes = 2 * _nbytes(qs[0]) + _nbytes(ks[0], vs[0])
     bound, by = _bound_ms(nbytes, 4 * pairs * h * hd)
+    flops = 4 * pairs * h * hd
     out["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound, bound_by=by,
-                                  library_ms=lib_ms)
+                                  library_ms=lib_ms,
+                                  tflop_per_s=flops / ms / 1e9)
     print(f"  flash_attention B=1 S={s} H={h} KV={kv} hd={hd} window="
           f"{window} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
           f"(band mask) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-          f"{nbytes} B, {4 * pairs * h * hd} flop)")
+          f"{nbytes} B, {flops} flop); {flops / ms / 1e9:.1f} TFLOP/s in "
+          f"the band")
     return out
+
+
+def sweep_attention(torch, timer, dev):
+    """The bf16 flash kernel at every launch shape it takes
+    and the ring decode at several keys per split, at the phase-2 shapes
+    (the launch rules' picks among them), and the fixed floor of each: the
+    ring over an all-empty cache (no tile live: positions, the combine
+    kernel and two launches) and a 16-token prefill (one key tile)."""
+    import repro_torch.kernels.decode_attention as da
+    import repro_torch.kernels.flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rec = {"flash": {}, "decode": {}}
+    for hd, s, h, kv, window, n_in in ((64, 512, 9, 3, None, LAYERS),
+                                       (256, 4096, 16, 1, 2048, 3)):
+        qs = torch.randn((n_in, 1, s, h, hd), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        ks, vs = (torch.randn((n_in, 1, s, kv, hd), generator=gen,
+                              device=dev, dtype=torch.bfloat16)
+                  for _ in range(2))
+        pick = fa.flash_launch_shape(1, s, h, hd, torch.cuda.
+                                     get_device_properties(dev).
+                                     multi_processor_count)
+        rule = fa.flash_launch_shape
+        for shape in ((64, 1), (32, 1), (32, 2), (16, 1), (16, 2), (16, 4)):
+            if shape[1] > (4 if hd <= 64 else 2):
+                continue
+            fa.flash_launch_shape = lambda *a, shape=shape: shape
+            ms = timer(lambda i: fa.flash_attention(
+                qs[i % n_in], ks[i % n_in], vs[i % n_in], causal=True,
+                window=window), n=5 if n_in < LAYERS else 25)
+            fa.flash_launch_shape = rule
+            rec["flash"][f"hd={hd} rows={shape[0]} groups={shape[1]}"] = ms
+            print(f"  sweep flash hd={hd} S={s}: {shape[0]} rows x "
+                  f"{shape[1]} key groups {ms:.4f} ms"
+                  f"{' (the rule)' if shape == pick else ''}")
+        del qs, ks, vs
+        q = torch.randn((1, 16, h, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((1, 16, kv, hd), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        ms = timer(lambda i: fa.flash_attention(q, k, v, causal=True))
+        rec["flash"][f"hd={hd} floor"] = ms
+        print(f"  sweep flash hd={hd} S=16 (one key tile, the floor): "
+              f"{ms:.4f} ms")
+    for hd, w, kv, g, window, totals in (
+            (64, 1024, 3, 3, None, [300, 512, 2524, 0, 17, 900, 1023, 1500]),
+            (256, 2048, 1, 16, 2048,
+             [300, 2048, 2900, 0, 17, 1500, 4000, 2100])):
+        b, h = len(totals), kv * g
+        ks, vs = (torch.randn((LAYERS, b, w, kv, hd), generator=gen,
+                              device=dev, dtype=torch.bfloat16)
+                  for _ in range(2))
+        q1 = torch.randn((LAYERS, b, 1, h, hd), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        k_pos = torch.full((b, w), -1, dtype=torch.int32)
+        for i, total in enumerate(totals):
+            tok = torch.arange(max(0, total - w), total, dtype=torch.int32)
+            k_pos[i, tok % w] = tok
+        k_pos = k_pos.to(dev)
+        q_pos = torch.tensor(totals, dtype=torch.int32, device=dev)
+        pick = _ring_split(torch, b, 1, h, kv, w, hd, dev)[0]
+        rule = da.ring_split_len
+        for keys in (64, 128, 256, 512, 1024):
+            da.ring_split_len = lambda *a, keys=keys: keys
+            ms = timer(lambda i: da.decode_attention(
+                q1[i % LAYERS], ks[i % LAYERS], vs[i % LAYERS], q_pos, k_pos,
+                window=window))
+            da.ring_split_len = rule
+            nsplit = -(-w // keys)
+            part = b * h * nsplit * (hd + 2) * 4 if nsplit > 1 else 0
+            rec["decode"][f"hd={hd} keys/split={keys}"] = ms
+            print(f"  sweep decode hd={hd}: {keys} keys a split ({nsplit} "
+                  f"split(s), {part} B of partials) {ms:.4f} ms"
+                  f"{' (the rule)' if nsplit == pick else ''}")
+        empty = torch.full_like(k_pos, -1)
+        ms = timer(lambda i: da.decode_attention(
+            q1[i % LAYERS], ks[i % LAYERS], vs[i % LAYERS], q_pos, empty,
+            window=window))
+        rec["decode"][f"hd={hd} floor"] = ms
+        print(f"  sweep decode hd={hd} all-empty ring (the floor): "
+              f"{ms:.4f} ms")
+        del ks, vs, q1
+    return rec
 
 
 # -- phase 3: model ---------------------------------------------------------------
@@ -1567,22 +1687,31 @@ def main() -> int:
     for name in build.sources():
         build.load(name)
     print(f"    built {build.sources()} in {time.perf_counter() - t0:.1f} s")
+    spills = []
     for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}")
+        for u in build.ptxas_usage(log):
+            print(f"    {name}: {u['name']}: {u['registers']} registers, "
+                  f"spill {u['spill_stores']} B stored / {u['spill_loads']} "
+                  f"B loaded")
+            if "mma" in u["name"] and u["spill_stores"] + u["spill_loads"]:
+                spills.append(u["name"])
+    if spills:       # the tensor-core bodies keep O in registers
+        raise AssertionError(f"bf16 tensor-core kernels spill: {spills}")
 
     phase("[2] kernels vs plain versions (bf16; the gate also f32; the "
           "RG-LRU scan f32)")
     timer = Timer(torch)
-    results = {"decode_attention": check_decode(torch, timer, dev),
-               "flash_attention": check_flash(torch, timer, dev),
-               "paged_decode_attention": check_paged(torch, timer, dev)}
+    results, rates = {}, {}
+    results["decode_attention"], rates["decode_attention"] = check_decode(
+        torch, timer, dev)
+    results["flash_attention"], rates["flash_attention"] = check_flash(
+        torch, timer, dev)
+    results["paged_decode_attention"] = check_paged(torch, timer, dev)
     results["cascade_gate"], gate_times = check_cascade_gate(torch, timer,
                                                              dev)
-    results["rglru_scan"], rglru_times = check_rglru(torch, timer, dev,
-                                                     reports)
+    results["rglru_scan"], rglru_times = check_rglru(torch, timer, dev)
     hd256_times = check_attention_hd256(torch, timer, dev)
+    rates["sweep"] = sweep_attention(torch, timer, dev)
     phase("[3] model: smollm-135m, 30 layers, full width")
     check_model(torch, dev, args.seed)
     phase("[4] engine: ring, 8 slots, max_seq_len 1024, K=4")
@@ -1649,6 +1778,7 @@ def main() -> int:
             json.dump({"card": smi, "kind": kind, "torch": torch.__version__,
                        "kernels": kernels, "cascade_gate_times": gate_times,
                        "rglru_scan_times": rglru_times,
+                       "attention_rates": rates,
                        "attention_hd256": hd256_times,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -77,6 +78,74 @@ def build_all(names=None) -> Dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def _demangle(sym: str) -> str:
+    """Enough of the Itanium mangling for this package's kernels:
+    '_ZN4attn14combine_kernelI13__nv_bfloat16EEvPKf...' ->
+    'attn::combine_kernel<__nv_bfloat16>', '_Z16flash_mma_kernelILi64EEv...'
+    -> 'flash_mma_kernel<64>'; anything else comes back as it is."""
+    if not sym.startswith("_Z"):
+        return sym
+    i = 2
+    nested = sym.startswith("N", i)
+    i += nested
+    parts, args = [], []
+
+    def name_at(i):
+        j = i
+        while j < len(sym) and sym[j].isdigit():
+            j += 1
+        n = int(sym[i:j])
+        return sym[j:j + n], j + n
+
+    while i < len(sym) and sym[i].isdigit():
+        part, i = name_at(i)
+        parts.append(part)
+        if not nested:
+            break
+    if sym.startswith("I", i):
+        i += 1
+        while i < len(sym) and sym[i] != "E":
+            if sym[i] == "L":                   # literal: L <type> <value> E
+                j = sym.index("E", i)
+                args.append(sym[i + 2:j])
+                i = j + 1
+            elif sym[i].isdigit():
+                arg, i = name_at(i)
+                args.append(arg)
+            else:
+                args.append({"f": "float", "i": "int"}.get(sym[i], sym[i]))
+                i += 1
+    if not parts:
+        return sym
+    return "::".join(parts) + (f"<{', '.join(args)}>" if args else "")
+
+
+def ptxas_usage(log: str) -> List[dict]:
+    """Per entry function of an ``nvcc -Xptxas -v`` log: its name, the
+    registers it uses and its spill stores and loads in bytes."""
+    funcs: Dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), dict(
+                name=_demangle(m.group(1)), registers=None, spill_stores=0,
+                spill_loads=0))
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = funcs.get(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return list(funcs.values())
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,9 +8,11 @@ split) folding the T x G query rows of that KV head; streaming softmax
 over key tiles; keys and tiles no row may see are not read; the splits are
 combined by log-sum-exp in a second kernel). The paged kernel differs only
 in where key j lives: token j % bs of pool block ``block_tables[b, j //
-bs]``. ``decode_attention_plain`` and ``paged_decode_attention_plain`` are
-the same functions in plain PyTorch: the CPU path and the kernels'
-references.
+bs]``. The ring kernel runs bf16 on the tensor cores with its own split
+rule (``ring_split_len``); its f32 variant and the paged kernel run the
+scalar body with ``split_len``. ``decode_attention_plain`` and
+``paged_decode_attention_plain`` are the same functions in plain PyTorch:
+the CPU path and the kernels' references.
 
 Ring contract: q (B, T, H, hd) or (B, H, hd) (T = 1); k, v (B, W, KV, hd);
 q_pos (B,) chunk start positions (token i sits at start + i) or (B, T)
@@ -36,16 +38,21 @@ _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 _PAGED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
-_TILE_K = 32          # keys per tile in the kernel
-_ROWS_PER_CTA = 64    # query rows per CTA in the kernel
+_TILE_K = 32          # keys per tile in the scalar body
+_ROWS_PER_CTA = 64    # query rows per CTA in either body
+_SPLIT_MIN_KEYS = 256  # keys a split of the bf16 ring kernel walks at least
+_SPLIT_MAX_KEYS = 2048  # and at most: it stages their positions (12 B each)
 
 
 def query_positions(q_pos, t: int) -> torch.Tensor:
-    """(B,) chunk starts -> (B, T) per-token positions; (B, T) as-is."""
+    """(B,) chunk starts -> (B, T) per-token positions (a view at T = 1);
+    (B, T) as-is."""
     qp = q_pos.to(torch.int32)
     if qp.dim() == 1:
-        qp = qp[:, None] + torch.arange(t, dtype=torch.int32,
-                                        device=qp.device)[None, :]
+        qp = qp[:, None]
+        if t > 1:
+            qp = qp + torch.arange(t, dtype=torch.int32,
+                                   device=qp.device)[None, :]
     return qp
 
 
@@ -92,24 +99,50 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def split_len(b: int, t: int, h: int, kv: int, w: int, sms: int) -> int:
-    """Keys per split: enough splits that the grid has ~4 CTAs per SM,
-    each split a whole number of 32-key tiles."""
+    """Keys per split of the scalar body (the paged kernel, the f32 ring):
+    enough splits that the grid has ~4 CTAs per SM, each split a whole
+    number of 32-key tiles."""
     ctas = b * kv * _cdiv(t * (h // kv), _ROWS_PER_CTA)
     splits = max(1, min(_cdiv(w, _TILE_K), _cdiv(4 * sms, ctas)))
     return _cdiv(_cdiv(w, splits), _TILE_K) * _TILE_K
 
 
-def _split_scratch(q, kv: int, w: int):
-    """Keys per split of a ``w``-key axis and the f32 partials the splits
-    write for the combine kernel: (split_len, m_part, l_part, acc_part)."""
+def ring_tile_k(hd: int) -> int:
+    """Keys per warp tile of the bf16 ring kernel: 32, or 16 above hd 128
+    (a stage of four warp tiles then fits twice in shared memory)."""
+    return 32 if hd <= 128 else 16
+
+
+def ring_split_len(b: int, t: int, h: int, kv: int, w: int, hd: int,
+                   sms: int) -> int:
+    """Keys per split of the bf16 ring kernel: each split walks at least
+    ``_SPLIT_MIN_KEYS`` keys (two stages of four warp tiles at hd <= 128,
+    four above) where W has them, so a CTA streams several stages with the
+    next one in flight, and the grid of (B * KV, row tiles, splits) CTAs
+    stays within two waves of ``sms``; at most ``_SPLIT_MAX_KEYS`` keys
+    (the CTA stages their positions in shared memory); a whole number of
+    warp tiles."""
+    kt = ring_tile_k(hd)
+    ctas = b * kv * _cdiv(t * (h // kv), _ROWS_PER_CTA)
+    tiles = _cdiv(w, kt)
+    splits = max(1, min(_cdiv(tiles, _cdiv(_SPLIT_MIN_KEYS, kt)),
+                        2 * sms // ctas), _cdiv(w, _SPLIT_MAX_KEYS))
+    return _cdiv(tiles, splits) * kt
+
+
+def _split_scratch(q, w: int, chunk: int):
+    """The f32 partials that the ``ceil(w / chunk)`` splits of a ``w``-key
+    axis write for the combine kernel: (m_part, l_part, acc_part)."""
     b, t, h, hd = q.shape
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    chunk = split_len(b, t, h, kv, w, sms)
     nsplit = _cdiv(w, chunk)
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (chunk, torch.empty((b * t * h, nsplit), **f32),
+    return (torch.empty((b * t * h, nsplit), **f32),
             torch.empty((b * t * h, nsplit), **f32),
             torch.empty((b * t * h, nsplit, hd), **f32))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(q, k, v, qp, kp, window: Optional[int], scale: float):
@@ -117,6 +150,8 @@ def _launch(q, k, v, qp, kp, window: Optional[int], scale: float):
     w, kv = k.shape[1], k.shape[2]
     check_cuda_inputs("decode_attention", {"q": q, "k": k, "v": v},
                       {"q_pos": qp, "k_pos": kp}, hd)
+    if q.data_ptr() % 16:       # the bf16 kernel stages q by 16-byte copies
+        q = q.clone()
     if k.shape != (b, w, kv, hd) or v.shape != k.shape or h % kv \
             or qp.shape != (b, t) or kp.shape != (b, w):
         raise ValueError(
@@ -126,10 +161,14 @@ def _launch(q, k, v, qp, kp, window: Optional[int], scale: float):
     out = torch.empty_like(q)
     if out.numel() == 0 or w == 0:
         return out.zero_()
-    chunk, m_part, l_part, acc_part = _split_scratch(q, kv, w)
     lib = _lib()
-    fn = (lib.decode_attention_bf16 if q.dtype == torch.bfloat16
-          else lib.decode_attention_f32)
+    if q.dtype == torch.bfloat16:
+        fn = lib.decode_attention_bf16
+        chunk = ring_split_len(b, t, h, kv, w, hd, _sms(q.device))
+    else:
+        fn = lib.decode_attention_f32
+        chunk = split_len(b, t, h, kv, w, _sms(q.device))
+    m_part, l_part, acc_part = _split_scratch(q, w, chunk)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
                  kp.data_ptr(), out.data_ptr(), m_part.data_ptr(),
@@ -220,7 +259,8 @@ def _launch_paged(q, k, v, qp, kp, bt, window: Optional[int], scale: float):
     out = torch.empty_like(q)
     if out.numel() == 0 or m * bs == 0:
         return out.zero_()
-    chunk, m_part, l_part, acc_part = _split_scratch(q, kv, m * bs)
+    chunk = split_len(b, t, h, kv, m * bs, _sms(q.device))
+    m_part, l_part, acc_part = _split_scratch(q, m * bs, chunk)
     lib = _paged_lib()
     fn = (lib.paged_decode_attention_bf16 if q.dtype == torch.bfloat16
           else lib.paged_decode_attention_f32)

@@ -1,8 +1,11 @@
 """Full-sequence GQA flash attention (causal or windowed): the port's prefill.
 
 Port of ``repro.kernels.flash_attention.flash_attention``. The kernel is
-``csrc/flash_attention.cu`` (one CTA per (batch, q head, 16-query tile),
-streaming softmax over the key tiles inside the causal/window band);
+``csrc/flash_attention.cu``: one CTA per (batch, query tile, q head),
+streaming softmax over the key tiles inside the causal/window band, on the
+tensor cores in bf16 (16 query rows a warp, the query tile and key
+groups chosen by ``flash_launch_shape``) and on the CUDA cores in f32
+(16-query tiles).
 ``flash_attention_plain`` is the same function in plain PyTorch: the CPU
 path and the kernel's reference.
 
@@ -25,6 +28,29 @@ NEG_INF = -1e30
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
+_BF16_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                  + [ctypes.c_float, ctypes.c_void_p])
+_WARPS = 4                  # per CTA of the bf16 kernel
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def flash_launch_shape(b: int, sq: int, h: int, hd: int, sms: int):
+    """(query rows per CTA, key groups) of the bf16 kernel. A CTA has 4
+    warps: row tiles of 16 query rows times groups that split each query
+    tile's keys between them (merged in shared memory at the end). The
+    most row tiles (64, 32, then 16 rows) whose grid of (B, query tiles, H)
+    CTAs has at least one CTA per SM, else 16 rows: short prompts trade
+    rows for groups and so halve or quarter their longest chain of key
+    tiles. At most 2 groups above 64 dims (shared memory: two stages of
+    groups x 64 keys, 32 above 128 dims)."""
+    max_groups = 4 if hd <= 64 else 2
+    for row_tiles in (4, 2, 1):
+        if b * h * _cdiv(sq, 16 * row_tiles) >= sms:
+            break
+    return 16 * row_tiles, min(_WARPS // row_tiles, max_groups)
 
 
 def _visible(sq: int, sk: int, causal: bool, window: Optional[int],
@@ -59,8 +85,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 def _lib():
     lib = build.load("flash_attention")
-    for fn in (lib.flash_attention_bf16, lib.flash_attention_f32):
-        fn.argtypes = _ARGTYPES
+    for fn, args in ((lib.flash_attention_bf16, _BF16_ARGTYPES),
+                     (lib.flash_attention_f32, _ARGTYPES)):
+        fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
 
@@ -68,6 +95,8 @@ def _lib():
 def _launch(q, k, v, causal: bool, window: Optional[int], scale: float):
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
+    if q.data_ptr() % 16:       # the kernel stages q by 16-byte copies
+        q = q.clone()
     check_cuda_inputs("flash_attention", {"q": q, "k": k, "v": v}, {}, hd)
     if k.shape != (b, sk, kv, hd) or v.shape != k.shape or h % kv:
         raise ValueError(
@@ -77,12 +106,17 @@ def _launch(q, k, v, causal: bool, window: Optional[int], scale: float):
     if out.numel() == 0 or sk == 0:
         return out.zero_()
     lib = _lib()
-    fn = (lib.flash_attention_bf16 if q.dtype == torch.bfloat16
-          else lib.flash_attention_f32)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            sk, h, kv, hd, int(causal), window if window is not None else 0]
+    if q.dtype == torch.bfloat16:
+        fn = lib.flash_attention_bf16
+        sms = torch.cuda.get_device_properties(
+            q.device).multi_processor_count
+        args += flash_launch_shape(b, sq, h, hd, sms)
+    else:
+        fn = lib.flash_attention_f32
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, sk, h, kv, hd, int(causal),
-                 window if window is not None else 0, scale,
+        err = fn(*args, scale,
                  torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error("flash_attention", err)
     LAUNCHES["flash_attention"] += 1

@@ -7,7 +7,12 @@ runs on a machine with only PyTorch:
 
 Tolerances: f32 1e-4 (summation order), bf16 2e-2 (bf16 output rounding,
 and the kernel rounds P to bf16 before P V where the plain version keeps
-f32). TF32 is off for the f32 comparisons. The cascade gate's confidence:
+f32). The ring decode and flash kernels are held in bf16 per query row as
+well: |kernel - plain| / |plain| over the row's heads and dims below 1e-2,
+where one bf16 rounding is ~2^-9 and a missed key tile or a wrong fragment
+moves a row by far more, though a row that averages hundreds of keys can
+hide either under 2e-2 absolute; a row that sees no key is exactly 0. TF32
+is off for the f32 comparisons. The cascade gate's confidence:
 1e-5 relative in f32 and in bf16 (both sides read the same bf16 values,
 which f32 holds exactly, and sum in f32; only the order differs), routes
 and counts equal on rows away from the thresholds. The RG-LRU scan (f32
@@ -50,6 +55,13 @@ DECODE_CASES = [
     # KV head, window 2048 on a 2048-wide ring, partly filled and wrapped
     (2, 2048, 16, 1, 256, 2048, 700, 700, 1),
     (2, 2048, 16, 1, 256, 2048, 2048, 2900, 1),
+    # the tensor-core body's edges: head_dim a multiple of 8 but not of 16,
+    # a 16-token chunk at hd 256 (256 rows: four row-tile CTAs), and 24 rows
+    # at G = 3 (two row tiles, two key groups)
+    (2, 200, 9, 3, 24, None, 180, 180, 1),
+    (2, 200, 9, 3, 40, 50, 180, 180, 8),
+    (2, 512, 16, 1, 256, 2048, 400, 400, 16),
+    (2, 200, 9, 3, 64, None, 180, 180, 8),
 ]
 
 # (h, kv, hd, bs, window, fills, t): the block sizes and cases of
@@ -84,12 +96,34 @@ FLASH_CASES = [
     (1, 70, 90, 4, 2, 64, 16),                # right-aligned, windowed
     (1, 48, 48, 2, 2, 256, None),             # hd 256
     (1, 2300, 2300, 16, 1, 256, 2048),        # recurrentgemma's window
+    (1, 100, 100, 4, 2, 24, None),            # hd not a multiple of 16
+    (1, 100, 100, 4, 2, 40, 30),
+    (1, 70, 150, 4, 2, 128, None),            # Sq < Sk, ragged query tile
+    (1, 90, 60, 4, 2, 64, None),              # Sq > Sk: rows that see nothing
 ]
 
 # (b, s, w): the serving shape, odd S and W with B > 1, one step, one
 # chunk, and a ragged channel tile
 RGLRU_CASES = [(1, 512, 4096), (2, 77, 4000), (3, 1, 129), (2, 16, 128),
                (4, 1000, 257), (1, 4096, 4096)]
+
+
+def _assert_attention(out, plain, dt, rows: int = 2):
+    """The kernel's output against its plain version: 1e-4 absolute in f32;
+    2e-2 absolute and 1e-2 per query row (the first ``rows`` dims index
+    rows, each over its heads and dims) in bf16; a row that sees no key is
+    exactly 0 in both."""
+    diff = (out.float() - plain.float()).flatten(rows)
+    ref = plain.float().flatten(rows)
+    den = ref.norm(dim=-1)
+    seen = den > 0
+    assert not out.float().flatten(rows)[~seen].any()
+    if dt == torch.float32:
+        assert diff.abs().max().item() < 1e-4
+        return
+    assert diff.abs().max().item() < 2e-2
+    rel = diff.norm(dim=-1)[seen] / den[seen]
+    assert rel.max().item() < 1e-2
 
 
 @pytest.fixture
@@ -127,8 +161,7 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert LAUNCHES["decode_attention"] == n + 1
     plain = decode_attention_plain(q, k, v, q_pos, k_pos, window=window)
-    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
-    assert (out.float() - plain.float()).abs().max().item() < tol
+    _assert_attention(out, plain, dt)
 
 
 def test_decode_kernel_empty_rows_are_zero(cuda):
@@ -195,8 +228,54 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == n + 1
     plain = flash_attention_plain(q, k, v, window=window)
-    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
-    assert (out.float() - plain.float()).abs().max().item() < tol
+    _assert_attention(out, plain, dt)
+
+
+# (hd, rows, groups): every launch shape the bf16 flash kernel takes (four
+# key groups only up to 64 dims: shared memory)
+FLASH_LAUNCH_SHAPES = [(hd, rows, groups) for hd in (64, 256)
+                       for rows, groups in ((64, 1), (32, 1), (32, 2),
+                                            (16, 1), (16, 2), (16, 4))
+                       if groups <= (4 if hd <= 64 else 2)]
+
+
+@pytest.mark.parametrize("case", FLASH_LAUNCH_SHAPES,
+                         ids=[str(c) for c in FLASH_LAUNCH_SHAPES])
+def test_flash_kernel_every_launch_shape(cuda, monkeypatch, case):
+    """Each (query rows, key groups) the bf16 kernel accepts, on a causal,
+    windowed prefill whose query tiles see from one to eight key tiles."""
+    import repro_torch.kernels.flash_attention as fa
+    hd, rows, groups = case
+    monkeypatch.setattr(fa, "flash_launch_shape", lambda *a: (rows, groups))
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    q, k, v = (torch.randn(s, generator=gen).to(cuda, torch.bfloat16)
+               for s in ((2, 300, 4, hd), (2, 300, 2, hd), (2, 300, 2, hd)))
+    out = flash_attention(q, k, v, window=200)
+    torch.cuda.synchronize()
+    _assert_attention(out, flash_attention_plain(q, k, v, window=200),
+                      torch.bfloat16)
+
+
+@pytest.mark.parametrize("keys", [None, 32, 64, 256])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_decode_kernel_every_split(cuda, monkeypatch, keys, hd):
+    """The bf16 ring kernel at several keys per split, one split (no
+    combine kernel: the CTA writes the output) included, on a wrapped
+    ring with a window and an empty slot."""
+    import repro_torch.kernels.decode_attention as da
+    if keys is not None:
+        monkeypatch.setattr(da, "ring_split_len",
+                            lambda *a: max(keys, da.ring_tile_k(hd)))
+    else:
+        monkeypatch.setattr(da, "ring_split_len", lambda *a: a[4])
+    q, k, v, q_pos, k_pos = _ring(cuda, torch.bfloat16, 3, 512, 8, 2, hd,
+                                  512, 900, 1)
+    k_pos[1] = -1
+    out = decode_attention(q, k, v, q_pos, k_pos, window=300)
+    torch.cuda.synchronize()
+    _assert_attention(out, decode_attention_plain(q, k, v, q_pos, k_pos,
+                                                  window=300),
+                      torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

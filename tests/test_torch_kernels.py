@@ -12,6 +12,10 @@ Tolerances: f32 1e-4, as ``tests/test_decode_attention.py`` holds the
 Pallas kernel to its oracle (streaming vs dense softmax sum in another
 order); bf16 2e-2 (bf16 output rounding, and the Pallas kernel rounds P to
 bf16 where the plain version keeps it in f32).
+
+The launch rules of the bf16 kernels (the ring kernel's key splits, flash's
+query tile and key groups) are plain functions, held here to what the
+kernels need from them.
 """
 import numpy as np
 import pytest
@@ -28,9 +32,10 @@ from repro.kernels.flash_attention import (  # noqa: E402
     flash_attention as _pallas_flash)
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_plain)
+    decode_attention, decode_attention_plain, query_positions,
+    ring_split_len, ring_tile_k)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_plain, flash_launch_shape)
 
 # jitted once per shape: eager jnp compiles every op on first use
 pallas_decode = jax.jit(_pallas_decode, static_argnames=(
@@ -211,3 +216,83 @@ def test_wrappers_refuse_other_devices():
                                                    device="meta"), pos)
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(meta, kv, kv)
+
+
+# -- launch rules of the bf16 kernels --------------------------------------------
+
+H100_SMS = 132
+
+# (b, t, h, kv, w, hd): smollm's decode (hd 64) and chunk, recurrentgemma's
+# local attention (hd 256), a ring shorter than one split, a long ring, a
+# grid already past two waves, a ragged width
+RING_SPLIT_CASES = [
+    (8, 1, 9, 3, 1024, 64), (8, 16, 9, 3, 1024, 64),
+    (8, 1, 16, 1, 2048, 256), (2, 1, 4, 2, 40, 32),
+    (1, 1, 4, 2, 32768, 128), (64, 1, 64, 8, 4096, 128),
+    (3, 1, 6, 3, 100, 128)]
+
+
+@pytest.mark.parametrize("case", RING_SPLIT_CASES,
+                         ids=[str(c) for c in RING_SPLIT_CASES])
+def test_ring_split_rule(case):
+    """Splits cover W with whole warp tiles and none left empty; each split
+    walks at least 256 keys where W has them and at most the 2048 whose
+    positions a CTA stages; the grid stays within two waves unless one
+    split per (slot, KV head, row tile) already exceeds them."""
+    b, t, h, kv, w, hd = case
+    kt = ring_tile_k(hd)
+    chunk = ring_split_len(b, t, h, kv, w, hd, H100_SMS)
+    nsplit = -(-w // chunk)
+    assert chunk % kt == 0
+    assert (nsplit - 1) * chunk < w <= nsplit * chunk
+    assert min(256, -(-w // kt) * kt) <= chunk <= 2048
+    ctas = b * kv * -(-(t * (h // kv)) // 64)
+    assert ctas * nsplit <= max(2 * H100_SMS, ctas * -(-w // 2048))
+
+
+def test_ring_split_partials_at_hd256():
+    """recurrentgemma-9b's decode (8 slots, 16 heads over one KV head, a
+    2048-wide ring): the f32 partials (max, sum and P V per row and split)
+    stay within 2 MB, against 8.4 MB under the scalar body's split rule."""
+    b, t, h, kv, w, hd = 8, 1, 16, 1, 2048, 256
+    nsplit = -(-w // ring_split_len(b, t, h, kv, w, hd, H100_SMS))
+    assert b * t * h * nsplit * (hd + 2) * 4 <= 2e6
+
+
+# (b, sq, h, hd): smollm's prefill at 512 and 128 tokens, recurrentgemma's
+# 4096-token prefill and a short one, hd 128, a prompt of one token
+FLASH_SHAPE_CASES = [(1, 512, 9, 64), (1, 128, 9, 64), (1, 4096, 16, 256),
+                     (1, 200, 16, 256), (2, 300, 8, 128), (1, 1, 4, 32)]
+
+
+@pytest.mark.parametrize("case", FLASH_SHAPE_CASES,
+                         ids=[str(c) for c in FLASH_SHAPE_CASES])
+def test_flash_launch_shape(case):
+    """Four warps at most, as row tiles x key groups the kernel accepts
+    (groups <= 2 above 64 dims: shared memory); the grid has at least one
+    CTA per SM wherever 16-row tiles can give it, and takes the largest
+    query tile that does."""
+    b, sq, h, hd = case
+    rows, groups = flash_launch_shape(b, sq, h, hd, H100_SMS)
+    assert rows in (16, 32, 64) and groups in (1, 2, 4)
+    assert rows // 16 * groups <= 4
+    assert groups <= (4 if hd <= 64 else 2)
+    grid = b * h * -(-sq // rows)
+    if b * h * -(-sq // 16) >= H100_SMS:
+        assert grid >= H100_SMS
+        assert rows == 64 or b * h * -(-sq // (2 * rows)) < H100_SMS
+
+
+def test_flash_launch_shape_at_smollm_prefill():
+    """smollm-135m's 512-token prefill (9 heads): 144 CTAs of 32 rows with
+    two key groups, not 72 CTAs of 64 rows on 132 SMs."""
+    assert flash_launch_shape(1, 512, 9, 64, H100_SMS) == (32, 2)
+
+
+def test_query_positions_at_one_token_is_a_view():
+    """A decode step's (B,) positions reach the kernel as a (B, 1) view,
+    with no device op; chunks get per-token positions."""
+    starts = torch.tensor([3, 7], dtype=torch.int32)
+    qp = query_positions(starts, 1)
+    assert qp.shape == (2, 1) and qp.data_ptr() == starts.data_ptr()
+    assert query_positions(starts, 3).tolist() == [[3, 4, 5], [7, 8, 9]]
