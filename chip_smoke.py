@@ -16,7 +16,9 @@ without them. Phases, each fatal on failure:
    ring decode and flash kernels are held per query row in bf16 and on
    the same values in f32 at every shape, with flash's TFLOP/s in the
    band, the decode's GB/s, its key splits and the bytes of its f32
-   partials;
+   partials; the paged kernel likewise, at every head_dim class (24-256)
+   at T = 1 and T > 1, with holes, one split and more keys than a split
+   stages;
 3. smollm-135m at full width (30 layers, random weights from a seed):
    prefill-then-decode logits equal a full forward, and the GPU forward
    equals the plain CPU forward in f32;
@@ -73,11 +75,13 @@ against SDPA.
 
 Phase 2 then times the bf16 flash kernel at every launch shape and the
 ring decode at several keys per split, at the same two shapes, with the
-floor of each (the launch rules' picks are marked).
+floor of each, the paged kernel at several keys per split and over
+all-hole tables, and the scan at several chunk lengths (the launch
+rules' picks are marked).
 
-With ``--profile`` it then serves the phase-9, phase-4 and phase-7 traces
-once more under ``torch.profiler`` and prints the device's busy time by
-kernel against the unprofiled run's wall time (the idle share).
+With ``--profile`` it then serves the phase-9, 4, 5 and 7 traces once
+more under ``torch.profiler`` and prints the device's busy time by kernel
+against the unprofiled run's wall time (the idle share).
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. TF32 is off for every f32 product.
@@ -116,7 +120,7 @@ HYBRID_LOGIT_TOL = 0.25
 # layers, relative to max(1, |state|): GEMMs at other M sum in another
 # order
 STATE_TOL = 1e-3
-# the ring decode and flash kernels at every phase-2 shape: a row that sees
+# the attention kernels at every phase-2 shape: a row that sees
 # hundreds of keys averages to ~0.03, so BF16_TOL alone would pass a
 # dropped key split or a wrong fragment layout. f32 on the same values:
 # summation order only (tests/test_torch_gpu.py's bound). bf16: per query
@@ -355,15 +359,20 @@ def check_paged(torch, timer, dev):
     fills = [1, 17, 200, 480, 1000, 0, 700, 333]
     holes = [(6, 3), (6, 10), (6, 20)]
 
-    def case(bs, n_layers=1):
+    def case(bs, n_layers=1, kv=kv, hd=hd, fills=fills, max_seq=max_seq):
         m = max_seq // bs
-        n_blocks = b * m + 1
-        pos, bt = _paged_pool(rng, fills, bs, m, n_blocks, holes)
+        n_blocks = len(fills) * m + 1
+        pos, bt = _paged_pool(rng, fills, bs, m, n_blocks,
+                              [(i, j) for i, j in holes if j < m])
         k, v = (torch.randn((n_layers, n_blocks, bs, kv, hd), generator=gen,
                             device=dev, dtype=torch.bfloat16)
                 for _ in range(2))
         return (k, v, torch.from_numpy(pos).to(dev),
                 torch.from_numpy(bt).to(dev))
+
+    def starts(fills, t):
+        return torch.tensor([max(f - t, 0) for f in fills], dtype=torch.int32,
+                            device=dev)
 
     q_pos = torch.tensor([max(f - 1, 0) for f in fills], dtype=torch.int32,
                          device=dev)
@@ -384,20 +393,35 @@ def check_paged(torch, timer, dev):
         k2, v2, p2, bt2 = case(bs)
         cases.append((f"bs={bs} T=1", q1[0], k2[0], v2[0], q_pos, p2, bt2,
                       None))
+    # every hd class of the bf16 kernel at T = 1 and T > 1: (h, kv, hd,
+    # window, t, max_seq); hd 24 and 40 are multiples of 8 but not of 16,
+    # hd 256 is recurrentgemma's 16 heads over one KV head; 64 keys take
+    # one split, 2560 more than one split stages
+    for hh, kvv, hdd, window, t, ms in (
+            (16, 4, 128, None, 1, 1024), (16, 4, 128, 300, 8, 1024),
+            (16, 1, 256, 2048, 1, 2048), (16, 1, 256, None, 16, 1024),
+            (9, 3, 24, None, 1, 1024), (9, 3, 40, 100, 8, 1024),
+            (9, 3, 64, None, 1, 64), (9, 3, 64, None, 8, 64),
+            (9, 3, 64, None, 1, 2560), (9, 3, 64, 900, 4, 2560)):
+        fl = [f * ms // 1024 for f in fills]
+        k2, v2, p2, bt2 = case(16, kv=kvv, hd=hdd, fills=fl, max_seq=ms)
+        qq = torch.randn((b, t, hh, hdd), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        cases.append((f"hd={hdd} H={hh} KV={kvv} T={t} M*bs={ms} "
+                      f"window={window}", qq, k2[0], v2[0], starts(fl, t), p2,
+                      bt2, window))
     errs = []
     for label, q, k, v, qp, kp, table, window in cases:
-        out = paged_decode_attention(q, k, v, qp, kp, table, window=window)
-        torch.cuda.synchronize()
-        ref = paged_decode_attention_plain(q, k, v, qp, kp, table,
-                                           window=window)
-        err = (out.float() - ref.float()).abs().max().item()
-        print(f"  paged_decode_attention {label}: max|kernel - plain| = "
-              f"{err:.3e} (tol {BF16_TOL})")
-        if not err < BF16_TOL:
-            raise AssertionError(f"paged_decode_attention {label} disagrees")
-        if q.shape[0] == b and not torch.all(out[5] == 0):
-            raise AssertionError("paged_decode_attention: freed slot not 0")
-        errs.append(err)
+        # rows that see no key (the freed slot 5, and rows whose keys all
+        # sit in holes) must be exactly 0
+        errs.append(_check_rows(
+            torch, f"paged_decode_attention {label}",
+            lambda *x, qp=qp, kp=kp, table=table, window=window:
+                paged_decode_attention(*x, qp, kp, table, window=window),
+            lambda *x, qp=qp, kp=kp, table=table, window=window:
+                paged_decode_attention_plain(*x, qp, kp, table,
+                                             window=window),
+            (q, k, v), rows=2, bf16_abs=BF16_TOL))
 
     def kern(i):
         j = i % LAYERS
@@ -532,8 +556,12 @@ def check_cascade_gate(torch, timer, dev):
 
 def check_rglru(torch, timer, dev):
     """``rglru_scan`` against its plain version at the hybrid prefill's
-    shapes (B = 1, W = 4096; S = 512 and 4096) and an odd (2, 77, 4000),
-    all with h0 != 0; timed at the two serving shapes."""
+    shapes (B = 1, W = 4096; S = 512 and 4096), an odd (2, 77, 4000), 2048
+    chunks on one look-back chain (1, 65536, 128), many chains (8, 2048,
+    1024) and same-shape calls queued back to back on other values (a
+    stale look-back flag would hand the second the first's states), then
+    on the first's again (equal bits), all with h0 != 0; timed at the two
+    serving shapes."""
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -545,22 +573,37 @@ def check_rglru(torch, timer, dev):
         x = torch.randn((n, b, s, w), generator=gen, device=dev)
         return a, x, torch.randn((n, b, w), generator=gen, device=dev)
 
-    errs, times = [], {}
-    for b, s, w in ((1, 512, 4096), (1, 4096, 4096), (2, 77, 4000)):
-        a, x, h0 = inputs(1, b, s, w)
-        h, h_last = rglru_scan(a[0], x[0], h0[0])
-        torch.cuda.synchronize()
-        ph, ph_last = rglru_scan_plain(a[0], x[0], h0[0])
+    def check(label, args, got):
+        ph, ph_last = rglru_scan_plain(*args)
+        h, h_last = got
         rel = max(((out - ref).abs() / ref.abs().clamp_min(1)).max().item()
                   for out, ref in ((h, ph), (h_last, ph_last)))
         err = (h - ph).abs().max().item()
-        print(f"  rglru_scan ({b}, {s}, {w}) f32, h0 != 0: max|kernel - "
-              f"plain| = {err:.3e}, {rel:.3e} of max(1, |h|) (tol "
-              f"{RGLRU_TOL}); max|h| {ph.abs().max().item():.2f}")
-        if not rel <= RGLRU_TOL:
-            raise AssertionError(f"rglru_scan ({b}, {s}, {w}) disagrees")
-        errs.append(err)
-        if b > 1:
+        print(f"  rglru_scan {label} f32, h0 != 0: max|kernel - plain| = "
+              f"{err:.3e}, {rel:.3e} of max(1, |h|) (tol {RGLRU_TOL}); "
+              f"max|h| {ph.abs().max().item():.2f}")
+        if not rel <= RGLRU_TOL or not torch.equal(h[:, -1], h_last):
+            raise AssertionError(f"rglru_scan {label} disagrees")
+        return err
+
+    errs, times = [], {}
+    a, x, h0 = inputs(2, 1, 4096, 256)
+    got = [rglru_scan(a[i % 2], x[i % 2], h0[i % 2]) for i in range(3)]
+    torch.cuda.synchronize()
+    for i in range(2):
+        errs.append(check(f"(1, 4096, 256) back-to-back call {i + 1}",
+                          (a[i], x[i], h0[i]), got[i]))
+    if not (torch.equal(got[0][0], got[2][0])
+            and torch.equal(got[0][1], got[2][1])):
+        raise AssertionError("rglru_scan: two calls on the same inputs "
+                             "differ (the engine's streams need equal bits)")
+    for b, s, w in ((1, 512, 4096), (1, 4096, 4096), (2, 77, 4000),
+                    (1, 65536, 128), (8, 2048, 1024)):
+        a, x, h0 = inputs(1, b, s, w)
+        got = rglru_scan(a[0], x[0], h0[0])
+        torch.cuda.synchronize()
+        errs.append(check(f"({b}, {s}, {w})", (a[0], x[0], h0[0]), got))
+        if b > 1 or w < 4096:
             continue
         n_in = LAYERS if s <= 512 else 3        # both beyond L2 at S = 4096
         a, x, h0 = inputs(n_in, b, s, w)
@@ -818,6 +861,72 @@ def sweep_attention(torch, timer, dev):
         print(f"  sweep decode hd={hd} all-empty ring (the floor): "
               f"{ms:.4f} ms")
         del ks, vs, q1
+    rec["paged"] = sweep_paged(torch, timer, dev, gen)
+    rec["rglru"] = sweep_rglru(torch, timer, dev, gen)
+    return rec
+
+
+def sweep_paged(torch, timer, dev, gen):
+    """The bf16 paged kernel at phase 2's decode shape (B=8, 64 blocks of
+    16, KV=3, G=3, hd 64) at several keys per split, and over an all-hole
+    table (no tile live: the floor)."""
+    import repro_torch.kernels.decode_attention as da
+
+    b, kv, g, hd, bs, m = 8, 3, 3, 64, 16, 64
+    rng = np.random.default_rng(8)
+    fills = [1, 17, 200, 480, 1000, 0, 700, 333]
+    pos, bt = _paged_pool(rng, fills, bs, m, b * m + 1)
+    k_pos, bt = torch.from_numpy(pos).to(dev), torch.from_numpy(bt).to(dev)
+    ks, vs = (torch.randn((LAYERS, b * m + 1, bs, kv, hd), generator=gen,
+                          device=dev, dtype=torch.bfloat16) for _ in range(2))
+    q1 = torch.randn((LAYERS, b, 1, kv * g, hd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    q_pos = torch.tensor([max(f - 1, 0) for f in fills], dtype=torch.int32,
+                         device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pick = da.paged_split_len(b, 1, kv * g, kv, m, bs, hd, sms)
+    rule, rec = da.paged_split_len, {}
+    for keys in (128, 256, 512, 1024):
+        da.paged_split_len = lambda *a, keys=keys: keys
+        ms = timer(lambda i: da.paged_decode_attention(
+            q1[i % LAYERS], ks[i % LAYERS], vs[i % LAYERS], q_pos, k_pos, bt))
+        da.paged_split_len = rule
+        rec[f"keys/split={keys}"] = ms
+        print(f"  sweep paged hd={hd}: {keys} keys a split "
+              f"({-(-m * bs // keys)} split(s)) {ms:.4f} ms"
+              f"{' (the rule)' if keys == pick else ''}")
+    holes = torch.full_like(bt, -1)
+    ms = timer(lambda i: da.paged_decode_attention(
+        q1[i % LAYERS], ks[i % LAYERS], vs[i % LAYERS], q_pos, k_pos, holes))
+    rec["floor"] = ms
+    print(f"  sweep paged hd={hd} all-hole tables (the floor): {ms:.4f} ms")
+    return rec
+
+
+def sweep_rglru(torch, timer, dev, gen):
+    """The one-pass scan at the hybrid's two prefill shapes at several
+    chunk lengths and look-back group sizes (the rules' picks marked)."""
+    import repro_torch.kernels.rglru_scan as rs
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rule, group, rec = rs.chunk_len, rs._GROUP, {}
+    for s, n_in in ((512, LAYERS), (4096, 3)):
+        a = 0.8 + 0.1999 * torch.rand((n_in, 1, s, 4096), generator=gen,
+                                      device=dev)
+        x = torch.randn((n_in, 1, s, 4096), generator=gen, device=dev)
+        h0 = torch.randn((n_in, 1, 4096), generator=gen, device=dev)
+        pick = rule(1, s, 4096, sms)
+        for chunk, grp in ((8, group), (16, group), (32, group), (32, 4),
+                           (32, 8), (32, 32)):
+            rs.chunk_len, rs._GROUP = (lambda *args, chunk=chunk: chunk), grp
+            ms = timer(lambda i: rs.rglru_scan(a[i % n_in], x[i % n_in],
+                                               h0[i % n_in]))
+            rs.chunk_len, rs._GROUP = rule, group
+            rec[f"S={s} chunk={chunk} group={grp}"] = ms
+            print(f"  sweep rglru_scan (1, {s}, 4096): {chunk}-step chunks "
+                  f"({32 * -(-s // chunk)} CTAs), groups of {grp} {ms:.4f} "
+                  f"ms{' (the rules)' if (chunk, grp) == (pick, group) else ''}")
+        del a, x, h0
     return rec
 
 
@@ -1621,6 +1730,26 @@ def profile_engine(torch, dev, seed, wall_s):
     return _device_profile(torch, lambda: _serve(eng, reqs, 32)[1], wall_s)
 
 
+def profile_paged_engine(torch, dev, seed, wall_s):
+    """The phase-5 trace (paged engine, K=4, contended) under the
+    profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("smollm-135m")
+    lm = LM(cfg, device=dev)
+    params = lm.init(seed)
+    trace = _paged_trace(seed, cfg.vocab_size)
+    eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=1024,
+                        seed=seed, cache_backend="paged", block_size=16,
+                        chunk_tokens=128, prefix_sharing=True,
+                        max_decode_steps=4)
+    return _device_profile(
+        torch, lambda: _serve_waves(eng, trace, 32, contended=True)[1],
+        wall_s)
+
+
 def profile_hybrid(torch, dev, seed, lm, params, reqs, wall_s):
     """The phase-9 trace (hybrid ring engine, K=4) under the profiler."""
     from repro_torch.serving import ServingEngine
@@ -1659,8 +1788,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the full record here (JSON)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the phase-4, phase-7 and phase-9 "
-                         "traces on the device")
+                    help="also profile the phase-4, 5, 7 and 9 traces on "
+                         "the device")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1744,7 +1873,7 @@ def main() -> int:
         torch, dev, args.seed, smi, hlm, hparams)
     launches["rglru_scan"] = hybrid_launches["rglru_scan"]
     if args.profile:
-        phase("[10] profiles of the phase-9, phase-4 and phase-7 traces")
+        phase("[10] profiles of the phase-9, 4, 5 and 7 traces")
         hybrid_engine["profile"] = profile_hybrid(
             torch, dev, args.seed, hlm, hparams, hybrid_reqs,
             hybrid_engine["wall_s"])
@@ -1753,6 +1882,8 @@ def main() -> int:
     if args.profile:
         stats["profile"] = profile_engine(torch, dev, args.seed,
                                           stats["wall_s"])
+        paged_stats["profile"] = profile_paged_engine(
+            torch, dev, args.seed, paged_stats["wall_s"])
         cascade_stats["profile"] = profile_cascade(torch, dev, args.seed,
                                                    cascade_stats)
 

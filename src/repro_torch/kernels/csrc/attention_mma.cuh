@@ -1,7 +1,8 @@
 // Streaming-softmax attention on the bf16 tensor cores: the tile body of
-// the bf16 ring decode (decode_attention.cu) and flash (flash_attention.cu)
-// kernels, which replace src/repro/kernels/decode_attention.py,
-// decode_attention and src/repro/kernels/flash_attention.py,
+// the bf16 ring decode (decode_attention.cu), paged decode
+// (paged_decode_attention.cu) and flash (flash_attention.cu) kernels, which
+// replace src/repro/kernels/decode_attention.py, decode_attention and
+// paged_decode_attention, and src/repro/kernels/flash_attention.py,
 // flash_attention.
 //
 // What bounded them before: the scalar body attn::attend
@@ -41,8 +42,10 @@
 //   (flash walks only the band; the ring lists its live tiles first), a
 //   warp none of whose rows sees a tile skips it, and a tile every row sees
 //   whole skips the per-key mask.
-// - Where key j lives is a policy, as in the scalar body (attn::StridedKeys,
-//   and StagedKeys below for the ring; attn::PagedKeys can follow).
+// - Where key j lives is a policy, as in the scalar body: attn::StridedKeys
+//   (flash), or StagedKeys below, whose positions and offsets a decode CTA
+//   stages once per split through attn::StridedKeys (the ring) or
+//   attn::PagedKeys (the block pool); decode_cta is that CTA.
 //
 // f32 keeps the scalar body: mma.sync on f32 data is TF32 (~3 decimal
 // digits), which the port's f32 checks (1e-4 against the plain versions,
@@ -702,6 +705,92 @@ __device__ __forceinline__ void row_bounds(const Smem& s, int nrows,
   }
   qmin = __reduce_min_sync(0xffffffffu, lo);
   qmax = __reduce_max_sync(0xffffffffu, hi);
+}
+
+// -- the decode kernels' CTA (ring and paged) --------------------------------
+
+// keys per warp tile: 32, or 16 above 128 dims (a stage of 4 warp tiles then
+// fits twice in shared memory)
+template <int HDMAX>
+constexpr int kDecodeWarpKeys = HDMAX <= 128 ? 32 : 16;
+
+// query rows of a decode CTA in warp row tiles, and the warps (groups) that
+// split each stage's keys: 4 warps in all, or 3 row tiles alone
+__host__ __device__ inline int decode_groups(int row_tiles) {
+  return row_tiles == 3 ? 1 : 4 / row_tiles;
+}
+
+// The launch of a bf16 decode kernel over a w-key axis in splits of
+// split_len keys: grid (B * KV, row tiles of up to 64 rows, splits).
+struct DecodeGrid {
+  dim3 grid;
+  int threads, nsplit;
+  size_t smem;
+};
+
+template <int HDMAX>
+inline DecodeGrid decode_grid(int b, int tq, int h, int kvh_n, int w,
+                              int split_len) {
+  constexpr int KW = kDecodeWarpKeys<HDMAX>;
+  const int rows = tq * (h / kvh_n);
+  const int row_tiles = min(4, (rows + 15) / 16);
+  const int groups = decode_groups(row_tiles);
+  const int rb = 16 * row_tiles;
+  DecodeGrid d;
+  d.nsplit = (w + split_len - 1) / split_len;
+  d.grid = dim3(b * kvh_n, (rows + rb - 1) / rb, d.nsplit);
+  d.threads = 32 * row_tiles * groups;
+  d.smem = smem_bytes(rb, Shape<HDMAX>::kPitch, groups * KW, KW, split_len);
+  return d;
+}
+
+// One CTA of a bf16 decode kernel: the T*G query rows of (slot b, KV head
+// kvh) = blockIdx.x in its blockIdx.y-th tile of up to 64, over keys
+// [split * split_len, + split_len) of the slot's w, each key located by
+// `keys` (attn::StridedKeys, attn::PagedKeys). Q's copy is in flight while
+// the rows' and the split's positions and K/V offsets are staged and the
+// live tiles are listed. With one split the CTA writes the output rows,
+// else its partials for attn::combine_kernel.
+template <int HDMAX, typename Keys>
+__device__ __forceinline__ void decode_cta(
+    unsigned char* smem_raw, const bf16* __restrict__ q,
+    const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ q_pos, const Keys& keys, bf16* __restrict__ out,
+    float* __restrict__ m_part, float* __restrict__ l_part,
+    float* __restrict__ acc_part, int b, int kvh, int tq, int h, int kvh_n,
+    int w, int hd, int split_len, int window, float scale) {
+  constexpr int KW = kDecodeWarpKeys<HDMAX>;
+  using S = Shape<HDMAX>;
+  const int row_tiles = min(4, (tq * (h / kvh_n) + 15) / 16);
+  const int groups = decode_groups(row_tiles);
+  const Role role(groups);
+  const int rows_per_cta = row_tiles * 16;
+  const int g = h / kvh_n, rows = tq * g;
+  const int row0 = blockIdx.y * rows_per_cta;
+  const int nrows = min(rows_per_cta, rows - row0);
+  const int split = blockIdx.z, nsplit = gridDim.z;
+  const Smem s = carve(smem_raw, rows_per_cta, S::kPitch, groups * KW, KW,
+                       split_len);
+  const int lo = split * split_len, hi = min(w, lo + split_len);
+  decode_rows(s.roff, nullptr, nullptr, b, kvh, tq, h, g, hd, row0, nrows);
+  __syncthreads();
+  load_q<HDMAX>(s, q, nrows, rows_per_cta, hd);
+  decode_rows(nullptr, s.qpos, q_pos, b, kvh, tq, h, g, hd, row0, nrows);
+  stage_positions(s, keys, lo, hi);
+  __syncthreads();
+  int qmin, qmax;
+  row_bounds(s, nrows, qmin, qmax);
+  const int ntiles = live_tiles<KW>(s, lo, hi - lo, qmin, qmax,
+                                    /*causal=*/true, window);
+  const StagedKeys staged{s.spos, s.soff, lo};
+  Acc<HDMAX> acc;
+  attend<HDMAX, KW>(s, q, k, v, staged, nrows, hd, lo, hi, s.tiles, ntiles,
+                    groups, qmin, qmax, /*causal=*/true, window, scale, acc);
+  if (nsplit == 1)
+    store_rows<HDMAX>(s, acc, role, out, nrows, hd);
+  else
+    store_split<HDMAX>(s, acc, role, nrows, hd, split, nsplit, m_part, l_part,
+                       acc_part);
 }
 
 }  // namespace mma

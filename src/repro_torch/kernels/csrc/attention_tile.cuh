@@ -1,5 +1,7 @@
-// Streaming-softmax attention over key tiles, shared by the ring decode,
-// the paged decode and the flash kernels.
+// Streaming-softmax attention over key tiles in f32 on the CUDA cores: the
+// body of the f32 ring decode, paged decode and flash kernels (their bf16
+// variants run attention_mma.cuh on the tensor cores), and the pieces both
+// bodies share (the key policies, the decode row map, the split combine).
 //
 // A CTA owns up to kMaxRows query rows (each a head_dim vector) and walks a
 // range of keys in tiles of kTileK. Where key j lives is a policy (the Keys
@@ -30,26 +32,11 @@ constexpr int kTileK = 32;     // keys per tile: lane i scores key i
 constexpr int kMaxRows = 64;   // query rows per CTA
 constexpr float kNeg = -1e30f;
 
-template <typename T> struct Elem;
-
-template <> struct Elem<float> {
-  static __device__ __forceinline__ float load(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16(x);
-  }
-  // P is rounded to V's type before P V, as the TPU kernel does
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-};
+// an f32 result in the output's type
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
 
 struct Smem {
   long long* roff;   // rows: element offset of each row in q and out
@@ -89,15 +76,31 @@ __device__ inline Smem carve(unsigned char* base, int rows, int hd) {
   return s;
 }
 
+// The decode kernels fold the T x G query rows of a (slot b, KV head kvh)
+// into one CTA: row i = token i / G, query head kvh * G + i % G. Rows
+// [row0, row0 + nrows) get their element offset in q and out (roff) and,
+// when q_pos is given, their position (qpos); either may be null.
+__device__ __forceinline__ void decode_rows(long long* roff, int* qpos,
+                                            const int* __restrict__ q_pos,
+                                            int b, int kvh, int tq, int h,
+                                            int g, int hd, int row0,
+                                            int nrows) {
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+    const int gr = row0 + r, t = gr / g, head = kvh * g + (gr - t * g);
+    if (roff) roff[r] = ((static_cast<long long>(b) * tq + t) * h + head) * hd;
+    if (qpos) qpos[r] = q_pos[static_cast<long long>(b) * tq + t];
+  }
+}
+
 // After the caller filled roff/qpos for rows [0, nrows): stage q, reset the
 // softmax state and record the query-position bounds.
-template <typename T>
-__device__ void load_rows(const Smem& s, const T* __restrict__ q, int nrows,
+__device__ inline void load_rows(const Smem& s, const float* __restrict__ q,
+                                 int nrows,
                           int hd) {
   __syncthreads();
   for (int e = threadIdx.x; e < nrows * hd; e += blockDim.x) {
     const int r = e / hd, d = e - r * hd;
-    s.q[e] = Elem<T>::load(q[s.roff[r] + d]);
+    s.q[e] = q[s.roff[r] + d];
     s.acc[e] = 0.f;
   }
   for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
@@ -119,24 +122,20 @@ __device__ void load_rows(const Smem& s, const T* __restrict__ q, int nrows,
 // Copy the current tile's keys (row of key i at src + s.koff[i], 16-byte
 // vectors) into a float tile with row pitch `pitch`; keys with position -1
 // are not read and stay zero.
-template <typename T>
-__device__ void load_tile(float* dst, int pitch, const T* __restrict__ src,
-                          const Smem& s, int hd) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int nv = hd / kVec;
+__device__ inline void load_tile(float* dst, int pitch,
+                                 const float* __restrict__ src,
+                                 const Smem& s, int hd) {
+  const int nv = hd / 4;
   for (int e = threadIdx.x; e < kTileK * nv; e += blockDim.x) {
-    const int key = e / nv, d0 = (e - key * nv) * kVec;
+    const int key = e / nv, d0 = (e - key * nv) * 4;
+    const float4 x = s.kpos[key] >= 0
+        ? *reinterpret_cast<const float4*>(src + s.koff[key] + d0)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
     float* o = dst + key * pitch + d0;
-    if (s.kpos[key] >= 0) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + s.koff[key] + d0);
-      const T* x = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) o[j] = Elem<T>::load(x[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) o[j] = 0.f;
-    }
+    o[0] = x.x;
+    o[1] = x.y;
+    o[2] = x.z;
+    o[3] = x.w;
   }
 }
 
@@ -179,9 +178,9 @@ __device__ __forceinline__ bool key_valid(int p, int qp, bool causal,
 // Walk keys [key_lo, key_hi); `keys` (StridedKeys, PagedKeys) says where
 // each key's K/V row lives and what its position is. LD = head dims per
 // lane (hd <= 32 * LD).
-template <typename T, int LD, typename Keys>
-__device__ void attend(const Smem& s, const T* __restrict__ k,
-                       const T* __restrict__ v, const Keys& keys,
+template <int LD, typename Keys>
+__device__ void attend(const Smem& s, const float* __restrict__ k,
+                       const float* __restrict__ v, const Keys& keys,
                        int key_lo, int key_hi, int nrows, int hd,
                        bool causal, int window, float scale) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -204,8 +203,8 @@ __device__ void attend(const Smem& s, const T* __restrict__ k,
       s.koff[tid] = off;
     }
     if (!__syncthreads_or(live)) continue;
-    load_tile<T>(s.k, hd + 1, k, s, hd);
-    load_tile<T>(s.v, hd, v, s, hd);
+    load_tile(s.k, hd + 1, k, s, hd);
+    load_tile(s.v, hd, v, s, hd);
     __syncthreads();
     const int p = s.kpos[lane];
     for (int r = warp; r < nrows; r += nwarps) {
@@ -231,7 +230,6 @@ __device__ void attend(const Smem& s, const T* __restrict__ k,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      const float pr = Elem<T>::round(pe);
       float* accr = s.acc + r * hd;
       float a[LD];
 #pragma unroll
@@ -241,7 +239,7 @@ __device__ void attend(const Smem& s, const T* __restrict__ k,
       }
 #pragma unroll 4
       for (int j = 0; j < kTileK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pr, j);
+        const float pj = __shfl_sync(0xffffffffu, pe, j);
         const float* vr = s.v + j * hd;
 #pragma unroll
         for (int i = 0; i < LD; ++i) {
@@ -265,14 +263,14 @@ __device__ void attend(const Smem& s, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-__device__ void store_rows(const Smem& s, T* __restrict__ out, int nrows,
+__device__ inline void store_rows(const Smem& s, float* __restrict__ out,
+                                  int nrows,
                            int hd) {
   __syncthreads();
   for (int e = threadIdx.x; e < nrows * hd; e += blockDim.x) {
     const int r = e / hd;
     const float l = s.l[r];
-    out[s.roff[r] + (e - r * hd)] = Elem<T>::store(l > 0.f ? s.acc[e] / l : 0.f);
+    out[s.roff[r] + (e - r * hd)] = l > 0.f ? s.acc[e] / l : 0.f;
   }
 }
 
@@ -316,7 +314,7 @@ __global__ void combine_kernel(const float* __restrict__ m_part,
     float a = 0.f;
     for (int i = 0; i < nsplit; ++i)
       a += acc_part[(row * nsplit + i) * hd + d] * expf(m[i] - mx);
-    out[row * hd + d] = Elem<T>::store(sum > 0.f ? a / sum : 0.f);
+    store_out(out + row * hd + d, sum > 0.f ? a / sum : 0.f);
   }
 }
 

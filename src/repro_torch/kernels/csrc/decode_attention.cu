@@ -51,32 +51,7 @@
 
 using namespace attn;
 
-// row i of a KV head = token i / G, query head kvh * G + i % G: its
-// element offset in q and out and, when q_pos is given, its position
-__device__ __forceinline__ void ring_rows(long long* roff, int* qpos,
-                                          const int* __restrict__ q_pos,
-                                          int b, int kvh, int tq, int h,
-                                          int g, int hd, int row0,
-                                          int nrows) {
-  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
-    const int gr = row0 + r, t = gr / g, head = kvh * g + (gr - t * g);
-    if (roff) roff[r] = ((static_cast<long long>(b) * tq + t) * h + head) * hd;
-    if (q_pos) qpos[r] = q_pos[static_cast<long long>(b) * tq + t];
-  }
-}
-
 // -- bf16: tensor cores -------------------------------------------------------
-
-// keys per warp tile: 32, or 16 above 128 dims (a stage of 4 warp tiles then
-// fits twice in shared memory)
-template <int HDMAX>
-constexpr int kWarpKeys = HDMAX <= 128 ? 32 : 16;
-
-// query rows of a CTA in warp row tiles, and the warps (groups) that split
-// each stage's keys: 4 warps in all, or 3 row tiles alone
-__host__ __device__ inline int ring_groups(int row_tiles) {
-  return row_tiles == 3 ? 1 : 4 / row_tiles;
-}
 
 // one CTA per SM is enough: ptxas may give a thread all the registers it
 // needs (with no minimum it capped the hd-32 ring variant at 72 and spilled)
@@ -91,46 +66,14 @@ decode_mma_kernel(const mma::bf16* __restrict__ q,
                   float* __restrict__ acc_part, int tq, int h, int kvh_n,
                   int w, int hd, int split_len, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int KW = kWarpKeys<HDMAX>;
-  using S = mma::Shape<HDMAX>;
-  const int row_tiles = min(4, (tq * (h / kvh_n) + 15) / 16);
-  const int groups = ring_groups(row_tiles);
-  const mma::Role role(groups);
-  const int rows_per_cta = row_tiles * 16;
   const int b = blockIdx.x / kvh_n, kvh = blockIdx.x - b * kvh_n;
-  const int g = h / kvh_n, rows = tq * g;
-  const int row0 = blockIdx.y * rows_per_cta;
-  const int nrows = min(rows_per_cta, rows - row0);
-  const int split = blockIdx.z, nsplit = gridDim.z;
-  const mma::Smem s = mma::carve(smem_raw, rows_per_cta, S::kPitch,
-                                 groups * KW, KW, split_len);
   const long long stride = static_cast<long long>(kvh_n) * hd;
   const long long base =
       static_cast<long long>(b) * w * stride + static_cast<long long>(kvh) * hd;
   const StridedKeys keys{base, stride, k_pos + static_cast<long long>(b) * w};
-  const int lo = split * split_len, hi = min(w, lo + split_len);
-  // Q's copy is in flight while the rows' and the split's positions load
-  // and the split's live tiles are listed
-  ring_rows(s.roff, nullptr, nullptr, b, kvh, tq, h, g, hd, row0, nrows);
-  __syncthreads();
-  mma::load_q<HDMAX>(s, q, nrows, rows_per_cta, hd);
-  ring_rows(nullptr, s.qpos, q_pos, b, kvh, tq, h, g, hd, row0, nrows);
-  mma::stage_positions(s, keys, lo, hi);
-  __syncthreads();
-  int qmin, qmax;
-  mma::row_bounds(s, nrows, qmin, qmax);
-  const int ntiles = mma::live_tiles<KW>(s, lo, hi - lo, qmin, qmax,
-                                         /*causal=*/true, window);
-  const mma::StagedKeys staged{s.spos, s.soff, lo};
-  mma::Acc<HDMAX> acc;
-  mma::attend<HDMAX, KW>(s, q, k, v, staged, nrows, hd, lo, hi, s.tiles,
-                         ntiles, groups, qmin, qmax, /*causal=*/true, window,
-                         scale, acc);
-  if (nsplit == 1)
-    mma::store_rows<HDMAX>(s, acc, role, out, nrows, hd);
-  else
-    mma::store_split<HDMAX>(s, acc, role, nrows, hd, split, nsplit, m_part,
-                            l_part, acc_part);
+  mma::decode_cta<HDMAX>(smem_raw, q, k, v, q_pos, keys, out, m_part, l_part,
+                         acc_part, b, kvh, tq, h, kvh_n, w, hd, split_len,
+                         window, scale);
 }
 
 template <int HDMAX>
@@ -139,29 +82,22 @@ static int launch_mma(const void* q, const void* k, const void* v,
                       float* m_part, float* l_part, float* acc_part, int b,
                       int tq, int h, int kvh_n, int w, int hd, int split_len,
                       int window, float scale, cudaStream_t stream) {
-  constexpr int KW = kWarpKeys<HDMAX>;
-  using S = mma::Shape<HDMAX>;
-  if (split_len % KW) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = tq * (h / kvh_n);
-  const int row_tiles = min(4, (rows + 15) / 16);
-  const int groups = ring_groups(row_tiles);
-  const int rb = 16 * row_tiles, warps = row_tiles * groups;
-  const int nsplit = (w + split_len - 1) / split_len;
-  const size_t smem =
-      mma::smem_bytes(rb, S::kPitch, groups * KW, KW, split_len);
+  if (split_len % mma::kDecodeWarpKeys<HDMAX>)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const mma::DecodeGrid d =
+      mma::decode_grid<HDMAX>(b, tq, h, kvh_n, w, split_len);
   auto kernel = decode_mma_kernel<HDMAX>;
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = allow_smem(kernel, d.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b * kvh_n, (rows + rb - 1) / rb, nsplit);
   auto* o = static_cast<mma::bf16*>(out);
-  kernel<<<grid, 32 * warps, smem, stream>>>(
+  kernel<<<d.grid, d.threads, d.smem, stream>>>(
       static_cast<const mma::bf16*>(q), static_cast<const mma::bf16*>(k),
       static_cast<const mma::bf16*>(v), q_pos, k_pos, o, m_part, l_part,
       acc_part, tq, h, kvh_n, w, hd, split_len, window, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
+  if (err != cudaSuccess || d.nsplit == 1) return static_cast<int>(err);
   combine_kernel<mma::bf16><<<b * tq * h, 64, 0, stream>>>(
-      m_part, l_part, acc_part, o, nsplit, hd);
+      m_part, l_part, acc_part, o, d.nsplit, hd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,14 +152,14 @@ decode_attention_kernel(const float* __restrict__ q,
   const int nrows = min(rows_per_cta, rows - row0);
   const int split = blockIdx.z, nsplit = gridDim.z;
   const Smem s = carve(smem_raw, rows_per_cta, hd);
-  ring_rows(s.roff, s.qpos, q_pos, b, kvh, tq, h, g, hd, row0, nrows);
-  load_rows<float>(s, q, nrows, hd);
+  decode_rows(s.roff, s.qpos, q_pos, b, kvh, tq, h, g, hd, row0, nrows);
+  load_rows(s, q, nrows, hd);
   const long long stride = static_cast<long long>(kvh_n) * hd;
   const long long base =
       static_cast<long long>(b) * w * stride + static_cast<long long>(kvh) * hd;
   const int lo = split * split_len, hi = min(w, lo + split_len);
   const StridedKeys keys{base, stride, k_pos + static_cast<long long>(b) * w};
-  attend<float, LD>(s, k, v, keys, lo, hi, nrows, hd, /*causal=*/true,
+  attend<LD>(s, k, v, keys, lo, hi, nrows, hd, /*causal=*/true,
                     window, scale);
   store_split(s, nrows, hd, split, nsplit, m_part, l_part, acc_part);
 }

@@ -162,7 +162,7 @@ flash_attention_kernel(const float* __restrict__ q,
     s.roff[r] = ((static_cast<long long>(b) * sq + q0 + r) * h + head) * hd;
     s.qpos[r] = q0 + r + shift;
   }
-  load_rows<float>(s, q, nrows, hd);
+  load_rows(s, q, nrows, hd);
   // the band of keys this query tile can see
   const int first = q0 + shift, last = q0 + nrows - 1 + shift;
   const int hi = causal ? min(sk, last + 1) : sk;
@@ -171,9 +171,9 @@ flash_attention_kernel(const float* __restrict__ q,
   const long long base = static_cast<long long>(b) * sk * stride +
                          static_cast<long long>(head / (h / kvh_n)) * hd;
   const StridedKeys keys{base, stride, nullptr};
-  attend<float, LD>(s, k, v, keys, lo, hi, nrows, hd, causal != 0, window,
+  attend<LD>(s, k, v, keys, lo, hi, nrows, hd, causal != 0, window,
                     scale);
-  store_rows<float>(s, out, nrows, hd);
+  store_rows(s, out, nrows, hd);
 }
 
 template <int LD>

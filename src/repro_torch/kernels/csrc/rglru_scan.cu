@@ -10,176 +10,291 @@
 //
 // Bound on this card: bytes. Each element costs one FMA against 12 bytes
 // (a and b read, h written), so HBM sets the floor: 12 * B * S * W bytes
-// over 3.35 TB/s. The trap is parallelism: the channels are independent but
-// time is a chain, and at the serving shape (B = 1, W = 4096) one thread
-// per channel walking all S steps gives 32 CTAs of 128 threads on 132 SMs,
-// each with one dependent load -> FMA chain in flight. So the time axis is
-// split into chunks as well (reduce, then scan, like the decode kernel's
-// key split plus combine), three launches on one stream:
-//   1. rglru_chunk_reduce: one CTA per (128-channel tile, time chunk,
-//      batch row). Each thread composes its channel's steps in the chunk
-//      into one affine map h -> A * h + H (A the product of a, H the chunk
-//      scanned from h = 0) and writes (A, H) to scratch. No h is written.
-//   2. rglru_chunk_carry: one thread per (batch row, channel) walks the
-//      chunks in order from h0, writing each chunk's incoming state.
-//   3. rglru_chunk_scan: the grid of pass 1 scans each chunk again from
-//      its incoming state, h = a * h + b step by step (the plain version's
-//      arithmetic), writing every h and, in the last chunk, h_last.
-// The wrapper picks the chunk length so the grid holds ~8 CTAs per SM; a
-// single chunk skips passes 1 and 2 (h0 is then the incoming state). In
-// every pass a thread's loads are coalesced across the warp's channels,
-// and kUnroll steps of a and b are loaded before the dependent FMAs run.
-// Passes 1 and 3 both read a and b, so the traffic is 20 bytes per element
-// against the bound's 12 (pass 3's reads often hit L2 at prefill sizes).
+// over 3.35 TB/s. The channels are independent but time is a chain, and at
+// the serving shape (B = 1, W = 4096) one thread per channel walking all S
+// steps gives 32 CTAs on 132 SMs. So time is cut into chunks of at most
+// kMaxChunk steps, one CTA per (batch row, 128-channel tile, chunk), and
+// the chunks of a chain (batch row, channel tile) are joined in one launch
+// by a chained scan with look-back, so that a and b are read from HBM once
+// (the three-pass scan this replaces read them twice: 20 bytes an element,
+// not 12):
+//   1. A CTA draws a ticket from a global counter: tickets go out in the
+//      order CTAs start, chunk-major, so every chunk a CTA waits for below
+//      has started before it and waits only on earlier ones (no deadlock,
+//      whatever order the hardware schedules the grid in).
+//   2. It copies its chunk of a and b into shared memory by cp.async
+//      (16-byte copies where W allows) and composes each channel's steps
+//      into one affine map h -> A * h + H.
+//   3. The chunks of a chain form groups of `group`. A chunk other than its
+//      group's last publishes its map with an "aggregate" flag; the last
+//      chunk of a group publishes instead the state after it, with an
+//      "inclusive" flag.
+//   4. Chunk r of group g starts from the state after group g - 1 (h0 for
+//      group 0) and applies the maps of chunks 0 .. r - 1 of its group, in
+//      that order: warp 0 waits until those r + 1 flags are up, one lane
+//      each. The order is fixed, so the scan gives the same bits on every
+//      call (the engine's K = 4 and K = 1 streams depend on that). A
+//      decoupled look-back that composes the maps it finds newest first
+//      rounds differently wherever it stops, and did change a greedy token
+//      of the hybrid; one that applies them to a state oldest first keeps
+//      the bits but read more maps and was slower on the H100 (PERF.md).
+//   5. It scans its chunk from that state, h = a * h + b step by step (the
+//      plain version's arithmetic), into shared memory; a group's last
+//      chunk publishes its last h; then the CTA writes every h, and the
+//      chain's last chunk h_last.
+// The serial part is one link per group (S / (32 * group) links of ~3
+// dependent L2 round trips); the rest overlaps across CTAs, ~6 resident a
+// SM (32 KB of shared memory each, few registers).
+// Publishing: every thread writes its values, then __threadfence and a
+// barrier, then one release store of the flag; readers acquire the flag
+// and read the values through L2. Flags carry an epoch (flag = epoch << 2 |
+// kind) that the launch's last CTA advances, together with resetting the
+// ticket counter, so a flag left by an earlier launch is never taken for
+// this one's and no scratch is cleared between calls.
 //
-// Layouts (all contiguous): a, b, h (B, S, W); h0, h_last (B, W); scratch
-// red_a, red_h, carry (B, C, W) for C chunks of `chunk` steps (the last
-// chunk may be shorter).
+// Layouts (all contiguous): a, b, h (B, S, W); h0, h_last (B, W). Scratch:
+// ctl (3 x u32: ticket, retired CTAs, epoch) and flags (one u32 per CTA),
+// both zeroed once by their owner and kept across calls on one stream;
+// vals (2 x CTAs x 128 f32: A and H, or the state, per channel),
+// uninitialised.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;   // channels per CTA
-constexpr int kUnroll = 8;      // steps of a and b loaded ahead of the FMAs
+constexpr int kThreads = 128;     // channels per CTA
+constexpr int kMaxChunk = 32;     // steps per chunk at most: shared memory
+constexpr int kMaxGroup = 32;     // chunks per group at most: warp 0's lanes
+constexpr int kCompose = 8;       // predecessors' maps loaded ahead
+constexpr unsigned kAggregate = 1, kInclusive = 2;
 
-// Compose steps [t0, t1) of one channel into (A, H): h_out = A * h_in + H.
-__device__ __forceinline__ void reduce_steps(const float* __restrict__ a,
-                                             const float* __restrict__ b,
-                                             long long off, int w, int t0,
-                                             int t1, float& A, float& H) {
-  A = 1.f;
-  H = 0.f;
-  int t = t0;
-  for (; t + kUnroll <= t1; t += kUnroll) {
-    float ra[kUnroll], rb[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long i = off + static_cast<long long>(t + u) * w;
-      ra[u] = __ldg(a + i);
-      rb[u] = __ldg(b + i);
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared, asynchronously; read = false writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool read) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(read ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool read) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(read ? 4 : 0));
+}
+
+// Make this CTA's values visible device-wide, then publish its flag.
+__device__ __forceinline__ void publish(unsigned* flag, unsigned v) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(flag, v);
+}
+
+// kVec: W % 4 == 0 and a, b, h 16-byte aligned, so a warp moves 512
+// contiguous bytes of one step per instruction (thread t: step t / 32 + 4 i,
+// channels 4 (t % 32) ..); else thread t moves channel t of every step.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  const float* __restrict__ h0, float* __restrict__ h_out,
+                  float* __restrict__ h_last, unsigned* __restrict__ ctl,
+                  unsigned* __restrict__ flags, float* __restrict__ vals,
+                  int s, int w, int chunk, int group, int chains,
+                  int nchunks) {
+  __shared__ __align__(16) float sa[kMaxChunk][kThreads];
+  __shared__ __align__(16) float sh[kMaxChunk][kThreads];  // b, then h
+  __shared__ unsigned sh_ticket, sh_epoch;
+  if (threadIdx.x == 0) {
+    sh_ticket = atomicAdd(&ctl[0], 1u);
+    sh_epoch = *reinterpret_cast<volatile unsigned*>(&ctl[2]);
+  }
+  __syncthreads();
+  const int tid = static_cast<int>(threadIdx.x);
+  const int ticket = static_cast<int>(sh_ticket);
+  const unsigned tag = sh_epoch << 2;
+  const int k = ticket / chains, chain = ticket - k * chains;
+  const int tiles = (w + kThreads - 1) / kThreads;
+  const int row = chain / tiles, c0 = (chain - row * tiles) * kThreads;
+  const int nch = min(kThreads, w - c0);       // channels in this tile
+  const int t0 = k * chunk, n = min(chunk, s - t0);
+  const long long off = (static_cast<long long>(row) * s + t0) * w + c0;
+
+  if constexpr (kVec) {
+    const int j = (tid & 31) * 4;
+    for (int u = tid >> 5; u < n; u += kThreads / 32) {
+      const long long i = off + static_cast<long long>(u) * w + j;
+      const bool rd = j < nch;
+      cp_async16(&sa[u][j], rd ? a + i : a, rd);
+      cp_async16(&sh[u][j], rd ? b + i : b, rd);
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      H = ra[u] * H + rb[u];
-      A *= ra[u];
+  } else {
+    const bool rd = tid < nch;
+    for (int u = 0; u < n; ++u) {
+      const long long i = off + static_cast<long long>(u) * w + tid;
+      cp_async4(&sa[u][tid], rd ? a + i : a, rd);
+      cp_async4(&sh[u][tid], rd ? b + i : b, rd);
     }
   }
-  for (; t < t1; ++t) {
-    const long long i = off + static_cast<long long>(t) * w;
-    const float at = __ldg(a + i);
-    H = at * H + __ldg(b + i);
-    A *= at;
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // a chain's chunks are adjacent in flags and vals
+  const long long nctas = static_cast<long long>(chains) * nchunks;
+  const int base = chain * nchunks;
+  float* va = vals;                              // A, or the state
+  float* vh = vals + nctas * kThreads;           // H
+  const long long me = static_cast<long long>(base + k) * kThreads + tid;
+  const int g = k / group, r = k - g * group;
+  const bool last_of_group = r == group - 1 || k + 1 == nchunks;
+
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  if (!last_of_group) {                          // a successor reads it
+    float A = 1.f, H = 0.f;
+    for (int u = 0; u < n; ++u) {
+      H = fmaf(sa[u][tid], H, sh[u][tid]);
+      A *= sa[u][tid];
+    }
+    va[me] = A;
+    vh[me] = H;
+    publish(&flags[base + k], tag | kAggregate);
+  }
+
+  // the state before this chunk: after group g - 1, then chunks g * group
+  // .. k - 1 in order
+  float h;
+  if (g == 0 && r == 0) {
+    h = tid < nch ? h0[static_cast<long long>(row) * w + c0 + tid] : 0.f;
+  } else {
+    const int first = g * group;                 // chunk 0 of the group
+    if (tid < 32) {
+      // lane i < r: chunk first + i's map; lane 31: the state after
+      // chunk first - 1 (none in group 0)
+      const int p = tid < r ? first + tid : (tid == 31 ? first - 1 : -1);
+      int spins = 0;
+      for (;;) {
+        bool up = true;
+        if (p >= 0) {
+          const unsigned f = ld_acquire(&flags[base + p]);
+          up = (f & ~3u) == tag && (f & 3u) != 0;
+        }
+        if (__all_sync(0xffffffffu, up)) break;
+        if (++spins > 4) __nanosleep(64);
+      }
+    }
+    __syncthreads();
+    const long long ps = static_cast<long long>(base + first) * kThreads +
+                         tid;
+    h = g == 0 ? (tid < nch ? h0[static_cast<long long>(row) * w + c0 + tid]
+                            : 0.f)
+               : __ldcg(va + ps - kThreads);
+    for (int i0 = 0; i0 < r; i0 += kCompose) {
+      float pa[kCompose], ph[kCompose];
+#pragma unroll
+      for (int u = 0; u < kCompose; ++u) {
+        const long long q = ps + static_cast<long long>(i0 + u) * kThreads;
+        pa[u] = i0 + u < r ? __ldcg(va + q) : 1.f;
+        ph[u] = i0 + u < r ? __ldcg(vh + q) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kCompose; ++u) h = fmaf(pa[u], h, ph[u]);
+    }
+  }
+
+  // the chunk from that state, step by step, into shared memory
+  for (int u = 0; u < n; ++u) {
+    h = sa[u][tid] * h + sh[u][tid];
+    sh[u][tid] = h;
+  }
+  if (last_of_group && k + 1 < nchunks) {
+    va[me] = h;
+    publish(&flags[base + k], tag | kInclusive);
+  } else {
+    __syncthreads();                             // sh is complete
+  }
+  if constexpr (kVec) {
+    const int j = (tid & 31) * 4;
+    if (j < nch)
+      for (int u = tid >> 5; u < n; u += kThreads / 32)
+        *reinterpret_cast<float4*>(h_out + off +
+                                   static_cast<long long>(u) * w + j) =
+            *reinterpret_cast<const float4*>(&sh[u][j]);
+  } else if (tid < nch) {
+    for (int u = 0; u < n; ++u)
+      h_out[off + static_cast<long long>(u) * w + tid] = sh[u][tid];
+  }
+  if (k + 1 == nchunks && tid < nch)
+    h_last[static_cast<long long>(row) * w + c0 + tid] = h;
+  // the last CTA to retire readies the scratch for the next launch
+  if (tid == 0) {
+    const unsigned done = atomicAdd(&ctl[1], 1u);
+    if (done + 1 == gridDim.x) {
+      ctl[0] = 0;
+      ctl[1] = 0;
+      ctl[2] = sh_epoch + 1;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-rglru_chunk_reduce(const float* __restrict__ a, const float* __restrict__ b,
-                   float* __restrict__ red_a, float* __restrict__ red_h,
-                   int s, int w, int chunk) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= w) return;
-  const int k = blockIdx.y, nchunks = gridDim.y, row = blockIdx.z;
-  const int t0 = k * chunk, t1 = min(s, t0 + chunk);
-  float A, H;
-  reduce_steps(a, b, static_cast<long long>(row) * s * w + c, w, t0, t1, A,
-               H);
-  const long long o = (static_cast<long long>(row) * nchunks + k) * w + c;
-  red_a[o] = A;
-  red_h[o] = H;
-}
-
-__global__ void __launch_bounds__(kThreads)
-rglru_chunk_carry(const float* __restrict__ red_a,
-                  const float* __restrict__ red_h,
-                  const float* __restrict__ h0, float* __restrict__ carry,
-                  int w, int nchunks) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= w) return;
-  const int row = blockIdx.y;
-  const long long base = static_cast<long long>(row) * nchunks * w + c;
-  float h = h0[static_cast<long long>(row) * w + c];
-  int k = 0;
-  for (; k + kUnroll <= nchunks; k += kUnroll) {
-    float ra[kUnroll], rh[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      ra[u] = __ldg(red_a + base + static_cast<long long>(k + u) * w);
-      rh[u] = __ldg(red_h + base + static_cast<long long>(k + u) * w);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      carry[base + static_cast<long long>(k + u) * w] = h;
-      h = ra[u] * h + rh[u];
-    }
+template <bool kVec>
+int launch(const float* a, const float* b, const float* h0, float* h,
+           float* h_last, unsigned* ctl, unsigned* flags, float* vals, int s,
+           int w, int chunk, int group, int chains, int nchunks,
+           cudaStream_t stream) {
+  auto kernel = rglru_scan_kernel<kVec>;
+  static bool carved = false;
+  if (!carved) {     // all of the SM's shared memory: more CTAs resident
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    carved = true;
   }
-  for (; k < nchunks; ++k) {
-    const long long i = base + static_cast<long long>(k) * w;
-    carry[i] = h;
-    h = red_a[i] * h + red_h[i];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-rglru_chunk_scan(const float* __restrict__ a, const float* __restrict__ b,
-                 const float* __restrict__ carry, float* __restrict__ h_out,
-                 float* __restrict__ h_last, int s, int w, int chunk) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= w) return;
-  const int k = blockIdx.y, nchunks = gridDim.y, row = blockIdx.z;
-  const int t0 = k * chunk, t1 = min(s, t0 + chunk);
-  const long long off = static_cast<long long>(row) * s * w + c;
-  float h = carry[(static_cast<long long>(row) * nchunks + k) * w + c];
-  int t = t0;
-  for (; t + kUnroll <= t1; t += kUnroll) {
-    float ra[kUnroll], rb[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long i = off + static_cast<long long>(t + u) * w;
-      ra[u] = __ldg(a + i);
-      rb[u] = __ldg(b + i);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      h = ra[u] * h + rb[u];
-      h_out[off + static_cast<long long>(t + u) * w] = h;
-    }
-  }
-  for (; t < t1; ++t) {
-    const long long i = off + static_cast<long long>(t) * w;
-    h = __ldg(a + i) * h + __ldg(b + i);
-    h_out[i] = h;
-  }
-  if (k == nchunks - 1) h_last[static_cast<long long>(row) * w + c] = h;
+  kernel<<<chains * nchunks, kThreads, 0, stream>>>(
+      a, b, h0, h, h_last, ctl, flags, vals, s, w, chunk, group, chains,
+      nchunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// chunk: steps per time chunk (>= 1); the chunk count is ceil(s / chunk).
-// With one chunk the scratch pointers are not read and may be null.
+// chunk: steps per time chunk, 1 <= chunk <= 32; group: chunks per
+// look-back group, 1 <= group <= 32. The chunk count is ceil(s / chunk) and
+// the grid (B * ceil(w / 128) * chunks) CTAs. ctl and flags: see above
+// (flags holds at least one entry per CTA); vals: 2 * 128 floats per CTA.
 // Returns a cudaError_t (0 = launched).
 extern "C" int rglru_scan_f32(const float* a, const float* b, const float* h0,
-                              float* h, float* h_last, float* red_a,
-                              float* red_h, float* carry, int batch, int s,
-                              int w, int chunk, void* stream_ptr) {
+                              float* h, float* h_last, unsigned* ctl,
+                              unsigned* flags, float* vals, int batch, int s,
+                              int w, int chunk, int group, void* stream_ptr) {
   auto stream = static_cast<cudaStream_t>(stream_ptr);
-  if (batch < 1 || s < 1 || w < 1 || chunk < 1)
+  if (batch < 1 || s < 1 || w < 1 || chunk < 1 || chunk > kMaxChunk ||
+      group < 1 || group > kMaxGroup)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nchunks = (s + chunk - 1) / chunk;
-  const int tiles = (w + kThreads - 1) / kThreads;
-  const dim3 grid(tiles, nchunks, batch);
-  const float* incoming = h0;            // one chunk: h0 is its carry
-  if (nchunks > 1) {
-    rglru_chunk_reduce<<<grid, kThreads, 0, stream>>>(a, b, red_a, red_h, s,
-                                                      w, chunk);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rglru_chunk_carry<<<dim3(tiles, batch), kThreads, 0, stream>>>(
-        red_a, red_h, h0, carry, w, nchunks);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    incoming = carry;
-  }
-  rglru_chunk_scan<<<grid, kThreads, 0, stream>>>(a, b, incoming, h, h_last,
-                                                  s, w, chunk);
-  return static_cast<int>(cudaGetLastError());
+  const int chains = batch * ((w + kThreads - 1) / kThreads);
+  const bool vec = w % 4 == 0 &&
+                   ((reinterpret_cast<unsigned long long>(a) |
+                     reinterpret_cast<unsigned long long>(b) |
+                     reinterpret_cast<unsigned long long>(h)) & 15) == 0;
+  return vec ? launch<true>(a, b, h0, h, h_last, ctl, flags, vals, s, w,
+                            chunk, group, chains, nchunks, stream)
+             : launch<false>(a, b, h0, h, h_last, ctl, flags, vals, s, w,
+                             chunk, group, chains, nchunks, stream);
 }

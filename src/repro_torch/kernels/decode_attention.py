@@ -8,8 +8,8 @@ split) folding the T x G query rows of that KV head; streaming softmax
 over key tiles; keys and tiles no row may see are not read; the splits are
 combined by log-sum-exp in a second kernel). The paged kernel differs only
 in where key j lives: token j % bs of pool block ``block_tables[b, j //
-bs]``. The ring kernel runs bf16 on the tensor cores with its own split
-rule (``ring_split_len``); its f32 variant and the paged kernel run the
+bs]``. Both run bf16 on the tensor cores, each with its split rule
+(``ring_split_len``, ``paged_split_len``); their f32 variants run the
 scalar body with ``split_len``. ``decode_attention_plain`` and
 ``paged_decode_attention_plain`` are the same functions in plain PyTorch:
 the CPU path and the kernels' references.
@@ -40,7 +40,7 @@ _PAGED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
 _TILE_K = 32          # keys per tile in the scalar body
 _ROWS_PER_CTA = 64    # query rows per CTA in either body
-_SPLIT_MIN_KEYS = 256  # keys a split of the bf16 ring kernel walks at least
+_SPLIT_MIN_KEYS = 256  # keys a split of a bf16 decode kernel walks at least
 _SPLIT_MAX_KEYS = 2048  # and at most: it stages their positions (12 B each)
 
 
@@ -99,7 +99,7 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def split_len(b: int, t: int, h: int, kv: int, w: int, sms: int) -> int:
-    """Keys per split of the scalar body (the paged kernel, the f32 ring):
+    """Keys per split of the scalar body (the f32 ring and paged kernels):
     enough splits that the grid has ~4 CTAs per SM, each split a whole
     number of 32-key tiles."""
     ctas = b * kv * _cdiv(t * (h // kv), _ROWS_PER_CTA)
@@ -128,6 +128,18 @@ def ring_split_len(b: int, t: int, h: int, kv: int, w: int, hd: int,
     splits = max(1, min(_cdiv(tiles, _cdiv(_SPLIT_MIN_KEYS, kt)),
                         2 * sms // ctas), _cdiv(w, _SPLIT_MAX_KEYS))
     return _cdiv(tiles, splits) * kt
+
+
+def paged_split_len(b: int, t: int, h: int, kv: int, m: int, bs: int,
+                    hd: int, sms: int) -> int:
+    """Keys per split of the bf16 paged kernel over the logical key axis of
+    a (B, M) table of ``bs``-token blocks: ``ring_split_len``'s rule (at
+    least 256 keys where M * bs has them, at most two waves, at most 2048
+    staged keys, whole warp tiles) at W = M * bs. That axis counts the
+    table's trailing holes, which cost a CTA one table read a key and no
+    K/V. A split need not align with pool blocks: the CTA stages each key's
+    offset, so a warp tile may span several blocks."""
+    return ring_split_len(b, t, h, kv, m * bs, hd, sms)
 
 
 def _split_scratch(q, w: int, chunk: int):
@@ -256,14 +268,19 @@ def _launch_paged(q, k, v, qp, kp, bt, window: Optional[int], scale: float):
             f"{tuple(k.shape)}, v {tuple(v.shape)}, q_pos {tuple(qp.shape)}"
             f", k_pos {tuple(kp.shape)}, block_tables {tuple(bt.shape)} do "
             f"not form (B,T,H,hd)/(N,bs,KV,hd)/(B,M)")
+    if q.data_ptr() % 16:       # the bf16 kernel stages q by 16-byte copies
+        q = q.clone()
     out = torch.empty_like(q)
     if out.numel() == 0 or m * bs == 0:
         return out.zero_()
-    chunk = split_len(b, t, h, kv, m * bs, _sms(q.device))
-    m_part, l_part, acc_part = _split_scratch(q, m * bs, chunk)
     lib = _paged_lib()
-    fn = (lib.paged_decode_attention_bf16 if q.dtype == torch.bfloat16
-          else lib.paged_decode_attention_f32)
+    if q.dtype == torch.bfloat16:
+        fn = lib.paged_decode_attention_bf16
+        chunk = paged_split_len(b, t, h, kv, m, bs, hd, _sms(q.device))
+    else:
+        fn = lib.paged_decode_attention_f32
+        chunk = split_len(b, t, h, kv, m * bs, _sms(q.device))
+    m_part, l_part, acc_part = _split_scratch(q, m * bs, chunk)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
                  kp.data_ptr(), bt.data_ptr(), out.data_ptr(),

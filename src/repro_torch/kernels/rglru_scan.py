@@ -2,11 +2,12 @@
 port's recurrent prefill.
 
 Port of ``repro.kernels.rglru_scan.rglru_scan``. The kernel is
-``csrc/rglru_scan.cu`` (the time axis split into chunks: each chunk is
-reduced to one affine map, the maps are carried across chunks from h0, and
-each chunk is scanned again from its incoming state); ``rglru_scan_plain``
-is the same function in plain PyTorch, a sequential loop over time: the CPU
-path and the kernel's reference.
+``csrc/rglru_scan.cu``: one launch that cuts time into chunks of at most
+32 steps, one CTA per (batch row, 128-channel tile, chunk), and joins a
+chain's chunks by a chained scan with look-back in a fixed order (so that
+it gives the same bits on every call), reading a and b from device memory
+once. ``rglru_scan_plain`` is the same function in plain PyTorch, a
+sequential loop over time: the CPU path and the kernel's reference.
 
 Contract shared by both: a, b (B, S, W) f32 and h0 (B, W) f32 -> (h
 (B, S, W) f32, h_last (B, W) f32), for any S, W >= 1.
@@ -14,16 +15,25 @@ Contract shared by both: a, b (B, S, W) f32 and h0 (B, W) f32 -> (h
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import (LAUNCHES, build, check_cuda_tensors,
                                  raise_on_error)
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _THREADS = 128          # channels per CTA (csrc/rglru_scan.cu kThreads)
-_CTAS_PER_SM = 8        # the grid the chunk length aims for
-_MIN_CHUNK = 16         # steps per chunk at least
+_MAX_CHUNK = 32         # steps a CTA holds in shared memory (kMaxChunk)
+_MIN_CHUNK = 8          # steps per chunk at least, where S allows
+# chunks per look-back group: a chunk applies the maps of the chunks before
+# it in its group to the state after the group before
+_GROUP = 16
+# per (device, stream): the look-back's ticket counter, retired-CTA count
+# and epoch, and its flags (one per CTA); zeroed once, then kept: each
+# launch leaves them ready for the next on its stream
+_STATE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_MIN_FLAGS = 4096
 
 
 def rglru_scan_plain(a, b, h0):
@@ -38,12 +48,27 @@ def rglru_scan_plain(a, b, h0):
 
 
 def chunk_len(batch: int, s: int, w: int, sms: int) -> int:
-    """Steps per time chunk: enough chunks that the grid has ~8 CTAs per
-    SM, each chunk at least 16 steps."""
-    tiles = batch * -(-w // _THREADS)
-    chunks = max(1, min(-(-s // _MIN_CHUNK),
-                        -(-_CTAS_PER_SM * sms // tiles)))
+    """Steps per time chunk: ``_MAX_CHUNK`` (a CTA holds its chunk of a and
+    b in shared memory: 32 steps x 128 channels x 8 B = 32 KB), or fewer
+    where that leaves SMs without a CTA, down to ``_MIN_CHUNK``. Each chunk
+    pays its look-back, so the longest chunk that fills the card is the
+    fastest (``chip_smoke.py``'s scan sweep times 8, 16 and 32 steps)."""
+    chains = batch * -(-w // _THREADS)
+    chunks = max(-(-s // _MAX_CHUNK),
+                 min(-(-s // _MIN_CHUNK), -(-sms // chains)))
     return -(-s // chunks)
+
+
+def _state(dev, stream: int, ctas: int):
+    """The persistent look-back state (ctl, flags) for ``ctas`` CTAs on this
+    device and stream; grown (zeroed anew) when a launch needs more flags."""
+    key = (dev.index, stream)
+    got = _STATE.get(key)
+    if got is None or got[1].numel() < ctas:
+        n = max(ctas, _MIN_FLAGS, 2 * got[1].numel() if got else 0)
+        got = _STATE[key] = (torch.zeros(3, dtype=torch.int32, device=dev),
+                             torch.zeros(n, dtype=torch.int32, device=dev))
+    return got
 
 
 def _lib():
@@ -68,20 +93,17 @@ def _launch(a, b, h0):
     chunk = chunk_len(bsz, s, w,
                       torch.cuda.get_device_properties(dev)
                       .multi_processor_count)
-    nchunks = -(-s // chunk)
-    if nchunks > 1:
-        red_a, red_h, carry = (torch.empty((bsz, nchunks, w),
-                                           dtype=torch.float32, device=dev)
-                               for _ in range(3))
-        scratch = (red_a.data_ptr(), red_h.data_ptr(), carry.data_ptr())
-    else:
-        scratch = (None, None, None)
+    ctas = bsz * -(-w // _THREADS) * -(-s // chunk)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ctl, flags = _state(dev, stream, ctas)
+    vals = torch.empty(2 * ctas * _THREADS, dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.rglru_scan_f32(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
-                                 h.data_ptr(), h_last.data_ptr(), *scratch,
-                                 bsz, s, w, chunk,
-                                 torch.cuda.current_stream(dev).cuda_stream)
+                                 h.data_ptr(), h_last.data_ptr(),
+                                 ctl.data_ptr(), flags.data_ptr(),
+                                 vals.data_ptr(), bsz, s, w, chunk, _GROUP,
+                                 stream)
     raise_on_error("rglru_scan", err)
     LAUNCHES["rglru_scan"] += 1
     return h, h_last

@@ -76,6 +76,7 @@ class Request:
     # "queued"/"active" while live, then one of done | rejected | cancelled
     status: str = "queued"
     failure_reason: Optional[str] = None
+    downgraded: bool = False     # deadline stripped by admission control
     enqueue_s: float = 0.0       # wall-clock at engine queue entry
 
 
@@ -301,7 +302,8 @@ class ServingEngine:
                         f"the measured class service rate cannot finish "
                         f"within {remaining:.3f}s")
                     return
-                r.deadline_s = None
+                r.deadline_s = None          # downgrade: serve best-effort
+                r.downgraded = True
         r.enqueue_s = time.perf_counter()
         self._queue.append(r)
 

@@ -192,3 +192,47 @@ def test_engine_edges_and_later_slices():
                dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             ServingEngine(lm, tp, **kw)
+
+
+def _admission(engine):
+    """``tests/test_faults.py::test_deadline_admission_reject_and_downgrade``
+    on one engine: train the service estimate, saturate, then submit a
+    hopeless deadline and a loose one. Returns (tight, loose) as the engine
+    leaves them after ``run()``, and the tight request as queued."""
+    for _ in range(3):                    # train the estimator
+        engine.submit(np.arange(6), 6)
+    engine.run()
+    est = engine.scheduler.service_estimate(0)
+    assert est is not None and est > 0
+    for _ in range(4):                    # saturation
+        engine.submit(np.arange(6), 6)
+    tight = engine.submit(np.arange(6), 6, deadline_s=est * 1e-3)
+    loose = engine.submit(np.arange(6), 6, deadline_s=600.0)
+    queued = next((q for q in engine._queue if q.request_id == tight), None)
+    if queued is not None:                # a snapshot: run() moves it on
+        queued = (queued.downgraded, queued.deadline_s)
+    done = engine.run()
+    return done[tight], done[loose], queued
+
+
+@pytest.mark.parametrize("policy", ["reject", "downgrade"])
+def test_deadline_admission_matches_repro(policy):
+    """Submit-time feasibility on the same trace through ``repro``'s engine
+    and the port's, on bridged weights: "reject" refuses the hopeless
+    deadline, "downgrade" strips it and flags the request, and the loose
+    deadline is served untouched, in both."""
+    jlm, jp, lm, tp = _models()
+    kw = dict(batch_slots=2, max_seq_len=64, min_bucket=4,
+              admission_policy=policy)
+    for engine in (JaxEngine(jlm, jp, **kw), ServingEngine(lm, tp, **kw)):
+        tight, loose, queued = _admission(engine)
+        if policy == "reject":
+            assert tight.status == "rejected"
+            assert tight.failure_reason.startswith("deadline_infeasible")
+            assert queued is None
+        else:
+            assert queued == (True, None)
+            assert tight.status == "done" and tight.downgraded
+            assert tight.deadline_s is None
+        assert loose.status == "done" and not loose.downgraded
+        assert loose.deadline_s == 600.0

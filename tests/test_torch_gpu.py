@@ -7,7 +7,7 @@ runs on a machine with only PyTorch:
 
 Tolerances: f32 1e-4 (summation order), bf16 2e-2 (bf16 output rounding,
 and the kernel rounds P to bf16 before P V where the plain version keeps
-f32). The ring decode and flash kernels are held in bf16 per query row as
+f32). The three attention kernels are held in bf16 per query row as
 well: |kernel - plain| / |plain| over the row's heads and dims below 1e-2,
 where one bf16 rounding is ~2^-9 and a missed key tile or a wrong fragment
 moves a row by far more, though a row that averages hundreds of keys can
@@ -17,7 +17,7 @@ is off for the f32 comparisons. The cascade gate's confidence:
 which f32 holds exactly, and sum in f32; only the order differs), routes
 and counts equal on rows away from the thresholds. The RG-LRU scan (f32
 only): 1e-5 * max(1, |h|) per element (the chunked scan composes the same
-steps in another order).
+steps in another order: one chunk's map composed onto another's state).
 """
 import numpy as np
 import pytest
@@ -66,7 +66,11 @@ DECODE_CASES = [
 
 # (h, kv, hd, bs, window, fills, t): the block sizes and cases of
 # tests/test_paged_decode_attention.py, chunk queries (t > 1, including one
-# of more than 64 rows) and a pool with a freed slot
+# of more than 64 rows) and a pool with a freed slot; then every hd class
+# of the bf16 kernel (hd 128; 256 with 16 heads over one KV head; 24 and
+# 40, multiples of 8 but not of 16) at t = 1 and t > 1, and a table wider
+# than the 2048 keys one split stages. Tables of up to 64 keys take one
+# split (the CTA writes the output); _pool punches holes mid-table.
 PAGED_CASES = [
     (4, 4, 32, 16, None, (64, 64), 1),
     (4, 2, 32, 16, None, (26, 64), 1),
@@ -78,6 +82,16 @@ PAGED_CASES = [
     (8, 2, 64, 32, 16, (96, 40), 8),
     (9, 3, 64, 16, None, (200, 0, 17), 40),   # 120 rows, a freed slot
     (9, 3, 64, 8, None, (300, 33), 1),
+    (8, 2, 128, 16, None, (300, 77), 1),
+    (8, 2, 128, 16, 100, (300, 77), 8),
+    (16, 1, 256, 16, 2048, (700, 0, 33), 1),
+    (16, 1, 256, 16, None, (700, 40), 16),    # 256 rows: four CTAs
+    (9, 3, 24, 16, None, (180, 50), 1),
+    (9, 3, 24, 16, None, (180, 50), 8),
+    (9, 3, 40, 8, 50, (180, 50), 1),
+    (9, 3, 40, 8, None, (180, 50), 8),
+    (9, 3, 64, 16, None, (2500, 100), 1),     # 157 blocks: 2512 keys
+    (9, 3, 64, 16, 700, (2500, 100), 4),
 ]
 
 # (t, v, misaligned): the serving gate (t = 1) and the one-shot batch at
@@ -103,9 +117,11 @@ FLASH_CASES = [
 ]
 
 # (b, s, w): the serving shape, odd S and W with B > 1, one step, one
-# chunk, and a ragged channel tile
+# chunk, a ragged channel tile, many chunks on one chain (2048 CTAs of one
+# look-back chain) and many chains with B > 1
 RGLRU_CASES = [(1, 512, 4096), (2, 77, 4000), (3, 1, 129), (2, 16, 128),
-               (4, 1000, 257), (1, 4096, 4096)]
+               (4, 1000, 257), (1, 4096, 4096), (1, 65536, 128),
+               (8, 2048, 1024)]
 
 
 def _assert_attention(out, plain, dt, rows: int = 2):
@@ -175,7 +191,9 @@ def test_decode_kernel_empty_rows_are_zero(cuda):
 def _pool(dev, dt, h, kv, hd, bs, fills, t):
     """A shuffled pool as the engine leaves it (block 0 is trash, a slot's
     token p at (table[p // bs], p % bs)); a fill of 0 is a freed slot (its
-    row all -1). The t-token chunk of each slot ends at its last token."""
+    row all -1); a slot of at least four blocks loses its second (a hole:
+    -1 mid-table). The t-token chunk of each slot ends at its last
+    token."""
     rng = np.random.default_rng(7)
     m = max(-(-f // bs) for f in fills)
     n = sum(-(-f // bs) for f in fills) + 2
@@ -189,6 +207,8 @@ def _pool(dev, dt, h, kv, hd, bs, fills, t):
             bt[s, j] = blk
             tok = np.arange(j * bs, min(fill, (j + 1) * bs))
             pos[blk, tok - j * bs] = tok
+        if fill >= 4 * bs:
+            bt[s, 1] = -1
     q = rng.standard_normal((len(fills), t, h, hd))
     k, v = (rng.standard_normal((n, bs, kv, hd)) for _ in range(2))
     q_pos = np.asarray([max(f - t, 0) for f in fills], np.int32)
@@ -208,8 +228,7 @@ def test_paged_kernel_matches_plain(cuda, case, dtype):
     assert LAUNCHES["paged_decode_attention"] == n + 1
     plain = paged_decode_attention_plain(q, k, v, q_pos, pos, bt,
                                          window=window)
-    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
-    assert (out.float() - plain.float()).abs().max().item() < tol
+    _assert_attention(out, plain, dt)
     for s, fill in enumerate(fills):
         if fill == 0:
             assert not out[s].any()
@@ -323,6 +342,30 @@ def test_rglru_scan_kernel_matches_plain(cuda, case):
     for out, ref in ((h, ph), (h_last, ph_last)):
         assert torch.all((out - ref).abs() <= 1e-5 * ref.abs().clamp_min(1))
     assert torch.equal(h[:, -1], h_last)
+
+
+def test_rglru_scan_back_to_back_calls(cuda):
+    """Calls queued with no synchronisation between them, the same grid
+    twice on other values and another grid between: each reads only its
+    own launch's look-back flags (a flag left by the call before would
+    hand a chunk that call's state); a fourth call on the first's inputs
+    gives the same bits (the engine's streams depend on it)."""
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    calls = []
+    for b, s, w in ((1, 4096, 256), (2, 300, 1000), (1, 4096, 256)):
+        a = (0.8 + 0.1999 * torch.rand((b, s, w), generator=gen)).to(cuda)
+        x = torch.randn((b, s, w), generator=gen).to(cuda)
+        h0 = torch.randn((b, w), generator=gen).to(cuda)
+        calls.append(((a, x, h0), rglru_scan(a, x, h0)))
+    again = rglru_scan(*calls[0][0])
+    torch.cuda.synchronize()
+    for args, (h, h_last) in calls:
+        ph, ph_last = rglru_scan_plain(*args)
+        for out, ref in ((h, ph), (h_last, ph_last)):
+            assert torch.all((out - ref).abs()
+                             <= 1e-5 * ref.abs().clamp_min(1))
+    assert torch.equal(again[0], calls[0][1][0])
+    assert torch.equal(again[1], calls[0][1][1])
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):

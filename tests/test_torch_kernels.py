@@ -32,10 +32,11 @@ from repro.kernels.flash_attention import (  # noqa: E402
     flash_attention as _pallas_flash)
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_plain, query_positions,
-    ring_split_len, ring_tile_k)
+    decode_attention, decode_attention_plain, paged_split_len,
+    query_positions, ring_split_len, ring_tile_k)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain, flash_launch_shape)
+from repro_torch.kernels.rglru_scan import chunk_len  # noqa: E402
 
 # jitted once per shape: eager jnp compiles every op on first use
 pallas_decode = jax.jit(_pallas_decode, static_argnames=(
@@ -257,6 +258,71 @@ def test_ring_split_partials_at_hd256():
     b, t, h, kv, w, hd = 8, 1, 16, 1, 2048, 256
     nsplit = -(-w // ring_split_len(b, t, h, kv, w, hd, H100_SMS))
     assert b * t * h * nsplit * (hd + 2) * 4 <= 2e6
+
+
+# (b, t, h, kv, m, bs, hd): smollm's paged decode (64 blocks of 16) and its
+# 128-token chunk over a table cut to 32 blocks, hd 128, hd 256 with 16
+# heads over one KV head, hd 24 (not a multiple of 16), a table of one
+# block, a table wider than 2048 keys, a grid already past two waves
+PAGED_SPLIT_CASES = [
+    (8, 1, 9, 3, 64, 16, 64), (1, 128, 9, 3, 32, 16, 64),
+    (8, 1, 32, 8, 64, 16, 128), (8, 1, 16, 1, 128, 16, 256),
+    (2, 1, 9, 3, 25, 8, 24), (2, 1, 4, 2, 1, 16, 32),
+    (1, 1, 4, 2, 400, 16, 64), (64, 1, 64, 8, 256, 16, 128)]
+
+
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES,
+                         ids=[str(c) for c in PAGED_SPLIT_CASES])
+def test_paged_split_rule(case):
+    """The bf16 paged kernel's splits cover the logical key axis (M * bs,
+    trailing holes included) with whole warp tiles and none left empty;
+    each split walks at least 256 keys where M * bs has them and at most
+    the 2048 whose positions and offsets a CTA stages; the grid stays
+    within two waves unless one split per (slot, KV head, row tile)
+    already exceeds them."""
+    b, t, h, kv, m, bs, hd = case
+    w, kt = m * bs, ring_tile_k(hd)
+    chunk = paged_split_len(b, t, h, kv, m, bs, hd, H100_SMS)
+    nsplit = -(-w // chunk)
+    assert chunk % kt == 0
+    assert (nsplit - 1) * chunk < w <= nsplit * chunk
+    assert min(256, -(-w // kt) * kt) <= chunk <= 2048
+    ctas = b * kv * -(-(t * (h // kv)) // 64)
+    assert ctas * nsplit <= max(2 * H100_SMS, ctas * -(-w // 2048))
+
+
+def test_paged_split_at_smollm_decode():
+    """smollm-135m's paged decode (8 slots, 3 KV heads, 64 blocks of 16):
+    4 splits of 256 keys, 96 CTAs on 132 SMs, not the scalar rule's
+    32-key splits."""
+    assert paged_split_len(8, 1, 9, 3, 64, 16, 64, H100_SMS) == 256
+
+
+# (b, s, w): the hybrid's prefill at 512 and 4096 tokens, many chunks on
+# one chain, B > 1 with a ragged channel tile, one step, a short prompt,
+# many chains
+SCAN_CHUNK_CASES = [(1, 512, 4096), (1, 4096, 4096), (1, 65536, 128),
+                    (4, 1000, 257), (3, 1, 129), (1, 13, 4096),
+                    (8, 4096, 4096)]
+
+
+@pytest.mark.parametrize("case", SCAN_CHUNK_CASES,
+                         ids=[str(c) for c in SCAN_CHUNK_CASES])
+def test_scan_chunk_rule(case):
+    """Every chunk of the one-pass scan is non-empty and the chunks cover
+    S; a CTA's chunk of a and b fits its shared memory (at most 32 steps x
+    128 channels x 8 B = 32 KB); chunks are 32 steps wherever that gives
+    every SM a CTA, and otherwise the grid gives every SM one (within the
+    rounding of the chunk length) where chunks of 8 steps can."""
+    b, s, w = case
+    chunk = chunk_len(b, s, w, H100_SMS)
+    n = -(-s // chunk)
+    assert 1 <= chunk <= 32 and (n - 1) * chunk < s <= n * chunk
+    assert chunk * 128 * 8 <= 32 * 1024
+    chains = b * -(-w // 128)
+    if chains * -(-s // 32) >= H100_SMS:
+        assert chunk == min(s, 32)
+    assert 9 * chains * n >= 8 * min(H100_SMS, chains * -(-s // 8))
 
 
 # (b, sq, h, hd): smollm's prefill at 512 and 128 tokens, recurrentgemma's
