@@ -67,7 +67,9 @@ without them. Phases, each fatal on failure:
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
-bf16, against ``torch.logsumexp`` as the library yardstick; ``rglru_scan``
+bf16, and at the reference's bulk shape (4096, 32768) in f32, against
+``torch.logsumexp`` as the library yardstick, beside a one-launch floor
+(an in-place add on one element, by the same timer); ``rglru_scan``
 at (1, 512, 4096) and (1, 4096, 4096) in f32 (no library call computes a
 linear recurrence); and ``decode_attention`` and ``flash_attention`` at
 recurrentgemma-9b's hd 256, 16 heads over one KV head, window 2048,
@@ -76,8 +78,8 @@ against SDPA.
 Phase 2 then times the bf16 flash kernel at every launch shape and the
 ring decode at several keys per split, at the same two shapes, with the
 floor of each, the paged kernel at several keys per split and over
-all-hole tables, and the scan at several chunk lengths (the launch
-rules' picks are marked).
+all-hole tables, the scan at several chunk lengths, and the gate at 1 to
+8 splits of V a row (the launch rules' picks are marked).
 
 With ``--profile`` it then serves the phase-9, 4, 5 and 7 traces once
 more under ``torch.profiler`` and prints the device's busy time by kernel
@@ -109,6 +111,7 @@ F32_LOGIT_TOL = 2e-3           # the same, in f32: summation order only
 # and sum in f32)
 GATE_TOL = {"float32": 1e-5, "bfloat16": 1e-5}
 GATE_MARGIN = 1e-3             # no confidence this close (relative) to a threshold
+BULK_GATE = (4096, 32768, "float32")   # benchmarks/bench_kernels.py's shape
 LAYERS = 30                    # distinct inputs per timing loop (cold L2)
 # the RG-LRU scan, kernel vs plain, per element relative to max(1, |h|):
 # the chunked scan composes the same f32 steps in another order
@@ -468,14 +471,16 @@ def check_paged(torch, timer, dev):
 
 def _tertiles(conf):
     """hi/lo midway between neighbouring sorted confidences at the
-    tertiles, or at the nearest split (up to 2 away) whose neighbours lie
-    farther than GATE_MARGIN (relative) from the midpoint; fails if a
-    confidence still lies that close to either."""
+    tertiles, or at the nearest split whose neighbours lie farther than
+    GATE_MARGIN (relative) from the midpoint (at thousands of rows none
+    may lie near a tertile); fails if a confidence still lies that close
+    to either."""
     srt = np.sort(np.asarray(conf, np.float64))
     n = len(srt)
 
     def cut(k):
-        cands = [j for j in (k, k - 1, k + 1, k - 2, k + 2) if 0 < j < n]
+        near = [k] + [k + d for a in range(1, n) for d in (-a, a)]
+        cands = [j for j in near if 0 < j < n]
         wide = [j for j in cands if srt[j] / srt[j - 1] > 1 + 4 * GATE_MARGIN]
         i = wide[0] if wide else cands[0]
         return float((srt[i] + srt[i - 1]) / 2)
@@ -495,7 +500,8 @@ def check_cascade_gate(torch, timer, dev):
     v = 49152                      # smollm-135m's padded vocab
     gen = torch.Generator(device=dev).manual_seed(4)
     cases = [(t, v, dt) for t in (1, 64) for dt in ("float32", "bfloat16")]
-    cases += [(100, 500, "float32"), (7, 8000, "float32")]
+    # the reference's bulk shape (benchmarks/bench_kernels.py)
+    cases += [BULK_GATE, (100, 500, "float32"), (7, 8000, "float32")]
     errs = []
     for t, vv, dtype in cases:
         x = (torch.randn((t, vv), generator=gen, device=dev) * 3).to(
@@ -522,36 +528,45 @@ def check_cascade_gate(torch, timer, dev):
         errs.append(err)
 
     times = {}
-    for t in (1, 64):
-        for dtype in ("float32", "bfloat16"):
-            xs = (torch.randn((LAYERS, t, v), generator=gen, device=dev)
-                  * 3).to(getattr(torch, dtype))
+    # LAYERS distinct inputs, as for the other kernels (at T = 1 they
+    # still sit in L2, as the serving gate's logits do after the unembed);
+    # one bulk input (537 MB) exceeds L2, so 2 suffice there
+    shapes = [(t, v, dt, LAYERS) for t in (1, 64)
+              for dt in ("float32", "bfloat16")] + [BULK_GATE + (2,)]
+    for t, vv, dtype, n_in in shapes:
+        xs = (torch.randn((n_in, t, vv), generator=gen, device=dev)
+              * 3).to(getattr(torch, dtype))
 
-            def kern(i):
-                return cascade_gate(xs[i % LAYERS], hi=0.5, lo=0.1)
+        def kern(i):
+            return cascade_gate(xs[i % n_in], hi=0.5, lo=0.1)
 
-            def plain(i):
-                return cascade_gate_plain(xs[i % LAYERS], 0.5, 0.1)
+        def plain(i):
+            return cascade_gate_plain(xs[i % n_in], 0.5, 0.1)
 
-            def library(i):
-                return torch.logsumexp(xs[i % LAYERS], dim=-1)
+        def library(i):
+            return torch.logsumexp(xs[i % n_in], dim=-1)
 
-            ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
-            # logits read once; conf and routes written once, 3 counts
-            nbytes = _nbytes(xs[0]) + t * 8 + 12
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = 4 * t * v / F32_FLOPS_PER_S * 1e3   # max, sub, exp, add
-            bound = max(t_bytes, t_ops)
-            by = "bytes" if t_bytes >= t_ops else "operations"
-            times[(t, dtype)] = dict(ms=ms, plain_ms=plain_ms,
-                                     library_ms=lib_ms, bound_ms=bound,
-                                     bound_by=by)
-            print(f"  cascade_gate T={t} V={v} {dtype}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, logsumexp {lib_ms:.4f} ms, bound"
-                  f" {bound:.4f} ms ({by}; {nbytes} B)")
+        ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(library)
+        # logits read once; conf and routes written once, 3 counts
+        nbytes = _nbytes(xs[0]) + t * 8 + 12
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * t * vv / F32_FLOPS_PER_S * 1e3   # max, sub, exp, add
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        key = f"T={t} {dtype}" if vv == v else f"T={t} V={vv} {dtype}"
+        times[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound, bound_by=by)
+        print(f"  cascade_gate T={t} V={vv} {dtype}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, logsumexp {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; {nbytes} B)")
+        del xs
+    # what no kernel can beat at T = 1: one launch of the smallest op
+    one = torch.zeros(1, device=dev)
+    times["one-launch floor"] = dict(ms=timer(lambda i: one.add_(1)))
+    print(f"  one-launch floor (in-place add on one element): "
+          f"{times['one-launch floor']['ms']:.4f} ms")
     # the line's numbers: the serving gate's shape and type, (1, V) bf16
-    return dict(max_abs_err=max(errs), **times[(1, "bfloat16")]), \
-        {f"T={t} {dt}": r for (t, dt), r in times.items()}
+    return dict(max_abs_err=max(errs), **times["T=1 bfloat16"]), times
 
 
 def check_rglru(torch, timer, dev):
@@ -863,6 +878,7 @@ def sweep_attention(torch, timer, dev):
         del ks, vs, q1
     rec["paged"] = sweep_paged(torch, timer, dev, gen)
     rec["rglru"] = sweep_rglru(torch, timer, dev, gen)
+    rec["gate"] = sweep_gate(torch, timer, dev)
     return rec
 
 
@@ -927,6 +943,35 @@ def sweep_rglru(torch, timer, dev, gen):
                   f"({32 * -(-s // chunk)} CTAs), groups of {grp} {ms:.4f} "
                   f"ms{' (the rules)' if (chunk, grp) == (pick, group) else ''}")
         del a, x, h0
+    return rec
+
+
+def sweep_gate(torch, timer, dev):
+    """``cascade_gate`` over smollm's vocab at the serving gate (T = 1,
+    bf16 and f32) and the one-shot batch (T = 64, bf16) at 1 to 8 splits
+    of V a row (one split: one CTA a row, no cluster; the rule's pick
+    marked)."""
+    import repro_torch.kernels.cascade_gate as cg
+
+    v, rule, rec = 49152, cg.gate_splits, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for t, dtype in ((1, "bfloat16"), (1, "float32"), (64, "bfloat16")):
+        xs = (torch.randn((LAYERS, t, v), generator=gen, device=dev)
+              * 3).to(getattr(torch, dtype))
+        vec = 16 // xs.element_size()
+        pick = rule(t, v, xs.element_size(), sms)[0]
+        for splits in (1, 2, 4, 6, 8):
+            split_len = -(-v // (splits * vec)) * vec
+            cg.gate_splits = lambda *a, n=splits, k=split_len: (n, k)
+            ms = timer(lambda i: cg.cascade_gate(xs[i % LAYERS], hi=0.5,
+                                                 lo=0.1))
+            cg.gate_splits = rule
+            rec[f"T={t} {dtype} splits={splits}"] = ms
+            print(f"  sweep cascade_gate T={t} V={v} {dtype}: {splits} "
+                  f"split(s) of {split_len} {ms:.4f} ms"
+                  f"{' (the rule)' if splits == pick else ''}")
+        del xs
     return rec
 
 

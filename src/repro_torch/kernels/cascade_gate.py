@@ -2,10 +2,13 @@
 code and route counts over (T, V) logits in one pass.
 
 Port of ``repro.kernels.cascade_gate.cascade_gate``. The kernel is
-``csrc/cascade_gate.cu`` (one CTA per token row, each thread streaming the
-vocab with a running (max, sum-exp) pair, merged by warp shuffles, then an
-integer atomic per row into the counts); ``cascade_gate_plain`` is the same
-function in plain PyTorch: the CPU path and the kernel's reference.
+``csrc/cascade_gate.cu``: one launch that cuts each row's vocab into
+``gate_splits`` splits, one CTA each, streaming its split with a running
+(max, sum-exp) pair; the CTAs of a row form a thread-block cluster whose
+rank 0 merges their pairs in rank order through distributed shared memory
+and counts the route in a persistent per-stream workspace (no memset).
+``cascade_gate_plain`` is the same function in plain PyTorch: the CPU path
+and the kernel's reference.
 
 Contract shared by both: logits (T, V) bf16 or f32 -> conf (T,) f32 =
 1 / max(sum_v exp(x_v - max_v x_v), 1e-30), routes (T,) int32 (0 accept
@@ -18,6 +21,7 @@ the same value.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -25,8 +29,14 @@ import torch
 from repro_torch.kernels import (LAUNCHES, build, check_cuda_tensors,
                                  raise_on_error)
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_THREADS = 256          # threads per CTA (csrc/cascade_gate.cu kThreads)
+_UNROLL = 4             # 16-byte loads in flight per thread in a round
+_MAX_SPLITS = 8         # the portable thread-block cluster size
+# per (device, stream): three route accumulators and a row ticket, zeroed
+# once, then kept: each launch leaves them zero for the next on its stream
+_WORK: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def as_f32(x: float) -> float:
@@ -61,6 +71,33 @@ def cascade_gate_plain(logits, hi: float, lo: float):
     return conf, routes, counts.to(torch.int32)
 
 
+def gate_splits(t: int, v: int, elem_bytes: int, sms: int) -> Tuple[int, int]:
+    """(splits, split_len): the CTAs that share a row's V columns, and the
+    columns each reads (the last split reads the rest).
+
+    A split holds at most one round of loads in flight, 256 threads x 4 x
+    16 B (8,192 bf16 or 4,096 f32 entries), so a CTA pays one dependent
+    trip to memory; splits are capped at the portable cluster size of 8
+    (where V needs more, the kernel keeps 8 loads a thread in flight), and
+    a row takes one CTA once T alone fills about two waves of the SMs.
+    ``split_len`` is a whole number of 16-byte vectors."""
+    vec = 16 // elem_bytes
+    splits = 1 if t >= 2 * sms else min(
+        _MAX_SPLITS, -(-v // (_THREADS * _UNROLL * vec)))
+    split_len = -(-v // splits)
+    split_len = -(-split_len // vec) * vec
+    return -(-v // split_len), split_len
+
+
+def _work(dev, stream: int):
+    """The persistent counting workspace for this device and stream."""
+    key = (dev.index, stream)
+    got = _WORK.get(key)
+    if got is None:
+        got = _WORK[key] = torch.zeros(4, dtype=torch.int32, device=dev)
+    return got
+
+
 def _lib():
     lib = build.load("cascade_gate")
     for fn in (lib.cascade_gate_bf16, lib.cascade_gate_f32):
@@ -78,13 +115,18 @@ def _launch(logits, hi: float, lo: float):
     counts = torch.empty((3,), dtype=torch.int32, device=dev)
     if t == 0:
         return conf, routes, counts.zero_()
+    splits, split_len = gate_splits(
+        t, v, logits.element_size(),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    work = _work(dev, stream)
     lib = _lib()
     fn = (lib.cascade_gate_bf16 if logits.dtype == torch.bfloat16
           else lib.cascade_gate_f32)
     with torch.cuda.device(dev):
         err = fn(logits.data_ptr(), conf.data_ptr(), routes.data_ptr(),
-                 counts.data_ptr(), t, v, hi, lo,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 counts.data_ptr(), work.data_ptr(), t, v, splits, split_len,
+                 hi, lo, stream)
     raise_on_error("cascade_gate", err)
     LAUNCHES["cascade_gate"] += 1
     return conf, routes, counts

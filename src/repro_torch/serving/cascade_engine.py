@@ -160,12 +160,16 @@ class CascadeServingEngine:
                  batch_slots: int = 8, max_seq_len: int = 256,
                  eos_id: Optional[int] = None, seed: int = 0,
                  cache_backend="ring", block_size: int = 16,
+                 num_pool_blocks: Optional[int] = None,
+                 truncate_prompts: bool = False,
                  chunk_tokens: Optional[int] = None,
+                 token_budget: Optional[int] = None,
                  prefix_sharing: bool = True,
                  max_decode_steps: int = 1,
                  fault_plan=None,
                  breaker_failure_threshold: int = 3,
                  breaker_cooldown: int = 4,
+                 admission_policy: Optional[str] = None,
                  speculative_tokens: int = 0,
                  mesh=None, rules=None):
         later = {"speculative_tokens": speculative_tokens or None,
@@ -177,6 +181,7 @@ class CascadeServingEngine:
                     f"slices of the port")
         self.cascade = cascade
         self.max_seq_len = max_seq_len
+        self.truncate_prompts = truncate_prompts
         self.metrics = CascadeMetrics()
         # the ``edge`` seam of ``fault_plan`` models an edge-engine outage
         # at the gate; the breaker turns repeated outages into wholesale
@@ -188,11 +193,18 @@ class CascadeServingEngine:
             failure_threshold=breaker_failure_threshold,
             cooldown=breaker_cooldown)
         self._degradation_s = 0.0
+        # both engines run the same scheduler policy (pool size, token
+        # budget, chunked prefill, prefix sharing, decode horizon and
+        # deadline admission), as in ``repro``; prompts reach them already
+        # cut by ``make_request``
         engine_kw = dict(batch_slots=batch_slots, max_seq_len=max_seq_len,
                          eos_id=eos_id, cache_backend=cache_backend,
-                         block_size=block_size, chunk_tokens=chunk_tokens,
+                         block_size=block_size,
+                         num_pool_blocks=num_pool_blocks,
+                         chunk_tokens=chunk_tokens, token_budget=token_budget,
                          prefix_sharing=prefix_sharing,
-                         max_decode_steps=max_decode_steps)
+                         max_decode_steps=max_decode_steps,
+                         admission_policy=admission_policy)
         self.edge_engine = ServingEngine(cascade.edge, edge_params,
                                          seed=seed, **engine_kw)
         self.cloud_engine = ServingEngine(cascade.cloud, cloud_params,
@@ -220,9 +232,9 @@ class CascadeServingEngine:
         """Validate and stamp a request without queueing it (same contract
         as ``ServingEngine.make_request``). The gate prefills through the
         edge engine's buckets, so an over-long prompt fails here with the
-        engine-level message."""
+        engine-level message, or keeps its tail with ``truncate_prompts``."""
         prompt = validate_prompt(prompt, max_new_tokens, self.max_seq_len,
-                                 truncate=False)
+                                 self.truncate_prompts)
         rid = self._next_id
         self._next_id += 1
         r = CascadeRequest(rid, prompt, priority=priority,

@@ -5,10 +5,12 @@ from PRNGKey(0), edge from PRNGKey(1)) and one trace, with thresholds set
 between the edge confidences' tertiles so that all three routes occur and
 no prompt sits near a threshold:
 - ``CascadeServingEngine`` on the ring and the paged backend, chunked and
-  not: the same route per request, ``CascadeMetrics`` equal (``agreement``
-  aside, which follows the predictions), and greedy streams equal wherever
-  ``repro``'s top-2 logit margin at a step exceeds 1e-4 (as in
-  ``tests/test_torch_engine.py``);
+  not, and paged with a small pool under a token budget: the same route
+  per request, ``CascadeMetrics`` equal (``agreement`` aside, which follows
+  the predictions), and greedy streams equal wherever ``repro``'s top-2
+  logit margin at a step exceeds 1e-4 (as in ``tests/test_torch_engine.py``);
+- the same under deadline admission ("reject" and "downgrade": the same
+  refusals and ``downgraded`` flags) and with ``truncate_prompts``;
 - ``CascadeEngine``, compact and lockstep: routes and metrics equal.
 
 Within the port, exactly: accepted streams equal a standalone edge
@@ -55,7 +57,12 @@ KW = dict(batch_slots=2, max_seq_len=32)
 BACKENDS = {"ring": {}, "ring_chunked": dict(chunk_tokens=8),
             "paged": dict(cache_backend="paged", block_size=8),
             "paged_chunked": dict(cache_backend="paged", block_size=8,
-                                  chunk_tokens=8)}
+                                  chunk_tokens=8),
+            # 4 usable blocks (the default pool holds 8) under a 12-token
+            # budget: admissions wait on blocks, chunks on the budget
+            "paged_pool_budget": dict(cache_backend="paged", block_size=8,
+                                      chunk_tokens=8, num_pool_blocks=5,
+                                      token_budget=12)}
 PROMPTS = [np.random.default_rng(10 + i).integers(0, 96, n).astype(np.int32)
            for i, n in enumerate((5, 12, 20, 9, 17, 4, 14, 7, 11))]
 MAX_NEW = 4
@@ -123,6 +130,31 @@ def _metrics(m):
     return d
 
 
+def _assert_streams_match(jcas, jep, jcp, prompts, ours, theirs):
+    """Greedy streams equal up to the first step where ``repro``'s top-2
+    logit margin is within MARGIN; dropped and refused requests are empty
+    on both sides. Returns the tokens compared."""
+    fwd = {
+        "accept": jax.jit(lambda t: jcas.edge.forward(jep, {"tokens": t})[0]),
+        "escalate": jax.jit(lambda t: jcas.cloud.forward(jcp,
+                                                         {"tokens": t})[0])}
+    compared = 0
+    for prompt, a, b in zip(prompts, ours, theirs):
+        if b.route == "drop" or b.status != "done":
+            assert a.output.size == 0 and b.output.size == 0
+            continue
+        assert len(a.output) == len(b.output)
+        diff = np.flatnonzero(a.output != b.output)
+        upto = diff[0] if len(diff) else len(b.output)
+        compared += upto
+        if len(diff):
+            # the first disagreement must sit on a near-tie of repro's logits
+            ctx = np.concatenate([prompt, b.output[:upto]])[None]
+            logits = np.sort(np.asarray(fwd[b.route](ctx))[0, -1])
+            assert logits[-1] - logits[-2] <= MARGIN, (upto, a, b)
+    return compared
+
+
 @pytest.mark.parametrize("backend", sorted(BACKENDS))
 def test_cascade_serving_matches_repro(backend):
     (jcas, jep, jcp), (cas, tep, tcp) = _cascades()
@@ -145,25 +177,98 @@ def test_cascade_serving_matches_repro(backend):
     assert {"accept", "escalate", "drop"} <= set(routes)
     np.testing.assert_allclose([r.conf for r in ours],
                                [r.conf for r in theirs], rtol=0, atol=1e-5)
-    fwd = {
-        "accept": jax.jit(lambda t: jcas.edge.forward(jep, {"tokens": t})[0]),
-        "escalate": jax.jit(lambda t: jcas.cloud.forward(jcp,
-                                                         {"tokens": t})[0])}
-    compared = 0
-    for prompt, a, b in zip(PROMPTS, ours, theirs):
-        if b.route == "drop":
-            assert a.output.size == 0 and b.output.size == 0
-            continue
-        assert len(a.output) == len(b.output) == MAX_NEW
-        diff = np.flatnonzero(a.output != b.output)
-        upto = diff[0] if len(diff) else MAX_NEW
-        compared += upto
-        if len(diff):
-            # the first disagreement must sit on a near-tie of repro's logits
-            ctx = np.concatenate([prompt, b.output[:upto]])[None]
-            logits = np.sort(np.asarray(fwd[b.route](ctx))[0, -1])
-            assert logits[-1] - logits[-2] <= MARGIN, (upto, a, b)
-    assert compared >= 3 * MAX_NEW
+    for a in ours:
+        assert len(a.output) == (0 if a.route == "drop" else MAX_NEW)
+    assert _assert_streams_match(jcas, jep, jcp, PROMPTS, ours,
+                                 theirs) >= 3 * MAX_NEW
+
+
+def _tap_inner(engine):
+    """Record every request the cascade's legs hand back (their
+    ``downgraded`` flags live there), in completion order per leg."""
+    seen = {"edge": [], "cloud": []}
+    for leg in seen:
+        inner = getattr(engine, f"{leg}_engine")
+
+        def take_done(inner=inner, out=seen[leg],
+                      orig=inner.take_done):
+            done = orig()
+            out.extend(done[k] for k in sorted(done))
+            return done
+
+        inner.take_done = take_done
+    return seen
+
+
+@pytest.mark.parametrize("policy", ["reject", "downgrade"])
+def test_cascade_admission_matches_repro(policy):
+    """``admission_policy`` reaches both legs, as in ``repro``. A first
+    wave without deadlines gives each leg a measured service rate; in the
+    second, every other request carries a deadline no leg can meet
+    (1 us): "reject" refuses it with ``deadline_infeasible``, "downgrade"
+    serves it best-effort with ``downgraded`` set; the rest carry a
+    generous one. Routes, statuses, failure reasons, the legs' flags and
+    greedy streams equal ``repro``'s."""
+    (jcas, jep, jcp), (cas, tep, tcp) = _cascades()
+    kw = dict(KW, admission_policy=policy)
+    engines = (CascadeServingEngine(cas, tep, tcp, **kw),
+               JaxCascadeServing(jcas, jep, jcp, **kw))
+    waves = []
+    for eng in engines:
+        _serve(eng, [(p, MAX_NEW, 0.0) for p in PROMPTS])
+        taps = _tap_inner(eng)
+        ids = [eng.submit(p, max_new_tokens=MAX_NEW,
+                          deadline_s=1e-6 if i % 2 else 1e3)
+               for i, p in enumerate(PROMPTS)]
+        done = eng.run()
+        waves.append(([done[i] for i in ids], taps))
+    (ours, our_taps), (theirs, their_taps) = waves
+    assert [r.route for r in ours] == [r.route for r in theirs]
+    assert [r.status for r in ours] == [r.status for r in theirs]
+    reasons = [[(r.failure_reason or "").split(":")[0] for r in rs]
+               for rs in (ours, theirs)]
+    assert reasons[0] == reasons[1]
+    tight = [r for i, r in enumerate(ours) if i % 2 and r.route != "drop"]
+    assert tight
+    if policy == "reject":
+        assert all(r.status == "rejected" for r in tight)
+        assert {"deadline_infeasible", ""} == set(reasons[0])
+    else:
+        assert all(r.status == "done" for r in ours)
+    for leg in ("edge", "cloud"):
+        flags = [[r.downgraded for r in taps[leg]]
+                 for taps in (our_taps, their_taps)]
+        assert flags[0] == flags[1], leg
+        assert any(flags[0]) == (policy == "downgrade"), leg
+    assert _assert_streams_match(jcas, jep, jcp, PROMPTS, ours,
+                                 theirs) >= MAX_NEW
+
+
+def test_cascade_truncate_prompts_matches_repro():
+    """With ``truncate_prompts`` an over-long prompt keeps its tail (the
+    last max_seq_len - max_new_tokens tokens) and is gated and served on
+    it, as in ``repro``; without it the prompt is refused at submit."""
+    (jcas, jep, jcp), (cas, tep, tcp) = _cascades()
+    kw = dict(batch_slots=2, max_seq_len=16)
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, 96, n).astype(np.int32)
+               for n in (30, 13, 25, 12, 40)]
+    reqs = [(p, MAX_NEW, 0.0) for p in prompts]
+    ours = _serve(CascadeServingEngine(cas, tep, tcp, truncate_prompts=True,
+                                       **kw), reqs)
+    theirs = _serve(JaxCascadeServing(jcas, jep, jcp, truncate_prompts=True,
+                                      **kw), reqs)
+    for p, a, b in zip(prompts, ours, theirs):
+        np.testing.assert_array_equal(a.prompt, p[-(16 - MAX_NEW):])
+        np.testing.assert_array_equal(a.prompt, b.prompt)
+    assert [r.route for r in ours] == [r.route for r in theirs]
+    np.testing.assert_allclose([r.conf for r in ours],
+                               [r.conf for r in theirs], rtol=0, atol=1e-5)
+    _assert_streams_match(jcas, jep, jcp, [r.prompt for r in theirs], ours,
+                          theirs)
+    with pytest.raises(ValueError, match="truncate_prompts=True"):
+        CascadeServingEngine(cas, tep, tcp, **kw).submit(prompts[0],
+                                                         max_new_tokens=4)
 
 
 @pytest.mark.parametrize("backend", ["ring", "paged_chunked"])

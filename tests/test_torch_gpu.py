@@ -15,7 +15,8 @@ hide either under 2e-2 absolute; a row that sees no key is exactly 0. TF32
 is off for the f32 comparisons. The cascade gate's confidence:
 1e-5 relative in f32 and in bf16 (both sides read the same bf16 values,
 which f32 holds exactly, and sum in f32; only the order differs), routes
-and counts equal on rows away from the thresholds. The RG-LRU scan (f32
+and counts equal on rows away from the thresholds, and equal bits on a
+repeated call (the cluster merges in rank order). The RG-LRU scan (f32
 only): 1e-5 * max(1, |h|) per element (the chunked scan composes the same
 steps in another order: one chunk's map composed onto another's state).
 """
@@ -29,6 +30,7 @@ from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.cascade_gate import (  # noqa: E402
     cascade_gate, cascade_gate_plain)
 from repro_torch.kernels.cascade_gate import _launch as _gate_launch  # noqa: E402
+from repro_torch.kernels.cascade_gate import gate_splits  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -96,9 +98,15 @@ PAGED_CASES = [
 
 # (t, v, misaligned): the serving gate (t = 1) and the one-shot batch at
 # smollm's padded vocab, repro's ragged sweep shapes, and the scalar path
-# (V not a multiple of the 16-byte vector, or a row start off 16 bytes)
+# (V not a multiple of the 16-byte vector, or a row start off 16 bytes);
+# then qwen3-4b's and recurrentgemma's vocabs at t = 1 (8 splits, each
+# longer than one round of loads), two rows of clusters, the reference's
+# bulk shape (one CTA a row) and a misaligned serving row (split scalar
+# path)
 GATE_CASES = [(1, 49152, False), (64, 49152, False), (100, 500, False),
-              (7, 8000, False), (3, 501, False), (5, 1024, True)]
+              (7, 8000, False), (3, 501, False), (5, 1024, True),
+              (1, 151936, False), (1, 256000, False), (2, 49152, False),
+              (4096, 32768, False), (1, 49152, True)]
 
 # (b, sq, sk, h, kv, hd, window)
 FLASH_CASES = [
@@ -325,6 +333,99 @@ def test_cascade_gate_kernel_matches_plain(cuda, case, dtype):
     assert torch.equal(routes[~near], proutes[~near])
     if not near.any():
         assert torch.equal(counts, pcounts)
+
+
+def _gate_inputs(dev, dt, t, v, seed):
+    """Logits as phase 2 makes them and thresholds at the confidences'
+    widest gaps near the tertiles (none for t < 3), so no row sits near a
+    threshold: routes and counts must then equal the plain version's."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn((t, v), generator=gen) * 3).to(dev, dt)
+    if t < 3:
+        return x, 2.0, 0.0
+    srt = cascade_gate_plain(x, 1.0, 0.0)[0].sort().values.cpu().double()
+    gap = srt[1:] / srt[:-1]
+
+    def cut(k):
+        span = max(2, t // 8)
+        lo_, hi_ = max(0, k - span), min(t - 1, k + span)
+        j = lo_ + int(gap[lo_:hi_].argmax())
+        return float((srt[j] + srt[j + 1]) / 2)
+
+    return x, cut(2 * t // 3), cut(t // 3)
+
+
+def _assert_gate(x, got, hi, lo):
+    conf, routes, counts = got
+    pconf, proutes, pcounts = cascade_gate_plain(x, hi, lo)
+    assert ((conf - pconf).abs() / pconf).max().item() < 1e-5
+    assert torch.equal(routes, proutes)
+    assert torch.equal(counts, pcounts)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cascade_gate_repeated_call_equal_bits(cuda, dtype):
+    """The cluster's pairs merge in rank order: a second call on the same
+    logits gives the same bits, at every split count the rule picks."""
+    dt = getattr(torch, dtype)
+    for t, v in ((1, 49152), (1, 256000), (64, 49152), (300, 8000)):
+        x, hi, lo = _gate_inputs(cuda, dt, t, v, seed=t + v)
+        first = [o.clone() for o in cascade_gate(x, hi=hi, lo=lo)]
+        again = cascade_gate(x, hi=hi, lo=lo)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_cascade_gate_workspace_left_clean(cuda):
+    """T = 64, then T = 1, then T = 64 and the bulk shape, queued with no
+    synchronisation between them: each call's counts are its own rows'
+    (the last row's CTA leaves the accumulators and the ticket at zero)."""
+    calls = []
+    for i, (t, v) in enumerate(((64, 49152), (1, 49152), (64, 49152),
+                                (4096, 32768), (64, 49152))):
+        x, hi, lo = _gate_inputs(cuda, torch.float32, t, v, seed=i)
+        calls.append((x, cascade_gate(x, hi=hi, lo=lo), hi, lo))
+    torch.cuda.synchronize()
+    for x, got, hi, lo in calls:
+        _assert_gate(x, got, hi, lo)
+        assert int(got[2].sum()) == x.shape[0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cascade_gate_neg_inf_columns(cuda, dtype):
+    """Rows with scattered -inf columns, and rows whose whole first split
+    is -inf (that split holds (-1e30, 0) and adds nothing to the merge)."""
+    dt = getattr(torch, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for t, v in ((1, 49152), (5, 49152), (3, 151936)):
+        x, hi, lo = _gate_inputs(cuda, dt, t, v, seed=v - t)
+        gen = torch.Generator(device="cpu").manual_seed(t)
+        x[torch.rand((t, v), generator=gen).to(cuda) < 0.3] = float("-inf")
+        splits, split_len = gate_splits(t, v, x.element_size(), sms)
+        assert splits > 1
+        x[0, :split_len] = float("-inf")
+        _assert_gate(x, cascade_gate(x, hi=2.0, lo=0.0), 2.0, 0.0)
+
+
+def test_cascade_gate_one_kernel_no_memset(cuda):
+    """One call at the serving shape is one device operation: the gate
+    kernel, with no memset before it (the workspace is made on the first
+    call on a stream, which this test makes before it profiles)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for t in (1, 64):
+        x = torch.randn((t, 49152), device=cuda).bfloat16()
+        cascade_gate(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cascade_gate(x)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and "cascade_gate_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("case", RGLRU_CASES, ids=[str(c) for c in RGLRU_CASES])

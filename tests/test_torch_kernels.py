@@ -14,8 +14,12 @@ order); bf16 2e-2 (bf16 output rounding, and the Pallas kernel rounds P to
 bf16 where the plain version keeps it in f32).
 
 The launch rules of the bf16 kernels (the ring kernel's key splits, flash's
-query tile and key groups) are plain functions, held here to what the
-kernels need from them.
+query tile and key groups) and the gate's vocab splits are plain
+functions, held here to what the kernels need from them; a plain model of
+the gate kernel's rank-order merge over its splits is held against the
+f64 value of the same formula (1e-6 relative) and against the gate's
+plain version (1e-6 relative on f32 logits, 2e-6 on bf16 logits, where the
+plain version's softmax is itself up to 1.2e-6 off the f64 value).
 """
 import numpy as np
 import pytest
@@ -36,6 +40,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     query_positions, ring_split_len, ring_tile_k)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain, flash_launch_shape)
+from repro_torch.kernels.cascade_gate import (  # noqa: E402
+    cascade_gate_plain, gate_splits)
 from repro_torch.kernels.rglru_scan import chunk_len  # noqa: E402
 
 # jitted once per shape: eager jnp compiles every op on first use
@@ -362,3 +368,86 @@ def test_query_positions_at_one_token_is_a_view():
     qp = query_positions(starts, 1)
     assert qp.shape == (2, 1) and qp.data_ptr() == starts.data_ptr()
     assert query_positions(starts, 3).tolist() == [[3, 4, 5], [7, 8, 9]]
+
+
+# (t, v, elem_bytes): the serving gate and the one-shot batch at smollm's
+# vocab in bf16 and f32, qwen3-4b's and recurrentgemma's vocabs, the
+# reference's bulk shape, T either side of two waves, repro's ragged sweep
+# shapes and a V below one vector
+GATE_SPLIT_CASES = [(1, 49152, 2), (1, 49152, 4), (64, 49152, 2),
+                    (64, 49152, 4), (1, 151936, 2), (1, 256000, 4),
+                    (4096, 32768, 4), (263, 49152, 2), (264, 49152, 2),
+                    (100, 500, 4), (7, 8000, 4), (3, 501, 2), (1, 3, 4)]
+
+
+@pytest.mark.parametrize("case", GATE_SPLIT_CASES,
+                         ids=[str(c) for c in GATE_SPLIT_CASES])
+def test_gate_split_rule(case):
+    """The splits cover V with none empty, every split but the last holds a
+    whole number of 16-byte vectors, there are at most 8 (the portable
+    cluster), a split needs one round of 4 loads a thread unless the cap
+    forced a longer one, and a row takes one CTA once T fills two waves."""
+    t, v, eb = case
+    splits, split_len = gate_splits(t, v, eb, H100_SMS)
+    vec = 16 // eb
+    assert 1 <= splits <= 8 and split_len % vec == 0
+    assert (splits - 1) * split_len < v <= splits * split_len
+    assert split_len <= 256 * 4 * vec or splits == 8 or t >= 2 * H100_SMS
+    if t >= 2 * H100_SMS:
+        assert splits == 1
+
+
+def test_gate_splits_at_the_serving_and_bulk_shapes():
+    """smollm's serving row: 6 splits of 8,192 bf16 entries (one 16 KB
+    round each), 8 of 6,144 in f32 (the cap: 8 loads a thread); the
+    one-shot batch: 6 x 64 = 384 CTAs; the bulk shape: one CTA a row."""
+    assert gate_splits(1, 49152, 2, H100_SMS) == (6, 8192)
+    assert gate_splits(1, 49152, 4, H100_SMS) == (8, 6144)
+    assert gate_splits(64, 49152, 2, H100_SMS)[0] * 64 == 384
+    assert gate_splits(4096, 32768, 4, H100_SMS)[0] == 1
+
+
+def _rank_order_gate(x, splits, split_len):
+    """The kernel's arithmetic across its splits, in plain torch: each split
+    reduces to (m, s) from (-1e30, 0), rank 0 folds ranks 1.. in order."""
+    t, v = x.shape
+    x = x.float()
+    neg = torch.full((t,), -1e30)
+    m, s = neg.clone(), torch.zeros(t)
+    for r in range(splits):
+        part = x[:, r * split_len:min(v, (r + 1) * split_len)]
+        pm = torch.maximum(neg, part.amax(dim=1)) if part.shape[1] else neg
+        ps = (torch.exp(part - pm[:, None]).sum(dim=1) if part.shape[1]
+              else torch.zeros(t))
+        mn = torch.maximum(m, pm)
+        s = s * torch.exp(m - mn) + ps * torch.exp(pm - mn)
+        m = mn
+    return 1.0 / s.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["plain", "neg_inf_split",
+                                     "split_past_v"])
+def test_gate_rank_order_merge_matches_plain(variant, dtype):
+    rng = np.random.default_rng(3)
+    t, v = 4, 49152
+    x = torch.from_numpy(rng.standard_normal((t, v)).astype(np.float32) * 3)
+    x = x.to(getattr(torch, dtype))
+    splits, split_len = gate_splits(t, v, x.element_size(), H100_SMS)
+    assert splits > 1
+    if variant == "neg_inf_split":
+        x[0, :split_len] = float("-inf")              # a whole split
+        x[1, split_len:2 * split_len] = float("-inf")
+        x[2, rng.random(v) < 0.3] = float("-inf")     # scattered
+    elif variant == "split_past_v":
+        splits += 1                                   # reads nothing
+    conf = _rank_order_gate(x, splits, split_len)
+    xd = x.double()
+    exact = 1.0 / torch.exp(xd - xd.amax(dim=1, keepdim=True)).sum(dim=1)
+    assert torch.all((conf - exact).abs() <= 1e-6 * exact)
+    # the plain version's softmax is itself up to 1.2e-6 off the f64 value
+    # on bf16 logits (few distinct values: exp's rounding repeats, not
+    # averages), 1e-7 on f32 logits
+    tol = 1e-6 if dtype == "float32" else 2e-6
+    ref = cascade_gate_plain(x, 0.8, 0.1)[0]
+    assert torch.all((conf - ref).abs() <= tol * ref)
