@@ -63,7 +63,24 @@ without them. Phases, each fatal on failure:
    2-3000 tokens, none a bucket size, one sampled: every request
    finishes, the streams equal a 1-step engine's, greedy tokens agree with
    a teacher-forced forward, and every RG-LRU prefill scan, prefill
-   attention and decode attention went through the kernels.
+   attention and decode attention went through the kernels;
+10. the dense hd-128 zoo at full width and depth in bf16, one model at a
+   time (weights made on the card, freed before the next, peak memory
+   printed): qwen3-4b, glm4-9b and starcoder2-7b each pass phase 3's
+   prefill-then-decode check; qwen3-4b then serves phase 4's trace on the
+   ring engine and phase 5's two waves on the paged engine with phase 4's
+   and 5's checks, glm4-9b serves 8 requests on the ring engine and
+   starcoder2-7b 8 requests of 16-4600 tokens at max_seq_len 8192 (its
+   4096-wide rings wrap), each with K = 4 == K = 1 streams, launch counts
+   and greedy tokens against a teacher-forced forward; decode time per
+   step is printed beside the weights' read time;
+11. the baseline: phase 4's trace through ``DrainBatchEngine`` and the
+   K = 4 ring ``ServingEngine`` in turns (drain, continuous, continuous,
+   drain): each engine's two runs give equal streams, greedy streams of
+   the two engines are equal or part first at a near-tie of a
+   teacher-forced forward (their prefills run other shapes), the drain
+   engine's launches are flash per batch and the ring kernel per token;
+   both engines' tokens/s, their ratio and host syncs per token.
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
@@ -73,22 +90,30 @@ bf16, and at the reference's bulk shape (4096, 32768) in f32, against
 at (1, 512, 4096) and (1, 4096, 4096) in f32 (no library call computes a
 linear recurrence); and ``decode_attention`` and ``flash_attention`` at
 recurrentgemma-9b's hd 256, 16 heads over one KV head, window 2048,
-against SDPA.
+against SDPA; and the three attention kernels at the hd-128 zoo's head
+layouts (qwen3-4b G = 4, glm4-9b G = 16, starcoder2-7b G = 9 with its
+4096 window): the ring decode at B = 8, the paged kernel at T = 1 and on
+a 128-token chunk, flash on a 512-token prefill (a 4608-token banded one
+for starcoder2-7b), each held row by row and timed against SDPA with its
+bound and split count.
 
 Phase 2 then times the bf16 flash kernel at every launch shape and the
-ring decode at several keys per split, at the same two shapes, with the
+ring decode at several keys per split, at hd 64 and hd 256 as above and
+at hd 128 (qwen3-4b's 512-token prefill, glm4-9b's ring), with the
 floor of each, the paged kernel at several keys per split and over
 all-hole tables, the scan at several chunk lengths, and the gate at 1 to
 8 splits of V a row (the launch rules' picks are marked).
 
-With ``--profile`` it then serves the phase-9, 4, 5 and 7 traces once
-more under ``torch.profiler`` and prints the device's busy time by kernel
-against the unprofiled run's wall time (the idle share).
+With ``--profile`` it then (phase 12) serves the phase-9, 4, 5 and 7
+traces and qwen3-4b's phase-10 ring trace once more under
+``torch.profiler`` and prints the device's busy time by kernel against the
+unprofiled run's wall time (the idle share).
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. TF32 is off for every f32 product.
 """
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -214,12 +239,7 @@ def check_decode(torch, timer, dev):
                      dtype=torch.bfloat16)
     # per slot: filled prefix, ring-wrapped, all-empty rows (serving mix)
     totals = [300, 512, 2524, 0, 17, 900, 1023, 1500]
-    k_pos = torch.full((b, w), -1, dtype=torch.int32)
-    for i, total in enumerate(totals):
-        tok = torch.arange(max(0, total - w), total, dtype=torch.int32)
-        k_pos[i, tok % w] = tok
-    k_pos = k_pos.to(dev)
-    q_pos = torch.tensor(totals, dtype=torch.int32, device=dev)
+    k_pos, q_pos = _ring_positions(torch, totals, w, dev)
     q1 = torch.randn((LAYERS, b, 1, h, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
     q16 = torch.randn((b, 16, h, hd), generator=gen, device=dev,
@@ -690,40 +710,42 @@ def _check_rows(torch, name, kernel, plain, inputs, rows, bf16_abs=None):
     return errs[torch.bfloat16]
 
 
-def check_attention_hd256(torch, timer, dev):
-    """``decode_attention`` and ``flash_attention`` at recurrentgemma-9b's
-    local attention (hd 256, 16 query heads over one KV head, window 2048)
-    against their plain versions, timed against SDPA as the yardstick."""
-    from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain)
-    from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_plain)
-    import torch.nn.functional as F
-
-    kv, g, hd, window = 1, 16, 256, 2048
-    h = kv * g
-    gen = torch.Generator(device=dev).manual_seed(6)
-    out = {}
-    # decode: 8 slots on a 2048-wide ring, partly filled, wrapped, empty
-    b, w = 8, 2048
-    totals = [300, 2048, 2900, 0, 17, 1500, 4000, 2100]
-    k_pos = torch.full((b, w), -1, dtype=torch.int32)
+def _ring_positions(torch, totals, w, dev):
+    """k_pos (B, W) of rings that hold each slot's last ``min(total, W)``
+    tokens at ``t % W`` (filled, wrapped, or empty at 0), and q_pos (B,) =
+    the totals: each slot's next token."""
+    k_pos = torch.full((len(totals), w), -1, dtype=torch.int32)
     for i, total in enumerate(totals):
         tok = torch.arange(max(0, total - w), total, dtype=torch.int32)
         k_pos[i, tok % w] = tok
-    k_pos = k_pos.to(dev)
-    q_pos = torch.tensor(totals, dtype=torch.int32, device=dev)
+    return k_pos.to(dev), torch.tensor(totals, dtype=torch.int32, device=dev)
+
+
+def _ring_case(torch, timer, dev, gen, label, kv, g, hd, w, window, totals):
+    """The bf16 ring decode at one main-path shape (B = len(totals), T =
+    1): held row by row against its plain version, then timed beside it
+    and SDPA over the same ring (the visible keys as a mask), with its
+    bound and key splits."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    import torch.nn.functional as F
+
+    b, h = len(totals), kv * g
+    k_pos, q_pos = _ring_positions(torch, totals, w, dev)
     ks, vs = (torch.randn((LAYERS, b, w, kv, hd), generator=gen, device=dev,
                           dtype=torch.bfloat16) for _ in range(2))
     q1 = torch.randn((LAYERS, b, 1, h, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
+    name = f"decode_attention {label} B={b} W={w} KV={kv} G={g} hd={hd} " \
+        f"T=1 window={window}"
     err = _check_rows(
-        torch, f"decode_attention hd={hd} G={g} KV={kv} window={window}",
+        torch, name,
         lambda *x: decode_attention(*x, q_pos, k_pos, window=window),
         lambda *x: decode_attention_plain(*x, q_pos, k_pos, window=window),
         (q1[0], ks[0], vs[0]), rows=2)
-    visible = ((k_pos >= 0) & (k_pos <= q_pos[:, None])
-               & (k_pos > q_pos[:, None] - window))
+    visible = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    if window is not None:
+        visible &= k_pos > q_pos[:, None] - window
     mask = visible[:, None, None, :]
     qt = [q1[i].transpose(1, 2) for i in range(LAYERS)]
     kt = [ks[i].transpose(1, 2) for i in range(LAYERS)]
@@ -737,61 +759,195 @@ def check_attention_hd256(torch, timer, dev):
     lib_ms = timer(lambda i: F.scaled_dot_product_attention(
         qt[i % LAYERS], kt[i % LAYERS], vt[i % LAYERS], attn_mask=mask,
         enable_gqa=True))
+    # q, out, both position arrays, and the K/V rows some query may see
     live = int(visible.sum())
     nbytes = (2 * _nbytes(q1[0]) + _nbytes(q_pos, k_pos)
               + 2 * live * kv * hd * 2)
     bound, by = _bound_ms(nbytes, 4 * live * h * hd)
     nsplit, part = _ring_split(torch, b, 1, h, kv, w, hd, dev)
-    out["decode_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound, bound_by=by,
-                                   library_ms=lib_ms,
-                                   gb_per_s=nbytes / ms / 1e6, splits=nsplit,
-                                   partial_bytes=part)
-    print(f"  decode_attention B={b} W={w} KV={kv} G={g} hd={hd} T=1 "
-          f"window={window} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {nbytes} B)"
-          f"; {nbytes / ms / 1e6:.1f} GB/s; {nsplit} key splits, {part} B "
-          f"of f32 partials")
-    del ks, vs, q1, qt, kt, vt
-    # flash: one 4096-token prefill bucket, band of 2048 keys per query
-    s, n_in = 4096, 3
+    print(f"  {name} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {nbytes} B); "
+          f"{nbytes / ms / 1e6:.1f} GB/s; {nsplit} key splits, {part} B of "
+          f"f32 partials")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, gb_per_s=nbytes / ms / 1e6,
+                splits=nsplit, partial_bytes=part)
+
+
+def _flash_case(torch, timer, dev, gen, label, s, kv, g, hd, window, n_in):
+    """The bf16 flash kernel on one S-token prefill (causal, or banded by
+    ``window``): held row by row against its plain version, timed beside
+    it and SDPA (``is_causal``, or the band as a mask) on ``n_in``
+    distinct inputs, with its bound."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    import torch.nn.functional as F
+
+    h = kv * g
     qs = torch.randn((n_in, 1, s, h, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
     ks, vs = (torch.randn((n_in, 1, s, kv, hd), generator=gen, device=dev,
                           dtype=torch.bfloat16) for _ in range(2))
+    name = f"flash_attention {label} B=1 S={s} H={h} KV={kv} hd={hd} " \
+        f"window={window}"
     err = _check_rows(
-        torch, f"flash_attention hd={hd} G={g} KV={kv} S={s} window={window}",
+        torch, name,
         lambda *x: flash_attention(*x, causal=True, window=window),
         lambda *x: flash_attention_plain(*x, causal=True, window=window),
         (qs[0], ks[0], vs[0]), rows=2)
     pos = torch.arange(s, device=dev)
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
-                                             - window)
+    band = pos[None, :] <= pos[:, None]
+    if window is not None:
+        band &= pos[None, :] > pos[:, None] - window
+    sdpa = dict(attn_mask=band) if window is not None else \
+        dict(is_causal=True)
     qt = [qs[i].transpose(1, 2) for i in range(n_in)]
     kt = [ks[i].transpose(1, 2) for i in range(n_in)]
     vt = [vs[i].transpose(1, 2) for i in range(n_in)]
-    ms = timer(lambda i: flash_attention(qs[i % n_in], ks[i % n_in],
-                                         vs[i % n_in], causal=True,
-                                         window=window), n=5)
+    n = 25 if n_in == LAYERS else 5
+    ms = timer(lambda i: flash_attention(
+        qs[i % n_in], ks[i % n_in], vs[i % n_in], causal=True,
+        window=window), n=n)
     plain_ms = timer(lambda i: flash_attention_plain(
         qs[i % n_in], ks[i % n_in], vs[i % n_in], causal=True,
-        window=window), n=5)
+        window=window), n=n)
     lib_ms = timer(lambda i: F.scaled_dot_product_attention(
-        qt[i % n_in], kt[i % n_in], vt[i % n_in], attn_mask=band,
-        enable_gqa=True), n=5)
-    pairs = int(band.sum())
+        qt[i % n_in], kt[i % n_in], vt[i % n_in], enable_gqa=True, **sdpa),
+        n=n)
+    flops = 4 * int(band.sum()) * h * hd
     nbytes = 2 * _nbytes(qs[0]) + _nbytes(ks[0], vs[0])
-    bound, by = _bound_ms(nbytes, 4 * pairs * h * hd)
-    flops = 4 * pairs * h * hd
-    out["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound, bound_by=by,
-                                  library_ms=lib_ms,
-                                  tflop_per_s=flops / ms / 1e9)
-    print(f"  flash_attention B=1 S={s} H={h} KV={kv} hd={hd} window="
-          f"{window} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"(band mask) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-          f"{nbytes} B, {flops} flop); {flops / ms / 1e9:.1f} TFLOP/s in "
-          f"the band")
+    bound, by = _bound_ms(nbytes, flops)
+    print(f"  {name} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {nbytes} B, {flops} "
+          f"flop); {flops / ms / 1e9:.1f} TFLOP/s in the band")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, tflop_per_s=flops / ms / 1e9)
+
+
+def _paged_case(torch, timer, dev, gen, label, kv, g, hd, t, window):
+    """The bf16 paged kernel over phase 2's pool (8 slots of 1-1000 tokens
+    in 16-token blocks, M = 64, a freed slot, a table with holes): T = 1
+    decode for every slot, or a T-token prompt chunk of slot 4 at 256..
+    under a table cut to 512 positions (the engine's ``ctx``). Held row by
+    row against its plain version, timed beside it and SDPA on the
+    pre-gathered context (gather excluded), with its bound and splits."""
+    from repro_torch.kernels.decode_attention import (
+        gather_paged_kv, paged_decode_attention, paged_decode_attention_plain,
+        paged_split_len, query_positions)
+    import torch.nn.functional as F
+
+    bs, m, h = 16, 64, kv * g
+    fills = [1, 17, 200, 480, 1000, 0, 700, 333]
+    n_blocks = len(fills) * m + 1
+    pos, bt = _paged_pool(np.random.default_rng(3), fills, bs, m, n_blocks,
+                          [(6, 3), (6, 10), (6, 20)])
+    k_pos, bt = torch.from_numpy(pos).to(dev), torch.from_numpy(bt).to(dev)
+    ks, vs = (torch.randn((LAYERS, n_blocks, bs, kv, hd), generator=gen,
+                          device=dev, dtype=torch.bfloat16)
+              for _ in range(2))
+    if t == 1:
+        q_pos = torch.tensor([max(f - 1, 0) for f in fills],
+                             dtype=torch.int32, device=dev)
+    else:
+        q_pos = torch.tensor([256], dtype=torch.int32, device=dev)
+        bt = bt[4:5, :32].contiguous()
+    b = bt.shape[0]
+    qs = torch.randn((LAYERS, b, t, h, hd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    name = f"paged_decode_attention {label} B={b} bs={bs} M={bt.shape[1]} " \
+        f"KV={kv} G={g} hd={hd} T={t} window={window}"
+    err = _check_rows(
+        torch, name,
+        lambda *x: paged_decode_attention(*x, q_pos, k_pos, bt,
+                                          window=window),
+        lambda *x: paged_decode_attention_plain(*x, q_pos, k_pos, bt,
+                                                window=window),
+        (qs[0], ks[0], vs[0]), rows=2)
+    _, ctx_pos = gather_paged_kv(ks[0], k_pos, bt)
+    qp = query_positions(q_pos, t)
+    visible = (ctx_pos[:, None, :] >= 0) & (ctx_pos[:, None, :]
+                                            <= qp[:, :, None])
+    if window is not None:
+        visible &= ctx_pos[:, None, :] > qp[:, :, None] - window
+    mask = visible[:, None]
+    qt = [qs[i].transpose(1, 2) for i in range(LAYERS)]
+    kt = [gather_paged_kv(ks[i], k_pos, bt)[0].transpose(1, 2)
+          for i in range(LAYERS)]
+    vt = [gather_paged_kv(vs[i], k_pos, bt)[0].transpose(1, 2)
+          for i in range(LAYERS)]
+    ms = timer(lambda i: paged_decode_attention(
+        qs[i % LAYERS], ks[i % LAYERS], vs[i % LAYERS], q_pos, k_pos, bt,
+        window=window))
+    plain_ms = timer(lambda i: paged_decode_attention_plain(
+        qs[i % LAYERS], ks[i % LAYERS], vs[i % LAYERS], q_pos, k_pos, bt,
+        window=window))
+    lib_ms = timer(lambda i: F.scaled_dot_product_attention(
+        qt[i % LAYERS], kt[i % LAYERS], vt[i % LAYERS], attn_mask=mask,
+        enable_gqa=True))
+    # q, out, q_pos, the tables, one position per token of each table
+    # block, and the K/V rows some query may see
+    live = int(visible.any(dim=1).sum())
+    nbytes = (2 * _nbytes(qs[0]) + _nbytes(q_pos, bt)
+              + int((bt >= 0).sum()) * bs * k_pos.element_size()
+              + 2 * live * kv * hd * 2)
+    bound, by = _bound_ms(nbytes, 4 * int(visible.sum()) * h * hd)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mm = bt.shape[1]
+    nsplit = -(-mm * bs // paged_split_len(b, t, h, kv, mm, bs, hd, sms))
+    print(f"  {name} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"on the pre-gathered context (gather excluded) {lib_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}; {nbytes} B); {nsplit} key splits, "
+          f"{-(-t * g // 64)} row tiles a KV head")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, splits=nsplit)
+
+
+def check_attention_hd256(torch, timer, dev):
+    """``decode_attention`` and ``flash_attention`` at recurrentgemma-9b's
+    local attention (hd 256, 16 query heads over one KV head, window 2048)
+    against their plain versions, timed against SDPA as the yardstick: the
+    ring of 8 slots 2048 wide (partly filled, wrapped, empty) and one
+    4096-token prefill bucket."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    args = dict(kv=1, g=16, hd=256, window=2048)
+    return {
+        "decode_attention": _ring_case(
+            torch, timer, dev, gen, "recurrentgemma-9b", w=2048,
+            totals=[300, 2048, 2900, 0, 17, 1500, 4000, 2100], **args),
+        "flash_attention": _flash_case(
+            torch, timer, dev, gen, "recurrentgemma-9b", s=4096, n_in=3,
+            **args)}
+
+
+# the dense hd-128 zoo: model -> (KV heads, G, ring width and window, the
+# flash prefill's S and inputs)
+HD128 = {"qwen3-4b": (8, 4, 1024, None, 512, LAYERS),
+         "glm4-9b": (2, 16, 1024, None, 512, LAYERS),
+         "starcoder2-7b": (4, 9, 4096, 4096, 4608, 3)}
+
+
+def check_attention_hd128(torch, timer, dev):
+    """The three attention kernels at each hd-128 zoo model's head layout:
+    the ring decode (B = 8, T = 1; slots partly filled, wrapped and empty;
+    starcoder2's 4096 window on its 4096-wide ring), the paged kernel at T
+    = 1 and on one 128-token chunk (512, 2048 and 1152 query rows a KV
+    head), and flash on a 512-token prefill (qwen3, glm4) or a 4608-token
+    one banded by starcoder2's window."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    out = {}
+    for model, (kv, g, w, window, s, n_in) in HD128.items():
+        args = dict(kv=kv, g=g, hd=128, window=window)
+        rec = out[model] = {}
+        rec["decode_attention"] = _ring_case(
+            torch, timer, dev, gen, model, w=w,
+            totals=[n * w // 1024 for n in (300, 512, 2524, 0, 17, 900,
+                                             1023, 1500)], **args)
+        for t in (1, 128):
+            rec[f"paged_decode_attention T={t}"] = _paged_case(
+                torch, timer, dev, gen, model, t=t, **args)
+        rec["flash_attention"] = _flash_case(torch, timer, dev, gen, model,
+                                             s=s, n_in=n_in, **args)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -807,6 +963,7 @@ def sweep_attention(torch, timer, dev):
     gen = torch.Generator(device=dev).manual_seed(8)
     rec = {"flash": {}, "decode": {}}
     for hd, s, h, kv, window, n_in in ((64, 512, 9, 3, None, LAYERS),
+                                       (128, 512, 32, 8, None, LAYERS),
                                        (256, 4096, 16, 1, 2048, 3)):
         qs = torch.randn((n_in, 1, s, h, hd), generator=gen, device=dev,
                          dtype=torch.bfloat16)
@@ -840,6 +997,8 @@ def sweep_attention(torch, timer, dev):
               f"{ms:.4f} ms")
     for hd, w, kv, g, window, totals in (
             (64, 1024, 3, 3, None, [300, 512, 2524, 0, 17, 900, 1023, 1500]),
+            (128, 1024, 2, 16, None, [300, 512, 2524, 0, 17, 900, 1023,
+                                      1500]),
             (256, 2048, 1, 16, 2048,
              [300, 2048, 2900, 0, 17, 1500, 4000, 2100])):
         b, h = len(totals), kv * g
@@ -848,12 +1007,7 @@ def sweep_attention(torch, timer, dev):
                   for _ in range(2))
         q1 = torch.randn((LAYERS, b, 1, h, hd), generator=gen, device=dev,
                          dtype=torch.bfloat16)
-        k_pos = torch.full((b, w), -1, dtype=torch.int32)
-        for i, total in enumerate(totals):
-            tok = torch.arange(max(0, total - w), total, dtype=torch.int32)
-            k_pos[i, tok % w] = tok
-        k_pos = k_pos.to(dev)
-        q_pos = torch.tensor(totals, dtype=torch.int32, device=dev)
+        k_pos, q_pos = _ring_positions(torch, totals, w, dev)
         pick = _ring_split(torch, b, 1, h, kv, w, hd, dev)[0]
         rule = da.ring_split_len
         for keys in (64, 128, 256, 512, 1024):
@@ -992,15 +1146,7 @@ def check_model(torch, dev, seed):
         cfg = dataclasses.replace(base, param_dtype=dtype)
         lm = LM(cfg, device=dev)
         params = lm.init(seed)
-        full, _ = lm.forward(params, {"tokens": tokens})
-        logits, caches = lm.prefill(params, {"tokens": tokens[:, :prompt]},
-                                    cache_width=64)
-        err = (logits[:, -1] - full[:, prompt - 1]).abs().max().item()
-        for t in range(prompt, tokens.shape[1]):
-            step, caches = lm.decode_step(params, caches,
-                                          tokens[:, t:t + 1], t)
-            err = max(err, (step[:, 0] - full[:, t]).abs().max().item())
-        scale = full.float().abs().max().item()
+        err, scale, full = _prefill_vs_forward(lm, params, tokens, prompt)
         print(f"  smollm-135m {dtype}: prefill+decode vs forward max|diff| "
               f"= {err:.3e} (tol {tol}; max|logit| {scale:.2f})")
         if not (np.isfinite(scale) and err < tol):
@@ -1015,7 +1161,45 @@ def check_model(torch, dev, seed):
                   f"max|diff| = {gpu_err:.3e} (tol {tol})")
             if not gpu_err < tol:
                 raise AssertionError("GPU forward != CPU plain forward")
-        del params, caches, full
+        del params, full
+
+
+def _prefill_vs_forward(lm, params, tokens, prompt: int):
+    """Prefill ``tokens[:, :prompt]`` into a 64-wide cache, decode the rest
+    one token at a time: the largest |logit| difference against one full
+    forward over ``tokens``, the forward's largest |logit|, and the
+    forward's logits."""
+    full, _ = lm.forward(params, {"tokens": tokens})
+    logits, caches = lm.prefill(params, {"tokens": tokens[:, :prompt]},
+                                cache_width=64)
+    err = (logits[:, -1] - full[:, prompt - 1]).abs().max().item()
+    for t in range(prompt, tokens.shape[1]):
+        step, caches = lm.decode_step(params, caches, tokens[:, t:t + 1], t)
+        err = max(err, (step[:, 0] - full[:, t]).abs().max().item())
+    return err, full.float().abs().max().item(), full
+
+
+def _greedy_vs_forward(torch, lm, params, out, reqs, tol):
+    """Greedy engine tokens against a teacher-forced forward over prompt +
+    output, where the forward's top-2 margin exceeds ``tol``: (tokens
+    checked, tokens that agree)."""
+    checked = agree = 0
+    for r, (prompt, temp) in zip(out, reqs):
+        if temp > 0:
+            continue
+        ctx = torch.from_numpy(np.concatenate([prompt, r.output[:-1]])
+                               .astype(np.int32))[None].to(lm.device)
+        logits, _ = lm.forward(params, {"tokens": ctx})
+        tail = logits[0, len(prompt) - 1:].float()
+        del logits
+        top2 = torch.topk(tail, 2, dim=-1).values
+        sure = ((top2[:, 0] - top2[:, 1]) > tol).cpu().numpy()
+        pred = tail.argmax(-1).cpu().numpy()
+        checked += int(sure.sum())
+        agree += int((pred[sure] == r.output[sure]).sum())
+    print(f"  greedy tokens vs teacher-forced forward: {agree}/{checked} "
+          f"agree where the margin exceeds {tol}")
+    return checked, agree
 
 
 def _to_device(tree, dev):
@@ -1049,26 +1233,34 @@ def _serve(engine, reqs, max_new):
     return [done[i] for i in ids], wall
 
 
-def check_engine(torch, dev, seed, smi):
+def _smollm(dev, seed):
+    """smollm-135m at full width and depth, bf16, weights from ``seed``."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.model import LM
+
+    lm = LM(get_config("smollm-135m"), device=dev)
+    return lm, lm.init(seed)
+
+
+def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024):
+    """The ring ``ServingEngine`` (8 slots, K = 4) on ``reqs``, 32 new
+    tokens each, after a warm-up on two of them (allocator and library
+    handles, outside the measured run): every request finishes, every
+    prefill and decode attention is a kernel launch, the streams equal a
+    K = 1 engine's, and greedy tokens agree with a teacher-forced
+    forward."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config("smollm-135m")
-    lm = LM(cfg, device=dev)
-    params = lm.init(seed)
-    reqs = _trace(seed, cfg.vocab_size)
     max_new = 32
-    kw = dict(batch_slots=8, max_seq_len=1024, seed=seed)
-    # warm-up: allocator and library handles, outside the measured run
+    kw = dict(batch_slots=8, max_seq_len=max_seq_len, seed=seed)
     _serve(ServingEngine(lm, params, max_decode_steps=4, **kw), reqs[:2], 4)
     eng = ServingEngine(lm, params, max_decode_steps=4, **kw)
     torch.cuda.synchronize()
     reset_launches()
     out, wall = _serve(eng, reqs, max_new)
     launches = dict(LAUNCHES)
-    n_layers = cfg.num_layers
+    n_layers = lm.cfg.num_layers
     want = {"flash_attention": n_layers * eng.admissions,
             "decode_attention": n_layers * eng.decode_steps,
             "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0}
@@ -1087,25 +1279,8 @@ def check_engine(torch, dev, seed, smi):
     print(f"  K=4 streams equal K=1 streams token for token "
           f"({sum(len(r.output) for r in out)} tokens; host syncs "
           f"{eng.host_syncs} vs {one.host_syncs})")
-
-    # greedy tokens vs a teacher-forced full forward, where the forward's
-    # top-2 margin exceeds the bf16 logits tolerance of phase 3
-    checked = agree = 0
-    for r, (prompt, temp) in zip(out, reqs):
-        if temp > 0:
-            continue
-        ctx = torch.from_numpy(np.concatenate([prompt, r.output[:-1]])
-                               .astype(np.int32))[None].to(dev)
-        logits, _ = lm.forward(params, {"tokens": ctx})
-        tail = logits[0, len(prompt) - 1:].float()
-        top2 = torch.topk(tail, 2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > BF16_LOGIT_TOL
-        pred = tail.argmax(-1).cpu().numpy()
-        sure = sure.cpu().numpy()
-        checked += int(sure.sum())
-        agree += int((pred[sure] == r.output[sure]).sum())
-    print(f"  greedy tokens vs teacher-forced forward: {agree}/{checked} "
-          f"agree where the margin exceeds {BF16_LOGIT_TOL}")
+    checked, agree = _greedy_vs_forward(torch, lm, params, out, reqs,
+                                        BF16_LOGIT_TOL)
     if checked == 0 or agree != checked:
         raise AssertionError("engine tokens disagree with the model")
 
@@ -1117,11 +1292,13 @@ def check_engine(torch, dev, seed, smi):
                  ttft_ms_max=ttft[-1], decode_ms_per_step=step_ms,
                  decode_ms_per_token=eng.decode_s * 1e3 / gen,
                  decode_steps=eng.decode_steps, admissions=eng.admissions,
-                 host_syncs=eng.host_syncs, launches=launches)
-    print(f"  engine [{smi}]: {gen} tokens in {wall:.3f} s = "
-          f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms"
-          f", max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
-          f"slots, {stats['decode_ms_per_token']:.2f} ms per token")
+                 host_syncs=eng.host_syncs, launches=launches,
+                 prompt_lengths=[len(p) for p, _ in reqs])
+    print(f"  {lm.cfg.name} ring engine [{smi}]: {gen} tokens in {wall:.3f} "
+          f"s = {gen / wall:.1f} tokens/s; TTFT p50 "
+          f"{stats['ttft_ms_p50']:.1f} ms, max {ttft[-1]:.1f} ms; decode "
+          f"{step_ms:.2f} ms per step of 8 slots, "
+          f"{stats['decode_ms_per_token']:.2f} ms per token")
     return stats, launches
 
 
@@ -1182,16 +1359,15 @@ def _serve_waves(engine, trace, max_new, contended):
     return [done[i] for i in ids], wall
 
 
-def check_paged_engine(torch, dev, seed, smi):
-    from repro_torch.configs import get_config
+def check_paged_engine(torch, dev, seed, smi, lm, params):
+    """The paged ``ServingEngine`` (block 16, 128-token chunks, prefix
+    sharing, K = 4) on the two-wave trace with contended swap preemption:
+    launches, the paths taken, streams against a K = 1 and an uncontended
+    engine, and greedy tokens against a teacher-forced forward."""
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models.model import LM
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config("smollm-135m")
-    lm = LM(cfg, device=dev)
-    params = lm.init(seed)
-    trace = _paged_trace(seed, cfg.vocab_size)
+    trace = _paged_trace(seed, lm.cfg.vocab_size)
     max_new = 32
     kw = dict(batch_slots=8, max_seq_len=1024, seed=seed,
               cache_backend="paged", block_size=16, chunk_tokens=128,
@@ -1210,7 +1386,7 @@ def check_paged_engine(torch, dev, seed, smi):
     out, wall = _serve_waves(eng, trace, max_new, contended=True)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    n_layers = cfg.num_layers
+    n_layers = lm.cfg.num_layers
     want = {"paged_decode_attention":
             n_layers * (eng.decode_steps + chunks[0]),
             "flash_attention": 0, "decode_attention": 0, "cascade_gate": 0,
@@ -1249,22 +1425,8 @@ def check_paged_engine(torch, dev, seed, smi):
           f"{one.preemptions} in the K=1 run)")
 
     wave1, hi, wave2 = trace
-    reqs = wave1 + hi + wave2
-    checked = agree = 0
-    for r, (prompt, temp) in zip(out, reqs):
-        if temp > 0:
-            continue
-        ctx = torch.from_numpy(np.concatenate([prompt, r.output[:-1]])
-                               .astype(np.int32))[None].to(dev)
-        logits, _ = lm.forward(params, {"tokens": ctx})
-        tail = logits[0, len(prompt) - 1:].float()
-        top2 = torch.topk(tail, 2, dim=-1).values
-        sure = ((top2[:, 0] - top2[:, 1]) > BF16_LOGIT_TOL).cpu().numpy()
-        pred = tail.argmax(-1).cpu().numpy()
-        checked += int(sure.sum())
-        agree += int((pred[sure] == r.output[sure]).sum())
-    print(f"  greedy tokens vs teacher-forced forward: {agree}/{checked} "
-          f"agree where the margin exceeds {BF16_LOGIT_TOL}")
+    checked, agree = _greedy_vs_forward(torch, lm, params, out,
+                                        wave1 + hi + wave2, BF16_LOGIT_TOL)
     if checked == 0 or agree != checked:
         raise AssertionError("paged engine tokens disagree with the model")
 
@@ -1276,7 +1438,7 @@ def check_paged_engine(torch, dev, seed, smi):
                  ttft_ms_max=ttft[-1], decode_ms_per_step=step_ms,
                  decode_steps=eng.decode_steps, chunks=chunks[0],
                  host_syncs=eng.host_syncs, launches=launches, **seen)
-    print(f"  paged engine [{smi}]: {gen} tokens in {wall:.3f} s = "
+    print(f"  {lm.cfg.name} paged engine [{smi}]: {gen} tokens in {wall:.3f} s = "
           f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} "
           f"ms, max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
           f"slots; {chunks[0]} chunks")
@@ -1517,12 +1679,24 @@ def _mixer_counts(cfg):
     return n["rglru"], n["attn"]
 
 
-def _tree_numel(tree):
+def _leaves(tree):
+    """The tensors of a nested dict/list parameter tree."""
     if isinstance(tree, dict):
-        return sum(_tree_numel(v) for v in tree.values())
-    if isinstance(tree, list):
-        return sum(_tree_numel(v) for v in tree)
-    return tree.numel()
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _tree_numel(tree):
+    return sum(t.numel() for t in _leaves(tree))
+
+
+def _weight_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
 def _state_err(caches, ref, row, lm):
@@ -1614,15 +1788,7 @@ def hybrid_full_depth(torch, dev, seed):
           f"{init_s:.1f} s")
     tokens = torch.from_numpy(np.random.default_rng(seed + 9).integers(
         0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(dev)
-    prompt = 24
-    full, _ = lm.forward(params, {"tokens": tokens})
-    logits, caches = lm.prefill(params, {"tokens": tokens[:, :prompt]},
-                                cache_width=64)
-    err = (logits[:, -1] - full[:, prompt - 1]).abs().max().item()
-    for t in range(prompt, tokens.shape[1]):
-        step, caches = lm.decode_step(params, caches, tokens[:, t:t + 1], t)
-        err = max(err, (step[:, 0] - full[:, t]).abs().max().item())
-    scale = full.float().abs().max().item()
+    err, scale, _ = _prefill_vs_forward(lm, params, tokens, 24)
     print(f"  recurrentgemma-9b 38 layers bf16: prefill+decode vs forward "
           f"max|diff| = {err:.3e} (tol {HYBRID_LOGIT_TOL}; max|logit| "
           f"{scale:.2f})")
@@ -1687,22 +1853,8 @@ def check_hybrid_engine(torch, dev, seed, smi, lm, params):
           f"({sum(len(r.output) for r in out)} tokens; prompt lengths "
           f"{[len(p) for p, _ in reqs]})")
 
-    checked = agree = 0
-    for r, (prompt, temp) in zip(out, reqs):
-        if temp > 0:
-            continue
-        ctx = torch.from_numpy(np.concatenate([prompt, r.output[:-1]])
-                               .astype(np.int32))[None].to(dev)
-        logits, _ = lm.forward(params, {"tokens": ctx})
-        tail = logits[0, len(prompt) - 1:].float()
-        del logits
-        top2 = torch.topk(tail, 2, dim=-1).values
-        sure = ((top2[:, 0] - top2[:, 1]) > HYBRID_LOGIT_TOL).cpu().numpy()
-        pred = tail.argmax(-1).cpu().numpy()
-        checked += int(sure.sum())
-        agree += int((pred[sure] == r.output[sure]).sum())
-    print(f"  greedy tokens vs teacher-forced forward: {agree}/{checked} "
-          f"agree where the margin exceeds {HYBRID_LOGIT_TOL}")
+    checked, agree = _greedy_vs_forward(torch, lm, params, out, reqs,
+                                        HYBRID_LOGIT_TOL)
     if checked == 0 or agree != checked:
         raise AssertionError("hybrid engine tokens disagree with the model")
 
@@ -1760,32 +1912,22 @@ def _device_profile(torch, serve, wall_s):
                      for us, n, name in rows[:12]])
 
 
-def profile_engine(torch, dev, seed, wall_s):
-    """The phase-4 trace (K=4 ring engine) under the profiler."""
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import LM
+def profile_engine(torch, seed, lm, params, reqs, wall_s,
+                   max_seq_len=1024):
+    """A ring engine's trace (8 slots, K=4) under the profiler."""
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config("smollm-135m")
-    lm = LM(cfg, device=dev)
-    params = lm.init(seed)
-    reqs = _trace(seed, cfg.vocab_size)
-    eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=1024,
+    eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=max_seq_len,
                         seed=seed, max_decode_steps=4)
     return _device_profile(torch, lambda: _serve(eng, reqs, 32)[1], wall_s)
 
 
-def profile_paged_engine(torch, dev, seed, wall_s):
+def profile_paged_engine(torch, seed, lm, params, wall_s):
     """The phase-5 trace (paged engine, K=4, contended) under the
     profiler."""
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import LM
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config("smollm-135m")
-    lm = LM(cfg, device=dev)
-    params = lm.init(seed)
-    trace = _paged_trace(seed, cfg.vocab_size)
+    trace = _paged_trace(seed, lm.cfg.vocab_size)
     eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=1024,
                         seed=seed, cache_backend="paged", block_size=16,
                         chunk_tokens=128, prefix_sharing=True,
@@ -1793,15 +1935,6 @@ def profile_paged_engine(torch, dev, seed, wall_s):
     return _device_profile(
         torch, lambda: _serve_waves(eng, trace, 32, contended=True)[1],
         wall_s)
-
-
-def profile_hybrid(torch, dev, seed, lm, params, reqs, wall_s):
-    """The phase-9 trace (hybrid ring engine, K=4) under the profiler."""
-    from repro_torch.serving import ServingEngine
-
-    eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=4096,
-                        seed=seed, max_decode_steps=4)
-    return _device_profile(torch, lambda: _serve(eng, reqs, 32)[1], wall_s)
 
 
 def profile_cascade(torch, dev, seed, stats):
@@ -1828,13 +1961,182 @@ def profile_cascade(torch, dev, seed, stats):
     return _device_profile(torch, serve, stats["wall_s"])
 
 
+# -- phase 10: the dense hd-128 zoo at full width --------------------------------
+
+ZOO = ("qwen3-4b", "glm4-9b", "starcoder2-7b")
+# starcoder2-7b's ring serve: max_seq_len, and the range of its four long
+# prompts' lengths (past the 4096 window: the ring wraps at install)
+STARCODER2_RING = (8192, 4097, 4601)
+
+
+def _zoo_trace(seed, vocab, lengths, sampled):
+    """Prompts of the given lengths, the ``sampled``-th at 0.8."""
+    rng = np.random.default_rng(seed + 20)
+    return [(rng.integers(0, vocab, int(n)).astype(np.int32),
+             0.8 if i == sampled else 0.0) for i, n in enumerate(lengths)]
+
+
+def check_zoo(torch, dev, seed, smi):
+    """qwen3-4b, glm4-9b and starcoder2-7b at full width and depth, bf16,
+    one at a time, weights made on the card from ``seed``: prefill then
+    decode equals a full forward; then qwen3-4b through phase 4's ring and
+    phase 5's paged engine on their traces, glm4-9b through the ring
+    engine on 8 requests of 16-480 tokens, starcoder2-7b on 8 of 16-4600
+    tokens at max_seq_len 8192 (four longer than its 4096 window, so its
+    4096-wide rings wrap). Each decode step is printed beside the weights'
+    read time, its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    out = {}
+    for name in ZOO:
+        cfg = get_config(name)
+        lm = LM(cfg, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        params = lm.init(seed, on_device=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n, wbytes = _tree_numel(params), _weight_bytes(params)
+        bound = wbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, hd "
+              f"{cfg.resolved_head_dim}: {n / 1e9:.3f} B values, "
+              f"{wbytes / 1e9:.2f} GB bf16, made on the card in {init_s:.1f}"
+              f" s; weight-read bound per decode step {bound:.2f} ms")
+        tokens = torch.from_numpy(np.random.default_rng(seed + 21).integers(
+            0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(dev)
+        err, scale, _ = _prefill_vs_forward(lm, params, tokens, 24)
+        print(f"  {name} bf16: prefill+decode vs forward max|diff| = "
+              f"{err:.3e} (tol {BF16_LOGIT_TOL}; max|logit| {scale:.2f})")
+        if not (np.isfinite(scale) and err < BF16_LOGIT_TOL):
+            raise AssertionError(f"{name}: prefill+decode != forward")
+        rec = out[name] = dict(values=n, weight_bytes=wbytes, init_s=init_s,
+                               prefill_decode_err=err, max_logit=scale,
+                               decode_bound_ms=bound)
+        rng = np.random.default_rng(seed + 22)
+        if name == "qwen3-4b":
+            rec["ring"], _ = check_engine(torch, dev, seed, smi, lm, params,
+                                          _trace(seed, cfg.vocab_size))
+            rec["paged"], _ = check_paged_engine(torch, dev, seed, smi, lm,
+                                                 params)
+        elif name == "glm4-9b":
+            rec["ring"], _ = check_engine(
+                torch, dev, seed, smi, lm, params,
+                _zoo_trace(seed, cfg.vocab_size, rng.integers(16, 481, 8), 7))
+        else:
+            width, lo, hi = STARCODER2_RING
+            lengths = list(rng.integers(lo, hi, 4)) + list(
+                rng.integers(16, lo, 4))
+            rec["ring"], _ = check_engine(
+                torch, dev, seed, smi, lm, params,
+                _zoo_trace(seed, cfg.vocab_size, lengths, 7),
+                max_seq_len=width)
+        for kind in ("ring", "paged"):
+            if kind in rec:
+                print(f"  {name} {kind}: decode "
+                      f"{rec[kind]['decode_ms_per_step']:.2f} ms per step of "
+                      f"8 slots against the {bound:.2f} ms weight-read bound "
+                      f"({rec[kind]['decode_ms_per_step'] / bound:.1f}x)")
+        rec["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+        print(f"  {name}: peak device memory {rec['peak_gb']:.1f} GB above "
+              f"the {held / 1e9:.1f} GB held before it")
+        del lm, params
+        gc.collect()            # engines that patched a bound method form cycles
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 11: the drain-batch baseline --------------------------------------------
+
+def check_baseline(torch, dev, seed, smi, lm, params):
+    """Phase 4's trace through ``DrainBatchEngine`` and the K = 4 ring
+    ``ServingEngine`` in turns (drain, continuous, continuous, drain): each
+    engine gives equal streams on its two runs; greedy streams of the two
+    engines are equal, or part first at a near-tie (top-2 margin within
+    BF16_LOGIT_TOL) of a teacher-forced forward: their prefills run other
+    shapes, so bf16 roundings differ; the drain engine prefills each batch
+    through flash and decodes through the ring kernel, one host sync a
+    token."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import DrainBatchEngine, ServingEngine
+
+    reqs = _trace(seed, lm.cfg.vocab_size)
+    n_layers = lm.cfg.num_layers
+    runs = {"drain": [], "continuous": []}
+    outs = {}
+    for kind in ("drain", "continuous", "continuous", "drain"):
+        kw = dict(batch_slots=8, max_seq_len=1024, seed=seed)
+        eng = (DrainBatchEngine(lm, params, **kw) if kind == "drain" else
+               ServingEngine(lm, params, max_decode_steps=4, **kw))
+        torch.cuda.synchronize()
+        reset_launches()
+        out, wall = _serve(eng, reqs, 32)
+        launches = dict(LAUNCHES)
+        gen = sum(len(r.output) for r in out)
+        if kind == "drain":
+            batches = -(-len(reqs) // eng.batch_slots)
+            want = {"flash_attention": n_layers * batches,
+                    "decode_attention": n_layers * eng.host_syncs,
+                    "paged_decode_attention": 0, "cascade_gate": 0,
+                    "rglru_scan": 0}
+            if launches != want:
+                raise AssertionError(f"drain launches {launches} != {want}")
+        if kind in outs:
+            for a, b in zip(outs[kind], out):
+                if not np.array_equal(a.output, b.output):
+                    raise AssertionError(f"{kind}: two runs differ (request "
+                                         f"{a.request_id})")
+        outs[kind] = out
+        runs[kind].append(dict(wall_s=wall, tokens_per_s=gen / wall,
+                               host_syncs=eng.host_syncs,
+                               host_syncs_per_token=eng.host_syncs / gen,
+                               launches=launches))
+        print(f"  {kind} [{smi}]: {gen} tokens in {wall:.3f} s = "
+              f"{gen / wall:.1f} tokens/s; {eng.host_syncs} host syncs "
+              f"({eng.host_syncs / gen:.4f} a token); launches {launches}")
+    equal = parted = 0
+    for r, c, (prompt, temp) in zip(outs["drain"], outs["continuous"], reqs):
+        if temp > 0:
+            continue
+        diff = np.flatnonzero(r.output != c.output)
+        if not len(diff):
+            equal += 1
+            continue
+        ctx = torch.from_numpy(np.concatenate(
+            [prompt, c.output[:diff[0]]]).astype(np.int32))[None].to(dev)
+        last, _ = lm.forward(params, {"tokens": ctx}, last_only=True)
+        top2 = torch.topk(last[0, 0].float(), 2).values
+        margin = (top2[0] - top2[1]).item()
+        print(f"  request {r.request_id}: the streams part at token "
+              f"{diff[0]}, top-2 margin {margin:.4f}")
+        if margin > BF16_LOGIT_TOL:
+            raise AssertionError(f"drain stream != continuous stream "
+                                 f"(request {r.request_id})")
+        parted += 1
+    print(f"  greedy streams: {equal} equal token for token, {parted} part "
+          f"first at a near-tie (margin <= {BF16_LOGIT_TOL})")
+    if equal == 0:
+        raise AssertionError("no greedy stream equal across the engines")
+    drain = statistics.mean(x["tokens_per_s"] for x in runs["drain"])
+    cont = statistics.mean(x["tokens_per_s"] for x in runs["continuous"])
+    print(f"  continuous / drain tokens/s: {cont:.1f} / {drain:.1f} = "
+          f"{cont / drain:.2f}x; drain host syncs per token "
+          f"{runs['drain'][0]['host_syncs_per_token']:.4f}, continuous "
+          f"{runs['continuous'][0]['host_syncs_per_token']:.4f}")
+    return dict(runs=runs, ratio=cont / drain, greedy_equal=equal,
+                greedy_parted_at_near_tie=parted)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the full record here (JSON)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the phase-4, 5, 7 and 9 traces on "
-                         "the device")
+                    help="also profile the phase-4, 5, 7, 9 and qwen3-4b's "
+                         "phase-10 ring traces on the device")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1885,14 +2187,17 @@ def main() -> int:
                                                              dev)
     results["rglru_scan"], rglru_times = check_rglru(torch, timer, dev)
     hd256_times = check_attention_hd256(torch, timer, dev)
+    hd128_times = check_attention_hd128(torch, timer, dev)
     rates["sweep"] = sweep_attention(torch, timer, dev)
     phase("[3] model: smollm-135m, 30 layers, full width")
     check_model(torch, dev, args.seed)
+    smollm = _smollm(dev, args.seed)
+    reqs = _trace(args.seed, smollm[0].cfg.vocab_size)
     phase("[4] engine: ring, 8 slots, max_seq_len 1024, K=4")
-    stats, launches = check_engine(torch, dev, args.seed, smi)
+    stats, launches = check_engine(torch, dev, args.seed, smi, *smollm, reqs)
     phase("[5] engine: paged, block 16, chunks of 128, prefix sharing, K=4")
     paged_stats, paged_launches = check_paged_engine(torch, dev, args.seed,
-                                                     smi)
+                                                     smi, *smollm)
     launches["paged_decode_attention"] = \
         paged_launches["paged_decode_attention"]
     models = _cascade_models(torch, dev, args.seed)
@@ -1917,18 +2222,35 @@ def main() -> int:
     hybrid_engine, hybrid_launches, hybrid_reqs = check_hybrid_engine(
         torch, dev, args.seed, smi, hlm, hparams)
     launches["rglru_scan"] = hybrid_launches["rglru_scan"]
-    if args.profile:
-        phase("[10] profiles of the phase-9, 4, 5 and 7 traces")
-        hybrid_engine["profile"] = profile_hybrid(
-            torch, dev, args.seed, hlm, hparams, hybrid_reqs,
-            hybrid_engine["wall_s"])
     del hlm, hparams
     torch.cuda.empty_cache()
+    phase("[10] dense zoo at hd 128: qwen3-4b (ring and paged engines), "
+          "glm4-9b and starcoder2-7b (ring), full width and depth, bf16")
+    zoo_stats = check_zoo(torch, dev, args.seed, smi)
+    phase("[11] baseline: DrainBatchEngine and ServingEngine (ring, K=4) in "
+          "turns on phase 4's trace")
+    baseline_stats = check_baseline(torch, dev, args.seed, smi, *smollm)
     if args.profile:
-        stats["profile"] = profile_engine(torch, dev, args.seed,
+        from repro_torch.configs import get_config
+        from repro_torch.models.model import LM
+
+        phase("[12] profiles of the phase-9, 4, 5, 7 and 10 (qwen3-4b ring) "
+              "traces")
+        for cfg, rec, trace, width in (
+                (_hybrid_cfg("bfloat16"), hybrid_engine, hybrid_reqs, 4096),
+                (get_config("qwen3-4b"), zoo_stats["qwen3-4b"]["ring"],
+                 _trace(args.seed, get_config("qwen3-4b").vocab_size),
+                 1024)):
+            big = LM(cfg, device=dev)
+            big_params = big.init(args.seed, on_device=True)
+            rec["profile"] = profile_engine(torch, args.seed, big, big_params,
+                                            trace, rec["wall_s"], width)
+            del big, big_params
+            torch.cuda.empty_cache()
+        stats["profile"] = profile_engine(torch, args.seed, *smollm, reqs,
                                           stats["wall_s"])
         paged_stats["profile"] = profile_paged_engine(
-            torch, dev, args.seed, paged_stats["wall_s"])
+            torch, args.seed, *smollm, paged_stats["wall_s"])
         cascade_stats["profile"] = profile_cascade(torch, dev, args.seed,
                                                    cascade_stats)
 
@@ -1956,6 +2278,8 @@ def main() -> int:
                        "rglru_scan_times": rglru_times,
                        "attention_rates": rates,
                        "attention_hd256": hd256_times,
+                       "attention_hd128": hd128_times,
+                       "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,
                        "engine": stats, "paged_engine": paged_stats,

@@ -1,6 +1,7 @@
 """Serving stack of the port: ring and paged KV caches, sampler, scheduler,
 engine, and the edge/cloud cascade engines over it."""
-from repro_torch.serving.engine import Request, ServingEngine, validate_prompt
+from repro_torch.serving.engine import (DrainBatchEngine, Request,
+                                       ServingEngine, validate_prompt)
 from repro_torch.serving.cascade_engine import (CascadeEngine,
                                                 CascadeServingEngine,
                                                 CircuitBreaker)
@@ -13,7 +14,8 @@ from repro_torch.serving.sampler import (accepted_prefix_length, request_keys,
 from repro_torch.serving.scheduler import (Scheduler, StepPlan, bucket_for,
                                            prompt_buckets, request_rank)
 
-__all__ = ["ServingEngine", "Request", "validate_prompt", "CascadeEngine",
+__all__ = ["ServingEngine", "DrainBatchEngine", "Request", "validate_prompt",
+           "CascadeEngine",
            "CascadeServingEngine", "CircuitBreaker", "FaultPlan",
            "FaultError", "SeamSpec", "RING",
            "RingCache", "RingLayout", "PagedCache", "PagedLayout",

@@ -36,6 +36,9 @@ either.
 Speculative decoding, fault injection, snapshots, the journal and meshes
 are later slices: their constructor arguments raise
 ``NotImplementedError`` when set.
+
+``DrainBatchEngine`` is the static batcher that continuous batching is
+measured against.
 """
 from __future__ import annotations
 
@@ -806,3 +809,105 @@ class ServingEngine:
         """The backend's allocator invariants, checked against the live
         device tables (no mesh in the port yet)."""
         self.backend.assert_invariants(self._cache_state)
+
+
+class DrainBatchEngine:
+    """The static batcher, kept as the measured baseline (port of
+    ``repro.serving.engine.DrainBatchEngine``): drain the queue in FIFO
+    batches of ``batch_slots`` right-padded to the longest prompt, decode
+    everyone for the longest budget, and bring every sampled token to the
+    host. ``repro`` splits one JAX key per token; the port samples with its
+    keyed sampler from (seed, request id, step), so a drained request's
+    stream is the one ``ServingEngine`` gives it, sampled or greedy, up to
+    a near-tie that the two engines' other prefill shapes round apart."""
+
+    def __init__(self, lm: LM, params, *, batch_slots: int = 8,
+                 max_seq_len: int = 512, seed: int = 0,
+                 truncate_prompts: bool = False):
+        self.lm = lm
+        self.params = params
+        self.device = lm.device
+        self.batch_slots = batch_slots
+        self.max_seq_len = max_seq_len
+        self.seed = seed
+        self.truncate_prompts = truncate_prompts
+        self._windowed = _has_windowed_blocks(lm)
+        self._queue: List[Request] = []
+        self._next_id = 0
+        self.generated_tokens = 0
+        self.host_syncs = 0     # one token round-trip per decoded token
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
+               temperature: float = 0.0, priority: int = 0,
+               deadline_s: Optional[float] = None) -> int:
+        """Queue a request. ``priority``/``deadline_s`` are recorded for
+        per-class reporting; the drain batcher stays strictly FIFO."""
+        prompt = validate_prompt(prompt, max_new_tokens, self.max_seq_len,
+                                 self.truncate_prompts)
+        rid = self._next_id
+        self._next_id += 1
+        r = Request(rid, prompt, max_new_tokens, temperature,
+                    priority=priority, deadline_s=deadline_s)
+        r.submit_s = time.perf_counter()
+        self._queue.append(r)
+        return rid
+
+    def run(self) -> Dict[int, Request]:
+        done: Dict[int, Request] = {}
+        while self._queue:
+            batch = self._queue[:self.batch_slots]
+            self._queue = self._queue[self.batch_slots:]
+            self._serve_batch(batch)
+            for r in batch:
+                done[r.request_id] = r
+        return done
+
+    def _serve_batch(self, requests: List[Request]) -> None:
+        b, dev = self.batch_slots, self.device
+        admit = time.perf_counter()          # batch enters service together
+        for r in requests:
+            r.admit_s = admit
+        plen = max(len(r.prompt) for r in requests)
+        lens = np.array([len(r.prompt) for r in requests]
+                        + [plen] * (b - len(requests)), np.int32)
+        tokens = np.zeros((b, plen), np.int32)
+        for i, r in enumerate(requests):
+            tokens[i, :len(r.prompt)] = r.prompt         # right-pad (exact)
+        lengths = torch.from_numpy(lens).to(dev)
+        # lengths matter only where a window-wide ring could keep pad rows;
+        # the first token's logits come from each row's last real position
+        logits, caches = self.lm.prefill(
+            self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
+            cache_width=self.max_seq_len,
+            lengths=lengths if self._windowed else None,
+            logits_index=lengths - 1)
+        last = logits[:, 0].float()
+        max_new = max(r.max_new_tokens for r in requests)
+        outs = np.zeros((b, max_new), np.int32)
+        pos = lengths
+        i32 = dict(dtype=torch.int32, device=dev)
+        rid = torch.tensor([r.request_id for r in requests]
+                           + [-1] * (b - len(requests)), **i32)
+        temp = torch.tensor([r.temperature for r in requests]
+                            + [0.0] * (b - len(requests)),
+                            dtype=torch.float32, device=dev)
+        for t in range(max_new):
+            keys = request_keys(self.seed, rid, torch.full((b,), t, **i32))
+            nxt = sample_logits_keyed(keys, last, temp)
+            outs[:, t] = nxt.cpu().numpy()               # per-token host trip
+            self.host_syncs += 1
+            if t == 0:
+                first = time.perf_counter()
+                for r in requests:
+                    r.ttft_s = first - r.submit_s
+            logits1, caches = self.lm.decode_step(self.params, caches,
+                                                  nxt[:, None], pos)
+            pos = pos + 1
+            last = logits1[:, 0].float()
+        finish = time.perf_counter()
+        for i, r in enumerate(requests):
+            r.output = outs[i, :r.max_new_tokens]
+            r.status = "done"
+            r.finish_s = finish
+            r.latency_s = finish - r.submit_s
+            self.generated_tokens += r.max_new_tokens

@@ -41,3 +41,21 @@ def test_port_imports_no_jax_and_no_repro():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=src,
                    timeout=120)
+
+
+# the archs the port builds: dense GQA (smollm and the hd-128 zoo) and the
+# RG-LRU hybrid; the rest need MoE, MLA, xLSTM or a frontend
+PORTED = ("smollm-135m", "qwen3-4b", "glm4-9b", "starcoder2-7b",
+          "recurrentgemma-9b")
+
+
+@pytest.mark.parametrize("name", torch_configs.ASSIGNED_ARCHS)
+def test_lm_builds_the_ported_archs_and_refuses_the_rest(name):
+    from repro_torch.models.model import LM
+
+    cfg = torch_configs.get_config(name)
+    if name in PORTED:
+        assert LM(cfg, device="cpu").cfg is cfg
+    else:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            LM(cfg, device="cpu")

@@ -9,6 +9,7 @@ equals ``repro``'s bit for bit. Within the port:
 K-step decode equals 1-step, and sampled streams do not depend on
 co-scheduling (keyed sampling; its bits differ from JAX's by design).
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -20,16 +21,30 @@ import jax  # noqa: E402
 
 from repro.configs.base import ModelConfig, dense_stages  # noqa: E402
 from repro.models.model import LM as JaxLM  # noqa: E402
+from repro.serving import DrainBatchEngine as JaxDrainEngine  # noqa: E402
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
 from repro.serving import accepted_prefix_length as jax_accepted  # noqa: E402
 from repro_torch import configs as tcfg  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
-from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving import DrainBatchEngine, ServingEngine  # noqa: E402
 from repro_torch.serving.sampler import (accepted_prefix_length,  # noqa: E402
                                          request_keys, sample_logits_keyed)
 
 TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these ops are tiny, and test workers that share
+    the cores otherwise wait on each other's OpenMP barriers (two orders
+    of magnitude slower under ``pytest -n``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIELDS = dict(name="tiny", family="dense", source="t", num_layers=4,
               d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
               vocab_size=96, param_dtype="float32")
@@ -55,25 +70,74 @@ def _serve(engine, reqs):
     return [done[i].output for i in ids]
 
 
+def _margin_rule(jlm, jp, prompts, ours, theirs):
+    """Greedy streams agree up to their first difference, which must sit
+    on a near-tie (top-2 margin <= TOL) of ``repro``'s logits. Returns the
+    number of tokens compared."""
+    fwd = jax.jit(lambda p, t: jlm.forward(p, {"tokens": t})[0])
+    compared = 0
+    for prompt, a, b in zip(prompts, ours, theirs):
+        assert len(a) == len(b)
+        diff = np.flatnonzero(a != b)
+        upto = diff[0] if len(diff) else len(a)
+        compared += upto
+        if len(diff):
+            ctx = np.concatenate([prompt, b[:upto]])[None]
+            logits = np.sort(np.asarray(fwd(jp, ctx))[0, -1])
+            assert logits[-1] - logits[-2] <= TOL, (upto, a, b)
+    return compared
+
+
 def test_greedy_streams_match_repro_within_the_margin_rule():
     jlm, jp, lm, tp = _models()
     reqs = [(p, 6, 0.0) for p in PROMPTS]
     kw = dict(batch_slots=2, max_seq_len=64)
     ours = _serve(ServingEngine(lm, tp, **kw), reqs)
     theirs = _serve(JaxEngine(jlm, jp, **kw), reqs)
-    fwd = jax.jit(lambda p, t: jlm.forward(p, {"tokens": t})[0])
-    compared = 0
-    for prompt, a, b in zip(PROMPTS, ours, theirs):
-        assert len(a) == len(b) == 6
-        diff = np.flatnonzero(a != b)
-        upto = diff[0] if len(diff) else len(a)
-        compared += upto
-        if len(diff):
-            # the first disagreement must sit on a near-tie of repro's logits
-            ctx = np.concatenate([prompt, b[:upto]])[None]
-            logits = np.sort(np.asarray(fwd(jp, ctx))[0, -1])
-            assert logits[-1] - logits[-2] <= TOL, (upto, a, b)
-    assert compared >= 25
+    assert all(len(a) == 6 for a in ours)
+    assert _margin_rule(jlm, jp, PROMPTS, ours, theirs) >= 25
+
+
+def head_faithful(cfg, window=None):
+    """``cfg`` cut to 2 layers, d_model 64, d_ff 128, vocab 512, f32, with
+    its head layout kept (heads, KV heads, head_dim, qk-norm, tying);
+    ``window`` replaces a window so that short prompts wrap the ring."""
+    stage = cfg.stages[0]
+    blocks = tuple(dataclasses.replace(b, window=window or b.window)
+                   for b in stage.blocks)
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-heads", num_layers=2, d_model=64, d_ff=128,
+        vocab_size=512, param_dtype="float32",
+        stages=(dataclasses.replace(stage, blocks=blocks, repeat=2),))
+
+
+@functools.lru_cache(maxsize=None)
+def zoo_models(name, window=None):
+    """(repro LM, params, port LM, bridged params) of a head-faithful zoo
+    model (``tests/test_torch_model.py``'s cut)."""
+    from repro.configs import get_config as jax_get_config
+
+    jlm = JaxLM(head_faithful(jax_get_config(name), window), kv_chunk=8)
+    jp = jax.jit(lambda k: jlm.init(k)[0])(jax.random.PRNGKey(5))
+    tc = head_faithful(tcfg.get_config(name), window)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    return jlm, jp, LM(tc, device="cpu"), tp
+
+
+@pytest.mark.parametrize("name,window", [("glm4-9b", None),
+                                         ("starcoder2-7b", 8)])
+def test_zoo_greedy_streams_match_repro_on_the_ring(name, window):
+    """glm4's 32 heads over 2 KV heads (G = 16) and starcoder2's 36 over 4
+    (G = 9, GeGLU) at hd 128, through the ring engine; starcoder2's window
+    cut to 8, so the ring is 8 wide and every stream wraps it."""
+    jlm, jp, lm, tp = zoo_models(name, window)
+    assert (lm.cfg.num_heads, lm.cfg.num_kv_heads, lm.cfg.head_dim) == {
+        "glm4-9b": (32, 2, 128), "starcoder2-7b": (36, 4, 128)}[name]
+    reqs = [(p, 6, 0.0) for p in PROMPTS]
+    kw = dict(batch_slots=2, max_seq_len=64, max_decode_steps=2)
+    ours = _serve(ServingEngine(lm, tp, **kw), reqs)
+    theirs = _serve(JaxEngine(jlm, jp, **kw), reqs)
+    assert _margin_rule(jlm, jp, PROMPTS, ours, theirs) >= 25
 
 
 @pytest.mark.parametrize("k", [2, 4])
@@ -236,3 +300,126 @@ def test_deadline_admission_matches_repro(policy):
             assert tight.deadline_s is None
         assert loose.status == "done" and not loose.downgraded
         assert loose.deadline_s == 600.0
+
+
+# -- the drain-batch baseline and mid-scan completion -------------------------
+
+
+def _mixed(n, seed, budgets=(3, 9)):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 96, int(rng.integers(3, 12))).astype(np.int32),
+             int(rng.integers(*budgets))) for _ in range(n)]
+
+
+def test_continuous_matches_drain_batch():
+    """``tests/test_serving.py::test_continuous_matches_drain_batch`` in the
+    port: mixed prompts and budgets give the continuous engine's greedy
+    tokens on the drain batcher (bucketing and right-padding are exact),
+    the drain batcher syncs once per token of each batch's longest budget,
+    and its greedy streams equal ``repro``'s ``DrainBatchEngine``'s under
+    the margin rule. Sampled streams (keyed by request id and step in
+    both of the port's engines) are equal too."""
+    jlm, jp, lm, tp = _models()
+    reqs = _mixed(7, seed=1)
+    for temp in (0.0, 1.5):
+        cont = ServingEngine(lm, tp, batch_slots=3, max_seq_len=32,
+                             min_bucket=4)
+        drain = DrainBatchEngine(lm, tp, batch_slots=3, max_seq_len=32)
+        for prompt, max_new in reqs:
+            cont.submit(prompt, max_new_tokens=max_new, temperature=temp)
+            drain.submit(prompt, max_new_tokens=max_new, temperature=temp)
+        dc, dd = cont.run(), drain.run()
+        assert set(dc) == set(dd) == set(range(len(reqs)))
+        for rid in dc:
+            assert dc[rid].output.shape == (reqs[rid][1],)
+            assert dd[rid].status == "done"
+            np.testing.assert_array_equal(dc[rid].output, dd[rid].output)
+        assert cont.decode_steps < sum(mn for _, mn in reqs)
+        assert 0.0 < cont.occupancy() <= 1.0
+        assert drain.host_syncs == sum(
+            max(mn for _, mn in reqs[i:i + 3]) for i in range(0, 7, 3))
+        assert drain.generated_tokens == sum(mn for _, mn in reqs)
+    theirs = JaxDrainEngine(jlm, jp, batch_slots=3, max_seq_len=32)
+    ours = DrainBatchEngine(lm, tp, batch_slots=3, max_seq_len=32)
+    for prompt, max_new in reqs:
+        theirs.submit(prompt, max_new_tokens=max_new)
+        ours.submit(prompt, max_new_tokens=max_new)
+    dj, dt = theirs.run(), ours.run()
+    assert _margin_rule(jlm, jp, [p for p, _ in reqs],
+                        [dt[i].output for i in range(7)],
+                        [dj[i].output for i in range(7)]) >= 30
+
+
+@pytest.mark.parametrize("engine", ["continuous", "drain"])
+def test_submit_rejects_overlong_prompts(engine):
+    """Every engine refuses at submit a prompt that with its budget would
+    not fit ``max_seq_len``; an exact fit is taken."""
+    _, _, lm, tp = _models()
+    cls = ServingEngine if engine == "continuous" else DrainBatchEngine
+    eng = cls(lm, tp, batch_slots=2, max_seq_len=16)
+    with pytest.raises(ValueError, match="max_seq_len"):
+        eng.submit(np.arange(20), max_new_tokens=4)
+    with pytest.raises(ValueError, match="max_seq_len"):
+        eng.submit(np.arange(14), max_new_tokens=4)       # prompt+budget > 16
+    with pytest.raises(ValueError, match="no room"):
+        eng.submit(np.arange(4), max_new_tokens=16)
+    rid = eng.submit(np.arange(12), max_new_tokens=4)     # exactly fits
+    assert eng.run()[rid].output.shape == (4,)
+
+
+@pytest.mark.parametrize("engine", ["ring", "chunked", "drain"])
+def test_ttft_and_admit_recorded(engine):
+    _, _, lm, tp = _models()
+    if engine == "drain":
+        eng = DrainBatchEngine(lm, tp, batch_slots=2, max_seq_len=32)
+    else:
+        eng = ServingEngine(lm, tp, batch_slots=2, max_seq_len=32,
+                            min_bucket=4,
+                            chunk_tokens=4 if engine == "chunked" else None)
+    for prompt, max_new in _mixed(3, seed=9, budgets=(3, 14)):
+        eng.submit(prompt, max_new_tokens=max_new)
+    for r in eng.run().values():
+        assert r.admit_s >= r.submit_s > 0
+        assert 0 < r.ttft_s <= r.latency_s
+
+
+@pytest.mark.parametrize("backend", ["ring", "paged"])
+def test_eos_mid_scan_stops_exactly(backend):
+    """A request that hits EOS inside a K-step round goes inactive on the
+    device and no-ops through the rest: its output ends at the EOS token
+    and its slot frees at the round's sync."""
+    _, _, lm, tp = _models()
+    probe = ServingEngine(lm, tp, batch_slots=1, max_seq_len=32,
+                          min_bucket=4)
+    probe.submit(np.arange(5), max_new_tokens=8)
+    greedy = probe.run()[0].output
+    # EOS = the third greedy token: the first round after admission is a
+    # collapsed k=1, so this EOS lands inside the second round's steps
+    eos = int(greedy[2])
+    expect = list(greedy[:list(greedy).index(eos) + 1])
+    kw = dict(cache_backend="paged", block_size=8) if backend == "paged" \
+        else {}
+    eng = ServingEngine(lm, tp, batch_slots=1, max_seq_len=32, min_bucket=4,
+                        eos_id=eos, max_decode_steps=8, **kw)
+    eng.submit(np.arange(5), max_new_tokens=8)
+    assert list(eng.run()[0].output) == expect
+    assert eng.host_syncs <= 2           # k=1 arming round + one K round
+
+
+def test_budget_exhaustion_mid_scan():
+    """Mixed budgets in one round: the horizon is capped by the smallest
+    headroom, so small budgets finish exactly and the larger ones go on
+    across rounds."""
+    _, _, lm, tp = _models()
+    eng = ServingEngine(lm, tp, batch_slots=3, max_seq_len=32, min_bucket=4,
+                        max_decode_steps=8)
+    base = ServingEngine(lm, tp, batch_slots=3, max_seq_len=32, min_bucket=4)
+    for e in (eng, base):
+        e.submit(np.arange(4), max_new_tokens=3)
+        e.submit(np.arange(6), max_new_tokens=8)
+        e.submit(np.arange(2), max_new_tokens=5)
+    done, ref = eng.run(), base.run()
+    for rid, r in ref.items():
+        assert len(done[rid].output) == len(r.output)
+        np.testing.assert_array_equal(done[rid].output, r.output)
+    assert eng.host_syncs < base.host_syncs

@@ -64,6 +64,14 @@ DECODE_CASES = [
     (2, 200, 9, 3, 40, 50, 180, 180, 8),
     (2, 512, 16, 1, 256, 2048, 400, 400, 16),
     (2, 200, 9, 3, 64, None, 180, 180, 8),
+    # the dense hd-128 zoo: glm4-9b's 32 heads over 2 KV heads (G = 16;
+    # a 128-token chunk is 2048 rows a KV head, 32 row tiles) and
+    # starcoder2-7b's 36 over 4 (G = 9, not a power of two; its 4096 window
+    # on a wrapped 4096-wide ring; a chunk is 1152 rows, 18 tiles)
+    (2, 1024, 32, 2, 128, None, 700, 700, 1),
+    (1, 1024, 32, 2, 128, None, 600, 600, 128),
+    (2, 4096, 36, 4, 128, 4096, 4096, 5000, 1),
+    (1, 1024, 36, 4, 128, None, 600, 600, 128),
 ]
 
 # (h, kv, hd, bs, window, fills, t): the block sizes and cases of
@@ -94,6 +102,12 @@ PAGED_CASES = [
     (9, 3, 40, 8, None, (180, 50), 8),
     (9, 3, 64, 16, None, (2500, 100), 1),     # 157 blocks: 2512 keys
     (9, 3, 64, 16, 700, (2500, 100), 4),
+    # the hd-128 zoo: G = 16 (glm4-9b) and G = 9 (starcoder2-7b, windowed)
+    # at T = 1 and a 128-token chunk (2048 and 1152 rows a KV head)
+    (32, 2, 128, 16, None, (700, 0, 33), 1),
+    (32, 2, 128, 16, None, (600, 200), 128),
+    (36, 4, 128, 16, 4096, (700, 33), 1),
+    (36, 4, 128, 16, 4096, (600, 200), 128),
 ]
 
 # (t, v, misaligned): the serving gate (t = 1) and the one-shot batch at
@@ -122,6 +136,8 @@ FLASH_CASES = [
     (1, 100, 100, 4, 2, 40, 30),
     (1, 70, 150, 4, 2, 128, None),            # Sq < Sk, ragged query tile
     (1, 90, 60, 4, 2, 64, None),              # Sq > Sk: rows that see nothing
+    (1, 300, 300, 32, 2, 128, None),          # glm4-9b's G = 16 at hd 128
+    (1, 300, 300, 36, 4, 128, 200),           # starcoder2-7b's G = 9, banded
 ]
 
 # (b, s, w): the serving shape, odd S and W with B > 1, one step, one
@@ -520,6 +536,41 @@ def test_engine_on_gpu_goes_through_the_kernels(cuda):
                             "paged_decode_attention": 0, "cascade_gate": 0,
                             "rglru_scan": 0}
         outs.append([done[i].output for i in ids])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_drain_engine_on_gpu_matches_the_continuous_engine(cuda):
+    """The drain-batch baseline on the card: its greedy and sampled streams
+    equal the continuous engine's, it prefills each batch through the
+    flash kernel and decodes through the ring kernel, one host sync a
+    token."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.serving import DrainBatchEngine, ServingEngine
+
+    cfg = tcfg.ModelConfig(
+        name="tiny", family="dense", source="t", num_layers=3, d_model=64,
+        num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=96,
+        stages=tcfg.dense_stages(3), param_dtype="float32")
+    lm = LM(cfg, device=cuda)
+    params = lm.init(0)
+    reqs = [(np.random.default_rng(i).integers(0, 96, n).astype(np.int32), m)
+            for i, (n, m) in enumerate(((5, 6), (12, 3), (20, 8), (9, 4),
+                                        (3, 7)))]
+    outs = []
+    for cls in (ServingEngine, DrainBatchEngine):
+        eng = cls(lm, params, batch_slots=2, max_seq_len=64)
+        ids = [eng.submit(p, max_new_tokens=m, temperature=0.7 * (i % 2))
+               for i, (p, m) in enumerate(reqs)]
+        reset_launches()
+        done = eng.run()
+        outs.append([done[i].output for i in ids])
+    steps = sum(max(m for _, m in reqs[i:i + 2]) for i in range(0, 5, 2))
+    assert eng.host_syncs == steps
+    assert LAUNCHES == {"flash_attention": 3 * 3, "decode_attention": 3 * steps,
+                        "paged_decode_attention": 0, "cascade_gate": 0,
+                        "rglru_scan": 0}
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
 

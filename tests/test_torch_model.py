@@ -3,6 +3,7 @@
 cache) and cached decode, in f32 on the CPU. Tolerance 1e-4 on logits of
 order 1: the same f32 arithmetic, summed in another order (flash/dense
 attention, BLAS)."""
+import dataclasses
 import functools
 
 import numpy as np
@@ -23,6 +24,17 @@ from repro_torch.models.model import LM  # noqa: E402
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these ops are tiny, and test workers that share
+    the cores otherwise wait on each other's OpenMP barriers (two orders
+    of magnitude slower under ``pytest -n``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tiny(window=None):
     return dict(name="tiny", family="dense", source="t", num_layers=3,
                 d_model=48, num_heads=4, num_kv_heads=2, head_dim=12,
@@ -30,11 +42,32 @@ def _tiny(window=None):
                 use_qk_norm=window is not None)
 
 
+# the dense hd-128 zoo the port serves at full width on the card
+ZOO = {"qwen3": "qwen3-4b", "glm4": "glm4-9b", "starcoder2": "starcoder2-7b"}
+
+
+def head_faithful(cfg):
+    """``cfg`` cut to 2 layers, d_model 64, d_ff 128, vocab 512, f32, with
+    its head layout kept: heads, KV heads, head_dim, window, qk-norm and
+    tying (``.reduced()`` cuts every model to 4 heads at hd 64). The
+    engine tests cut the same way."""
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-heads", num_layers=2, d_model=64, d_ff=128,
+        vocab_size=512, param_dtype="float32",
+        stages=(dataclasses.replace(cfg.stages[0], repeat=2),))
+
+
 def _configs(which):
     """(repro config, port config) with equal fields."""
     if which == "smollm_reduced":
         return (jax_get_config("smollm-135m").reduced(),
                 tcfg.get_config("smollm-135m").reduced())
+    model, _, form = which.partition("_")
+    if model in ZOO:
+        jc, tc = jax_get_config(ZOO[model]), tcfg.get_config(ZOO[model])
+        if form == "reduced":
+            return jc.reduced(), tc.reduced()
+        return head_faithful(jc), head_faithful(tc)
     window = 6 if which == "tiny_window" else None
     jc = ModelConfig(**_tiny(window), stages=dense_stages(3, window=window))
     tc = tcfg.ModelConfig(**_tiny(window),
@@ -43,8 +76,12 @@ def _configs(which):
 
 
 # the tiny dense config runs windowed with qk-norm (ring narrower than the
-# prompt: masked install); smollm's reduced config covers the plain ring
-CONFIGS = ["tiny_window", "smollm_reduced"]
+# prompt: masked install); smollm's reduced config covers the plain ring;
+# the zoo in ``.reduced()`` form and head-faithful: qwen3 G = 4 with
+# qk-norm and a tied table, glm4 G = 16, starcoder2 G = 9 with GeGLU and
+# its 4096 window, all at hd 128
+CONFIGS = ["tiny_window", "smollm_reduced"] + [
+    f"{model}_{form}" for model in ZOO for form in ("reduced", "heads")]
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,6 +181,28 @@ def test_init_and_bridge_agree_on_the_tree():
         "wq"][:, :-1]
     with pytest.raises(ValueError, match="wq"):
         params_from_numpy(bad, lm.cfg, "cpu")
+
+
+@pytest.mark.parametrize("model", sorted(ZOO))
+def test_zoo_param_tree_matches_repro_at_full_width(model):
+    """At full width and depth the port's ``param_spec`` names, shapes and
+    dtypes are ``repro``'s ``LM.init`` tree (shapes only: nothing is
+    allocated), and its parameter count is the model's."""
+    name = ZOO[model]
+    jlm = JaxLM(jax_get_config(name))
+    theirs = jax.eval_shape(lambda k: jlm.init(k)[0], jax.random.PRNGKey(0))
+    ours = LM(tcfg.get_config(name), device="cpu").param_spec()
+    flat_j = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda x: (tuple(x.shape), str(x.dtype)), theirs),
+        is_leaf=lambda x: isinstance(x, tuple))
+    flat_t = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda x: (tuple(x[0]), str(x[1])[6:]), ours,
+                     is_leaf=lambda x: isinstance(x, tuple)),
+        is_leaf=lambda x: isinstance(x, tuple))
+    assert flat_t == flat_j
+    count = sum(int(np.prod(shape)) for _, (shape, _) in flat_t)
+    assert count == {"qwen3": 4_022_795_776, "glm4": 9_399_767_040,
+                     "starcoder2": 10_116_960_768}[model]
 
 
 def test_default_device_needs_a_gpu():

@@ -14,6 +14,7 @@ equals its uncontended self (swap and recompute, greedy and sampled), a
 reused slot sees no stale positions, and a request larger than the pool is
 rejected. These are exact (token for token).
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -32,6 +33,19 @@ from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these ops are tiny, and test workers that share
+    the cores otherwise wait on each other's OpenMP barriers (two orders
+    of magnitude slower under ``pytest -n``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIELDS = dict(name="tiny", family="dense", source="t", num_layers=2,
               d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
               vocab_size=96, param_dtype="float32")
@@ -117,22 +131,63 @@ def test_paged_chunked_engine_matches_repro_streams_and_counters():
     ours_eng.assert_invariants()
     theirs_eng.assert_invariants()
 
-    wave1, hi, wave2 = trace
-    prompts = [p for p, _ in wave1] + [hi[0]] + [p for p, _ in wave2]
+    assert _margin_rule(jlm, jp, trace, ours, theirs) >= 30
+
+
+def _margin_rule(jlm, jp, trace, ours, theirs):
+    """Greedy streams by request id agree up to their first difference,
+    which must sit on a near-tie (top-2 margin <= TOL) of ``repro``'s
+    logits. Returns the number of tokens compared."""
     fwd = jax.jit(lambda p, t: jlm.forward(p, {"tokens": t})[0])
     compared = 0
-    for rid, prompt in enumerate(prompts):
+    for rid, (prompt, _) in enumerate(_flat(trace)):
         a, b = ours[rid], theirs[rid]
         assert len(a) == len(b)
         diff = np.flatnonzero(a != b)
         upto = diff[0] if len(diff) else len(a)
         compared += upto
         if len(diff):
-            # the first disagreement must sit on a near-tie of repro's logits
             ctx = np.concatenate([prompt, b[:upto]])[None]
             logits = np.sort(np.asarray(fwd(jp, ctx))[0, -1])
             assert logits[-1] - logits[-2] <= TOL, (rid, upto, a, b)
-    assert compared >= 30
+    return compared
+
+
+def head_faithful(cfg, window=None):
+    """``cfg`` cut to 2 layers, d_model 64, d_ff 128, vocab 512, f32, with
+    its head layout kept (as ``tests/test_torch_engine.py`` cuts it)."""
+    stage = cfg.stages[0]
+    blocks = tuple(dataclasses.replace(b, window=window or b.window)
+                   for b in stage.blocks)
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-heads", num_layers=2, d_model=64, d_ff=128,
+        vocab_size=512, param_dtype="float32",
+        stages=(dataclasses.replace(stage, blocks=blocks, repeat=2),))
+
+
+@pytest.mark.parametrize("name,window", [("glm4-9b", None),
+                                         ("starcoder2-7b", 8)])
+def test_zoo_greedy_streams_match_repro_paged_chunked(name, window):
+    """Head-faithful glm4 (G = 16) and starcoder2 (G = 9, window cut to 8)
+    at hd 128 through the paged chunked engine on the preempting trace:
+    greedy streams equal ``repro``'s under the margin rule, and the
+    schedule's counters are equal."""
+    from repro.configs import get_config as jax_get_config
+
+    jlm = JaxLM(head_faithful(jax_get_config(name), window), kv_chunk=8)
+    jp = jax.jit(lambda k: jlm.init(k)[0])(jax.random.PRNGKey(5))
+    tc = head_faithful(tcfg.get_config(name), window)
+    lm = LM(tc, device="cpu")
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    trace = _trace(5)
+    ours_eng = ServingEngine(lm, tp, max_decode_steps=2, **PAGED)
+    theirs_eng = JaxEngine(jlm, jp, max_decode_steps=2, **PAGED)
+    ours, theirs = _drive(ours_eng, trace), _drive(theirs_eng, trace)
+    for attr in ("preemptions", "prefill_tokens_skipped", "host_syncs"):
+        assert getattr(ours_eng, attr) == getattr(theirs_eng, attr), attr
+    assert ours_eng.preemptions > 0
+    ours_eng.assert_invariants()
+    assert _margin_rule(jlm, jp, trace, ours, theirs) >= 30
 
 
 def _serve(engine, reqs, temperature=0.0):
