@@ -80,7 +80,23 @@ without them. Phases, each fatal on failure:
    the two engines are equal or part first at a near-tie of a
    teacher-forced forward (their prefills run other shapes), the drain
    engine's launches are flash per batch and the ring kernel per token;
-   both engines' tokens/s, their ratio and host syncs per token.
+   both engines' tokens/s, their ratio and host syncs per token;
+13. speculative decoding (k = 4), four legs: qwen3-4b at full width and
+   depth on the ring (phase 4's trace) with no draft at K = 1 (the
+   baseline), with its 4-layer ``edge_variant`` draft forced on
+   (``spec_min_commit`` 0), and under the default ``spec_min_commit`` (the
+   acceptance EWMA suppresses drafting and probes); qwen3-4b on the paged
+   backend (phase 5's waves) without and with the draft; smollm-135m
+   drafting for itself on the ring (every proposal accepted, or rejected
+   only at a near-tie); and phase 7's cascade with every prompt escalated,
+   without and with ``speculative_tokens=4`` (the edge drafts for the
+   cloud). Every stream equals its baseline's or parts first at a near-tie
+   of a teacher-forced forward (the top-2 margin of the logits, or at T >
+   0 of logits / T plus that step's keyed Gumbel noise); each kernel's
+   launches equal the counts derived from the programs run; tokens/s, ms
+   per committed token, acceptance and tokens committed a dispatch are
+   printed beside the baseline's (random weights: acceptance says nothing
+   of speed).
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
@@ -95,7 +111,11 @@ layouts (qwen3-4b G = 4, glm4-9b G = 16, starcoder2-7b G = 9 with its
 4096 window): the ring decode at B = 8, the paged kernel at T = 1 and on
 a 128-token chunk, flash on a 512-token prefill (a 4608-token banded one
 for starcoder2-7b), each held row by row and timed against SDPA with its
-bound and split count.
+bound and split count; the ring and the paged kernel at the speculative
+verify chunk (T = 5 tokens a slot, B = 8) at smollm-135m's, qwen3-4b's and
+glm4-9b's head layouts, likewise; and the keyed sampler (threefry2x32 in
+plain torch): its bits and uniforms on the card at (8, 49152) and (8,
+152064) equal the CPU's bit for bit, with its time per call.
 
 Phase 2 then times the bf16 flash kernel at every launch shape and the
 ring decode at several keys per split, at hd 64 and hd 256 as above and
@@ -721,32 +741,39 @@ def _ring_positions(torch, totals, w, dev):
     return k_pos.to(dev), torch.tensor(totals, dtype=torch.int32, device=dev)
 
 
-def _ring_case(torch, timer, dev, gen, label, kv, g, hd, w, window, totals):
-    """The bf16 ring decode at one main-path shape (B = len(totals), T =
-    1): held row by row against its plain version, then timed beside it
-    and SDPA over the same ring (the visible keys as a mask), with its
-    bound and key splits."""
+def _ring_case(torch, timer, dev, gen, label, kv, g, hd, w, window, totals,
+               t=1):
+    """The bf16 ring decode at one main-path shape (B = len(totals)): a
+    decode step (T = 1) or a speculative verify chunk of T tokens per slot
+    appended at each slot's next position. Held row by row against its
+    plain version, then timed beside it and SDPA over the same ring (the
+    visible keys as a mask), with its bound and key splits."""
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain)
+        decode_attention, decode_attention_plain, query_positions)
     import torch.nn.functional as F
 
     b, h = len(totals), kv * g
-    k_pos, q_pos = _ring_positions(torch, totals, w, dev)
+    # a verify chunk's own keys are in the ring before it attends (T = 1
+    # keeps the ring of the earlier PRs' cases, the step's key not in it)
+    ends = totals if t == 1 else [n + t for n in totals]
+    k_pos, _ = _ring_positions(torch, ends, w, dev)
+    q_pos = torch.tensor(totals, dtype=torch.int32, device=dev)
     ks, vs = (torch.randn((LAYERS, b, w, kv, hd), generator=gen, device=dev,
                           dtype=torch.bfloat16) for _ in range(2))
-    q1 = torch.randn((LAYERS, b, 1, h, hd), generator=gen, device=dev,
+    q1 = torch.randn((LAYERS, b, t, h, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
     name = f"decode_attention {label} B={b} W={w} KV={kv} G={g} hd={hd} " \
-        f"T=1 window={window}"
+        f"T={t} window={window}"
     err = _check_rows(
         torch, name,
         lambda *x: decode_attention(*x, q_pos, k_pos, window=window),
         lambda *x: decode_attention_plain(*x, q_pos, k_pos, window=window),
         (q1[0], ks[0], vs[0]), rows=2)
-    visible = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    qp = query_positions(q_pos, t)[:, :, None]
+    visible = (k_pos[:, None, :] >= 0) & (k_pos[:, None, :] <= qp)
     if window is not None:
-        visible &= k_pos > q_pos[:, None] - window
-    mask = visible[:, None, None, :]
+        visible &= k_pos[:, None, :] > qp - window
+    mask = visible[:, None]
     qt = [q1[i].transpose(1, 2) for i in range(LAYERS)]
     kt = [ks[i].transpose(1, 2) for i in range(LAYERS)]
     vt = [vs[i].transpose(1, 2) for i in range(LAYERS)]
@@ -760,11 +787,11 @@ def _ring_case(torch, timer, dev, gen, label, kv, g, hd, w, window, totals):
         qt[i % LAYERS], kt[i % LAYERS], vt[i % LAYERS], attn_mask=mask,
         enable_gqa=True))
     # q, out, both position arrays, and the K/V rows some query may see
-    live = int(visible.sum())
+    live = int(visible.any(dim=1).sum())
     nbytes = (2 * _nbytes(q1[0]) + _nbytes(q_pos, k_pos)
               + 2 * live * kv * hd * 2)
-    bound, by = _bound_ms(nbytes, 4 * live * h * hd)
-    nsplit, part = _ring_split(torch, b, 1, h, kv, w, hd, dev)
+    bound, by = _bound_ms(nbytes, 4 * int(visible.sum()) * h * hd)
+    nsplit, part = _ring_split(torch, b, t, h, kv, w, hd, dev)
     print(f"  {name} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
           f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {nbytes} B); "
           f"{nbytes / ms / 1e6:.1f} GB/s; {nsplit} key splits, {part} B of "
@@ -824,12 +851,14 @@ def _flash_case(torch, timer, dev, gen, label, s, kv, g, hd, window, n_in):
                 bound_by=by, library_ms=lib_ms, tflop_per_s=flops / ms / 1e9)
 
 
-def _paged_case(torch, timer, dev, gen, label, kv, g, hd, t, window):
+def _paged_case(torch, timer, dev, gen, label, kv, g, hd, t, window,
+                verify=False):
     """The bf16 paged kernel over phase 2's pool (8 slots of 1-1000 tokens
     in 16-token blocks, M = 64, a freed slot, a table with holes): T = 1
-    decode for every slot, or a T-token prompt chunk of slot 4 at 256..
-    under a table cut to 512 positions (the engine's ``ctx``). Held row by
-    row against its plain version, timed beside it and SDPA on the
+    decode for every slot; with ``verify`` a speculative verify chunk, the
+    last T tokens of every slot; else a T-token prompt chunk of slot 4 at
+    256.. under a table cut to 512 positions (the engine's ``ctx``). Held
+    row by row against its plain version, timed beside it and SDPA on the
     pre-gathered context (gather excluded), with its bound and splits."""
     from repro_torch.kernels.decode_attention import (
         gather_paged_kv, paged_decode_attention, paged_decode_attention_plain,
@@ -845,8 +874,8 @@ def _paged_case(torch, timer, dev, gen, label, kv, g, hd, t, window):
     ks, vs = (torch.randn((LAYERS, n_blocks, bs, kv, hd), generator=gen,
                           device=dev, dtype=torch.bfloat16)
               for _ in range(2))
-    if t == 1:
-        q_pos = torch.tensor([max(f - 1, 0) for f in fills],
+    if t == 1 or verify:
+        q_pos = torch.tensor([max(f - t, 0) for f in fills],
                              dtype=torch.int32, device=dev)
     else:
         q_pos = torch.tensor([256], dtype=torch.int32, device=dev)
@@ -948,6 +977,83 @@ def check_attention_hd128(torch, timer, dev):
         rec["flash_attention"] = _flash_case(torch, timer, dev, gen, model,
                                              s=s, n_in=n_in, **args)
         torch.cuda.empty_cache()
+    return out
+
+
+# the speculative verify chunk (k = 4: T = 5 tokens a slot) at the layouts
+# phase 13 serves and glm4-9b's G = 16: model -> (KV heads, G, hd)
+VERIFY = {"smollm-135m": (3, 3, 64), "qwen3-4b": (8, 4, 128),
+          "glm4-9b": (2, 16, 128)}
+VERIFY_T = 5
+
+
+def check_verify_shapes(torch, timer, dev):
+    """The ring and the paged kernel at the verify chunk's shapes: B = 8
+    slots of T = 5 tokens each (T x G = 15, 20 and 80 query rows a KV
+    head), the ring 1024 wide (slots partly filled, wrapped and empty), the
+    paged pool phase 2's; each held row by row and timed against its plain
+    version and SDPA, with its bound and key splits."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for model, (kv, g, hd) in VERIFY.items():
+        args = dict(kv=kv, g=g, hd=hd, window=None, t=VERIFY_T)
+        out[model] = {
+            "decode_attention": _ring_case(
+                torch, timer, dev, gen, f"{model} verify", w=1024,
+                totals=[300, 512, 2520, 0, 17, 900, 1000, 1500], **args),
+            "paged_decode_attention": _paged_case(
+                torch, timer, dev, gen, f"{model} verify", verify=True,
+                **args)}
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_sampler(torch, timer, dev):
+    """The keyed sampler (threefry2x32, plain torch: JAX computes it in XLA,
+    outside any Pallas kernel) on the card: the bits and the uniforms of
+    8 per-request keys at smollm-135m's and qwen3-4b's padded vocabularies
+    equal the same draw on the CPU bit for bit, and so do the sampled
+    tokens of random logits (the two devices' ``log`` may differ by an ulp,
+    far below these rows' top-2 margins); then its time per call (device
+    time by the timer, and host time) at (8, 49152) and (8, 152064)."""
+    from repro_torch.serving.sampler import (prng_key, random_bits,
+                                             request_keys,
+                                             sample_logits_keyed, uniform)
+
+    out = {}
+    rids = torch.arange(8, dtype=torch.int64) * 977 + 3
+    steps = torch.arange(8, dtype=torch.int64) * 31
+    for v in (49152, 152064):
+        keys = {d: request_keys(prng_key(7, device=d), rids.to(d),
+                                steps.to(d)) for d in ("cpu", dev)}
+        for fn in (random_bits, uniform):
+            got = fn(keys[dev], (v,)).cpu()
+            want = fn(keys["cpu"], (v,))
+            if fn is uniform:
+                got, want = got.view(torch.int32), want.view(torch.int32)
+            if not torch.equal(got, want):
+                raise AssertionError(f"sampler {fn.__name__} at (8, {v}): "
+                                     f"card != CPU")
+        logits = torch.randn((8, v), generator=torch.Generator().manual_seed(
+            v), dtype=torch.float32) * 3.0
+        temp = torch.full((8,), 0.8)
+        got = sample_logits_keyed(keys[dev], logits.to(dev), temp.to(dev))
+        want = sample_logits_keyed(keys["cpu"], logits, temp)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"sampled tokens at (8, {v}): card != CPU")
+        lg, tp = logits.to(dev), temp.to(dev)
+        ms = timer(lambda i: sample_logits_keyed(keys[dev], lg, tp))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            sample_logits_keyed(keys[dev], lg, tp)
+        host_ms = (time.perf_counter() - t0) * 100
+        torch.cuda.synchronize()
+        print(f"  sampler (8, {v}): threefry bits and uniforms equal the "
+              f"CPU's bit for bit, sampled tokens equal; "
+              f"sample_logits_keyed {ms:.4f} ms of device time, "
+              f"{host_ms:.3f} ms of host time per call")
+        out[v] = dict(ms=ms, host_ms=host_ms)
     return out
 
 
@@ -2130,6 +2236,386 @@ def check_baseline(torch, dev, seed, smi, lm, params):
                 greedy_parted_at_near_tie=parted)
 
 
+# -- phase 13: speculative decoding -------------------------------------------
+
+SPEC_K = 4
+
+
+def _count_programs(eng):
+    """Wrap ``eng``'s device programs with counters: plain decode steps,
+    speculative rounds and their draft steps (k + 1 a round), draft fills
+    and prompt chunks, from which each kernel's launches follow."""
+    n = dict(steps=0, rounds=0, draft_steps=0, fills=0, chunks=0)
+    step, chunk = eng._step_impl, eng._run_chunk
+
+    def counted_step(*a):
+        n["steps"] += 1
+        return step(*a)
+
+    def counted_chunk(*a):
+        n["chunks"] += 1
+        return chunk(*a)
+
+    eng._step_impl, eng._run_chunk = counted_step, counted_chunk
+    if eng.speculative:
+        spec, fill = eng._spec_impl, eng._draft_fill_impl
+
+        def counted_spec(k, *a):
+            n["rounds"] += 1
+            n["draft_steps"] += k + 1
+            return spec(k, *a)
+
+        def counted_fill(*a):
+            n["fills"] += 1
+            return fill(*a)
+
+        eng._spec_impl, eng._draft_fill_impl = counted_spec, counted_fill
+    return n
+
+
+def _spec_launches(eng, n):
+    """Each kernel's launches from the counted programs: the target's
+    layers once per plain step, verify chunk and prompt chunk (its
+    backend's kernel) or per monolithic admission (flash); the draft's
+    layers once per draft step (its ring) and per fill (flash)."""
+    lt = eng.lm.cfg.num_layers
+    ld = eng.draft_lm.cfg.num_layers if eng.speculative else 0
+    target = lt * (n["steps"] + n["rounds"] + n["chunks"])
+    paged = eng.backend.supports_swap
+    return {"flash_attention": ld * n["fills"] + (
+                0 if eng.scheduler.chunked else lt * eng.admissions),
+            "decode_attention": ld * n["draft_steps"] + (
+                0 if paged else target),
+            "paged_decode_attention": target if paged else 0,
+            "cascade_gate": 0, "rglru_scan": 0}
+
+
+def _parted_at_near_tie(torch, lm, params, seed, reqs, out, base, tol):
+    """Each stream of ``out`` equals ``base``'s, or parts first where the
+    teacher-forced forward's top-2 margin is within ``tol``: of the logits
+    for a greedy request, of logits / T plus that step's Gumbel noise (the
+    request's keyed draw, reproducible) within ``tol / T`` for a sampled
+    one. A verify chunk's bf16 logits are not bit-equal to a T = 1 step's.
+    Returns (equal, parted)."""
+    from repro_torch.serving.sampler import gumbel, prng_key, request_keys
+
+    equal = parted = 0
+    for a, b, (prompt, temp) in zip(out, base, reqs):
+        diff = np.flatnonzero(a.output != b.output)
+        if len(a.output) == len(b.output) and not len(diff):
+            equal += 1
+            continue
+        p = int(diff[0]) if len(diff) else min(len(a.output), len(b.output))
+        ctx = torch.from_numpy(np.concatenate([prompt, b.output[:p]])
+                               .astype(np.int32))[None].to(lm.device)
+        last, _ = lm.forward(params, {"tokens": ctx}, last_only=True)
+        x, t = last[0, 0].float(), tol
+        if temp > 0:
+            i32 = dict(dtype=torch.int32, device=lm.device)
+            key = request_keys(prng_key(seed, device=lm.device),
+                               torch.tensor([b.request_id], **i32),
+                               torch.tensor([p], **i32))
+            x = x / temp + gumbel(key, x.shape)[0]
+            t = tol / temp
+        top2 = torch.topk(x, 2).values
+        margin = (top2[0] - top2[1]).item()
+        print(f"    request {b.request_id} (T={temp}): parts from the "
+              f"baseline at token {p}, top-2 margin {margin:.4f} (tol "
+              f"{t:.4f})")
+        if margin > t:
+            raise AssertionError(f"speculative stream != baseline (request "
+                                 f"{b.request_id}, token {p})")
+        parted += 1
+    return equal, parted
+
+
+def _spec_serve(torch, eng, serve):
+    """Serve with the device programs counted and the launch counters
+    reset: (requests, wall s, program counts, launches)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    n = _count_programs(eng)
+    torch.cuda.synchronize()
+    reset_launches()
+    out, wall = serve(eng)
+    torch.cuda.synchronize()
+    return out, wall, n, dict(LAUNCHES)
+
+
+def _spec_report(label, smi, eng, out, wall, n, launches, want):
+    """Print one engine's line (tokens/s, ms per committed token, the
+    speculative counters) and check its launches; returns its record."""
+    gen = sum(len(r.output) for r in out)
+    m = eng.speculative_metrics()
+    print(f"  {label} [{smi}]: {gen} tokens in {wall:.3f} s = "
+          f"{gen / wall:.1f} tokens/s, {wall * 1e3 / gen:.2f} ms per "
+          f"committed token; {n['steps']} plain steps, {m['rounds']} "
+          f"speculative rounds, acceptance {m['acceptance_rate']:.3f}, "
+          f"{m['committed_per_dispatch']:.2f} committed a slot-dispatch; "
+          f"host syncs {eng.host_syncs}")
+    print(f"    launches {launches} (expected {want}, from {n})")
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts do not match the path")
+    return dict(tokens=gen, wall_s=wall, tokens_per_s=gen / wall,
+                ms_per_token=wall * 1e3 / gen, host_syncs=eng.host_syncs,
+                programs=n, launches=launches, speculative=m)
+
+
+def _spec_check_streams(torch, label, lm, params, seed, reqs, out, base):
+    equal, parted = _parted_at_near_tie(torch, lm, params, seed, reqs, out,
+                                        base, BF16_LOGIT_TOL)
+    print(f"    {label}: {equal} streams equal the baseline's, {parted} part "
+          f"first at a near-tie (margin <= {BF16_LOGIT_TOL})")
+    if equal == 0:
+        raise AssertionError(f"{label}: no stream equals the baseline")
+    return dict(equal=equal, parted=parted)
+
+
+def _spec_ring_leg(torch, dev, seed, smi, lm, params, draft, dparams):
+    """qwen3-4b on the ring: phase 4's trace (18 requests, 32 new tokens
+    each, two sampled at 0.8) at K = 1 with no draft (the baseline), with
+    the 4-layer edge draft at k = 4 forced on (``spec_min_commit`` 0) and
+    under the default ``spec_min_commit`` (the acceptance EWMA suppresses
+    drafting and probes)."""
+    from repro_torch.serving import ServingEngine
+
+    reqs = _trace(seed, lm.cfg.vocab_size)
+    kw = dict(batch_slots=8, max_seq_len=1024, seed=seed)
+    spec = dict(draft_model=draft, draft_params=dparams,
+                speculative_tokens=SPEC_K)
+
+    def serve(eng):
+        return _serve(eng, reqs, 32)
+
+    rec = {}
+    for label, extra, force in (("baseline", {}, False),
+                                ("forced", spec, True),
+                                ("default", spec, False)):
+        eng = ServingEngine(lm, params, **kw, **extra)
+        if force:
+            eng.scheduler.spec_min_commit = 0.0
+        out, wall, n, launches = _spec_serve(torch, eng, serve)
+        rec[label] = _spec_report(f"qwen3-4b ring, {label}", smi, eng, out,
+                                  wall, n, launches, _spec_launches(eng, n))
+        rec[label].update(suppressed_plans=eng.scheduler._spec_suppressed,
+                          acceptance_ewma=eng.scheduler.speculative_acceptance()
+                          or 0.0,
+                          spec_min_commit=eng.scheduler.spec_min_commit)
+        if label == "baseline":
+            base = out
+        else:
+            rec[label]["streams"] = _spec_check_streams(
+                torch, label, lm, params, seed, reqs, out, base)
+    default = rec["default"]
+    ewma = default["acceptance_ewma"]
+    print(f"    default spec_min_commit ({default['spec_min_commit']}): "
+          f"acceptance EWMA {ewma:.3f} accepted a slot-round, "
+          f"{default['suppressed_plans']} plans suppressed, "
+          f"{default['programs']['rounds']} speculative rounds")
+    if rec["forced"]["speculative"]["rounds"] == 0 or \
+            default["programs"]["rounds"] == 0:
+        raise AssertionError("qwen3-4b ring: an engine with a draft never "
+                             "drafted")
+    if 1.0 + ewma < default["spec_min_commit"] and \
+            not default["suppressed_plans"]:
+        raise AssertionError("qwen3-4b ring: the EWMA is below "
+                             "spec_min_commit and nothing was suppressed")
+    return rec
+
+
+def _spec_paged_leg(torch, dev, seed, smi, lm, params, draft, dparams):
+    """qwen3-4b on the paged backend: phase 5's two waves (128-token
+    chunks, prefix sharing, swap preemption) at K = 1 with no draft, and
+    with the edge draft at k = 4 forced on."""
+    from repro_torch.serving import ServingEngine
+
+    trace = _paged_trace(seed, lm.cfg.vocab_size)
+    wave1, hi, wave2 = trace
+    reqs = wave1 + hi + wave2
+    kw = dict(batch_slots=8, max_seq_len=1024, seed=seed,
+              cache_backend="paged", block_size=16, chunk_tokens=128,
+              prefix_sharing=True)
+
+    def serve(eng):
+        return _serve_waves(eng, trace, 32, contended=True)
+
+    rec = {}
+    for label, extra in (("baseline", {}),
+                         ("forced", dict(draft_model=draft,
+                                         draft_params=dparams,
+                                         speculative_tokens=SPEC_K))):
+        eng = ServingEngine(lm, params, **kw, **extra)
+        if extra:
+            eng.scheduler.spec_min_commit = 0.0
+        out, wall, n, launches = _spec_serve(torch, eng, serve)
+        rec[label] = _spec_report(f"qwen3-4b paged, {label}", smi, eng, out,
+                                  wall, n, launches, _spec_launches(eng, n))
+        rec[label]["preemptions"] = eng.preemptions
+        if label == "baseline":
+            base = out
+        else:
+            rec[label]["streams"] = _spec_check_streams(
+                torch, label, lm, params, seed, reqs, out, base)
+            if rec[label]["speculative"]["rounds"] == 0:
+                raise AssertionError("qwen3-4b paged: no speculative round")
+    return rec
+
+
+def _spec_self_leg(torch, dev, seed, smi, lm, params):
+    """smollm-135m drafting for itself on the ring, phase 4's trace: every
+    proposal is the baseline's token, so every one is accepted and each
+    dispatch commits k + 1 tokens a slot (k clamped to the budget). A
+    rejection may only sit at a near-tie of the teacher-forced logits (the
+    draft's T = 1 logits and the verify chunk's round apart in bf16)."""
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.serving import ServingEngine
+
+    reqs = _trace(seed, lm.cfg.vocab_size)
+    kw = dict(batch_slots=8, max_seq_len=1024, seed=seed)
+
+    def serve(eng):
+        return _serve(eng, reqs, 32)
+
+    plain = ServingEngine(lm, params, **kw)
+    base, wall, n, launches = _spec_serve(torch, plain, serve)
+    rec = {"baseline": _spec_report("smollm-135m ring, baseline", smi, plain,
+                                    base, wall, n, launches,
+                                    _spec_launches(plain, n))}
+    eng = ServingEngine(lm, params, draft_model=lm, draft_params=params,
+                        speculative_tokens=SPEC_K, **kw)
+    rounds = []
+    accept = engine_mod.accepted_prefix_length
+
+    def spy(proposed, target):              # what locates a rejection
+        j = accept(proposed, target)
+        st = eng._state
+        rounds.append((st["rid"].clone(), st["steps"].clone(),
+                       st["active"].clone(), j.clone(), proposed.shape[1]))
+        return j
+
+    engine_mod.accepted_prefix_length = spy
+    try:
+        out, wall, n, launches = _spec_serve(torch, eng, serve)
+    finally:
+        engine_mod.accepted_prefix_length = accept
+    rec["self"] = _spec_report("smollm-135m ring, self-draft", smi, eng, out,
+                               wall, n, launches, _spec_launches(eng, n))
+    rec["self"]["streams"] = _spec_check_streams(
+        torch, "self-draft", lm, params, seed, reqs, out, base)
+    m = rec["self"]["speculative"]
+    by_rid = {r.request_id: (p, r) for (p, _), r in zip(reqs, base)}
+    rejected = []
+    for rid, steps, active, j, k in rounds:
+        for row in np.flatnonzero((active & (j < k)).cpu().numpy()):
+            rejected.append((int(rid[row]), int(steps[row] + j[row] + 1)))
+    for rid, p in rejected:
+        prompt, r = by_rid[rid]
+        ctx = torch.from_numpy(np.concatenate([prompt, r.output[:p]])
+                               .astype(np.int32))[None].to(dev)
+        last, _ = lm.forward(params, {"tokens": ctx}, last_only=True)
+        top2 = torch.topk(last[0, 0].float(), 2).values
+        margin = (top2[0] - top2[1]).item()
+        print(f"    request {rid}: a proposal rejected at token {p}, top-2 "
+              f"margin {margin:.4f}")
+        if margin > BF16_LOGIT_TOL:
+            raise AssertionError("self-draft rejected a proposal off a "
+                                 "near-tie")
+    print(f"    self-draft: {m['accepted_tokens']} of {m['drafted_tokens']} "
+          f"proposals accepted ({len(rejected)} rejected, each at a "
+          f"near-tie); committed {m['committed_tokens']} = slot-rounds "
+          f"{m['slot_rounds']} + accepted")
+    unaccepted = m["drafted_tokens"] - m["accepted_tokens"]
+    if m["rounds"] == 0 or m["committed_tokens"] != \
+            m["slot_rounds"] + m["accepted_tokens"] or \
+            unaccepted < len(rejected) or (unaccepted > 0) != bool(rejected):
+        raise AssertionError("self-draft accounting is off")
+    rec["self"]["rejected_at_near_ties"] = len(rejected)
+    return rec
+
+
+def _spec_cascade_leg(torch, dev, seed, smi, models):
+    """Phase 7's cascade (smollm-135m cloud, 4-layer edge) with thresholds
+    that escalate every prompt (hi 2.0, lo 0.0), without and with
+    ``speculative_tokens=4`` (forced on): the edge model drafts for the
+    cloud engine. 24 requests of 16-480 tokens, 32 new each, the first
+    two sampled at 0.8."""
+    from repro_torch.cascade import CascadeLM
+    from repro_torch.cascade.gate import make_thresholds
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import CascadeServingEngine
+
+    edge, cloud, ep, cp = models
+    prompts = _cascade_prompts(seed, cloud.cfg.vocab_size)
+    reqs = [(p, 0.8 if i < 2 else 0.0) for i, p in enumerate(prompts)]
+    cas = CascadeLM(edge, cloud, thresholds=make_thresholds(hi=2.0, lo=0.0))
+    el, rec, outs = edge.cfg.num_layers, {}, {}
+    for label, k in (("baseline", 0), ("speculative", SPEC_K)):
+        eng = CascadeServingEngine(cas, ep, cp, seed=seed, batch_slots=8,
+                                   max_seq_len=1024, max_decode_steps=4,
+                                   speculative_tokens=k)
+        ce = eng.cloud_engine
+        ce.scheduler.spec_min_commit = 0.0
+        n = _count_programs(ce)
+        torch.cuda.synchronize()
+        reset_launches()
+        out, wall = _serve(eng, reqs, 32)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        if any(r.route != "escalate" for r in out):
+            raise AssertionError("a cascade request was not escalated")
+        want = _spec_launches(ce, n)
+        want["cascade_gate"] = len(reqs)
+        want["flash_attention"] += el * len(reqs)
+        rec[label] = _spec_report(f"cascade, {label}", smi, ce, out, wall,
+                                  n, launches, want)
+        outs[label] = out
+    # the cloud engine samples with seed + 1, and its request ids follow the
+    # gate order, which is the submission order: the cascade's ids
+    rec["speculative"]["streams"] = _spec_check_streams(
+        torch, "cascade", cloud, cp, seed + 1, reqs, outs["speculative"],
+        outs["baseline"])
+    if rec["speculative"]["speculative"]["rounds"] == 0:
+        raise AssertionError("the cascade's cloud engine never drafted")
+    return rec
+
+
+def check_speculative(torch, dev, seed, smi, smollm, models):
+    """Phase 13: speculative decoding on the card, four legs (qwen3-4b at
+    full width and depth on the ring and the paged backend with its 4-layer
+    edge draft, smollm-135m drafting for itself, and the cascade's edge
+    drafting for its cloud). Random weights make acceptance meaningless as
+    a speed figure: with a tied table both models mostly echo their input
+    token, so a random draft agrees with its target far more often than
+    a trained one would."""
+    from repro_torch.cascade import edge_variant
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    cfg = get_config("qwen3-4b")
+    lm = LM(cfg, device=dev)
+    params = lm.init(seed, on_device=True)
+    draft = LM(edge_variant(cfg, layers=4), device=dev)
+    dparams = draft.init(seed + 1, on_device=True)
+    dc = draft.cfg
+    print(f"  qwen3-4b target ({cfg.num_layers} layers), its draft "
+          f"edge_variant(layers=4): {dc.num_layers} layers, d_model "
+          f"{dc.d_model}, {dc.num_heads} heads over {dc.num_kv_heads}, hd "
+          f"{dc.resolved_head_dim}, vocab {dc.padded_vocab}; k = {SPEC_K}. "
+          f"Random weights: acceptance and tokens/s here say nothing of a "
+          f"trained draft's speed")
+    out = {"qwen3-4b ring": _spec_ring_leg(torch, dev, seed, smi, lm, params,
+                                           draft, dparams)}
+    out["qwen3-4b paged"] = _spec_paged_leg(torch, dev, seed, smi, lm,
+                                            params, draft, dparams)
+    del lm, params, draft, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["smollm-135m self-draft"] = _spec_self_leg(torch, dev, seed, smi,
+                                                   *smollm)
+    out["cascade"] = _spec_cascade_leg(torch, dev, seed, smi, models)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2188,6 +2674,8 @@ def main() -> int:
     results["rglru_scan"], rglru_times = check_rglru(torch, timer, dev)
     hd256_times = check_attention_hd256(torch, timer, dev)
     hd128_times = check_attention_hd128(torch, timer, dev)
+    verify_times = check_verify_shapes(torch, timer, dev)
+    sampler_times = check_sampler(torch, timer, dev)
     rates["sweep"] = sweep_attention(torch, timer, dev)
     phase("[3] model: smollm-135m, 30 layers, full width")
     check_model(torch, dev, args.seed)
@@ -2210,7 +2698,6 @@ def main() -> int:
     serving_gates, cascade_stats = check_cascade_serving(
         torch, dev, args.seed, smi, models)
     launches["cascade_gate"] = oneshot_gates + serving_gates
-    del models
     phase("[8] hybrid model: recurrentgemma-9b at full width (4 layers f32, "
           "then 38 layers bf16)")
     hybrid_stats = check_hybrid_model(torch, dev, args.seed)
@@ -2230,6 +2717,12 @@ def main() -> int:
     phase("[11] baseline: DrainBatchEngine and ServingEngine (ring, K=4) in "
           "turns on phase 4's trace")
     baseline_stats = check_baseline(torch, dev, args.seed, smi, *smollm)
+    phase(f"[13] speculative decoding, k = {SPEC_K}: qwen3-4b (ring and "
+          f"paged) with its 4-layer edge draft, smollm-135m drafting for "
+          f"itself, the cascade's edge drafting for its cloud")
+    spec_stats = check_speculative(torch, dev, args.seed, smi, smollm,
+                                   models)
+    del models
     if args.profile:
         from repro_torch.configs import get_config
         from repro_torch.models.model import LM
@@ -2279,6 +2772,9 @@ def main() -> int:
                        "attention_rates": rates,
                        "attention_hd256": hd256_times,
                        "attention_hd128": hd128_times,
+                       "attention_verify": verify_times,
+                       "sampler": sampler_times,
+                       "speculative": spec_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

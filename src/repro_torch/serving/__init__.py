@@ -9,7 +9,9 @@ from repro_torch.serving.faults import FaultError, FaultPlan, SeamSpec
 from repro_torch.serving.kv_cache import (RING, HostSwapHandle, PagedCache,
                                           PagedLayout, RingCache, RingLayout,
                                           make_backend)
-from repro_torch.serving.sampler import (accepted_prefix_length, request_keys,
+from repro_torch.serving.sampler import (accepted_prefix_length, prng_key,
+                                         request_keys, sample_logits,
+                                         sample_logits_batch,
                                          sample_logits_keyed)
 from repro_torch.serving.scheduler import (Scheduler, StepPlan, bucket_for,
                                            prompt_buckets, request_rank)
@@ -20,6 +22,7 @@ __all__ = ["ServingEngine", "DrainBatchEngine", "Request", "validate_prompt",
            "FaultError", "SeamSpec", "RING",
            "RingCache", "RingLayout", "PagedCache", "PagedLayout",
            "HostSwapHandle", "make_backend",
-           "accepted_prefix_length", "request_keys", "sample_logits_keyed",
+           "accepted_prefix_length", "prng_key", "request_keys",
+           "sample_logits", "sample_logits_batch", "sample_logits_keyed",
            "Scheduler", "StepPlan", "bucket_for", "prompt_buckets",
            "request_rank"]

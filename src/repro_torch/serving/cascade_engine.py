@@ -10,13 +10,13 @@ accepted prompts generate on the edge engine, escalated ones on the cloud
 engine, dropped ones are answered at the gate with an empty output. A
 circuit breaker guards the edge: repeated edge outages (the ``edge`` seam
 of a ``FaultPlan``) send requests straight to the cloud until a half-open
-probe succeeds.
+probe succeeds. With ``speculative_tokens=k`` the cloud engine speculates
+with the edge model as its draft.
 
 Not ported yet (later slices of the port): the per-step token tap
 (``on_tokens``; gateway), ``warm_compile``, ``note_hang``, ``snapshot``,
 ``restore``, ``requeue_lost`` and ``known_request_ids`` (durability), and
-the ``speculative_tokens``, ``mesh`` and ``rules`` arguments, which raise
-``NotImplementedError``.
+the ``mesh`` and ``rules`` arguments, which raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -172,13 +172,11 @@ class CascadeServingEngine:
                  admission_policy: Optional[str] = None,
                  speculative_tokens: int = 0,
                  mesh=None, rules=None):
-        later = {"speculative_tokens": speculative_tokens or None,
-                 "mesh": mesh, "rules": rules}
+        later = {"mesh": mesh, "rules": rules}
         for name, value in later.items():
             if value is not None:
                 raise NotImplementedError(
-                    f"{name}: speculative cloud decode and meshes are later "
-                    f"slices of the port")
+                    f"{name}: meshes are a later slice of the port")
         self.cascade = cascade
         self.max_seq_len = max_seq_len
         self.truncate_prompts = truncate_prompts
@@ -207,8 +205,15 @@ class CascadeServingEngine:
                          admission_policy=admission_policy)
         self.edge_engine = ServingEngine(cascade.edge, edge_params,
                                          seed=seed, **engine_kw)
-        self.cloud_engine = ServingEngine(cascade.cloud, cloud_params,
-                                          seed=seed + 1, **engine_kw)
+        # speculative cloud decode drafts with the cascade's own edge model:
+        # the ACE edge/cloud split used as a draft/verify pair. The edge
+        # engine never speculates (no smaller model drafts for it).
+        spec = speculative_tokens > 0
+        self.cloud_engine = ServingEngine(
+            cascade.cloud, cloud_params, seed=seed + 1,
+            draft_model=cascade.edge if spec else None,
+            draft_params=edge_params if spec else None,
+            speculative_tokens=speculative_tokens, **engine_kw)
         self._edge_params = edge_params
         self._requests: List[CascadeRequest] = []
         self._next_id = 0

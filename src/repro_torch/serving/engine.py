@@ -29,13 +29,16 @@ Its decode state (generated tokens, step count, next-sample logits) is
 checkpointed on the host and its cache is swapped out (paged) or freed and
 rebuilt at resume by re-prefilling prompt + generated tokens (ring, or
 ``preempt_mode='recompute'``); the resumed stream continues token for
-token. Sampling keys are a pure function of (seed, request id, step), so
-sampled streams do not depend on co-scheduling, chunking or preemption
-either.
+token. Sampling keys fold (request id, step) into ``prng_key(seed)``
+with JAX's threefry, as ``repro``'s do, so sampled streams do not depend on
+co-scheduling, chunking or preemption either.
 
-Speculative decoding, fault injection, snapshots, the journal and meshes
-are later slices: their constructor arguments raise
-``NotImplementedError`` when set.
+With a ``draft_model`` and ``speculative_tokens=k`` the engine speculates:
+the draft proposes k tokens per slot on its own ring cache and the target
+verifies them in one (k+1)-token chunk (``_spec_impl``). Verification is
+key-coupled, so the streams are the non-speculative engine's at every
+temperature. Fault injection, snapshots, the journal and meshes are later
+slices: their constructor arguments raise ``NotImplementedError`` when set.
 
 ``DrainBatchEngine`` is the static batcher that continuous batching is
 measured against.
@@ -51,8 +54,10 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import LM
-from repro_torch.serving.kv_cache import RingLayout, make_backend
-from repro_torch.serving.sampler import request_keys, sample_logits_keyed
+from repro_torch.serving.kv_cache import RingCache, RingLayout, make_backend
+from repro_torch.serving.sampler import (accepted_prefix_length, prng_key,
+                                         request_keys, sample_logits_batch,
+                                         sample_logits_keyed, split)
 from repro_torch.serving.scheduler import (MONOLITHIC, PrefillProgress,
                                            Scheduler, bucket_for,
                                            prompt_buckets, request_rank)
@@ -99,6 +104,11 @@ class _ResumeState:
 
 def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 1).bit_length()
+
+
+def _any_sampled(slots) -> bool:
+    """Whether any decoding slot samples at a temperature above 0."""
+    return any(r.temperature > 0.0 for r in slots.values())
 
 
 def _has_windowed_blocks(lm: LM) -> bool:
@@ -148,27 +158,19 @@ class ServingEngine:
                  draft_model=None, draft_params=None,
                  speculative_tokens: int = 0, fault_plan=None,
                  mesh=None, rules=None):
-        if speculative_tokens > 0 and draft_model is not None:
-            bad = lm.chunk_incompatible_mixer()
-            if bad is not None:
-                raise NotImplementedError(
-                    f"speculative verification is a multi-token chunk query;"
-                    f" the target's {bad!r} mixer folds tokens sequentially "
-                    f"— use speculative_tokens=0")
-        later = {"draft_model": draft_model, "draft_params": draft_params,
-                 "speculative_tokens": speculative_tokens or None,
-                 "fault_plan": fault_plan, "mesh": mesh, "rules": rules}
+        later = {"fault_plan": fault_plan, "mesh": mesh, "rules": rules}
         for name, value in later.items():
             if value is not None:
                 raise NotImplementedError(
-                    f"{name}: speculative decoding, fault injection and "
-                    f"meshes are later slices of the port")
+                    f"{name}: fault injection and meshes are later slices "
+                    f"of the port")
         self.lm = lm
         self.params = params
         self.device = lm.device
         self.batch_slots = batch_slots
         self.max_seq_len = max_seq_len
         self.seed = seed
+        self._base_key = prng_key(seed, device=lm.device)
         self.eos_id = eos_id
         self.truncate_prompts = truncate_prompts
         self.buckets = prompt_buckets(max_seq_len, min_bucket)
@@ -210,11 +212,13 @@ class ServingEngine:
             num_blocks=num_pool_blocks, prefix_sharing=prefix_sharing)
         if chunk_tokens is not None:
             self._validate_chunk_layout()
-        self.scheduler = Scheduler(batch_slots=batch_slots,
-                                   chunk_tokens=chunk_tokens,
-                                   token_budget=token_budget,
-                                   max_decode_steps=max_decode_steps,
-                                   admission_policy=admission_policy)
+        self.speculative = self._validate_speculation(
+            draft_model, draft_params, speculative_tokens)
+        self.scheduler = Scheduler(
+            batch_slots=batch_slots, chunk_tokens=chunk_tokens,
+            token_budget=token_budget, max_decode_steps=max_decode_steps,
+            admission_policy=admission_policy,
+            speculative_tokens=speculative_tokens if self.speculative else 0)
         # prefix sharing hashes prompt tokens at admission; only chunked
         # install can skip the shared part (monolithic recomputes it all)
         self._admit_with_tokens = (
@@ -242,6 +246,29 @@ class ServingEngine:
             "active": torch.zeros((b,), dtype=torch.bool, device=dev),
             "out": torch.zeros((b, max_seq_len), **i32),
         }
+        # speculative accounting (zeroed without a draft too, so metrics()
+        # keeps one shape): drafted = proposals issued (slots x k),
+        # accepted = proposals the target kept, committed = accepted + the
+        # anchor token every speculative round banks per slot
+        self.spec_rounds = 0
+        self.spec_slot_rounds = 0           # active slots summed over rounds
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_committed_tokens = 0
+        self._spec_class: Dict[int, tuple] = {}  # priority -> (drafted, acc)
+        if self.speculative:
+            self.draft_lm = draft_model
+            self.draft_params = draft_params
+            # the draft always rides a ring cache whatever the target's
+            # backend: one max_seq_len line per slot is its whole state
+            self._draft_backend = RingCache(draft_model,
+                                            batch_slots=batch_slots,
+                                            max_seq_len=max_seq_len)
+            self._draft_state = self._draft_backend.init()
+            # slots whose draft cache missed tokens that plain decode
+            # rounds generated: re-synced by a draft prefill before the
+            # next speculative round reads them
+            self._draft_dirty: set = set()
 
     def _validate_chunk_mixers(self, chunk_tokens: int) -> None:
         if not (1 <= chunk_tokens <= self.max_seq_len):
@@ -260,6 +287,41 @@ class ServingEngine:
                 "chunked prefill over windowed layers needs the paged "
                 "backend: a window-wide ring evicts tokens the chunk's own "
                 "queries still attend to")
+
+    def _validate_speculation(self, draft_model, draft_params,
+                              speculative_tokens: int) -> bool:
+        """``repro``'s checks of a draft, and one of the port's own: the
+        verify chunk appends all k+1 tokens before it attends, so over a
+        ring narrower than ``max_seq_len`` (a windowed layer's) its tail
+        would overwrite keys that the chunk's earlier rows still see.
+        ``repro`` serves that case and its streams go wrong; the port
+        refuses it, as both refuse chunked prefill over windowed rings."""
+        if speculative_tokens > 0 and draft_model is None:
+            raise ValueError("speculative_tokens > 0 needs a draft_model")
+        if draft_model is None or speculative_tokens <= 0:
+            return False
+        if draft_params is None:
+            raise ValueError("draft_model needs draft_params")
+        if draft_model.cfg.padded_vocab != self.lm.cfg.padded_vocab:
+            raise ValueError(
+                f"draft vocab ({draft_model.cfg.padded_vocab}) must match "
+                f"the target's ({self.lm.cfg.padded_vocab}): verification "
+                f"compares token ids")
+        bad = self.lm.chunk_incompatible_mixer()
+        if bad is not None:
+            raise NotImplementedError(
+                f"speculative verification is a multi-token chunk query;"
+                f" the target's {bad!r} mixer folds tokens sequentially "
+                f"— use speculative_tokens=0")
+        if isinstance(self.backend.layout, RingLayout) and any(
+                bdef.window is not None and bdef.window < self.max_seq_len
+                for stage in self.lm.cfg.stages for bdef in stage.blocks):
+            raise NotImplementedError(
+                "speculative verification over a windowed layer whose ring "
+                "is narrower than max_seq_len needs the paged backend "
+                "(cache_backend='paged'): the verify chunk's tail would "
+                "evict keys its own earlier rows still attend to")
+        return True
 
     # -- queue API ------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
@@ -346,7 +408,13 @@ class ServingEngine:
             self.peak_active_slots = max(self.peak_active_slots,
                                          len(slots) + len(prefilling))
         if slots:
-            self._decode_round(slots, free, self._done, plan.decode_steps)
+            # repro's draft fault seam (a failed speculative dispatch
+            # served by a plain round) waits for the faults slice
+            if plan.spec_tokens > 0 and self.speculative:
+                self._spec_round(slots, free, self._done, plan.spec_tokens)
+            else:
+                self._decode_round(slots, free, self._done,
+                                   plan.decode_steps)
 
     def run(self) -> Dict[int, Request]:
         """Serve until the queue and all slots drain; returns every request
@@ -411,14 +479,24 @@ class ServingEngine:
         self._arm(slot, pos=prompt_len, max_new=max_new, temp=temp, rid=rid,
                   active=final and max_new > 0)
 
-    def _step_impl(self) -> None:
+    def _sample(self, rid, steps, logits, temp, sampled: bool):
+        """Keyed samples of (B, V) ``logits`` at the (request id, step)
+        keys. With ``sampled`` False the host knows that no live slot
+        samples, so the threefry draw is skipped: every row a live slot
+        reads is greedy either way."""
+        if not sampled:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return sample_logits_keyed(
+            request_keys(self._base_key, rid, steps), logits, temp)
+
+    def _step_impl(self, sampled: bool = True) -> None:
         """Fused decode step on the device: sample -> append -> attend ->
         done-detect, for every slot (inactive rows compute but neither
         write the cache nor emit)."""
         st = self._state
         active = st["active"]
-        keys = request_keys(self.seed, st["rid"], st["steps"])
-        nxt = sample_logits_keyed(keys, st["last"], st["temp"])
+        nxt = self._sample(st["rid"], st["steps"], st["last"], st["temp"],
+                           sampled)
         rows = torch.arange(self.batch_slots, device=self.device)
         idx = torch.clamp(st["steps"], 0, self.max_seq_len - 1).long()
         st["out"][rows, idx] = torch.where(active, nxt, st["out"][rows, idx])
@@ -434,6 +512,101 @@ class ServingEngine:
         st["last"] = logits[:, 0, :].float()
         st["pos"] = st["pos"] + active.to(torch.int32)
         st["steps"] = steps
+        st["active"] = active & ~finished
+
+    def _draft_fill_impl(self, tokens, length: int, slot: int) -> None:
+        """Install one bucketed token stream into the draft ring: the
+        draft's ``_admit_impl`` without the sampling state (the
+        speculative round reads everything else from the target's)."""
+        lengths = torch.full((1,), length, dtype=torch.int32,
+                             device=self.device)
+        _, one_caches = self.draft_lm.prefill(
+            self.draft_params, {"tokens": tokens},
+            cache_width=self.max_seq_len, last_only=True, lengths=lengths)
+        self._draft_state = self._draft_backend.prefill_fill(
+            self._draft_state, one_caches, slot, length, None)
+
+    def _spec_impl(self, k: int, sampled: bool = True) -> None:
+        """One fused propose-k/verify round on the device.
+
+        Verification is key-coupled. The anchor ``t0`` is sampled from
+        ``last`` with the key the plain step would fold; the draft proposes
+        ``d_1..d_k`` with the keys of the following steps; the target
+        attends the chunk ``[t0, d_1..d_k]`` in one ``prefill_chunk``; and
+        ``s_i``, sampled from the target's verify logits with ``d_i``'s
+        key, is the token the plain engine would emit there. A proposal is
+        accepted iff it equals its ``s_i``, so every committed token is a
+        plain-engine token, at every temperature. A rejected position's
+        token is not committed: it comes back as the next round's anchor,
+        from the same key and logits.
+
+        The draft runs k+1 steps (the last consumes ``d_k``, so its cache
+        stays contiguous through a fully accepted round). Both caches mask
+        appends to ``i < headroom``: a token at or past the budget never
+        commits, and every append stays inside the slot's reservation."""
+        b = self.batch_slots
+        st = self._state
+        active = st["active"]
+        rid, steps, temp, pos = st["rid"], st["steps"], st["temp"], st["pos"]
+        headroom = st["budget"] - steps           # >= 1 on active rows
+        tok = self._sample(rid, steps, st["last"], temp, sampled)
+        t0 = tok
+        drafted = []
+        dcaches = self._draft_state["caches"]
+        for i in range(k + 1):
+            ok = active & (i < headroom)
+            feed = torch.where(active, tok, torch.zeros_like(tok))[:, None]
+            dlogits, dcaches = self.draft_lm.decode_step(
+                self.draft_params, dcaches, feed, pos + i,
+                layout=self._draft_backend.layout, valid=ok[:, None])
+            tok = self._sample(rid, steps + i + 1, dlogits[:, 0].float(),
+                               temp, sampled)
+            drafted.append(tok)
+        proposals = torch.stack(drafted[:k], dim=1)              # (B, k)
+
+        chunk = torch.cat([t0[:, None], proposals], dim=1)       # (B, k+1)
+        offs = torch.arange(k + 1, dtype=torch.int32, device=self.device)
+        ok = active[:, None] & (offs[None, :] < headroom[:, None])
+        logits, _ = self.lm.prefill_chunk(
+            self.params, self._cache_state["caches"], chunk, pos,
+            layout=self.backend.layout,
+            block_tables=self._cache_state["tables"], valid=ok)
+        logits = logits.float()                                  # (B, k+1, V)
+        # s_i reads logits row i-1 (the plain engine's ``last`` at step
+        # steps + i); the B*k verifications sample as one flattened batch
+        ksteps = (steps[:, None] + offs[None, 1:]).reshape(-1)
+        krid = rid[:, None].expand(b, k).reshape(-1)
+        ktemp = temp[:, None].expand(b, k).reshape(-1)
+        target = self._sample(krid, ksteps,
+                              logits[:, :k].reshape(b * k, -1), ktemp,
+                              sampled).reshape(b, k)
+        j = accepted_prefix_length(proposals, target)            # (B,)
+        commit = torch.minimum(1 + j, headroom)
+        eos_hit = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        if self.eos_id is not None:
+            is_eos = chunk == self.eos_id
+            has_eos = is_eos.any(dim=1)
+            eos_idx = torch.argmax(is_eos.to(torch.int32), dim=1).to(
+                torch.int32)                      # first EOS in the chunk
+            commit = torch.where(has_eos, torch.minimum(commit, eos_idx + 1),
+                                 commit)
+            eos_hit = has_eos & (eos_idx < commit)
+
+        rows = torch.arange(b, device=self.device)[:, None]
+        write = ok & (offs[None, :] < commit[:, None])
+        idx = torch.clamp(steps[:, None] + offs[None, :], 0,
+                          self.max_seq_len - 1).long()
+        st["out"][rows, idx] = torch.where(write, chunk, st["out"][rows, idx])
+        # logits row commit-1 is the distribution after the last committed
+        # token: the ``last`` the plain engine would carry there
+        sel = torch.clamp(commit - 1, 0, k).long()
+        last = logits[torch.arange(b, device=self.device), sel]
+        dcommit = torch.where(active, commit, torch.zeros_like(commit))
+        new_steps = steps + dcommit
+        finished = (new_steps >= st["budget"]) | eos_hit
+        st["last"] = torch.where(active[:, None], last, st["last"])
+        st["pos"] = pos + dcommit
+        st["steps"] = new_steps
         st["active"] = active & ~finished
 
     # -- host-side management -------------------------------------------------
@@ -521,6 +694,10 @@ class ServingEngine:
         pp.next = c.start + c.length
         if c.final:
             del prefilling[c.slot]
+            if self.speculative:
+                # arm the draft with the slot's whole visible stream
+                # (prompt, or prompt + generated on a recompute-resume)
+                self._draft_fill(c.slot, np.asarray(src, np.int32))
             if r.resume is None:
                 # the slot's full prompt blocks now hold real K/V: publish
                 # them for sharing (a resumed request's stream includes
@@ -548,6 +725,8 @@ class ServingEngine:
         self.prefill_tokens_total += length
         self.planned_token_slots += bucket
         self.useful_prefill_tokens += length
+        if self.speculative:
+            self._draft_fill(slot, tokens_1d)
         if r.resume is None:
             self._scanned[slot] = 0
         else:
@@ -584,6 +763,11 @@ class ServingEngine:
                          temp=(slot, r.temperature),
                          rid=(slot, r.request_id),
                          active=(slot, rs.steps < r.max_new_tokens))
+        if self.speculative:
+            # the swap checkpoint restores only the target's K/V; the
+            # draft cache is rebuilt from the host token stream
+            self._draft_fill(slot, np.concatenate(
+                [r.prompt, rs.tokens]).astype(np.int32))
         self._restore_checkpoint(r, slot)
         slots[slot] = r
 
@@ -609,6 +793,8 @@ class ServingEngine:
             self._cache_state = self.backend.free_slot(self._cache_state,
                                                        slot)
         self._scanned.pop(slot, None)
+        if self.speculative:
+            self._draft_dirty.discard(slot)
         self._free.append(slot)
         return r
 
@@ -718,6 +904,8 @@ class ServingEngine:
                 self._cache_state = self.backend.free_slot(
                     self._cache_state, slot)
                 self._scanned.pop(slot, None)
+                if self.speculative:
+                    self._draft_dirty.discard(slot)
                 self._free.append(slot)
                 self._terminal(r, "cancelled", "cancelled: mid-decode",
                                output=out)
@@ -744,6 +932,31 @@ class ServingEngine:
             "peak_active_slots": self.peak_active_slots,
             "occupancy": self.occupancy(),
             "deadline_hits": self.scheduler.deadline_hit_rates(),
+            "speculative": self.speculative_metrics(),
+        }
+
+    def speculative_metrics(self) -> Dict[str, object]:
+        """Drafted and accepted proposals overall and per SLO class, and
+        committed tokens per speculative dispatch (1 + the accepted
+        proposals a slot-round: what must beat a plain step's 1 for
+        drafting to pay). All zeros, same shape, without a draft."""
+        drafted, accepted = self.spec_drafted_tokens, self.spec_accepted_tokens
+        return {
+            "enabled": self.speculative,
+            "rounds": self.spec_rounds,
+            "slot_rounds": self.spec_slot_rounds,
+            "fallbacks": 0,     # draft-seam faults: the faults slice
+            "drafted_tokens": drafted,
+            "accepted_tokens": accepted,
+            "committed_tokens": self.spec_committed_tokens,
+            "acceptance_rate": accepted / drafted if drafted else 0.0,
+            "committed_per_dispatch": (
+                self.spec_committed_tokens / self.spec_slot_rounds
+                if self.spec_slot_rounds else 0.0),
+            "per_class": {
+                p: {"drafted": d, "accepted": a,
+                    "rate": a / d if d else 0.0}
+                for p, (d, a) in sorted(self._spec_class.items())},
         }
 
     def _decode_round(self, slots, free, done, k: int = 1) -> None:
@@ -751,19 +964,83 @@ class ServingEngine:
         # repro's hang and decode-fault seams sit here; faults are a later
         # slice of the port
         self._reserve_lookahead(slots, k)
+        sampled = _any_sampled(slots)
         for _ in range(k):
-            self._step_impl()
+            self._step_impl(sampled)
         self.decode_steps += k
         self.host_syncs += 1
         self.planned_token_slots += len(slots) * k
         for slot in slots:
             self._scanned[slot] += k
+        if self.speculative:
+            # the draft cache saw none of this round's tokens: the next
+            # speculative round re-syncs these slots first
+            self._draft_dirty.update(slots.keys())
         self._finish_round(slots, free, done)
         self.decode_s += time.perf_counter() - t0
 
-    def _finish_round(self, slots, free, done) -> None:
+    def _spec_round(self, slots, free, done, k: int) -> None:
+        """One speculative propose-k/verify round (``_spec_impl``). The
+        look-ahead reservation covers the anchor plus all k proposals, so
+        the verify append always lands in a reserved block; rejected tails
+        were masked out of the cache and cost only the token-slots
+        ``occupancy`` charges for them."""
+        t0 = time.perf_counter()
+        self._resync_draft(slots)
+        self._reserve_lookahead(slots, k + 1)
+        before = dict(self._scanned)
+        self._spec_impl(k, _any_sampled(slots))
+        steps_h = self._state["steps"].cpu().numpy()     # the one host sync
+        self.host_syncs += 1
+        self.planned_token_slots += len(slots) * (k + 1)
+        self.spec_rounds += 1
+        accepted_total = 0
+        for slot, r in slots.items():
+            committed = int(steps_h[slot]) - before[slot]
+            self._scanned[slot] = int(steps_h[slot])
+            self.decode_steps += committed
+            self.spec_slot_rounds += 1
+            self.spec_drafted_tokens += k
+            self.spec_committed_tokens += committed
+            acc = max(0, committed - 1)   # the anchor is never "accepted"
+            self.spec_accepted_tokens += acc
+            accepted_total += acc
+            d, a = self._spec_class.get(r.priority, (0, 0))
+            self._spec_class[r.priority] = (d + k, a + acc)
+        self.scheduler.observe_speculation(len(slots), len(slots) * k,
+                                           accepted_total)
+        self._finish_round(slots, free, done, steps_h=steps_h)
+        self.decode_s += time.perf_counter() - t0
+
+    def _resync_draft(self, slots) -> None:
+        """Rebuild the draft cache of slots that advanced through plain
+        decode rounds (the draft saw none of those tokens): one bucketed
+        draft prefill of prompt + generated per dirty slot."""
+        dirty = [s for s in slots if s in self._draft_dirty]
+        if not dirty:
+            return
+        steps_h = self._state["steps"].cpu().numpy()
+        out_h = self._state["out"].cpu().numpy()
+        for slot in dirty:
+            n = int(steps_h[slot])
+            self._draft_fill(slot, np.concatenate(
+                [slots[slot].prompt, out_h[slot, :n]]).astype(np.int32))
+
+    def _draft_fill(self, slot: int, tokens_1d: np.ndarray) -> None:
+        """Prefill the draft cache of ``slot`` with its whole visible
+        stream (the prompt, plus generated tokens on a resume or re-sync),
+        bucketed like the target's prefill."""
+        length = len(tokens_1d)
+        tokens = np.zeros((1, bucket_for(length, self.buckets)), np.int32)
+        tokens[0, :length] = tokens_1d
+        self._draft_fill_impl(torch.from_numpy(tokens).to(self.device),
+                              length, slot)
+        self._draft_dirty.discard(slot)
+
+    def _finish_round(self, slots, free, done, steps_h=None) -> None:
         """Post-round bookkeeping: TTFT stamps and completions. The
-        active-mask transfer is the round's one host sync."""
+        active-mask transfer is the round's one host sync (a speculative
+        round has already brought the step counts)."""
         active = self._state["active"].cpu().numpy()
         now = time.perf_counter()
         for r in slots.values():
@@ -772,11 +1049,14 @@ class ServingEngine:
         finished = [s for s in slots if not active[s]]
         if not finished:
             return
-        steps_h = self._state["steps"].cpu().numpy()
+        if steps_h is None:
+            steps_h = self._state["steps"].cpu().numpy()
         out_h = self._state["out"].cpu().numpy()
         for slot in finished:
             r = slots.pop(slot)
             self._scanned.pop(slot, None)
+            if self.speculative:
+                self._draft_dirty.discard(slot)
             n = int(steps_h[slot])
             r.output = np.array(out_h[slot, :n])
             r.status = "done"
@@ -816,10 +1096,9 @@ class DrainBatchEngine:
     ``repro.serving.engine.DrainBatchEngine``): drain the queue in FIFO
     batches of ``batch_slots`` right-padded to the longest prompt, decode
     everyone for the longest budget, and bring every sampled token to the
-    host. ``repro`` splits one JAX key per token; the port samples with its
-    keyed sampler from (seed, request id, step), so a drained request's
-    stream is the one ``ServingEngine`` gives it, sampled or greedy, up to
-    a near-tie that the two engines' other prefill shapes round apart."""
+    host. As ``repro``'s, it splits one threefry key per token off
+    ``prng_key(seed)`` and samples the whole batch from it, so its sampled
+    streams are ``repro``'s drain streams (and depend on the batch)."""
 
     def __init__(self, lm: LM, params, *, batch_slots: int = 8,
                  max_seq_len: int = 512, seed: int = 0,
@@ -829,7 +1108,7 @@ class DrainBatchEngine:
         self.device = lm.device
         self.batch_slots = batch_slots
         self.max_seq_len = max_seq_len
-        self.seed = seed
+        self.rng = prng_key(seed, device=lm.device)
         self.truncate_prompts = truncate_prompts
         self._windowed = _has_windowed_blocks(lm)
         self._queue: List[Request] = []
@@ -885,15 +1164,15 @@ class DrainBatchEngine:
         max_new = max(r.max_new_tokens for r in requests)
         outs = np.zeros((b, max_new), np.int32)
         pos = lengths
-        i32 = dict(dtype=torch.int32, device=dev)
-        rid = torch.tensor([r.request_id for r in requests]
-                           + [-1] * (b - len(requests)), **i32)
         temp = torch.tensor([r.temperature for r in requests]
                             + [0.0] * (b - len(requests)),
                             dtype=torch.float32, device=dev)
+        sampled = any(r.temperature > 0.0 for r in requests)
         for t in range(max_new):
-            keys = request_keys(self.seed, rid, torch.full((b,), t, **i32))
-            nxt = sample_logits_keyed(keys, last, temp)
+            self.rng, key = split(self.rng)
+            # an all-greedy batch skips the draw (the key is split anyway)
+            nxt = (sample_logits_batch(key, last, temp) if sampled
+                   else torch.argmax(last, dim=-1).to(torch.int32))
             outs[:, t] = nxt.cpu().numpy()               # per-token host trip
             self.host_syncs += 1
             if t == 0:

@@ -319,8 +319,7 @@ def test_cascade_submit_validates_and_later_slices_raise():
     eng = CascadeServingEngine(cas, tep, tcp, batch_slots=2, max_seq_len=16)
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.submit(np.arange(30), max_new_tokens=4)
-    for kw in (dict(speculative_tokens=2), dict(mesh=object()),
-               dict(rules=object())):
+    for kw in (dict(mesh=object()), dict(rules=object())):
         with pytest.raises(NotImplementedError):
             CascadeServingEngine(cas, tep, tcp, **KW, **kw)
     for name in ("snapshot", "restore", "warm_compile", "note_hang",

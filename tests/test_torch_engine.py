@@ -5,9 +5,11 @@ the same trace and bridged weights, wherever ``repro``'s top-2 logit margin
 at a step exceeds the logits tolerance (1e-4, as in
 ``tests/test_torch_model.py``); at a smaller margin the two may rightly
 pick different tokens, and the comparison stops there. The ring append
-equals ``repro``'s bit for bit. Within the port:
-K-step decode equals 1-step, and sampled streams do not depend on
-co-scheduling (keyed sampling; its bits differ from JAX's by design).
+equals ``repro``'s bit for bit; the drain batcher's sampled streams
+equal ``repro``'s (one threefry key split per token, as there). Within the
+port: K-step decode equals 1-step, and sampled streams do not depend on
+co-scheduling (keyed sampling with JAX's threefry;
+``tests/test_torch_sampler.py`` holds its bits to ``jax.random``'s).
 """
 import dataclasses
 import functools
@@ -29,7 +31,8 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.serving import DrainBatchEngine, ServingEngine  # noqa: E402
 from repro_torch.serving.sampler import (accepted_prefix_length,  # noqa: E402
-                                         request_keys, sample_logits_keyed)
+                                         prng_key, request_keys,
+                                         sample_logits_keyed)
 
 TOL = 1e-4
 
@@ -201,12 +204,14 @@ def test_ring_append_matches_repro(t):
 def test_keyed_sampler_is_a_pure_function_of_its_key():
     logits = torch.randn(4, 50)
     temp = torch.tensor([0.0, 1.0, 1.0, 2.0])
-    keys = request_keys(0, torch.tensor([1, 2, 2, 3]), torch.tensor([0, 5, 5, 9]))
+    keys = request_keys(prng_key(0), torch.tensor([1, 2, 2, 3]),
+                        torch.tensor([0, 5, 5, 9]))
+    assert keys.shape == (4, 2)
     a = sample_logits_keyed(keys, logits, temp)
     b = sample_logits_keyed(keys.flip(0), logits.flip(0), temp.flip(0))
     assert torch.equal(a, b.flip(0))
     assert a[0] == logits[0].argmax()
-    assert keys[1] == keys[2] and keys[0] != keys[1]
+    assert torch.equal(keys[1], keys[2]) and not torch.equal(keys[0], keys[1])
     prop = np.asarray([[1, 2, 3], [1, 5, 3], [4, 4, 4]], np.int32)
     targ = np.asarray([[1, 2, 3], [1, 2, 3], [0, 4, 4]], np.int32)
     ours = accepted_prefix_length(torch.from_numpy(prop),
@@ -217,8 +222,7 @@ def test_keyed_sampler_is_a_pure_function_of_its_key():
 def test_engine_edges_and_later_slices():
     """Oversized prompts, cancel (queued, and mid-prefill on the chunked
     paged engine), max_new_tokens=0 and an EOS stop, on the ring and the
-    paged backend; speculation, faults and meshes are later slices and
-    still raise."""
+    paged backend; faults and meshes are later slices and still raise."""
     _, _, lm, tp = _models()
     for backend in (dict(), dict(cache_backend="paged", block_size=8,
                                  chunk_tokens=8)):
@@ -252,8 +256,8 @@ def test_engine_edges_and_later_slices():
             assert eng.run()[r4].failure_reason == "cancelled: mid-prefill"
             eng.assert_invariants()
             assert eng.backend.blocks_in_use == 0
-    for kw in (dict(speculative_tokens=2), dict(fault_plan=object()),
-               dict(mesh=object())):
+    for kw in (dict(fault_plan=object()), dict(mesh=object()),
+               dict(rules=object())):
         with pytest.raises(NotImplementedError):
             ServingEngine(lm, tp, **kw)
 
@@ -311,14 +315,54 @@ def _mixed(n, seed, budgets=(3, 9)):
              int(rng.integers(*budgets))) for _ in range(n)]
 
 
+def _drain_noise(jlm, seed, reqs, batch_slots):
+    """The Gumbel noise ``repro``'s drain batcher draws for request ``rid``
+    at token ``t``: one key split off ``PRNGKey(seed)`` per token of each
+    FIFO batch's longest budget, one (batch_slots, V) draw per key."""
+    rng, keys = jax.random.PRNGKey(seed), []
+    for i in range(0, len(reqs), batch_slots):
+        keys.append([])
+        for _ in range(max(n for _, n in reqs[i:i + batch_slots])):
+            rng, k = jax.random.split(rng)
+            keys[-1].append(k)
+
+    def noise(rid, t):
+        k = keys[rid // batch_slots][t]
+        shape = (batch_slots, jlm.cfg.padded_vocab)
+        return np.asarray(jax.random.gumbel(k, shape))[rid % batch_slots]
+    return noise
+
+
+def _sampled_margin_rule(jlm, jp, prompts, ours, theirs, temperature,
+                         noise):
+    """``_margin_rule`` for sampled streams: the first difference must sit
+    where logits / T plus that step's noise ``noise(rid, t)`` have a top-2
+    margin <= TOL / T + 1e-5 (the noise's own ulps)."""
+    fwd = jax.jit(lambda p, t: jlm.forward(p, {"tokens": t})[0])
+    compared = 0
+    for rid, (prompt, a, b) in enumerate(zip(prompts, ours, theirs)):
+        assert len(a) == len(b)
+        diff = np.flatnonzero(a != b)
+        upto = diff[0] if len(diff) else len(a)
+        compared += upto
+        if len(diff):
+            ctx = np.concatenate([prompt, b[:upto]])[None]
+            logits = np.asarray(fwd(jp, ctx))[0, -1].astype(np.float64)
+            pert = np.sort(logits / temperature + noise(rid, upto))
+            assert pert[-1] - pert[-2] <= TOL / temperature + 1e-5, \
+                (upto, a, b)
+    return compared
+
+
 def test_continuous_matches_drain_batch():
     """``tests/test_serving.py::test_continuous_matches_drain_batch`` in the
     port: mixed prompts and budgets give the continuous engine's greedy
     tokens on the drain batcher (bucketing and right-padding are exact),
     the drain batcher syncs once per token of each batch's longest budget,
-    and its greedy streams equal ``repro``'s ``DrainBatchEngine``'s under
-    the margin rule. Sampled streams (keyed by request id and step in
-    both of the port's engines) are equal too."""
+    and its streams equal ``repro``'s ``DrainBatchEngine``'s under the
+    margin rule, greedy and sampled: both split one threefry key per token
+    and draw the whole batch from it (so a sampled drain stream is not the
+    continuous engine's, which keys by request and step)."""
     jlm, jp, lm, tp = _models()
     reqs = _mixed(7, seed=1)
     for temp in (0.0, 1.5):
@@ -333,21 +377,30 @@ def test_continuous_matches_drain_batch():
         for rid in dc:
             assert dc[rid].output.shape == (reqs[rid][1],)
             assert dd[rid].status == "done"
-            np.testing.assert_array_equal(dc[rid].output, dd[rid].output)
+            if temp == 0.0:
+                np.testing.assert_array_equal(dc[rid].output,
+                                              dd[rid].output)
         assert cont.decode_steps < sum(mn for _, mn in reqs)
         assert 0.0 < cont.occupancy() <= 1.0
         assert drain.host_syncs == sum(
             max(mn for _, mn in reqs[i:i + 3]) for i in range(0, 7, 3))
         assert drain.generated_tokens == sum(mn for _, mn in reqs)
-    theirs = JaxDrainEngine(jlm, jp, batch_slots=3, max_seq_len=32)
-    ours = DrainBatchEngine(lm, tp, batch_slots=3, max_seq_len=32)
-    for prompt, max_new in reqs:
-        theirs.submit(prompt, max_new_tokens=max_new)
-        ours.submit(prompt, max_new_tokens=max_new)
-    dj, dt = theirs.run(), ours.run()
-    assert _margin_rule(jlm, jp, [p for p, _ in reqs],
-                        [dt[i].output for i in range(7)],
-                        [dj[i].output for i in range(7)]) >= 30
+        theirs = JaxDrainEngine(jlm, jp, batch_slots=3, max_seq_len=32)
+        for prompt, max_new in reqs:
+            theirs.submit(prompt, max_new_tokens=max_new, temperature=temp)
+        dj = theirs.run()
+        prompts = [p for p, _ in reqs]
+        ours = [dd[i].output for i in range(7)]
+        ref = [dj[i].output for i in range(7)]
+        if temp == 0.0:
+            compared = _margin_rule(jlm, jp, prompts, ours, ref)
+        else:
+            compared = _sampled_margin_rule(
+                jlm, jp, prompts, ours, ref, temp,
+                _drain_noise(jlm, 0, reqs, 3))
+            assert any((dd[i].output != dc[i].output).any()
+                       for i in range(7))
+        assert compared >= 30
 
 
 @pytest.mark.parametrize("engine", ["continuous", "drain"])

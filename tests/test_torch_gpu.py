@@ -72,6 +72,12 @@ DECODE_CASES = [
     (1, 1024, 32, 2, 128, None, 600, 600, 128),
     (2, 4096, 36, 4, 128, 4096, 4096, 5000, 1),
     (1, 1024, 36, 4, 128, None, 600, 600, 128),
+    # the speculative verify chunk (k = 4: T = 5 tokens a slot, B = 8):
+    # smollm-135m's G = 3 at hd 64 (15 rows a KV head), qwen3-4b's G = 4
+    # and glm4-9b's G = 16 at hd 128 (20 and 80 rows)
+    (8, 1024, 9, 3, 64, None, 600, 600, 5),
+    (8, 1024, 32, 8, 128, None, 600, 600, 5),
+    (8, 1024, 32, 2, 128, None, 600, 600, 5),
 ]
 
 # (h, kv, hd, bs, window, fills, t): the block sizes and cases of
@@ -108,6 +114,11 @@ PAGED_CASES = [
     (32, 2, 128, 16, None, (600, 200), 128),
     (36, 4, 128, 16, 4096, (700, 33), 1),
     (36, 4, 128, 16, 4096, (600, 200), 128),
+    # the speculative verify chunk over 8 slots (a freed one, and one whose
+    # chunk starts at 0): T = 5 at G = 3 (hd 64), 4 and 16 (hd 128)
+    (9, 3, 64, 16, None, (600, 33, 0, 5, 1000, 17, 200, 480), 5),
+    (32, 8, 128, 16, None, (600, 33, 0, 5, 1000, 17, 200, 480), 5),
+    (32, 2, 128, 16, None, (600, 33, 0, 5, 1000, 17, 200, 480), 5),
 ]
 
 # (t, v, misaligned): the serving gate (t = 1) and the one-shot batch at
@@ -540,37 +551,170 @@ def test_engine_on_gpu_goes_through_the_kernels(cuda):
         np.testing.assert_array_equal(a, b)
 
 
-def test_drain_engine_on_gpu_matches_the_continuous_engine(cuda):
-    """The drain-batch baseline on the card: its greedy and sampled streams
-    equal the continuous engine's, it prefills each batch through the
-    flash kernel and decodes through the ring kernel, one host sync a
-    token."""
-    from repro_torch.kernels import reset_launches
+def _tiny(cuda, layers=3):
     from repro_torch.models.model import LM
-    from repro_torch.serving import DrainBatchEngine, ServingEngine
 
     cfg = tcfg.ModelConfig(
-        name="tiny", family="dense", source="t", num_layers=3, d_model=64,
-        num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=96,
-        stages=tcfg.dense_stages(3), param_dtype="float32")
-    lm = LM(cfg, device=cuda)
+        name="tiny", family="dense", source="t", num_layers=layers,
+        d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+        vocab_size=96, stages=tcfg.dense_stages(layers),
+        param_dtype="float32")
+    return LM(cfg, device=cuda)
+
+
+def test_drain_engine_on_gpu_matches_the_continuous_engine(cuda):
+    """The drain-batch baseline on the card: its greedy streams equal the
+    continuous engine's; its sampled streams (one threefry key split a
+    token, the batch drawn from it) equal the same drain engine's on the
+    CPU up to a near-tie of the perturbed logits; it prefills each batch
+    through the flash kernel and decodes through the ring kernel, one host
+    sync a token."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.serving import DrainBatchEngine, ServingEngine
+    from repro_torch.serving.sampler import gumbel, prng_key, split
+
+    lm = _tiny(cuda)
     params = lm.init(0)
     reqs = [(np.random.default_rng(i).integers(0, 96, n).astype(np.int32), m)
             for i, (n, m) in enumerate(((5, 6), (12, 3), (20, 8), (9, 4),
                                         (3, 7)))]
+    cpu_lm, cpu_params = _tiny("cpu"), _to(params, "cpu")
     outs = []
-    for cls in (ServingEngine, DrainBatchEngine):
-        eng = cls(lm, params, batch_slots=2, max_seq_len=64)
+    for cls, model, weights in ((ServingEngine, lm, params),
+                                (DrainBatchEngine, lm, params),
+                                (DrainBatchEngine, cpu_lm, cpu_params)):
+        eng = cls(model, weights, batch_slots=2, max_seq_len=64)
         ids = [eng.submit(p, max_new_tokens=m, temperature=0.7 * (i % 2))
                for i, (p, m) in enumerate(reqs)]
         reset_launches()
         done = eng.run()
+        if cls is DrainBatchEngine and model is lm:
+            launches, syncs = dict(LAUNCHES), eng.host_syncs
         outs.append([done[i].output for i in ids])
     steps = sum(max(m for _, m in reqs[i:i + 2]) for i in range(0, 5, 2))
-    assert eng.host_syncs == steps
-    assert LAUNCHES == {"flash_attention": 3 * 3, "decode_attention": 3 * steps,
+    assert syncs == steps
+    assert launches == {"flash_attention": 3 * 3,
+                        "decode_attention": 3 * steps,
                         "paged_decode_attention": 0, "cascade_gate": 0,
                         "rglru_scan": 0}
+    cont, card, host = outs
+    keys, rng = [], prng_key(0)
+    for i in range(0, 5, 2):                  # the drain's key schedule
+        keys.append([])
+        for _ in range(max(m for _, m in reqs[i:i + 2])):
+            rng, k = split(rng)
+            keys[-1].append(k)
+    for i, (a, b, c) in enumerate(zip(cont, card, host)):
+        if i % 2 == 0:
+            np.testing.assert_array_equal(a, b)
+        diff = np.flatnonzero(b != c)
+        if len(diff):
+            t = int(diff[0])
+            ctx = torch.from_numpy(np.concatenate(
+                [reqs[i][0], c[:t]]).astype(np.int32))[None]
+            x = cpu_lm.forward(cpu_params, {"tokens": ctx},
+                               last_only=True)[0][0, 0]
+            if i % 2:
+                x = x / 0.7 + gumbel(keys[i // 2][t], (2, x.shape[0]))[i % 2]
+            top = torch.topk(x, 2).values
+            assert (top[0] - top[1]).item() < 1e-4 / 0.7, (i, t)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_sampler_on_the_card_equals_the_cpu(cuda):
+    """The keyed sampler (threefry2x32 in int64 words) gives the same key
+    schedule, bits and uniforms on the card as on the CPU, bit for bit, at
+    smollm-135m's and qwen3-4b's padded vocabularies; the Gumbel noise
+    within 2 ulp at unit scale (the devices' ``log`` may differ by one)."""
+    from repro_torch.serving.sampler import (gumbel, prng_key, random_bits,
+                                             request_keys, split, uniform)
+
+    rids = torch.arange(8, dtype=torch.int64) * 977 + 3
+    steps = torch.arange(8, dtype=torch.int64) * 31
+    for seed in (0, 2 ** 31 + 5):
+        keys = {d: request_keys(prng_key(seed, device=d), rids.to(d),
+                                steps.to(d)) for d in ("cpu", cuda)}
+        assert torch.equal(keys[cuda].cpu(), keys["cpu"])
+        assert torch.equal(split(keys[cuda], 3).cpu(), split(keys["cpu"], 3))
+        for v in (49152, 152064):
+            assert torch.equal(random_bits(keys[cuda], (v,)).cpu(),
+                               random_bits(keys["cpu"], (v,)))
+            assert torch.equal(uniform(keys[cuda], (v,)).cpu().view(
+                torch.int32), uniform(keys["cpu"], (v,)).view(torch.int32))
+            g, ref = gumbel(keys[cuda], (v,)).cpu(), gumbel(keys["cpu"], (v,))
+            ulp = torch.clamp(ref.abs(), min=1.0) * 2.0 ** -23
+            assert bool(((g - ref).abs() <= 2 * ulp).all())
+
+
+@pytest.mark.parametrize("backend", ["ring", "paged"])
+def test_speculative_engine_on_gpu_matches_its_baseline(cuda, backend):
+    """A tiny target (3 layers) and a 1-layer draft on the card, k = 4
+    forced on, greedy and sampled: the streams equal the plain K = 1
+    engine's, and the launches are the target's layers per plain step,
+    verify chunk and prompt chunk, and the draft's per draft step (its
+    ring) and per fill (flash)."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.serving import ServingEngine
+
+    lm, draft = _tiny(cuda), _tiny(cuda, layers=1)
+    params, dparams = lm.init(0), draft.init(7)
+    prompts = [np.random.default_rng(i).integers(0, 96, n).astype(np.int32)
+               for i, n in enumerate((5, 12, 20, 9, 17, 3))]
+    kw = dict(batch_slots=4, max_seq_len=64)
+    if backend == "paged":
+        kw.update(cache_backend="paged", block_size=8, chunk_tokens=8)
+    outs = []
+    for spec in ({}, dict(draft_model=draft, draft_params=dparams,
+                          speculative_tokens=4)):
+        eng = ServingEngine(lm, params, **kw, **spec)
+        eng.scheduler.spec_min_commit = 0.0
+        n = dict(steps=0, rounds=0, draft_steps=0, fills=0, chunks=0)
+        step, chunk = eng._step_impl, eng._run_chunk
+
+        def counted_step(*a, step=step, n=n):
+            n["steps"] += 1
+            return step(*a)
+
+        def counted_chunk(*a, chunk=chunk, n=n):
+            n["chunks"] += 1
+            return chunk(*a)
+
+        eng._step_impl, eng._run_chunk = counted_step, counted_chunk
+        if spec:
+            spec_impl, fill = eng._spec_impl, eng._draft_fill_impl
+
+            def counted_spec(k, *a):
+                n["rounds"] += 1
+                n["draft_steps"] += k + 1
+                return spec_impl(k, *a)
+
+            def counted_fill(*a):
+                n["fills"] += 1
+                return fill(*a)
+
+            eng._spec_impl, eng._draft_fill_impl = counted_spec, counted_fill
+        ids = [eng.submit(p, max_new_tokens=12, temperature=0.7 * (i % 2))
+               for i, p in enumerate(prompts)]
+        reset_launches()
+        done = eng.run()
+        target = 3 * (n["steps"] + n["rounds"] + n["chunks"])
+        paged = backend == "paged"
+        assert LAUNCHES == {
+            "flash_attention": n["fills"] + (0 if paged
+                                             else 3 * eng.admissions),
+            "decode_attention": n["draft_steps"] + (0 if paged else target),
+            "paged_decode_attention": target if paged else 0,
+            "cascade_gate": 0, "rglru_scan": 0}
+        if spec:
+            assert n["rounds"] > 0 and n["fills"] >= len(prompts)
+        outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
 
