@@ -3,7 +3,14 @@
 
 Run from the repository root: ``python3 chip_smoke.py [--out FILE.json]``.
 It needs a CUDA GPU and ``nvcc``, and fails (nonzero exit, no result line)
-without them. Phases, each fatal on failure:
+without them, or without ``src/repro_torch`` beside it. Every engine
+(phases 4, 5, 7, 9, 10, 11's continuous engine and 13) calls
+``warm_compile`` before its measured traffic, which captures its decode
+programs (the single step, the K-step scan at every horizon, the
+speculative round at every depth, greedy and sampled) as CUDA graphs; each
+such phase then checks that no graph was captured during the traffic and
+counts the programs' runs (replays) by horizon and depth, from which the
+kernel launches follow. Phases, each fatal on failure:
 
 1. print the card, build every kernel from ``src/repro_torch/kernels`` and
    print each kernel function's registers and spills as ptxas reports
@@ -26,7 +33,12 @@ without them. Phases, each fatal on failure:
    steps per host sync) serves 18 requests; every request finishes, the
    streams equal a 1-step engine's, greedy tokens agree with a
    teacher-forced forward, and the launch counters show every prefill
-   and decode attention went through the kernels;
+   and decode attention went through the kernels. An A/B in the same
+   call: an eager engine (graphs off) serves the trace first, then the
+   graphed one; for each leg tokens/s, decode ms per step against the
+   weights' read time, TTFT p50, ``warm_compile`` seconds, graphs and
+   pool bytes, and the graphed streams equal the eager ones or part
+   first at a near-tie;
 5. a paged ``ServingEngine`` (block size 16, chunked prefill of 128-token
    chunks, prefix sharing, K = 4) serves two waves: 12 requests, 6 of them
    sharing a 256-token prefix, then 2 higher-class requests once all 8
@@ -63,13 +75,15 @@ without them. Phases, each fatal on failure:
    2-3000 tokens, none a bucket size, one sampled: every request
    finishes, the streams equal a 1-step engine's, greedy tokens agree with
    a teacher-forced forward, and every RG-LRU prefill scan, prefill
-   attention and decode attention went through the kernels;
+   attention and decode attention went through the kernels; with phase
+   4's eager/graphed A/B;
 10. the dense hd-128 zoo at full width and depth in bf16, one model at a
    time (weights made on the card, freed before the next, peak memory
    printed): qwen3-4b, glm4-9b and starcoder2-7b each pass phase 3's
    prefill-then-decode check; qwen3-4b then serves phase 4's trace on the
    ring engine and phase 5's two waves on the paged engine with phase 4's
-   and 5's checks, glm4-9b serves 8 requests on the ring engine and
+   and 5's checks (the ring with phase 4's eager/graphed A/B), glm4-9b
+   serves 8 requests on the ring engine and
    starcoder2-7b 8 requests of 16-4600 tokens at max_seq_len 8192 (its
    4096-wide rings wrap), each with K = 4 == K = 1 streams, launch counts
    and greedy tokens against a teacher-forced forward; decode time per
@@ -125,9 +139,9 @@ all-hole tables, the scan at several chunk lengths, and the gate at 1 to
 8 splits of V a row (the launch rules' picks are marked).
 
 With ``--profile`` it then (phase 12) serves the phase-9, 4, 5 and 7
-traces and qwen3-4b's phase-10 ring trace once more under
-``torch.profiler`` and prints the device's busy time by kernel against the
-unprofiled run's wall time (the idle share).
+traces and qwen3-4b's phase-10 ring trace once more on graphed engines
+under ``torch.profiler`` and prints the device's busy time by kernel
+against the unprofiled run's wall time (the idle share).
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. TF32 is off for every f32 product.
@@ -1015,7 +1029,9 @@ def check_sampler(torch, timer, dev):
     equal the same draw on the CPU bit for bit, and so do the sampled
     tokens of random logits (the two devices' ``log`` may differ by an ulp,
     far below these rows' top-2 margins); then its time per call (device
-    time by the timer, and host time) at (8, 49152) and (8, 152064)."""
+    time by the timer, and host time) at (8, 49152) and (8, 152064), and
+    the device time of one replay of the draw captured as a CUDA graph (as
+    the engine's decode programs run it; same tokens)."""
     from repro_torch.serving.sampler import (prng_key, random_bits,
                                              request_keys,
                                              sample_logits_keyed, uniform)
@@ -1049,11 +1065,21 @@ def check_sampler(torch, timer, dev):
             sample_logits_keyed(keys[dev], lg, tp)
         host_ms = (time.perf_counter() - t0) * 100
         torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            graphed = sample_logits_keyed(keys[dev], lg, tp)
+        graph.replay()
+        if not torch.equal(graphed.cpu(), want):
+            raise AssertionError(f"graphed sampler at (8, {v}): tokens != "
+                                 f"CPU")
+        graph_ms = timer(lambda i: graph.replay())
+        del graph, graphed
         print(f"  sampler (8, {v}): threefry bits and uniforms equal the "
               f"CPU's bit for bit, sampled tokens equal; "
               f"sample_logits_keyed {ms:.4f} ms of device time, "
-              f"{host_ms:.3f} ms of host time per call")
-        out[v] = dict(ms=ms, host_ms=host_ms)
+              f"{host_ms:.3f} ms of host time per call; as a CUDA graph "
+              f"{graph_ms:.4f} ms of device time a replay")
+        out[v] = dict(ms=ms, host_ms=host_ms, graph_ms=graph_ms)
     return out
 
 
@@ -1348,41 +1374,120 @@ def _smollm(dev, seed):
     return lm, lm.init(seed)
 
 
-def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024):
+def _legs(eng):
+    """The serving engines of an engine, or both legs of a cascade."""
+    if hasattr(eng, "cloud_engine"):
+        return eng.edge_engine, eng.cloud_engine
+    return (eng,)
+
+
+def _warm(eng):
+    """``warm_compile`` an engine (a cascade: both legs) and check that on
+    the card every decode program became a CUDA graph; returns the
+    programs, which traffic must leave as they are (``_no_capture``)."""
+    eng.warm_compile()
+    for leg in _legs(eng):
+        if leg._use_graphs and leg.graphs() != len(leg._programs):
+            raise AssertionError("warm_compile left an eager program")
+    return [dict(leg._programs) for leg in _legs(eng)]
+
+
+def _no_capture(eng, warmed, label):
+    """No decode program was built (no graph captured) during traffic."""
+    if [dict(leg._programs) for leg in _legs(eng)] != warmed:
+        raise AssertionError(f"{label}: a decode program was captured "
+                             f"during traffic")
+
+
+def _leg(eng, out, wall, bound):
+    """One A/B leg's record: tokens/s, decode ms per step against the
+    weights' read time, TTFT p50, and the engine's graphs."""
+    gen = sum(len(r.output) for r in out)
+    step = eng.decode_s / eng.decode_steps * 1e3
+    return dict(tokens_per_s=gen / wall, wall_s=wall,
+                decode_ms_per_step=step, bound_ms=bound,
+                bound_ratio=step / bound,
+                ttft_ms_p50=statistics.median(r.ttft_s * 1e3 for r in out),
+                warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
+                pool_bytes=eng.graph_pool_bytes())
+
+
+def _ab(torch, label, smi, lm, params, seed, reqs, legs, outs, tol):
+    """Print an eager/graphed A/B (both legs served the same trace in this
+    call) and hold the graphed streams to the eager ones: equal, or parted
+    first at a near-tie of a teacher-forced forward."""
+    equal, parted = _parted_at_near_tie(torch, lm, params, seed, reqs,
+                                        outs["graphed"], outs["eager"], tol)
+    legs["graphed"]["streams_vs_eager"] = dict(equal=equal, parted=parted)
+    for name, x in legs.items():
+        print(f"  {label} A/B, {name} [{smi}]: {x['tokens_per_s']:.1f} "
+              f"tokens/s; decode {x['decode_ms_per_step']:.2f} ms per step "
+              f"= {x['bound_ratio']:.1f}x the {x['bound_ms']:.2f} ms "
+              f"weight-read bound; TTFT p50 {x['ttft_ms_p50']:.1f} ms; "
+              f"warm_compile {x['warm_compile_s']:.2f} s, {x['graphs']} "
+              f"graphs, pool {x['pool_bytes'] / 1e6:.1f} MB")
+    speedup = legs["graphed"]["tokens_per_s"] / legs["eager"]["tokens_per_s"]
+    legs["graphed"]["tokens_per_s_vs_eager"] = speedup
+    print(f"  {label} A/B: graphed / eager tokens/s {speedup:.2f}x; graphed "
+          f"streams: {equal} equal the eager ones, {parted} part first at a "
+          f"near-tie (margin <= {tol})")
+    if equal == 0:
+        raise AssertionError(f"{label}: no graphed stream equals the eager "
+                             f"one")
+    return legs
+
+
+def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024,
+                 ab=False):
     """The ring ``ServingEngine`` (8 slots, K = 4) on ``reqs``, 32 new
     tokens each, after a warm-up on two of them (allocator and library
-    handles, outside the measured run): every request finishes, every
-    prefill and decode attention is a kernel launch, the streams equal a
-    K = 1 engine's, and greedy tokens agree with a teacher-forced
-    forward."""
+    handles, outside the measured run) and ``warm_compile`` (every decode
+    program captured as a CUDA graph): every request finishes, no graph is
+    captured during traffic, every prefill and decode attention is a
+    kernel launch (a replay adds its capture's launches), the streams
+    equal a graphed K = 1 engine's, and greedy tokens agree with a
+    teacher-forced forward. With ``ab`` an eager engine (graphs off)
+    serves the trace first, and both legs are printed side by side."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import ServingEngine
 
     max_new = 32
     kw = dict(batch_slots=8, max_seq_len=max_seq_len, seed=seed)
+    bound = _weight_bytes(params) / HBM_BYTES_PER_S * 1e3
     _serve(ServingEngine(lm, params, max_decode_steps=4, **kw), reqs[:2], 4)
+    legs, outs = {}, {}
+    if ab:
+        eager = ServingEngine(lm, params, max_decode_steps=4, **kw)
+        eager._use_graphs = False
+        eager.warm_compile()
+        outs["eager"], wall = _serve(eager, reqs, max_new)
+        legs["eager"] = _leg(eager, outs["eager"], wall, bound)
     eng = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    warmed = _warm(eng)
+    n = _count_programs(eng)
     torch.cuda.synchronize()
     reset_launches()
     out, wall = _serve(eng, reqs, max_new)
     launches = dict(LAUNCHES)
+    _no_capture(eng, warmed, f"{lm.cfg.name} ring")
     n_layers = lm.cfg.num_layers
     want = {"flash_attention": n_layers * eng.admissions,
-            "decode_attention": n_layers * eng.decode_steps,
+            "decode_attention": n_layers * n["steps"],
             "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0}
     print(f"  launches on the main path: {launches} (expected {want}: "
           f"{n_layers} per admission x {eng.admissions}, {n_layers} per "
-          f"decode step x {eng.decode_steps})")
-    if launches != want:
+          f"decode step x {n['steps']}; programs run {n['runs']})")
+    if launches != want or n["steps"] != eng.decode_steps:
         raise AssertionError("launch counts do not match the main path")
 
     one = ServingEngine(lm, params, max_decode_steps=1, **kw)
+    _warm(one)
     ref, _ = _serve(one, reqs, max_new)
     for a, b in zip(out, ref):
         if not np.array_equal(a.output, b.output):
             raise AssertionError(f"K=4 stream != K=1 stream (request "
                                  f"{a.request_id})")
-    print(f"  K=4 streams equal K=1 streams token for token "
+    print(f"  K=4 streams equal K=1 streams token for token, both graphed "
           f"({sum(len(r.output) for r in out)} tokens; host syncs "
           f"{eng.host_syncs} vs {one.host_syncs})")
     checked, agree = _greedy_vs_forward(torch, lm, params, out, reqs,
@@ -1397,14 +1502,24 @@ def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024):
                  tokens_per_s=gen / wall, ttft_ms_p50=statistics.median(ttft),
                  ttft_ms_max=ttft[-1], decode_ms_per_step=step_ms,
                  decode_ms_per_token=eng.decode_s * 1e3 / gen,
+                 decode_bound_ms=bound,
                  decode_steps=eng.decode_steps, admissions=eng.admissions,
                  host_syncs=eng.host_syncs, launches=launches,
+                 warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
+                 pool_bytes=eng.graph_pool_bytes(),
                  prompt_lengths=[len(p) for p, _ in reqs])
     print(f"  {lm.cfg.name} ring engine [{smi}]: {gen} tokens in {wall:.3f} "
           f"s = {gen / wall:.1f} tokens/s; TTFT p50 "
           f"{stats['ttft_ms_p50']:.1f} ms, max {ttft[-1]:.1f} ms; decode "
           f"{step_ms:.2f} ms per step of 8 slots, "
-          f"{stats['decode_ms_per_token']:.2f} ms per token")
+          f"{stats['decode_ms_per_token']:.2f} ms per token; warm_compile "
+          f"{eng.warm_compile_s:.2f} s, {eng.graphs()} graphs, pool "
+          f"{stats['pool_bytes'] / 1e6:.1f} MB")
+    if ab:
+        legs["graphed"] = _leg(eng, out, wall, bound)
+        outs["graphed"] = out
+        stats["ab"] = _ab(torch, f"{lm.cfg.name} ring", smi, lm, params,
+                          seed, reqs, legs, outs, BF16_LOGIT_TOL)
     return stats, launches
 
 
@@ -1479,28 +1594,23 @@ def check_paged_engine(torch, dev, seed, smi, lm, params):
               cache_backend="paged", block_size=16, chunk_tokens=128,
               prefix_sharing=True)
     eng = ServingEngine(lm, params, max_decode_steps=4, **kw)
-    chunks = [0]
-    run_chunk = eng._run_chunk
-
-    def counted(c, *args):
-        chunks[0] += 1
-        return run_chunk(c, *args)
-
-    eng._run_chunk = counted
+    warmed = _warm(eng)
+    n = _count_programs(eng)
     torch.cuda.synchronize()
     reset_launches()
     out, wall = _serve_waves(eng, trace, max_new, contended=True)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
+    _no_capture(eng, warmed, f"{lm.cfg.name} paged")
     n_layers = lm.cfg.num_layers
-    want = {"paged_decode_attention":
-            n_layers * (eng.decode_steps + chunks[0]),
+    chunks = n["chunks"]
+    want = {"paged_decode_attention": n_layers * (n["steps"] + chunks),
             "flash_attention": 0, "decode_attention": 0, "cascade_gate": 0,
             "rglru_scan": 0}
     print(f"  launches on the paged path: {launches} (expected {want}: "
-          f"{n_layers} per decode step x {eng.decode_steps} + per chunk x "
-          f"{chunks[0]})")
-    if launches != want:
+          f"{n_layers} per decode step x {n['steps']} + per chunk x "
+          f"{chunks}; programs run {n['runs']})")
+    if launches != want or n["steps"] != eng.decode_steps:
         raise AssertionError("launch counts do not match the paged path")
     be = eng.backend
     seen = dict(preemptions=eng.preemptions, swap_ins=be.swap_ins,
@@ -1515,8 +1625,10 @@ def check_paged_engine(torch, dev, seed, smi, lm, params):
         raise AssertionError("the trace missed a paged path")
 
     one = ServingEngine(lm, params, max_decode_steps=1, **kw)
+    _warm(one)
     ref1, _ = _serve_waves(one, trace, max_new, contended=True)
     calm = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    _warm(calm)
     ref2, _ = _serve_waves(calm, trace, max_new, contended=False)
     if calm.preemptions:
         raise AssertionError("the uncontended engine preempted")
@@ -1542,12 +1654,15 @@ def check_paged_engine(torch, dev, seed, smi, lm, params):
     stats = dict(requests=len(out), generated_tokens=gen, wall_s=wall,
                  tokens_per_s=gen / wall, ttft_ms_p50=statistics.median(ttft),
                  ttft_ms_max=ttft[-1], decode_ms_per_step=step_ms,
-                 decode_steps=eng.decode_steps, chunks=chunks[0],
-                 host_syncs=eng.host_syncs, launches=launches, **seen)
+                 decode_steps=eng.decode_steps, chunks=chunks,
+                 host_syncs=eng.host_syncs, launches=launches,
+                 warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
+                 pool_bytes=eng.graph_pool_bytes(), **seen)
     print(f"  {lm.cfg.name} paged engine [{smi}]: {gen} tokens in {wall:.3f} s = "
           f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} "
           f"ms, max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
-          f"slots; {chunks[0]} chunks")
+          f"slots; {chunks} chunks; warm_compile {eng.warm_compile_s:.2f} s, "
+          f"{eng.graphs()} graphs, pool {stats['pool_bytes'] / 1e6:.1f} MB")
     return stats, launches
 
 
@@ -1689,6 +1804,7 @@ def check_cascade_serving(torch, dev, seed, smi, models):
         return out
 
     eng._gate = timed
+    warmed = _warm(eng)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -1697,6 +1813,7 @@ def check_cascade_serving(torch, dev, seed, smi, models):
     done = eng.run()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    _no_capture(eng, warmed, "cascade")
     out = [done[i] for i in ids]
     if sorted(done) != sorted(ids) or any(r.status != "done" for r in out):
         raise AssertionError("not every cascade request finished")
@@ -1727,8 +1844,9 @@ def check_cascade_serving(torch, dev, seed, smi, models):
     for route, lm, params, s in (("accept", edge, ep, seed),
                                  ("escalate", cloud, cp, seed + 1)):
         mine = [(r, q) for r, q in zip(out, reqs) if r.route == route]
-        ref, _ = _serve(ServingEngine(lm, params, seed=s, **kw),
-                        [q for _, q in mine], max_new)
+        alone = ServingEngine(lm, params, seed=s, **kw)
+        _warm(alone)
+        ref, _ = _serve(alone, [q for _, q in mine], max_new)
         for (r, _), x in zip(mine, ref):
             if not np.array_equal(r.output, x.output):
                 raise AssertionError(f"cascade {route} stream != standalone "
@@ -1750,12 +1868,17 @@ def check_cascade_serving(torch, dev, seed, smi, models):
                  routes=routes, wan_bytes=m.wan_bytes, hi=hi, lo=lo,
                  trace=reqs,
                  edge_decode_steps=ee.decode_steps,
-                 cloud_decode_steps=ce.decode_steps, launches=launches)
+                 cloud_decode_steps=ce.decode_steps, launches=launches,
+                 warm_compile_s=ee.warm_compile_s + ce.warm_compile_s,
+                 graphs=ee.graphs() + ce.graphs(),
+                 pool_bytes=ee.graph_pool_bytes() + ce.graph_pool_bytes())
     print(f"  cascade engine [{smi}]: {gen} tokens in {wall:.3f} s = "
           f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms,"
           f" max {ttft[-1]:.1f} ms; gate {stats['gate_ms_per_request']:.2f} "
           f"ms per request (edge prefill + kernel); routes {routes}; "
-          f"wan_bytes {m.wan_bytes}")
+          f"wan_bytes {m.wan_bytes}; warm_compile "
+          f"{stats['warm_compile_s']:.2f} s, {stats['graphs']} graphs, "
+          f"pools {stats['pool_bytes'] / 1e6:.1f} MB")
     return launches["cascade_gate"], stats
 
 
@@ -1922,40 +2045,54 @@ def _hybrid_trace(seed, vocab):
 def check_hybrid_engine(torch, dev, seed, smi, lm, params):
     """recurrentgemma-9b served by the ring ``ServingEngine`` (8 slots,
     max_seq_len 4096: each attention layer's ring is 2048 wide and wraps;
-    K = 4): streams, launches, and greedy tokens against a teacher-forced
-    forward."""
+    K = 4; its decode programs captured as CUDA graphs by
+    ``warm_compile``): streams against a graphed K = 1 engine's, launches,
+    no capture during traffic, and greedy tokens against a teacher-forced
+    forward; an eager engine (graphs off) serves the trace first, the A/B's
+    other leg."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import ServingEngine
 
     reqs = _hybrid_trace(seed, lm.cfg.vocab_size)
     max_new = 32
     kw = dict(batch_slots=8, max_seq_len=4096, seed=seed)
+    bound = _weight_bytes(params) / HBM_BYTES_PER_S * 1e3
     _serve(ServingEngine(lm, params, max_decode_steps=4, **kw),
            [(r[0][:20], 0.0) for r in reqs[:2]], 4)          # warm-up
+    eager = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    eager._use_graphs = False
+    eager.warm_compile()
+    outs = {}
+    outs["eager"], wall = _serve(eager, reqs, max_new)
+    legs = {"eager": _leg(eager, outs["eager"], wall, bound)}
     eng = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    warmed = _warm(eng)
+    n = _count_programs(eng)
     torch.cuda.synchronize()
     reset_launches()
     out, wall = _serve(eng, reqs, max_new)
     launches = dict(LAUNCHES)
+    _no_capture(eng, warmed, "hybrid")
     n_rec, n_attn = _mixer_counts(lm.cfg)
     want = {"rglru_scan": n_rec * eng.admissions,
             "flash_attention": n_attn * eng.admissions,
-            "decode_attention": n_attn * eng.decode_steps,
+            "decode_attention": n_attn * n["steps"],
             "paged_decode_attention": 0, "cascade_gate": 0}
     print(f"  launches on the hybrid path: {launches} (expected {want}: "
           f"{n_rec} scans and {n_attn} flash per admission x "
           f"{eng.admissions}, {n_attn} per decode step x "
-          f"{eng.decode_steps})")
-    if launches != want:
+          f"{n['steps']}; programs run {n['runs']})")
+    if launches != want or n["steps"] != eng.decode_steps:
         raise AssertionError("launch counts do not match the hybrid path")
 
     one = ServingEngine(lm, params, max_decode_steps=1, **kw)
+    _warm(one)
     ref, _ = _serve(one, reqs, max_new)
     for a, b in zip(out, ref):
         if not np.array_equal(a.output, b.output):
             raise AssertionError(f"hybrid K=4 stream != K=1 stream (request "
                                  f"{a.request_id})")
-    print(f"  K=4 streams equal K=1 streams token for token "
+    print(f"  K=4 streams equal K=1 streams token for token, both graphed "
           f"({sum(len(r.output) for r in out)} tokens; prompt lengths "
           f"{[len(p) for p, _ in reqs]})")
 
@@ -1973,12 +2110,18 @@ def check_hybrid_engine(torch, dev, seed, smi, lm, params):
                  decode_ms_per_token=eng.decode_s * 1e3 / gen,
                  decode_steps=eng.decode_steps, admissions=eng.admissions,
                  host_syncs=eng.host_syncs, launches=launches,
-                 greedy_checked=checked,
+                 greedy_checked=checked, decode_bound_ms=bound,
+                 warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
+                 pool_bytes=eng.graph_pool_bytes(),
                  prompt_lengths=[len(p) for p, _ in reqs])
     print(f"  hybrid engine [{smi}]: {gen} tokens in {wall:.3f} s = "
           f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms"
           f", max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
           f"slots, {stats['decode_ms_per_token']:.2f} ms per token")
+    legs["graphed"] = _leg(eng, out, wall, bound)
+    outs["graphed"] = out
+    stats["ab"] = _ab(torch, "hybrid", smi, lm, params, seed, reqs, legs,
+                      outs, HYBRID_LOGIT_TOL)
     return stats, launches, reqs
 
 
@@ -2025,6 +2168,7 @@ def profile_engine(torch, seed, lm, params, reqs, wall_s,
 
     eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=max_seq_len,
                         seed=seed, max_decode_steps=4)
+    eng.warm_compile()
     return _device_profile(torch, lambda: _serve(eng, reqs, 32)[1], wall_s)
 
 
@@ -2038,6 +2182,7 @@ def profile_paged_engine(torch, seed, lm, params, wall_s):
                         seed=seed, cache_backend="paged", block_size=16,
                         chunk_tokens=128, prefix_sharing=True,
                         max_decode_steps=4)
+    eng.warm_compile()
     return _device_profile(
         torch, lambda: _serve_waves(eng, trace, 32, contended=True)[1],
         wall_s)
@@ -2056,6 +2201,7 @@ def profile_cascade(torch, dev, seed, stats):
                     thresholds=make_thresholds(stats["hi"], stats["lo"]))
     eng = CascadeServingEngine(cas, ep, cp, seed=seed, batch_slots=8,
                                max_seq_len=1024, max_decode_steps=4)
+    eng.warm_compile()
 
     def serve():
         t0 = time.perf_counter()
@@ -2125,7 +2271,8 @@ def check_zoo(torch, dev, seed, smi):
         rng = np.random.default_rng(seed + 22)
         if name == "qwen3-4b":
             rec["ring"], _ = check_engine(torch, dev, seed, smi, lm, params,
-                                          _trace(seed, cfg.vocab_size))
+                                          _trace(seed, cfg.vocab_size),
+                                          ab=True)
             rec["paged"], _ = check_paged_engine(torch, dev, seed, smi, lm,
                                                  params)
         elif name == "glm4-9b":
@@ -2177,6 +2324,8 @@ def check_baseline(torch, dev, seed, smi, lm, params):
         kw = dict(batch_slots=8, max_seq_len=1024, seed=seed)
         eng = (DrainBatchEngine(lm, params, **kw) if kind == "drain" else
                ServingEngine(lm, params, max_decode_steps=4, **kw))
+        if kind == "continuous":
+            _warm(eng)          # graphed decode; the drain batcher is eager
         torch.cuda.synchronize()
         reset_launches()
         out, wall = _serve(eng, reqs, 32)
@@ -2242,34 +2391,37 @@ SPEC_K = 4
 
 
 def _count_programs(eng):
-    """Wrap ``eng``'s device programs with counters: plain decode steps,
-    speculative rounds and their draft steps (k + 1 a round), draft fills
-    and prompt chunks, from which each kernel's launches follow."""
-    n = dict(steps=0, rounds=0, draft_steps=0, fills=0, chunks=0)
-    step, chunk = eng._step_impl, eng._run_chunk
+    """Wrap ``eng``'s decode-program runner, prompt chunks and draft fills
+    with counters: plain decode steps (a K-step program, graph replay or
+    eager call, adds K), speculative rounds and their draft steps (k + 1 a
+    round), runs by program (horizon or depth, greedy or sampled), draft
+    fills and prompt chunks, from which each kernel's launches follow."""
+    n = dict(steps=0, rounds=0, draft_steps=0, fills=0, chunks=0, runs={})
+    run, chunk = eng._run_program, eng._run_chunk
 
-    def counted_step(*a):
-        n["steps"] += 1
-        return step(*a)
+    def counted_run(kind, k, sampled):
+        if kind == "decode":
+            n["steps"] += k
+        else:
+            n["rounds"] += 1
+            n["draft_steps"] += k + 1
+        name = f"{kind} {k}{' sampled' if sampled else ''}"
+        n["runs"][name] = n["runs"].get(name, 0) + 1
+        return run(kind, k, sampled)
 
     def counted_chunk(*a):
         n["chunks"] += 1
         return chunk(*a)
 
-    eng._step_impl, eng._run_chunk = counted_step, counted_chunk
+    eng._run_program, eng._run_chunk = counted_run, counted_chunk
     if eng.speculative:
-        spec, fill = eng._spec_impl, eng._draft_fill_impl
-
-        def counted_spec(k, *a):
-            n["rounds"] += 1
-            n["draft_steps"] += k + 1
-            return spec(k, *a)
+        fill = eng._draft_fill_impl
 
         def counted_fill(*a):
             n["fills"] += 1
             return fill(*a)
 
-        eng._spec_impl, eng._draft_fill_impl = counted_spec, counted_fill
+        eng._draft_fill_impl = counted_fill
     return n
 
 
@@ -2330,15 +2482,18 @@ def _parted_at_near_tie(torch, lm, params, seed, reqs, out, base, tol):
 
 
 def _spec_serve(torch, eng, serve):
-    """Serve with the device programs counted and the launch counters
-    reset: (requests, wall s, program counts, launches)."""
+    """``warm_compile``, then serve with the device programs counted and
+    the launch counters reset, no graph captured during traffic:
+    (requests, wall s, program counts, launches)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
 
+    warmed = _warm(eng)
     n = _count_programs(eng)
     torch.cuda.synchronize()
     reset_launches()
     out, wall = serve(eng)
     torch.cuda.synchronize()
+    _no_capture(eng, warmed, eng.lm.cfg.name)
     return out, wall, n, dict(LAUNCHES)
 
 
@@ -2467,7 +2622,6 @@ def _spec_self_leg(torch, dev, seed, smi, lm, params):
     dispatch commits k + 1 tokens a slot (k clamped to the budget). A
     rejection may only sit at a near-tie of the teacher-forced logits (the
     draft's T = 1 logits and the verify chunk's round apart in bf16)."""
-    import repro_torch.serving.engine as engine_mod
     from repro_torch.serving import ServingEngine
 
     reqs = _trace(seed, lm.cfg.vocab_size)
@@ -2484,20 +2638,21 @@ def _spec_self_leg(torch, dev, seed, smi, lm, params):
     eng = ServingEngine(lm, params, draft_model=lm, draft_params=params,
                         speculative_tokens=SPEC_K, **kw)
     rounds = []
-    accept = engine_mod.accepted_prefix_length
+    run = eng._run_program
 
-    def spy(proposed, target):              # what locates a rejection
-        j = accept(proposed, target)
+    def spy(kind, k, sampled):              # what locates a rejection
+        if kind != "spec":
+            return run(kind, k, sampled)
         st = eng._state
-        rounds.append((st["rid"].clone(), st["steps"].clone(),
-                       st["active"].clone(), j.clone(), proposed.shape[1]))
-        return j
+        rid, steps, active = (st["rid"].clone(), st["steps"].clone(),
+                              st["active"].clone())
+        run(kind, k, sampled)
+        # a round commits the anchor and the accepted prefix j (no EOS, and
+        # the scheduler keeps k below every slot's headroom)
+        rounds.append((rid, steps, active, st["steps"] - steps - 1, k))
 
-    engine_mod.accepted_prefix_length = spy
-    try:
-        out, wall, n, launches = _spec_serve(torch, eng, serve)
-    finally:
-        engine_mod.accepted_prefix_length = accept
+    eng._run_program = spy
+    out, wall, n, launches = _spec_serve(torch, eng, serve)
     rec["self"] = _spec_report("smollm-135m ring, self-draft", smi, eng, out,
                                wall, n, launches, _spec_launches(eng, n))
     rec["self"]["streams"] = _spec_check_streams(
@@ -2555,12 +2710,14 @@ def _spec_cascade_leg(torch, dev, seed, smi, models):
                                    speculative_tokens=k)
         ce = eng.cloud_engine
         ce.scheduler.spec_min_commit = 0.0
+        warmed = _warm(eng)
         n = _count_programs(ce)
         torch.cuda.synchronize()
         reset_launches()
         out, wall = _serve(eng, reqs, 32)
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
+        _no_capture(eng, warmed, f"cascade, {label}")
         if any(r.route != "escalate" for r in out):
             raise AssertionError("a cascade request was not escalated")
         want = _spec_launches(ce, n)
@@ -2635,7 +2792,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
-    from repro_torch.kernels import build
+    try:
+        from repro_torch.kernels import build
+    except ModuleNotFoundError:
+        print("chip_smoke: src/repro_torch is not beside this script; run "
+              "it from the root of a checkout", file=sys.stderr)
+        return 1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2682,7 +2844,8 @@ def main() -> int:
     smollm = _smollm(dev, args.seed)
     reqs = _trace(args.seed, smollm[0].cfg.vocab_size)
     phase("[4] engine: ring, 8 slots, max_seq_len 1024, K=4")
-    stats, launches = check_engine(torch, dev, args.seed, smi, *smollm, reqs)
+    stats, launches = check_engine(torch, dev, args.seed, smi, *smollm, reqs,
+                                   ab=True)
     phase("[5] engine: paged, block 16, chunks of 128, prefix sharing, K=4")
     paged_stats, paged_launches = check_paged_engine(torch, dev, args.seed,
                                                      smi, *smollm)
@@ -2710,6 +2873,7 @@ def main() -> int:
         torch, dev, args.seed, smi, hlm, hparams)
     launches["rglru_scan"] = hybrid_launches["rglru_scan"]
     del hlm, hparams
+    gc.collect()            # engines with counted methods form cycles
     torch.cuda.empty_cache()
     phase("[10] dense zoo at hd 128: qwen3-4b (ring and paged engines), "
           "glm4-9b and starcoder2-7b (ring), full width and depth, bf16")

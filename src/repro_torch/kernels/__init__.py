@@ -4,7 +4,9 @@ Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and runs
 the plain version for CPU tensors; nothing falls back from one to the
 other. ``LAUNCHES`` counts kernel launches per wrapper (a launch adds one,
 the plain path adds nothing), so a run can show it went through the
-kernels.
+kernels. A serving engine's CUDA graph replays its captured launches
+without calling the wrappers; the engine adds what the capture counted
+on every replay (``serving.engine._Program``).
 """
 from __future__ import annotations
 

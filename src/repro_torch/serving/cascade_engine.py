@@ -14,9 +14,9 @@ probe succeeds. With ``speculative_tokens=k`` the cloud engine speculates
 with the edge model as its draft.
 
 Not ported yet (later slices of the port): the per-step token tap
-(``on_tokens``; gateway), ``warm_compile``, ``note_hang``, ``snapshot``,
-``restore``, ``requeue_lost`` and ``known_request_ids`` (durability), and
-the ``mesh`` and ``rules`` arguments, which raise ``NotImplementedError``.
+(``on_tokens``; gateway), ``note_hang``, ``snapshot``, ``restore``,
+``requeue_lost`` and ``known_request_ids`` (durability), and the ``mesh``
+and ``rules`` arguments, which raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -427,6 +427,13 @@ class CascadeServingEngine:
         while self.pending:
             self.step()
         return self.take_done()
+
+    def warm_compile(self) -> None:
+        """Build both legs' decode programs (``ServingEngine.warm_compile``),
+        as ``repro``'s does. The gate (edge prefill and ``cascade_gate``)
+        stays eager; its kernel libraries load with the legs'."""
+        self.edge_engine.warm_compile()
+        self.cloud_engine.warm_compile()
 
     def engine_metrics(self) -> Dict[str, object]:
         """Monitoring snapshot across the cascade: routing and WAN

@@ -40,6 +40,14 @@ key-coupled, so the streams are the non-speculative engine's at every
 temperature. Fault injection, snapshots, the journal and meshes are later
 slices: their constructor arguments raise ``NotImplementedError`` when set.
 
+Where ``repro`` jits the single step, the K-step scan and the speculative
+round as XLA programs, the port keeps a registry of decode programs, one
+per (kind, horizon, greedy or sampled). On the card each is captured once
+as a CUDA graph (``warm_compile`` captures them all before traffic) and a
+round replays it; the engine's state, caches and tables keep their
+storage for the engine's life, so the graphs' fixed addresses stay
+valid. On the CPU each program is the eager call. Prefill stays eager.
+
 ``DrainBatchEngine`` is the static batcher that continuous batching is
 measured against.
 """
@@ -47,12 +55,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import LAUNCHES, build
 from repro_torch.models.model import LM
 from repro_torch.serving.kv_cache import RingCache, RingLayout, make_backend
 from repro_torch.serving.sampler import (accepted_prefix_length, prng_key,
@@ -109,6 +119,51 @@ def _next_pow2(n: int) -> int:
 def _any_sampled(slots) -> bool:
     """Whether any decoding slot samples at a temperature above 0."""
     return any(r.temperature > 0.0 for r in slots.values())
+
+
+class _Program:
+    """One decode program of the engine, captured as a CUDA graph.
+
+    Capture records the launches; it executes nothing. A replay runs the
+    kernels without calling their wrappers, so the ``LAUNCHES`` that the
+    capture recorded are taken back out at capture and added on every
+    replay: the counters still say what ran on the card. The graph shares
+    its engine's memory pool, and no tensor of that pool outlives a
+    replay (every program writes its results into the engine's state).
+
+    Destroying a CUDA graph while another one captures invalidates the
+    capture, and the collector may free an unreachable engine's graphs at
+    any allocation: so garbage is collected before the capture and the
+    collector is off during it."""
+
+    def __init__(self, key, pool, body):
+        before = dict(LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                body()
+        except RuntimeError as err:
+            raise RuntimeError(f"capturing the decode program {key} as a "
+                               f"CUDA graph failed: {err}") from err
+        finally:
+            if collecting:
+                gc.enable()
+            self.launches = {name: LAUNCHES[name] - n
+                             for name, n in before.items()
+                             if LAUNCHES[name] != n}
+            LAUNCHES.update(before)
+
+    def replay(self, key) -> None:
+        try:
+            self.graph.replay()
+        except RuntimeError as err:
+            raise RuntimeError(f"replaying the decode program {key} "
+                               f"failed: {err}") from err
+        for name, n in self.launches.items():
+            LAUNCHES[name] += n
 
 
 def _has_windowed_blocks(lm: LM) -> bool:
@@ -202,6 +257,7 @@ class ServingEngine:
         self.useful_prefill_tokens = 0
         self.preemptions = 0
         self.lookahead_dispatches = 0   # decode rounds with table top-ups
+        self.warm_compile_s: Optional[float] = None  # last warm_compile()
         self._pending_swaps: List[object] = []
         self._status_counts = collections.Counter()
         if chunk_tokens is not None:
@@ -269,6 +325,14 @@ class ServingEngine:
             # rounds generated: re-synced by a draft prefill before the
             # next speculative round reads them
             self._draft_dirty: set = set()
+        # decode programs by (kind, horizon, sampled): "decode" runs K
+        # fused steps (K = 1 the single step), "spec" one speculative round
+        # at draft depth k. On the card each is a CUDA graph (a _Program)
+        # in one memory pool per engine; on the CPU, or with _use_graphs
+        # off (eager A/B legs), the eager call (None)
+        self._programs: Dict[tuple, Optional[_Program]] = {}
+        self._use_graphs = self.device.type == "cuda"
+        self._graph_pool = None
 
     def _validate_chunk_mixers(self, chunk_tokens: int) -> None:
         if not (1 <= chunk_tokens <= self.max_seq_len):
@@ -509,10 +573,11 @@ class ServingEngine:
         finished = steps >= st["budget"]
         if self.eos_id is not None:
             finished |= nxt == self.eos_id
-        st["last"] = logits[:, 0, :].float()
-        st["pos"] = st["pos"] + active.to(torch.int32)
-        st["steps"] = steps
-        st["active"] = active & ~finished
+        # in place: a captured program reads and writes fixed addresses
+        st["last"].copy_(logits[:, 0, :])
+        st["pos"].add_(active.to(torch.int32))
+        st["steps"].copy_(steps)
+        st["active"].copy_(active & ~finished)
 
     def _draft_fill_impl(self, tokens, length: int, slot: int) -> None:
         """Install one bucketed token stream into the draft ring: the
@@ -604,10 +669,91 @@ class ServingEngine:
         dcommit = torch.where(active, commit, torch.zeros_like(commit))
         new_steps = steps + dcommit
         finished = (new_steps >= st["budget"]) | eos_hit
-        st["last"] = torch.where(active[:, None], last, st["last"])
-        st["pos"] = pos + dcommit
-        st["steps"] = new_steps
-        st["active"] = active & ~finished
+        st["last"].copy_(torch.where(active[:, None], last, st["last"]))
+        st["pos"].add_(dcommit)
+        st["steps"].copy_(new_steps)
+        st["active"].copy_(active & ~finished)
+
+    def _program_body(self, kind: str, k: int, sampled: bool) -> None:
+        """The eager body of decode program (kind, k, sampled): K fused
+        steps, or one speculative round at depth k."""
+        if kind == "decode":
+            for _ in range(k):
+                self._step_impl(sampled)
+        else:
+            self._spec_impl(k, sampled)
+
+    def _build_program(self, key) -> Optional[_Program]:
+        """Register decode program ``key``: on the card, captured into the
+        engine's graph pool (a failed capture raises and registers
+        nothing); else the eager call."""
+        prog = None
+        if self._use_graphs:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            prog = _Program(key, self._graph_pool,
+                            lambda: self._program_body(*key))
+        self._programs[key] = prog
+        return prog
+
+    def _run_program(self, kind: str, k: int, sampled: bool) -> None:
+        """Run a decode program: replay its graph, capturing it first if
+        ``warm_compile`` did not (capture executes nothing, so the state is
+        untouched until the replay), or call it eagerly."""
+        key = (kind, k, sampled)
+        prog = (self._programs[key] if key in self._programs
+                else self._build_program(key))
+        if prog is None:
+            self._program_body(kind, k, sampled)
+        else:
+            prog.replay(key)
+
+    def warm_compile(self) -> None:
+        """Build every decode program before traffic, as ``repro``'s
+        ``warm_compile`` compiles its executables: the single step and the
+        K-step scan at every horizon of ``scheduler.k_schedule`` and, with
+        a draft, the speculative round at every depth of
+        ``scheduler.spec_schedule``, each greedy and sampled. Each runs
+        once eagerly with every slot inactive, a no-op (appends are
+        masked, outputs and positions stay; ``last`` takes junk logits that
+        every admission re-arms), so libraries, handles and allocator
+        blocks exist before its capture. On the card every kernel library
+        is loaded (built if missing) too, so no request pays ``nvcc``. Call
+        while no slot is live, before serving traffic. The wall time lands
+        in ``warm_compile_s`` (and ``metrics()``)."""
+        if self._slots or self._prefilling:
+            raise RuntimeError("warm_compile needs an idle engine: its "
+                               "warm-up runs would advance live slots")
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            build.build_all()
+            for name in build.sources():
+                build.load(name)
+        keys = [("decode", k, s) for k in self.scheduler.k_schedule
+                for s in (False, True)]
+        if self.speculative:
+            keys += [("spec", k, s) for k in self.scheduler.spec_schedule
+                     for s in (False, True)]
+        keys = [key for key in keys if key not in self._programs]
+        for key in keys:
+            self._program_body(*key)
+        for key in keys:
+            self._build_program(key)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.warm_compile_s = time.perf_counter() - t0
+
+    def graphs(self) -> int:
+        """Decode programs captured as CUDA graphs."""
+        return sum(p is not None for p in self._programs.values())
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the engine's graph memory pool holds."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)
 
     # -- host-side management -------------------------------------------------
     def _try_admit(self, slots, free, prefilling):
@@ -933,6 +1079,8 @@ class ServingEngine:
             "occupancy": self.occupancy(),
             "deadline_hits": self.scheduler.deadline_hit_rates(),
             "speculative": self.speculative_metrics(),
+            "warm_compile_s": self.warm_compile_s,
+            "graphs": self.graphs(),
         }
 
     def speculative_metrics(self) -> Dict[str, object]:
@@ -964,9 +1112,7 @@ class ServingEngine:
         # repro's hang and decode-fault seams sit here; faults are a later
         # slice of the port
         self._reserve_lookahead(slots, k)
-        sampled = _any_sampled(slots)
-        for _ in range(k):
-            self._step_impl(sampled)
+        self._run_program("decode", k, _any_sampled(slots))
         self.decode_steps += k
         self.host_syncs += 1
         self.planned_token_slots += len(slots) * k
@@ -989,7 +1135,7 @@ class ServingEngine:
         self._resync_draft(slots)
         self._reserve_lookahead(slots, k + 1)
         before = dict(self._scanned)
-        self._spec_impl(k, _any_sampled(slots))
+        self._run_program("spec", k, _any_sampled(slots))
         steps_h = self._state["steps"].cpu().numpy()     # the one host sync
         self.host_syncs += 1
         self.planned_token_slots += len(slots) * (k + 1)

@@ -110,8 +110,10 @@ def uniform(key, shape: Sequence[int], minval: float = 0.0,
     f64, where the product of two f32 values is exact and so is the sum
     for bounds of comparable size, and rounds once to f32."""
     u = _bits_to_unit(random_bits(key, shape))
-    lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
+    # filled on the device: a host-to-device copy cannot be captured in a
+    # CUDA graph, and the engine's decode graphs sample
+    lo = torch.full((), minval, dtype=torch.float32, device=u.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=u.device)
     x = (u.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, x)
 

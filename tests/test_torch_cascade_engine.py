@@ -322,7 +322,7 @@ def test_cascade_submit_validates_and_later_slices_raise():
     for kw in (dict(mesh=object()), dict(rules=object())):
         with pytest.raises(NotImplementedError):
             CascadeServingEngine(cas, tep, tcp, **KW, **kw)
-    for name in ("snapshot", "restore", "warm_compile", "note_hang",
+    for name in ("snapshot", "restore", "note_hang",
                  "requeue_lost", "known_request_ids", "on_tokens"):
         assert not hasattr(eng, name), name
 

@@ -19,6 +19,9 @@ and counts equal on rows away from the thresholds, and equal bits on a
 repeated call (the cluster merges in rank order). The RG-LRU scan (f32
 only): 1e-5 * max(1, |h|) per element (the chunked scan composes the same
 steps in another order: one chunk's map composed onto another's state).
+The engines replay their decode programs as CUDA graphs; the launch
+counts follow from the programs run (``_count_programs``), and graphed
+streams are held to eager ones (graphs off) up to a near-tie.
 """
 import numpy as np
 import pytest
@@ -551,14 +554,14 @@ def test_engine_on_gpu_goes_through_the_kernels(cuda):
         np.testing.assert_array_equal(a, b)
 
 
-def _tiny(cuda, layers=3):
+def _tiny(cuda, layers=3, dtype="float32"):
     from repro_torch.models.model import LM
 
     cfg = tcfg.ModelConfig(
         name="tiny", family="dense", source="t", num_layers=layers,
         d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
         vocab_size=96, stages=tcfg.dense_stages(layers),
-        param_dtype="float32")
+        param_dtype=dtype)
     return LM(cfg, device=cuda)
 
 
@@ -675,31 +678,7 @@ def test_speculative_engine_on_gpu_matches_its_baseline(cuda, backend):
                           speculative_tokens=4)):
         eng = ServingEngine(lm, params, **kw, **spec)
         eng.scheduler.spec_min_commit = 0.0
-        n = dict(steps=0, rounds=0, draft_steps=0, fills=0, chunks=0)
-        step, chunk = eng._step_impl, eng._run_chunk
-
-        def counted_step(*a, step=step, n=n):
-            n["steps"] += 1
-            return step(*a)
-
-        def counted_chunk(*a, chunk=chunk, n=n):
-            n["chunks"] += 1
-            return chunk(*a)
-
-        eng._step_impl, eng._run_chunk = counted_step, counted_chunk
-        if spec:
-            spec_impl, fill = eng._spec_impl, eng._draft_fill_impl
-
-            def counted_spec(k, *a):
-                n["rounds"] += 1
-                n["draft_steps"] += k + 1
-                return spec_impl(k, *a)
-
-            def counted_fill(*a):
-                n["fills"] += 1
-                return fill(*a)
-
-            eng._spec_impl, eng._draft_fill_impl = counted_spec, counted_fill
+        n = _count_programs(eng)
         ids = [eng.submit(p, max_new_tokens=12, temperature=0.7 * (i % 2))
                for i, p in enumerate(prompts)]
         reset_launches()
@@ -717,6 +696,163 @@ def test_speculative_engine_on_gpu_matches_its_baseline(cuda, backend):
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+def _count_programs(eng):
+    """Wrap ``eng``'s decode-program runner, prompt chunks and draft fills
+    with counters: plain decode steps (a K-step program adds K, whether it
+    replays a graph or runs eagerly), speculative rounds and their draft
+    steps (k + 1 a round), prompt chunks and draft fills."""
+    n = dict(steps=0, rounds=0, draft_steps=0, fills=0, chunks=0)
+    run, chunk, fill = (eng._run_program, eng._run_chunk,
+                        getattr(eng, "_draft_fill_impl", None))
+
+    def counted_run(kind, k, sampled):
+        if kind == "decode":
+            n["steps"] += k
+        else:
+            n["rounds"] += 1
+            n["draft_steps"] += k + 1
+        return run(kind, k, sampled)
+
+    def counted_chunk(*a):
+        n["chunks"] += 1
+        return chunk(*a)
+
+    def counted_fill(*a):
+        n["fills"] += 1
+        return fill(*a)
+
+    eng._run_program, eng._run_chunk = counted_run, counted_chunk
+    if eng.speculative:
+        eng._draft_fill_impl = counted_fill
+    return n
+
+
+GRAPH_MODES = {"K=1": dict(max_decode_steps=1),
+               "K=2": dict(max_decode_steps=2),
+               "K=4": dict(max_decode_steps=4),
+               "spec k=2": dict(speculative_tokens=2)}
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+@pytest.mark.parametrize("backend", ["ring", "paged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_engine_matches_the_eager_engine(cuda, dtype, backend, mode):
+    """``warm_compile`` captures every decode program as a CUDA graph; a
+    graphed engine then serves greedy and sampled traffic with no further
+    capture, its launches equal the counted programs' (a replay adds its
+    capture's launches), and its streams equal an eager engine's (graphs
+    off) or part first at a near-tie of the teacher-forced logits: top-2
+    margin within 1e-4 (f32) or 2e-2 (bf16), at T > 0 of logits / T plus
+    the step's keyed Gumbel noise."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.sampler import gumbel, prng_key, request_keys
+
+    lm, draft = _tiny(cuda, dtype=dtype), _tiny(cuda, 1, dtype)
+    params, dparams = lm.init(0), draft.init(7)
+    prompts = [np.random.default_rng(i).integers(0, 96, n).astype(np.int32)
+               for i, n in enumerate((5, 12, 20, 9, 17, 3))]
+    kw = dict(batch_slots=4, max_seq_len=64, **GRAPH_MODES[mode])
+    if mode.startswith("spec"):
+        kw.update(draft_model=draft, draft_params=dparams)
+    if backend == "paged":
+        kw.update(cache_backend="paged", block_size=8, chunk_tokens=8)
+    temps = [0.7 * (i % 2) for i in range(len(prompts))]
+    outs = {}
+    for graphed in (False, True):
+        eng = ServingEngine(lm, params, **kw)
+        eng._use_graphs = graphed
+        eng.scheduler.spec_min_commit = 0.0
+        eng.warm_compile()
+        warmed = dict(eng._programs)
+        assert eng.graphs() == (len(warmed) if graphed else 0)
+        assert (eng.graph_pool_bytes() > 0) == graphed
+        n = _count_programs(eng)
+        ids = [eng.submit(p, max_new_tokens=12, temperature=t)
+               for p, t in zip(prompts, temps)]
+        reset_launches()
+        done = eng.run()
+        torch.cuda.synchronize()
+        assert eng._programs == warmed, "a program was captured in traffic"
+        target = 3 * (n["steps"] + n["rounds"] + n["chunks"])
+        paged = backend == "paged"
+        assert LAUNCHES == {
+            "flash_attention": n["fills"] + (0 if paged
+                                             else 3 * eng.admissions),
+            "decode_attention": n["draft_steps"] + (0 if paged else target),
+            "paged_decode_attention": target if paged else 0,
+            "cascade_gate": 0, "rglru_scan": 0}
+        assert n["steps"] + n["rounds"] > 0
+        if mode.startswith("spec"):
+            assert n["rounds"] > 0
+        outs[graphed] = [done[i].output for i in ids]
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for rid, (p, t, a, b) in enumerate(zip(prompts, temps, outs[True],
+                                           outs[False])):
+        diff = np.flatnonzero(a != b)
+        if not len(diff):
+            continue
+        at = int(diff[0])
+        ctx = torch.from_numpy(np.concatenate([p, b[:at]]).astype(
+            np.int32))[None].to(cuda)
+        x = lm.forward(params, {"tokens": ctx},
+                       last_only=True)[0][0, 0].float()
+        if t > 0:
+            key = request_keys(prng_key(0, device=cuda),
+                               torch.tensor([rid], device=cuda),
+                               torch.tensor([at], device=cuda))
+            x = x / t + gumbel(key, x.shape)[0]
+        top = torch.topk(x, 2).values
+        assert (top[0] - top[1]).item() <= tol / (t or 1.0), (rid, at)
+
+
+def test_a_failed_capture_raises(cuda):
+    """A decode program that syncs the host cannot be captured: the engine
+    raises and registers nothing, and the next round raises again rather
+    than running the eager round. Run in a child process, so the failed
+    capture cannot touch the other tests' CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    import repro_torch
+
+    src = os.path.dirname(os.path.dirname(repro_torch.__file__))
+    script = """
+import numpy as np, pytest, torch
+from repro_torch import configs as tcfg
+from repro_torch.models.model import LM
+from repro_torch.serving import ServingEngine
+
+cfg = tcfg.ModelConfig(
+    name="tiny", family="dense", source="t", num_layers=2, d_model=64,
+    num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=96,
+    stages=tcfg.dense_stages(2), param_dtype="float32")
+lm = LM(cfg, device="cuda")
+eng = ServingEngine(lm, lm.init(0), batch_slots=2, max_seq_len=32)
+step = eng._step_impl
+
+def syncing(sampled=True):
+    step(sampled)
+    eng._state["steps"].sum().item()        # a host sync
+
+eng._step_impl = syncing
+with pytest.raises(RuntimeError, match="capturing the decode program"):
+    eng.warm_compile()
+assert eng._programs == {} and eng.warm_compile_s is None
+eng.submit(np.arange(5), max_new_tokens=3)
+with pytest.raises(RuntimeError, match="capturing the decode program"):
+    eng.run()
+assert eng.graphs() == 0
+print("raised")
+"""
+    env = dict(os.environ, PYTHONPATH=src)
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "raised" in proc.stdout, \
+        proc.stdout + proc.stderr
 
 
 def test_hybrid_engine_on_gpu_goes_through_the_kernels(cuda):
