@@ -4,13 +4,17 @@
 Run from the repository root: ``python3 chip_smoke.py [--out FILE.json]``.
 It needs a CUDA GPU and ``nvcc``, and fails (nonzero exit, no result line)
 without them, or without ``src/repro_torch`` beside it. Every engine
-(phases 4, 5, 7, 9, 10, 11's continuous engine and 13) calls
-``warm_compile`` before its measured traffic, which captures its decode
-programs (the single step, the K-step scan at every horizon, the
-speculative round at every depth, greedy and sampled) as CUDA graphs; each
-such phase then checks that no graph was captured during the traffic and
-counts the programs' runs (replays) by horizon and depth, from which the
-kernel launches follow. Phases, each fatal on failure:
+(phases 4, 5, 7, 9, 10, 11 and 13) calls ``warm_compile`` before its
+measured traffic, which captures every program the engine can run as a
+CUDA graph: the single step, the K-step scan at every horizon and the
+speculative round at every depth, greedy and sampled; the admission at
+every prompt bucket, or the prompt chunk at every (chunk bucket, context
+bound); the draft fill at every bucket; the cascade's gate at every edge
+bucket; ``DrainBatchEngine``'s prefill at every bucket, its sample and
+its decode step. Each such phase then checks that ``warm_compile`` registered every program and
+that no program was captured during the traffic, and counts the programs'
+runs (replays), from which the kernel launches follow. Phases, each fatal
+on failure:
 
 1. print the card, build every kernel from ``src/repro_torch/kernels`` and
    print each kernel function's registers and spills as ptxas reports
@@ -25,7 +29,10 @@ kernel launches follow. Phases, each fatal on failure:
    band, the decode's GB/s, its key splits and the bytes of its f32
    partials; the paged kernel likewise, at every head_dim class (24-256)
    at T = 1 and T > 1, with holes, one split and more keys than a split
-   stages;
+   stages; then flash, ``rglru_scan`` and ``cascade_gate`` inside CUDA
+   graphs: each captured into two graphs, each graph replayed twice on
+   new inputs with an eager launch between, every replay held against the
+   plain version;
 3. smollm-135m at full width (30 layers, random weights from a seed):
    prefill-then-decode logits equal a full forward, and the GPU forward
    equals the plain CPU forward in f32;
@@ -38,7 +45,9 @@ kernel launches follow. Phases, each fatal on failure:
    graphed one; for each leg tokens/s, decode ms per step against the
    weights' read time, TTFT p50, ``warm_compile`` seconds, graphs and
    pool bytes, and the graphed streams equal the eager ones or part
-   first at a near-tie;
+   first at a near-tie; then each admission bucket's eager call against
+   its graph's replay (device ms, also for qwen3-4b in phase 10 and the
+   hybrid in phase 9);
 5. a paged ``ServingEngine`` (block size 16, chunked prefill of 128-token
    chunks, prefix sharing, K = 4) serves two waves: 12 requests, 6 of them
    sharing a 256-token prefix, then 2 higher-class requests once all 8
@@ -77,9 +86,10 @@ kernel launches follow. Phases, each fatal on failure:
    a teacher-forced forward, and every RG-LRU prefill scan, prefill
    attention and decode attention went through the kernels; with phase
    4's eager/graphed A/B;
-10. the dense hd-128 zoo at full width and depth in bf16, one model at a
-   time (weights made on the card, freed before the next, peak memory
-   printed): qwen3-4b, glm4-9b and starcoder2-7b each pass phase 3's
+10. the dense hd-128 zoo at full width in bf16, qwen3-4b at full depth,
+   glm4-9b at 10 of its 40 layers and starcoder2-7b at 8 of its 32 (the
+   run's length), one model at a time (weights made on the card, freed
+   before the next, peak memory and seconds printed): each passes phase 3's
    prefill-then-decode check; qwen3-4b then serves phase 4's trace on the
    ring engine and phase 5's two waves on the paged engine with phase 4's
    and 5's checks (the ring with phase 4's eager/graphed A/B), glm4-9b
@@ -90,17 +100,20 @@ kernel launches follow. Phases, each fatal on failure:
    step is printed beside the weights' read time;
 11. the baseline: phase 4's trace through ``DrainBatchEngine`` and the
    K = 4 ring ``ServingEngine`` in turns (drain, continuous, continuous,
-   drain): each engine's two runs give equal streams, greedy streams of
-   the two engines are equal or part first at a near-tie of a
-   teacher-forced forward (their prefills run other shapes), the drain
-   engine's launches are flash per batch and the ring kernel per token;
-   both engines' tokens/s, their ratio and host syncs per token;
+   drain), both graphed: each engine's two runs give equal streams,
+   greedy streams of the two engines are equal or part first at a
+   near-tie of a teacher-forced forward (their prefills run other
+   shapes), the drain engine's launches are flash per batch and the ring
+   kernel per token, and the drain's first batch gives the same streams
+   on an eager drain engine (graphs off); both engines' tokens/s, their
+   ratio and host syncs per token;
 13. speculative decoding (k = 4), four legs: qwen3-4b at full width and
    depth on the ring (phase 4's trace) with no draft at K = 1 (the
    baseline), with its 4-layer ``edge_variant`` draft forced on
    (``spec_min_commit`` 0), and under the default ``spec_min_commit`` (the
-   acceptance EWMA suppresses drafting and probes); qwen3-4b on the paged
-   backend (phase 5's waves) without and with the draft; smollm-135m
+   acceptance EWMA suppresses drafting and probes); qwen3-4b at 12 of its
+   36 layers (the run's length) on the paged backend (phase 5's waves)
+   without and with the draft; smollm-135m
    drafting for itself on the ring (every proposal accepted, or rejected
    only at a near-tie); and phase 7's cascade with every prompt escalated,
    without and with ``speculative_tokens=4`` (the edge drafts for the
@@ -147,6 +160,7 @@ The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. TF32 is off for every f32 product.
 """
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -700,6 +714,181 @@ def check_rglru(torch, timer, dev):
     # the line's numbers: the longest prefill bucket of the hybrid trace
     return dict(max_abs_err=max(errs), **times[4096]), \
         {f"S={s}": r for s, r in times.items()}
+
+
+def check_kernels_in_graphs(torch, dev):
+    """flash, ``rglru_scan`` and ``cascade_gate`` launched inside captured
+    CUDA graphs, as the engines' admission, prefill and gate programs
+    launch them: each kernel is captured into two graphs at serving-path
+    shapes (flash once with a query that is not 16-byte aligned, so its
+    copy runs inside the capture), and each graph is replayed twice with
+    new values copied into its fixed inputs, an eager launch of the other
+    graph's shape between replays. Every replay and every eager launch is
+    held against the plain version, and ``LAUNCHES`` grows by one a
+    replay. Returns each kernel's largest error."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.cascade_gate import (cascade_gate,
+                                                  cascade_gate_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+    from repro_torch.serving.engine import _Program, capture_stream
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16, f32 = torch.bfloat16, torch.float32
+    hi, lo = 0.5, 0.01
+
+    def randn(shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def flash_case(qs, ks, misaligned):
+        n = int(np.prod(qs))
+        qbuf = torch.zeros(n + 8, dtype=bf16, device=dev)
+        q = (qbuf[1:1 + n] if misaligned else qbuf[:n]).view(qs)
+        ins = [q, torch.zeros(ks, dtype=bf16, device=dev),
+               torch.zeros(ks, dtype=bf16, device=dev)]
+
+        def fresh():
+            for t in ins:
+                t.copy_(randn(t.shape, bf16))
+
+        def check(out):
+            ref = flash_attention_plain(*ins, causal=True).float()
+            diff = (out[0].float() - ref).flatten(2).norm(dim=2)
+            err = (diff / ref.flatten(2).norm(dim=2).clamp_min(1e-6)).max()
+            return err.item(), err.item() <= ATTN_ROW_REL_TOL
+
+        return ins, fresh, lambda: [flash_attention(*ins, causal=True)], \
+            check
+
+    def scan_case(b, t, w):
+        ins = [torch.zeros((b, t, w), device=dev) for _ in range(2)] + \
+            [torch.zeros((b, w), device=dev)]
+
+        def fresh():
+            ins[0].copy_(0.8 + 0.1999 * torch.rand(
+                ins[0].shape, generator=gen, device=dev))
+            for x in ins[1:]:
+                x.copy_(randn(x.shape))
+
+        def check(out):
+            err = max(((r - p).abs() / p.abs().clamp_min(1)).max().item()
+                      for r, p in zip(out, rglru_scan_plain(*ins)))
+            return err, err <= RGLRU_TOL
+
+        return ins, fresh, lambda: list(rglru_scan(*ins)), check
+
+    def gate_case(t, v, dtype):
+        ins = [torch.zeros((t, v), dtype=dtype, device=dev)]
+
+        def fresh():
+            # a peak of 0-15 over unit noise: confidences ~1e-5 to ~0.9
+            x = randn((t, v))
+            x[torch.arange(t, device=dev), torch.randint(
+                0, v, (t,), generator=gen, device=dev)] += \
+                15 * torch.rand((t,), generator=gen, device=dev)
+            ins[0].copy_(x.to(dtype))
+
+        def check(out):
+            conf, routes, counts = cascade_gate_plain(ins[0], hi, lo)
+            err = ((out[0] - conf).abs() / conf).max().item()
+            far = ((conf - hi).abs() > GATE_MARGIN * hi) & \
+                ((conf - lo).abs() > GATE_MARGIN * lo)
+            same = bool((out[1] == routes)[far].all()) and (
+                not bool(far.all()) or torch.equal(out[2], counts))
+            return err, same and err <= GATE_TOL["float32"]
+
+        return ins, fresh, lambda: list(cascade_gate(ins[0], hi=hi, lo=lo)),\
+            check
+
+    cases = {
+        # smollm-135m's and qwen3-4b's prefill layouts
+        "flash_attention": [flash_case((1, 512, 9, 64), (1, 512, 3, 64), True),
+                            flash_case((1, 256, 32, 128), (1, 256, 8, 128),
+                                       False)],
+        "rglru_scan": [scan_case(1, 512, 4096), scan_case(2, 77, 4000)],
+        "cascade_gate": [gate_case(1, 49152, bf16),
+                         gate_case(64, 49152, f32)],
+    }
+    pool = torch.cuda.graph_pool_handle()
+    out = {}
+    for name, specs in cases.items():
+        graphs = []
+        for i, (ins, fresh, run, check) in enumerate(specs):
+            fresh()
+            res = [x.clone() for x in run()]   # eager first: libraries
+
+            def body(run=run, res=res):
+                for r, x in zip(res, run()):
+                    r.copy_(x)
+
+            torch.cuda.synchronize()
+            graphs.append((_Program((name, i), pool, capture_stream(dev),
+                                    body), res))
+        errs = []
+        for rnd in range(2):
+            for i, ((prog, res), (_, fresh, _, check)) in enumerate(
+                    zip(graphs, specs)):
+                fresh()
+                before = K.LAUNCHES[name]
+                prog.replay((name, i))
+                torch.cuda.synchronize()
+                if K.LAUNCHES[name] != before + 1:
+                    raise AssertionError(f"{name}: a replay did not count "
+                                         f"one launch")
+                checks = [(f"graph {i} replay {rnd}", check(res))]
+                _, fresh_other, run_other, check_other = specs[1 - i]
+                fresh_other()
+                checks.append(("an eager launch between replays",
+                               check_other(run_other())))
+                for label, (err, ok) in checks:
+                    errs.append(err)
+                    if not ok:
+                        raise AssertionError(f"{name}: {label} disagrees "
+                                             f"with the plain version "
+                                             f"({err:.3e})")
+        out[name] = max(errs)
+        print(f"  {name} inside CUDA graphs: 2 graphs x 2 replays on new "
+              f"inputs, an eager launch between replays: max error vs plain "
+              f"{max(errs):.3e}; one launch counted a replay")
+        del graphs
+    return out
+
+
+def time_admissions(torch, label, smi, eng, n=2):
+    """Each admission bucket of a warmed, idle engine: the eager call of
+    its program against the replay of its CUDA graph, a prompt of the
+    bucket's length into slot 0 with ``max_new`` 0 (a no-op admission, as
+    the warm-up's). Device time by CUDA events, the median of ``n`` calls
+    (both ran in ``warm_compile`` and traffic already). Returns {bucket:
+    {eager_ms, replay_ms}}."""
+    rng = np.random.default_rng(3)
+    rows = {}
+    for key in [k for k in eng.program_keys() if k[0] == "admit"]:
+        b = key[1]
+        eng._args.put(slot=0, length=b, max_new=0, temp=0.0, rid=0,
+                      row=np.full(eng._args["row"].numel(), -1),
+                      tokens=rng.integers(0, eng.lm.cfg.vocab_size, b))
+        prog = eng._programs[key]
+        times = {}
+        for how, fn in (("eager_ms", lambda: eng._program_body(key)),
+                        ("replay_ms", lambda: prog.replay(key))):
+            ms = []
+            for _ in range(n):
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                torch.cuda.synchronize()
+                s.record()
+                fn()
+                e.record()
+                e.synchronize()
+                ms.append(s.elapsed_time(e))
+            times[how] = statistics.median(ms)
+        rows[b] = times
+    print(f"  {label} admission by bucket [{smi}], eager ms / replay ms: "
+          + ", ".join(f"{b}: {t['eager_ms']:.2f} / {t['replay_ms']:.2f}"
+                      for b, t in rows.items()))
+    return rows
 
 
 def _check_rows(torch, name, kernel, plain, inputs, rows, bf16_abs=None):
@@ -1374,39 +1563,48 @@ def _smollm(dev, seed):
     return lm, lm.init(seed)
 
 
-def _legs(eng):
-    """The serving engines of an engine, or both legs of a cascade."""
+def _registries(eng):
+    """Every program registry of an engine: its own, and a cascade's legs'
+    (the cascade's own holds its gate programs)."""
     if hasattr(eng, "cloud_engine"):
-        return eng.edge_engine, eng.cloud_engine
+        return eng, eng.edge_engine, eng.cloud_engine
     return (eng,)
 
 
 def _warm(eng):
-    """``warm_compile`` an engine (a cascade: both legs) and check that on
-    the card every decode program became a CUDA graph; returns the
-    programs, which traffic must leave as they are (``_no_capture``)."""
+    """``warm_compile`` an engine (a cascade: both legs and its gate) and
+    check that it registered every program the engine can run
+    (``program_keys``) and that on the card each became a CUDA graph;
+    returns the programs, which traffic must leave as they are
+    (``_no_capture``)."""
     eng.warm_compile()
-    for leg in _legs(eng):
-        if leg._use_graphs and leg.graphs() != len(leg._programs):
+    for reg in _registries(eng):
+        if set(reg._programs) != set(reg.program_keys()):
+            raise AssertionError("warm_compile missed a program")
+        if reg._use_graphs and reg.graphs() != len(reg._programs):
             raise AssertionError("warm_compile left an eager program")
-    return [dict(leg._programs) for leg in _legs(eng)]
+    return [dict(reg._programs) for reg in _registries(eng)]
 
 
 def _no_capture(eng, warmed, label):
-    """No decode program was built (no graph captured) during traffic."""
-    if [dict(leg._programs) for leg in _legs(eng)] != warmed:
-        raise AssertionError(f"{label}: a decode program was captured "
-                             f"during traffic")
+    """No program (decode, admission, chunk, draft fill, gate, drain
+    prefill or step) was built, no graph captured, during traffic."""
+    if [dict(reg._programs) for reg in _registries(eng)] != warmed:
+        raise AssertionError(f"{label}: a program was captured during "
+                             f"traffic")
 
 
 def _leg(eng, out, wall, bound):
     """One A/B leg's record: tokens/s, decode ms per step against the
-    weights' read time, TTFT p50, and the engine's graphs."""
+    weights' read time, the admissions' device ms, TTFT p50, and the
+    engine's graphs. Decode and prefill are device time, each on its own
+    spans (``decode_s``, ``prefill_s``)."""
     gen = sum(len(r.output) for r in out)
     step = eng.decode_s / eng.decode_steps * 1e3
     return dict(tokens_per_s=gen / wall, wall_s=wall,
                 decode_ms_per_step=step, bound_ms=bound,
-                bound_ratio=step / bound,
+                bound_ratio=step / bound, prefill_ms=eng.prefill_s * 1e3,
+                admissions=eng.admissions,
                 ttft_ms_p50=statistics.median(r.ttft_s * 1e3 for r in out),
                 warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
                 pool_bytes=eng.graph_pool_bytes())
@@ -1423,7 +1621,9 @@ def _ab(torch, label, smi, lm, params, seed, reqs, legs, outs, tol):
         print(f"  {label} A/B, {name} [{smi}]: {x['tokens_per_s']:.1f} "
               f"tokens/s; decode {x['decode_ms_per_step']:.2f} ms per step "
               f"= {x['bound_ratio']:.1f}x the {x['bound_ms']:.2f} ms "
-              f"weight-read bound; TTFT p50 {x['ttft_ms_p50']:.1f} ms; "
+              f"weight-read bound; prefill {x['prefill_ms']:.1f} ms over "
+              f"{x['admissions']} admissions; TTFT p50 "
+              f"{x['ttft_ms_p50']:.1f} ms; "
               f"warm_compile {x['warm_compile_s']:.2f} s, {x['graphs']} "
               f"graphs, pool {x['pool_bytes'] / 1e6:.1f} MB")
     speedup = legs["graphed"]["tokens_per_s"] / legs["eager"]["tokens_per_s"]
@@ -1440,21 +1640,25 @@ def _ab(torch, label, smi, lm, params, seed, reqs, legs, outs, tol):
 def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024,
                  ab=False):
     """The ring ``ServingEngine`` (8 slots, K = 4) on ``reqs``, 32 new
-    tokens each, after a warm-up on two of them (allocator and library
-    handles, outside the measured run) and ``warm_compile`` (every decode
+    tokens each, after an eager warm-up on two of them (allocator and
+    library handles, outside the measured run) and ``warm_compile`` (every
     program captured as a CUDA graph): every request finishes, no graph is
     captured during traffic, every prefill and decode attention is a
     kernel launch (a replay adds its capture's launches), the streams
     equal a graphed K = 1 engine's, and greedy tokens agree with a
     teacher-forced forward. With ``ab`` an eager engine (graphs off)
-    serves the trace first, and both legs are printed side by side."""
+    serves the trace first, both legs are printed side by side, and each
+    admission bucket's eager and replay times follow
+    (``time_admissions``)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import ServingEngine
 
     max_new = 32
     kw = dict(batch_slots=8, max_seq_len=max_seq_len, seed=seed)
     bound = _weight_bytes(params) / HBM_BYTES_PER_S * 1e3
-    _serve(ServingEngine(lm, params, max_decode_steps=4, **kw), reqs[:2], 4)
+    warm = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    warm._use_graphs = False            # a warm-up: nothing to capture
+    _serve(warm, reqs[:2], 4)
     legs, outs = {}, {}
     if ab:
         eager = ServingEngine(lm, params, max_decode_steps=4, **kw)
@@ -1471,13 +1675,14 @@ def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024,
     launches = dict(LAUNCHES)
     _no_capture(eng, warmed, f"{lm.cfg.name} ring")
     n_layers = lm.cfg.num_layers
-    want = {"flash_attention": n_layers * eng.admissions,
+    want = {"flash_attention": n_layers * n["admits"],
             "decode_attention": n_layers * n["steps"],
             "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0}
     print(f"  launches on the main path: {launches} (expected {want}: "
-          f"{n_layers} per admission x {eng.admissions}, {n_layers} per "
+          f"{n_layers} per admission x {n['admits']}, {n_layers} per "
           f"decode step x {n['steps']}; programs run {n['runs']})")
-    if launches != want or n["steps"] != eng.decode_steps:
+    if launches != want or n["steps"] != eng.decode_steps or \
+            n["admits"] != eng.admissions:
         raise AssertionError("launch counts do not match the main path")
 
     one = ServingEngine(lm, params, max_decode_steps=1, **kw)
@@ -1502,7 +1707,7 @@ def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024,
                  tokens_per_s=gen / wall, ttft_ms_p50=statistics.median(ttft),
                  ttft_ms_max=ttft[-1], decode_ms_per_step=step_ms,
                  decode_ms_per_token=eng.decode_s * 1e3 / gen,
-                 decode_bound_ms=bound,
+                 decode_bound_ms=bound, prefill_ms=eng.prefill_s * 1e3,
                  decode_steps=eng.decode_steps, admissions=eng.admissions,
                  host_syncs=eng.host_syncs, launches=launches,
                  warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
@@ -1512,7 +1717,9 @@ def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024,
           f"s = {gen / wall:.1f} tokens/s; TTFT p50 "
           f"{stats['ttft_ms_p50']:.1f} ms, max {ttft[-1]:.1f} ms; decode "
           f"{step_ms:.2f} ms per step of 8 slots, "
-          f"{stats['decode_ms_per_token']:.2f} ms per token; warm_compile "
+          f"{stats['decode_ms_per_token']:.2f} ms per token; prefill "
+          f"{stats['prefill_ms']:.1f} ms over {eng.admissions} admissions; "
+          f"warm_compile "
           f"{eng.warm_compile_s:.2f} s, {eng.graphs()} graphs, pool "
           f"{stats['pool_bytes'] / 1e6:.1f} MB")
     if ab:
@@ -1520,6 +1727,8 @@ def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024,
         outs["graphed"] = out
         stats["ab"] = _ab(torch, f"{lm.cfg.name} ring", smi, lm, params,
                           seed, reqs, legs, outs, BF16_LOGIT_TOL)
+        stats["admission_ms"] = time_admissions(
+            torch, f"{lm.cfg.name} ring", smi, eng)
     return stats, launches
 
 
@@ -1654,6 +1863,7 @@ def check_paged_engine(torch, dev, seed, smi, lm, params):
     stats = dict(requests=len(out), generated_tokens=gen, wall_s=wall,
                  tokens_per_s=gen / wall, ttft_ms_p50=statistics.median(ttft),
                  ttft_ms_max=ttft[-1], decode_ms_per_step=step_ms,
+                 prefill_ms=eng.prefill_s * 1e3,
                  decode_steps=eng.decode_steps, chunks=chunks,
                  host_syncs=eng.host_syncs, launches=launches,
                  warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
@@ -1661,7 +1871,8 @@ def check_paged_engine(torch, dev, seed, smi, lm, params):
     print(f"  {lm.cfg.name} paged engine [{smi}]: {gen} tokens in {wall:.3f} s = "
           f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} "
           f"ms, max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
-          f"slots; {chunks} chunks; warm_compile {eng.warm_compile_s:.2f} s, "
+          f"slots; {chunks} chunks, prefill {stats['prefill_ms']:.1f} ms; "
+          f"warm_compile {eng.warm_compile_s:.2f} s, "
           f"{eng.graphs()} graphs, pool {stats['pool_bytes'] / 1e6:.1f} MB")
     return stats, launches
 
@@ -2057,8 +2268,9 @@ def check_hybrid_engine(torch, dev, seed, smi, lm, params):
     max_new = 32
     kw = dict(batch_slots=8, max_seq_len=4096, seed=seed)
     bound = _weight_bytes(params) / HBM_BYTES_PER_S * 1e3
-    _serve(ServingEngine(lm, params, max_decode_steps=4, **kw),
-           [(r[0][:20], 0.0) for r in reqs[:2]], 4)          # warm-up
+    warm = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    warm._use_graphs = False            # a warm-up: nothing to capture
+    _serve(warm, [(r[0][:20], 0.0) for r in reqs[:2]], 4)
     eager = ServingEngine(lm, params, max_decode_steps=4, **kw)
     eager._use_graphs = False
     eager.warm_compile()
@@ -2074,15 +2286,16 @@ def check_hybrid_engine(torch, dev, seed, smi, lm, params):
     launches = dict(LAUNCHES)
     _no_capture(eng, warmed, "hybrid")
     n_rec, n_attn = _mixer_counts(lm.cfg)
-    want = {"rglru_scan": n_rec * eng.admissions,
-            "flash_attention": n_attn * eng.admissions,
+    want = {"rglru_scan": n_rec * n["admits"],
+            "flash_attention": n_attn * n["admits"],
             "decode_attention": n_attn * n["steps"],
             "paged_decode_attention": 0, "cascade_gate": 0}
     print(f"  launches on the hybrid path: {launches} (expected {want}: "
           f"{n_rec} scans and {n_attn} flash per admission x "
-          f"{eng.admissions}, {n_attn} per decode step x "
+          f"{n['admits']}, {n_attn} per decode step x "
           f"{n['steps']}; programs run {n['runs']})")
-    if launches != want or n["steps"] != eng.decode_steps:
+    if launches != want or n["steps"] != eng.decode_steps or \
+            n["admits"] != eng.admissions:
         raise AssertionError("launch counts do not match the hybrid path")
 
     one = ServingEngine(lm, params, max_decode_steps=1, **kw)
@@ -2111,17 +2324,20 @@ def check_hybrid_engine(torch, dev, seed, smi, lm, params):
                  decode_steps=eng.decode_steps, admissions=eng.admissions,
                  host_syncs=eng.host_syncs, launches=launches,
                  greedy_checked=checked, decode_bound_ms=bound,
+                 prefill_ms=eng.prefill_s * 1e3,
                  warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
                  pool_bytes=eng.graph_pool_bytes(),
                  prompt_lengths=[len(p) for p, _ in reqs])
     print(f"  hybrid engine [{smi}]: {gen} tokens in {wall:.3f} s = "
           f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms"
           f", max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
-          f"slots, {stats['decode_ms_per_token']:.2f} ms per token")
+          f"slots, {stats['decode_ms_per_token']:.2f} ms per token; prefill "
+          f"{stats['prefill_ms']:.1f} ms over {eng.admissions} admissions")
     legs["graphed"] = _leg(eng, out, wall, bound)
     outs["graphed"] = out
     stats["ab"] = _ab(torch, "hybrid", smi, lm, params, seed, reqs, legs,
                       outs, HYBRID_LOGIT_TOL)
+    stats["admission_ms"] = time_admissions(torch, "hybrid", smi, eng)
     return stats, launches, reqs
 
 
@@ -2215,7 +2431,20 @@ def profile_cascade(torch, dev, seed, stats):
 
 # -- phase 10: the dense hd-128 zoo at full width --------------------------------
 
+def _cut_depth(cfg, layers):
+    """``cfg`` with each stage repeated ``layers`` times (one-stage dense
+    configs: ``layers`` layers), widths unchanged."""
+    return dataclasses.replace(cfg, num_layers=layers, stages=tuple(
+        dataclasses.replace(st, repeat=layers) for st in cfg.stages))
+
+
 ZOO = ("qwen3-4b", "glm4-9b", "starcoder2-7b")
+# layers served in phase 10 (full width; None = full depth): glm4-9b and
+# starcoder2-7b at a quarter of their depth, so that the whole run, with
+# every prefill program captured, stays within its earlier length. Both
+# served at full depth (glm4-9b 40 layers, starcoder2-7b 32), every
+# program graphed, in the runs PERF.md §6 lists before this cut
+ZOO_LAYERS = {"qwen3-4b": None, "glm4-9b": 10, "starcoder2-7b": 8}
 # starcoder2-7b's ring serve: max_seq_len, and the range of its four long
 # prompts' lengths (past the 4096 window: the ring wraps at install)
 STARCODER2_RING = (8192, 4097, 4601)
@@ -2229,8 +2458,9 @@ def _zoo_trace(seed, vocab, lengths, sampled):
 
 
 def check_zoo(torch, dev, seed, smi):
-    """qwen3-4b, glm4-9b and starcoder2-7b at full width and depth, bf16,
-    one at a time, weights made on the card from ``seed``: prefill then
+    """qwen3-4b, glm4-9b and starcoder2-7b at full width, bf16, at the
+    depths of ``ZOO_LAYERS``, one at a time, weights made on the card from
+    ``seed``: prefill then
     decode equals a full forward; then qwen3-4b through phase 4's ring and
     phase 5's paged engine on their traces, glm4-9b through the ring
     engine on 8 requests of 16-480 tokens, starcoder2-7b on 8 of 16-4600
@@ -2242,7 +2472,10 @@ def check_zoo(torch, dev, seed, smi):
 
     out = {}
     for name in ZOO:
+        t_model = time.perf_counter()
         cfg = get_config(name)
+        if ZOO_LAYERS[name] is not None:
+            cfg = _cut_depth(cfg, ZOO_LAYERS[name])
         lm = LM(cfg, device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2294,8 +2527,10 @@ def check_zoo(torch, dev, seed, smi):
                       f"8 slots against the {bound:.2f} ms weight-read bound "
                       f"({rec[kind]['decode_ms_per_step'] / bound:.1f}x)")
         rec["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+        rec["seconds"] = time.perf_counter() - t_model
         print(f"  {name}: peak device memory {rec['peak_gb']:.1f} GB above "
-              f"the {held / 1e9:.1f} GB held before it")
+              f"the {held / 1e9:.1f} GB held before it; "
+              f"{rec['seconds']:.1f} s")
         del lm, params
         gc.collect()            # engines that patched a bound method form cycles
         torch.cuda.empty_cache()
@@ -2312,7 +2547,9 @@ def check_baseline(torch, dev, seed, smi, lm, params):
     BF16_LOGIT_TOL) of a teacher-forced forward: their prefills run other
     shapes, so bf16 roundings differ; the drain engine prefills each batch
     through flash and decodes through the ring kernel, one host sync a
-    token."""
+    token. Both engines are graphed; the drain's first batch then runs
+    again on an eager drain engine (graphs off), its streams held to the
+    graphed ones likewise."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import DrainBatchEngine, ServingEngine
 
@@ -2324,12 +2561,12 @@ def check_baseline(torch, dev, seed, smi, lm, params):
         kw = dict(batch_slots=8, max_seq_len=1024, seed=seed)
         eng = (DrainBatchEngine(lm, params, **kw) if kind == "drain" else
                ServingEngine(lm, params, max_decode_steps=4, **kw))
-        if kind == "continuous":
-            _warm(eng)          # graphed decode; the drain batcher is eager
+        warmed = _warm(eng)     # both engines graphed
         torch.cuda.synchronize()
         reset_launches()
         out, wall = _serve(eng, reqs, 32)
         launches = dict(LAUNCHES)
+        _no_capture(eng, warmed, kind)
         gen = sum(len(r.output) for r in out)
         if kind == "drain":
             batches = -(-len(reqs) // eng.batch_slots)
@@ -2352,76 +2589,93 @@ def check_baseline(torch, dev, seed, smi, lm, params):
         print(f"  {kind} [{smi}]: {gen} tokens in {wall:.3f} s = "
               f"{gen / wall:.1f} tokens/s; {eng.host_syncs} host syncs "
               f"({eng.host_syncs / gen:.4f} a token); launches {launches}")
-    equal = parted = 0
-    for r, c, (prompt, temp) in zip(outs["drain"], outs["continuous"], reqs):
-        if temp > 0:
-            continue
-        diff = np.flatnonzero(r.output != c.output)
-        if not len(diff):
-            equal += 1
-            continue
-        ctx = torch.from_numpy(np.concatenate(
-            [prompt, c.output[:diff[0]]]).astype(np.int32))[None].to(dev)
-        last, _ = lm.forward(params, {"tokens": ctx}, last_only=True)
-        top2 = torch.topk(last[0, 0].float(), 2).values
-        margin = (top2[0] - top2[1]).item()
-        print(f"  request {r.request_id}: the streams part at token "
-              f"{diff[0]}, top-2 margin {margin:.4f}")
-        if margin > BF16_LOGIT_TOL:
-            raise AssertionError(f"drain stream != continuous stream "
-                                 f"(request {r.request_id})")
-        parted += 1
-    print(f"  greedy streams: {equal} equal token for token, {parted} part "
-          f"first at a near-tie (margin <= {BF16_LOGIT_TOL})")
-    if equal == 0:
-        raise AssertionError("no greedy stream equal across the engines")
+    def greedy_parts(label, ours, theirs, trace):
+        """Greedy streams equal, or parted first at a near-tie of a
+        teacher-forced forward; sampled ones equal."""
+        equal = parted = 0
+        for r, c, (prompt, temp) in zip(ours, theirs, trace):
+            diff = np.flatnonzero(r.output != c.output)
+            if not len(diff):
+                equal += 1
+                continue
+            if temp > 0:
+                raise AssertionError(f"{label}: sampled request "
+                                     f"{r.request_id} differs")
+            ctx = torch.from_numpy(np.concatenate(
+                [prompt, c.output[:diff[0]]]).astype(np.int32))[None].to(dev)
+            last, _ = lm.forward(params, {"tokens": ctx}, last_only=True)
+            top2 = torch.topk(last[0, 0].float(), 2).values
+            margin = (top2[0] - top2[1]).item()
+            print(f"  {label}, request {r.request_id}: the streams part at "
+                  f"token {diff[0]}, top-2 margin {margin:.4f}")
+            if margin > BF16_LOGIT_TOL:
+                raise AssertionError(f"{label}: request {r.request_id} "
+                                     f"differs off a near-tie")
+            parted += 1
+        print(f"  {label}: {equal} streams equal token for token, {parted} "
+              f"part first at a near-tie (margin <= {BF16_LOGIT_TOL})")
+        if equal == 0:
+            raise AssertionError(f"{label}: no stream equal")
+        return equal, parted
+
+    greedy = [i for i, (_, t) in enumerate(reqs) if t == 0]
+    equal, parted = greedy_parts(
+        "greedy streams, drain against continuous",
+        [outs["drain"][i] for i in greedy],
+        [outs["continuous"][i] for i in greedy], [reqs[i] for i in greedy])
+    # the first batch again through an eager drain engine (graphs off)
+    eager = DrainBatchEngine(lm, params, batch_slots=8, max_seq_len=1024,
+                             seed=seed)
+    eager._use_graphs = False
+    first, _ = _serve(eager, reqs[:8], 32)
+    eager_equal, _ = greedy_parts("the drain's first batch, graphed against "
+                                  "eager", outs["drain"][:8], first, reqs[:8])
     drain = statistics.mean(x["tokens_per_s"] for x in runs["drain"])
     cont = statistics.mean(x["tokens_per_s"] for x in runs["continuous"])
-    print(f"  continuous / drain tokens/s: {cont:.1f} / {drain:.1f} = "
+    print(f"  continuous / drain tokens/s, both graphed [{smi}]: "
+          f"{cont:.1f} / {drain:.1f} = "
           f"{cont / drain:.2f}x; drain host syncs per token "
           f"{runs['drain'][0]['host_syncs_per_token']:.4f}, continuous "
           f"{runs['continuous'][0]['host_syncs_per_token']:.4f}")
     return dict(runs=runs, ratio=cont / drain, greedy_equal=equal,
-                greedy_parted_at_near_tie=parted)
+                greedy_parted_at_near_tie=parted,
+                drain_graphed_equals_eager=eager_equal)
 
 
 # -- phase 13: speculative decoding -------------------------------------------
 
 SPEC_K = 4
+# qwen3-4b's depth on phase 13's paged leg (phase 10 serves the paged
+# engine at full depth): the run's length, with every chunk captured
+SPEC_PAGED_LAYERS = 12
 
 
 def _count_programs(eng):
-    """Wrap ``eng``'s decode-program runner, prompt chunks and draft fills
-    with counters: plain decode steps (a K-step program, graph replay or
-    eager call, adds K), speculative rounds and their draft steps (k + 1 a
-    round), runs by program (horizon or depth, greedy or sampled), draft
-    fills and prompt chunks, from which each kernel's launches follow."""
-    n = dict(steps=0, rounds=0, draft_steps=0, fills=0, chunks=0, runs={})
-    run, chunk = eng._run_program, eng._run_chunk
+    """Wrap ``eng``'s program runner with counters: plain decode steps (a
+    K-step program, graph replay or eager call, adds K), speculative
+    rounds and their draft steps (k + 1 a round), admissions, prompt
+    chunks and draft fills, and runs by decode program (horizon or depth,
+    greedy or sampled), from which each kernel's launches follow."""
+    n = dict(steps=0, rounds=0, draft_steps=0, admits=0, fills=0, chunks=0,
+             runs={})
+    run = eng._run_program
 
-    def counted_run(kind, k, sampled):
+    def counted_run(key):
+        kind = key[0]
         if kind == "decode":
-            n["steps"] += k
-        else:
+            n["steps"] += key[1]
+        elif kind == "spec":
             n["rounds"] += 1
-            n["draft_steps"] += k + 1
-        name = f"{kind} {k}{' sampled' if sampled else ''}"
+            n["draft_steps"] += key[1] + 1
+        else:
+            n[{"admit": "admits", "chunk": "chunks",
+               "draft_fill": "fills"}[kind]] += 1
+            return run(key)
+        name = f"{kind} {key[1]}{' sampled' if key[2] else ''}"
         n["runs"][name] = n["runs"].get(name, 0) + 1
-        return run(kind, k, sampled)
+        return run(key)
 
-    def counted_chunk(*a):
-        n["chunks"] += 1
-        return chunk(*a)
-
-    eng._run_program, eng._run_chunk = counted_run, counted_chunk
-    if eng.speculative:
-        fill = eng._draft_fill_impl
-
-        def counted_fill(*a):
-            n["fills"] += 1
-            return fill(*a)
-
-        eng._draft_fill_impl = counted_fill
+    eng._run_program = counted_run
     return n
 
 
@@ -2434,8 +2688,7 @@ def _spec_launches(eng, n):
     ld = eng.draft_lm.cfg.num_layers if eng.speculative else 0
     target = lt * (n["steps"] + n["rounds"] + n["chunks"])
     paged = eng.backend.supports_swap
-    return {"flash_attention": ld * n["fills"] + (
-                0 if eng.scheduler.chunked else lt * eng.admissions),
+    return {"flash_attention": ld * n["fills"] + lt * n["admits"],
             "decode_attention": ld * n["draft_steps"] + (
                 0 if paged else target),
             "paged_decode_attention": target if paged else 0,
@@ -2640,16 +2893,16 @@ def _spec_self_leg(torch, dev, seed, smi, lm, params):
     rounds = []
     run = eng._run_program
 
-    def spy(kind, k, sampled):              # what locates a rejection
-        if kind != "spec":
-            return run(kind, k, sampled)
+    def spy(key):                           # what locates a rejection
+        if key[0] != "spec":
+            return run(key)
         st = eng._state
         rid, steps, active = (st["rid"].clone(), st["steps"].clone(),
                               st["active"].clone())
-        run(kind, k, sampled)
+        run(key)
         # a round commits the anchor and the accepted prefix j (no EOS, and
         # the scheduler keeps k below every slot's headroom)
-        rounds.append((rid, steps, active, st["steps"] - steps - 1, k))
+        rounds.append((rid, steps, active, st["steps"] - steps - 1, key[1]))
 
     eng._run_program = spy
     out, wall, n, launches = _spec_serve(torch, eng, serve)
@@ -2738,9 +2991,10 @@ def _spec_cascade_leg(torch, dev, seed, smi, models):
 
 def check_speculative(torch, dev, seed, smi, smollm, models):
     """Phase 13: speculative decoding on the card, four legs (qwen3-4b at
-    full width and depth on the ring and the paged backend with its 4-layer
-    edge draft, smollm-135m drafting for itself, and the cascade's edge
-    drafting for its cloud). Random weights make acceptance meaningless as
+    full width with its 4-layer edge draft, at full depth on the ring and
+    at ``SPEC_PAGED_LAYERS`` on the paged backend, smollm-135m drafting for
+    itself, and the cascade's edge drafting for its cloud). Random weights
+    make acceptance meaningless as
     a speed figure: with a tied table both models mostly echo their input
     token, so a random draft agrees with its target far more often than
     a trained one would."""
@@ -2762,6 +3016,12 @@ def check_speculative(torch, dev, seed, smi, smollm, models):
           f"trained draft's speed")
     out = {"qwen3-4b ring": _spec_ring_leg(torch, dev, seed, smi, lm, params,
                                            draft, dparams)}
+    del lm, params
+    gc.collect()
+    lm = LM(_cut_depth(cfg, SPEC_PAGED_LAYERS), device=dev)
+    params = lm.init(seed, on_device=True)
+    print(f"  qwen3-4b paged leg: {SPEC_PAGED_LAYERS} of its "
+          f"{cfg.num_layers} layers, full width")
     out["qwen3-4b paged"] = _spec_paged_leg(torch, dev, seed, smi, lm,
                                             params, draft, dparams)
     del lm, params, draft, dparams
@@ -2834,6 +3094,7 @@ def main() -> int:
     results["cascade_gate"], gate_times = check_cascade_gate(torch, timer,
                                                              dev)
     results["rglru_scan"], rglru_times = check_rglru(torch, timer, dev)
+    in_graphs = check_kernels_in_graphs(torch, dev)
     hd256_times = check_attention_hd256(torch, timer, dev)
     hd128_times = check_attention_hd128(torch, timer, dev)
     verify_times = check_verify_shapes(torch, timer, dev)
@@ -2875,15 +3136,17 @@ def main() -> int:
     del hlm, hparams
     gc.collect()            # engines with counted methods form cycles
     torch.cuda.empty_cache()
-    phase("[10] dense zoo at hd 128: qwen3-4b (ring and paged engines), "
-          "glm4-9b and starcoder2-7b (ring), full width and depth, bf16")
+    phase("[10] dense zoo at hd 128: qwen3-4b (ring and paged engines, "
+          "full depth), glm4-9b (10 layers) and starcoder2-7b (8 layers) "
+          "(ring), full width, bf16")
     zoo_stats = check_zoo(torch, dev, args.seed, smi)
     phase("[11] baseline: DrainBatchEngine and ServingEngine (ring, K=4) in "
           "turns on phase 4's trace")
     baseline_stats = check_baseline(torch, dev, args.seed, smi, *smollm)
-    phase(f"[13] speculative decoding, k = {SPEC_K}: qwen3-4b (ring and "
-          f"paged) with its 4-layer edge draft, smollm-135m drafting for "
-          f"itself, the cascade's edge drafting for its cloud")
+    phase(f"[13] speculative decoding, k = {SPEC_K}: qwen3-4b (ring; paged "
+          f"at {SPEC_PAGED_LAYERS} layers) with its 4-layer edge draft, "
+          f"smollm-135m drafting for itself, the cascade's edge drafting for "
+          f"its cloud")
     spec_stats = check_speculative(torch, dev, args.seed, smi, smollm,
                                    models)
     del models
@@ -2933,6 +3196,7 @@ def main() -> int:
             json.dump({"card": smi, "kind": kind, "torch": torch.__version__,
                        "kernels": kernels, "cascade_gate_times": gate_times,
                        "rglru_scan_times": rglru_times,
+                       "kernels_in_graphs": in_graphs,
                        "attention_rates": rates,
                        "attention_hd256": hd256_times,
                        "attention_hd128": hd128_times,

@@ -90,12 +90,25 @@ def gate_splits(t: int, v: int, elem_bytes: int, sms: int) -> Tuple[int, int]:
 
 
 def _work(dev, stream: int):
-    """The persistent counting workspace for this device and stream."""
+    """The persistent counting workspace for this device and stream. Never
+    made while the stream captures a CUDA graph (the zeroing would be
+    recorded into that one graph): a capture stream's workspace is made
+    beforehand (``prepare_stream``); every replay leaves it zero."""
     key = (dev.index, stream)
     got = _WORK.get(key)
     if got is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "cascade_gate: the capturing stream has no counting "
+                "workspace; prepare it before the capture (prepare_stream)")
         got = _WORK[key] = torch.zeros(4, dtype=torch.int32, device=dev)
     return got
+
+
+def prepare_stream(dev, stream) -> None:
+    """Make ``stream``'s counting workspace before a CUDA graph is captured
+    on it."""
+    _work(torch.device(dev), stream.cuda_stream)
 
 
 def _lib():

@@ -15,7 +15,7 @@ Contract shared by both: a, b (B, S, W) f32 and h0 (B, W) f32 -> (h
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -33,6 +33,9 @@ _GROUP = 16
 # and epoch, and its flags (one per CTA); zeroed once, then kept: each
 # launch leaves them ready for the next on its stream
 _STATE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+# states a growth replaced: CUDA graphs captured before the growth keep
+# their addresses, so those states live as long as the process
+_RETIRED: List[Tuple[torch.Tensor, torch.Tensor]] = []
 _MIN_FLAGS = 4096
 
 
@@ -61,14 +64,36 @@ def chunk_len(batch: int, s: int, w: int, sms: int) -> int:
 
 def _state(dev, stream: int, ctas: int):
     """The persistent look-back state (ctl, flags) for ``ctas`` CTAs on this
-    device and stream; grown (zeroed anew) when a launch needs more flags."""
+    device and stream; grown (zeroed anew) when a launch needs more flags.
+
+    Never made while the stream captures a CUDA graph: the zeroing would be
+    recorded into that one graph and the tensors taken from its pool. A
+    capture stream's state is made beforehand (``prepare_stream``, or an
+    eager launch on that stream). A graph keeps the state it was captured
+    with: a growth puts a new state in place for later launches and keeps
+    the old one alive (``_RETIRED``) for the graphs that hold it. Every
+    launch of a state, replayed or eager, leaves it as the next launch of
+    that state expects (the epoch tags the flags), whatever their sizes."""
     key = (dev.index, stream)
     got = _STATE.get(key)
     if got is None or got[1].numel() < ctas:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"rglru_scan: the capturing stream has no look-back state "
+                f"for {ctas} CTAs; prepare it before the capture "
+                f"(prepare_stream, or an eager launch on that stream)")
         n = max(ctas, _MIN_FLAGS, 2 * got[1].numel() if got else 0)
+        if got is not None:
+            _RETIRED.append(got)
         got = _STATE[key] = (torch.zeros(3, dtype=torch.int32, device=dev),
                              torch.zeros(n, dtype=torch.int32, device=dev))
     return got
+
+
+def prepare_stream(dev, stream) -> None:
+    """Make ``stream``'s look-back state (for up to ``_MIN_FLAGS`` CTAs)
+    before a CUDA graph is captured on it."""
+    _state(torch.device(dev), stream.cuda_stream, 0)
 
 
 def _lib():

@@ -46,25 +46,32 @@ def positions_1d(cur_pos, batch: int, device) -> torch.Tensor:
 
 
 def _fill_slots(width: int, b: int, s: int, lengths, device):
-    """Ring-fill bookkeeping: keep each row's trailing ``width`` real
+    """Ring-fill bookkeeping: each row keeps its trailing ``width`` real
     positions ``[length - width, length)`` at ring index ``t % width``;
-    right-pads and evicted tokens are not kept. ``repro`` routes them to
-    the out-of-bounds index ``width`` and lets the scatter drop them;
-    torch raises on such an index, so the port returns the mask instead.
-    Returns (keep (B, S) bool, slot (B, S), pos_val (B, S))."""
-    t = torch.arange(s, dtype=torch.int32, device=device)[None, :]
+    right-pads and evicted tokens are not kept. ``repro`` scatters every
+    token to ``t % width`` and routes the rest to the out-of-bounds index
+    ``width``, which the scatter drops; the port gathers instead, at a
+    shape fixed by B and W (a CUDA graph captures no data-dependent
+    shape): ring column ``j`` takes the last ``t < length`` with ``t % width
+    == j``, or stays empty. Returns (src (B, W) int64: the position each
+    column takes, 0 where it stays empty; keep (B, W) bool)."""
+    j = torch.arange(width, dtype=torch.int64, device=device)[None, :]
     if lengths is None:
-        length = torch.full((b, 1), s, dtype=torch.int32, device=device)
+        length = torch.full((b, 1), s, dtype=torch.int64, device=device)
     else:
-        length = lengths.to(device=device, dtype=torch.int32).reshape(b, 1)
-    keep = (t >= length - width) & (t < length)
-    return keep, (t % width).expand(b, s), t.expand(b, s)
+        length = lengths.to(device=device, dtype=torch.int64).reshape(b, 1)
+    back = length - 1 - j                # >= 0 iff column j holds a token
+    keep = back >= 0
+    src = j + width * torch.div(back.clamp_min(0), width,
+                                rounding_mode="floor")
+    return torch.where(keep, src, torch.zeros_like(src)), keep
 
 
 def cache_fill(cache: dict, k, v, seq_len: int, lengths=None) -> dict:
     """Populate a fresh cache from prefill outputs k, v (B, S, KV, hd), in
     place. ``lengths``: optional (B,) true prompt lengths; positions >=
-    length are right-pad and never occupy a ring slot."""
+    length are right-pad and never occupy a ring slot. Every path has
+    shapes fixed by B, S and the ring width."""
     width = cache["k"].shape[1]
     b, s = k.shape[0], k.shape[1]
     if lengths is None and s <= width:
@@ -73,23 +80,27 @@ def cache_fill(cache: dict, k, v, seq_len: int, lengths=None) -> dict:
         cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32,
                                            device=k.device)[None, :]
         return cache
-    keep, slot, pos_val = _fill_slots(width, b, s, lengths, k.device)
-    cache["k"].zero_()
-    cache["v"].zero_()
-    cache["pos"].fill_(-1)
     if s <= width:
-        # slots t % width = t are distinct: a masked copy, no compaction
+        # slots t % width = t are distinct: a masked copy of the first S
+        cache["k"].zero_()
+        cache["v"].zero_()
+        cache["pos"].fill_(-1)
+        t = torch.arange(s, dtype=torch.int32, device=k.device)[None, :]
+        keep = t < lengths.to(device=k.device,
+                              dtype=torch.int32).reshape(b, 1)
         m = keep[:, :, None, None]
         cache["k"][:, :s] = torch.where(m, k, torch.zeros_like(k))
         cache["v"][:, :s] = torch.where(m, v, torch.zeros_like(v))
-        cache["pos"][:, :s] = torch.where(keep, pos_val,
-                                          torch.full_like(pos_val, -1))
+        cache["pos"][:, :s] = torch.where(keep, t, torch.full_like(t, -1))
         return cache
-    rows = torch.arange(b, device=k.device)[:, None].expand(b, s)
-    r, sl = rows[keep], slot[keep]
-    cache["k"][r, sl] = k[keep]
-    cache["v"][r, sl] = v[keep]
-    cache["pos"][r, sl] = pos_val[keep]
+    src, keep = _fill_slots(width, b, s, lengths, k.device)
+    rows = torch.arange(b, device=k.device)[:, None]
+    m = keep[:, :, None, None]
+    kk, vv = k[rows, src], v[rows, src]                  # (B, W, KV, hd)
+    cache["k"].copy_(torch.where(m, kk, torch.zeros_like(kk)))
+    cache["v"].copy_(torch.where(m, vv, torch.zeros_like(vv)))
+    cache["pos"].copy_(torch.where(keep, src.to(torch.int32),
+                                   torch.full_like(cache["pos"], -1)))
     return cache
 
 

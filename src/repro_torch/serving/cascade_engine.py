@@ -28,8 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch.cascade.ecc_infer import CascadeLM
-from repro_torch.cascade.gate import ACCEPT, ESCALATE, gate_logits
-from repro_torch.serving.engine import ServingEngine, validate_prompt
+from repro_torch.cascade.gate import (ACCEPT, ESCALATE, GateThresholds,
+                                      gate_logits)
+from repro_torch.serving.engine import (ServingEngine, _GraphedPrograms,
+                                        _Staged, validate_prompt)
 from repro_torch.serving.faults import FaultError
 from repro_torch.serving.scheduler import bucket_for
 
@@ -146,7 +148,7 @@ class CascadeRequest:
     temperature: float = 0.0
 
 
-class CascadeServingEngine:
+class CascadeServingEngine(_GraphedPrograms):
     """Generative ACE cascade on continuous-batching engines.
 
     One edge prefill gates every prompt (the ``cascade_gate`` kernel on its
@@ -154,6 +156,13 @@ class CascadeServingEngine:
     the routed engine. The WAN cost model matches ``CascadeLM.serve_step``:
     escalations ship their token ids up and their generated ids down. The
     edge engine samples with ``seed``, the cloud engine with ``seed + 1``.
+
+    The gate is a program of its own, ("gate", edge bucket, hi, lo): the
+    edge forward of the staged prompt and the kernel on its last real
+    row, writing conf, route and counts into fixed tensors. On the card
+    ``warm_compile`` captures it at every edge bucket as a CUDA graph,
+    beside both legs' programs; thresholds other than those it was
+    captured for make a program of their own.
     """
 
     def __init__(self, cascade: CascadeLM, edge_params, cloud_params, *,
@@ -215,6 +224,17 @@ class CascadeServingEngine:
             draft_params=edge_params if spec else None,
             speculative_tokens=speculative_tokens, **engine_kw)
         self._edge_params = edge_params
+        # the gate program's staged prompt and its outputs
+        self.device = cascade.edge.device
+        self._gate_args = _Staged(self.device, length=1,
+                                  tokens=max_seq_len)
+        self._gate_out = {
+            "conf": torch.zeros((1,), dtype=torch.float32,
+                                device=self.device),
+            "route": torch.zeros((1,), dtype=torch.int32, device=self.device),
+            "counts": torch.zeros((3,), dtype=torch.int32,
+                                  device=self.device)}
+        self._init_programs()
         self._requests: List[CascadeRequest] = []
         self._next_id = 0
         # routed-but-live requests by *inner* request id, and terminal
@@ -282,19 +302,25 @@ class CascadeServingEngine:
     def _gate(self, prompt: np.ndarray):
         """Edge prefill of the prompt right-padded to its edge bucket (as
         the engine's prefill), unembedding only the last real position,
-        then the ``cascade_gate`` kernel on that (1, V) row. Returns
-        (conf, route) as host numbers."""
-        edge = self.cascade.edge
-        length = len(prompt)
-        bucket = bucket_for(length, self.edge_engine.buckets)
-        tokens = np.zeros((1, bucket), np.int32)
-        tokens[0, :length] = prompt
-        logits, _ = edge.forward(
-            self._edge_params,
-            {"tokens": torch.from_numpy(tokens).to(edge.device)},
-            logits_index=length - 1)
-        conf, routes, _ = gate_logits(logits[:, 0], self.cascade.thresholds)
-        return float(conf[0]), int(routes[0])
+        then the ``cascade_gate`` kernel on that (1, V) row: program
+        ("gate", bucket, hi, lo). Returns (conf, route) as host numbers."""
+        bucket = bucket_for(len(prompt), self.edge_engine.buckets)
+        th = self.cascade.thresholds
+        self._gate_args.put(length=len(prompt), tokens=prompt)
+        self._run_program(("gate", bucket, th.hi, th.lo))
+        out = self._gate_out
+        return float(out["conf"][0]), int(out["route"][0])
+
+    def _program_body(self, key) -> None:
+        _, bucket, hi, lo = key
+        a = self._gate_args
+        logits, _ = self.cascade.edge.forward(
+            self._edge_params, {"tokens": a["tokens"][:bucket][None]},
+            logits_index=a["length"] - 1)
+        for name, x in zip(("conf", "route", "counts"),
+                           gate_logits(logits[:, 0],
+                                       GateThresholds(hi, lo))):
+            self._gate_out[name].copy_(x)
 
     def _route_pending(self) -> None:
         """Gate every queued request and hand it to its routed engine.
@@ -428,12 +454,20 @@ class CascadeServingEngine:
             self.step()
         return self.take_done()
 
+    def program_keys(self) -> List[tuple]:
+        """The gate at every edge bucket, at the current thresholds."""
+        th = self.cascade.thresholds
+        return [("gate", b, th.hi, th.lo) for b in self.edge_engine.buckets]
+
     def warm_compile(self) -> None:
-        """Build both legs' decode programs (``ServingEngine.warm_compile``),
-        as ``repro``'s does. The gate (edge prefill and ``cascade_gate``)
-        stays eager; its kernel libraries load with the legs'."""
+        """Build both legs' programs (``ServingEngine.warm_compile``), as
+        ``repro``'s does, then the gate's at every edge bucket (its
+        warm-up gates an empty prompt of one token: it changes no
+        state)."""
         self.edge_engine.warm_compile()
         self.cloud_engine.warm_compile()
+        self._gate_args.put(length=1, tokens=[])
+        self._warm_programs(self.program_keys())
 
     def engine_metrics(self) -> Dict[str, object]:
         """Monitoring snapshot across the cascade: routing and WAN

@@ -40,13 +40,16 @@ key-coupled, so the streams are the non-speculative engine's at every
 temperature. Fault injection, snapshots, the journal and meshes are later
 slices: their constructor arguments raise ``NotImplementedError`` when set.
 
-Where ``repro`` jits the single step, the K-step scan and the speculative
-round as XLA programs, the port keeps a registry of decode programs, one
-per (kind, horizon, greedy or sampled). On the card each is captured once
-as a CUDA graph (``warm_compile`` captures them all before traffic) and a
-round replays it; the engine's state, caches and tables keep their
-storage for the engine's life, so the graphs' fixed addresses stay
-valid. On the CPU each program is the eager call. Prefill stays eager.
+Where ``repro`` jits its serving programs for XLA (the single step, the
+K-step scan, the speculative round, the admission per bucket, the prompt
+chunk per (bucket, context), the draft fill per bucket), the port keeps a
+registry of programs keyed the same way. On the card each is captured
+once as a CUDA graph (``warm_compile`` captures them all before traffic)
+and replayed; the engine's state, caches, tables and staged arguments
+keep their storage for the engine's life, so the graphs' fixed addresses
+stay valid, and a program reads the request it serves (slot, length,
+tokens, ...) from the staged arguments, never from a Python scalar that a
+capture would freeze. On the CPU each program is the eager call.
 
 ``DrainBatchEngine`` is the static batcher that continuous batching is
 measured against.
@@ -54,6 +57,7 @@ measured against.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import time
@@ -62,9 +66,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import (LAUNCHES, build, cascade_gate,
+                                 rglru_scan)
 from repro_torch.models.model import LM
-from repro_torch.serving.kv_cache import RingCache, RingLayout, make_backend
+from repro_torch.serving.kv_cache import (RingCache, RingLayout,
+                                          _map_block_dicts, make_backend)
 from repro_torch.serving.sampler import (accepted_prefix_length, prng_key,
                                          request_keys, sample_logits_batch,
                                          sample_logits_keyed, split)
@@ -122,7 +128,9 @@ def _any_sampled(slots) -> bool:
 
 
 class _Program:
-    """One decode program of the engine, captured as a CUDA graph.
+    """One program of an engine (a decode round, an admission, a prompt
+    chunk, a draft fill, the cascade's gate, a drain batch's prefill or
+    step), captured as a CUDA graph.
 
     Capture records the launches; it executes nothing. A replay runs the
     kernels without calling their wrappers, so the ``LAUNCHES`` that the
@@ -130,24 +138,35 @@ class _Program:
     replay: the counters still say what ran on the card. The graph shares
     its engine's memory pool, and no tensor of that pool outlives a
     replay (every program writes its results into the engine's state).
+    Captures run on one stream per device (``capture_stream``), whose
+    kernel state (the scan's look-back, the gate's counting workspace) is
+    made before the first capture.
 
     Destroying a CUDA graph while another one captures invalidates the
     capture, and the collector may free an unreachable engine's graphs at
-    any allocation: so garbage is collected before the capture and the
-    collector is off during it."""
+    any allocation: so the collector is off during a capture. The capture
+    is begun and ended directly rather than through ``torch.cuda.graph``,
+    which empties the allocator's cache (and may collect) before every
+    capture: an engine captures dozens of programs in a row."""
 
-    def __init__(self, key, pool, body):
+    def __init__(self, key, pool, stream, body):
+        rglru_scan.prepare_stream(stream.device, stream)
+        cascade_gate.prepare_stream(stream.device, stream)
         before = dict(LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
-        gc.collect()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
-                body()
+            torch.cuda.synchronize(stream.device)
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin(pool=pool)
+                try:
+                    body()
+                finally:
+                    self.graph.capture_end()
         except RuntimeError as err:
-            raise RuntimeError(f"capturing the decode program {key} as a "
-                               f"CUDA graph failed: {err}") from err
+            raise RuntimeError(f"capturing the program {key} as a CUDA "
+                               f"graph failed: {err}") from err
         finally:
             if collecting:
                 gc.enable()
@@ -160,10 +179,196 @@ class _Program:
         try:
             self.graph.replay()
         except RuntimeError as err:
-            raise RuntimeError(f"replaying the decode program {key} "
-                               f"failed: {err}") from err
+            raise RuntimeError(f"replaying the program {key} failed: "
+                               f"{err}") from err
         for name, n in self.launches.items():
             LAUNCHES[name] += n
+
+
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device) -> "torch.cuda.Stream":
+    """The one stream of ``device`` that every engine captures on."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return _CAPTURE_STREAMS[index]
+
+
+class _GraphedPrograms:
+    """An engine's registry of programs, keyed by tuples whose first entry
+    names the body (``_program_body(key)``). On the card each program is
+    captured once as a CUDA graph in one memory pool per engine and
+    replayed; on the CPU, or with ``_use_graphs`` off (eager A/B legs), it
+    is the eager call (registered as None). The subclass sets ``device``
+    and calls ``_init_programs`` in its constructor."""
+
+    def _init_programs(self) -> None:
+        self._programs: Dict[tuple, Optional[_Program]] = {}
+        self._use_graphs = self.device.type == "cuda"
+        self._graph_pool = None
+
+    def _program_body(self, key) -> None:
+        raise NotImplementedError
+
+    def _build_program(self, key) -> Optional[_Program]:
+        """Register program ``key``: on the card, captured into the
+        engine's graph pool (a failed capture raises and registers
+        nothing); else the eager call."""
+        prog = None
+        if self._use_graphs:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            try:
+                prog = _Program(key, self._graph_pool,
+                                capture_stream(self.device),
+                                lambda: self._program_body(key))
+            except RuntimeError:
+                # the allocator still counts a failed capture's pool as
+                # recording: later programs capture into a fresh pool
+                self._graph_pool = None
+                raise
+        self._programs[key] = prog
+        return prog
+
+    def _run_program(self, key) -> None:
+        """Run a program: replay its graph, capturing it first if
+        ``warm_compile`` did not (capture executes nothing, so the state is
+        untouched until the replay), or call it eagerly."""
+        prog = (self._programs[key] if key in self._programs
+                else self._build_program(key))
+        if prog is None:
+            self._program_body(key)
+        else:
+            prog.replay(key)
+
+    def _warm_programs(self, keys) -> None:
+        """Register (capture) each program of ``keys`` not yet registered,
+        in order, after one eager run for each shape: programs that differ
+        only in a chunk's context bound or a greedy or sampled draw run the
+        same GEMMs and kernels (the last such key runs), and every decode
+        program repeats one sampled step. On the card the eager runs go to
+        the capture stream, so libraries, handles, allocator blocks and
+        that stream's kernel state exist, at the sizes these programs
+        need, before any capture."""
+        keys = [key for key in keys if key not in self._programs]
+        shapes = list({
+            key[:1] if key[0] == "decode" else key[:2]:
+            ("decode", 1, True) if key[0] == "decode" else key
+            for key in keys}.values())
+        if self.device.type == "cuda":
+            gc.collect()                 # once, not before every capture
+            stream = capture_stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                for key in shapes:
+                    self._program_body(key)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+        else:
+            for key in shapes:
+                self._program_body(key)
+        for key in keys:
+            self._build_program(key)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def graphs(self) -> int:
+        """Programs captured as CUDA graphs."""
+        return sum(p is not None for p in self._programs.values())
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the engine's graph memory pool holds."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)
+
+
+class _DeviceClock:
+    """Seconds of device work per counter, read without adding a host
+    sync. On the card a span is a pair of CUDA events on the current
+    stream: it runs on the device's clock from the start event (work
+    queued before the span is not in it) to the end event, and is added
+    to its counter once a later sync has passed both (``settle``). On the
+    CPU, where every op is synchronous, a span is host wall time."""
+
+    def __init__(self, device):
+        self._cuda = device.type == "cuda"
+        self._seconds: Dict[str, float] = collections.defaultdict(float)
+        self._open: List[tuple] = []
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        if not self._cuda:
+            t0 = time.perf_counter()
+            yield
+            self._seconds[name] += time.perf_counter() - t0
+            return
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        yield
+        end.record()
+        self._open.append((name, start, end))
+
+    def settle(self, wait: bool = False) -> None:
+        """Add the open spans to their counters: after a host sync that
+        passed them, or, with ``wait``, once their end events complete."""
+        for name, start, end in self._open:
+            if wait:
+                end.synchronize()
+            self._seconds[name] += start.elapsed_time(end) / 1e3
+        self._open.clear()
+
+    def seconds(self, name: str) -> float:
+        self.settle(wait=True)
+        return self._seconds[name]
+
+
+class _Staged:
+    """Program arguments at fixed device addresses: one int32 device
+    buffer cut into named fields (float fields hold float32 bits), and a
+    pinned host twin. ``put`` writes the given fields on the host and
+    moves the whole buffer in one copy ahead of the program that reads
+    it, in stream order. The twin is not rewritten while its last copy
+    may still be in flight: ``put`` first waits on that copy's event (the
+    copy, not the program after it)."""
+
+    def __init__(self, device, floats=(), **sizes):
+        self._at, n = {}, 0
+        for name, size in sizes.items():
+            self._at[name] = (n, size)
+            n += size
+        self._floats = set(floats)
+        cuda = device.type == "cuda"
+        self.dev = torch.zeros((n,), dtype=torch.int32, device=device)
+        self._host = torch.zeros((n,), dtype=torch.int32, pin_memory=cuda)
+        self._np = self._host.numpy()
+        self._copied = torch.cuda.Event() if cuda else None
+        self._in_flight = False
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        at, size = self._at[name]
+        view = self.dev[at:at + size]
+        return view.view(torch.float32) if name in self._floats else view
+
+    def put(self, **values) -> None:
+        if self._in_flight:
+            self._copied.synchronize()
+        for name, value in values.items():
+            at, size = self._at[name]
+            seg = self._np[at:at + size]
+            if name in self._floats:
+                seg = seg.view(np.float32)
+            value = np.asarray(value).reshape(-1)
+            seg[:len(value)] = value
+            seg[len(value):] = 0
+        self.dev.copy_(self._host, non_blocking=self._copied is not None)
+        if self._copied is not None:
+            self._copied.record()
+            self._in_flight = True
 
 
 def _has_windowed_blocks(lm: LM) -> bool:
@@ -195,7 +400,7 @@ def validate_prompt(prompt: np.ndarray, max_new_tokens: int,
     return prompt
 
 
-class ServingEngine:
+class ServingEngine(_GraphedPrograms):
     """Continuous-batching autoregressive serving on the model's device."""
 
     def __init__(self, lm: LM, params, *, batch_slots: int = 8,
@@ -243,14 +448,14 @@ class ServingEngine:
         self._scanned: Dict[int, int] = {}
         # counters: decode_steps counts token rounds (a K-step round adds
         # K), host_syncs counts active-mask transfers (one per round),
-        # decode_s the host wall time of decode rounds, sync included;
-        # admissions counts slot grants (resumes included)
+        # admissions counts slot grants (resumes included); decode_s and
+        # prefill_s are device time (``_DeviceClock``)
         self.decode_steps = 0
         self.host_syncs = 0
         self.generated_tokens = 0
         self.peak_active_slots = 0
         self.admissions = 0
-        self.decode_s = 0.0
+        self._clock = _DeviceClock(self.device)
         self.prefill_tokens_total = 0
         self.prefill_tokens_skipped = 0
         self.planned_token_slots = 0
@@ -325,14 +530,23 @@ class ServingEngine:
             # rounds generated: re-synced by a draft prefill before the
             # next speculative round reads them
             self._draft_dirty: set = set()
-        # decode programs by (kind, horizon, sampled): "decode" runs K
-        # fused steps (K = 1 the single step), "spec" one speculative round
-        # at draft depth k. On the card each is a CUDA graph (a _Program)
-        # in one memory pool per engine; on the CPU, or with _use_graphs
-        # off (eager A/B legs), the eager call (None)
-        self._programs: Dict[tuple, Optional[_Program]] = {}
-        self._use_graphs = self.device.type == "cuda"
-        self._graph_pool = None
+        # the arguments of the admission, chunk and draft-fill programs,
+        # staged at fixed addresses: the slot's scalars, the paged table
+        # row (one dummy entry on the ring) and the bucketed tokens
+        tables = self._cache_state["tables"]
+        self._args = _Staged(
+            dev, floats=("temp",), slot=1, length=1, start=1, prompt_len=1,
+            max_new=1, rid=1, final=1, temp=1,
+            row=1 if tables is None else tables.shape[1],
+            tokens=max_seq_len)
+        # programs by key: ("decode", K, sampled) runs K fused steps (K = 1
+        # the single step), ("spec", k, sampled) one speculative round at
+        # draft depth k, ("admit", bucket) a monolithic admission,
+        # ("chunk", bucket, ctx) a prompt chunk and ("draft_fill", bucket)
+        # a draft-cache fill. On the card each is a CUDA graph (a
+        # _Program) in one memory pool per engine; on the CPU, or with
+        # _use_graphs off (eager A/B legs), the eager call (None)
+        self._init_programs()
 
     def _validate_chunk_mixers(self, chunk_tokens: int) -> None:
         if not (1 <= chunk_tokens <= self.max_seq_len):
@@ -441,6 +655,19 @@ class ServingEngine:
         return len(self._queue)
 
     @property
+    def decode_s(self) -> float:
+        """Device seconds of decode rounds: each round from its start
+        (look-ahead top-ups, a speculative round's draft re-sync) to its
+        last program, so admissions queued before it are not in it."""
+        return self._clock.seconds("decode")
+
+    @property
+    def prefill_s(self) -> float:
+        """Device seconds of admissions and prompt chunks (and the draft
+        fill that arms a new slot's draft)."""
+        return self._clock.seconds("prefill")
+
+    @property
     def pending(self) -> bool:
         """Work outstanding: queued, prefilling or decoding requests."""
         return bool(self._queue or self._slots or self._prefilling)
@@ -492,56 +719,59 @@ class ServingEngine:
         return done
 
     # -- device-side programs -------------------------------------------------
-    def _arm(self, slot: int, *, pos: int, max_new: int, temp: float,
-             rid: int, active: bool) -> None:
+    def _arm(self, slot, *, pos, max_new, temp, rid, active) -> None:
+        """Arm one slot for decode. Every argument is a (1,) device tensor
+        (the staged slot as int64): the writes are index copies, which a
+        CUDA graph replays for whichever slot was staged."""
         st = self._state
-        st["pos"][slot] = pos
-        st["steps"][slot] = 0
-        st["budget"][slot] = max_new
-        st["temp"][slot] = temp
-        st["rid"][slot] = rid
-        st["active"][slot] = active
+        st["pos"].index_copy_(0, slot, pos)
+        st["steps"].index_fill_(0, slot, 0)
+        st["budget"].index_copy_(0, slot, max_new)
+        st["temp"].index_copy_(0, slot, temp)
+        st["rid"].index_copy_(0, slot, rid)
+        st["active"].index_copy_(0, slot, active)
 
-    def _admit_impl(self, tokens, length: int, slot: int, max_new: int,
-                    temp: float, rid: int, table_row) -> None:
-        """Prefill one bucketed prompt and install it into ``slot``. The
-        true length keeps the bucket's pad tokens out of what is kept: a
-        window-wide ring would keep the padded tail, and recurrent state
-        would fold the pads in."""
-        lengths = torch.full((1,), length, dtype=torch.int32,
-                             device=self.device)
+    def _admit_impl(self, bucket: int) -> None:
+        """Prefill the staged prompt at ``bucket`` tokens and install it
+        into the staged slot. The true length keeps the bucket's pad
+        tokens out of what is kept: a window-wide ring would keep the
+        padded tail, and recurrent state would fold the pads in. Reads
+        only staged arguments: program ("admit", bucket)."""
+        a = self._args
+        slot, length, max_new = a["slot"].long(), a["length"], a["max_new"]
         logits, one_caches = self.lm.prefill(
-            self.params, {"tokens": tokens}, cache_width=self.max_seq_len,
-            lengths=lengths, logits_index=length - 1)
+            self.params, {"tokens": a["tokens"][:bucket][None]},
+            cache_width=self.max_seq_len, lengths=length,
+            logits_index=length - 1)
         self._cache_state = self.backend.prefill_fill(
-            self._cache_state, one_caches, slot, length, table_row)
-        self._state["last"][slot] = logits[0, 0].float()
-        self._arm(slot, pos=length, max_new=max_new, temp=temp, rid=rid,
-                  active=max_new > 0)
+            self._cache_state, one_caches, slot, length, a["row"])
+        self._state["last"].index_copy_(0, slot, logits[:, 0].float())
+        self._arm(slot, pos=length, max_new=max_new, temp=a["temp"],
+                  rid=a["rid"], active=max_new > 0)
 
-    def _chunk_impl(self, tokens, start: int, length: int, slot: int,
-                    prompt_len: int, max_new: int, temp: float, rid: int,
-                    final: bool, ctx: int) -> None:
-        """Run one prompt chunk for ``slot``: install its K/V through the
-        slot's cache view and, on the final chunk, arm the slot for decode
-        with the last real token's logits. ``ctx`` bounds the visible cache
-        to the live prefix: the chunk sees nothing at or above its own
-        padded end."""
+    def _chunk_impl(self, bucket: int, ctx: int) -> None:
+        """Run the staged prompt chunk (``bucket`` tokens, ``length`` of
+        them real, from ``start``) for the staged slot: install its K/V
+        through the slot's cache view and, on the final chunk, arm the slot
+        for decode with the last real token's logits. ``ctx`` bounds the
+        visible cache to the live prefix: the chunk sees nothing at or
+        above its own padded end. Program ("chunk", bucket, ctx)."""
+        a = self._args
+        slot, length, max_new = a["slot"].long(), a["length"], a["max_new"]
+        final = a["final"] != 0
         view, tables = self.backend.slot_view(self._cache_state, slot, ctx)
-        t = tokens.shape[1]
-        valid = (torch.arange(t, device=self.device) < length)[None, :]
+        valid = (torch.arange(bucket, device=self.device) < length)[None, :]
         logits, view = self.lm.prefill_chunk(
-            self.params, view, tokens,
-            torch.full((1,), start, dtype=torch.int32, device=self.device),
+            self.params, view, a["tokens"][:bucket][None], a["start"],
             layout=self.backend.layout, block_tables=tables, valid=valid,
-            logits_index=torch.full((1,), length - 1, dtype=torch.int32,
-                                    device=self.device))
+            logits_index=length - 1)
         self._cache_state = self.backend.slot_update(self._cache_state, slot,
                                                      view)
-        if final:
-            self._state["last"][slot] = logits[0, 0].float()
-        self._arm(slot, pos=prompt_len, max_new=max_new, temp=temp, rid=rid,
-                  active=final and max_new > 0)
+        last = self._state["last"]
+        last.index_copy_(0, slot, torch.where(
+            final[:, None], logits[:, 0].float(), last.index_select(0, slot)))
+        self._arm(slot, pos=a["prompt_len"], max_new=max_new, temp=a["temp"],
+                  rid=a["rid"], active=final & (max_new > 0))
 
     def _sample(self, rid, steps, logits, temp, sampled: bool):
         """Keyed samples of (B, V) ``logits`` at the (request id, step)
@@ -579,15 +809,26 @@ class ServingEngine:
         st["steps"].copy_(steps)
         st["active"].copy_(active & ~finished)
 
-    def _draft_fill_impl(self, tokens, length: int, slot: int) -> None:
-        """Install one bucketed token stream into the draft ring: the
-        draft's ``_admit_impl`` without the sampling state (the
-        speculative round reads everything else from the target's)."""
-        lengths = torch.full((1,), length, dtype=torch.int32,
-                             device=self.device)
+    def _draft_fill_impl(self, bucket: int) -> None:
+        """Install the staged slot's visible stream into the draft ring at
+        ``bucket`` tokens: the staged tokens up to ``prompt_len``, then the
+        slot's generated tokens (``out``, on the device) up to ``length``.
+        At admission the whole stream is staged; a re-sync stages only the
+        prompt and reads the rest where decode wrote it. The draft's
+        ``_admit_impl`` without the sampling state (the speculative round
+        reads everything else from the target's). Program ("draft_fill",
+        bucket)."""
+        a = self._args
+        slot, length, plen = a["slot"].long(), a["length"], a["prompt_len"]
+        i = torch.arange(bucket, device=self.device)
+        gen = self._state["out"].index_select(0, slot)[0]
+        after = gen[torch.clamp(i - plen, 0, self.max_seq_len - 1)]
+        tokens = torch.where(i < plen, a["tokens"][:bucket],
+                             torch.where(i < length, after,
+                                         torch.zeros_like(after)))
         _, one_caches = self.draft_lm.prefill(
-            self.draft_params, {"tokens": tokens},
-            cache_width=self.max_seq_len, last_only=True, lengths=lengths)
+            self.draft_params, {"tokens": tokens[None]},
+            cache_width=self.max_seq_len, last_only=True, lengths=length)
         self._draft_state = self._draft_backend.prefill_fill(
             self._draft_state, one_caches, slot, length, None)
 
@@ -674,53 +915,63 @@ class ServingEngine:
         st["steps"].copy_(new_steps)
         st["active"].copy_(active & ~finished)
 
-    def _program_body(self, kind: str, k: int, sampled: bool) -> None:
-        """The eager body of decode program (kind, k, sampled): K fused
-        steps, or one speculative round at depth k."""
+    def _program_body(self, key) -> None:
+        """The eager body of program ``key``: K fused decode steps, one
+        speculative round at depth k, an admission, a prompt chunk or a
+        draft fill."""
+        kind = key[0]
         if kind == "decode":
-            for _ in range(k):
-                self._step_impl(sampled)
+            for _ in range(key[1]):
+                self._step_impl(key[2])
+        elif kind == "spec":
+            self._spec_impl(key[1], key[2])
+        elif kind == "admit":
+            self._admit_impl(key[1])
+        elif kind == "chunk":
+            self._chunk_impl(key[1], key[2])
         else:
-            self._spec_impl(k, sampled)
+            self._draft_fill_impl(key[1])
 
-    def _build_program(self, key) -> Optional[_Program]:
-        """Register decode program ``key``: on the card, captured into the
-        engine's graph pool (a failed capture raises and registers
-        nothing); else the eager call."""
-        prog = None
-        if self._use_graphs:
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-            prog = _Program(key, self._graph_pool,
-                            lambda: self._program_body(*key))
-        self._programs[key] = prog
-        return prog
-
-    def _run_program(self, kind: str, k: int, sampled: bool) -> None:
-        """Run a decode program: replay its graph, capturing it first if
-        ``warm_compile`` did not (capture executes nothing, so the state is
-        untouched until the replay), or call it eagerly."""
-        key = (kind, k, sampled)
-        prog = (self._programs[key] if key in self._programs
-                else self._build_program(key))
-        if prog is None:
-            self._program_body(kind, k, sampled)
+    def program_keys(self) -> List[tuple]:
+        """Every program ``warm_compile`` builds, as ``repro``'s jits would
+        compile them: the single step and the K-step scan at every horizon
+        of ``scheduler.k_schedule`` and, with a draft, the speculative
+        round at every depth of ``scheduler.spec_schedule``, each greedy
+        and sampled; the admission at every prompt bucket (monolithic
+        prefill) or the chunk at every (chunk bucket, context bound) pair
+        that ``repro``'s ``warm_compile`` enumerates (chunked); and, with a
+        draft, the draft fill at every prompt bucket."""
+        keys = [("decode", k, s) for k in self.scheduler.k_schedule
+                for s in (False, True)]
+        if self.speculative:
+            keys += [("spec", k, s) for k in self.scheduler.spec_schedule
+                     for s in (False, True)]
+        if self.scheduler.chunked:
+            for bucket in self.scheduler.buckets:
+                ctx = _next_pow2(bucket)
+                while ctx < self.max_seq_len:
+                    keys.append(("chunk", bucket, ctx))
+                    ctx *= 2
+                keys.append(("chunk", bucket, self.max_seq_len))
         else:
-            prog.replay(key)
+            keys += [("admit", b) for b in self.buckets]
+        if self.speculative:
+            keys += [("draft_fill", b) for b in self.buckets]
+        return keys
 
     def warm_compile(self) -> None:
-        """Build every decode program before traffic, as ``repro``'s
-        ``warm_compile`` compiles its executables: the single step and the
-        K-step scan at every horizon of ``scheduler.k_schedule`` and, with
-        a draft, the speculative round at every depth of
-        ``scheduler.spec_schedule``, each greedy and sampled. Each runs
-        once eagerly with every slot inactive, a no-op (appends are
-        masked, outputs and positions stay; ``last`` takes junk logits that
-        every admission re-arms), so libraries, handles and allocator
-        blocks exist before its capture. On the card every kernel library
-        is loaded (built if missing) too, so no request pays ``nvcc``. Call
-        while no slot is live, before serving traffic. The wall time lands
-        in ``warm_compile_s`` (and ``metrics()``)."""
+        """Build every program before traffic (``program_keys``), as
+        ``repro``'s ``warm_compile`` compiles its executables. Each runs
+        once eagerly first, a no-op: decode programs run with every slot
+        inactive (appends are masked, outputs and positions stay; ``last``
+        takes junk logits that every admission re-arms), and the prefill
+        programs admit into idle slot 0 with ``max_new = 0`` and no table
+        row (the paged install parks every token in the trash block; a
+        ring line and a draft line take junk that the slot's next
+        admission overwrites). On the card every kernel library is loaded
+        (built if missing) too, so no request pays ``nvcc``. Call while no
+        slot is live, before serving traffic. The wall time lands in
+        ``warm_compile_s`` (and ``metrics()``)."""
         if self._slots or self._prefilling:
             raise RuntimeError("warm_compile needs an idle engine: its "
                                "warm-up runs would advance live slots")
@@ -729,31 +980,11 @@ class ServingEngine:
             build.build_all()
             for name in build.sources():
                 build.load(name)
-        keys = [("decode", k, s) for k in self.scheduler.k_schedule
-                for s in (False, True)]
-        if self.speculative:
-            keys += [("spec", k, s) for k in self.scheduler.spec_schedule
-                     for s in (False, True)]
-        keys = [key for key in keys if key not in self._programs]
-        for key in keys:
-            self._program_body(*key)
-        for key in keys:
-            self._build_program(key)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._args.put(slot=0, length=1, start=0, prompt_len=1, max_new=0,
+                       rid=0, final=0, temp=0.0, tokens=[],
+                       row=np.full(self._args["row"].numel(), -1))
+        self._warm_programs(self.program_keys())
         self.warm_compile_s = time.perf_counter() - t0
-
-    def graphs(self) -> int:
-        """Decode programs captured as CUDA graphs."""
-        return sum(p is not None for p in self._programs.values())
-
-    def graph_pool_bytes(self) -> int:
-        """Device bytes the engine's graph memory pool holds."""
-        if self._graph_pool is None:
-            return 0
-        pool = tuple(self._graph_pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg["segment_pool_id"]) == pool)
 
     # -- host-side management -------------------------------------------------
     def _try_admit(self, slots, free, prefilling):
@@ -830,20 +1061,22 @@ class ServingEngine:
         src = pp.tokens if pp.tokens is not None else r.prompt
         self.planned_token_slots += c.bucket
         self.useful_prefill_tokens += c.length
-        tokens = np.zeros((1, c.bucket), np.int32)
-        tokens[0, :c.length] = src[c.start:c.start + c.length]
         # context bound: the next power of two covering the padded chunk end
         ctx = min(self.max_seq_len, _next_pow2(c.start + c.bucket))
-        self._chunk_impl(torch.from_numpy(tokens).to(self.device), c.start,
-                         c.length, c.slot, len(src), r.max_new_tokens,
-                         r.temperature, r.request_id, c.final, ctx)
-        pp.next = c.start + c.length
-        if c.final:
-            del prefilling[c.slot]
-            if self.speculative:
+        self._args.put(slot=c.slot, start=c.start, length=c.length,
+                       prompt_len=len(src), max_new=r.max_new_tokens,
+                       temp=r.temperature, rid=r.request_id,
+                       final=int(c.final),
+                       tokens=src[c.start:c.start + c.length])
+        with self._clock.span("prefill"):
+            self._run_program(("chunk", c.bucket, ctx))
+            if c.final and self.speculative:
                 # arm the draft with the slot's whole visible stream
                 # (prompt, or prompt + generated on a recompute-resume)
                 self._draft_fill(c.slot, np.asarray(src, np.int32))
+        pp.next = c.start + c.length
+        if c.final:
+            del prefilling[c.slot]
             if r.resume is None:
                 # the slot's full prompt blocks now hold real K/V: publish
                 # them for sharing (a resumed request's stream includes
@@ -861,18 +1094,19 @@ class ServingEngine:
         for decode. ``remaining`` sizes the cache reservation."""
         length = len(tokens_1d)
         bucket = bucket_for(length, self.buckets)
-        tokens = np.zeros((1, bucket), np.int32)
-        tokens[0, :length] = tokens_1d                   # right-pad (exact)
         table_row = self.backend.alloc_slot(slot, length, remaining)
-        self._admit_impl(torch.from_numpy(tokens).to(self.device), length,
-                         slot, r.max_new_tokens, r.temperature, r.request_id,
-                         table_row)
-        self._note_grant(r)
+        # right-padded to the bucket (exact)
+        self._args.put(slot=slot, length=length, max_new=r.max_new_tokens,
+                       temp=r.temperature, rid=r.request_id, row=table_row,
+                       tokens=tokens_1d)
+        with self._clock.span("prefill"):
+            self._run_program(("admit", bucket))
+            self._note_grant(r)
+            if self.speculative:
+                self._draft_fill(slot, tokens_1d)
         self.prefill_tokens_total += length
         self.planned_token_slots += bucket
         self.useful_prefill_tokens += length
-        if self.speculative:
-            self._draft_fill(slot, tokens_1d)
         if r.resume is None:
             self._scanned[slot] = 0
         else:
@@ -1075,6 +1309,7 @@ class ServingEngine:
             "host_syncs": self.host_syncs,
             "lookahead_dispatches": self.lookahead_dispatches,
             "decode_s": self.decode_s,
+            "prefill_s": self.prefill_s,
             "peak_active_slots": self.peak_active_slots,
             "occupancy": self.occupancy(),
             "deadline_hits": self.scheduler.deadline_hit_rates(),
@@ -1108,11 +1343,11 @@ class ServingEngine:
         }
 
     def _decode_round(self, slots, free, done, k: int = 1) -> None:
-        t0 = time.perf_counter()
         # repro's hang and decode-fault seams sit here; faults are a later
         # slice of the port
-        self._reserve_lookahead(slots, k)
-        self._run_program("decode", k, _any_sampled(slots))
+        with self._clock.span("decode"):
+            self._reserve_lookahead(slots, k)
+            self._run_program(("decode", k, _any_sampled(slots)))
         self.decode_steps += k
         self.host_syncs += 1
         self.planned_token_slots += len(slots) * k
@@ -1123,7 +1358,6 @@ class ServingEngine:
             # speculative round re-syncs these slots first
             self._draft_dirty.update(slots.keys())
         self._finish_round(slots, free, done)
-        self.decode_s += time.perf_counter() - t0
 
     def _spec_round(self, slots, free, done, k: int) -> None:
         """One speculative propose-k/verify round (``_spec_impl``). The
@@ -1131,11 +1365,11 @@ class ServingEngine:
         the verify append always lands in a reserved block; rejected tails
         were masked out of the cache and cost only the token-slots
         ``occupancy`` charges for them."""
-        t0 = time.perf_counter()
-        self._resync_draft(slots)
-        self._reserve_lookahead(slots, k + 1)
+        with self._clock.span("decode"):
+            self._resync_draft(slots)
+            self._reserve_lookahead(slots, k + 1)
+            self._run_program(("spec", k, _any_sampled(slots)))
         before = dict(self._scanned)
-        self._run_program("spec", k, _any_sampled(slots))
         steps_h = self._state["steps"].cpu().numpy()     # the one host sync
         self.host_syncs += 1
         self.planned_token_slots += len(slots) * (k + 1)
@@ -1156,31 +1390,27 @@ class ServingEngine:
         self.scheduler.observe_speculation(len(slots), len(slots) * k,
                                            accepted_total)
         self._finish_round(slots, free, done, steps_h=steps_h)
-        self.decode_s += time.perf_counter() - t0
 
     def _resync_draft(self, slots) -> None:
         """Rebuild the draft cache of slots that advanced through plain
         decode rounds (the draft saw none of those tokens): one bucketed
-        draft prefill of prompt + generated per dirty slot."""
-        dirty = [s for s in slots if s in self._draft_dirty]
-        if not dirty:
-            return
-        steps_h = self._state["steps"].cpu().numpy()
-        out_h = self._state["out"].cpu().numpy()
-        for slot in dirty:
-            n = int(steps_h[slot])
-            self._draft_fill(slot, np.concatenate(
-                [slots[slot].prompt, out_h[slot, :n]]).astype(np.int32))
+        draft fill of prompt + generated per dirty slot. The host knows
+        how many tokens each slot generated (``_scanned``), so only the
+        prompt is staged; the fill reads the generated tokens on the
+        device."""
+        for slot in [s for s in slots if s in self._draft_dirty]:
+            self._draft_fill(slot, slots[slot].prompt, self._scanned[slot])
 
-    def _draft_fill(self, slot: int, tokens_1d: np.ndarray) -> None:
+    def _draft_fill(self, slot: int, tokens_1d: np.ndarray,
+                    generated: int = 0) -> None:
         """Prefill the draft cache of ``slot`` with its whole visible
-        stream (the prompt, plus generated tokens on a resume or re-sync),
+        stream: ``tokens_1d`` (the prompt, plus generated tokens on a
+        resume), then the ``generated`` tokens decode left in ``out``,
         bucketed like the target's prefill."""
-        length = len(tokens_1d)
-        tokens = np.zeros((1, bucket_for(length, self.buckets)), np.int32)
-        tokens[0, :length] = tokens_1d
-        self._draft_fill_impl(torch.from_numpy(tokens).to(self.device),
-                              length, slot)
+        length = len(tokens_1d) + generated
+        self._args.put(slot=slot, prompt_len=len(tokens_1d), length=length,
+                       tokens=tokens_1d)
+        self._run_program(("draft_fill", bucket_for(length, self.buckets)))
         self._draft_dirty.discard(slot)
 
     def _finish_round(self, slots, free, done, steps_h=None) -> None:
@@ -1189,6 +1419,7 @@ class ServingEngine:
         round has already brought the step counts)."""
         active = self._state["active"].cpu().numpy()
         now = time.perf_counter()
+        self._clock.settle()         # the sync passed every open span
         for r in slots.values():
             if r.ttft_s == 0.0 and r.max_new_tokens > 0:
                 r.ttft_s = now - r.submit_s
@@ -1237,30 +1468,53 @@ class ServingEngine:
         self.backend.assert_invariants(self._cache_state)
 
 
-class DrainBatchEngine:
+class DrainBatchEngine(_GraphedPrograms):
     """The static batcher, kept as the measured baseline (port of
     ``repro.serving.engine.DrainBatchEngine``): drain the queue in FIFO
-    batches of ``batch_slots`` right-padded to the longest prompt, decode
-    everyone for the longest budget, and bring every sampled token to the
-    host. As ``repro``'s, it splits one threefry key per token off
-    ``prng_key(seed)`` and samples the whole batch from it, so its sampled
-    streams are ``repro``'s drain streams (and depend on the batch)."""
+    batches of ``batch_slots`` right-padded to a power-of-two bucket of the
+    longest prompt, decode everyone for the longest budget, and bring every
+    sampled token to the host. As ``repro``'s, it splits one threefry key
+    per token off ``prng_key(seed)`` and samples the whole batch from it,
+    so its sampled streams are ``repro``'s drain streams (and depend on the
+    batch). Right-padding is exact: attention is causal, the first token's
+    logits come from each row's last real position, and a pad's cache
+    entry sits above every query until decode overwrites it.
+
+    Where ``repro`` jits its prefill and decode, the engine keeps a
+    (``batch_slots``, ``max_seq_len``) cache and its decode state at fixed
+    addresses and registers three kinds of program: ("prefill", bucket)
+    for every prompt bucket, ("sample", sampled), which splits the key in
+    place and samples the batch, and ("forward",), one decode step on the
+    sampled tokens. On the card ``warm_compile`` captures them all as CUDA
+    graphs; on the CPU each is the eager call. As in ``repro``, the host
+    reads each sampled token before the decode step that follows it (one
+    sync a token), so TTFT ends at the first sample."""
 
     def __init__(self, lm: LM, params, *, batch_slots: int = 8,
                  max_seq_len: int = 512, seed: int = 0,
                  truncate_prompts: bool = False):
         self.lm = lm
         self.params = params
-        self.device = lm.device
-        self.batch_slots = batch_slots
+        self.device = dev = lm.device
+        self.batch_slots = b = batch_slots
         self.max_seq_len = max_seq_len
-        self.rng = prng_key(seed, device=lm.device)
+        self.buckets = prompt_buckets(max_seq_len)
+        self.rng = prng_key(seed, device=dev)       # split in place a token
         self.truncate_prompts = truncate_prompts
         self._windowed = _has_windowed_blocks(lm)
         self._queue: List[Request] = []
         self._next_id = 0
         self.generated_tokens = 0
         self.host_syncs = 0     # one token round-trip per decoded token
+        self.warm_compile_s: Optional[float] = None
+        self._caches = lm.init_cache(b, max_seq_len)
+        self._last = torch.zeros((b, lm.cfg.padded_vocab),
+                                 dtype=torch.float32, device=dev)
+        self._pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self._nxt = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self._args = _Staged(dev, floats=("temp",), lengths=b, temp=b,
+                             tokens=b * max_seq_len)
+        self._init_programs()
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
                temperature: float = 0.0, priority: int = 0,
@@ -1287,48 +1541,99 @@ class DrainBatchEngine:
                 done[r.request_id] = r
         return done
 
+    def _program_body(self, key) -> None:
+        if key[0] == "prefill":
+            self._prefill_impl(key[1])
+        elif key[0] == "sample":
+            self._sample_impl(key[1])
+        else:
+            self._forward_impl()
+
+    def _prefill_impl(self, bucket: int) -> None:
+        """Prefill the staged batch at ``bucket`` tokens into the engine's
+        cache; arm ``last`` and ``pos``. Program ("prefill", bucket)."""
+        a = self._args
+        lengths = a["lengths"]
+        tokens = a["tokens"].view(self.batch_slots, -1)[:, :bucket]
+        # lengths matter only where a window-wide ring could keep pad rows;
+        # the first token's logits come from each row's last real position
+        logits, caches = self.lm.prefill(
+            self.params, {"tokens": tokens}, cache_width=self.max_seq_len,
+            lengths=lengths if self._windowed else None,
+            logits_index=lengths - 1)
+        _map_block_dicts(_copy_leaves, self._caches, caches)
+        self._last.copy_(logits[:, 0].float())
+        self._pos.copy_(lengths)
+
+    def _sample_impl(self, sampled: bool) -> None:
+        """Split the key in place and sample the batch from the split-off
+        key into ``_nxt`` (an all-greedy batch skips the draw; the key is
+        split anyway). Program ("sample", sampled)."""
+        keys = split(self.rng)
+        self.rng.copy_(keys[0])
+        nxt = (sample_logits_batch(keys[1], self._last, self._args["temp"])
+               if sampled else torch.argmax(self._last, dim=-1).to(
+                   torch.int32))
+        self._nxt.copy_(nxt)
+
+    def _forward_impl(self) -> None:
+        """Decode the sampled tokens ``_nxt`` one step: the next ``last``
+        and ``pos``. Program ("forward",)."""
+        logits, _ = self.lm.decode_step(self.params, self._caches,
+                                        self._nxt[:, None], self._pos)
+        self._pos.add_(1)
+        self._last.copy_(logits[:, 0].float())
+
+    def program_keys(self) -> List[tuple]:
+        """The prefill at every prompt bucket, the sample greedy and
+        sampled, and the decode step: what ``repro``'s jits compile across
+        batches."""
+        return ([("prefill", b) for b in self.buckets]
+                + [("sample", False), ("sample", True), ("forward",)])
+
+    def warm_compile(self) -> None:
+        """Build every program (``program_keys``) before traffic. The
+        eager warm-ups write junk into the cache and the decode state,
+        which the next batch's prefill overwrites; the key is put back,
+        so the key schedule stays ``repro``'s."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            build.build_all()
+            for name in build.sources():
+                build.load(name)
+        key = self.rng.clone()
+        self._args.put(lengths=np.ones(self.batch_slots), temp=[],
+                       tokens=[])
+        self._warm_programs(self.program_keys())
+        self.rng.copy_(key)
+        self.warm_compile_s = time.perf_counter() - t0
+
     def _serve_batch(self, requests: List[Request]) -> None:
-        b, dev = self.batch_slots, self.device
+        b = self.batch_slots
         admit = time.perf_counter()          # batch enters service together
         for r in requests:
             r.admit_s = admit
         plen = max(len(r.prompt) for r in requests)
-        lens = np.array([len(r.prompt) for r in requests]
-                        + [plen] * (b - len(requests)), np.int32)
-        tokens = np.zeros((b, plen), np.int32)
+        tokens = np.zeros((b, self.max_seq_len), np.int32)
         for i, r in enumerate(requests):
             tokens[i, :len(r.prompt)] = r.prompt         # right-pad (exact)
-        lengths = torch.from_numpy(lens).to(dev)
-        # lengths matter only where a window-wide ring could keep pad rows;
-        # the first token's logits come from each row's last real position
-        logits, caches = self.lm.prefill(
-            self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
-            cache_width=self.max_seq_len,
-            lengths=lengths if self._windowed else None,
-            logits_index=lengths - 1)
-        last = logits[:, 0].float()
+        self._args.put(
+            lengths=[len(r.prompt) for r in requests]
+            + [plen] * (b - len(requests)),
+            temp=[r.temperature for r in requests], tokens=tokens)
+        self._run_program(("prefill", bucket_for(plen, self.buckets)))
         max_new = max(r.max_new_tokens for r in requests)
         outs = np.zeros((b, max_new), np.int32)
-        pos = lengths
-        temp = torch.tensor([r.temperature for r in requests]
-                            + [0.0] * (b - len(requests)),
-                            dtype=torch.float32, device=dev)
         sampled = any(r.temperature > 0.0 for r in requests)
         for t in range(max_new):
-            self.rng, key = split(self.rng)
-            # an all-greedy batch skips the draw (the key is split anyway)
-            nxt = (sample_logits_batch(key, last, temp) if sampled
-                   else torch.argmax(last, dim=-1).to(torch.int32))
-            outs[:, t] = nxt.cpu().numpy()               # per-token host trip
+            self._run_program(("sample", sampled))
+            outs[:, t] = self._nxt.cpu().numpy()         # per-token host trip
             self.host_syncs += 1
             if t == 0:
                 first = time.perf_counter()
                 for r in requests:
                     r.ttft_s = first - r.submit_s
-            logits1, caches = self.lm.decode_step(self.params, caches,
-                                                  nxt[:, None], pos)
-            pos = pos + 1
-            last = logits1[:, 0].float()
+            self._run_program(("forward",))
         finish = time.perf_counter()
         for i, r in enumerate(requests):
             r.output = outs[i, :r.max_new_tokens]
@@ -1336,3 +1641,9 @@ class DrainBatchEngine:
             r.finish_s = finish
             r.latency_s = finish - r.submit_s
             self.generated_tokens += r.max_new_tokens
+
+
+def _copy_leaves(dst: dict, src: dict) -> dict:
+    for key, leaf in dst.items():
+        leaf.copy_(src[key])
+    return dst

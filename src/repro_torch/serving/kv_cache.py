@@ -310,12 +310,13 @@ def _cache_proto(lm, max_seq_len: int):
         caches)
 
 
-def _install(dst, src, slot: int) -> None:
-    """Copy each (L, 1, W, ...) tensor of ``src`` into slot ``slot`` of the
-    matching (L, B, W, ...) tensor of ``dst``."""
+def _install(dst, src, slot) -> None:
+    """Copy each (L, 1, W, ...) tensor of ``src`` into slot ``slot`` (a (1,)
+    int64 device tensor) of the matching (L, B, W, ...) tensor of
+    ``dst``."""
     def put(d, s):
         for key, g in d.items():
-            g[:, slot].copy_(s[key][:, 0])
+            g.index_copy_(1, slot, s[key])
         return d
     _map_block_dicts(put, dst, src)
 
@@ -344,7 +345,10 @@ class RingCache(KVCacheBackend):
         return np.zeros((1,), np.int32)   # no tables: fixed dummy row
 
     def prefill_fill(self, cache_state, one_caches, slot, length, table_row):
-        """Copy a single-request prefilled cache into ``slot``, in place."""
+        """Copy a single-request prefilled cache into ``slot``, in place.
+        Like every ``slot`` the engine's programs pass (``slot_view``,
+        ``slot_update``), a (1,) int64 device tensor: a Python int would
+        be frozen into a captured CUDA graph."""
         _install(cache_state["caches"], one_caches, slot)
         return cache_state
 
@@ -370,14 +374,14 @@ class RingCache(KVCacheBackend):
             out = {}
             for key, g in d.items():
                 width = g.shape[2] if ctx is None else min(ctx, g.shape[2])
-                out[key] = g[:, slot:slot + 1, :width].contiguous()
+                out[key] = g[:, :, :width].index_select(1, slot)
             return out
         return _map_block_dicts(view, cache_state["caches"]), None
 
     def slot_update(self, cache_state, slot, view_caches):
         def upd(d, v):
             for key, g in d.items():
-                g[:, slot:slot + 1, :v[key].shape[2]].copy_(v[key])
+                g[:, :, :v[key].shape[2]].index_copy_(1, slot, v[key])
             return d
         _map_block_dicts(upd, cache_state["caches"], view_caches)
         return cache_state
@@ -934,7 +938,7 @@ class PagedCache(KVCacheBackend):
     def slot_view(self, cache_state, slot, ctx=None):
         """The global pool and the slot's (1, M) table row, cut to the
         entries covering positions below ``ctx``."""
-        tables = cache_state["tables"][slot:slot + 1]
+        tables = cache_state["tables"].index_select(0, slot)
         if ctx is not None:
             m = min(-(-ctx // self.block_size), self.blocks_per_slot)
             tables = tables[:, :m]
@@ -947,30 +951,40 @@ class PagedCache(KVCacheBackend):
     def prefill_fill(self, cache_state, one_caches, slot, length, table_row):
         """Scatter a prefilled per-request cache into the slot's blocks,
         routing each token by its position (block ``pos // bs``, offset
-        ``pos % bs``), so window-wide rings install too. Pad entries
-        (pos >= length) are not written. The row's blocks may come from a
-        finished request, so their positions are wiped first."""
+        ``pos % bs``), so window-wide rings install too. The row's blocks
+        may come from a finished request, so their positions are wiped
+        first. ``slot``, ``length`` and ``table_row`` are device tensors
+        ((1,) int64, (1,) and (M,) int32: the engine's staged arguments).
+
+        The scatter has a fixed shape, so a CUDA graph can capture it: a
+        token that is not installed (a pad, an empty ring column, a
+        position without a block) is parked in the trash block 0 at offset
+        0, as ``repro``'s is, and block 0's positions are reset to -1
+        afterwards, so no kernel ever sees a position there."""
         bs = self.block_size
-        dev = cache_state["tables"].device
-        row = torch.from_numpy(np.asarray(table_row, np.int32)).to(dev)
-        own = row[row >= 0].long()
+        row = table_row
+        own = torch.where(row >= 0, row, torch.zeros_like(row)).long()
 
         def fill(c, o):
             src_pos = o["pos"][0, 0]                      # (W,) layer-0 row
             logical = torch.clamp(src_pos, 0, self.max_seq_len - 1) // bs
             row_phys = row[logical.long()]
             ok = (src_pos >= 0) & (src_pos < length) & (row_phys >= 0)
-            phys, off = row_phys[ok].long(), (src_pos[ok] % bs).long()
+            zero = torch.zeros_like(src_pos)
+            phys = torch.where(ok, row_phys, zero).long()
+            off = torch.where(ok, src_pos % bs, zero).long()
             for key, leaf in c.items():
                 if key == "pos":
                     leaf[:, own] = -1
-                    leaf[:, phys, off] = src_pos[ok][None, :].to(leaf.dtype)
+                    leaf[:, phys, off] = torch.where(
+                        ok, src_pos, zero - 1)[None, :].to(leaf.dtype)
+                    leaf[:, 0] = -1                       # the trash block
                 else:
-                    leaf[:, phys, off] = o[key][:, 0][:, ok].to(leaf.dtype)
+                    leaf[:, phys, off] = o[key][:, 0].to(leaf.dtype)
             return c
 
         _map_block_dicts(fill, cache_state["caches"], one_caches)
-        cache_state["tables"][slot] = row
+        cache_state["tables"].index_copy_(0, slot, row[None])
         return cache_state
 
     # -- accounting ----------------------------------------------------------

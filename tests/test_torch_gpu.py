@@ -19,9 +19,11 @@ and counts equal on rows away from the thresholds, and equal bits on a
 repeated call (the cluster merges in rank order). The RG-LRU scan (f32
 only): 1e-5 * max(1, |h|) per element (the chunked scan composes the same
 steps in another order: one chunk's map composed onto another's state).
-The engines replay their decode programs as CUDA graphs; the launch
-counts follow from the programs run (``_count_programs``), and graphed
-streams are held to eager ones (graphs off) up to a near-tie.
+The engines replay their programs (decode rounds, admissions, chunks,
+draft fills, the gate, the drain batcher's prefill, sample and step) as CUDA
+graphs; the launch counts follow from the programs run
+(``_count_programs``), and graphed streams and states are held to eager
+ones (graphs off): equal, or parted at a near-tie.
 """
 import numpy as np
 import pytest
@@ -686,8 +688,7 @@ def test_speculative_engine_on_gpu_matches_its_baseline(cuda, backend):
         target = 3 * (n["steps"] + n["rounds"] + n["chunks"])
         paged = backend == "paged"
         assert LAUNCHES == {
-            "flash_attention": n["fills"] + (0 if paged
-                                             else 3 * eng.admissions),
+            "flash_attention": n["fills"] + 3 * n["admits"],
             "decode_attention": n["draft_steps"] + (0 if paged else target),
             "paged_decode_attention": target if paged else 0,
             "cascade_gate": 0, "rglru_scan": 0}
@@ -699,33 +700,26 @@ def test_speculative_engine_on_gpu_matches_its_baseline(cuda, backend):
 
 
 def _count_programs(eng):
-    """Wrap ``eng``'s decode-program runner, prompt chunks and draft fills
-    with counters: plain decode steps (a K-step program adds K, whether it
-    replays a graph or runs eagerly), speculative rounds and their draft
-    steps (k + 1 a round), prompt chunks and draft fills."""
-    n = dict(steps=0, rounds=0, draft_steps=0, fills=0, chunks=0)
-    run, chunk, fill = (eng._run_program, eng._run_chunk,
-                        getattr(eng, "_draft_fill_impl", None))
+    """Wrap ``eng``'s program runner with counters: plain decode steps (a
+    K-step program adds K, whether it replays a graph or runs eagerly),
+    speculative rounds and their draft steps (k + 1 a round), admissions,
+    prompt chunks and draft fills."""
+    n = dict(steps=0, rounds=0, draft_steps=0, admits=0, fills=0, chunks=0)
+    run = eng._run_program
 
-    def counted_run(kind, k, sampled):
+    def counted_run(key):
+        kind = key[0]
         if kind == "decode":
-            n["steps"] += k
-        else:
+            n["steps"] += key[1]
+        elif kind == "spec":
             n["rounds"] += 1
-            n["draft_steps"] += k + 1
-        return run(kind, k, sampled)
+            n["draft_steps"] += key[1] + 1
+        else:
+            n[{"admit": "admits", "chunk": "chunks",
+               "draft_fill": "fills"}[kind]] += 1
+        return run(key)
 
-    def counted_chunk(*a):
-        n["chunks"] += 1
-        return chunk(*a)
-
-    def counted_fill(*a):
-        n["fills"] += 1
-        return fill(*a)
-
-    eng._run_program, eng._run_chunk = counted_run, counted_chunk
-    if eng.speculative:
-        eng._draft_fill_impl = counted_fill
+    eng._run_program = counted_run
     return n
 
 
@@ -779,8 +773,7 @@ def test_graphed_engine_matches_the_eager_engine(cuda, dtype, backend, mode):
         target = 3 * (n["steps"] + n["rounds"] + n["chunks"])
         paged = backend == "paged"
         assert LAUNCHES == {
-            "flash_attention": n["fills"] + (0 if paged
-                                             else 3 * eng.admissions),
+            "flash_attention": n["fills"] + 3 * n["admits"],
             "decode_attention": n["draft_steps"] + (0 if paged else target),
             "paged_decode_attention": target if paged else 0,
             "cascade_gate": 0, "rglru_scan": 0}
@@ -810,9 +803,9 @@ def test_graphed_engine_matches_the_eager_engine(cuda, dtype, backend, mode):
 
 def test_a_failed_capture_raises(cuda):
     """A decode program that syncs the host cannot be captured: the engine
-    raises and registers nothing, and the next round raises again rather
-    than running the eager round. Run in a child process, so the failed
-    capture cannot touch the other tests' CUDA context."""
+    raises and registers no decode program, and the next round raises
+    again rather than running the eager round. Run in a child process, so
+    the failed capture cannot touch the other tests' CUDA context."""
     import os
     import subprocess
     import sys
@@ -839,13 +832,13 @@ def syncing(sampled=True):
     eng._state["steps"].sum().item()        # a host sync
 
 eng._step_impl = syncing
-with pytest.raises(RuntimeError, match="capturing the decode program"):
+with pytest.raises(RuntimeError, match="capturing the program .'decode'"):
     eng.warm_compile()
 assert eng._programs == {} and eng.warm_compile_s is None
 eng.submit(np.arange(5), max_new_tokens=3)
-with pytest.raises(RuntimeError, match="capturing the decode program"):
+with pytest.raises(RuntimeError, match="capturing the program .'decode'"):
     eng.run()
-assert eng.graphs() == 0
+assert not any(key[0] == "decode" for key in eng._programs)
 print("raised")
 """
     env = dict(os.environ, PYTHONPATH=src)
@@ -990,3 +983,271 @@ def test_cascade_on_gpu_gates_through_the_kernel(cuda):
         np.random.default_rng(9).integers(0, 96, (8, 10)))
     assert LAUNCHES["cascade_gate"] == 1
     assert int(one["accept"] + one["drop"] + one["escalate"]) == 8
+
+
+# -- prefill, gate and drain programs as CUDA graphs ----------------------------
+
+def _tree_equal(a, b, skip_trash=False):
+    """Two cache trees (lists and tuples of dicts of tensors) hold equal
+    tensors; with ``skip_trash``, (L, N, bs, ...) pools outside block 0,
+    where pad writes park in no fixed order."""
+    if isinstance(a, dict):
+        cut = slice(1, None) if skip_trash else slice(None)
+        return all(torch.equal(a[k][:, cut], b[k][:, cut]) for k in a)
+    return all(_tree_equal(x, y, skip_trash) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("kind", ["admit", "chunk", "draft_fill"])
+def test_a_prefill_graph_replays_for_any_request(cuda, kind):
+    """One captured admission (ring), prompt chunk (paged) and draft fill
+    (ring, reading two requests' generated tokens from ``out``), replayed
+    for two requests of different slot, length and request id, leaves the
+    slot state, the caches and the draft caches equal, bit for bit, to an
+    eager engine's (graphs off) after the same calls; each replay counts
+    its capture's launches."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.scheduler import bucket_for
+
+    lm, draft = _tiny(cuda), _tiny(cuda, layers=1)
+    params, dparams = lm.init(0), draft.init(7)
+    kw = dict(batch_slots=4, max_seq_len=64)
+    if kind == "chunk":
+        kw.update(cache_backend="paged", block_size=8, chunk_tokens=16)
+    if kind == "draft_fill":
+        kw.update(draft_model=draft, draft_params=dparams,
+                  speculative_tokens=2)
+    engines = []
+    for graphed in (False, True):
+        eng = ServingEngine(lm, params, **kw)
+        eng._use_graphs = graphed
+        eng.warm_compile()
+        engines.append(eng)
+    warmed = dict(engines[1]._programs)
+    rng = np.random.default_rng(4)
+    for slot, length, rid in ((2, 5, 3), (0, 13, 11)):
+        tokens = rng.integers(0, 96, length)
+        launches = []
+        for eng in engines:
+            if kind == "admit":
+                eng._args.put(slot=slot, length=length, max_new=4, temp=0.7,
+                              rid=rid, row=[0], tokens=tokens)
+                key = ("admit", 16)
+            elif kind == "chunk":
+                row = np.full(8, -1, np.int32)
+                row[:2] = (1 + 2 * slot, 2 + 2 * slot)
+                eng._cache_state = eng.backend.begin_slots(
+                    eng._cache_state, [slot], [row], [0])
+                eng._args.put(slot=slot, start=0, length=length,
+                              prompt_len=length, max_new=4, temp=0.7,
+                              rid=rid, final=1, tokens=tokens)
+                key = ("chunk", 16, 16)
+            else:
+                eng._state["out"][slot, :2] = torch.tensor([rid, 2 * rid])
+                eng._args.put(slot=slot, prompt_len=length,
+                              length=length + 2, tokens=tokens)
+                key = ("draft_fill", bucket_for(length + 2, eng.buckets))
+            before = dict(LAUNCHES)
+            eng._run_program(key)
+            torch.cuda.synchronize()
+            launches.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        eager, graphed = engines
+        assert launches[0] == launches[1] and sum(launches[1].values()) > 0
+        for name, t in eager._state.items():
+            assert torch.equal(t, graphed._state[name]), name
+        assert _tree_equal(eager._cache_state["caches"],
+                           graphed._cache_state["caches"],
+                           skip_trash=kind == "chunk")
+        if kind == "chunk":
+            assert torch.equal(eager._cache_state["tables"],
+                               graphed._cache_state["tables"])
+        if kind == "draft_fill":
+            assert _tree_equal(eager._draft_state["caches"],
+                               graphed._draft_state["caches"])
+    assert engines[1]._programs == warmed
+    assert engines[1].graphs() == len(warmed)
+
+
+def test_rglru_scan_in_two_graphs_interleaved_with_eager(cuda):
+    """The scan captured into two graphs (other shapes: other CTA counts
+    on the one look-back state of the capture stream), each replayed twice
+    on new inputs with an eager launch between: every result equals the
+    plain version within 1e-5 of max(1, |h|)."""
+    from repro_torch.serving.engine import _Program, capture_stream
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    for i, (b, s, w) in enumerate(((2, 70, 300), (1, 300, 130))):
+        ins = [torch.zeros((b, s, w), device=cuda),
+               torch.zeros((b, s, w), device=cuda),
+               torch.zeros((b, w), device=cuda)]
+        res = [torch.zeros((b, s, w), device=cuda),
+               torch.zeros((b, w), device=cuda)]
+
+        def body(ins=ins, res=res):
+            for r, x in zip(res, rglru_scan(*ins)):
+                r.copy_(x)
+
+        graphs.append((_Program(("scan", i), pool, capture_stream(cuda),
+                                body), ins, res))
+
+    def fresh(ins):
+        ins[0].copy_(0.8 + 0.2 * torch.rand(ins[0].shape, generator=gen,
+                                            device=cuda))
+        for x in ins[1:]:
+            x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
+
+    def assert_plain(ins, got):
+        for r, p in zip(got, rglru_scan_plain(*ins)):
+            assert ((r - p).abs() <= 1e-5 * p.abs().clamp_min(1)).all()
+
+    for _ in range(2):
+        for i, (prog, ins, res) in enumerate(graphs):
+            fresh(ins)
+            before = LAUNCHES["rglru_scan"]
+            prog.replay(("scan", i))
+            assert LAUNCHES["rglru_scan"] == before + 1
+            assert_plain(ins, res)
+            other = graphs[1 - i][1]
+            fresh(other)
+            assert_plain(other, rglru_scan(*other))
+
+
+def test_rglru_scan_graph_outlives_a_state_growth(cuda):
+    """A scan graph captured on the capture stream, then an eager launch
+    on that stream with more CTAs than its look-back state holds flags
+    for (the state grows): the graph, replayed twice on new inputs with
+    an eager launch on the grown state between, still equals the plain
+    version within 1e-5 of max(1, |h|), as does the large launch."""
+    from repro_torch.kernels import rglru_scan as scan
+    from repro_torch.serving.engine import _Program, capture_stream
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    stream = capture_stream(cuda)
+
+    def fresh(ins):
+        ins[0].copy_(0.8 + 0.2 * torch.rand(ins[0].shape, generator=gen,
+                                            device=cuda))
+        for x in ins[1:]:
+            x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
+
+    def assert_plain(ins, got):
+        for r, p in zip(got, rglru_scan_plain(*ins)):
+            assert ((r - p).abs() <= 1e-5 * p.abs().clamp_min(1)).all()
+
+    def on_stream(fn):
+        stream.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(stream):
+            got = fn()
+        torch.cuda.current_stream(cuda).wait_stream(stream)
+        return got
+
+    ins = [torch.zeros((2, 70, 300), device=cuda),
+           torch.zeros((2, 70, 300), device=cuda),
+           torch.zeros((2, 300), device=cuda)]
+    res = [torch.zeros((2, 70, 300), device=cuda),
+           torch.zeros((2, 300), device=cuda)]
+
+    def body():
+        for r, x in zip(res, rglru_scan(*ins)):
+            r.copy_(x)
+
+    prog = _Program(("scan",), torch.cuda.graph_pool_handle(), stream, body)
+    key = (ins[0].device.index, stream.cuda_stream)
+    held = scan._STATE[key]
+    n = held[1].numel()
+    w, s = 64 * scan._THREADS, scan._MAX_CHUNK * (n // 64 + 1)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 64 * -(-s // scan.chunk_len(1, s, w, sms)) > n
+    big = [torch.zeros((1, s, w), device=cuda),
+           torch.zeros((1, s, w), device=cuda),
+           torch.zeros((1, w), device=cuda)]
+    fresh(big)
+    assert_plain(big, on_stream(lambda: rglru_scan(*big)))
+    assert scan._STATE[key][1].numel() > n
+    assert any(old is held for old in scan._RETIRED)
+    for _ in range(2):
+        fresh(ins)
+        prog.replay(("scan",))
+        assert_plain(ins, res)
+        small = [x.clone() for x in ins]
+        fresh(small)
+        assert_plain(small, on_stream(lambda: rglru_scan(*small)))
+    del big
+
+
+def test_gate_program_equals_the_plain_gate(cuda):
+    """The cascade's gate program (edge prefill at the prompt's bucket and
+    ``cascade_gate`` on the last real row), captured by ``warm_compile``:
+    for prompts of several lengths its confidence, route and counts equal
+    ``cascade_gate_plain`` on the same edge logits, one gate launch a
+    replay, and no program is captured while gating."""
+    from repro_torch.cascade import CascadeLM, edge_variant
+    from repro_torch.cascade.gate import make_thresholds
+    from repro_torch.models.model import LM
+    from repro_torch.serving import CascadeServingEngine
+    from repro_torch.serving.scheduler import bucket_for
+
+    cloud = _tiny(cuda, layers=2)
+    edge = LM(edge_variant(cloud.cfg, layers=1), device=cuda)
+    ep, cp = edge.init(1), cloud.init(0)
+    eng = CascadeServingEngine(
+        CascadeLM(edge, cloud, thresholds=make_thresholds(0.02, 0.012)),
+        ep, cp, batch_slots=2, max_seq_len=64)
+    eng.warm_compile()
+    warmed = dict(eng._programs)
+    assert eng.graphs() == len(warmed) == len(eng.edge_engine.buckets)
+    th = eng.cascade.thresholds
+    for n in (3, 16, 17, 40):
+        prompt = np.random.default_rng(n).integers(0, 96, n).astype(np.int32)
+        before = LAUNCHES["cascade_gate"]
+        conf, route = eng._gate(prompt)
+        assert LAUNCHES["cascade_gate"] == before + 1
+        tokens = np.zeros((1, bucket_for(n, eng.edge_engine.buckets)),
+                          np.int32)
+        tokens[0, :n] = prompt
+        logits, _ = edge.forward(ep, {"tokens": torch.from_numpy(
+            tokens).to(cuda)}, logits_index=n - 1)
+        pc, pr, pn = cascade_gate_plain(logits[:, 0], th.hi, th.lo)
+        assert abs(conf - pc.item()) <= 1e-5 * pc.item()
+        assert route == pr.item()
+        assert torch.equal(eng._gate_out["counts"], pn)
+    assert eng._programs == warmed
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_graphed_drain_engine_equals_the_eager_one(cuda, temperature):
+    """``DrainBatchEngine`` with every prefill bucket, both samples and the
+    decode step captured by ``warm_compile`` serves two waves (a batch of
+    3, then 2) with the streams of a drain engine whose graphs are off,
+    token for token; its launches are flash per batch and the ring kernel per token,
+    and traffic captures nothing."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.serving import DrainBatchEngine
+
+    lm = _tiny(cuda)
+    params = lm.init(0)
+    reqs = [(np.random.default_rng(i).integers(0, 96, n).astype(np.int32), m)
+            for i, (n, m) in enumerate(((5, 6), (12, 3), (20, 8), (9, 4),
+                                        (33, 7)))]
+    outs = []
+    for graphed in (False, True):
+        eng = DrainBatchEngine(lm, params, batch_slots=3, max_seq_len=64)
+        eng._use_graphs = graphed
+        eng.warm_compile()
+        warmed = dict(eng._programs)
+        assert eng.graphs() == (len(warmed) if graphed else 0)
+        ids = [eng.submit(p, max_new_tokens=m, temperature=temperature)
+               for p, m in reqs]
+        reset_launches()
+        done = eng.run()
+        assert eng._programs == warmed
+        steps = max(m for _, m in reqs[:3]) + max(m for _, m in reqs[3:])
+        assert eng.host_syncs == steps
+        assert LAUNCHES == {"flash_attention": 3 * 2,
+                            "decode_attention": 3 * steps,
+                            "paged_decode_attention": 0, "cascade_gate": 0,
+                            "rglru_scan": 0}
+        outs.append([done[i].output for i in ids])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)

@@ -407,6 +407,15 @@ def test_gate_splits_at_the_serving_and_bulk_shapes():
     assert gate_splits(4096, 32768, 4, H100_SMS)[0] == 1
 
 
+def _exp_f32(x):
+    """exp of f32 values, correctly rounded to f32. On the CPU build with
+    MKL, the first multithreaded f32 ``torch.exp`` in a process can return
+    elements off by ~1e-4 relative (``kernels.cascade_gate
+    .max_softmax_conf``), which once put ``_rank_order_gate`` 3.5e-6 off
+    the plain version; exp in f64 is free of it."""
+    return torch.exp(x.double()).float()
+
+
 def _rank_order_gate(x, splits, split_len):
     """The kernel's arithmetic across its splits, in plain torch: each split
     reduces to (m, s) from (-1e30, 0), rank 0 folds ranks 1.. in order."""
@@ -417,10 +426,10 @@ def _rank_order_gate(x, splits, split_len):
     for r in range(splits):
         part = x[:, r * split_len:min(v, (r + 1) * split_len)]
         pm = torch.maximum(neg, part.amax(dim=1)) if part.shape[1] else neg
-        ps = (torch.exp(part - pm[:, None]).sum(dim=1) if part.shape[1]
+        ps = (_exp_f32(part - pm[:, None]).sum(dim=1) if part.shape[1]
               else torch.zeros(t))
         mn = torch.maximum(m, pm)
-        s = s * torch.exp(m - mn) + ps * torch.exp(pm - mn)
+        s = s * _exp_f32(m - mn) + ps * _exp_f32(pm - mn)
         m = mn
     return 1.0 / s.clamp_min(1e-30)
 

@@ -4,8 +4,10 @@ It mirrors ``tests/test_multi_step_decode.py::
 test_warm_compile_covers_scan_horizons`` and ``tests/test_speculative.py::
 test_warm_compile_covers_speculative_and_sampled``. Where ``repro`` counts
 the executables each jitted program compiled (``_cache_size``), the port
-counts its registry of decode programs (``ServingEngine._programs``, one
-per (kind, horizon, greedy or sampled)). On the card each program is a
+counts its registry of programs (``ServingEngine._programs``: decode
+rounds per (kind, horizon, greedy or sampled), and admissions, chunks and
+draft fills per shape; ``tests/test_torch_graphed_prefill.py`` holds the
+latter against ``repro``'s counts). On the card each program is a
 CUDA graph; on the CPU it is the eager call, so these tests hold what the
 graphs stand on: ``warm_compile`` closes the set of programs (traffic
 builds none), it changes no stream, and the engine's state, caches, block
@@ -85,14 +87,27 @@ def _assert_same(a, b):
 
 
 def _variants(eng):
-    """The decode programs ``warm_compile`` must build: every horizon of
-    the K schedule and every depth of the speculative schedule, greedy and
-    sampled."""
+    """The programs ``warm_compile`` must build: every horizon of the K
+    schedule and every depth of the speculative schedule, greedy and
+    sampled; the admission at every prompt bucket (monolithic prefill) or
+    the chunk at every (chunk bucket, context bound) pair that ``repro``'s
+    ``warm_compile`` runs (chunked prefill); with a draft, the draft fill
+    at every prompt bucket."""
     s = eng.scheduler
     keys = {("decode", k, x) for k in s.k_schedule for x in (False, True)}
     if eng.speculative:
         keys |= {("spec", k, x) for k in s.spec_schedule
                  for x in (False, True)}
+        keys |= {("draft_fill", b) for b in eng.buckets}
+    if s.chunked:
+        for b in s.buckets:
+            ctx = 1 << max(b - 1, 1).bit_length()
+            while ctx < eng.max_seq_len:
+                keys.add(("chunk", b, ctx))
+                ctx *= 2
+            keys.add(("chunk", b, eng.max_seq_len))
+    else:
+        keys |= {("admit", b) for b in eng.buckets}
     return keys
 
 
@@ -163,7 +178,8 @@ def test_warm_compile_covers_speculative_and_sampled():
     assert eng.metrics()["warm_compile_s"] is None
     eng.warm_compile()
     expected = _variants(eng)
-    assert len(expected) == 12 and set(eng._programs) == expected
+    assert len([k for k in expected if k[0] in ("decode", "spec")]) == 12
+    assert set(eng._programs) == expected
     m = eng.metrics()
     assert m["warm_compile_s"] > 0.0 and m["graphs"] == 0
     assert eng.graph_pool_bytes() == 0 and not eng._use_graphs
