@@ -168,6 +168,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1712,7 +1713,8 @@ def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024,
                  host_syncs=eng.host_syncs, launches=launches,
                  warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
                  pool_bytes=eng.graph_pool_bytes(),
-                 prompt_lengths=[len(p) for p, _ in reqs])
+                 prompt_lengths=[len(p) for p, _ in reqs],
+                 streams=[r.output.tolist() for r in out])
     print(f"  {lm.cfg.name} ring engine [{smi}]: {gen} tokens in {wall:.3f} "
           f"s = {gen / wall:.1f} tokens/s; TTFT p50 "
           f"{stats['ttft_ms_p50']:.1f} ms, max {ttft[-1]:.1f} ms; decode "
@@ -1754,11 +1756,13 @@ def _paged_trace(seed, vocab):
     return wave1, hi, wave2
 
 
-def _serve_waves(engine, trace, max_new, contended):
+def _serve_waves(engine, trace, max_new, contended, strict=True):
     """Wave 1; with ``contended``, step until all 8 slots decode, then the
     priority-1 requests (else they go in up front, so nothing is
     preempted); drain; check invariants; wave 2; drain; check. Returns
-    the requests in submission order and the wall time."""
+    the requests in submission order and the wall time. Not ``strict``
+    (a chaos run): a request may end cancelled or failed, and wave 1 may
+    never fill all 8 slots at once."""
     wave1, hi, wave2 = trace
     t0 = time.perf_counter()
 
@@ -1772,10 +1776,13 @@ def _serve_waves(engine, trace, max_new, contended):
             if engine.metrics()["live"]["decoding"] == engine.batch_slots:
                 break
             if not engine.pending:
+                if not strict:
+                    break
                 raise AssertionError("wave 1 drained before 8 slots decoded")
             engine.step()
         else:
-            raise AssertionError("8 slots never decoded at once")
+            if strict:
+                raise AssertionError("8 slots never decoded at once")
     ids += submit(hi, priority=1)
     done = engine.run()
     engine.assert_invariants()
@@ -1783,8 +1790,8 @@ def _serve_waves(engine, trace, max_new, contended):
     done.update(engine.run())
     engine.assert_invariants()
     wall = time.perf_counter() - t0
-    if sorted(done) != sorted(ids) or any(done[i].status != "done"
-                                          for i in ids):
+    if sorted(done) != sorted(ids) or (strict and any(
+            done[i].status != "done" for i in ids)):
         raise AssertionError("not every request finished")
     return [done[i] for i in ids], wall
 
@@ -1867,7 +1874,8 @@ def check_paged_engine(torch, dev, seed, smi, lm, params):
                  decode_steps=eng.decode_steps, chunks=chunks,
                  host_syncs=eng.host_syncs, launches=launches,
                  warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
-                 pool_bytes=eng.graph_pool_bytes(), **seen)
+                 pool_bytes=eng.graph_pool_bytes(),
+                 streams=[r.output.tolist() for r in out], **seen)
     print(f"  {lm.cfg.name} paged engine [{smi}]: {gen} tokens in {wall:.3f} s = "
           f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} "
           f"ms, max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
@@ -2077,7 +2085,8 @@ def check_cascade_serving(torch, dev, seed, smi, models):
                  ttft_ms_max=ttft[-1],
                  gate_ms_per_request=sum(gate_s) * 1e3 / gated,
                  routes=routes, wan_bytes=m.wan_bytes, hi=hi, lo=lo,
-                 trace=reqs,
+                 trace=reqs, streams=[r.output.tolist() for r in out],
+                 route_of=[r.route for r in out],
                  edge_decode_steps=ee.decode_steps,
                  cloud_decode_steps=ce.decode_steps, launches=launches,
                  warm_compile_s=ee.warm_compile_s + ce.warm_compile_s,
@@ -2327,7 +2336,8 @@ def check_hybrid_engine(torch, dev, seed, smi, lm, params):
                  prefill_ms=eng.prefill_s * 1e3,
                  warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
                  pool_bytes=eng.graph_pool_bytes(),
-                 prompt_lengths=[len(p) for p, _ in reqs])
+                 prompt_lengths=[len(p) for p, _ in reqs],
+                 streams=[r.output.tolist() for r in out])
     print(f"  hybrid engine [{smi}]: {gen} tokens in {wall:.3f} s = "
           f"{gen / wall:.1f} tokens/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms"
           f", max {ttft[-1]:.1f} ms; decode {step_ms:.2f} ms per step of 8 "
@@ -3033,6 +3043,654 @@ def check_speculative(torch, dev, seed, smi, smollm, models):
     return out
 
 
+# -- phase 14: faults, durability and the gateway -------------------------------
+
+# the watchdog on the card: a step's deadline far above smollm-135m's
+# longest step (a round of admissions plus a K = 4 round, ~0.1 s), the
+# grace window, and the stalls that the hang seam injects: a hang ends
+# inside the grace window (rolled back in process), a wedge outlasts it
+STEP_TIMEOUT_S = 1.0
+HANG_GRACE = 1.0
+WEDGE_GRACE = 0.5
+
+
+def _as_requests(streams):
+    """Stored streams (lists) as request stand-ins for the near-tie rule."""
+    return [types.SimpleNamespace(request_id=i, output=np.asarray(x,
+                                                                  np.int32))
+            for i, x in enumerate(streams)]
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with the launch counters left as they were: a
+    warm-up's eager runs and a teacher-forced comparison are not the main
+    path."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    try:
+        return fn(*args)
+    finally:
+        LAUNCHES.update(before)
+
+
+def _hold_streams(torch, label, lm, params, seed, reqs, got, base,
+                  skip=()):
+    return _quiet(_hold, torch, label, lm, params, seed, reqs, got, base,
+                  skip)
+
+
+def _hold(torch, label, lm, params, seed, reqs, got, base, skip):
+    """Hold the streams ``got`` (rid -> tokens) of a trace to ``base`` (the
+    fault-free graphed run's, in rid order): equal, or parted first at a
+    near-tie of the teacher-forced forward (a recompute-resume rebuilds the
+    K/V through the prefill GEMMs, not the decode ones). Requests in
+    ``skip`` (cancelled ones) are left out. Returns (equal, parted)."""
+    ids = [i for i in range(len(base)) if i not in skip]
+    if sorted(got) != sorted(ids):
+        raise AssertionError(f"{label}: requests {sorted(set(ids) - set(got))}"
+                             f" never finished")
+    out = [types.SimpleNamespace(request_id=i, output=np.asarray(
+        got[i], np.int32)) for i in ids]
+    ref = [_as_requests(base)[i] for i in ids]
+    equal, parted = _parted_at_near_tie(torch, lm, params, seed,
+                                        [reqs[i] for i in ids], out, ref,
+                                        BF16_LOGIT_TOL)
+    print(f"    {label}: {equal} streams equal the fault-free graphed run's,"
+          f" {parted} part first at a near-tie (margin <= {BF16_LOGIT_TOL})")
+    if equal == 0:
+        raise AssertionError(f"{label}: no stream equals the fault-free run")
+    return dict(equal=equal, parted=parted)
+
+
+def _counted(eng, wants):
+    """Count ``eng``'s programs (a cascade: its legs' and its gates) and
+    register the launches they imply with ``wants``, read at the end of
+    the phase."""
+    if hasattr(eng, "cloud_engine"):
+        legs = [(leg, _count_programs(leg))
+                for leg in (eng.edge_engine, eng.cloud_engine)]
+        gated = [0]
+        gate = eng._gate
+
+        def counted_gate(prompt):
+            gated[0] += 1
+            return gate(prompt)
+
+        eng._gate = counted_gate
+
+        def want():
+            w = _sum_launches([_spec_launches(leg, n) for leg, n in legs])
+            w["cascade_gate"] += gated[0]
+            w["flash_attention"] += eng.cascade.edge.cfg.num_layers * gated[0]
+            return w
+
+        wants.append(want)
+        return legs
+    n = _count_programs(eng)
+    wants.append(lambda: _spec_launches(eng, n))
+    return n
+
+
+def _sum_launches(ws):
+    total = {k: 0 for k in ("flash_attention", "decode_attention",
+                            "paged_decode_attention", "cascade_gate",
+                            "rglru_scan")}
+    for w in ws:
+        for k, v in w.items():
+            total[k] += v
+    return total
+
+
+def _recovery_line(label, smi, m):
+    rec = m["recovery"]
+    print(f"  {label} [{smi}]: faults {m['faults_injected']}; recoveries "
+          f"{m['fault_recoveries']}, retries {m['retries_total']}, "
+          f"quarantined {m['quarantined']}, fallbacks "
+          f"{m['speculative']['fallbacks']}; recovery (fault -> re-grant) "
+          f"p50 {rec['p50_s'] * 1e3:.2f} ms, p99 {rec['p99_s'] * 1e3:.2f} ms "
+          f"over {rec['count']}")
+
+
+def _chaos(torch, seed, smi, lm, params, reqs, ring_base, paged_base, wants):
+    """14(a): phase 5's waves on the paged engine (swap preemption, K = 4)
+    under a plan that fires step, scan, swap_out, swap_in, pool and cancel;
+    phase 4's trace on the self-draft ring engine (k = 4) with half its
+    draft rounds failing. Survivors against the fault-free graphed runs,
+    the allocator after the drain, no capture in traffic."""
+    from repro_torch.serving import FaultPlan, ServingEngine
+
+    rec = {}
+    trace = _paged_trace(seed, lm.cfg.vocab_size)
+    plan = FaultPlan(seed=seed, step=[1], scan=[2], swap_out=[0, 2],
+                     swap_in=[0], pool=[3], cancel=[5])
+    eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=1024,
+                        seed=seed, cache_backend="paged", block_size=16,
+                        chunk_tokens=128, prefix_sharing=True,
+                        max_decode_steps=4, fault_plan=plan, max_retries=8)
+    warmed = _quiet(_warm, eng)
+    _counted(eng, wants)
+    out, wall = _serve_waves(eng, trace, 32, contended=True, strict=False)
+    torch.cuda.synchronize()
+    _no_capture(eng, warmed, "chaos paged")
+    fired = plan.fired()
+    missing = [s for s in ("step", "scan", "swap_out", "swap_in", "pool",
+                           "cancel") if not fired.get(s)]
+    if missing:
+        raise AssertionError(f"chaos paged: seams {missing} never fired")
+    be = eng.backend
+    eng.assert_invariants()
+    if be._gap_total or be._ref or sorted(eng._free) != list(range(8)):
+        raise AssertionError("chaos paged: the drain left blocks or slots")
+    statuses = {r.request_id: r.status for r in out}
+    cancelled = {i for i, st in statuses.items() if st == "cancelled"}
+    if set(statuses.values()) - {"done", "cancelled"} or len(cancelled) != 1:
+        raise AssertionError(f"chaos paged: statuses {statuses}")
+    wave1, hi, wave2 = trace
+    m = eng.metrics()
+    _recovery_line("chaos, paged", smi, m)
+    rec["paged"] = dict(
+        metrics={k: m[k] for k in ("faults_injected", "fault_recoveries",
+                                   "retries_total", "quarantined",
+                                   "recovery", "preemptions")},
+        wall_s=wall, swap_outs=be.swap_outs, swap_ins=be.swap_ins,
+        streams=_hold_streams(
+            torch, "chaos, paged", lm, params, seed, wave1 + hi + wave2,
+            {r.request_id: r.output for r in out if r.status == "done"},
+            paged_base, skip=cancelled))
+    paged = eng
+
+    plan = FaultPlan(seed=seed, draft={"prob": 0.5})
+    eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=1024,
+                        seed=seed, draft_model=lm, draft_params=params,
+                        speculative_tokens=SPEC_K, fault_plan=plan)
+    eng.scheduler.spec_min_commit = 0.0
+    warmed = _quiet(_warm, eng)
+    _counted(eng, wants)
+    out, wall = _serve(eng, reqs, 32)
+    torch.cuda.synchronize()
+    _no_capture(eng, warmed, "chaos draft")
+    m = eng.metrics()
+    if not (eng.spec_fallbacks and eng.spec_rounds) or \
+            m["faults_injected"].get("draft") != eng.spec_fallbacks:
+        raise AssertionError("chaos draft: no fallback, or no round")
+    _recovery_line("chaos, self-draft ring", smi, m)
+    rec["draft"] = dict(
+        fallbacks=eng.spec_fallbacks, spec_rounds=eng.spec_rounds,
+        wall_s=wall, streams=_hold_streams(
+            torch, "chaos, self-draft ring", lm, params, seed, reqs,
+            {r.request_id: r.output for r in out}, ring_base))
+    return rec, paged
+
+
+def _reused(eng):
+    """A warmed engine of an earlier leg, drained, as a cold one: no fault
+    plan, no tap, request ids from 0 again (so the sampled streams' keys
+    are the fault-free run's)."""
+    if eng.pending or eng._done:
+        raise AssertionError("a reused engine must be drained")
+    eng._faults, eng.on_tokens, eng._next_id = None, None, 0
+    return eng
+
+
+def _snapshot_leg(torch, label, smi, lm, params, seed, eng1, build,
+                  trace_reqs, base, serve_some, serve_rest, state_dir):
+    """14(b) for one backend: ``serve_some`` drives the warmed, drained
+    engine ``eng1`` part of the way; its snapshot is saved; a fresh engine
+    is built and warmed, loads the snapshot, restores it and finishes
+    (``serve_rest``). Times every stage; streams against the uninterrupted
+    run."""
+    from repro_torch.serving import load_snapshot, save_snapshot
+
+    serve_some(_reused(eng1))
+    live = len(eng1._slots)
+    t0 = time.perf_counter()
+    snap = eng1.snapshot()
+    snap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = save_snapshot(state_dir, snap, step=1)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    del eng1, snap
+    gc.collect()
+    torch.cuda.synchronize()
+    restart = time.perf_counter()
+    eng2 = build()
+    first = []
+    eng2.on_tokens = lambda ev: first or first.append(time.perf_counter())
+    t0 = time.perf_counter()
+    warmed = _quiet(_warm, eng2)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, _ = load_snapshot(state_dir)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info = eng2.restore(loaded)
+    restore_s = time.perf_counter() - t0
+    got = serve_rest(eng2)
+    torch.cuda.synchronize()
+    _no_capture(eng2, warmed, f"{label} restored")
+    rec = dict(live_slots=live, snapshot_ms=snap_s * 1e3,
+               snapshot_bytes=nbytes, save_ms=save_s * 1e3,
+               load_ms=load_s * 1e3, restore_ms=restore_s * 1e3,
+               warm_compile_s=warm_s,
+               restart_to_first_token_ms=(first[0] - restart) * 1e3,
+               restored=info, swap_ins=getattr(eng2.backend, "swap_ins", 0))
+    print(f"  snapshot/restore, {label} [{smi}]: {live} slots decoding; "
+          f"snapshot {rec['snapshot_ms']:.1f} ms, {nbytes / 1e6:.1f} MB; "
+          f"save {rec['save_ms']:.1f} ms, load {rec['load_ms']:.1f} ms, "
+          f"restore {rec['restore_ms']:.2f} ms; the fresh engine's "
+          f"warm_compile {warm_s:.2f} s; restart -> first token "
+          f"{rec['restart_to_first_token_ms']:.0f} ms; restored {info}, "
+          f"swap-ins {rec['swap_ins']}")
+    rec["streams"] = _hold_streams(torch, f"restored {label}", lm, params,
+                                   seed, trace_reqs, got, base)
+    return rec, eng2
+
+
+def _durability(torch, seed, smi, lm, params, reqs, ring_base, paged_base,
+                wants, state_dir, ring_eng, paged_eng):
+    """14(b): ring (recompute) and paged (with K/V) snapshot mid-flight,
+    then restore into a fresh warmed engine. The engines snapshotted are
+    earlier legs' (the wedge's recovered ring engine, the paged chaos
+    engine), drained."""
+    from repro_torch.serving import ServingEngine
+
+    rec = {}
+    ring_kw = dict(batch_slots=8, max_seq_len=1024, seed=seed,
+                   max_decode_steps=4)
+
+    def ring_some(eng):
+        for p, t in reqs:
+            eng.submit(p, max_new_tokens=32, temperature=t)
+        for _ in range(6):
+            eng.step()
+
+    def ring_build():
+        eng = ServingEngine(lm, params, **ring_kw)
+        _counted(eng, wants)
+        return eng
+
+    def drain(eng):
+        return {rid: r.output for rid, r in eng.run().items()}
+
+    rec["ring"], _ = _snapshot_leg(
+        torch, "ring", smi, lm, params, seed, ring_eng, ring_build, reqs,
+        ring_base, ring_some, drain, os.path.join(state_dir, "ring"))
+
+    trace = _paged_trace(seed, lm.cfg.vocab_size)
+    wave1, hi, wave2 = trace
+    paged_kw = dict(batch_slots=8, max_seq_len=1024, seed=seed,
+                    cache_backend="paged", block_size=16, chunk_tokens=128,
+                    prefix_sharing=True, max_decode_steps=4)
+
+    def paged_build():
+        eng = ServingEngine(lm, params, **paged_kw)
+        _counted(eng, wants)
+        return eng
+
+    def paged_some(eng):
+        for p, t in wave1:
+            eng.submit(p, max_new_tokens=32, temperature=t)
+        for _ in range(1000):
+            if len(eng._slots) == 8:
+                break
+            eng.step()
+        for p, t in hi:
+            eng.submit(p, max_new_tokens=32, temperature=t, priority=1)
+        for _ in range(3):
+            eng.step()
+
+    def paged_rest(eng):
+        got = drain(eng)
+        eng.assert_invariants()
+        for p, t in wave2:
+            eng.submit(p, max_new_tokens=32, temperature=t)
+        got.update(drain(eng))
+        eng.assert_invariants()
+        return got
+
+    rec["paged"], eng = _snapshot_leg(
+        torch, "paged", smi, lm, params, seed, paged_eng, paged_build,
+        wave1 + hi + wave2, paged_base, paged_some, paged_rest,
+        os.path.join(state_dir, "paged"))
+    if not rec["paged"]["swap_ins"]:
+        raise AssertionError("restored paged: no K/V came back by swap-in")
+    return rec
+
+
+async def _gw_serve(gw, reqs, rate, rng):
+    """Open-loop clients at ``rate`` req/s (exponential gaps), each
+    streaming its tokens: {rid: (request, streamed tokens)}, and the
+    arrivals' span in s."""
+    import asyncio
+
+    out = {}
+
+    async def client(p, t):
+        h = await gw.submit(p, max_new_tokens=32, temperature=t)
+        toks = [x async for x in h.stream()]
+        r = await h.result()
+        out[r.request_id] = (r, np.asarray(toks, np.int32))
+
+    tasks, t0 = [], time.perf_counter()
+    for p, t in reqs:
+        tasks.append(asyncio.ensure_future(client(p, t)))
+        await asyncio.sleep(float(rng.exponential(1.0 / rate)))
+    span = time.perf_counter() - t0
+    await asyncio.gather(*tasks)
+    return out, span
+
+
+def _gateway(torch, seed, smi, lm, params, reqs, ring_base, ring_stats,
+             wants, state_dir):
+    """14(c): phase 4's trace through ``ServingGateway`` on a warmed ring
+    engine, open loop; then a hang (recovered in process through
+    ``note_hang``) and a wedge (``EngineWedgedError``, then
+    ``recover_engine`` on a fresh engine from snapshot + journal)."""
+    import asyncio
+    import threading
+
+    from repro_torch.serving import (EngineWedgedError, FaultPlan,
+                                     RequestJournal, ServingEngine,
+                                     ServingGateway, recover_engine)
+
+    rec = {}
+    kw = dict(batch_slots=8, max_seq_len=1024, seed=seed, max_decode_steps=4)
+    eng = ServingEngine(lm, params, **kw)
+    warmed = _quiet(_warm, eng)
+    _counted(eng, wants)
+    rng = np.random.default_rng(seed)
+
+    async def open_loop(**gw_kw):
+        async with ServingGateway(eng, **gw_kw) as gw:
+            t0 = time.perf_counter()
+            out, span = await _gw_serve(gw, reqs, 1000.0, rng)
+            return out, span, time.perf_counter() - t0, gw.stats()
+
+    torch.cuda.synchronize()
+    out, span, wall, stats = asyncio.run(open_loop())
+    _no_capture(eng, warmed, "gateway")
+    for rid, (r, toks) in out.items():
+        if r.status != "done" or not np.array_equal(toks, r.output):
+            raise AssertionError(f"gateway request {rid}: {r.status}, "
+                                 f"stream != output")
+    gen = sum(len(toks) for _, toks in out.values())
+    ttft = statistics.median(r.ttft_s * 1e3 for r, _ in out.values())
+    rec["open_loop"] = dict(
+        arrivals_span_s=span, wall_s=wall, tokens_per_s=gen / wall,
+        ttft_ms_p50=ttft, direct_tokens_per_s=ring_stats["tokens_per_s"],
+        direct_ttft_ms_p50=ring_stats["ttft_ms_p50"],
+        streams=_hold_streams(torch, "gateway, open loop", lm, params, seed,
+                              reqs, {i: t for i, (_, t) in out.items()},
+                              ring_base))
+    print(f"  gateway, open loop [{smi}]: {len(reqs)} arrivals over "
+          f"{span * 1e3:.1f} ms, {gen} tokens streamed in {wall:.3f} s = "
+          f"{gen / wall:.1f} tokens/s, TTFT p50 {ttft:.1f} ms (at the "
+          f"stream); direct run() of the trace (phase 4): "
+          f"{ring_stats['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{ring_stats['ttft_ms_p50']:.1f} ms")
+
+    # the hang: the same warmed engine, request ids from 0 again (so the
+    # sampled streams' keys are phase 4's), a stall of 1.5 deadlines
+    eng._next_id = 0
+    eng._faults = FaultPlan(seed=seed, hang=[3],
+                            hang_s=1.5 * STEP_TIMEOUT_S)
+    out, _, wall, stats = asyncio.run(open_loop(
+        step_timeout_s=STEP_TIMEOUT_S, hang_grace=HANG_GRACE))
+    _no_capture(eng, warmed, "gateway hang")
+    m = eng.metrics()
+    if stats["watchdog_timeouts"] < 1 or m["hang_recoveries"] < 1 or \
+            any(r.status != "done" for r, _ in out.values()):
+        raise AssertionError(f"hang not recovered in process: {stats}")
+    rec["hang"] = dict(watchdog_timeouts=stats["watchdog_timeouts"],
+                       hang_recoveries=m["hang_recoveries"],
+                       retries=m["retries_total"], wall_s=wall,
+                       streams=_hold_streams(
+                           torch, "gateway, hang", lm, params, seed, reqs,
+                           {i: t for i, (_, t) in out.items()}, ring_base))
+    print(f"  gateway, hang of {1.5 * STEP_TIMEOUT_S:.1f} s against a "
+          f"{STEP_TIMEOUT_S:.1f} s deadline [{smi}]: watchdog timeouts "
+          f"{stats['watchdog_timeouts']}, hang recoveries "
+          f"{m['hang_recoveries']}, retries {m['retries_total']}; every "
+          f"request done in process ({wall:.2f} s)")
+
+    # the wedge: a stall past deadline + grace; the gateway journals and
+    # snapshots every 2 steps; asyncio.run joins the stalled step's thread
+    # before the fresh engine captures anything
+    eng._next_id = 0
+    hang_s = STEP_TIMEOUT_S * (1 + WEDGE_GRACE) + 1.0
+    eng._faults = FaultPlan(seed=seed, hang=[4], hang_s=hang_s)
+    snap_dir = os.path.join(state_dir, "gateway")
+    journal = RequestJournal(os.path.join(state_dir, "journal.jsonl"))
+    gw_kw = dict(journal=journal, snapshot_dir=snap_dir, snapshot_every=2,
+                 step_timeout_s=STEP_TIMEOUT_S, hang_grace=WEDGE_GRACE)
+    snap_s = []
+    take = eng.snapshot
+
+    def timed_snapshot():
+        t0 = time.perf_counter()
+        snap = take()
+        snap_s.append(time.perf_counter() - t0)
+        return snap
+
+    eng.snapshot = timed_snapshot
+
+    async def wedged():
+        got = {}
+        gw = ServingGateway(eng, **gw_kw)
+        try:
+            async with gw:
+                got, _ = await _gw_serve(gw, reqs, 1000.0, rng)
+        except EngineWedgedError:
+            return got, gw.stats(), True
+        return got, gw.stats(), False
+
+    out, stats, was_wedged = asyncio.run(wedged())
+    if not was_wedged or any(t.name.startswith("asyncio")
+                             for t in threading.enumerate()):
+        raise AssertionError("the wedge leg never wedged, or a step's "
+                             "thread outlived the event loop")
+    acked = set(range(len(reqs)))
+    resolved = {rid for rid, (r, _) in out.items() if r.status == "done"}
+    restart = time.perf_counter()
+    fresh = ServingEngine(lm, params, **kw)
+    first = []
+    fresh.on_tokens = lambda ev: first or first.append(time.perf_counter())
+    fwarmed = _quiet(_warm, fresh)
+    _counted(fresh, wants)
+    info = recover_engine(fresh, snapshot_dir=snap_dir, journal=journal)
+    done = fresh.run()
+    torch.cuda.synchronize()
+    _no_capture(fresh, fwarmed, "recovered engine")
+    journal.close()
+    got = {rid: out[rid][1] for rid in resolved}
+    lost = acked - resolved - set(done)
+    if lost or any(done[i].status != "done" for i in done):
+        raise AssertionError(f"wedge: requests {sorted(lost)} lost")
+    got.update({rid: r.output for rid, r in done.items()
+                if rid not in resolved})
+    rec["wedge"] = dict(
+        watchdog_timeouts=stats["watchdog_timeouts"],
+        snapshots_taken=stats["snapshots_taken"],
+        snapshot_ms=[x * 1e3 for x in snap_s], recovered=info,
+        done_before=len(resolved),
+        restart_to_first_token_ms=(first[0] - restart) * 1e3,
+        warm_compile_s=fresh.warm_compile_s,
+        streams=_hold_streams(torch, "gateway, wedge + restart", lm, params,
+                              seed, reqs, got, ring_base))
+    print(f"  gateway, wedge ({hang_s:.1f} s stall) [{smi}]: "
+          f"EngineWedgedError after {stats['watchdog_timeouts']} watchdog "
+          f"timeout(s); {stats['snapshots_taken']} snapshots taken "
+          f"({statistics.median(snap_s) * 1e3:.2f} ms median); "
+          f"{len(resolved)} done before the wedge; restart: warm_compile "
+          f"{fresh.warm_compile_s:.2f} s, recovered {info['restored']} + "
+          f"replayed {info['replayed']}, restart -> first token "
+          f"{rec['wedge']['restart_to_first_token_ms']:.0f} ms; no "
+          f"acknowledged request lost")
+    return rec, fresh
+
+
+def _cascade_durability(torch, seed, smi, models, cstats, wants):
+    """14(d): phase 7's cascade through the gateway (the legs' taps, inner
+    ids translated), then a snapshot mid-flight restored into a fresh
+    warmed cascade; streams and routes against phase 7's."""
+    import asyncio
+
+    from repro_torch.cascade import CascadeLM
+    from repro_torch.cascade.gate import make_thresholds
+    from repro_torch.serving import CascadeServingEngine, ServingGateway
+
+    edge, cloud, ep, cp = models
+    reqs = cstats["trace"]
+    cas = CascadeLM(edge, cloud,
+                    thresholds=make_thresholds(cstats["hi"], cstats["lo"]))
+
+    def build():
+        eng = CascadeServingEngine(cas, ep, cp, seed=seed, batch_slots=8,
+                                   max_seq_len=1024, max_decode_steps=4)
+        return eng
+
+    base = {i: np.asarray(x, np.int32)
+            for i, x in enumerate(cstats["streams"])}
+
+    def hold(label, got):
+        for i, (route, x) in got.items():
+            if route != cstats["route_of"][i] or not np.array_equal(
+                    x, base[i]):
+                raise AssertionError(f"{label}: request {i} ({route}) != "
+                                     f"phase 7's")
+
+    eng = build()
+    warmed = _quiet(_warm, eng)
+    _counted(eng, wants)
+
+    async def through_gateway():
+        out = {}
+
+        async def client(p, t):
+            h = await gw.submit(p, max_new_tokens=32, temperature=t)
+            toks = [x async for x in h.stream()]
+            r = await h.result()
+            out[r.request_id] = (r.route, np.asarray(toks, np.int32))
+
+        async with ServingGateway(eng) as gw:
+            await asyncio.gather(*(client(p, t) for p, t in reqs))
+        return out
+
+    t0 = time.perf_counter()
+    hold("cascade through the gateway", asyncio.run(through_gateway()))
+    wall = time.perf_counter() - t0
+    _no_capture(eng, warmed, "cascade gateway")
+    # the same trace again, ids from 0 on the cascade and its legs
+    for e in (eng, eng.edge_engine, eng.cloud_engine):
+        e._next_id = 0
+    eng.on_tokens = None
+    for p, t in reqs:
+        eng.submit(p, max_new_tokens=32, temperature=t)
+    for _ in range(4):
+        eng.step()
+    t0 = time.perf_counter()
+    snap = eng.snapshot()
+    snap_s = time.perf_counter() - t0
+    fresh = build()
+    fwarmed = _quiet(_warm, fresh)
+    _counted(fresh, wants)
+    t0 = time.perf_counter()
+    info = fresh.restore(snap)
+    restore_s = time.perf_counter() - t0
+    done = fresh.run()
+    torch.cuda.synchronize()
+    _no_capture(fresh, fwarmed, "cascade restored")
+    if sorted(done) != list(range(len(reqs))):
+        raise AssertionError("restored cascade: a request was lost")
+    hold("restored cascade", {i: (r.route, r.output)
+                              for i, r in done.items()})
+    print(f"  cascade [{smi}]: {len(reqs)} requests streamed through the "
+          f"gateway (legs' taps, ids translated) equal phase 7's streams "
+          f"and routes ({wall:.2f} s); snapshot after 4 steps "
+          f"{snap_s * 1e3:.1f} ms, restore {restore_s * 1e3:.2f} ms "
+          f"({info['live']} live, {info['terminal']} terminal), the "
+          f"restored cascade's streams and routes equal phase 7's")
+    return dict(gateway_wall_s=wall, snapshot_ms=snap_s * 1e3,
+                restore_ms=restore_s * 1e3, restored=info)
+
+
+def check_durability(torch, dev, seed, smi, smollm, reqs, ring_stats,
+                     paged_stats, models, cascade_stats):
+    """Phase 14 on smollm-135m at full width, graphed: (a) chaos, (c) the
+    gateway, its hang and its wedge, (b) snapshot and restore (on engines
+    of (a) and (c), drained), (d) the cascade. Every engine is warmed first and captures nothing in traffic;
+    the phase's launches equal what its counted programs imply. Returns
+    (record, launches)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    lm, params = smollm
+    wants = []
+    state_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    torch.cuda.synchronize()
+    reset_launches()
+    ring_base, paged_base = ring_stats["streams"], paged_stats["streams"]
+    try:
+        rec = {}
+        rec["chaos"], paged_eng = _chaos(torch, seed, smi, lm, params, reqs,
+                                         ring_base, paged_base, wants)
+        rec["gateway"], ring_eng = _gateway(torch, seed, smi, lm, params,
+                                            reqs, ring_base, ring_stats,
+                                            wants, state_dir)
+        rec["snapshot"] = _durability(torch, seed, smi, lm, params, reqs,
+                                      ring_base, paged_base, wants,
+                                      state_dir, ring_eng, paged_eng)
+        rec["cascade"] = _cascade_durability(torch, seed, smi, models,
+                                             cascade_stats, wants)
+    finally:
+        shutil.rmtree(state_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = _sum_launches([w() for w in wants])
+    print(f"  launches in phase 14: {launches} (expected {want} from the "
+          f"counted programs of {len(wants)} engines)")
+    if launches != want:
+        raise AssertionError("phase 14: launch counts do not match the "
+                             "programs run")
+    if min(launches[k] for k in ("flash_attention", "decode_attention",
+                                 "paged_decode_attention",
+                                 "cascade_gate")) < 1:
+        raise AssertionError("phase 14 missed a kernel of its path")
+    rec["launches"] = launches
+    return rec, launches
+
+
+def profile_gateway(torch, seed, lm, params, reqs, wall_s):
+    """Phase 4's trace through the gateway (open loop at 1,000 req/s, as
+    in 14(c)) under the profiler: does the executor thread change the
+    device's idle share?"""
+    import asyncio
+
+    from repro_torch.serving import ServingEngine, ServingGateway
+
+    eng = ServingEngine(lm, params, batch_slots=8, max_seq_len=1024,
+                        seed=seed, max_decode_steps=4)
+    eng.warm_compile()
+
+    def serve():
+        async def main():
+            async with ServingGateway(eng) as gw:
+                t0 = time.perf_counter()
+                await _gw_serve(gw, reqs, 1000.0,
+                                np.random.default_rng(seed))
+                return time.perf_counter() - t0
+        return asyncio.run(main())
+
+    return _device_profile(torch, serve, wall_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3149,13 +3807,22 @@ def main() -> int:
           f"its cloud")
     spec_stats = check_speculative(torch, dev, args.seed, smi, smollm,
                                    models)
+    phase("[14] faults, durability and the gateway: smollm-135m (chaos on "
+          "the paged and the self-draft ring engine; snapshot/restore, ring "
+          "and paged; the gateway: open loop, hang, wedge + restart) and "
+          "phase 7's cascade")
+    durability, durability_launches = check_durability(
+        torch, dev, args.seed, smi, smollm, reqs, stats, paged_stats, models,
+        cascade_stats)
+    for name, n in durability_launches.items():
+        launches[name] += n
     del models
     if args.profile:
         from repro_torch.configs import get_config
         from repro_torch.models.model import LM
 
         phase("[12] profiles of the phase-9, 4, 5, 7 and 10 (qwen3-4b ring) "
-              "traces")
+              "traces, and phase 4's through the gateway (14(c))")
         for cfg, rec, trace, width in (
                 (_hybrid_cfg("bfloat16"), hybrid_engine, hybrid_reqs, 4096),
                 (get_config("qwen3-4b"), zoo_stats["qwen3-4b"]["ring"],
@@ -3173,6 +3840,12 @@ def main() -> int:
             torch, args.seed, *smollm, paged_stats["wall_s"])
         cascade_stats["profile"] = profile_cascade(torch, dev, args.seed,
                                                    cascade_stats)
+        gw = durability["gateway"]["open_loop"]
+        gw["profile"] = profile_gateway(torch, args.seed, *smollm, reqs,
+                                        gw["wall_s"])
+        print(f"  idle share, phase 4's trace: direct run() "
+              f"{stats['profile']['idle_share']:.3f}, through the gateway "
+              f"(open loop) {gw['profile']['idle_share']:.3f} [{smi}]")
 
     meta = {
         "cascade_gate": ("src/repro_torch/kernels/csrc/cascade_gate.cu",
@@ -3203,6 +3876,7 @@ def main() -> int:
                        "attention_verify": verify_times,
                        "sampler": sampler_times,
                        "speculative": spec_stats,
+                       "durability": durability,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

@@ -1,0 +1,225 @@
+"""Serving launcher of the port: open-loop traffic through the async
+gateway (streamed tokens, backpressure, SLO classes) on the dense engine,
+or the ACE edge/cloud cascade with --cascade, on the GPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
+    PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced --cascade
+    PYTHONPATH=src python -m repro_torch.launch.serve --rate 40 --policy shed
+
+The port of ``repro.launch.serve``, with its flags but two: ``--mesh``
+other than 1 raises ``NotImplementedError`` (meshes are a later slice of
+the port) and ``--compile-cache`` is gone (the port's programs are CUDA
+graphs, which live and die with their process). ``--reduced`` serves the
+architecture's reduced config, as ``repro``'s default does, and
+``--no-reduced`` its full width and depth (``repro``'s flag cannot be
+turned off). ``--device cpu`` runs the plain versions. Weights are random,
+from seeds 0 (the model, or the cascade's cloud) and 1 (the edge); the
+engine is warmed (``warm_compile``) before the first arrival.
+
+Arrivals are an open-loop Poisson process (``--rate`` req/s); beyond
+capacity the gateway's bounded queue and backpressure policy decide who
+waits, who is shed and who is refused.
+
+Durability (--supervise): a write-ahead request journal, periodic engine
+snapshots and a wall-clock watchdog on every step. Two demo faults drive
+the recovery ladder end to end:
+
+    --hang-demo    a step stalls briefly: the watchdog times out, the late
+                   step is rolled back through the retry path (note_hang)
+                   and service goes on in-process
+    --wedge-demo   a step stalls past the grace window: the driver raises
+                   EngineWedgedError, and the supervisor restarts a fresh
+                   engine from snapshot + journal once the event loop (and
+                   the stalled step's thread) has ended; recovered requests
+                   finish token-exact, lost ones are replayed
+"""
+from __future__ import annotations
+
+import argparse
+import asyncio
+import os
+import tempfile
+from collections import Counter
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.cascade.ecc_infer import CascadeLM, edge_variant
+from repro_torch.cascade.gate import make_thresholds
+from repro_torch.configs import get_config
+from repro_torch.core.monitoring import MonitoringService
+from repro_torch.models.model import LM
+from repro_torch.serving import (CascadeServingEngine, EngineWedgedError,
+                                 FaultPlan, RequestJournal, ServingEngine,
+                                 ServingGateway, recover_engine)
+
+
+def _build_engine(cfg, args, fault_plan=None):
+    if int(args.mesh or 1) > 1:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: meshes are a later slice of the port")
+    dev = resolve_device(args.device)
+    if args.cascade:
+        cloud = LM(cfg, device=dev)
+        edge = LM(edge_variant(cfg, layers=1), device=dev)
+        cascade = CascadeLM(edge, cloud,
+                            thresholds=make_thresholds(hi=0.01, lo=0.001))
+        return CascadeServingEngine(cascade, edge.init(1), cloud.init(0),
+                                    batch_slots=4, max_seq_len=96,
+                                    fault_plan=fault_plan)
+    lm = LM(cfg, device=dev)
+    return ServingEngine(lm, lm.init(0), batch_slots=4, max_seq_len=96,
+                         fault_plan=fault_plan)
+
+
+async def _client(gw: ServingGateway, prompt, max_new: int,
+                  priority: int, deadline_s, quiet: bool) -> dict:
+    """One open-loop client: submit, consume the stream, report."""
+    h = await gw.submit(prompt, max_new_tokens=max_new, priority=priority,
+                        deadline_s=deadline_s)
+    toks = [t async for t in h.stream()]
+    r = await h.result()
+    if not quiet:
+        route = getattr(r, "route", "")
+        extra = f" route={route}" if route else ""
+        print(f"req {r.request_id}: status={r.status}{extra} "
+              f"tokens={toks} ttft={r.ttft_s * 1e3:.0f}ms "
+              f"latency={r.latency_s * 1e3:.0f}ms")
+    return {"status": r.status, "streamed": len(toks)}
+
+
+def _demo_fault_plan(args):
+    """The two watchdog demos differ only in stall length against the
+    watchdog's deadline: a hang ends late (in-process rollback through
+    note_hang), a wedge outlasts the grace window (supervised restart)."""
+    if args.wedge_demo:
+        return FaultPlan(hang=[2],
+                         hang_s=args.step_timeout * (1.0 + args.hang_grace)
+                         + 2.0)
+    if args.hang_demo:
+        return FaultPlan(hang=[2], hang_s=args.step_timeout * 1.5)
+    return None
+
+
+async def _front(args, cfg, eng, gw, monitor):
+    """The open-loop arrivals through the gateway; returns the clients'
+    reports and the EngineWedgedError, if the driver raised one."""
+    rng = np.random.default_rng(0)
+    results, wedged = [], None
+    try:
+        async with gw:
+            clients = []
+            for i in range(args.requests):
+                prompt = rng.integers(0, min(1000, cfg.vocab_size),
+                                      size=4 + i % 5)
+                priority = i % 2 if args.classes > 1 else 0
+                clients.append(asyncio.create_task(_client(
+                    gw, prompt, args.max_new, priority,
+                    args.deadline if priority else None, args.quiet)))
+                # open loop: exponential inter-arrivals at --rate req/s
+                await asyncio.sleep(float(rng.exponential(1.0 / args.rate)))
+            results = await asyncio.gather(*clients)
+    except EngineWedgedError as e:
+        wedged = e
+        monitor.record_hang("serve", detail=str(e))
+    return results, wedged
+
+
+def serve(args) -> None:
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    monitor = MonitoringService()
+    journal = None
+    gw_kw = {}
+    if args.supervise:
+        state_dir = args.state_dir or tempfile.mkdtemp(prefix="serve_")
+        journal = RequestJournal(os.path.join(state_dir, "journal.jsonl"))
+        gw_kw = dict(journal=journal,
+                     snapshot_dir=os.path.join(state_dir, "snapshots"),
+                     snapshot_every=args.snapshot_every,
+                     step_timeout_s=args.step_timeout,
+                     hang_grace=args.hang_grace)
+        print(f"supervised: state in {state_dir}")
+    eng = _build_engine(cfg, args, fault_plan=_demo_fault_plan(args))
+    eng.warm_compile()
+    gw = ServingGateway(eng, max_queue=args.max_queue, policy=args.policy,
+                        **gw_kw)
+    # asyncio.run joins the executor's threads on exit: a wedged step's
+    # thread has ended before any fresh engine below touches the card
+    results, wedged = asyncio.run(_front(args, cfg, eng, gw, monitor))
+    by_status = Counter(res["status"] for res in results)
+    print(f"served {len(results)} arrivals at {args.rate:.0f} req/s: "
+          f"{dict(by_status)}  gateway={gw.stats()}")
+    if wedged is not None:
+        if not args.supervise:
+            raise wedged
+        # supervised restart: the wedged engine is written off; a fresh
+        # one is recovered from the last snapshot + the journal and drains
+        # the surviving work (token-exact resumes; lost acknowledged
+        # submissions start over from their prompts)
+        print(f"engine wedged ({wedged}); restarting from snapshot")
+        eng2 = _build_engine(cfg, args)
+        eng2.warm_compile()
+        info = recover_engine(eng2, snapshot_dir=gw_kw["snapshot_dir"],
+                              journal=journal)
+        monitor.record_restart("serve", info)
+        monitor.record_journal("serve", info["replayed"])
+        done = eng2.run()
+        statuses = Counter(r.status for r in done.values())
+        print(f"recovered {info['restored']} + replayed "
+              f"{info['replayed']}; post-restart drain: {dict(statuses)}")
+        print(f"durability: {monitor.durability_counters()}")
+    if journal is not None:
+        journal.close()
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serve the reduced config (--no-reduced: full "
+                         "width and depth)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain versions)")
+    ap.add_argument("--cascade", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--rate", type=float, default=20.0,
+                    help="offered load, requests/s (open loop)")
+    ap.add_argument("--policy", default="block",
+                    choices=["block", "reject", "shed",
+                             "reject-overload", "shed-lowest-class"])
+    ap.add_argument("--max-queue", type=int, default=16)
+    ap.add_argument("--classes", type=int, default=2,
+                    help="SLO classes to alternate arrivals over")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="relative deadline (s) for class-1 arrivals")
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--supervise", action="store_true",
+                    help="journal + periodic snapshots + watchdog; on "
+                         "EngineWedgedError, restart from snapshot")
+    ap.add_argument("--state-dir", default=None,
+                    help="journal/snapshot directory (default: tmpdir)")
+    ap.add_argument("--mesh", type=int, default=1,
+                    help="tensor-parallel ways; only 1 (meshes are a "
+                         "later slice of the port)")
+    ap.add_argument("--step-timeout", type=float, default=5.0,
+                    help="watchdog wall-clock deadline per step (s)")
+    ap.add_argument("--hang-grace", type=float, default=1.0,
+                    help="grace window as a multiple of --step-timeout")
+    ap.add_argument("--snapshot-every", type=int, default=8,
+                    help="engine steps between periodic snapshots")
+    ap.add_argument("--hang-demo", action="store_true",
+                    help="inject a recoverable step stall")
+    ap.add_argument("--wedge-demo", action="store_true",
+                    help="inject a stall past grace (supervised restart)")
+    args = ap.parse_args(argv)
+    if args.hang_demo or args.wedge_demo:
+        args.supervise = True
+    serve(args)
+
+
+if __name__ == "__main__":
+    main()

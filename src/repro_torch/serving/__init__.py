@@ -1,11 +1,18 @@
 """Serving stack of the port: ring and paged KV caches, sampler, scheduler,
-engine, and the edge/cloud cascade engines over it."""
+engine, the edge/cloud cascade engines over it, and the service layer in
+front (fault injection, snapshots, the request journal, the async
+gateway)."""
 from repro_torch.serving.engine import (DrainBatchEngine, Request,
-                                       ServingEngine, validate_prompt)
+                                       ServingEngine, load_snapshot,
+                                       save_snapshot, validate_prompt)
 from repro_torch.serving.cascade_engine import (CascadeEngine,
                                                 CascadeServingEngine,
                                                 CircuitBreaker)
 from repro_torch.serving.faults import FaultError, FaultPlan, SeamSpec
+from repro_torch.serving.gateway import (BACKPRESSURE_POLICIES,
+                                        EngineWedgedError, RequestHandle,
+                                        ServingGateway, recover_engine)
+from repro_torch.serving.journal import RequestJournal
 from repro_torch.serving.kv_cache import (RING, HostSwapHandle, PagedCache,
                                           PagedLayout, RingCache, RingLayout,
                                           make_backend)
@@ -17,6 +24,9 @@ from repro_torch.serving.scheduler import (Scheduler, StepPlan, bucket_for,
                                            prompt_buckets, request_rank)
 
 __all__ = ["ServingEngine", "DrainBatchEngine", "Request", "validate_prompt",
+           "save_snapshot", "load_snapshot", "ServingGateway",
+           "RequestHandle", "EngineWedgedError", "recover_engine",
+           "BACKPRESSURE_POLICIES", "RequestJournal",
            "CascadeEngine",
            "CascadeServingEngine", "CircuitBreaker", "FaultPlan",
            "FaultError", "SeamSpec", "RING",

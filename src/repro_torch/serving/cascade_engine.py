@@ -13,10 +13,12 @@ of a ``FaultPlan``) send requests straight to the cloud until a half-open
 probe succeeds. With ``speculative_tokens=k`` the cloud engine speculates
 with the edge model as its draft.
 
-Not ported yet (later slices of the port): the per-step token tap
-(``on_tokens``; gateway), ``note_hang``, ``snapshot``, ``restore``,
-``requeue_lost`` and ``known_request_ids`` (durability), and the ``mesh``
-and ``rules`` arguments, which raise ``NotImplementedError``.
+For the gateway it has ``repro``'s protocol: ``on_tokens`` (the legs' taps,
+inner request ids translated to cascade ids), ``enqueue(ahead_extra=)``,
+``note_hang``, ``known_request_ids``, and ``snapshot``/``restore``/
+``requeue_lost`` in ``repro``'s wire format (both legs' snapshots, the
+cascade's request table, routing maps, breaker and metrics). Meshes are a
+later slice: ``mesh`` and ``rules`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 from repro_torch.cascade.ecc_infer import CascadeLM
 from repro_torch.cascade.gate import (ACCEPT, ESCALATE, GateThresholds,
                                       gate_logits)
+from repro_torch.checkpoint.io import json_leaf, json_unleaf
 from repro_torch.serving.engine import (ServingEngine, _GraphedPrograms,
                                         _Staged, validate_prompt)
 from repro_torch.serving.faults import FaultError
@@ -187,6 +190,7 @@ class CascadeServingEngine(_GraphedPrograms):
                 raise NotImplementedError(
                     f"{name}: meshes are a later slice of the port")
         self.cascade = cascade
+        self.batch_slots = batch_slots
         self.max_seq_len = max_seq_len
         self.truncate_prompts = truncate_prompts
         self.metrics = CascadeMetrics()
@@ -242,6 +246,10 @@ class CascadeServingEngine(_GraphedPrograms):
         self._edge_map: Dict[int, CascadeRequest] = {}
         self._cloud_map: Dict[int, CascadeRequest] = {}
         self._done: Dict[int, CascadeRequest] = {}
+        self._on_tokens = None
+        # durability counters (the cascade's own; the legs keep theirs)
+        self.restores = 0
+        self.hang_recoveries = 0
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
                temperature: float = 0.0, priority: int = 0,
@@ -269,12 +277,39 @@ class CascadeServingEngine(_GraphedPrograms):
         r.submit_s = time.perf_counter()
         return r
 
-    def enqueue(self, r: CascadeRequest) -> None:
+    def enqueue(self, r: CascadeRequest, *, ahead_extra: int = 0) -> None:
         """Queue a made request for the next gate round. Admission is the
         inner engines' job at route time (their deadline budgets are
-        already shrunk by the gate wait), so this never refuses."""
+        already shrunk by the gate wait), so this never refuses;
+        ``ahead_extra`` is taken for the gateway's protocol."""
+        del ahead_extra
         r.enqueue_s = time.perf_counter()
         self._requests.append(r)
+
+    @property
+    def on_tokens(self):
+        return self._on_tokens
+
+    @on_tokens.setter
+    def on_tokens(self, cb) -> None:
+        """Install a per-round token tap on both legs; inner request ids
+        are translated to cascade ids through the live routing maps."""
+        self._on_tokens = cb
+        if cb is None:
+            self.edge_engine.on_tokens = None
+            self.cloud_engine.on_tokens = None
+            return
+
+        def translated(mapping):
+            def tap(events):
+                out = [(mapping[rid].request_id, arr)
+                       for rid, arr in events if rid in mapping]
+                if out:
+                    cb(out)
+            return tap
+
+        self.edge_engine.on_tokens = translated(self._edge_map)
+        self.cloud_engine.on_tokens = translated(self._cloud_map)
 
     def queue_depth(self) -> int:
         return (len(self._requests) + self.edge_engine.queue_depth()
@@ -483,6 +518,148 @@ class CascadeServingEngine(_GraphedPrograms):
                         "consecutive_failures":
                             self.breaker.consecutive_failures},
             "degradation_s": self._degradation_s,
+            "restores": self.restores,
+            "hang_recoveries": self.hang_recoveries,
             "edge": self.edge_engine.metrics(),
             "cloud": self.cloud_engine.metrics(),
         }
+
+    # -- durability -----------------------------------------------------------
+    def note_hang(self) -> None:
+        """Watchdog escalation across the cascade: a wall-clock deadline
+        cannot tell which leg stalled, so both roll back (token-exact
+        either way)."""
+        self.hang_recoveries += 1
+        for eng in (self.edge_engine, self.cloud_engine):
+            if eng._slots:
+                eng.note_hang()
+
+    def _live_cascade_requests(self) -> List[CascadeRequest]:
+        return (list(self._requests) + list(self._edge_map.values())
+                + list(self._cloud_map.values()))
+
+    def known_request_ids(self) -> set:
+        ids = {r.request_id for r in self._live_cascade_requests()}
+        ids.update(self._done.keys())
+        return ids
+
+    def snapshot(self) -> Dict[str, object]:
+        """The whole cascade in ``repro``'s wire format: both legs'
+        snapshots (routed requests resume on their leg, token for token)
+        and the cascade's request table, routing maps, breaker state and
+        running metrics. Changes nothing."""
+        now = time.perf_counter()
+        requests: Dict[str, Dict[str, object]] = {}
+
+        def record(r: CascadeRequest, phase: str, leg: Optional[str],
+                   inner_rid: Optional[int]) -> None:
+            rec: Dict[str, object] = {"meta": json_leaf({
+                "rid": r.request_id, "phase": phase, "leg": leg,
+                "inner_rid": inner_rid, "route": r.route,
+                "conf": r.conf, "priority": r.priority,
+                "deadline_s": r.deadline_s,
+                "age_s": now - r.submit_s if r.submit_s else 0.0,
+                "ttft_s": r.ttft_s, "status": r.status,
+                "failure_reason": r.failure_reason,
+                "latency_s": r.latency_s,
+                "max_new_tokens": r.max_new_tokens,
+                "temperature": r.temperature}),
+                "prompt": np.asarray(r.prompt, np.int32)}
+            if phase == "terminal" and r.output is not None \
+                    and len(r.output):
+                rec["output"] = np.asarray(r.output, np.int32)
+            requests[f"r{r.request_id:08d}"] = rec
+
+        for r in self._requests:
+            record(r, "pending", None, None)
+        for leg, mapping in (("edge", self._edge_map),
+                             ("cloud", self._cloud_map)):
+            for inner_rid, r in mapping.items():
+                record(r, "routed", leg, inner_rid)
+        for r in self._done.values():
+            record(r, "terminal", None, None)
+        meta = {"kind": type(self).__name__, "next_id": self._next_id,
+                "degradation_s": self._degradation_s,
+                "breaker": {"state": self.breaker.state,
+                            "consecutive_failures":
+                                self.breaker.consecutive_failures,
+                            "trips": self.breaker.trips,
+                            "denied": self.breaker._denied},
+                "metrics": dataclasses.asdict(self.metrics)}
+        return {"engine": json_leaf(meta), "requests": requests,
+                "edge": self.edge_engine.snapshot(),
+                "cloud": self.cloud_engine.snapshot()}
+
+    def restore(self, snap: Dict[str, object]) -> Dict[str, object]:
+        """Load a cascade ``snapshot`` into this cold cascade: the legs
+        restore their requests first, then the cascade's table re-links
+        routed requests to them by inner id. The breaker, the degradation
+        EWMA and the routing metrics carry over."""
+        if (self._requests or self._edge_map or self._cloud_map
+                or self._done):
+            raise RuntimeError("restore() needs a cold cascade engine")
+        inner = {"edge": self.edge_engine.restore(snap["edge"]),
+                 "cloud": self.cloud_engine.restore(snap["cloud"])}
+        eng = json_unleaf(snap["engine"])
+        now = time.perf_counter()
+        live = terminal = 0
+        for key in sorted(snap.get("requests", {})):
+            rec = snap["requests"][key]
+            meta = json_unleaf(rec["meta"])
+            r = CascadeRequest(int(meta["rid"]),
+                               np.asarray(rec["prompt"], np.int32),
+                               route=meta["route"] or "",
+                               conf=float(meta["conf"]),
+                               priority=int(meta["priority"]),
+                               deadline_s=meta["deadline_s"],
+                               max_new_tokens=int(meta["max_new_tokens"]),
+                               temperature=float(meta["temperature"]))
+            r.submit_s = now - float(meta["age_s"])
+            r.enqueue_s = now
+            r.ttft_s = float(meta["ttft_s"])
+            if meta["phase"] == "terminal":
+                r.status = meta["status"]
+                r.failure_reason = meta["failure_reason"]
+                r.latency_s = float(meta["latency_s"])
+                r.finish_s = now
+                out = rec.get("output")
+                r.output = (np.asarray(out, np.int32) if out is not None
+                            else np.zeros((0,), np.int32))
+                self._done[r.request_id] = r
+                terminal += 1
+                continue
+            if meta["phase"] == "routed":
+                mapping = (self._edge_map if meta["leg"] == "edge"
+                           else self._cloud_map)
+                mapping[int(meta["inner_rid"])] = r
+            else:
+                self._requests.append(r)
+            live += 1
+        self._next_id = max(self._next_id, int(eng["next_id"]))
+        self._degradation_s = float(eng["degradation_s"])
+        bk = eng["breaker"]
+        self.breaker.state = bk["state"]
+        self.breaker.consecutive_failures = bk["consecutive_failures"]
+        self.breaker.trips = bk["trips"]
+        self.breaker._denied = bk["denied"]
+        self.metrics = CascadeMetrics(**eng["metrics"])
+        self.restores += 1
+        return {"live": live, "terminal": terminal, "inner": inner}
+
+    def requeue_lost(self, request_id: int, prompt: np.ndarray,
+                     max_new_tokens: int = 16, temperature: float = 0.0,
+                     priority: int = 0,
+                     deadline_s: Optional[float] = None) -> CascadeRequest:
+        """Journal replay: re-queue a lost submission under its original
+        id, back at the gate (it routes from scratch)."""
+        prompt = validate_prompt(prompt, max_new_tokens, self.max_seq_len,
+                                 self.truncate_prompts)
+        r = CascadeRequest(int(request_id), prompt, priority=priority,
+                           deadline_s=deadline_s,
+                           max_new_tokens=max_new_tokens,
+                           temperature=temperature)
+        r.submit_s = time.perf_counter()
+        r.enqueue_s = r.submit_s
+        self._next_id = max(self._next_id, int(request_id) + 1)
+        self._requests.append(r)
+        return r

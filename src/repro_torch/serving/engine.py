@@ -37,8 +37,25 @@ With a ``draft_model`` and ``speculative_tokens=k`` the engine speculates:
 the draft proposes k tokens per slot on its own ring cache and the target
 verifies them in one (k+1)-token chunk (``_spec_impl``). Verification is
 key-coupled, so the streams are the non-speculative engine's at every
-temperature. Fault injection, snapshots, the journal and meshes are later
-slices: their constructor arguments raise ``NotImplementedError`` when set.
+temperature.
+
+The engine is chaos-hardened as ``repro``'s is: with a ``fault_plan``
+(``serving.faults.FaultPlan``) its named seams (the decode dispatch
+``step``/``scan``, the speculative ``draft``, ``swap_out``, ``swap_in``,
+``pool``, the non-raising ``hang`` and chaos ``cancel``) are consulted in
+``repro``'s order and count, so one plan fires at the same calls in both
+packages. Recovery reuses preemption: a poisoned dispatch fails before its
+program runs, so every decoding slot rolls back to a host checkpoint and
+requeues with step-indexed exponential backoff; past ``max_retries`` a
+request is quarantined (status ``failed``). A failed swap degrades to a
+recompute-resume, a failed draft round is served plain. ``on_tokens`` taps
+each round's new tokens after its one host sync (the gateway's stream).
+``snapshot``/``restore`` carry every request across a process restart in
+``repro``'s wire format (``save_snapshot``/``load_snapshot``, the .npz
+envelope of ``repro_torch.checkpoint``): live slots resume token for token
+from their decode checkpoint and, on the paged backend, their K/V.
+Meshes are a later slice: ``mesh`` and ``rules`` raise
+``NotImplementedError``.
 
 Where ``repro`` jits its serving programs for XLA (the single step, the
 K-step scan, the speculative round, the admission per bucket, the prompt
@@ -66,17 +83,22 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import (json_leaf, json_unleaf,
+                                       load_checkpoint_tree, save_checkpoint)
 from repro_torch.kernels import (LAUNCHES, build, cascade_gate,
                                  rglru_scan)
 from repro_torch.models.model import LM
+from repro_torch.serving.faults import FaultError, FaultPlan
 from repro_torch.serving.kv_cache import (RingCache, RingLayout,
-                                          _map_block_dicts, make_backend)
+                                          _map_block_dicts, host_tensor,
+                                          make_backend)
 from repro_torch.serving.sampler import (accepted_prefix_length, prng_key,
                                          request_keys, sample_logits_batch,
                                          sample_logits_keyed, split)
 from repro_torch.serving.scheduler import (MONOLITHIC, PrefillProgress,
                                            Scheduler, bucket_for,
                                            prompt_buckets, request_rank)
+from repro_torch.utils.tree import flat_paths
 
 
 @dataclasses.dataclass
@@ -97,10 +119,16 @@ class Request:
     preemptions: int = 0         # times evicted under SLO pressure
     resume: Optional["_ResumeState"] = dataclasses.field(
         default=None, repr=False)     # checkpoint while preempted
-    # "queued"/"active" while live, then one of done | rejected | cancelled
+    # "queued"/"active" while live, then one of done | failed (retry
+    # budget exhausted) | rejected | cancelled
     status: str = "queued"
     failure_reason: Optional[str] = None
+    retries: int = 0             # fault-triggered rollbacks so far
+    last_fault: Optional[str] = None  # seam of the most recent fault
     downgraded: bool = False     # deadline stripped by admission control
+    not_before_step: int = 0     # backoff: ineligible before this step
+    fault_s: float = 0.0         # wall-clock of the last fault requeue
+    #                              (recovery latency = next grant - fault_s)
     enqueue_s: float = 0.0       # wall-clock at engine queue entry
 
 
@@ -416,14 +444,16 @@ class ServingEngine(_GraphedPrograms):
                  preempt_mode: str = "auto",
                  admission_policy: Optional[str] = None,
                  draft_model=None, draft_params=None,
-                 speculative_tokens: int = 0, fault_plan=None,
+                 speculative_tokens: int = 0,
+                 fault_plan: Optional[FaultPlan] = None,
+                 max_retries: int = 3,
+                 backoff_base_steps: int = 1,
+                 backoff_cap_steps: int = 8,
                  mesh=None, rules=None):
-        later = {"fault_plan": fault_plan, "mesh": mesh, "rules": rules}
-        for name, value in later.items():
+        for name, value in {"mesh": mesh, "rules": rules}.items():
             if value is not None:
                 raise NotImplementedError(
-                    f"{name}: fault injection and meshes are later slices "
-                    f"of the port")
+                    f"{name}: meshes are a later slice of the port")
         self.lm = lm
         self.params = params
         self.device = lm.device
@@ -465,6 +495,30 @@ class ServingEngine(_GraphedPrograms):
         self.warm_compile_s: Optional[float] = None  # last warm_compile()
         self._pending_swaps: List[object] = []
         self._status_counts = collections.Counter()
+        # fault tolerance: a fault rolls the affected slots back to their
+        # host checkpoint and requeues them with exponential backoff
+        # counted in engine steps (deterministic under test); past
+        # ``max_retries`` a request is quarantined ("failed")
+        self._faults = fault_plan
+        self.max_retries = max_retries
+        self.backoff_base_steps = backoff_base_steps
+        self.backoff_cap_steps = backoff_cap_steps
+        self._step_count = 0
+        self.fault_recoveries = 0     # decode rounds rolled back
+        self.retries_total = 0        # per-request retries, summed
+        self.recovery_latencies: List[float] = []  # fault -> re-grant, s
+        self.restores = 0             # restore()s into this engine
+        self.hang_recoveries = 0      # watchdog escalations (note_hang)
+        # the stream tap: after each round's host sync, called with the
+        # round's new tokens [(request_id, np.ndarray), ...]. Monotone per
+        # request: a rollback checkpoints every generated token, so a
+        # resumed stream continues where it stopped
+        self.on_tokens = None
+        self._emitted: Dict[int, int] = {}     # rid -> tokens tapped
+        # pinned host buffers a round's state reads land in (``_host``)
+        self._pinned: Dict[str, torch.Tensor] = {}
+        self._pulled = (torch.cuda.Event() if self.device.type == "cuda"
+                        else None)
         if chunk_tokens is not None:
             self._validate_chunk_mixers(chunk_tokens)
         self.backend = make_backend(
@@ -516,6 +570,7 @@ class ServingEngine(_GraphedPrograms):
         self.spec_drafted_tokens = 0
         self.spec_accepted_tokens = 0
         self.spec_committed_tokens = 0
+        self.spec_fallbacks = 0             # draft-seam faults served plain
         self._spec_class: Dict[int, tuple] = {}  # priority -> (drafted, acc)
         if self.speculative:
             self.draft_lm = draft_model
@@ -626,15 +681,18 @@ class ServingEngine(_GraphedPrograms):
         r.submit_s = time.perf_counter()
         return r
 
-    def enqueue(self, r: Request) -> None:
+    def enqueue(self, r: Request, *, ahead_extra: int = 0) -> None:
         """Admission-control gate + queue insert: with an
         ``admission_policy``, a deadline the measured service rate cannot
-        meet is rejected ("reject") or stripped ("downgrade")."""
+        meet is rejected ("reject") or stripped ("downgrade").
+        ``ahead_extra`` counts work queued upstream of the engine (the
+        gateway's bounded queue), so feasibility prices the whole line."""
         policy = self.scheduler.admission_policy
         if policy is not None and r.deadline_s is not None:
             mine = request_rank(r)
-            ahead = len(self._slots) + len(self._prefilling) + sum(
-                1 for q in self._queue if request_rank(q) <= mine)
+            ahead = (len(self._slots) + len(self._prefilling) + ahead_extra
+                     + sum(1 for q in self._queue
+                           if request_rank(q) <= mine))
             remaining = r.deadline_s - (time.perf_counter() - r.submit_s)
             if not self.scheduler.deadline_feasible(
                     deadline_s=remaining, ahead=ahead, priority=r.priority):
@@ -675,9 +733,16 @@ class ServingEngine(_GraphedPrograms):
     def step(self) -> None:
         """Execute one scheduler plan: admissions and prompt chunks first,
         then one decode round of ``plan.decode_steps`` fused steps."""
+        self._step_count += 1
         slots, free, prefilling = self._slots, self._free, self._prefilling
-        # repro's chaos-cancel seam (here) and its decode-fault recovery
-        # (around the round below) are not ported: faults are a later slice
+        if self._faults is not None and self._faults.fire("cancel"):
+            # chaos cancellation: a deterministic in-flight victim hangs up
+            live = sorted([r.request_id for r in self._queue]
+                          + [pp.request.request_id
+                             for pp in prefilling.values()]
+                          + [r.request_id for r in slots.values()])
+            if live:
+                self.cancel(self._faults.pick("cancel", live))
         min_headroom = min(
             (r.max_new_tokens - self._scanned.get(s, 0)
              for s, r in slots.items()), default=None)
@@ -698,14 +763,30 @@ class ServingEngine(_GraphedPrograms):
         if slots or prefilling:
             self.peak_active_slots = max(self.peak_active_slots,
                                          len(slots) + len(prefilling))
-        if slots:
-            # repro's draft fault seam (a failed speculative dispatch
-            # served by a plain round) waits for the faults slice
+        if not slots:
+            return
+        try:
             if plan.spec_tokens > 0 and self.speculative:
-                self._spec_round(slots, free, self._done, plan.spec_tokens)
+                try:
+                    self._spec_round(slots, free, self._done,
+                                     plan.spec_tokens)
+                except FaultError as e:
+                    if e.seam != "draft":
+                        raise
+                    # the draft dispatch is down: serve this round plain.
+                    # Commits are target samples under the same keys
+                    # either way, so the streams are unchanged
+                    self.spec_fallbacks += 1
+                    self._decode_round(slots, free, self._done,
+                                       plan.decode_steps)
             else:
                 self._decode_round(slots, free, self._done,
                                    plan.decode_steps)
+        except FaultError as e:
+            # the decode dispatch failed before its program ran, so every
+            # decoding slot still holds its pre-round state: roll them all
+            # back to a host checkpoint and requeue with backoff
+            self._recover_decode_fault(e.seam)
 
     def run(self) -> Dict[int, Request]:
         """Serve until the queue and all slots drain; returns every request
@@ -975,6 +1056,9 @@ class ServingEngine(_GraphedPrograms):
         if self._slots or self._prefilling:
             raise RuntimeError("warm_compile needs an idle engine: its "
                                "warm-up runs would advance live slots")
+        if self.warm_compile_s is not None and set(self._programs) >= set(
+                self.program_keys()):
+            return                     # warm already (the gateway calls it)
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             build.build_all()
@@ -994,14 +1078,16 @@ class ServingEngine(_GraphedPrograms):
         higher one. A request that could never fit an idle pool is
         rejected (``exceeds_pool_capacity``). Chunked admissions return a
         ``PrefillProgress``; monolithic and swap-resumed ones MONOLITHIC.
-        (``repro``'s fault seams, the backoff filter and the pool and
-        swap-in faults, are not ported: faults are a later slice.)"""
+        A request under fault backoff (``not_before_step``) is skipped
+        until its backoff expires."""
         if not free:
             return None
         while True:
-            if not self._queue:
+            eligible = [q for q in self._queue
+                        if q.not_before_step <= self._step_count]
+            if not eligible:
                 return None
-            r = min(self._queue, key=request_rank)
+            r = min(eligible, key=request_rank)
             if not self.backend.can_ever_admit(len(r.prompt),
                                                r.max_new_tokens):
                 self._queue.remove(r)
@@ -1012,9 +1098,18 @@ class ServingEngine(_GraphedPrograms):
                     f"the whole pool holds; enlarge num_pool_blocks")
                 continue
             break
+        if self._faults is not None and self._faults.fire("pool"):
+            # transient pool exhaustion: no blocks this step, retry next
+            return None
         if r.resume is not None and r.resume.kv is not None:
             # swap path: restore the checkpointed blocks, no prefill at all
             if not self.backend.can_resume(len(r.prompt), r.max_new_tokens):
+                return None
+            if self._faults is not None and self._faults.fire("swap_in"):
+                # the K/V checkpoint failed to come back (before any block
+                # is drawn): drop it and resume by recompute, exact too
+                r.resume.kv = None
+                self._record_retry(r, "swap_in")
                 return None
             self._queue.remove(r)
             slot = free.pop()
@@ -1155,8 +1250,8 @@ class ServingEngine(_GraphedPrograms):
         """Evict ``slot`` to a host checkpoint: decode state (generated
         tokens, step count, next-sample logits) to the host, and the cache
         swapped out (paged: the blocks return to the pool, the host copy
-        finishes after the next plan) or freed for a recompute-resume.
-        (``repro``'s swap-out fault seam is not ported.)"""
+        finishes after the next plan) or freed for a recompute-resume. A
+        ``swap_out`` fault takes the recompute path: slower, as exact."""
         r = self._slots.pop(slot)
         st = self._state
         steps = int(st["steps"][slot])
@@ -1165,7 +1260,12 @@ class ServingEngine(_GraphedPrograms):
             tokens=st["out"][slot, :steps].cpu().numpy().copy(),
             last=st["last"][slot].cpu().numpy().copy())
         self._edit_state(active=(slot, False))
-        if self._preempt_swap:
+        swap = self._preempt_swap
+        if swap and self._faults is not None \
+                and self._faults.fire("swap_out"):
+            r.last_fault = "swap_out"    # checkpoint transport failed:
+            swap = False                 # recompute-resume instead (exact)
+        if swap:
             r.resume.kv, self._cache_state = self.backend.swap_out(
                 self._cache_state, slot)
             self._pending_swaps.append(r.resume.kv["caches"])
@@ -1226,15 +1326,21 @@ class ServingEngine(_GraphedPrograms):
             self._cache_state, list(s), np.stack(rows), list(cov))
 
     def _note_grant(self, r: Request) -> None:
-        """Slot-grant bookkeeping shared by every admission path; the first
-        admission stamp is sticky across preemption."""
+        """Slot-grant bookkeeping shared by every admission path: the first
+        admission stamp is sticky across preemption, and after a fault
+        requeue the recovery latency (fault -> re-grant) is recorded."""
         self.admissions += 1
         r.status = "active"
         if r.admit_s == 0.0:
             r.admit_s = time.perf_counter()
+        if r.fault_s:
+            self.recovery_latencies.append(time.perf_counter() - r.fault_s)
+            r.fault_s = 0.0
 
     def _terminal(self, r: Request, status: str, reason: Optional[str],
                   output: Optional[np.ndarray] = None) -> None:
+        """Move ``r`` (already detached from queue, slots and prefill)
+        to a terminal status in ``_done``."""
         r.status = status
         r.failure_reason = reason
         if r.output is None:
@@ -1242,8 +1348,56 @@ class ServingEngine(_GraphedPrograms):
                 else np.zeros((0,), np.int32)
         r.finish_s = time.perf_counter()
         r.latency_s = r.finish_s - r.submit_s
+        self._emitted.pop(r.request_id, None)
+        if status == "failed" and r.deadline_s is not None:
+            # quarantine misses the deadline; a cancel or a rejection is
+            # the client's withdrawal, not a miss
+            self.scheduler.observe_deadline(r.priority, False)
         self._status_counts[status] += 1
         self._done[r.request_id] = r
+
+    # -- fault tolerance ------------------------------------------------------
+    def _recover_decode_fault(self, seam: str) -> None:
+        """A decode dispatch failed before its program ran: roll every
+        decoding slot back to a host checkpoint and requeue it with
+        backoff, or quarantine it past its retry budget."""
+        self.fault_recoveries += 1
+        for slot in list(self._slots):
+            r = self._rollback_slot(slot)
+            self._record_retry(r, seam, in_queue=False)
+
+    def _record_retry(self, r: Request, seam: str,
+                      in_queue: bool = True) -> None:
+        """Count one fault-triggered retry of ``r``: backoff and requeue
+        within the budget, quarantine past it. ``in_queue`` says whether
+        ``r`` sits in the queue (a swap-in fault) or was just rolled out
+        of a slot."""
+        r.retries += 1
+        r.last_fault = seam
+        r.fault_s = time.perf_counter()
+        self.retries_total += 1
+        if r.retries > self.max_retries:
+            if in_queue:
+                self._queue.remove(r)
+            self._quarantine(r, seam)
+            return
+        r.not_before_step = self._step_count + min(
+            self.backoff_cap_steps,
+            self.backoff_base_steps << (r.retries - 1))
+        if not in_queue:
+            self._queue.append(r)
+
+    def _quarantine(self, r: Request, seam: str) -> None:
+        """Terminal failure past the retry budget: the tokens generated
+        before the last fault are kept, the checkpoint is dropped."""
+        out = (r.resume.tokens if r.resume is not None
+               else np.zeros((0,), np.int32))
+        r.resume = None
+        self._terminal(
+            r, "failed",
+            f"retry_budget_exhausted: {r.retries} retries > "
+            f"max_retries={self.max_retries} (last fault: {seam})",
+            output=out)
 
     def cancel(self, request_id: int) -> bool:
         """Cancel a request wherever it lives: queued (preempted included),
@@ -1293,13 +1447,28 @@ class ServingEngine(_GraphedPrograms):
         return False
 
     def metrics(self) -> Dict[str, object]:
-        """Monitoring snapshot: live/terminal request counts and the core
-        serving counters."""
+        """Monitoring snapshot: live/terminal request counts, fault and
+        recovery accounting and the core serving counters (what
+        ``core.monitoring.MonitoringService.record_serving`` ingests)."""
+        lat = sorted(self.recovery_latencies)
+
+        def pct(p: float) -> float:
+            return lat[min(len(lat) - 1, int(p * len(lat)))] if lat else 0.0
+
         return {
             "live": {"queued": len(self._queue),
                      "prefilling": len(self._prefilling),
                      "decoding": len(self._slots)},
             "terminal": dict(self._status_counts),
+            "quarantined": self._status_counts.get("failed", 0),
+            "retries_total": self.retries_total,
+            "fault_recoveries": self.fault_recoveries,
+            "faults_injected": (self._faults.fired()
+                                if self._faults is not None else {}),
+            "recovery": {"count": len(lat), "p50_s": pct(0.50),
+                         "p99_s": pct(0.99)},
+            "restores": self.restores,
+            "hang_recoveries": self.hang_recoveries,
             "admissions": self.admissions,
             "preemptions": self.preemptions,
             "generated_tokens": self.generated_tokens,
@@ -1328,7 +1497,7 @@ class ServingEngine(_GraphedPrograms):
             "enabled": self.speculative,
             "rounds": self.spec_rounds,
             "slot_rounds": self.spec_slot_rounds,
-            "fallbacks": 0,     # draft-seam faults: the faults slice
+            "fallbacks": self.spec_fallbacks,
             "drafted_tokens": drafted,
             "accepted_tokens": accepted,
             "committed_tokens": self.spec_committed_tokens,
@@ -1343,10 +1512,18 @@ class ServingEngine(_GraphedPrograms):
         }
 
     def _decode_round(self, slots, free, done, k: int = 1) -> None:
-        # repro's hang and decode-fault seams sit here; faults are a later
-        # slice of the port
         with self._clock.span("decode"):
             self._reserve_lookahead(slots, k)
+            if self._faults is not None:
+                if self._faults.fire("hang"):
+                    # a hung dispatch stalls without raising: only the
+                    # gateway's wall-clock watchdog sees it (note_hang)
+                    time.sleep(self._faults.hang_s)
+                # a poisoned dispatch fails before its program runs, so
+                # the state the rollback checkpoints is intact (the
+                # look-ahead above returns through the free/swap path)
+                self._faults.check("scan" if k > 1 else "step",
+                                   f"decode round over {len(slots)} slots")
             self._run_program(("decode", k, _any_sampled(slots)))
         self.decode_steps += k
         self.host_syncs += 1
@@ -1365,6 +1542,11 @@ class ServingEngine(_GraphedPrograms):
         the verify append always lands in a reserved block; rejected tails
         were masked out of the cache and cost only the token-slots
         ``occupancy`` charges for them."""
+        if self._faults is not None:
+            # the draft seam fails the whole speculative dispatch before
+            # any state is touched; step() serves the round plain
+            self._faults.check(
+                "draft", f"speculative round over {len(slots)} slots, k={k}")
         with self._clock.span("decode"):
             self._resync_draft(slots)
             self._reserve_lookahead(slots, k + 1)
@@ -1413,25 +1595,61 @@ class ServingEngine(_GraphedPrograms):
         self._run_program(("draft_fill", bucket_for(length, self.buckets)))
         self._draft_dirty.discard(slot)
 
+    def _host(self, *names) -> Dict[str, np.ndarray]:
+        """The named state tensors on the host, for this round only. On the
+        card they land in pinned buffers (reused every round) behind one
+        event: several tensors, one wait."""
+        st = self._state
+        if self._pulled is None:
+            return {n: st[n].numpy() for n in names}
+        out = {}
+        for n in names:
+            if n not in self._pinned:
+                self._pinned[n] = torch.empty(st[n].shape, dtype=st[n].dtype,
+                                              pin_memory=True)
+            out[n] = self._pinned[n].copy_(st[n], non_blocking=True)
+        self._pulled.record()
+        self._pulled.synchronize()
+        return {n: t.numpy() for n, t in out.items()}
+
     def _finish_round(self, slots, free, done, steps_h=None) -> None:
-        """Post-round bookkeeping: TTFT stamps and completions. The
-        active-mask transfer is the round's one host sync (a speculative
-        round has already brought the step counts)."""
-        active = self._state["active"].cpu().numpy()
+        """Post-round bookkeeping: TTFT stamps, the stream tap and
+        completions. The active mask's transfer is the round's one host
+        sync; with a tap (or a completion) the step counts and outputs
+        come in the same transfer (a speculative round has already brought
+        the step counts)."""
+        tap = self.on_tokens
+        host = self._host(*(("active", "steps", "out") if tap is not None
+                            else ("active",)))
+        active = host["active"]
         now = time.perf_counter()
         self._clock.settle()         # the sync passed every open span
         for r in slots.values():
             if r.ttft_s == 0.0 and r.max_new_tokens > 0:
                 r.ttft_s = now - r.submit_s
         finished = [s for s in slots if not active[s]]
-        if not finished:
-            return
-        if steps_h is None:
-            steps_h = self._state["steps"].cpu().numpy()
-        out_h = self._state["out"].cpu().numpy()
+        if finished and "out" not in host:
+            host.update(self._host("steps", "out"))
+        if steps_h is None and "steps" in host:
+            steps_h = host["steps"]
+        out_h = host.get("out")
+        if tap is not None:
+            # this round's new tokens per live request (a row that finished
+            # mid-round stopped at its true step count)
+            events = []
+            for slot, r in slots.items():
+                n = int(steps_h[slot])
+                seen = self._emitted.get(r.request_id, 0)
+                if n > seen:
+                    events.append((r.request_id,
+                                   np.array(out_h[slot, seen:n])))
+                    self._emitted[r.request_id] = n
+            if events:
+                tap(events)
         for slot in finished:
             r = slots.pop(slot)
             self._scanned.pop(slot, None)
+            self._emitted.pop(r.request_id, None)
             if self.speculative:
                 self._draft_dirty.discard(slot)
             n = int(steps_h[slot])
@@ -1466,6 +1684,235 @@ class ServingEngine(_GraphedPrograms):
         """The backend's allocator invariants, checked against the live
         device tables (no mesh in the port yet)."""
         self.backend.assert_invariants(self._cache_state)
+
+    # -- durability -----------------------------------------------------------
+    def note_hang(self) -> None:
+        """Watchdog escalation: a dispatch overran its wall-clock deadline.
+        The stall raised nothing, so the recovery the raising seams get is
+        made here: every decoding slot rolls back to its host checkpoint
+        and requeues through the retry ladder. If the stalled round did
+        land, its work is redone; the checkpoint keeps the stream exact."""
+        self.hang_recoveries += 1
+        self._recover_decode_fault("hang")
+
+    def _live_requests(self) -> List[Request]:
+        """Every non-terminal request: queued (preempted and resuming
+        included), mid-prefill and decoding."""
+        live = list(self._queue)
+        live.extend(pp.request for pp in self._prefilling.values())
+        live.extend(self._slots.values())
+        return live
+
+    def known_request_ids(self) -> set:
+        """Request ids this engine accounts for, live or terminal (journal
+        replay re-queues the acknowledged ones it lacks)."""
+        ids = {r.request_id for r in self._live_requests()}
+        ids.update(self._done.keys())
+        return ids
+
+    def snapshot(self) -> Dict[str, object]:
+        """Every request the engine owns, live and terminal, as nested
+        string-keyed dicts of numpy leaves in ``repro``'s wire format (fit
+        for ``save_snapshot``). It changes nothing: a decoding slot is
+        checkpointed as preemption checkpoints it (generated tokens, step
+        count, ``last`` logits and, on the paged backend with swap, its
+        K/V through ``checkpoint_slot``), so ``restore`` into a cold engine
+        resumes token for token. Ages are stored relative (``age_s``) and
+        re-anchored at restore; stream watermarks are not kept (a
+        restarted gateway replays each stream from its first token)."""
+        now = time.perf_counter()
+        requests: Dict[str, Dict[str, object]] = {}
+
+        def base_meta(r: Request, phase: str, steps: int) -> dict:
+            return {"rid": r.request_id, "phase": phase, "steps": steps,
+                    "max_new_tokens": r.max_new_tokens,
+                    "temperature": r.temperature, "priority": r.priority,
+                    "deadline_s": r.deadline_s,
+                    "age_s": now - r.submit_s if r.submit_s else 0.0,
+                    "ttft_s": r.ttft_s, "preemptions": r.preemptions,
+                    "status": r.status, "failure_reason": r.failure_reason,
+                    "retries": r.retries, "last_fault": r.last_fault,
+                    "downgraded": r.downgraded, "latency_s": r.latency_s}
+
+        def record(r: Request, steps: int, tokens, last, kv) -> None:
+            rec: Dict[str, object] = {
+                "meta": json_leaf(base_meta(r, "live", steps)),
+                "prompt": np.asarray(r.prompt, np.int32)}
+            if tokens is not None and len(tokens):
+                rec["tokens"] = np.asarray(tokens, np.int32)
+            if last is not None:
+                rec["last"] = np.asarray(last, np.float32)
+            if kv is not None:
+                rec["kv"] = {"n_blocks": np.int32(kv["n_blocks"]),
+                             "caches": self.backend.wire_caches(kv)}
+            requests[f"r{r.request_id:08d}"] = rec
+
+        if self._slots:
+            st = self._state
+            steps_h = st["steps"].cpu().numpy()
+            out_h = st["out"].cpu().numpy()
+            last_h = st["last"].cpu().numpy()
+            for slot, r in self._slots.items():
+                steps = int(steps_h[slot])
+                kv = (self.backend.checkpoint_slot(self._cache_state, slot)
+                      if self._preempt_swap else None)
+                record(r, steps, np.array(out_h[slot, :steps]),
+                       np.array(last_h[slot]), kv)
+        # queued and mid-prefill: installed chunks are abandoned (the
+        # restored engine prefills again), a carried checkpoint is kept
+        for r in list(self._queue) + [pp.request
+                                      for pp in self._prefilling.values()]:
+            rs = r.resume
+            if rs is not None:
+                record(r, rs.steps, rs.tokens, rs.last, rs.kv)
+            else:
+                record(r, 0, None, None, None)
+        for r in self._done.values():
+            rec = {"meta": json_leaf(base_meta(r, "terminal", 0)),
+                   "prompt": np.asarray(r.prompt, np.int32)}
+            if r.output is not None and len(r.output):
+                rec["output"] = np.asarray(r.output, np.int32)
+            requests[f"r{r.request_id:08d}"] = rec
+        engine_meta = {"kind": type(self).__name__,
+                       "backend": type(self.backend).__name__,
+                       "next_id": self._next_id,
+                       "step_count": self._step_count,
+                       "status_counts": dict(self._status_counts),
+                       "batch_slots": self.batch_slots,
+                       "max_seq_len": self.max_seq_len,
+                       "vocab": self.lm.cfg.padded_vocab}
+        return {"engine": json_leaf(engine_meta), "requests": requests}
+
+    def restore(self, snap: Dict[str, object]) -> Dict[str, int]:
+        """Load a ``snapshot`` (this package's or ``repro``'s) into this
+        cold engine. Live requests re-enter the queue with their decode
+        checkpoint, and admission resumes them through the swap or
+        recompute path preemption uses: token for token, given the same
+        ``seed``. A K/V checkpoint is kept when this backend can swap it
+        in, else dropped for a recompute-resume. Terminal requests go to
+        the done map. Nothing on the device is touched here: the K/V
+        reaches the pool at admission, by an in-place scatter. Scheduler
+        estimates are reset (they described a process that is gone)."""
+        if self._slots or self._prefilling or self._queue or self._done:
+            raise RuntimeError("restore() needs a cold engine: this one "
+                               "already owns requests")
+        eng = json_unleaf(snap["engine"])
+        if eng.get("vocab") != self.lm.cfg.padded_vocab:
+            raise ValueError(
+                f"snapshot vocab {eng.get('vocab')} != engine vocab "
+                f"{self.lm.cfg.padded_vocab}: the saved logits checkpoints "
+                f"cannot be restored into this model")
+        if eng.get("max_seq_len") != self.max_seq_len:
+            raise ValueError(
+                f"snapshot max_seq_len {eng.get('max_seq_len')} != engine "
+                f"max_seq_len {self.max_seq_len}")
+        now = time.perf_counter()
+        template = (self._cache_state["caches"] if self.backend.supports_swap
+                    else None)
+        live = terminal = 0
+        for key in sorted(snap["requests"]):
+            rec = snap["requests"][key]
+            meta = json_unleaf(rec["meta"])
+            r = Request(int(meta["rid"]),
+                        np.asarray(rec["prompt"], np.int32),
+                        int(meta["max_new_tokens"]),
+                        float(meta["temperature"]),
+                        priority=int(meta["priority"]),
+                        deadline_s=meta["deadline_s"])
+            r.submit_s = now - float(meta["age_s"])
+            r.ttft_s = float(meta["ttft_s"])
+            r.preemptions = int(meta["preemptions"])
+            r.retries = int(meta["retries"])
+            r.last_fault = meta["last_fault"]
+            r.downgraded = bool(meta["downgraded"])
+            if meta["phase"] == "terminal":
+                r.status = meta["status"]
+                r.failure_reason = meta["failure_reason"]
+                r.latency_s = float(meta["latency_s"])
+                r.finish_s = now
+                out = rec.get("output")
+                r.output = (np.asarray(out, np.int32) if out is not None
+                            else np.zeros((0,), np.int32))
+                self._done[r.request_id] = r
+                terminal += 1
+                continue
+            steps = int(meta["steps"])
+            if steps > 0:
+                kv = None
+                if template is not None and "kv" in rec:
+                    kv = {"n_blocks": int(np.asarray(rec["kv"]["n_blocks"])),
+                          "caches": _rebuild_like(template,
+                                                  rec["kv"]["caches"])}
+                tokens = rec.get("tokens")
+                r.resume = _ResumeState(
+                    steps=steps,
+                    tokens=(np.asarray(tokens, np.int32)
+                            if tokens is not None
+                            else np.zeros((0,), np.int32)),
+                    last=np.asarray(rec["last"], np.float32), kv=kv)
+            r.enqueue_s = now
+            self._queue.append(r)
+            live += 1
+        self._queue.sort(key=request_rank)
+        self._next_id = max(self._next_id, int(eng["next_id"]))
+        self._step_count = max(self._step_count, int(eng["step_count"]))
+        self._status_counts.update(eng["status_counts"])
+        self.scheduler.reset_estimates()
+        self.restores += 1
+        return {"live": live, "terminal": terminal}
+
+    def requeue_lost(self, request_id: int, prompt: np.ndarray,
+                     max_new_tokens: int = 16, temperature: float = 0.0,
+                     priority: int = 0,
+                     deadline_s: Optional[float] = None) -> Request:
+        """Journal replay: re-queue an acknowledged submission that no
+        snapshot holds, under its original id (so the handle, the journal's
+        terminal record and the sampling keys line up); it starts over
+        from its prompt."""
+        prompt = validate_prompt(prompt, max_new_tokens, self.max_seq_len,
+                                 self.truncate_prompts)
+        r = Request(int(request_id), prompt, max_new_tokens, temperature,
+                    priority=priority, deadline_s=deadline_s)
+        r.submit_s = time.perf_counter()
+        r.enqueue_s = r.submit_s
+        self._next_id = max(self._next_id, int(request_id) + 1)
+        self._queue.append(r)
+        return r
+
+
+def _rebuild_like(template, loaded):
+    """``loaded`` (nested string-keyed dicts, as ``load_checkpoint_tree``
+    or a snapshot gives them) rebuilt into the structure of the cache tree
+    ``template`` as CPU tensors of its dtypes: ``flat_paths`` spells a list
+    index and a same-named dict key alike, so the paths match."""
+    tpl = flat_paths(template)
+    got = flat_paths(loaded)
+    missing = set(tpl) - set(got)
+    if missing:
+        raise ValueError(f"snapshot K/V missing paths: "
+                         f"{sorted(missing)[:5]}")
+
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, path + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v, path + (str(i),))
+                              for i, v in enumerate(node))
+        return host_tensor(got["/".join(path)], node.dtype)
+
+    return build(template, ())
+
+
+def save_snapshot(directory: str, snapshot: Dict[str, object],
+                  step: int = 0, keep: int = 3) -> str:
+    """Persist an engine snapshot through the checkpoint envelope (atomic
+    rename, bounded retention)."""
+    return save_checkpoint(directory, step, snapshot, keep=keep)
+
+
+def load_snapshot(directory: str, step: Optional[int] = None):
+    """Load a persisted engine snapshot: ``(snapshot_tree, step)``."""
+    return load_checkpoint_tree(directory, step)
 
 
 class DrainBatchEngine(_GraphedPrograms):

@@ -2,10 +2,11 @@
 
 A copy of ``repro.serving.faults`` (numpy only; the port cannot import the
 original, whose package loads the JAX engine), so a plan fires on the same
-schedule in both packages. In the port only ``CascadeServingEngine``
-consults a seam so far, ``edge``; the engine's own seams belong to the
-durability slice, and ``ServingEngine(fault_plan=...)`` still raises
-``NotImplementedError``. The rest of this docstring is ``repro``'s.
+schedule in both packages. The port's ``ServingEngine`` consults every
+engine seam below in ``repro``'s order and count, and
+``CascadeServingEngine`` the ``edge`` seam; ``wan_spike`` and
+``wan_outage`` belong to ``core.network``, which the port does not have.
+The rest of this docstring is ``repro``'s.
 
 ACE's claim of user-transparent edge-cloud service is only as strong as
 the serving loop's behavior when something breaks: a failed KV swap, a

@@ -26,9 +26,15 @@ Where ``repro`` returns new cache arrays (and the engine donates the old
 buffers to XLA), the port updates the cache tensors in place and the
 returned dicts alias the inputs. ``repro`` drops writes by scattering them
 out of bounds, which JAX ignores; ``index_put_`` raises there, so the port
-masks them explicitly. What ``repro`` keeps only for meshes, XLA compiles
-or snapshots (``shardings``, the ``*_per_device`` accounting,
-``warm_swap``, ``checkpoint_slot``) is not ported here.
+masks them explicitly. What ``repro`` keeps only for meshes or XLA
+compiles (``shardings``, the ``*_per_device`` accounting, ``warm_swap``)
+is not ported here.
+
+A slot's K/V checkpoint crosses a process boundary in ``repro``'s wire
+format (``PagedCache.checkpoint_slot``, ``wire_caches``): the cache tree
+restricted to the slot's table row padded to ``blocks_per_slot`` blocks,
+(L, M, block_size, ...) per leaf, ``n_blocks`` of them real. ``swap_in``
+takes that padded row or ``swap_out``'s unpadded one.
 """
 from __future__ import annotations
 
@@ -68,6 +74,26 @@ def _leaves(tree):
     out = []
     _map_block_dicts(lambda d: out.extend(d.items()), tree)
     return out
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host. numpy has no bfloat16: a
+    bf16 tensor becomes its 2-byte words (``|V2``), as numpy stores a JAX
+    bf16 array."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2")).copy()
+    return t.numpy().copy()
+
+
+def host_tensor(a, dtype: torch.dtype) -> torch.Tensor:
+    """A host array as a CPU tensor of ``dtype``; a 2-byte array (``|V2``,
+    bfloat16 or 16-bit integer words) into bf16 by its bits."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if dtype == torch.bfloat16 and a.dtype.itemsize == 2 \
+            and a.dtype.kind != "f":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -803,6 +829,44 @@ class PagedCache(KVCacheBackend):
         self.preempt_swap_bytes += len(blocks) * self.block_bytes()
         return host, self.free_slot(cache_state, slot)
 
+    def checkpoint_slot(self, cache_state, slot):
+        """A live slot's K/V on the host, without releasing anything
+        (refcounts, ledger and table row untouched): ``swap_out``'s
+        checkpoint in ``repro``'s padded form, the table row's blocks then
+        the trash block up to ``blocks_per_slot``. An engine snapshot
+        persists each decoding slot this way while the engine serves on;
+        ``swap_in`` restores it into a cold engine."""
+        blocks = self._slot_blocks.get(slot)
+        if blocks is None:
+            raise RuntimeError(f"slot {slot} holds no blocks to checkpoint")
+        idx = np.zeros((self.blocks_per_slot,), np.int64)   # pad: trash
+        idx[:len(blocks)] = blocks
+        idx = torch.from_numpy(idx).to(self.device)
+        return {"n_blocks": len(blocks), "caches": _map_block_dicts(
+            lambda d: {k: leaf.index_select(1, idx).cpu()
+                       for k, leaf in d.items()}, cache_state["caches"])}
+
+    def wire_caches(self, host_kv):
+        """A swap or slot checkpoint's caches as numpy in ``repro``'s wire
+        format: each leaf (L, ``blocks_per_slot``, block_size, ...); a
+        ``swap_out`` row (its drawn blocks only) is padded with empty
+        blocks (positions -1)."""
+        m = self.blocks_per_slot
+
+        def pad(d):
+            out = {}
+            for key, t in d.items():
+                n = t.shape[1]
+                if n < m:
+                    fill = torch.full((t.shape[0], m - n) + tuple(t.shape[2:]),
+                                      -1 if key == "pos" else 0,
+                                      dtype=t.dtype)
+                    t = torch.cat([t.cpu(), fill], dim=1)
+                out[key] = host_array(t)
+            return out
+
+        return _map_block_dicts(pad, resolve_swap_caches(host_kv))
+
     def available_blocks(self) -> int:
         """Free blocks not spoken for by commitments (what ``can_admit``
         and ``can_resume`` gate on)."""
@@ -828,8 +892,10 @@ class PagedCache(KVCacheBackend):
     def swap_in(self, cache_state, slot, host_kv, prompt_len: int,
                 max_new: int):
         """Restore a swapped-out request into ``slot``: draw fresh private
-        blocks, copy the checkpoint back byte for byte, and re-commit the
-        undrawn budget. Call only after ``can_resume`` said yes."""
+        blocks, copy the checkpoint back byte for byte (its first
+        ``n_blocks`` blocks: ``swap_out``'s row, or a padded snapshot row),
+        and re-commit the undrawn budget. Call only after ``can_resume``
+        said yes."""
         total = self.blocks_needed(prompt_len, max_new)
         n_now = host_kv["n_blocks"]
         if total > self._available():
@@ -856,7 +922,7 @@ class PagedCache(KVCacheBackend):
 
         def scatter(d, h):
             for key, leaf in d.items():
-                leaf.index_copy_(1, idx, h[key].to(leaf.device))
+                leaf.index_copy_(1, idx, h[key][:, :n_now].to(leaf.device))
             return d
 
         _map_block_dicts(scatter, cache_state["caches"],
@@ -975,7 +1041,10 @@ class PagedCache(KVCacheBackend):
             off = torch.where(ok, src_pos % bs, zero).long()
             for key, leaf in c.items():
                 if key == "pos":
-                    leaf[:, own] = -1
+                    # index_fill_ takes -1 as a kernel argument; an indexed
+                    # assignment of -1 copies a CPU scalar, which a CUDA
+                    # graph capture refuses
+                    leaf.index_fill_(1, own, -1)
                     leaf[:, phys, off] = torch.where(
                         ok, src_pos, zero - 1)[None, :].to(leaf.dtype)
                     leaf[:, 0] = -1                       # the trash block

@@ -222,7 +222,8 @@ def test_keyed_sampler_is_a_pure_function_of_its_key():
 def test_engine_edges_and_later_slices():
     """Oversized prompts, cancel (queued, and mid-prefill on the chunked
     paged engine), max_new_tokens=0 and an EOS stop, on the ring and the
-    paged backend; faults and meshes are later slices and still raise."""
+    paged backend; meshes are a later slice and still raise (faults are
+    ``tests/test_torch_faults.py``'s)."""
     _, _, lm, tp = _models()
     for backend in (dict(), dict(cache_backend="paged", block_size=8,
                                  chunk_tokens=8)):
@@ -256,8 +257,7 @@ def test_engine_edges_and_later_slices():
             assert eng.run()[r4].failure_reason == "cancelled: mid-prefill"
             eng.assert_invariants()
             assert eng.backend.blocks_in_use == 0
-    for kw in (dict(fault_plan=object()), dict(mesh=object()),
-               dict(rules=object())):
+    for kw in (dict(mesh=object()), dict(rules=object())):
         with pytest.raises(NotImplementedError):
             ServingEngine(lm, tp, **kw)
 

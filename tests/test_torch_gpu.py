@@ -1251,3 +1251,135 @@ def test_graphed_drain_engine_equals_the_eager_one(cuda, temperature):
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+# -- faults and durability on graphed engines -----------------------------------
+
+def _greedy_near_tie(cuda, lm, params, prompts, outs, base, tol=1e-4):
+    """Greedy streams equal, or part first where the teacher-forced f32
+    logits' top-2 margin is within ``tol`` (a recompute-resume rebuilds the
+    K/V through the prefill GEMMs instead of the decode ones)."""
+    for p, a, b in zip(prompts, outs, base):
+        assert len(a) == len(b)
+        diff = np.flatnonzero(a != b)
+        if not len(diff):
+            continue
+        at = int(diff[0])
+        ctx = torch.from_numpy(np.concatenate([p, b[:at]]).astype(
+            np.int32))[None].to(cuda)
+        x = lm.forward(params, {"tokens": ctx},
+                       last_only=True)[0][0, 0].float()
+        top = torch.topk(x, 2).values
+        assert (top[0] - top[1]).item() <= tol, at
+
+
+def _state_ptrs(eng):
+    """data_ptr of the slot state, every cache leaf and the tables."""
+    ptrs = {f"state/{k}": t.data_ptr() for k, t in eng._state.items()}
+
+    def leaves(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                leaves(v, f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                leaves(v, f"{path}/{i}")
+        elif tree is not None:
+            ptrs[path] = tree.data_ptr()
+
+    leaves(eng._cache_state, "cache")
+    return ptrs
+
+
+@pytest.mark.parametrize("backend", ["ring", "paged"])
+def test_storage_is_stable_across_a_fault_rollback_and_a_restore(cuda,
+                                                                 backend):
+    """On a graphed engine (f32, K = 4) a fault schedule (a poisoned step
+    and scan, a failed swap-out) rolls slots back mid-traffic, and a
+    snapshot taken mid-flight restores into a second warmed engine: both
+    keep the storage of their state, caches and tables (the graphs' fixed
+    addresses), capture nothing in traffic, and their streams equal a
+    fault-free graphed engine's or part first at a near-tie."""
+    from repro_torch.serving import FaultPlan, ServingEngine
+
+    lm = _tiny(cuda)
+    params = lm.init(0)
+    prompts = [np.random.default_rng(i).integers(0, 96, n).astype(np.int32)
+               for i, n in enumerate((5, 12, 20, 9, 17, 3))]
+    kw = dict(batch_slots=4, max_seq_len=64, max_decode_steps=4)
+    if backend == "paged":
+        kw.update(cache_backend="paged", block_size=8)
+
+    def serve(eng, steps=None):
+        ids = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        if steps is None:
+            done = eng.run()
+            return [done[i].output for i in ids]
+        for _ in range(steps):
+            eng.step()
+        return ids
+
+    base = ServingEngine(lm, params, **kw)
+    base.warm_compile()
+    ref = serve(base)
+    plan = FaultPlan(seed=5, step=[1], scan=[2], swap_out=[0])
+    eng = ServingEngine(lm, params, fault_plan=plan, max_retries=6, **kw)
+    eng.warm_compile()
+    ptrs, warmed = _state_ptrs(eng), dict(eng._programs)
+    assert eng.graphs() == len(warmed)
+    serve(eng, steps=5)
+    assert eng.fault_recoveries >= 1
+    assert _state_ptrs(eng) == ptrs and eng._programs == warmed
+    fresh = ServingEngine(lm, params, **kw)
+    fresh.warm_compile()
+    fresh_ptrs, fresh_warmed = _state_ptrs(fresh), dict(fresh._programs)
+    fresh.restore(eng.snapshot())
+    done = fresh.run()
+    torch.cuda.synchronize()
+    assert _state_ptrs(fresh) == fresh_ptrs
+    assert fresh._programs == fresh_warmed, "a restore captured a program"
+    assert sorted(done) == list(range(len(prompts)))
+    _greedy_near_tie(cuda, lm, params, prompts,
+                     [done[i].output for i in sorted(done)], ref)
+    if backend == "paged":
+        assert fresh.backend.swap_ins >= 1    # K/V restored, not recomputed
+
+
+def test_a_draft_fallback_and_a_recompute_resume_capture_nothing(cuda):
+    """A ``draft`` fault serves a speculative round as a plain round at the
+    plan's horizon, and a ``swap_out`` fault resumes a preempted slot by
+    re-prefilling prompt + tokens at a larger bucket: both replay programs
+    that ``warm_compile`` captured (no capture in traffic), with each
+    kernel launched as the counted programs say."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.serving import FaultPlan, ServingEngine
+
+    lm, draft = _tiny(cuda), _tiny(cuda, 1)
+    params, dparams = lm.init(0), draft.init(7)
+    prompts = [np.random.default_rng(i).integers(0, 96, n).astype(np.int32)
+               for i, n in enumerate((5, 12, 20, 9, 17, 3))]
+    plan = FaultPlan(seed=3, draft={"prob": 0.5}, swap_out=[0])
+    eng = ServingEngine(lm, params, batch_slots=4, max_seq_len=64,
+                        cache_backend="paged", block_size=8,
+                        draft_model=draft, draft_params=dparams,
+                        speculative_tokens=2, fault_plan=plan)
+    eng.scheduler.spec_min_commit = 0.0
+    eng.warm_compile()
+    warmed = dict(eng._programs)
+    n = _count_programs(eng)
+    ids = [eng.submit(p, max_new_tokens=12) for p in prompts]
+    reset_launches()
+    for _ in range(4):
+        eng.step()
+    eng.preempt(next(iter(eng._slots)))      # the swap-out fails: recompute
+    done = eng.run()
+    torch.cuda.synchronize()
+    assert eng._programs == warmed, "a program was captured in traffic"
+    assert eng.spec_fallbacks > 0 and eng.spec_rounds > 0
+    assert plan.fired("swap_out") == 1 and eng.backend.swap_ins == 0
+    assert all(done[i].status == "done" for i in ids)
+    target = 3 * (n["steps"] + n["rounds"] + n["chunks"])
+    assert LAUNCHES == {"flash_attention": n["fills"] + 3 * n["admits"],
+                        "decode_attention": n["draft_steps"],
+                        "paged_decode_attention": target,
+                        "cascade_gate": 0, "rglru_scan": 0}

@@ -5,9 +5,9 @@ It mirrors ``tests/test_speculative.py``: verification is key-coupled (a
 proposal is accepted iff it equals the token the target samples with the
 same folded key), so speculative streams equal the non-speculative K = 1
 engine's token for token, at every temperature, on every cache
-configuration and at any acceptance rate. Two of that file's tests wait
-for later slices: the draft fault seam (faults) and ``warm_compile`` (the
-decode step as a CUDA graph).
+configuration and at any acceptance rate, and under chaos at the draft
+fault seam (a failed speculative round is served plain). ``warm_compile``
+is held by ``tests/test_torch_warm_compile.py``.
 
 Across packages, on weights bridged from ``repro``'s ``LM.init``: the
 port's speculative streams equal ``repro``'s, greedy and sampled, wherever
@@ -181,6 +181,28 @@ def test_spec_exact_under_heavy_rejection(models):
                      draft_model=drf, draft_params=dp, speculative_tokens=4)
     _assert_same(base, spec)
     assert eng.spec_rounds > 5
+
+
+def test_draft_seam_chaos_exact_and_drains(models):
+    """``tests/test_speculative.py``'s draft-seam chaos: half the
+    speculative rounds fail at the draft seam and are served as plain
+    rounds; the streams stay the non-speculative engine's, the engine
+    drains, and the fallbacks are counted where ``repro`` counts them."""
+    from repro_torch.serving import FaultPlan
+    tgt, tp, drf, dp = models
+    trace = _trace(seed=6)
+    _, base = _run(tgt, tp, trace, 0.7)
+    plan = FaultPlan(seed=3, draft={"prob": 0.5})
+    eng, spec = _run(tgt, tp, trace, 0.7, force_spec=True,
+                     draft_model=drf, draft_params=dp, speculative_tokens=4,
+                     fault_plan=plan)
+    _assert_same(base, spec)
+    assert eng.spec_fallbacks > 0 and eng.spec_rounds > 0
+    assert not eng.pending
+    m = eng.metrics()
+    assert m["terminal"] == {"done": len(trace)}
+    assert m["faults_injected"].get("draft", 0) == eng.spec_fallbacks
+    assert m["speculative"]["fallbacks"] == eng.spec_fallbacks
 
 
 def test_self_draft_accepts_everything(models):
