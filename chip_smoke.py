@@ -123,7 +123,23 @@ on failure:
    launches equal the counts derived from the programs run; tokens/s, ms
    per committed token, acceptance and tokens committed a dispatch are
    printed beside the baseline's (random weights: acceptance says nothing
-   of speed).
+   of speed);
+14. faults, durability and the gateway (chaos on the paged and self-draft
+   ring engines, snapshot/restore, the gateway's open loop, hang and wedge
+   with a restart, the cascade's tap and restore);
+15. the ACE application: (a) ``PartitionedLM`` over smollm-135m at full
+   width, split at 0, 15 and 30 on (2, 256) tokens, equals ``LM.forward``
+   bit for bit with flash launched once a layer a pass, its halves timed
+   and ``best_partition`` printed for the partition benchmark's scenarios;
+   (b) the video-query classifiers at ``VideoQueryConfig``'s widths in
+   f32: the card's forward equals the CPU's on 256 crops, then
+   ``model_crop_bank`` with ``repro``'s defaults on the card (COC's loss
+   falls), its bank pass equal to the CPU's on the same trained weights
+   away from near-ties; (c) the Fig. 5 sweep (surrogate bank) with the
+   benchmark's orderings, and the four paradigms on (b)'s bank; (d)
+   phase 7's engines as COC and EOC servers calibrated by
+   ``run_video_query``: every calibration request finishes, traffic
+   captures nothing, launches equal the counted programs.
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
@@ -3691,6 +3707,424 @@ def profile_gateway(torch, seed, lm, params, reqs, wall_s):
     return _device_profile(torch, serve, wall_s)
 
 
+# -- phase 15: the ACE application ----------------------------------------------
+
+# benchmarks/bench_partition.py's scenarios:
+# (name, edge FLOP/s, cloud FLOP/s, uplink Mbps, delay s)
+PARTITION_SCENARIOS = [
+    ("lan", 5e10, 5e12, 1000.0, 0.001),
+    ("campus", 5e10, 5e12, 20.0, 0.05),
+    ("cellular", 5e10, 5e12, 2.0, 0.10),
+    ("edge-strong", 5e11, 5e12, 2.0, 0.10),
+]
+PARTITION_TOKENS = (2, 256)     # batch, sequence
+PARTITION_SPLITS = (0, 15, 30)
+# repro.data.video.model_crop_bank's defaults
+ACE_BANK = dict(n_train=4096, n_bank=2048, coc_steps=300, eoc_steps=120,
+                batch=128)
+# the classifiers in f32, card (cuDNN) vs CPU (oneDNN) on the same
+# weights: summation order only, relative to the largest logit; bank
+# confidences absolute; a boolean may differ only within this of a flip
+CLS_TOL = 1e-4
+CONF_TOL = 1e-4
+# benchmarks/bench_video_query.py's sweep
+FIG5_INTERVALS = (0.5, 0.2, 0.1)
+FIG5_DELAYS = (0.0, 50.0)
+FIG5_PARADIGMS = ("ci", "ei", "ace", "ace+")
+FIG5_DURATION_S = 20.0
+# calibrate_server_from_engine's warm-up request and its 8 queries
+CALIBRATION_REQUESTS = 1 + 8
+
+
+def _fig5_violations(vals):
+    """``benchmarks/bench_video_query.py``'s ``check()``: the paper's
+    qualitative Fig. 5 claims over {(paradigm, interval, delay): result}."""
+    bad = []
+    for delay in FIG5_DELAYS:
+        d = int(delay)
+        for iv in FIG5_INTERVALS:
+            ci, ei, ace = (vals[(p, iv, delay)] for p in ("ci", "ei", "ace"))
+            if not (ci["f1"] > ace["f1"] > ei["f1"]):
+                bad.append(f"F1 ordering violated at iv={iv} d={d}")
+            if not (ace["bwc_mb"] < 0.5 * ci["bwc_mb"]):
+                bad.append(f"ACE bandwidth not << CI at iv={iv} d={d}")
+        hi, lo = vals[("ci", 0.1, delay)], vals[("ci", 0.5, delay)]
+        if not (hi["eil_s"] > 5 * lo["eil_s"]):
+            bad.append(f"CI EIL blowup missing at d={d}")
+    return bad
+
+
+def _time_halves(torch, timer, lm, params, part, batch, hidden, pos, full):
+    """Each half and the monolithic forward: device ms of an eager call
+    (CUDA events; the device waits on the host's launches, ~40 kernels a
+    layer), host ms of one (synchronised), and device ms of a CUDA graph
+    replay, the graphs' logits held equal to ``full``."""
+    calls = {"edge": lambda: part.edge_forward(params, batch)[0],
+             "cloud": lambda: part.cloud_forward(params, hidden, pos),
+             "forward": lambda: lm.forward(params, batch)[0]}
+    out = {}
+    for name, fn in calls.items():
+        eager_ms = timer(lambda i: fn(), n=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 200
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        if name != "edge" and not torch.equal(got, full):
+            raise AssertionError(f"{name} as a CUDA graph: logits != "
+                                 f"LM.forward's")
+        if name == "edge" and not torch.equal(got, hidden):
+            raise AssertionError("the edge half as a CUDA graph: boundary "
+                                 "!= eager")
+        out[name] = dict(eager_ms=eager_ms, host_ms=host_ms,
+                         graph_ms=timer(lambda i: graph.replay(), n=10))
+        del graph, got
+    return out
+
+
+def _ace_partition(torch, timer, dev, seed, smi, lm, params):
+    """(a) ``PartitionedLM`` over smollm-135m at full width: at each split
+    the edge half, then the cloud half, equal ``LM.forward``'s logits bit
+    for bit (the same kernels in the same order), each full pass launching
+    flash once per layer; the halves' device ms at the middle split, the
+    boundary bytes, and ``best_partition`` for the partition benchmark's
+    scenarios."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.patterns.inference import (PartitionedLM,
+                                                     best_partition)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    b, s = PARTITION_TOKENS
+    n_layers = lm.cfg.num_layers
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, lm.cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)
+    batch = {"tokens": tok}
+    reset_launches()
+    full, _ = lm.forward(params, batch)
+    passes, flash = 1, LAUNCHES["flash_attention"]
+    if flash != n_layers:
+        raise AssertionError(f"forward launched flash {flash} times, not "
+                             f"{n_layers}")
+    stats = {"splits": {}}
+    for split in PARTITION_SPLITS:
+        part = PartitionedLM(lm, split)
+        reset_launches()
+        hidden, pos = part.edge_forward(params, batch)
+        edge = LAUNCHES["flash_attention"]
+        logits = part.cloud_forward(params, hidden, pos)
+        passes += 1
+        flash += LAUNCHES["flash_attention"]
+        if edge != split or LAUNCHES["flash_attention"] != n_layers:
+            raise AssertionError(f"split {split}: flash launched {edge} + "
+                                 f"{LAUNCHES['flash_attention'] - edge}")
+        if not torch.equal(logits, full):
+            raise AssertionError(f"split {split}: partitioned logits != "
+                                 f"LM.forward's (max |diff| "
+                                 f"{float((logits - full).abs().max())})")
+        rec = dict(boundary_bytes=part.boundary_bytes(b, s))
+        if 0 < split < n_layers:
+            rec.update(_time_halves(torch, timer, lm, params, part, batch,
+                                    hidden, pos, full))
+        stats["splits"][split] = rec
+    mid = stats["splits"][PARTITION_SPLITS[1]]
+    if mid["boundary_bytes"] != b * s * lm.cfg.d_model * torch.empty(
+            (), dtype=lm.dtype).element_size():
+        raise AssertionError("boundary_bytes is not B x S x d x itemsize")
+    print(f"  (a) PartitionedLM, {lm.cfg.name} {lm.cfg.param_dtype}, "
+          f"tokens ({b}, {s}): "
+          f"splits {list(PARTITION_SPLITS)} equal LM.forward bit for bit; "
+          f"{flash} flash launches over {passes} full passes "
+          f"({n_layers} each)")
+    print(f"      split {PARTITION_SPLITS[1]} [{smi}]: eager, device "
+          f"(host) ms: edge {mid['edge']['eager_ms']:.3f} "
+          f"({mid['edge']['host_ms']:.3f}) + cloud "
+          f"{mid['cloud']['eager_ms']:.3f} ({mid['cloud']['host_ms']:.3f}), "
+          f"monolith {mid['forward']['eager_ms']:.3f} "
+          f"({mid['forward']['host_ms']:.3f}); as CUDA graphs (equal "
+          f"logits) {mid['edge']['graph_ms']:.3f} + "
+          f"{mid['cloud']['graph_ms']:.3f}, monolith "
+          f"{mid['forward']['graph_ms']:.3f}; boundary "
+          f"{mid['boundary_bytes']} B")
+    stats["best_partition"] = {}
+    for arch in ("smollm-135m", "internvl2-2b"):
+        cfg = get_config(arch)
+        total = sum(st.repeat for st in cfg.stages)
+        row = {}
+        for name, ef, cf, up, delay in PARTITION_SCENARIOS:
+            k, t = best_partition(cfg, batch=1, seq_len=256, edge_flops_s=ef,
+                                  cloud_flops_s=cf, uplink_mbps=up,
+                                  delay_s=delay)
+            row[name] = dict(split=k, total=total, est_s=t)
+        stats["best_partition"][arch] = row
+        print(f"      best_partition {arch} (seq 256): " + "; ".join(
+            f"{n} {r['split']}/{total} ({r['est_s'] * 1e3:.2f} ms)"
+            for n, r in row.items()))
+    stats["flash_launches"] = flash
+    return stats
+
+
+def _ace_classifiers(torch, timer, dev, seed, smi):
+    """(b) EOC and COC at ``VideoQueryConfig``'s widths in f32: the card's
+    forward equals the CPU's on 256 crops; then ``model_crop_bank`` with
+    ``repro``'s defaults on the card (COC's loss falls from its first
+    step); then its two trainings again through ``train_classifier``,
+    timed, and ``bank_pass`` on their weights equals the CPU's. Returns
+    the crop bank and the stats."""
+    from repro_torch.configs.ace_video_query import config
+    from repro_torch.data import video
+    from repro_torch.data.synthetic import synth_crops
+    from repro_torch.models.cnn import Classifier
+    from repro_torch.utils.tree import tree_map
+
+    vq = config()
+    x, _ = synth_crops(256, seed=seed + 5)
+    stats = {"forward_rel_err": {}}
+    for cfg in (vq.eoc, vq.coc):
+        cpu = Classifier(cfg, device="cpu")
+        params = cpu.init(seed)
+        with torch.no_grad():
+            want = cpu.apply(params, torch.from_numpy(x))
+            got = Classifier(cfg, device=dev).apply(
+                tree_map(lambda t: t.to(dev), params),
+                torch.from_numpy(x).to(dev)).cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        stats["forward_rel_err"][cfg.name] = rel
+        if not rel <= CLS_TOL:
+            raise AssertionError(f"{cfg.name}: card logits differ from the "
+                                 f"CPU's by {rel:.2e} relative")
+
+    # COC's first-step loss: model_crop_bank's first batch on its init
+    train, lbls = synth_crops(ACE_BANK["n_train"], seed=seed)
+    idx = np.random.default_rng(seed).integers(0, len(train),
+                                               size=ACE_BANK["batch"])
+    coc = Classifier(vq.coc, device=dev)
+    with torch.no_grad():
+        first, _ = coc.loss(coc.init(seed), torch.from_numpy(train[idx]).to(
+            dev), torch.from_numpy(lbls[idx].astype(np.int64)).to(dev))
+    first = float(first)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank, report = video.model_crop_bank(vq, seed=seed, device=dev,
+                                         **ACE_BANK)
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t0
+    if not report["coc"]["loss"] < first:
+        raise AssertionError(f"COC's loss did not fall: {first:.4f} -> "
+                             f"{report['coc']['loss']:.4f}")
+
+    # model_crop_bank's two trainings again, each timed, for ms per step
+    # and for trained weights to hold the card's bank pass against the
+    # CPU's (never against the trainings above: cuDNN's backward need
+    # not be deterministic)
+    def timed(model, images, labels, steps, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, _ = video.train_classifier(model, images, labels,
+                                           steps=steps, seed=seed,
+                                           batch=ACE_BANK["batch"])
+        torch.cuda.synchronize()
+        return params, (time.perf_counter() - t0) / steps
+
+    coc_p, coc_step = timed(coc, train, lbls, ACE_BANK["coc_steps"], seed)
+    with torch.no_grad():
+        coc_labels = torch.argmax(coc.apply(
+            coc_p, torch.from_numpy(train).to(dev)), -1).cpu().numpy()
+    eoc = Classifier(vq.eoc, device=dev)
+    eoc_p, eoc_step = timed(
+        eoc, train, (coc_labels == video.TARGET_CLASS).astype(np.int32),
+        ACE_BANK["eoc_steps"], seed + 2)
+    imgs, _ = synth_crops(ACE_BANK["n_bank"], seed=seed + 1)
+    x_dev = torch.from_numpy(imgs).to(dev)
+    pass_ms = timer(lambda i: video.bank_pass(eoc, coc, eoc_p, coc_p, x_dev),
+                    n=5)
+    got = [t.cpu() for t in video.bank_pass(eoc, coc, eoc_p, coc_p, x_dev)]
+    eoc_c, coc_c = (Classifier(c, device="cpu") for c in (vq.eoc, vq.coc))
+    eoc_pc, coc_pc = (tree_map(lambda t: t.cpu(), p) for p in (eoc_p, coc_p))
+    t0 = time.perf_counter()
+    want = video.bank_pass(eoc_c, coc_c, eoc_pc, coc_pc,
+                           torch.from_numpy(imgs))
+    cpu_s = time.perf_counter() - t0
+    conf_err = float((got[0] - want[0]).abs().max())
+    if not conf_err <= CONF_TOL:
+        raise AssertionError(f"bank confidences differ from the CPU's by "
+                             f"{conf_err:.2e}")
+    with torch.no_grad():
+        ties = video.bank_near_ties(want[0], coc_c.apply(
+            coc_pc, torch.from_numpy(imgs)), CONF_TOL)
+    for name, a, b in zip(("pred", "hit", "posthoc"), got[1:], want[1:]):
+        if not torch.equal(a[~ties], b[~ties]):
+            raise AssertionError(f"bank {name} differs from the CPU's away "
+                                 f"from near-ties")
+    stats.update(
+        coc_first_loss=first, report=report, coc_ms_per_step=coc_step * 1e3,
+        eoc_ms_per_step=eoc_step * 1e3, bank_pass_ms=pass_ms,
+        bank_s=bank_s, cpu_bank_pass_s=cpu_s, bank_conf_err=conf_err,
+        near_ties=int(ties.sum()))
+    print(f"  (b) classifiers f32 [{smi}]: card vs CPU logits "
+          + ", ".join(f"{k} {v:.1e}" for k, v in
+                      stats["forward_rel_err"].items())
+          + f" relative (tol {CLS_TOL})")
+    print(f"      model_crop_bank ({ACE_BANK}) in {bank_s:.1f} s: COC "
+          f"loss {first:.3f} -> {report['coc']['loss']:.3f}, train acc "
+          f"{report['coc']['acc']:.3f}; EOC train acc "
+          f"{report['eoc']['acc']:.3f}. Trained again: COC "
+          f"{coc_step * 1e3:.2f} ms per step (wall), EOC "
+          f"{eoc_step * 1e3:.2f}; bank pass {pass_ms:.2f} ms device over "
+          f"{len(imgs)} crops (CPU {cpu_s:.2f} s)")
+    print(f"      eoc_error_at_conf {report['eoc_error_at_conf']:.4f} (paper "
+          f"0.1106), escalation_rate {report['escalation_rate']:.4f}; bank "
+          f"vs CPU: conf {conf_err:.1e}, booleans equal away from "
+          f"{int(ties.sum())} near-ties")
+    return bank, stats
+
+
+def _ace_fig5(bank, smi):
+    """(c) The Fig. 5 sweep on the surrogate bank with the benchmark's
+    orderings, then the four paradigms on the model-backed bank."""
+    from repro_torch.configs.ace_video_query import config
+    from repro_torch.core.video_query import run_video_query
+
+    cfg = config()
+    t0 = time.perf_counter()
+    vals = {(p, iv, d): run_video_query(cfg, paradigm=p, frame_interval_s=iv,
+                                        wan_delay_ms=d,
+                                        duration_s=FIG5_DURATION_S)
+            for d in FIG5_DELAYS for iv in FIG5_INTERVALS
+            for p in FIG5_PARADIGMS}
+    sweep_s = time.perf_counter() - t0
+    bad = _fig5_violations(vals)
+    if bad:
+        raise AssertionError(f"Fig. 5 claims violated: {bad}")
+    print(f"  (c) Fig. 5 sweep: {len(vals)} cells in {sweep_s:.1f} s, the "
+          f"benchmark's orderings hold")
+    for d in FIG5_DELAYS:
+        for iv in FIG5_INTERVALS:
+            print(f"      d {int(d)} ms, iv {iv} s: " + "; ".join(
+                f"{p} F1 {vals[(p, iv, d)]['f1']:.3f} BWC "
+                f"{vals[(p, iv, d)]['bwc_mb']:.2f} MB EIL "
+                f"{vals[(p, iv, d)]['eil_s']:.3f} s" for p in FIG5_PARADIGMS))
+    model = {}
+    for p in FIG5_PARADIGMS:
+        r = run_video_query(cfg, paradigm=p, frame_interval_s=0.2,
+                            wan_delay_ms=50.0, duration_s=FIG5_DURATION_S,
+                            crop_bank=bank)
+        if not (r["crops"] > 0 and 0.0 <= r["f1"] <= 1.0):
+            raise AssertionError(f"model-backed {p}: {r}")
+        model[p] = r
+    if model["ei"]["bwc_mb"] > 1e-6:
+        raise AssertionError(f"EI sent {model['ei']['bwc_mb']} MB over the "
+                             f"WAN")
+    print("      model-backed bank, iv 0.2 s, d 50 ms: " + "; ".join(
+        f"{p} F1 {r['f1']:.3f} BWC {r['bwc_mb']:.2f} MB EIL "
+        f"{r['eil_s']:.3f} s" for p, r in model.items()))
+    return {"sweep": {f"{p}/iv{iv}/d{int(d)}ms": r
+                      for (p, iv, d), r in vals.items()},
+            "sweep_s": sweep_s, "model_bank": model}
+
+
+def _ace_engines(torch, dev, seed, smi, models):
+    """(d) The servers calibrated from phase 7's engines: smollm-135m's
+    graphed ring engine (8 slots, max_seq_len 1024, K = 4) as COC and its
+    4-layer edge draft's as EOC, each warmed first.
+    ``calibrate_server_from_engine`` on each; then ``run_video_query``
+    (ace, the surrogate bank, whose middle band escalates) at 0.5 s and
+    0.1 s, which calibrates both again, and once more with the EOC engine
+    alone: the escalated crops reach the engine-calibrated COC server
+    (its service time moves EIL), every calibration request finishes
+    (the engines' terminal counts), nothing is captured in the traffic,
+    and each kernel's launches equal the counted programs'."""
+    from repro_torch.configs.ace_video_query import config
+    from repro_torch.core.video_query import (calibrate_server_from_engine,
+                                              run_video_query)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import ServingEngine
+
+    edge, cloud, edge_params, cloud_params = models
+    kw = dict(batch_slots=8, max_seq_len=1024, max_decode_steps=4, seed=seed)
+    engines = {"eoc": ServingEngine(edge, edge_params, **kw),
+               "coc": ServingEngine(cloud, cloud_params, **kw)}
+    warmed = {name: _warm(eng) for name, eng in engines.items()}
+    counts = {name: _count_programs(eng) for name, eng in engines.items()}
+    before = {name: dict(eng.metrics()["terminal"])
+              for name, eng in engines.items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    cal = {name: calibrate_server_from_engine(eng)
+           for name, eng in engines.items()}
+    calibrations = {"eoc": 1, "coc": 1}
+    print(f"  (d) engine-calibrated servers [{smi}]: " + "; ".join(
+        f"{name.upper()} service_s {c['service_s'] * 1e3:.2f} ms, workers "
+        f"{c['workers']}, tokens_s {c['tokens_s']:.0f}"
+        for name, c in cal.items()))
+    stats = {"calibration": cal}
+    for iv in (0.5, 0.1):
+        run = dict(paradigm="ace", frame_interval_s=iv, wan_delay_ms=50.0,
+                   duration_s=FIG5_DURATION_S)
+        r = run_video_query(config(), eoc_engine=engines["eoc"],
+                            coc_engine=engines["coc"], **run)
+        edge_only = run_video_query(config(), eoc_engine=engines["eoc"],
+                                    **run)
+        calibrations["eoc"] += 2
+        calibrations["coc"] += 1
+        if not (r["crops"] > 0 and 0.0 <= r["f1"] <= 1.0):
+            raise AssertionError(f"ace at iv {iv}: {r}")
+        if r["eil_s"] == edge_only["eil_s"]:
+            raise AssertionError(f"ace at iv {iv}: the engine-calibrated "
+                                 f"COC server moved no crop's EIL (none "
+                                 f"escalated)")
+        stats[f"iv{iv}"] = dict(result=r, edge_only=edge_only)
+        print(f"      ace at iv {iv} s, d 50 ms, surrogate bank: F1 "
+              f"{r['f1']:.3f}, BWC {r['bwc_mb']:.2f} MB, EIL "
+              f"{r['eil_s']:.4f} s (COC at its default "
+              f"{config().coc_infer_ms} ms: {edge_only['eil_s']:.4f} s), "
+              f"COC backlog {r['coc_backlog_s']:.3f} s")
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for name, eng in engines.items():
+        done = dict(before[name])
+        done["done"] = (done.get("done", 0)
+                        + CALIBRATION_REQUESTS * calibrations[name])
+        if eng.metrics()["terminal"] != done:
+            raise AssertionError(f"{name}: terminal requests "
+                                 f"{eng.metrics()['terminal']} != {done}: "
+                                 f"a calibration request did not finish")
+        _no_capture(eng, warmed[name], f"{name} engine")
+    want = _sum_launches([_spec_launches(eng, counts[name])
+                          for name, eng in engines.items()])
+    if launches != want:
+        raise AssertionError(f"calibration launches {launches} != the "
+                             f"counted programs' {want}")
+    print(f"      {calibrations} calibrations, every request done; "
+          f"captured nothing; launches {launches} equal the counted "
+          f"programs' (EOC {edge.cfg.num_layers} layers, COC "
+          f"{cloud.cfg.num_layers})")
+    stats["launches"] = launches
+    return stats
+
+
+def check_ace_app(torch, dev, seed, smi, timer, smollm, models):
+    """Phase 15, the ACE platform and its video-query application on the
+    card: (a) ``PartitionedLM``, (b) the classifiers and the model-backed
+    crop bank, (c) the Fig. 5 sweep, (d) engine-calibrated servers.
+    Returns (stats, the kernel launches of (a) and (d))."""
+    stats = {"partition": _ace_partition(torch, timer, dev, seed, smi,
+                                         *smollm)}
+    bank, stats["classifiers"] = _ace_classifiers(torch, timer, dev, seed,
+                                                  smi)
+    stats["fig5"] = _ace_fig5(bank, smi)
+    stats["engines"] = _ace_engines(torch, dev, seed, smi, models)
+    launches = dict(stats["engines"]["launches"])
+    launches["flash_attention"] += stats["partition"]["flash_launches"]
+    return stats, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3816,6 +4250,13 @@ def main() -> int:
         cascade_stats)
     for name, n in durability_launches.items():
         launches[name] += n
+    phase("[15] the ACE application: PartitionedLM (smollm-135m), the "
+          "video-query classifiers and model-backed crop bank, the Fig. 5 "
+          "sweep, engine-calibrated servers")
+    ace_stats, ace_launches = check_ace_app(torch, dev, args.seed, smi,
+                                            timer, smollm, models)
+    for name, n in ace_launches.items():
+        launches[name] += n
     del models
     if args.profile:
         from repro_torch.configs import get_config
@@ -3876,7 +4317,7 @@ def main() -> int:
                        "attention_verify": verify_times,
                        "sampler": sampler_times,
                        "speculative": spec_stats,
-                       "durability": durability,
+                       "durability": durability, "ace_app": ace_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

@@ -6,6 +6,8 @@ leaves stacked on a leading layer axis), and returns the port's tree with
 the same names, shapes and stacking. It checks the tree against the port's
 ``LM.param_spec`` so a mismatch fails loudly. bfloat16 leaves (numpy's
 ``ml_dtypes`` bfloat16) go through float32, which is exact.
+``classifier_params_from_numpy`` does the same for ``repro``'s
+``Classifier.init(...)[0]`` against the port's ``Classifier``.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.cnn import Classifier
 from repro_torch.models.model import LM
 
 
@@ -24,11 +27,9 @@ def _to_tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(a).to(dtype).to(device)
 
 
-def params_from_numpy(tree, cfg, device="cuda"):
-    """``repro`` params as numpy (nested dicts/lists) -> the port's params
-    for ``cfg`` on ``device``."""
-    device = resolve_device(device)
-    spec = LM(cfg, device="cpu").param_spec()
+def _convert(tree, spec, device):
+    """``tree`` (nested dicts/lists of arrays) checked against ``spec``
+    ((shape, dtype, init) leaves) and converted leaf by leaf."""
 
     def conv(node, sp, path):
         if isinstance(sp, dict):
@@ -39,7 +40,7 @@ def params_from_numpy(tree, cfg, device="cuda"):
             return {k: conv(node[k], sp[k], f"{path}/{k}") for k in sp}
         if isinstance(sp, list):
             if not isinstance(node, (list, tuple)) or len(node) != len(sp):
-                raise ValueError(f"{path}: expected {len(sp)} stages")
+                raise ValueError(f"{path}: expected a list of {len(sp)}")
             return [conv(n, s, f"{path}[{i}]")
                     for i, (n, s) in enumerate(zip(node, sp))]
         shape, dtype, _ = sp
@@ -49,3 +50,19 @@ def params_from_numpy(tree, cfg, device="cuda"):
         return _to_tensor(node, dtype, device)
 
     return conv(tree, spec, "")
+
+
+def params_from_numpy(tree, cfg, device="cuda"):
+    """``repro`` params as numpy (nested dicts/lists) -> the port's params
+    for ``cfg`` on ``device``."""
+    device = resolve_device(device)
+    return _convert(tree, LM(cfg, device="cpu").param_spec(), device)
+
+
+def classifier_params_from_numpy(tree, cfg, device="cuda"):
+    """``repro``'s ``Classifier`` params as numpy (``stages`` a list of
+    dicts holding ``blocks`` lists) -> the port's ``Classifier`` params for
+    the ``ClassifierConfig`` ``cfg`` on ``device``."""
+    device = resolve_device(device)
+    spec = Classifier(cfg, device="cpu").param_spec()
+    return _convert(tree, spec, device)

@@ -1,43 +1,19 @@
 """Architecture configs (``get_config(<id>)``) and input-shape registry.
 
-The same schema and architecture files as ``repro.configs``, with a plain
-dict registry in place of ``repro.utils.registry`` (whose package imports
+The same schema and architecture files as ``repro.configs``, registered
+in the port's copy of ``repro.utils.registry`` (whose package imports
 JAX)."""
 from __future__ import annotations
-
-from typing import Callable, Dict
 
 from repro_torch.configs.base import (ATTN, GELU_MLP, MLA, MLSTM, MOE, NONE,
                                       RGLRU, SLSTM, SWIGLU, BlockDef,
                                       FrontendConfig, MLAConfig, ModelConfig,
                                       MoEConfig, Stage, dense_stages)
 from repro_torch.configs.shapes import INPUT_SHAPES, InputShape, get_shape
+from repro_torch.utils.registry import Registry
 
 
-class _Registry:
-    """Name -> config factory, filled by each architecture module."""
-
-    def __init__(self, kind: str):
-        self.kind = kind
-        self._items: Dict[str, Callable] = {}
-
-    def register(self, name: str, factory: Callable) -> Callable:
-        if name in self._items:
-            raise KeyError(f"{self.kind} {name!r} already registered")
-        self._items[name] = factory
-        return factory
-
-    def get(self, name: str) -> Callable:
-        if name not in self._items:
-            known = ", ".join(sorted(self._items))
-            raise KeyError(f"unknown {self.kind} {name!r}; known: {known}")
-        return self._items[name]
-
-    def names(self) -> list:
-        return sorted(self._items)
-
-
-ARCHS = _Registry("architecture")
+ARCHS = Registry("architecture")
 
 # import side-effect registration
 from repro_torch.configs import (ace_video_query, deepseek_v3_671b,  # noqa: E402,F401

@@ -162,6 +162,53 @@ class LM:
         return self._logits(params, x)
 
     # -- full-sequence forward ----------------------------------------------
+    def _embed_inputs(self, params, batch):
+        """Token embeddings (B, S, D) and their positions (B, S) int32."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = embed(params["embed"], tokens)
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None, :].expand(b, s)
+        return x, positions
+
+    @property
+    def num_scanned_layers(self) -> int:
+        """Layers in stage-repeat units (``repro``'s scanned layers)."""
+        return sum(stage.repeat for stage in self.cfg.stages)
+
+    def _layer_range(self, params, x, positions, lo: int = 0,
+                     hi: Optional[int] = None, *, caches=None,
+                     lengths=None):
+        """Scanned layers [lo, hi) (stage-repeat units, every block of a
+        repeat) over the full sequence ``x``; with ``caches`` each layer
+        also fills its cache. The one layer loop of ``forward`` and of
+        ``core.patterns.inference.PartitionedLM``."""
+        cfg = self.cfg
+        hi = self.num_scanned_layers if hi is None else hi
+        s = x.shape[1]
+        first = 0                       # this stage's first scanned layer
+        for si, (stage, sp) in enumerate(zip(cfg.stages, params["stages"])):
+            for li in range(max(lo - first, 0),
+                            min(hi - first, stage.repeat)):
+                for bi, bdef in enumerate(stage.blocks):
+                    p = _layer(sp[f"b{bi}"], li)
+                    h = rmsnorm(p["norm1"], x, cfg.rms_eps)
+                    if bdef.mixer == RGLRU:
+                        y, state = rec.rglru_block_forward(
+                            p["mixer"], cfg, h, lengths)
+                        if caches is not None:
+                            _store(_layer(caches[si][bi], li), state)
+                    else:
+                        y, (k, v) = att.attn_forward(p["mixer"], cfg, h,
+                                                     positions,
+                                                     window=bdef.window)
+                        if caches is not None:
+                            att.cache_fill(_layer(caches[si][bi], li), k, v,
+                                           s, lengths)
+                    x = self._mlp(bdef, p, x + y)
+            first += stage.repeat
+        return x
+
     def forward(self, params, batch, *, want_cache: bool = False,
                 cache_width: Optional[int] = None, last_only: bool = False,
                 lengths=None, logits_index=None):
@@ -170,31 +217,11 @@ class LM:
         ``lengths`` (B,) keeps right-pad rows out of the ring at install
         (see ``attention._fill_slots``) and out of the recurrent state
         (identity steps past each row's length)."""
-        cfg = self.cfg
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = embed(params["embed"], tokens)
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device)[None, :].expand(b, s)
-        caches = self.init_cache(b, cache_width) if want_cache else None
-        for si, (stage, sp) in enumerate(zip(cfg.stages, params["stages"])):
-            for li in range(stage.repeat):
-                for bi, bdef in enumerate(stage.blocks):
-                    p = _layer(sp[f"b{bi}"], li)
-                    h = rmsnorm(p["norm1"], x, cfg.rms_eps)
-                    if bdef.mixer == RGLRU:
-                        y, state = rec.rglru_block_forward(
-                            p["mixer"], cfg, h, lengths)
-                        if want_cache:
-                            _store(_layer(caches[si][bi], li), state)
-                    else:
-                        y, (k, v) = att.attn_forward(p["mixer"], cfg, h,
-                                                     positions,
-                                                     window=bdef.window)
-                        if want_cache:
-                            att.cache_fill(_layer(caches[si][bi], li), k, v,
-                                           s, lengths)
-                    x = self._mlp(bdef, p, x + y)
+        x, positions = self._embed_inputs(params, batch)
+        caches = (self.init_cache(x.shape[0], cache_width) if want_cache
+                  else None)
+        x = self._layer_range(params, x, positions, caches=caches,
+                              lengths=lengths)
         return self._head(params, x, last_only, logits_index), caches
 
     def prefill(self, params, batch, cache_width: int,

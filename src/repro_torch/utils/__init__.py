@@ -1,1 +1,2 @@
-"""Host-side helpers of the port: tree key paths and the event log."""
+"""Host-side helpers of the port: tree walks, the name registry and the
+event log."""

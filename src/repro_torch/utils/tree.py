@@ -1,4 +1,5 @@
-"""Key paths over nested containers, spelled as ``repro.utils.tree``'s.
+"""Key paths, maps and leaves over nested containers; the key paths are
+spelled as ``repro.utils.tree``'s.
 
 ``repro`` flattens pytrees with JAX; the port keeps its own walk over
 dicts, lists and tuples, so a checkpoint's flat keys (``a/0/b``) and their
@@ -26,3 +27,20 @@ def _walk(node, path, out) -> None:
             _walk(sub, path + (str(i),), out)
     else:
         out["/".join(path)] = node
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (same structure), keeping dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``flat_paths``' order."""
+    return list(flat_paths(tree).values())

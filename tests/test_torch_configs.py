@@ -33,14 +33,26 @@ def test_config_and_reduced_field_equal(name):
 
 
 def test_port_imports_no_jax_and_no_repro():
+    """Each entry module, in a fresh interpreter, loads no ``jax``, no
+    ``repro`` and no ``yaml`` (the card's machine lacks PyYAML; topology
+    files import it only to read or write YAML). Importing the serving
+    gateway and the CLI first also checks the import cycle through
+    ``core.monitoring``."""
     src = Path(__file__).resolve().parents[1] / "src"
-    code = ("import sys, repro_torch, repro_torch.serving.engine, "
-            "repro_torch.bridge, repro_torch.configs; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'repro.'))]; "
-            "assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], check=True, cwd=src,
-                   timeout=120)
+    entries = ["repro_torch.serving.gateway", "repro_torch.launch.serve",
+               "repro_torch", "repro_torch.serving.engine",
+               "repro_torch.bridge", "repro_torch.configs",
+               "repro_torch.core", "repro_torch.core.platform",
+               "repro_torch.core.video_query", "repro_torch.core.patterns",
+               "repro_torch.models.cnn", "repro_torch.data.video",
+               "repro_torch.optim"]
+    for first in (entries[0], entries[1], "repro_torch.core"):
+        code = (f"import sys, {first}, {', '.join(entries)}; "
+                "bad = [m for m in sys.modules if m in ('jax', 'repro', "
+                "'yaml') or m.startswith(('jax.', 'repro.', 'yaml.'))]; "
+                "assert not bad, bad")
+        subprocess.run([sys.executable, "-c", code], check=True, cwd=src,
+                       timeout=120)
 
 
 # the archs the port builds: dense GQA (smollm and the hd-128 zoo) and the

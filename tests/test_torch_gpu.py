@@ -23,7 +23,12 @@ The engines replay their programs (decode rounds, admissions, chunks,
 draft fills, the gate, the drain batcher's prefill, sample and step) as CUDA
 graphs; the launch counts follow from the programs run
 (``_count_programs``), and graphed streams and states are held to eager
-ones (graphs off): equal, or parted at a near-tie.
+ones (graphs off): equal, or parted at a near-tie. The video-query
+classifiers (cuDNN convolutions, TF32 off inside each call whatever the
+global flags say) against their CPU forward: 1e-4 relative to the largest
+logit, f32 (cuDNN's algorithms sum in other orders than oneDNN's).
+``PartitionedLM``'s two halves equal ``LM.forward`` bit for bit: the same
+kernels run in the same order.
 """
 import numpy as np
 import pytest
@@ -1383,3 +1388,103 @@ def test_a_draft_fallback_and_a_recompute_resume_capture_nothing(cuda):
                         "decode_attention": n["draft_steps"],
                         "paged_decode_attention": target,
                         "cascade_gate": 0, "rglru_scan": 0}
+
+
+def _video_classifiers(dev):
+    from repro_torch.configs.ace_video_query import config
+    from repro_torch.models.cnn import Classifier
+
+    vq = config()
+    return [Classifier(c, device=dev) for c in (vq.eoc, vq.coc)]
+
+
+def _tree_to(tree, dev):
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def test_classifier_forward_on_gpu_matches_the_cpu(cuda):
+    """EOC and COC at the application's widths on 64 crops: the card's
+    logits against the CPU's on the same weights, with TF32 switched on
+    globally around the call (the classifier turns it off for itself and
+    restores it)."""
+    from repro_torch.data.synthetic import synth_crops
+
+    x, _ = synth_crops(64, seed=3)
+    for gpu_model, cpu_model in zip(_video_classifiers(cuda),
+                                    _video_classifiers("cpu")):
+        params = cpu_model.init(1)
+        want = cpu_model.apply(params, torch.from_numpy(x))
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = gpu_model.apply(_tree_to(params, cuda),
+                                  torch.from_numpy(x).to(cuda)).cpu()
+            assert torch.backends.cudnn.allow_tf32
+            assert torch.backends.cuda.matmul.allow_tf32
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        err = float(torch.max(torch.abs(got - want)))
+        assert err <= 1e-4 * float(torch.max(torch.abs(want))), err
+
+
+def test_classifier_trains_and_banks_on_gpu(cuda):
+    """A few ``train_classifier`` steps on the card lower the loss, and the
+    bank pass on the trained weights equals the CPU's (confidences 1e-4,
+    booleans away from near-ties)."""
+    from repro_torch.data import video
+    from repro_torch.data.synthetic import synth_crops
+
+    eoc, coc = _video_classifiers(cuda)
+    imgs, lbls = synth_crops(1024, seed=0)
+    # the first step's batch: default_rng(seed)'s first draw
+    idx = np.random.default_rng(0).integers(0, 1024, size=64)
+    with torch.no_grad():
+        loss0, _ = coc.loss(coc.init(0), torch.from_numpy(imgs[idx]).to(cuda),
+                            torch.from_numpy(lbls[idx].astype(np.int64))
+                            .to(cuda))
+    coc_p, rep = video.train_classifier(coc, imgs, lbls, steps=30, batch=64)
+    assert np.isfinite(rep["loss"]) and rep["loss"] < float(loss0)
+    eoc_p, _ = video.train_classifier(
+        eoc, imgs, (lbls == video.TARGET_CLASS).astype(np.int32), steps=10,
+        batch=64, seed=2)
+    bank, _ = synth_crops(256, seed=1)
+    got = [t.cpu() for t in video.bank_pass(eoc, coc, eoc_p, coc_p,
+                                            torch.from_numpy(bank).to(cuda))]
+    eoc_c, coc_c = _video_classifiers("cpu")
+    eoc_pc, coc_pc = _tree_to(eoc_p, "cpu"), _tree_to(coc_p, "cpu")
+    want = video.bank_pass(eoc_c, coc_c, eoc_pc, coc_pc,
+                           torch.from_numpy(bank))
+    assert float(torch.max(torch.abs(got[0] - want[0]))) < 1e-4
+    with torch.no_grad():
+        ties = video.bank_near_ties(want[0], coc_c.apply(
+            coc_pc, torch.from_numpy(bank)), 1e-4)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a[~ties], b[~ties])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_partitioned_lm_on_gpu_matches_forward(cuda, dtype):
+    """Edge then cloud at every split equals ``LM.forward`` bit for bit,
+    each full pass launching flash once per layer."""
+    from repro_torch.core.patterns.inference import PartitionedLM
+    from repro_torch.kernels import reset_launches
+
+    lm = _tiny(cuda, layers=3, dtype=dtype)
+    params = lm.init(0)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 96, (2, 40)).astype(np.int32)).to(cuda)
+    reset_launches()
+    full, _ = lm.forward(params, {"tokens": tok})
+    assert LAUNCHES["flash_attention"] == 3
+    for split in range(4):
+        part = PartitionedLM(lm, split)
+        reset_launches()
+        hidden, pos = part.edge_forward(params, {"tokens": tok})
+        assert LAUNCHES["flash_attention"] == split
+        logits = part.cloud_forward(params, hidden, pos)
+        assert LAUNCHES["flash_attention"] == 3
+        assert torch.equal(logits, full), split
