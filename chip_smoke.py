@@ -139,7 +139,28 @@ on failure:
    benchmark's orderings, and the four paradigms on (b)'s bank; (d)
    phase 7's engines as COC and EOC servers calibrated by
    ``run_video_query``: every calibration request finishes, traffic
-   captures nothing, launches equal the counted programs.
+   captures nothing, launches equal the counted programs;
+16. the MoE models at full width, one at a time (weights made on the
+   card, freed before the next, peak memory and seconds printed):
+   mixtral-8x22b at 6 of its 56 layers, deepseek-v3-671b at its 3 dense
+   layers and 1 of its 58 MoE layers (MTP's params made, never read).
+   (a) an f32 cut the host can hold (mixtral's first layer; deepseek's 4
+   layers with 32 of its 256 routed experts) forwards on the card and
+   on the CPU: routes compared first (a flip only at a near-tie of the
+   router, ``ROUTE_TOL``), logits of every unflipped token to
+   ``F32_LOGIT_TOL``. Then bf16 at the dropless capacity factor E / k
+   (4 and 32, powers of two: every capacity is the group's length,
+   asserted): (b) phase 3's prefill-then-decode check, routes first;
+   (c) phase 4's ring and phase 5's paged engine with their checks
+   (K = 4 == K = 1, preempted == uncontended, greedy tokens against a
+   teacher-forced forward away from router near-ties, one flash launch
+   per attention or MLA layer per admission, the ring or paged kernel
+   per GQA layer per step or chunk, none for MLA decode), tokens/s and
+   decode ms per step against the weights' read time; (d) at
+   ``repro``'s 1.25, where a prefill drops pairs: the ring's K = 4
+   streams equal K = 1 (decode never drops), the paged backend's
+   swap-preempted streams equal uncontended ones (monolithic prefill),
+   and the pairs the admissions dropped are printed.
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
@@ -151,10 +172,12 @@ linear recurrence); and ``decode_attention`` and ``flash_attention`` at
 recurrentgemma-9b's hd 256, 16 heads over one KV head, window 2048,
 against SDPA; and the three attention kernels at the hd-128 zoo's head
 layouts (qwen3-4b G = 4, glm4-9b G = 16, starcoder2-7b G = 9 with its
-4096 window): the ring decode at B = 8, the paged kernel at T = 1 and on
-a 128-token chunk, flash on a 512-token prefill (a 4608-token banded one
-for starcoder2-7b), each held row by row and timed against SDPA with its
-bound and split count; the ring and the paged kernel at the speculative
+4096 window, mixtral-8x22b G = 6 under its 4096 window): the ring decode
+at B = 8, the paged kernel at T = 1 and on a 128-token chunk, flash on a
+512-token prefill (a 4608-token banded one for starcoder2-7b), and flash
+at deepseek-v3-671b's MLA prefill (S = 512, 128 heads of 192 dims, G =
+1), each held row by row and timed against SDPA with its bound and split
+count; the ring and the paged kernel at the speculative
 verify chunk (T = 5 tokens a slot, B = 8) at smollm-135m's, qwen3-4b's and
 glm4-9b's head layouts, likewise; and the keyed sampler (threefry2x32 in
 plain torch): its bits and uniforms on the card at (8, 49152) and (8,
@@ -176,6 +199,7 @@ The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. TF32 is off for every f32 product.
 """
 import argparse
+import collections
 import dataclasses
 import gc
 import json
@@ -222,6 +246,11 @@ STATE_TOL = 1e-3
 # is ~0.1
 ATTN_F32_TOL = 1e-4
 ATTN_ROW_REL_TOL = 1e-2
+# an MoE router whose k-th and (k+1)-th logits lie closer than this is at a
+# near-tie: two paths that differ by rounding may pick different experts
+# there, which moves that token's output by a whole expert, not a
+# rounding. f32: summation order; bf16: activation roundings of two paths
+ROUTE_TOL = {"float32": 1e-3, "bfloat16": 0.08}
 
 
 def _smi() -> str:
@@ -1168,20 +1197,25 @@ def check_attention_hd256(torch, timer, dev):
             **args)}
 
 
-# the dense hd-128 zoo: model -> (KV heads, G, ring width and window, the
-# flash prefill's S and inputs)
+# the hd-128 models: model -> (KV heads, G, ring width and window, the
+# flash prefill's S and inputs); mixtral-8x22b's G = 6 under its 4096
+# window on phase 16's 1024-wide ring
 HD128 = {"qwen3-4b": (8, 4, 1024, None, 512, LAYERS),
          "glm4-9b": (2, 16, 1024, None, 512, LAYERS),
-         "starcoder2-7b": (4, 9, 4096, 4096, 4608, 3)}
+         "starcoder2-7b": (4, 9, 4096, 4096, 4608, 3),
+         "mixtral-8x22b": (8, 6, 1024, 4096, 512, LAYERS)}
 
 
 def check_attention_hd128(torch, timer, dev):
-    """The three attention kernels at each hd-128 zoo model's head layout:
+    """The three attention kernels at each hd-128 model's head layout:
     the ring decode (B = 8, T = 1; slots partly filled, wrapped and empty;
-    starcoder2's 4096 window on its 4096-wide ring), the paged kernel at T
-    = 1 and on one 128-token chunk (512, 2048 and 1152 query rows a KV
-    head), and flash on a 512-token prefill (qwen3, glm4) or a 4608-token
-    one banded by starcoder2's window."""
+    starcoder2's 4096 window on its 4096-wide ring, mixtral's on a
+    1024-wide one), the paged kernel at T = 1 and on one 128-token chunk
+    (512, 2048, 1152 and 768 query rows a KV head), and flash on a
+    512-token prefill (qwen3, glm4, mixtral under its window) or a
+    4608-token one banded by starcoder2's window. Then flash at
+    deepseek-v3-671b's MLA prefill: 128 heads of 192 dims, one KV head per
+    query head (G = 1), S = 512."""
     gen = torch.Generator(device=dev).manual_seed(10)
     out = {}
     for model, (kv, g, w, window, s, n_in) in HD128.items():
@@ -1197,6 +1231,10 @@ def check_attention_hd128(torch, timer, dev):
         rec["flash_attention"] = _flash_case(torch, timer, dev, gen, model,
                                              s=s, n_in=n_in, **args)
         torch.cuda.empty_cache()
+    out["deepseek-v3-671b"] = {"flash_attention": _flash_case(
+        torch, timer, dev, gen, "deepseek-v3-671b MLA", s=512, kv=128, g=1,
+        hd=192, window=None, n_in=LAYERS)}
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1519,24 +1557,33 @@ def _prefill_vs_forward(lm, params, tokens, prompt: int):
 
 def _greedy_vs_forward(torch, lm, params, out, reqs, tol):
     """Greedy engine tokens against a teacher-forced forward over prompt +
-    output, where the forward's top-2 margin exceeds ``tol``: (tokens
-    checked, tokens that agree)."""
-    checked = agree = 0
+    output, where the forward's top-2 margin exceeds ``tol`` and, on an
+    MoE model, no layer's router sits within ``ROUTE_TOL`` of a tie at
+    that position (there two bf16 paths may pick different experts):
+    (tokens checked, tokens that agree)."""
+    checked = agree = excused = 0
     for r, (prompt, temp) in zip(out, reqs):
         if temp > 0:
             continue
         ctx = torch.from_numpy(np.concatenate([prompt, r.output[:-1]])
                                .astype(np.int32))[None].to(lm.device)
-        logits, _ = lm.forward(params, {"tokens": ctx})
+        with _Routes(torch) as routes:
+            logits, _ = lm.forward(params, {"tokens": ctx})
         tail = logits[0, len(prompt) - 1:].float()
         del logits
         top2 = torch.topk(tail, 2, dim=-1).values
         sure = ((top2[:, 0] - top2[:, 1]) > tol).cpu().numpy()
+        if routes.calls:
+            tie = routes.near_ties(ROUTE_TOL["bfloat16"])[0, len(prompt) - 1:]
+            excused += int((sure & tie).sum())
+            sure &= ~tie
         pred = tail.argmax(-1).cpu().numpy()
         checked += int(sure.sum())
         agree += int((pred[sure] == r.output[sure]).sum())
     print(f"  greedy tokens vs teacher-forced forward: {agree}/{checked} "
-          f"agree where the margin exceeds {tol}")
+          f"agree where the margin exceeds {tol}"
+          + (f" ({excused} more excused: a router within "
+             f"{ROUTE_TOL['bfloat16']} of a tie)" if excused else ""))
     return checked, agree
 
 
@@ -1691,13 +1738,14 @@ def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024,
     out, wall = _serve(eng, reqs, max_new)
     launches = dict(LAUNCHES)
     _no_capture(eng, warmed, f"{lm.cfg.name} ring")
-    n_layers = lm.cfg.num_layers
-    want = {"flash_attention": n_layers * n["admits"],
-            "decode_attention": n_layers * n["steps"],
+    n_attn, n_mla = _attn_layers(lm.cfg)
+    want = {"flash_attention": (n_attn + n_mla) * n["admits"],
+            "decode_attention": n_attn * n["steps"],
             "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0}
     print(f"  launches on the main path: {launches} (expected {want}: "
-          f"{n_layers} per admission x {n['admits']}, {n_layers} per "
-          f"decode step x {n['steps']}; programs run {n['runs']})")
+          f"{n_attn + n_mla} per admission x {n['admits']}, {n_attn} per "
+          f"decode step x {n['steps']} (MLA decode attends in plain torch);"
+          f" programs run {n['runs']})")
     if launches != want or n["steps"] != eng.decode_steps or \
             n["admits"] != eng.admissions:
         raise AssertionError("launch counts do not match the main path")
@@ -1834,14 +1882,14 @@ def check_paged_engine(torch, dev, seed, smi, lm, params):
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     _no_capture(eng, warmed, f"{lm.cfg.name} paged")
-    n_layers = lm.cfg.num_layers
+    n_attn, _ = _attn_layers(lm.cfg)
     chunks = n["chunks"]
-    want = {"paged_decode_attention": n_layers * (n["steps"] + chunks),
+    want = {"paged_decode_attention": n_attn * (n["steps"] + chunks),
             "flash_attention": 0, "decode_attention": 0, "cascade_gate": 0,
             "rglru_scan": 0}
     print(f"  launches on the paged path: {launches} (expected {want}: "
-          f"{n_layers} per decode step x {n['steps']} + per chunk x "
-          f"{chunks}; programs run {n['runs']})")
+          f"{n_attn} per decode step x {n['steps']} + per chunk x "
+          f"{chunks}, MLA layers none; programs run {n['runs']})")
     if launches != want or n["steps"] != eng.decode_steps:
         raise AssertionError("launch counts do not match the paged path")
     be = eng.backend
@@ -2135,6 +2183,16 @@ def _hybrid_cfg(dtype: str, cut: bool = False):
     return cfg
 
 
+def _attn_layers(cfg):
+    """(GQA attention blocks, MLA blocks) of a config."""
+    n = {"attn": 0, "mla": 0}
+    for st in cfg.stages:
+        for bdef in st.blocks:
+            if bdef.mixer in n:
+                n[bdef.mixer] += st.repeat
+    return n["attn"], n["mla"]
+
+
 def _mixer_counts(cfg):
     """(RG-LRU blocks, attention blocks) of a config."""
     n = {"rglru": 0, "attn": 0}
@@ -2161,6 +2219,10 @@ def _tree_numel(tree):
 
 
 def _weight_bytes(tree) -> int:
+    """Bytes of the weights serving reads (deepseek's MTP head is only
+    read by ``repro``'s training loss)."""
+    if isinstance(tree, dict) and "mtp" in tree:
+        tree = {k: v for k, v in tree.items() if k != "mtp"}
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
@@ -4125,6 +4187,401 @@ def check_ace_app(torch, dev, seed, smi, timer, smollm, models):
     return stats, launches
 
 
+# -- phase 16: MoE and MLA at full width -----------------------------------------
+
+class _Routes:
+    """Records the MoE routing of eager calls while active: for each
+    ``moe.route`` call, the sorted top-k expert sets (T, k) and the gap
+    between the k-th and (k+1)-th router logits (T,). ``moe_forward`` looks
+    ``route`` up at call time, so the wrapper sees every MoE layer (a
+    model without MoE records nothing). Never active around a graph
+    capture or replay."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_lib
+        self._lib, self._route = moe_lib, moe_lib.route
+        torch, orig, calls = self.torch, moe_lib.route, self.calls
+
+        def route(params, cfg, x_flat):
+            idx, w, aux = orig(params, cfg, x_flat)
+            k = cfg.moe.num_experts_per_tok
+            logits = x_flat.float() @ params["router"].float()
+            top = torch.topk(logits, k + 1, dim=-1).values
+            calls.append((idx.sort(dim=-1).values, top[:, k - 1] - top[:, k]))
+            return idx, w, aux
+
+        moe_lib.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._lib.route = self._route
+
+    def near_ties(self, tol):
+        """(1, S) numpy bool of a forward over (1, S) tokens: some MoE
+        layer's gap at that position is below ``tol``."""
+        gaps = self.torch.stack([g for _, g in self.calls])
+        return (gaps < tol).any(dim=0).cpu().numpy().reshape(1, -1)
+
+
+def _cut_stages(cfg, repeats, experts=None, dtype=None):
+    """``cfg`` with stage i repeated ``repeats[i]`` times, widths unchanged;
+    ``experts`` cuts the routed experts (top-k kept), ``dtype`` the
+    parameter dtype."""
+    stages = tuple(dataclasses.replace(st, repeat=r)
+                   for st, r in zip(cfg.stages, repeats))
+    out = dataclasses.replace(
+        cfg, stages=stages,
+        num_layers=sum(len(st.blocks) * st.repeat for st in stages))
+    if experts is not None:
+        out = dataclasses.replace(out, moe=dataclasses.replace(
+            cfg.moe, num_experts=experts))
+    if dtype is not None:
+        out = dataclasses.replace(out, param_dtype=dtype)
+    return out
+
+
+def _dropless(cfg) -> float:
+    return cfg.moe.num_experts / cfg.moe.num_experts_per_tok
+
+
+def _moe_layers(cfg) -> int:
+    return sum(st.repeat for st in cfg.stages for b in st.blocks
+               if b.mlp == "moe")
+
+
+MOE_MODELS = ("mixtral-8x22b", "deepseek-v3-671b")
+# layers served at full width, per stage: mixtral 6 of its 56, deepseek
+# its 3 dense layers and 1 of its 58 MoE layers (MTP's params made too)
+MOE_DEPTH = {"mixtral-8x22b": (6,), "deepseek-v3-671b": (3, 1)}
+# (a)'s f32 cut, which the host holds beside the card's copy: mixtral's
+# first layer; deepseek's 4 layers with 32 of its 256 routed experts
+# (top-8 kept, expert widths kept)
+MOE_F32_CUT = {"mixtral-8x22b": ((1,), None), "deepseek-v3-671b": ((3, 1), 32)}
+MOE_F32_TOKENS = 40
+
+
+def _route_flips(torch, a, b, tol, rows=1):
+    """Routes of two runs over the same ``rows`` rows of tokens, layer by
+    layer ((T, k) sets and (T,) gaps per MoE call, in layer order, T
+    row-major): (flipped (T,) numpy bool, a set differs at some layer;
+    the flips that are not near-ties, their gap at least ``tol`` on both
+    sides; the largest gap at such a first flip). Only a flip that no
+    earlier one can reach must be a near-tie: a token that took another
+    expert at layer l carries it into its own later layers and, through
+    attention, into later tokens of its row, which may then route apart
+    at any gap."""
+    flipped = np.zeros(a[0][0].shape[0], bool)
+    reach = flipped.copy()
+    bad, widest = 0, 0.0
+    for (ia, ga), (ib, gb) in zip(a, b):
+        f = (ia.cpu() != ib.cpu()).any(dim=-1).numpy()
+        gap = torch.minimum(ga.cpu(), gb.cpu()).numpy()
+        first = f & ~reach
+        bad += int((first & (gap >= tol)).sum())
+        if first.any():
+            widest = max(widest, float(gap[first].max()))
+        flipped |= f
+        reach = np.maximum.accumulate(flipped.reshape(rows, -1),
+                                      axis=1).reshape(-1)
+    return flipped, bad, widest
+
+
+def _moe_f32_vs_cpu(torch, dev, seed, name, base):
+    """(a) The card's f32 forward against the plain CPU forward on the
+    ``MOE_F32_CUT`` of ``base``, dropless: routes compared first (a flip
+    only at a near-tie, within ``ROUTE_TOL['float32']``), then the logits
+    of every token whose routes agree (a flipped token moves by a whole
+    expert; in both cuts the MoE layers' flips reach no later layer's
+    cache but mixtral's single layer's and deepseek's last)."""
+    from repro_torch.models.model import LM
+
+    repeats, experts = MOE_F32_CUT[name]
+    cfg = _cut_stages(base, repeats, experts, "float32")
+    cf = _dropless(cfg)
+    gpu = LM(cfg, device=dev, capacity_factor=cf)
+    params = gpu.init(seed + 30, on_device=True)
+    n = _tree_numel(params)
+    tok = torch.from_numpy(np.random.default_rng(seed + 31).integers(
+        0, cfg.vocab_size, (1, MOE_F32_TOKENS)).astype(np.int32))
+    with _Routes(torch) as rg:
+        got, _ = gpu.forward(params, {"tokens": tok.to(dev)})
+    got = got[0].cpu()
+    t0 = time.perf_counter()
+    host = _to_device(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    cpu = LM(cfg, device="cpu", capacity_factor=cf)
+    with _Routes(torch) as rc:
+        ref, _ = cpu.forward(host, {"tokens": tok})
+    cpu_s = time.perf_counter() - t0
+    del host
+    flipped, bad, widest = _route_flips(torch, rg.calls, rc.calls,
+                                        ROUTE_TOL["float32"])
+    ok = ~flipped
+    err = (got[ok] - ref[0][ok]).abs().max().item()
+    cut = (f"{cfg.num_layers} layer{'s' * (cfg.num_layers > 1)}"
+           + (f", {experts} of {base.moe.num_experts} routed experts"
+              if experts else ""))
+    print(f"  (a) {name} f32 ({cut}, {n / 1e9:.2f} B "
+          f"values, dropless): GPU vs CPU plain forward over "
+          f"{MOE_F32_TOKENS} tokens: routes flipped at {int(flipped.sum())} "
+          f"of {len(flipped)} tokens x {len(rg.calls)} MoE layers (largest "
+          f"gap at a first flip {widest:.2e}, tol "
+          f"{ROUTE_TOL['float32']}), "
+          f"max|diff| {err:.3e} over the {int(ok.sum())} others (tol "
+          f"{F32_LOGIT_TOL}; max|logit| {ref.abs().max().item():.2f}); CPU "
+          f"copy + forward {cpu_s:.1f} s")
+    if bad or not err < F32_LOGIT_TOL or ok.sum() < len(ok) // 2:
+        raise AssertionError(f"{name}: f32 GPU forward != CPU forward")
+    return dict(cut=cut, flipped=int(flipped.sum()), compared=int(ok.sum()),
+                max_abs_err=err, widest_flipped_gap=widest)
+
+
+def _moe_prefill_vs_forward(torch, lm, params, tokens, prompt):
+    """(b) Phase 3's check on an MoE model, routes first: prefill
+    ``tokens[:, :prompt]`` then decode the rest, against one forward over
+    ``tokens``. A token's first route that differs must be a near-tie
+    (within ``ROUTE_TOL['bfloat16']`` on both paths, ``_route_flips``);
+    the logits of every position whose routes agree are held to
+    ``BF16_LOGIT_TOL``."""
+    b, s = tokens.shape
+    n_moe = _moe_layers(lm.cfg)
+    with _Routes(torch) as fwd:
+        full, _ = lm.forward(params, {"tokens": tokens})
+    with _Routes(torch) as dec:
+        logits, caches = lm.prefill(params, {"tokens": tokens[:, :prompt]},
+                                    cache_width=64)
+        rows = [logits[:, -1]]
+        for t in range(prompt, s):
+            step, caches = lm.decode_step(params, caches, tokens[:, t:t + 1],
+                                          t)
+            rows.append(step[:, 0])
+    got = torch.stack(rows, dim=1).float()                 # prompt-1 .. s-1
+    want = full[:, prompt - 1:].float()
+    k = fwd.calls[0][0].shape[-1]
+    path = []
+    for layer in range(n_moe):
+        sets = [dec.calls[layer][0].reshape(b, prompt, k)]
+        gaps = [dec.calls[layer][1].reshape(b, prompt)]
+        for j in range(s - prompt):
+            c = dec.calls[n_moe * (1 + j) + layer]
+            sets.append(c[0].reshape(b, 1, k))
+            gaps.append(c[1].reshape(b, 1))
+        path.append((torch.cat(sets, 1).reshape(b * s, k),
+                     torch.cat(gaps, 1).reshape(b * s)))
+    flipped, bad, widest = _route_flips(torch, fwd.calls, path,
+                                        ROUTE_TOL["bfloat16"], rows=b)
+    ok = torch.from_numpy(~flipped.reshape(b, s)[:, prompt - 1:]).to(
+        got.device)
+    err = (got - want).abs().amax(dim=-1)[ok].max().item()
+    return dict(err=err, max_logit=want.abs().max().item(),
+                flipped=int(flipped.sum()), tokens=b * s,
+                compared=int(ok.sum()), positions=ok.numel(), bad=bad,
+                widest_flipped_gap=widest, moe_layers=n_moe)
+
+
+def _count_drops(torch, lm, params, reqs, eng):
+    """The (token, choice) pairs that ``reqs``' admissions drop on ``eng``
+    (monolithic prefill at each prompt's bucket, right-padded, every MoE
+    layer), recomputed eagerly: each MoE call's routing re-run on its
+    input by ``moe.dropped_pairs`` over the prompt's real tokens.
+    Returns (dropped, pairs)."""
+    from repro_torch.models import moe as moe_lib
+
+    total = [0, 0]
+    orig = moe_lib.moe_forward
+    k = lm.cfg.moe.num_experts_per_tok
+
+    def counted(p, cfg, x, *, capacity_factor):
+        total[0] += int(moe_lib.dropped_pairs(
+            p, cfg, x, capacity_factor=capacity_factor, length=length[0]))
+        total[1] += length[0] * k
+        return orig(p, cfg, x, capacity_factor=capacity_factor)
+
+    length = [0]
+    moe_lib.moe_forward = counted
+    try:
+        for prompt, _ in reqs:
+            length[0] = len(prompt)
+            bucket = next(bk for bk in eng.buckets if bk >= len(prompt))
+            tok = np.zeros((1, bucket), np.int32)
+            tok[0, :len(prompt)] = prompt
+            lm.prefill(params, {"tokens": torch.from_numpy(tok).to(
+                lm.device)}, cache_width=eng.max_seq_len,
+                lengths=torch.tensor([len(prompt)], device=lm.device),
+                logits_index=torch.tensor([len(prompt) - 1],
+                                          device=lm.device))
+    finally:
+        moe_lib.moe_forward = orig
+    return total[0], total[1]
+
+
+def _moe_default_factor(torch, dev, seed, smi, cfg, params):
+    """(d) ``repro``'s capacity factor 1.25, where a prefill drops pairs:
+    on the ring (8 slots, max_seq_len 1024) 8 of phase 4's requests (6
+    greedy, 2 sampled) give equal streams at K = 4 and K = 1 (decode never
+    drops); on the paged backend with monolithic prefill, phase 5's waves
+    with swap preemption equal an uncontended run (a swapped slot's K/V
+    comes back as it was, and each prompt is prefilled at its own bucket).
+    Prints the pairs the ring's admissions dropped."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServingEngine
+
+    lm = LM(cfg, device=dev)
+    full = _trace(seed, cfg.vocab_size)
+    reqs = full[:6] + full[16:]
+    kw = dict(batch_slots=8, max_seq_len=1024, seed=seed)
+    outs, counts = {}, collections.Counter()
+    for k in (4, 1):
+        eng = ServingEngine(lm, params, max_decode_steps=k, **kw)
+        warmed = _warm(eng)
+        torch.cuda.synchronize()
+        reset_launches()
+        outs[k], _ = _serve(eng, reqs, 32)
+        counts.update(LAUNCHES)
+        _no_capture(eng, warmed, f"{cfg.name} ring at 1.25")
+    for a, b in zip(outs[4], outs[1]):
+        if not np.array_equal(a.output, b.output):
+            raise AssertionError(f"{cfg.name} at 1.25: K=4 stream != K=1 "
+                                 f"stream (request {a.request_id})")
+    dropped, pairs = _count_drops(torch, lm, params, reqs, eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace = _paged_trace(seed, cfg.vocab_size)
+    pkw = dict(kw, cache_backend="paged", block_size=16,
+               max_decode_steps=4)
+    paged = {}
+    for contended in (True, False):
+        eng = ServingEngine(lm, params, **pkw)
+        warmed = _warm(eng)
+        torch.cuda.synchronize()
+        reset_launches()
+        paged[contended], _ = _serve_waves(eng, trace, 32, contended)
+        counts.update(LAUNCHES)
+        _no_capture(eng, warmed, f"{cfg.name} paged at 1.25")
+        if contended:
+            swaps = (eng.preemptions, eng.backend.swap_ins)
+        elif eng.preemptions:
+            raise AssertionError("the uncontended engine preempted")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if min(swaps) < 1:
+        raise AssertionError(f"{cfg.name} at 1.25: nothing was swapped")
+    for a, b in zip(paged[True], paged[False]):
+        if not np.array_equal(a.output, b.output):
+            raise AssertionError(f"{cfg.name} at 1.25: swap-preempted stream"
+                                 f" != uncontended (request {a.request_id})")
+    gen = sum(len(r.output) for r in outs[4])
+    print(f"  (d) {cfg.name} at capacity factor 1.25 [{smi}]: ring K=4 "
+          f"streams equal K=1 ({gen} tokens); the admissions dropped "
+          f"{dropped} of {pairs} (token, choice) pairs of real tokens; "
+          f"paged (monolithic) swap-preempted streams equal the "
+          f"uncontended ones ({swaps[0]} preemptions, {swaps[1]} swap-ins, "
+          f"{sum(len(r.output) for r in paged[True])} tokens)")
+    return dict(ring_tokens=gen, dropped_pairs=dropped, pairs=pairs,
+                preemptions=swaps[0], swap_ins=swaps[1]), counts
+
+
+def check_moe(torch, dev, seed, smi):
+    """Phase 16: mixtral-8x22b and deepseek-v3-671b at full width (bf16,
+    depths cut per ``MOE_DEPTH``), one model at a time, weights made on
+    the card and freed before the next: (a) ``_moe_f32_vs_cpu``; (b) at
+    the dropless factor E / k, prefill then decode against a full forward
+    (``_moe_prefill_vs_forward``); (c) at that factor, phase 4's ring and
+    phase 5's paged engine with their checks (K = 4 == K = 1, launches,
+    greedy tokens against a teacher-forced forward; paged: preempted ==
+    uncontended, the paths taken), every program captured by
+    ``warm_compile`` and none in traffic; (d) ``_moe_default_factor``.
+    Returns (records, launches on the served paths)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import LM
+
+    out, launches = {}, collections.Counter()
+    for name in MOE_MODELS:
+        t_model = time.perf_counter()
+        base = get_config(name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        rec = out[name] = {"f32_vs_cpu": _moe_f32_vs_cpu(torch, dev, seed,
+                                                         name, base)}
+        torch.cuda.empty_cache()
+        cfg = _cut_stages(base, MOE_DEPTH[name])
+        m, cf = cfg.moe, _dropless(cfg)
+        lm = LM(cfg, device=dev, capacity_factor=cf)
+        t0 = time.perf_counter()
+        params = lm.init(seed, on_device=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n, wbytes = _tree_numel(params), _weight_bytes(params)
+        bound = wbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  {name}: {cfg.num_layers} of {base.num_layers} layers at "
+              f"full width (d_model {cfg.d_model}, {m.num_experts} experts "
+              f"top-{m.num_experts_per_tok}, {cfg.num_heads} heads): "
+              f"{n / 1e9:.3f} B values, made on the card in {init_s:.1f} s; "
+              f"serving reads {wbytes / 1e9:.2f} GB bf16, the weight-read "
+              f"bound per decode step {bound:.2f} ms (every expert: the "
+              f"dropless decode reads all of them)")
+        # E / k is a power of two: every capacity the served shapes meet
+        # (prompt buckets, chunks, the (b) sequence) is the group's length
+        for s in (1, 5, 24, 40, 128) + tuple(
+                16 * 2 ** i for i in range(7)):
+            if moe_lib.capacity(s, m.num_experts_per_tok, m.num_experts,
+                                cf) != s:
+                raise AssertionError(f"capacity at {s} tokens is not {s}")
+        tokens = torch.from_numpy(np.random.default_rng(seed + 32).integers(
+            0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(dev)
+        pf = _moe_prefill_vs_forward(torch, lm, params, tokens, 24)
+        print(f"  (b) {name} bf16, dropless (factor {cf:g}): prefill+decode"
+              f" vs forward: routes flipped at {pf['flipped']} of "
+              f"{pf['tokens']} tokens x {pf['moe_layers']} MoE layers "
+              f"(largest gap at a first flip "
+              f"{pf['widest_flipped_gap']:.3f}, tol "
+              f"{ROUTE_TOL['bfloat16']}); max|diff| {pf['err']:.3e} over "
+              f"{pf['compared']} of {pf['positions']} positions (tol "
+              f"{BF16_LOGIT_TOL}; max|logit| {pf['max_logit']:.2f})")
+        if pf["bad"] or not (np.isfinite(pf["max_logit"])
+                             and pf["err"] < BF16_LOGIT_TOL) \
+                or pf["compared"] < pf["positions"] // 2:
+            raise AssertionError(f"{name}: prefill+decode != forward")
+        rec.update(values=n, weight_bytes=wbytes, init_s=init_s,
+                   decode_bound_ms=bound, prefill_vs_forward=pf)
+        rec["ring"], got = check_engine(torch, dev, seed, smi, lm, params,
+                                        _trace(seed, cfg.vocab_size))
+        launches.update(got)
+        rec["paged"], got = check_paged_engine(torch, dev, seed, smi, lm,
+                                               params)
+        launches.update(got)
+        for kind in ("ring", "paged"):
+            print(f"  (c) {name} {kind} [{smi}]: "
+                  f"{rec[kind]['tokens_per_s']:.1f} tokens/s; decode "
+                  f"{rec[kind]['decode_ms_per_step']:.2f} ms per step of 8 "
+                  f"slots against the {bound:.2f} ms weight-read bound "
+                  f"({rec[kind]['decode_ms_per_step'] / bound:.2f}x); TTFT "
+                  f"p50 {rec[kind]['ttft_ms_p50']:.1f} ms")
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["default_factor"], got = _moe_default_factor(
+            torch, dev, seed, smi, cfg, params)
+        launches.update(got)
+        rec["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+        rec["seconds"] = time.perf_counter() - t_model
+        print(f"  {name}: peak device memory {rec['peak_gb']:.1f} GB above "
+              f"the {held / 1e9:.1f} GB held before it; "
+              f"{rec['seconds']:.1f} s")
+        del lm, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4258,6 +4715,14 @@ def main() -> int:
     for name, n in ace_launches.items():
         launches[name] += n
     del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("[16] MoE and MLA at full width: mixtral-8x22b (6 of 56 layers) "
+          "and deepseek-v3-671b (4 of 61), f32 cuts vs the CPU, then bf16 "
+          "on graphed ring and paged engines, dropless and at 1.25")
+    moe_stats, moe_launches = check_moe(torch, dev, args.seed, smi)
+    for name, n in moe_launches.items():
+        launches[name] += n
     if args.profile:
         from repro_torch.configs import get_config
         from repro_torch.models.model import LM
@@ -4318,6 +4783,7 @@ def main() -> int:
                        "sampler": sampler_times,
                        "speculative": spec_stats,
                        "durability": durability, "ace_app": ace_stats,
+                       "moe": moe_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

@@ -5,6 +5,8 @@ or the ACE edge/cloud cascade with --cascade, on the GPU.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced --cascade
     PYTHONPATH=src python -m repro_torch.launch.serve --rate 40 --policy shed
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b
 
 The port of ``repro.launch.serve``, with its flags but two: ``--mesh``
 other than 1 raises ``NotImplementedError`` (meshes are a later slice of

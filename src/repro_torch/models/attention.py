@@ -1,20 +1,24 @@
-"""GQA attention: projections with qk-norm and RoPE, full-sequence prefill
-through the flash kernel, cached decode through the ring layout, and the
-per-layer KV cache. Port of the GQA half of ``repro.models.attention``
-(MLA is a later slice).
+"""Attention mixers: GQA (projections with qk-norm and RoPE) and DeepSeek's
+multi-head latent attention (MLA), each with full-sequence prefill through
+the flash kernel, cached decode through a cache layout (ring or paged),
+and its per-layer cache. Port of ``repro.models.attention``.
 
 ``repro`` prefills through the jnp ``blockwise_attention`` on arange
 positions; the port calls ``kernels.flash_attention``, which computes the
-same function (causal or windowed, keys and queries both at 0..S-1).
+same function (causal or windowed, keys and queries both at 0..S-1). MLA
+prefills in the expanded form (128 heads of 192 dims, V zero-padded from
+128 to 192) through the same kernel; its decode is the absorbed form over
+the compressed latent cache in plain torch, as ``repro``'s is jnp.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import norm_only, rope
+from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from repro_torch.models.layers import norm_only, rmsnorm, rope
 
 
 def _ring_layout():
@@ -67,41 +71,52 @@ def _fill_slots(width: int, b: int, s: int, lengths, device):
     return torch.where(keep, src, torch.zeros_like(src)), keep
 
 
-def cache_fill(cache: dict, k, v, seq_len: int, lengths=None) -> dict:
-    """Populate a fresh cache from prefill outputs k, v (B, S, KV, hd), in
-    place. ``lengths``: optional (B,) true prompt lengths; positions >=
+def _fill(cache: dict, updates: dict, lengths=None) -> dict:
+    """Populate a fresh cache from a prefill's per-token leaves ``updates``
+    ({name: (B, S, ...)}), in place: token ``t`` at ring column ``t %
+    width``. ``lengths``: optional (B,) true prompt lengths; positions >=
     length are right-pad and never occupy a ring slot. Every path has
     shapes fixed by B, S and the ring width."""
-    width = cache["k"].shape[1]
-    b, s = k.shape[0], k.shape[1]
+    first = next(iter(updates.values()))
+    width = cache["pos"].shape[1]
+    b, s, device = first.shape[0], first.shape[1], first.device
+
+    def mask(keep, u):
+        return keep.reshape(keep.shape + (1,) * (u.dim() - 2))
+
     if lengths is None and s <= width:
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+        for key, u in updates.items():
+            cache[key][:, :s] = u
         cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32,
-                                           device=k.device)[None, :]
+                                           device=device)[None, :]
         return cache
     if s <= width:
         # slots t % width = t are distinct: a masked copy of the first S
-        cache["k"].zero_()
-        cache["v"].zero_()
+        for key in updates:
+            cache[key].zero_()
         cache["pos"].fill_(-1)
-        t = torch.arange(s, dtype=torch.int32, device=k.device)[None, :]
-        keep = t < lengths.to(device=k.device,
-                              dtype=torch.int32).reshape(b, 1)
-        m = keep[:, :, None, None]
-        cache["k"][:, :s] = torch.where(m, k, torch.zeros_like(k))
-        cache["v"][:, :s] = torch.where(m, v, torch.zeros_like(v))
+        t = torch.arange(s, dtype=torch.int32, device=device)[None, :]
+        keep = t < lengths.to(device=device, dtype=torch.int32).reshape(b, 1)
+        for key, u in updates.items():
+            cache[key][:, :s] = torch.where(mask(keep, u), u,
+                                            torch.zeros_like(u))
         cache["pos"][:, :s] = torch.where(keep, t, torch.full_like(t, -1))
         return cache
-    src, keep = _fill_slots(width, b, s, lengths, k.device)
-    rows = torch.arange(b, device=k.device)[:, None]
-    m = keep[:, :, None, None]
-    kk, vv = k[rows, src], v[rows, src]                  # (B, W, KV, hd)
-    cache["k"].copy_(torch.where(m, kk, torch.zeros_like(kk)))
-    cache["v"].copy_(torch.where(m, vv, torch.zeros_like(vv)))
+    src, keep = _fill_slots(width, b, s, lengths, device)
+    rows = torch.arange(b, device=device)[:, None]
+    for key, u in updates.items():
+        kept = u[rows, src]                               # (B, W, ...)
+        cache[key].copy_(torch.where(mask(keep, kept), kept,
+                                     torch.zeros_like(kept)))
     cache["pos"].copy_(torch.where(keep, src.to(torch.int32),
                                    torch.full_like(cache["pos"], -1)))
     return cache
+
+
+def cache_fill(cache: dict, k, v, seq_len: int, lengths=None) -> dict:
+    """Populate a fresh GQA cache from prefill outputs k, v (B, S, KV, hd),
+    in place (``_fill``)."""
+    return _fill(cache, {"k": k, "v": v}, lengths)
 
 
 def _proj(x, w):
@@ -154,4 +169,106 @@ def attn_decode(params, cfg, x, cache, cur_pos, *, window: Optional[int],
                           valid=valid)
     out = layout.attend(q, cache, positions, block_tables, window=window,
                         scale=cfg.resolved_head_dim ** -0.5)
+    return _out(out, params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def _mla_q(params, cfg, x, positions):
+    """Queries through the low-rank path: (q_nope, q_rope), (B, S, H, *)."""
+    m = cfg.mla
+    cq = rmsnorm({"scale": params["q_norm"]}, x @ params["w_dq"], cfg.rms_eps)
+    q = _proj(cq, params["w_uq"])
+    q_rope = rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q[..., :m.qk_nope_head_dim], q_rope
+
+
+def _mla_kv_latent(params, cfg, x, positions):
+    """The compressed cache entries: ckv (B, S, kv_lora) and the shared
+    rotary key krope (B, S, rope)."""
+    ckv = rmsnorm({"scale": params["kv_norm"]}, x @ params["w_dkv"],
+                  cfg.rms_eps)
+    krope = rope(x @ params["w_krope"], positions, cfg.rope_theta)
+    return ckv, krope
+
+
+def mla_forward(params, cfg, x, positions, *, window: Optional[int]):
+    """Expanded-form MLA (prefill) through the flash kernel: q = [q_nope,
+    q_rope], k = [k_nope, krope broadcast to every head], H = KV (G = 1),
+    V zero-padded to the qk width as ``repro`` pads it, scale qk^-0.5, the
+    output cut back to ``v_head_dim``. Returns (y, (ckv, krope))."""
+    m = cfg.mla
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    ckv, krope = _mla_kv_latent(params, cfg, x, positions)
+    k_nope = _proj(ckv, params["w_uk"])
+    v = _proj(ckv, params["w_uv"])
+    k_rope = krope[:, :, None, :].expand(-1, -1, h, -1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope], dim=-1)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    vpad = F.pad(v, (0, qk - m.v_head_dim))
+    out = flash_attention(q, k, vpad, causal=True, window=window,
+                          scale=qk ** -0.5)
+    return _out(out[..., :m.v_head_dim], params["wo"]), (ckv, krope)
+
+
+def init_mla_cache(cfg, batch: int, width: int, dtype, device) -> dict:
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, width, m.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, width, m.qk_rope_head_dim), dtype=dtype,
+                             device=device),
+        "pos": torch.full((batch, width), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_cache_fill(cache: dict, ckv, krope, seq_len: int,
+                   lengths=None) -> dict:
+    """Populate a fresh MLA cache from prefill latents ckv (B, S, r) and
+    krope (B, S, rope), in place (``_fill``)."""
+    return _fill(cache, {"ckv": ckv, "krope": krope}, lengths)
+
+
+def mla_decode(params, cfg, x, cache, cur_pos, *, window: Optional[int],
+               layout=None, block_tables=None, valid=None):
+    """Absorbed-form MLA step: one decode token or a T-token chunk from
+    ``cur_pos``. W_uk is folded into the query and W_uv applied after the
+    attend, so scores and values stay in the latent space and the cache
+    keeps only (ckv, krope) a token. The attend runs over
+    ``layout.context`` (the ring itself, or a block-table gather on the
+    paged layout): MQA over a (kv_lora + rope)-wide key, with f32 scores
+    and accumulation. ``valid``: optional (B, T) write mask."""
+    layout = _ring_layout() if layout is None else layout
+    m = cfg.mla
+    b, t = x.shape[0], x.shape[1]
+    start = positions_1d(cur_pos, b, x.device)
+    positions = start[:, None] + torch.arange(t, dtype=torch.int32,
+                                              device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)         # (B,T,H,*)
+    ckv1, krope1 = _mla_kv_latent(params, cfg, x, positions)   # (B,T,r)
+    cache = layout.append(cache, {"ckv": ckv1, "krope": krope1}, start,
+                          block_tables, valid=valid)
+    ctx = layout.context(cache, block_tables)
+    ckv_c = ctx["ckv"].to(x.dtype)
+    krope_c = ctx["krope"].to(x.dtype)
+    pos_c = ctx["pos"]
+    q_lat = torch.einsum("bthk,rhk->bthr", q_nope, params["w_uk"])
+    s_nope = torch.einsum("bthr,bcr->bthc", q_lat.float(), ckv_c.float())
+    s_rope = torch.einsum("bthk,bck->bthc", q_rope.float(), krope_c.float())
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    s = (s_nope + s_rope) * (qk ** -0.5)
+    ok = (pos_c[:, None, :] <= positions[:, :, None]) \
+        & (pos_c[:, None, :] >= 0)
+    if window is not None:
+        ok &= pos_c[:, None, :] > (positions[:, :, None] - window)
+    s = torch.where(ok[:, :, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bthc,bcr->bthr", p.to(ckv_c.dtype).float(),
+                         ckv_c.float())
+    out = torch.einsum("bthr,rhk->bthk", o_lat.to(x.dtype), params["w_uv"])
     return _out(out, params["wo"]), cache

@@ -1,16 +1,20 @@
-"""The LM: stages of attention and RG-LRU blocks, full-sequence forward /
-prefill, chunked prefill and one-token decode over a KV-cache layout (ring
-or paged, from ``serving.kv_cache``).
+"""The LM: stages of attention, MLA and RG-LRU blocks, full-sequence
+forward / prefill, chunked prefill and one-token decode over a KV-cache
+layout (ring or paged, from ``serving.kv_cache``).
 
 Port of ``repro.models.model.LM`` for text-only models whose blocks mix
-with GQA attention or the RG-LRU recurrence and whose MLPs are SwiGLU or
-GeGLU: the dense configs (``smollm-135m`` among them) and the hybrid
-``recurrentgemma-9b``. Parameters are the same nested dicts as
+with GQA attention, DeepSeek's latent attention (MLA) or the RG-LRU
+recurrence and whose MLPs are SwiGLU, GeGLU or a mixture of SwiGLU
+experts: the dense configs (``smollm-135m`` among them), the hybrid
+``recurrentgemma-9b`` and the MoE models ``mixtral-8x22b`` and
+``deepseek-v3-671b`` (with its multi-token-prediction params, which only
+``repro``'s training loss reads). Parameters are the same nested dicts as
 ``repro``'s, with per-stage leaves stacked on a leading layer axis, so
 ``repro_torch.bridge`` maps one onto the other by name. ``repro``'s
 ``lax.scan`` over stacked layers is a Python loop over the layer index
 here; caches keep the same stacked (L, B, ...) layout (K/V rings for
-attention, ``h`` and ``conv`` state for RG-LRU) and are updated in place.
+attention, ``ckv``/``krope`` latent rings for MLA, ``h`` and ``conv``
+state for RG-LRU) and are updated in place.
 """
 from __future__ import annotations
 
@@ -19,9 +23,10 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ATTN, GELU_MLP, RGLRU, SWIGLU,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, GELU_MLP, MLA, MOE, RGLRU,
+                                      SWIGLU, BlockDef, ModelConfig)
 from repro_torch.models import attention as att
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (embed, gelu_mlp, rmsnorm, softcap,
                                        swiglu, unembed)
@@ -43,25 +48,28 @@ def _attn_width(window: Optional[int], cache_width: int) -> int:
 
 
 class LM:
-    """A text-only language model of GQA-attention and RG-LRU blocks on one
-    device (default "cuda")."""
+    """A text-only language model of GQA-attention, MLA and RG-LRU blocks
+    with dense or MoE MLPs on one device (default "cuda").
+    ``capacity_factor`` is ``repro``'s MoE capacity factor (1.25 there);
+    E / k makes every MoE call dropless."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.frontend.kind != "none" or cfg.moe is not None \
-                or cfg.mla is not None or cfg.mtp_depth:
+    def __init__(self, cfg: ModelConfig, device="cuda",
+                 capacity_factor: float = 1.25):
+        if cfg.frontend.kind != "none":
             raise NotImplementedError(
-                f"{cfg.name}: the port serves text-only models; frontends, "
-                "MoE, MLA and MTP are later slices")
+                f"{cfg.name}: the port serves text-only models; the "
+                f"{cfg.frontend.kind} frontend is a later slice")
         for stage in cfg.stages:
             for bdef in stage.blocks:
-                if bdef.mixer not in (ATTN, RGLRU) \
-                        or bdef.mlp not in (SWIGLU, GELU_MLP):
+                if bdef.mixer not in (ATTN, MLA, RGLRU) \
+                        or bdef.mlp not in (SWIGLU, GELU_MLP, MOE):
                     raise NotImplementedError(
                         f"{cfg.name}: block ({bdef.mixer}, {bdef.mlp}) is a "
-                        "later slice; the port runs attention or RG-LRU "
-                        "mixers with SwiGLU or GeGLU MLPs")
+                        "later slice; the port runs attention, MLA or "
+                        "RG-LRU mixers with SwiGLU, GeGLU or MoE MLPs")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.capacity_factor = capacity_factor
 
     @property
     def dtype(self) -> torch.dtype:
@@ -72,44 +80,83 @@ class LM:
         """The parameter tree as (shape, dtype, init) leaves — the same
         names, shapes and stacking as ``repro``'s ``LM.init``. init is a
         normal std (0 means zeros) or ``recurrent.LAMBDA_INIT``."""
-        cfg, dt, f32 = self.cfg, self.dtype, torch.float32
-        d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-        hd, ff, vocab = cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab
+        cfg, dt = self.cfg, self.dtype
+        d, vocab = cfg.d_model, cfg.padded_vocab
         spec: Params = {"embed": {"table": ((vocab, d), dt, 1.0)}}
-        stages = []
-        for stage in cfg.stages:
-            n = stage.repeat
-
-            def block(bdef):
-                if bdef.mixer == RGLRU:
-                    mixer = rec.param_spec(cfg, n, dt)
-                else:
-                    mixer = {
-                        "wq": ((n, d, h, hd), dt, d ** -0.5),
-                        "wk": ((n, d, kv, hd), dt, d ** -0.5),
-                        "wv": ((n, d, kv, hd), dt, d ** -0.5),
-                        "wo": ((n, h, hd, d), dt, (h * hd) ** -0.5),
-                    }
-                    if cfg.use_qk_norm:
-                        mixer["q_scale"] = ((n, hd), f32, 0.0)
-                        mixer["k_scale"] = ((n, hd), f32, 0.0)
-                # SwiGLU and GeGLU have the same three leaves
-                return {
-                    "norm1": {"scale": ((n, d), f32, 0.0)},
-                    "mixer": mixer,
-                    "norm2": {"scale": ((n, d), f32, 0.0)},
-                    "mlp": {"w_gate": ((n, d, ff), dt, d ** -0.5),
-                            "w_up": ((n, d, ff), dt, d ** -0.5),
-                            "w_down": ((n, ff, d), dt, ff ** -0.5)},
-                }
-
-            stages.append({f"b{i}": block(bdef)
-                           for i, bdef in enumerate(stage.blocks)})
-        spec["stages"] = stages
-        spec["final_norm"] = {"scale": ((d,), f32, 0.0)}
+        spec["stages"] = [
+            {f"b{i}": self._block_spec(bdef, (stage.repeat,))
+             for i, bdef in enumerate(stage.blocks)}
+            for stage in cfg.stages]
+        spec["final_norm"] = {"scale": ((d,), torch.float32, 0.0)}
         if not cfg.tie_embeddings:
             spec["unembed"] = {"table": ((vocab, d), dt, d ** -0.5)}
+        if cfg.mtp_depth > 0:
+            # DeepSeek-V3's depth-1 prediction head: one unstacked block
+            spec["mtp"] = {
+                "proj": ((2 * d, d), dt, (2 * d) ** -0.5),
+                "norm": {"scale": ((d,), torch.float32, 0.0)},
+                "block": self._block_spec(
+                    BlockDef(mixer=ATTN if cfg.mla is None else MLA,
+                             mlp=SWIGLU), ())}
         return spec
+
+    def _block_spec(self, bdef, lead: tuple) -> Params:
+        """One block's leaves, each shape prefixed by ``lead`` (the
+        stage's layer axis, or nothing for the MTP block)."""
+        cfg, dt, f32 = self.cfg, self.dtype, torch.float32
+        d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+        hd, ff = cfg.resolved_head_dim, cfg.d_ff
+
+        def leaf(shape, dtype, std):
+            return (lead + shape, dtype, std)
+
+        if bdef.mixer == RGLRU:
+            mixer = rec.param_spec(cfg, lead[0], dt)
+        elif bdef.mixer == MLA:
+            m = cfg.mla
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            rq, rkv = m.q_lora_rank, m.kv_lora_rank
+            mixer = {
+                "w_dq": leaf((d, rq), dt, d ** -0.5),
+                "q_norm": leaf((rq,), f32, 0.0),
+                "w_uq": leaf((rq, h, qk), dt, rq ** -0.5),
+                "w_dkv": leaf((d, rkv), dt, d ** -0.5),
+                "kv_norm": leaf((rkv,), f32, 0.0),
+                "w_krope": leaf((d, m.qk_rope_head_dim), dt, d ** -0.5),
+                "w_uk": leaf((rkv, h, m.qk_nope_head_dim), dt, rkv ** -0.5),
+                "w_uv": leaf((rkv, h, m.v_head_dim), dt, rkv ** -0.5),
+                "wo": leaf((h, m.v_head_dim, d), dt,
+                           (h * m.v_head_dim) ** -0.5),
+            }
+        else:
+            mixer = {
+                "wq": leaf((d, h, hd), dt, d ** -0.5),
+                "wk": leaf((d, kv, hd), dt, d ** -0.5),
+                "wv": leaf((d, kv, hd), dt, d ** -0.5),
+                "wo": leaf((h, hd, d), dt, (h * hd) ** -0.5),
+            }
+            if cfg.use_qk_norm:
+                mixer["q_scale"] = leaf((hd,), f32, 0.0)
+                mixer["k_scale"] = leaf((hd,), f32, 0.0)
+        if bdef.mlp == MOE:
+            m = cfg.moe
+            e, fe = m.num_experts, m.d_ff_expert
+            mlp = {"router": leaf((d, e), f32, d ** -0.5),
+                   "w_gate": leaf((e, d, fe), dt, d ** -0.5),
+                   "w_up": leaf((e, d, fe), dt, d ** -0.5),
+                   "w_down": leaf((e, fe, d), dt, fe ** -0.5)}
+            if m.num_shared_experts > 0:
+                fs = m.d_ff_shared
+                mlp["shared"] = {"w_gate": leaf((d, fs), dt, d ** -0.5),
+                                 "w_up": leaf((d, fs), dt, d ** -0.5),
+                                 "w_down": leaf((fs, d), dt, fs ** -0.5)}
+        else:
+            # SwiGLU and GeGLU have the same three leaves
+            mlp = {"w_gate": leaf((d, ff), dt, d ** -0.5),
+                   "w_up": leaf((d, ff), dt, d ** -0.5),
+                   "w_down": leaf((ff, d), dt, ff ** -0.5)}
+        return {"norm1": {"scale": leaf((d,), f32, 0.0)}, "mixer": mixer,
+                "norm2": {"scale": leaf((d,), f32, 0.0)}, "mlp": mlp}
 
     def init(self, seed: int, on_device: bool = False) -> Params:
         """Random parameters, normal(0, std) in float32 and then cast, as
@@ -148,9 +195,18 @@ class LM:
             logits = logits * (cfg.d_model ** -0.5)
         return softcap(logits, cfg.logit_softcap)
 
-    def _mlp(self, bdef, p, x):
+    def _mlp(self, bdef, p, x, aux=None):
+        """The block's residual MLP. An MoE layer adds its load-balance
+        loss to ``aux`` (a 0-dim f32 tensor), in place, when given."""
+        h = rmsnorm(p["norm2"], x, self.cfg.rms_eps)
+        if bdef.mlp == MOE:
+            y, a = moe_lib.moe_forward(p["mlp"], self.cfg, h,
+                                       capacity_factor=self.capacity_factor)
+            if aux is not None:
+                aux.add_(a)
+            return x + y
         mlp = swiglu if bdef.mlp == SWIGLU else gelu_mlp
-        return x + mlp(p["mlp"], rmsnorm(p["norm2"], x, self.cfg.rms_eps))
+        return x + mlp(p["mlp"], h)
 
     def _head(self, params, x, last_only: bool, logits_index):
         x = rmsnorm(params["final_norm"], x, self.cfg.rms_eps)
@@ -178,11 +234,12 @@ class LM:
 
     def _layer_range(self, params, x, positions, lo: int = 0,
                      hi: Optional[int] = None, *, caches=None,
-                     lengths=None):
+                     lengths=None, aux=None):
         """Scanned layers [lo, hi) (stage-repeat units, every block of a
         repeat) over the full sequence ``x``; with ``caches`` each layer
-        also fills its cache. The one layer loop of ``forward`` and of
-        ``core.patterns.inference.PartitionedLM``."""
+        also fills its cache, with ``aux`` (a 0-dim f32 tensor) the MoE
+        layers add their load-balance losses to it. The one layer loop of
+        ``forward`` and of ``core.patterns.inference.PartitionedLM``."""
         cfg = self.cfg
         hi = self.num_scanned_layers if hi is None else hi
         s = x.shape[1]
@@ -198,6 +255,13 @@ class LM:
                             p["mixer"], cfg, h, lengths)
                         if caches is not None:
                             _store(_layer(caches[si][bi], li), state)
+                    elif bdef.mixer == MLA:
+                        y, (ckv, krope) = att.mla_forward(
+                            p["mixer"], cfg, h, positions,
+                            window=bdef.window)
+                        if caches is not None:
+                            att.mla_cache_fill(_layer(caches[si][bi], li),
+                                               ckv, krope, s, lengths)
                     else:
                         y, (k, v) = att.attn_forward(p["mixer"], cfg, h,
                                                      positions,
@@ -205,24 +269,28 @@ class LM:
                         if caches is not None:
                             att.cache_fill(_layer(caches[si][bi], li), k, v,
                                            s, lengths)
-                    x = self._mlp(bdef, p, x + y)
+                    x = self._mlp(bdef, p, x + y, aux)
             first += stage.repeat
         return x
 
     def forward(self, params, batch, *, want_cache: bool = False,
                 cache_width: Optional[int] = None, last_only: bool = False,
-                lengths=None, logits_index=None):
-        """Returns (logits, caches or None). ``last_only`` unembeds only
-        the final position, ``logits_index`` (B,) only the given one;
+                lengths=None, logits_index=None, with_aux: bool = False):
+        """Returns (logits, caches or None), and with ``with_aux`` the MoE
+        layers' summed load-balance loss third (0 without MoE), as
+        ``repro``'s ``forward`` sums it. ``last_only`` unembeds only the
+        final position, ``logits_index`` (B,) only the given one;
         ``lengths`` (B,) keeps right-pad rows out of the ring at install
         (see ``attention._fill_slots``) and out of the recurrent state
         (identity steps past each row's length)."""
         x, positions = self._embed_inputs(params, batch)
         caches = (self.init_cache(x.shape[0], cache_width) if want_cache
                   else None)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x = self._layer_range(params, x, positions, caches=caches,
-                              lengths=lengths)
-        return self._head(params, x, last_only, logits_index), caches
+                              lengths=lengths, aux=aux)
+        logits = self._head(params, x, last_only, logits_index)
+        return (logits, caches, aux) if with_aux else (logits, caches)
 
     def prefill(self, params, batch, cache_width: int,
                 last_only: bool = False, lengths=None, logits_index=None):
@@ -235,7 +303,8 @@ class LM:
     def init_cache(self, batch: int, seq_len: int) -> List[Any]:
         """Per stage, a tuple over blocks of dicts of stacked (L, B, ...)
         tensors: K/V rings (positions start at -1, empty) for attention,
-        a zero ``h`` and ``conv`` state for RG-LRU."""
+        ``ckv``/``krope`` latent rings for MLA, a zero ``h`` and ``conv``
+        state for RG-LRU."""
         cfg = self.cfg
         caches = []
         for stage in cfg.stages:
@@ -244,6 +313,10 @@ class LM:
                 if bdef.mixer == RGLRU:
                     one = rec.rglru_state_spec(cfg, batch, self.dtype,
                                                self.device)
+                elif bdef.mixer == MLA:
+                    one = att.init_mla_cache(
+                        cfg, batch, _attn_width(bdef.window, seq_len),
+                        self.dtype, self.device)
                 else:
                     one = att.init_kv_cache(
                         batch, _attn_width(bdef.window, seq_len),
@@ -257,10 +330,11 @@ class LM:
     def chunk_incompatible_mixer(self) -> Optional[str]:
         """The first mixer kind that cannot take multi-token prompt chunks
         (recurrent state folds tokens strictly in sequence), or None when
-        every block is attention. One-token decode works for every mixer."""
+        every block is attention or MLA. One-token decode works for every
+        mixer."""
         for stage in self.cfg.stages:
             for bdef in stage.blocks:
-                if bdef.mixer != ATTN:
+                if bdef.mixer not in (ATTN, MLA):
                     return bdef.mixer
         return None
 
@@ -281,7 +355,7 @@ class LM:
         ``start_pos`` (T = 1 is ``decode_step``). ``valid`` (B, T) masks
         right-pad tokens out of the cache; ``logits_index`` (B,) unembeds
         one chunk position per row. Chunks longer than one token need
-        attention mixers. Returns (logits, caches)."""
+        attention or MLA mixers. Returns (logits, caches)."""
         cfg = self.cfg
         b, t = tokens.shape
         if t > 1:
@@ -302,6 +376,11 @@ class LM:
                         y, state = rec.rglru_block_decode(p["mixer"], cfg, h,
                                                           c, valid)
                         _store(c, state)
+                    elif bdef.mixer == MLA:
+                        y, _ = att.mla_decode(
+                            p["mixer"], cfg, h, c, start,
+                            window=bdef.window, layout=layout,
+                            block_tables=block_tables, valid=valid)
                     else:
                         y, _ = att.attn_decode(
                             p["mixer"], cfg, h, c, start,

@@ -1,0 +1,152 @@
+"""Mixture-of-Experts channel mixer: routing, grouped capacity dispatch and
+SwiGLU experts. Port of ``repro.models.moe``.
+
+Each batch row is a dispatch group with its own per-expert capacity
+(GShard-style): a (token, choice) pair's slot within its expert is a
+cumulative count over the row's pairs in (token, choice) order, pairs past
+the capacity are dropped, the kept tokens are gathered into an (E, C, D)
+buffer per row, the experts run as one batched product, and the results
+are gathered back and weighted by the router. Whether a pair is dropped so
+depends on how many tokens share the call: one-token decode never drops
+(each row's capacity is 1 and a token picks an expert once), a short chunk
+may. A ``capacity_factor`` of E / k makes every capacity equal the row's
+token count when that ratio is a power of two: nothing drops.
+
+Routing: softmax top-k (Mixtral), or sigmoid top-k normalised by its sum
+with shared experts (DeepSeek-V3, inferred from ``num_shared_experts``),
+plus the switch load-balance auxiliary loss. The router's logits are f32
+from an f32 router. Every shape is fixed by (B, S), so a CUDA graph
+captures the whole function.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def capacity(s: int, k: int, e: int, capacity_factor: float) -> int:
+    """Per-row, per-expert capacity of an ``s``-token group (``repro``'s
+    expression, evaluated in the same order)."""
+    return max(int(s * k / e * capacity_factor), 1) if s > 1 else 1
+
+
+def _one_hot(idx, n: int) -> torch.Tensor:
+    """(..., n) bool: a comparison, so no value check syncs the host."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
+def route(params, cfg, x_flat) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """x_flat (T, D) -> (topk_idx (T, k) int64, topk_w (T, k) f32, aux
+    loss, a 0-dim f32 tensor). The top-k is in descending order: the
+    flattened (token, choice) order decides which pairs a capacity keeps."""
+    m = cfg.moe
+    logits = x_flat.float() @ params["router"].float()
+    if m.num_shared_experts > 0:        # DeepSeek-style sigmoid routing
+        scores = torch.sigmoid(logits)
+        topk_w, topk_idx = torch.topk(scores, m.num_experts_per_tok, dim=-1)
+        topk_w = topk_w / torch.clamp(topk_w.sum(-1, keepdim=True), min=1e-9)
+        probs = scores / torch.clamp(scores.sum(-1, keepdim=True), min=1e-9)
+    else:                               # Mixtral-style softmax routing
+        topk_l, topk_idx = torch.topk(logits, m.num_experts_per_tok, dim=-1)
+        topk_w = torch.softmax(topk_l, dim=-1)
+        probs = torch.softmax(logits, dim=-1)
+    # switch load-balance loss: E * sum_e fraction_e * mean_prob_e
+    frac = _one_hot(topk_idx[:, 0], m.num_experts).float().mean(dim=0)
+    aux = m.num_experts * torch.sum(frac * probs.mean(dim=0))
+    return topk_idx, topk_w, aux
+
+
+def dispatch(topk_idx, b: int, s: int, e: int, cap: int):
+    """Slot bookkeeping of the grouped dispatch. topk_idx (B*S, k) ->
+    (keep (B, S*k) bool: the pair fits its expert's capacity; target
+    (B, S*k) int64: its column ``expert * cap + slot`` of the row's
+    (E*C) buffer, ``E*C`` when dropped)."""
+    k = topk_idx.shape[-1]
+    flat_e = topk_idx.reshape(b, s * k)
+    onehot = _one_hot(flat_e, e).to(torch.int32)             # (B, S*k, E)
+    pos_in_e = torch.cumsum(onehot, dim=1) - 1
+    slot = torch.gather(pos_in_e, 2, flat_e[..., None])[..., 0].long()
+    keep = slot < cap
+    target = torch.where(keep, flat_e * cap + slot,
+                         torch.full_like(slot, e * cap))
+    return keep, target
+
+
+def _experts(x_pad, src_tok, b: int, e: int, cap: int, params):
+    """Gather each expert slot's token (row S of ``x_pad``, zeros, for an
+    empty slot) and run SwiGLU over every expert's slots: -> (E, B*C, D),
+    the gate's silu in f32. The (E, B*C, D) buffers are the call's
+    largest (E*C is S*E at the dropless factor): the gathered input is
+    freed before the f32 gate and the output are made."""
+    d = x_pad.shape[-1]
+    xe = torch.gather(x_pad, 1, src_tok[..., None].expand(b, e * cap, d))
+    xe = xe.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    g = torch.bmm(xe, params["w_gate"])
+    u = torch.bmm(xe, params["w_up"])
+    del xe
+    h = F.silu(g.float(), inplace=True).to(u.dtype).mul_(u)
+    del g, u
+    return torch.bmm(h, params["w_down"])
+
+
+def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25):
+    """x (B, S, D) -> (y (B, S, D), aux loss)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    k, e = m.num_experts_per_tok, m.num_experts
+    x_flat = x.reshape(b * s, d)
+    topk_idx, topk_w, aux = route(params, cfg, x_flat)
+    cap = capacity(s, k, e, capacity_factor)
+    keep, target = dispatch(topk_idx, b, s, e, cap)
+
+    # the source pair of each expert slot (sentinel S*k: an empty slot);
+    # ``repro`` scatters into E*C + 1 columns and slices the last one off
+    pairs = torch.arange(s * k, device=x.device).expand(b, s * k)
+    src = torch.full((b, e * cap + 1), s * k, dtype=torch.int64,
+                     device=x.device)
+    src.scatter_(1, target, pairs)
+    src = src[:, :e * cap]                                   # (B, E*C)
+    src_tok = torch.where(src >= s * k, torch.full_like(src, s),
+                          torch.clamp(src, 0, s * k - 1) // k)
+    x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)    # row S: zeros
+    ye = _experts(x_pad, src_tok, b, e, cap, params)
+    ye = ye.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+
+    # combine: gather back in (token, choice) order, weight, sum over k.
+    # ``repro`` gathers a dropped pair from an appended zero row; here it
+    # reads any row and its weight is zeroed, which gives the same 0
+    gathered = torch.gather(ye, 1, torch.clamp(target, max=e * cap - 1)[
+        ..., None].expand(b, s * k, d))
+    w = topk_w.reshape(b, s * k) * keep
+    y = (gathered * w[..., None].to(x.dtype)).reshape(b, s, k, d).sum(dim=2)
+
+    if m.num_shared_experts > 0:
+        sp = params["shared"]
+        gs = x_flat @ sp["w_gate"]
+        us = x_flat @ sp["w_up"]
+        hs = F.silu(gs.float()).to(x.dtype) * us
+        y = y + (hs @ sp["w_down"]).reshape(b, s, d)
+    return y, aux
+
+
+def dropped_pairs(params, cfg, x, *, capacity_factor: float = 1.25,
+                  length=None) -> torch.Tensor:
+    """How many (token, choice) pairs ``moe_forward`` drops on ``x``
+    (B, S, D), counting only each row's first ``length`` tokens when given
+    ((B,) or an int; right-pad tokens come last in the cumulative count,
+    so they never take a real token's slot). A 0-dim int64 tensor."""
+    m = cfg.moe
+    b, s, _ = x.shape
+    k, e = m.num_experts_per_tok, m.num_experts
+    topk_idx, _, _ = route(params, cfg, x.reshape(b * s, -1))
+    keep, _ = dispatch(topk_idx, b, s, e,
+                       capacity(s, k, e, capacity_factor))
+    real = torch.ones((b, s), dtype=torch.bool, device=x.device)
+    if length is not None:
+        n = torch.as_tensor(length, device=x.device).reshape(-1, 1)
+        real = torch.arange(s, device=x.device)[None, :] < n
+    real = real[:, :, None].expand(b, s, k).reshape(b, s * k)
+    return (real & ~keep).sum()

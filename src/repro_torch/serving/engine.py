@@ -294,6 +294,12 @@ class _GraphedPrograms:
                 for key in shapes:
                     self._program_body(key)
             torch.cuda.current_stream(self.device).wait_stream(stream)
+            # the eager runs leave the caching allocator holding blocks
+            # sized for the largest shapes, on this stream and the
+            # caller's; a graph pool cannot draw on them, so they are
+            # handed back before the captures fill the engine's pool
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
         else:
             for key in shapes:
                 self._program_body(key)

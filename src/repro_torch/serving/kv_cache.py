@@ -499,7 +499,7 @@ class PagedCache(KVCacheBackend):
                  prefix_sharing: bool = True):
         for stage in lm.cfg.stages:
             for bdef in stage.blocks:
-                if bdef.mixer != "attn":
+                if bdef.mixer not in ("attn", "mla"):
                     raise NotImplementedError(
                         f"paged KV backend supports attention mixers only "
                         f"(got {bdef.mixer!r}); use cache_backend='ring'")

@@ -55,10 +55,11 @@ def test_port_imports_no_jax_and_no_repro():
                        timeout=120)
 
 
-# the archs the port builds: dense GQA (smollm and the hd-128 zoo) and the
-# RG-LRU hybrid; the rest need MoE, MLA, xLSTM or a frontend
+# the archs the port builds: dense GQA (smollm and the hd-128 zoo), the
+# RG-LRU hybrid and the MoE models (mixtral's windowed GQA, deepseek's
+# MLA); the rest need xLSTM or a frontend
 PORTED = ("smollm-135m", "qwen3-4b", "glm4-9b", "starcoder2-7b",
-          "recurrentgemma-9b")
+          "recurrentgemma-9b", "mixtral-8x22b", "deepseek-v3-671b")
 
 
 @pytest.mark.parametrize("name", torch_configs.ASSIGNED_ARCHS)

@@ -88,6 +88,10 @@ DECODE_CASES = [
     (8, 1024, 9, 3, 64, None, 600, 600, 5),
     (8, 1024, 32, 8, 128, None, 600, 600, 5),
     (8, 1024, 32, 2, 128, None, 600, 600, 5),
+    # mixtral-8x22b's G = 6 (48 heads over 8) under its 4096 window on a
+    # 1024-wide ring: a step, and a 128-token chunk (768 rows a KV head)
+    (2, 1024, 48, 8, 128, 4096, 700, 700, 1),
+    (1, 1024, 48, 8, 128, 4096, 600, 600, 128),
 ]
 
 # (h, kv, hd, bs, window, fills, t): the block sizes and cases of
@@ -159,6 +163,10 @@ FLASH_CASES = [
     (1, 90, 60, 4, 2, 64, None),              # Sq > Sk: rows that see nothing
     (1, 300, 300, 32, 2, 128, None),          # glm4-9b's G = 16 at hd 128
     (1, 300, 300, 36, 4, 128, 200),           # starcoder2-7b's G = 9, banded
+    (1, 300, 300, 48, 8, 128, 200),           # mixtral-8x22b's G = 6, banded
+    # deepseek-v3-671b's MLA prefill: hd 192 (the 256 template), G = 1
+    (1, 300, 300, 16, 16, 192, None),
+    (2, 130, 130, 8, 8, 192, 50),
 ]
 
 # (b, s, w): the serving shape, odd S and W with B > 1, one step, one
@@ -1488,3 +1496,149 @@ def test_partitioned_lm_on_gpu_matches_forward(cuda, dtype):
         logits = part.cloud_forward(params, hidden, pos)
         assert LAUNCHES["flash_attention"] == 3
         assert torch.equal(logits, full), split
+
+
+# -- MoE and MLA -------------------------------------------------------------------
+
+def _moe_model(cuda, name, dtype="float32"):
+    """``name``'s reduced config (4 experts, top-2; deepseek's MLA and
+    shared expert) on the CPU in f32, params from seed 0."""
+    from repro_torch.models.model import LM
+
+    cfg = tcfg.get_config(name).reduced()
+    import dataclasses
+    cfg = dataclasses.replace(cfg, param_dtype=dtype)
+    return cfg, LM(cfg, device="cpu").init(0)
+
+
+def _moe_params(cfg, params):
+    """The first MoE layer's MLP params of a stacked tree."""
+    for st_cfg, st in zip(cfg.stages, params["stages"]):
+        for i, bdef in enumerate(st_cfg.blocks):
+            if bdef.mlp == "moe":
+                return {k: (v[0] if not isinstance(v, dict)
+                            else {kk: vv[0] for kk, vv in v.items()})
+                        for k, v in st[f"b{i}"]["mlp"].items()}
+    raise AssertionError("no MoE layer")
+
+
+@pytest.mark.parametrize("factor", [1.25, 2.0])
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_moe_forward_on_gpu_matches_the_cpu(cuda, name, factor):
+    """``moe_forward`` at reduced width, f32 (TF32 off), on the card and
+    on the CPU, at ``repro``'s 1.25 and dropless (E / k = 2): the same
+    routes and drops, outputs and aux within 1e-5 (summation order)."""
+    from repro_torch.models import moe as moe_lib
+
+    cfg, params = _moe_model(cuda, name)
+    mp = _moe_params(cfg, params)
+    x = torch.randn((3, 24, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    idx, _, _ = moe_lib.route(mp, cfg, x.reshape(-1, cfg.d_model))
+    gidx, _, _ = moe_lib.route(_to(mp, cuda), cfg,
+                               x.reshape(-1, cfg.d_model).to(cuda))
+    assert torch.equal(idx, gidx.cpu())
+    y, aux = moe_lib.moe_forward(mp, cfg, x, capacity_factor=factor)
+    gy, gaux = moe_lib.moe_forward(_to(mp, cuda), cfg, x.to(cuda),
+                                   capacity_factor=factor)
+    assert (gy.cpu() - y).abs().max().item() < 1e-5
+    assert abs(gaux.item() - aux.item()) < 1e-5
+    assert int(moe_lib.dropped_pairs(_to(mp, cuda), cfg, x.to(cuda),
+                                     capacity_factor=factor)) == int(
+        moe_lib.dropped_pairs(mp, cfg, x, capacity_factor=factor))
+
+
+def test_captured_moe_forward_and_mla_decode_replay_on_new_inputs(cuda):
+    """``moe_forward`` and an MLA decode step over a ring, each captured
+    into a CUDA graph once and replayed on two new inputs: each replay
+    equals the eager call on the same inputs (output and cache) bit for
+    bit (the same kernels on the same shapes)."""
+    from repro_torch.models import attention as att
+    from repro_torch.models import moe as moe_lib
+
+    cfg, params = _moe_model(cuda, "deepseek-v3-671b")
+    params = _to(params, cuda)
+    mp = _moe_params(cfg, params)
+    mla = {k: v[0] for k, v in params["stages"][0]["b0"]["mixer"].items()}
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, w = 4, 32
+    x = torch.zeros((b, 5, cfg.d_model), device=cuda)
+    x1 = torch.zeros((b, 1, cfg.d_model), device=cuda)
+    pos = torch.zeros((b,), dtype=torch.int32, device=cuda)
+    cache = att.init_mla_cache(cfg, b, w, torch.float32, cuda)
+    res = {}
+
+    def body():
+        res["moe"] = moe_lib.moe_forward(mp, cfg, x)[0]
+        res["mla"] = att.mla_decode(mla, cfg, x1, cache, pos, window=None)[0]
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        body()                                   # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for step in range(2):
+        x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
+        x1.copy_(torch.randn(x1.shape, generator=gen, device=cuda))
+        pos.copy_(torch.tensor([3, 10, 0, 31], device=cuda) + step)
+        before = {k: v.clone() for k, v in cache.items()}
+        graph.replay()
+        torch.cuda.synchronize()
+        after = {k: v.clone() for k, v in cache.items()}
+        want_moe = moe_lib.moe_forward(mp, cfg, x)[0]
+        again = {k: v.clone() for k, v in before.items()}
+        want_mla = att.mla_decode(mla, cfg, x1, again, pos, window=None)[0]
+        assert torch.equal(res["moe"], want_moe)
+        assert torch.equal(res["mla"], want_mla)
+        for key in cache:
+            assert torch.equal(after[key], again[key])
+
+
+@pytest.mark.parametrize("backend", ["ring", "paged"])
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_moe_engine_on_gpu_graphed_equals_eager(cuda, name, backend):
+    """Reduced mixtral and deepseek (f32, dropless) through a graphed
+    engine (K = 2; the paged one with 8-token chunks) and an eager one:
+    no program captured in traffic, equal streams, and the attention
+    kernels launched as counted (MLA layers launch flash at admission on
+    the ring and nothing else)."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServingEngine
+
+    cfg, params = _moe_model(cuda, name)
+    lm = LM(cfg, device=cuda, capacity_factor=2.0)
+    params = _to(params, cuda)
+    prompts = [np.random.default_rng(i).integers(0, 500, n).astype(np.int32)
+               for i, n in enumerate((5, 12, 20, 9, 17))]
+    kw = dict(batch_slots=4, max_seq_len=64, max_decode_steps=2)
+    if backend == "paged":
+        kw.update(cache_backend="paged", block_size=8, chunk_tokens=8)
+    outs = {}
+    for graphed in (False, True):
+        eng = ServingEngine(lm, params, **kw)
+        eng._use_graphs = graphed
+        eng.warm_compile()
+        warmed = dict(eng._programs)
+        n = _count_programs(eng)
+        ids = [eng.submit(p, max_new_tokens=10) for p in prompts]
+        reset_launches()
+        done = eng.run()
+        torch.cuda.synchronize()
+        assert eng._programs == warmed
+        attn = sum(st.repeat for st in cfg.stages for bd in st.blocks
+                   if bd.mixer == "attn")
+        layers = sum(st.repeat for st in cfg.stages)
+        paged = backend == "paged"
+        assert LAUNCHES == {
+            "flash_attention": 0 if paged else layers * n["admits"],
+            "decode_attention": 0 if paged else attn * n["steps"],
+            "paged_decode_attention": (attn * (n["steps"] + n["chunks"])
+                                       if paged else 0),
+            "cascade_gate": 0, "rglru_scan": 0}
+        outs[graphed] = [done[i].output for i in ids]
+    for a, b in zip(outs[True], outs[False]):
+        np.testing.assert_array_equal(a, b)

@@ -44,6 +44,9 @@ def _tiny(window=None):
 
 # the dense hd-128 zoo the port serves at full width on the card
 ZOO = {"qwen3": "qwen3-4b", "glm4": "glm4-9b", "starcoder2": "starcoder2-7b"}
+# the MoE models: mixtral (windowed GQA, softmax top-2 of 8) and deepseek
+# (MLA, sigmoid top-8 of 256 plus a shared expert, MTP params)
+MOE = {"mixtral": "mixtral-8x22b", "deepseek": "deepseek-v3-671b"}
 
 
 def head_faithful(cfg):
@@ -63,6 +66,9 @@ def _configs(which):
         return (jax_get_config("smollm-135m").reduced(),
                 tcfg.get_config("smollm-135m").reduced())
     model, _, form = which.partition("_")
+    if model in MOE:
+        return (jax_get_config(MOE[model]).reduced(),
+                tcfg.get_config(MOE[model]).reduced())
     if model in ZOO:
         jc, tc = jax_get_config(ZOO[model]), tcfg.get_config(ZOO[model])
         if form == "reduced":
@@ -81,7 +87,8 @@ def _configs(which):
 # qk-norm and a tied table, glm4 G = 16, starcoder2 G = 9 with GeGLU and
 # its 4096 window, all at hd 128
 CONFIGS = ["tiny_window", "smollm_reduced"] + [
-    f"{model}_{form}" for model in ZOO for form in ("reduced", "heads")]
+    f"{model}_{form}" for model in ZOO for form in ("reduced", "heads")] + [
+    f"{model}_reduced" for model in MOE]
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,3 +217,38 @@ def test_default_device_needs_a_gpu():
         pytest.skip("a GPU is visible")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LM(tcfg.get_config("smollm-135m"))
+
+
+@pytest.mark.parametrize("model", sorted(MOE))
+def test_moe_param_tree_matches_repro_at_full_width(model):
+    """The MoE models' full-width, full-depth ``param_spec`` against
+    ``repro``'s ``LM.init`` tree (names, shapes, dtypes: the router f32;
+    deepseek's MTP head included), and the parameter count."""
+    name = MOE[model]
+    jlm = JaxLM(jax_get_config(name))
+    theirs = jax.eval_shape(lambda k: jlm.init(k)[0], jax.random.PRNGKey(0))
+    ours = LM(tcfg.get_config(name), device="cpu").param_spec()
+    flat_j = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda x: (tuple(x.shape), str(x.dtype)), theirs),
+        is_leaf=lambda x: isinstance(x, tuple))
+    flat_t = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda x: (tuple(x[0]), str(x[1])[6:]), ours,
+                     is_leaf=lambda x: isinstance(x, tuple)),
+        is_leaf=lambda x: isinstance(x, tuple))
+    assert flat_t == flat_j
+    count = sum(int(np.prod(shape)) for _, (shape, _) in flat_t)
+    assert count == {"mixtral": 140_630_071_296,
+                     "deepseek": 671_712_655_360}[model]
+
+
+@pytest.mark.parametrize("model", sorted(MOE))
+def test_moe_aux_loss_matches_repro(model):
+    """``forward(with_aux=True)`` sums the MoE layers' load-balance losses
+    as ``repro``'s ``forward`` does."""
+    jlm, jp, lm, tp = _pair(f"{model}_reduced")
+    tok = _tokens(2, 11, lm.cfg.vocab_size)
+    theirs = jax.jit(lambda p, t: jlm.forward(p, {"tokens": t})[2])(jp, tok)
+    _, _, aux = lm.forward(tp, {"tokens": torch.from_numpy(tok)},
+                           with_aux=True)
+    assert abs(float(aux) - float(theirs)) < 1e-5
+    assert float(aux) > 0
