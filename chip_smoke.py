@@ -4,7 +4,7 @@
 Run from the repository root: ``python3 chip_smoke.py [--out FILE.json]``.
 It needs a CUDA GPU and ``nvcc``, and fails (nonzero exit, no result line)
 without them, or without ``src/repro_torch`` beside it. Every engine
-(phases 4, 5, 7, 9, 10, 11 and 13) calls ``warm_compile`` before its
+(phases 4, 5, 7, 9, 10, 11, 13, 16 and 17) calls ``warm_compile`` before its
 measured traffic, which captures every program the engine can run as a
 CUDA graph: the single step, the K-step scan at every horizon and the
 speculative round at every depth, greedy and sampled; the admission at
@@ -160,7 +160,30 @@ on failure:
    ``repro``'s 1.25, where a prefill drops pairs: the ring's K = 4
    streams equal K = 1 (decode never drops), the paged backend's
    swap-preempted streams equal uncontended ones (monolithic prefill),
-   and the pairs the admissions dropped are printed.
+   and the pairs the admissions dropped are printed;
+17. the last three assigned architectures at full width and depth, one
+   at a time (weights made on the card): (a) xlstm-125m (mLSTM and sLSTM
+   blocks, no kernel of the five on its path: ``repro``'s are jnp): 4
+   layers in f32 on the card against the CPU (``MODAL_F32_TOL``) and a
+   right-padded prefill with ``lengths`` against the unpadded state; 12
+   layers in bf16, prefill then decode against a full forward; the
+   graphed ring engine (8 slots, max_seq_len ``XLSTM_SEQ``, K = 4) on 12
+   mixed-length requests with phase 9's checks and A/B (no launch, K = 4
+   == K = 1, teacher-forced greedy, graphed == eager or parted at a
+   near-tie, nothing captured in traffic), its decode ms per step against
+   the weights' plus the state's read and write, admission ms by bucket;
+   the graphed ``DrainBatchEngine`` on its greedy requests against the
+   continuous streams (equal, or parted first at a near-tie); (b)
+   internvl2-2b: 4 layers f32 with ``image_embeds`` against the CPU; 24
+   layers bf16: a prefill of the 256-token image prefix and 100 text
+   tokens, 32 greedy decode steps, their logits against a teacher-forced
+   forward, flash once a layer, the ring kernel once a layer a step,
+   decode ms eager and as a CUDA graph against the weights' read; then
+   ``CascadeEngine.query(tokens, extra={"image_embeds": ...})`` over its
+   4-layer edge variant, compact and lockstep: equal routes, the gate's
+   counts equal the host's, one gate launch a query batch; (c)
+   musicgen-medium: 4 layers f32 on a (1, 40, 4) grid against the CPU;
+   48 layers bf16 on a (2, 64, 4) grid through (b)'s decode checks.
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
@@ -179,7 +202,10 @@ at deepseek-v3-671b's MLA prefill (S = 512, 128 heads of 192 dims, G =
 1), each held row by row and timed against SDPA with its bound and split
 count; the ring and the paged kernel at the speculative
 verify chunk (T = 5 tokens a slot, B = 8) at smollm-135m's, qwen3-4b's and
-glm4-9b's head layouts, likewise; and the keyed sampler (threefry2x32 in
+glm4-9b's head layouts, likewise; the ring decode and flash at phase 17's
+layouts (musicgen-medium's G = 1 at hd 64, internvl2-2b's G = 2 at hd 128
+over its 256-token prefix) and ``cascade_gate`` at internvl2-2b's
+92,672-entry vocab in bf16, likewise; and the keyed sampler (threefry2x32 in
 plain torch): its bits and uniforms on the card at (8, 49152) and (8,
 152064) equal the CPU's bit for bit, with its time per call.
 
@@ -1238,6 +1264,71 @@ def check_attention_hd128(torch, timer, dev):
     return out
 
 
+# phase 17's new attention layouts: model -> (KV heads, G, hd, the flash
+# prefill's S): musicgen-medium's MHA at hd 64 (G = 1: one query row a KV
+# head in the decode kernels' tensor-core tile), internvl2-2b's G = 2 at hd
+# 128 behind its 256-token image prefix
+MODAL_ATTN = {"musicgen-medium": (24, 1, 64, 512),
+              "internvl2-2b": (8, 2, 128, 256 + 128)}
+# the cascade gate at internvl2-2b's padded vocab, the query batch's rows
+MODAL_GATE = (16, 92672)
+
+
+def check_modal_shapes(torch, timer, dev):
+    """Phase 17's kernel shapes: the ring decode (B = 8, T = 1, a 1024-wide
+    ring partly filled, wrapped and empty) and flash (one S-token
+    prefill) at each ``MODAL_ATTN`` layout, held row by row against their
+    plain versions and timed against SDPA; then ``cascade_gate`` at V =
+    92,672 in bf16 (one query batch of 16 rows, and one row), held against
+    its plain version, timed against logsumexp, with its bound."""
+    from repro_torch.kernels.cascade_gate import (cascade_gate,
+                                                  cascade_gate_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for model, (kv, g, hd, s) in MODAL_ATTN.items():
+        args = dict(kv=kv, g=g, hd=hd, window=None)
+        out[model] = {
+            "decode_attention": _ring_case(
+                torch, timer, dev, gen, model, w=1024,
+                totals=[300, 512, 2524, 0, 17, 900, 1023, 1500], **args),
+            "flash_attention": _flash_case(torch, timer, dev, gen, model, s=s,
+                                           n_in=LAYERS, **args)}
+        torch.cuda.empty_cache()
+    t_rows, v = MODAL_GATE
+    for t in (t_rows, 1):
+        xs = (torch.randn((LAYERS, t, v), generator=gen, device=dev) * 3).to(
+            torch.bfloat16)
+        conf0 = cascade_gate_plain(xs[0], 1.0, 0.0)[0].cpu().numpy()
+        hi, lo = _tertiles(conf0) if t >= 3 else (2.0, 0.0)
+        conf, routes, counts = cascade_gate(xs[0], hi=hi, lo=lo)
+        pconf, proutes, pcounts = cascade_gate_plain(xs[0], hi, lo)
+        rel = ((conf - pconf).abs() / pconf).max().item()
+        err = (conf - pconf).abs().max().item()
+        if not rel < GATE_TOL["bfloat16"] or not torch.equal(
+                routes, proutes) or not torch.equal(counts, pcounts):
+            raise AssertionError(f"cascade_gate T={t} V={v} bf16 disagrees")
+        ms = timer(lambda i: cascade_gate(xs[i % LAYERS], hi=0.5, lo=0.1))
+        plain_ms = timer(lambda i: cascade_gate_plain(xs[i % LAYERS], 0.5,
+                                                      0.1))
+        lib_ms = timer(lambda i: torch.logsumexp(xs[i % LAYERS], dim=-1))
+        nbytes = _nbytes(xs[0]) + t * 8 + 12
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * t * v / F32_FLOPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        out[f"cascade_gate T={t} V={v}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound, bound_by=by)
+        print(f"  cascade_gate T={t} V={v} bfloat16: max|kernel - plain| "
+              f"{err:.3e} ({rel:.3e} relative, tol {GATE_TOL['bfloat16']}); "
+              f"counts {counts.tolist()}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, logsumexp {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; {nbytes} B)")
+        del xs
+    return out
+
+
 # the speculative verify chunk (k = 4: T = 5 tokens a slot) at the layouts
 # phase 13 serves and glm4-9b's G = 16: model -> (KV heads, G, hd)
 VERIFY = {"smollm-135m": (3, 3, 64), "qwen3-4b": (8, 4, 128),
@@ -2227,14 +2318,15 @@ def _weight_bytes(tree) -> int:
 
 
 def _state_err(caches, ref, row, lm):
-    """Max over RG-LRU blocks of |state - ref| / max(1, max|ref|) for one
-    batch row of ``caches`` against row 0 of ``ref``."""
+    """Max over recurrent blocks (RG-LRU, mLSTM, sLSTM) and their state
+    leaves of |state - ref| / max(1, max|ref|) for one batch row of
+    ``caches`` against row 0 of ``ref``."""
     worst = 0.0
     for st, c, r in zip(lm.cfg.stages, caches, ref):
         for bi, bdef in enumerate(st.blocks):
-            if bdef.mixer != "rglru":
+            if bdef.mixer not in ("rglru", "mlstm", "slstm"):
                 continue
-            for key in ("h", "conv"):
+            for key in c[bi]:
                 x = c[bi][key][:, row].float()
                 y = r[bi][key][:, 0].float()
                 scale = max(1.0, y.abs().max().item())
@@ -4582,6 +4674,471 @@ def check_moe(torch, dev, seed, smi):
     return out, launches
 
 
+# -- phase 17: xLSTM and the modality frontends ----------------------------------
+
+# logits of two f32 paths (the card's kernels and GEMMs vs the CPU's plain
+# ones) at 4 layers: summation order only
+MODAL_F32_TOL = 1e-4
+# the xLSTM leg's engines: max_seq_len bounds the prompt buckets (16-256),
+# and a bucket of S tokens captures S sequential sLSTM steps a layer
+XLSTM_SEQ = 256
+XLSTM_MAX_NEW = 32
+MODAL_DECODE_STEPS = 32
+VISION_TEXT = 100              # text tokens behind internvl2's 256-token prefix
+AUDIO_PROMPT = 64              # musicgen's prompt frames (B, S, 4)
+VISION_QUERIES = 16            # CascadeEngine.query's batch
+_RECURRENT = ("rglru", "mlstm", "slstm")
+
+
+def _modal_cfg(name, dtype, layers=None):
+    """``name``'s config in ``dtype``, its stage repeats cut so that the
+    model has ``layers`` layers (None: full depth), widths unchanged."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(name), param_dtype=dtype)
+    if layers is None:
+        return cfg
+    st = cfg.stages[0]
+    return _cut_stages(cfg, (layers // len(st.blocks),))
+
+
+def _decode_read_bytes(lm, params) -> int:
+    """Bytes of the weights one decode step reads: all but an untied
+    embedding table (a step gathers B rows of it) and the vision projector
+    (only the prefill reads it)."""
+    skip = {"vision_proj"} | ({"embed"} if not lm.cfg.tie_embeddings
+                               else set())
+    return _weight_bytes({k: v for k, v in params.items() if k not in skip})
+
+
+def _state_bytes(caches, lm) -> int:
+    """Bytes of the recurrent state in ``caches`` (every slot)."""
+    n = 0
+    for st, c in zip(lm.cfg.stages, caches):
+        for bi, bdef in enumerate(st.blocks):
+            if bdef.mixer in _RECURRENT:
+                n += sum(t.numel() * t.element_size()
+                         for t in c[bi].values())
+    return n
+
+
+def _f32_vs_cpu(torch, dev, seed, name, batch):
+    """``name`` cut to 4 layers at full width in f32: the card's forward
+    (kernels, GEMMs in f32, TF32 off) against the CPU's plain forward on
+    the same weights and ``batch`` (numpy arrays): max |diff| of the
+    logits."""
+    from repro_torch.models.model import LM
+
+    cfg = _modal_cfg(name, "float32", layers=4)
+    cpu = LM(cfg, device="cpu")
+    cpu_params = cpu.init(seed)
+    ref, _ = cpu.forward(cpu_params, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()})
+    lm = LM(cfg, device=dev)
+    got, _ = lm.forward(_to_device(cpu_params, dev),
+                        {k: torch.from_numpy(v).to(dev)
+                         for k, v in batch.items()})
+    err = (got.cpu() - ref).abs().max().item()
+    print(f"  {name} 4 layers f32: card vs CPU plain forward max|diff| = "
+          f"{err:.3e} (tol {MODAL_F32_TOL}; max|logit| "
+          f"{ref.abs().max().item():.2f})")
+    if not err < MODAL_F32_TOL:
+        raise AssertionError(f"{name}: card forward != CPU forward (f32)")
+    return lm, _to_device(cpu_params, dev), err
+
+
+def _xlstm_padded_state(torch, dev, lm, params, tokens):
+    """Two prompts right-padded to one 64-token bucket, with ``lengths``,
+    against their unpadded prefills: the recurrent state and the logits
+    at the last real token (the engines' admission path)."""
+    lengths = (3, 37)
+    padded = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+    for row, length in enumerate(lengths):
+        padded[row, :length] = tokens[0, :length]
+    lp, caches = lm.prefill(params, {"tokens": padded}, cache_width=64,
+                            lengths=torch.tensor(lengths, dtype=torch.int32,
+                                                 device=dev))
+    worst = logit_err = 0.0
+    for row, length in enumerate(lengths):
+        lu, ref = lm.prefill(params, {"tokens": tokens[:, :length]},
+                             cache_width=64)
+        worst = max(worst, _state_err(caches, ref, row, lm))
+        logit_err = max(logit_err, (lp[row, length - 1] - lu[0, -1])
+                        .abs().max().item())
+    print(f"  padded prefill with lengths {lengths} vs unpadded: recurrent "
+          f"state {worst:.3e} of max(1, |state|) (tol {STATE_TOL}), logits "
+          f"at the last real token {logit_err:.3e} (tol {F32_LOGIT_TOL})")
+    if not (worst < STATE_TOL and logit_err < F32_LOGIT_TOL):
+        raise AssertionError("xlstm: padded prefill state != unpadded")
+    return worst, logit_err
+
+
+def _xlstm_trace(seed, vocab):
+    """12 prompts of 2-224 tokens, none a bucket size but the 2, the
+    sixth sampled at 0.8."""
+    rng = np.random.default_rng(seed + 17)
+    lengths = [2]
+    while len(lengths) < 12:
+        n = int(rng.integers(3, XLSTM_SEQ - XLSTM_MAX_NEW + 1))
+        if n & (n - 1):
+            lengths.append(n)
+    lengths = [lengths[i] for i in rng.permutation(12)]
+    return [(rng.integers(0, vocab, n).astype(np.int32),
+             0.8 if i == 5 else 0.0) for i, n in enumerate(lengths)]
+
+
+def _xlstm_engines(torch, seed, smi, lm, params):
+    """xlstm-125m on the ring ``ServingEngine`` (8 slots, K = 4) and on
+    ``DrainBatchEngine``: an eager leg (graphs off), the graphed leg (no
+    capture in traffic; no kernel of the five launched, the counted
+    programs; greedy tokens against a teacher-forced forward), a graphed
+    K = 1 engine (equal streams) and a graphed drain engine (greedy
+    streams equal, or part first at a near-tie)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import DrainBatchEngine, ServingEngine
+
+    reqs = _xlstm_trace(seed, lm.cfg.vocab_size)
+    kw = dict(batch_slots=8, max_seq_len=XLSTM_SEQ, seed=seed)
+    state = _state_bytes(lm.init_cache(8, XLSTM_SEQ), lm)
+    # a step reads the weights and reads and writes the recurrent state
+    bound = (_decode_read_bytes(lm, params) + 2 * state) \
+        / HBM_BYTES_PER_S * 1e3
+    eager = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    eager._use_graphs = False
+    eager.warm_compile()
+    outs = {}
+    outs["eager"], wall = _serve(eager, reqs, XLSTM_MAX_NEW)
+    legs = {"eager": _leg(eager, outs["eager"], wall, bound)}
+    eng = ServingEngine(lm, params, max_decode_steps=4, **kw)
+    warmed = _warm(eng)
+    n = _count_programs(eng)
+    torch.cuda.synchronize()
+    reset_launches()
+    out, wall = _serve(eng, reqs, XLSTM_MAX_NEW)
+    launches = dict(LAUNCHES)
+    _no_capture(eng, warmed, "xlstm")
+    if any(launches.values()) or n["steps"] != eng.decode_steps \
+            or n["admits"] != eng.admissions:
+        raise AssertionError(f"xlstm: launches {launches} (the path has no "
+                             f"kernel of the five) or program counts {n}")
+    print(f"  launches on the xlstm path: {launches} (none expected: "
+          f"repro's mLSTM and sLSTM are jnp); programs: {n['admits']} "
+          f"admissions, {n['steps']} decode steps in runs {n['runs']}")
+    one = ServingEngine(lm, params, max_decode_steps=1, **kw)
+    _warm(one)
+    ref, _ = _serve(one, reqs, XLSTM_MAX_NEW)
+    for a, b in zip(out, ref):
+        if not np.array_equal(a.output, b.output):
+            raise AssertionError(f"xlstm K=4 stream != K=1 stream (request "
+                                 f"{a.request_id})")
+    print(f"  K=4 streams equal K=1 streams token for token, both graphed "
+          f"(prompt lengths {[len(p) for p, _ in reqs]})")
+    checked, agree = _greedy_vs_forward(torch, lm, params, out, reqs,
+                                        BF16_LOGIT_TOL)
+    if checked == 0 or agree != checked:
+        raise AssertionError("xlstm engine tokens disagree with the model")
+    legs["graphed"] = _leg(eng, out, wall, bound)
+    outs["graphed"] = out
+    ab = _ab(torch, "xlstm", smi, lm, params, seed, reqs, legs, outs,
+             BF16_LOGIT_TOL)
+    admission_ms = time_admissions(torch, "xlstm", smi, eng)
+
+    drain = DrainBatchEngine(lm, params, **kw)
+    dwarm = _warm(drain)
+    greedy = [i for i, (_, t) in enumerate(reqs) if t == 0]
+    dout, dwall = _serve(drain, [reqs[i] for i in greedy], XLSTM_MAX_NEW)
+    _no_capture(drain, dwarm, "xlstm drain")
+    d_equal, d_parted = _parted_at_near_tie(
+        torch, lm, params, seed, [reqs[i] for i in greedy], dout,
+        [out[i] for i in greedy], BF16_LOGIT_TOL)
+    if d_equal == 0:
+        raise AssertionError("xlstm: no drain stream equals the continuous "
+                             "one")
+    dgen = sum(len(r.output) for r in dout)
+    print(f"  drain [{smi}]: {len(dout)} greedy requests, {dgen} tokens in "
+          f"{dwall:.3f} s = {dgen / dwall:.1f} tokens/s; streams: {d_equal} "
+          f"equal the continuous engine's, {d_parted} part first at a "
+          f"near-tie; warm_compile {drain.warm_compile_s:.2f} s, "
+          f"{drain.graphs()} graphs, pool "
+          f"{drain.graph_pool_bytes() / 1e6:.1f} MB")
+    gen = sum(len(r.output) for r in out)
+    return dict(
+        requests=len(out), generated_tokens=gen, wall_s=wall,
+        tokens_per_s=gen / wall, decode_bound_ms=bound, state_bytes=state,
+        decode_ms_per_step=eng.decode_s / eng.decode_steps * 1e3,
+        ttft_ms_p50=statistics.median(r.ttft_s * 1e3 for r in out),
+        warm_compile_s=eng.warm_compile_s, graphs=eng.graphs(),
+        pool_bytes=eng.graph_pool_bytes(), greedy_checked=checked,
+        ab=ab, admission_ms=admission_ms, launches=launches,
+        prompt_lengths=[len(p) for p, _ in reqs],
+        drain=dict(tokens_per_s=dgen / dwall, equal=d_equal,
+                   parted=d_parted, warm_compile_s=drain.warm_compile_s,
+                   graphs=drain.graphs(),
+                   pool_bytes=drain.graph_pool_bytes()))
+
+
+def _check_xlstm(torch, dev, seed, smi):
+    """17(a): xlstm-125m. 4 layers f32 against the CPU and a padded
+    prefill's state; 12 layers bf16, prefill + decode against the forward;
+    then its engines (``_xlstm_engines``)."""
+    from repro_torch.models.model import LM
+
+    name = "xlstm-125m"
+    tokens = np.random.default_rng(seed + 18).integers(
+        0, _modal_cfg(name, "float32").vocab_size, (1, 40)).astype(np.int32)
+    f32_lm, f32_params, err = _f32_vs_cpu(torch, dev, seed, name,
+                                          {"tokens": tokens})
+    state_err, pad_logit_err = _xlstm_padded_state(
+        torch, dev, f32_lm, f32_params, torch.from_numpy(tokens).to(dev))
+    del f32_params
+    lm = LM(_modal_cfg(name, "bfloat16"), device=dev)
+    params = lm.init(seed, on_device=True)
+    tok = torch.from_numpy(np.random.default_rng(seed + 19).integers(
+        0, lm.cfg.vocab_size, (2, 40)).astype(np.int32)).to(dev)
+    perr, scale, _ = _prefill_vs_forward(lm, params, tok, 24)
+    print(f"  {name} {lm.cfg.num_layers} layers bf16: prefill+decode vs "
+          f"forward max|diff| = {perr:.3e} (tol {BF16_LOGIT_TOL}; max|logit| "
+          f"{scale:.2f}); {_tree_numel(params) / 1e6:.1f} M parameters")
+    if not (np.isfinite(scale) and perr < BF16_LOGIT_TOL):
+        raise AssertionError("xlstm prefill+decode != forward (bf16)")
+    stats = _xlstm_engines(torch, seed, smi, lm, params)
+    print(f"  xlstm engine [{smi}]: {stats['tokens_per_s']:.1f} tokens/s; "
+          f"decode {stats['decode_ms_per_step']:.3f} ms per step of 8 slots "
+          f"against the {stats['decode_bound_ms']:.4f} ms bound (weights + "
+          f"state {stats['state_bytes'] / 1e6:.1f} MB read and written); "
+          f"TTFT p50 {stats['ttft_ms_p50']:.1f} ms; warm_compile "
+          f"{stats['warm_compile_s']:.2f} s, {stats['graphs']} graphs, pool "
+          f"{stats['pool_bytes'] / 1e6:.1f} MB")
+    stats.update(f32_vs_cpu_err=err, padded_state_err=state_err,
+                 padded_logit_err=pad_logit_err, prefill_decode_err=perr)
+    return stats
+
+
+def _modal_decode(torch, timer, smi, name, lm, params, batch, text_len):
+    """Prefill ``batch`` at full depth, ``MODAL_DECODE_STEPS`` greedy
+    decode steps, then one teacher-forced forward over the batch plus the
+    generated tokens: the prefill's and the steps' logits equal the
+    forward's within BF16_LOGIT_TOL, and each generated token (each
+    codebook's, for audio) is the forward's argmax wherever its top-2
+    margin exceeds that. Flash runs once a layer in the prefill, the ring
+    kernel once a layer a step. Decode device ms a step, eager (CUDA
+    events on every step, the median: the device waits on the host's
+    launches) and as a CUDA graph of one step, against the weights'
+    read."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    b = batch["tokens"].shape[0]
+    prefix = lm.cfg.frontend.num_prefix_tokens if "image_embeds" in batch \
+        else 0
+    torch.cuda.synchronize()
+    reset_launches()
+    logits, caches = lm.prefill(params, batch, cache_width=prefix
+                                + text_len + MODAL_DECODE_STEPS,
+                                last_only=True)
+    gen, times, seen = [], [], [logits[:, -1].float()]
+    nxt = seen[0].argmax(-1)
+    for t in range(MODAL_DECODE_STEPS):
+        gen.append(nxt)
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        logits, caches = lm.decode_step(params, caches, nxt[:, None].to(
+            torch.int32), prefix + text_len + t)
+        e.record()
+        times.append((s, e))
+        seen.append(logits[:, -1].float())
+        nxt = seen[-1].argmax(-1)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    layers = lm.cfg.num_layers
+    want = {"flash_attention": layers,
+            "decode_attention": layers * MODAL_DECODE_STEPS,
+            "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0}
+    print(f"  {name}: launches over the prefill and {MODAL_DECODE_STEPS} "
+          f"decode steps {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{name}: launches do not match the path")
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in times)
+    gen = torch.stack(gen, 1)                        # (B, T) or (B, T, C)
+    full = dict(batch, tokens=torch.cat([batch["tokens"], gen[:, :-1].to(
+        torch.int32)], dim=1))
+    fwd, _ = lm.forward(params, full)
+    tail = fwd[:, prefix + text_len - 1:].float()
+    del fwd
+    # the prefill's logits and each step's but the last (whose input the
+    # forward does not see) against the forward at the same positions
+    err = (torch.stack(seen[:-1], 1) - tail).abs().max().item()
+    top2 = torch.topk(tail, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > BF16_LOGIT_TOL
+    bad = sure & (tail.argmax(-1) != gen)
+    print(f"  {name}: prefill + {MODAL_DECODE_STEPS} decode steps vs the "
+          f"teacher-forced forward: logits max|diff| {err:.3e} (tol "
+          f"{BF16_LOGIT_TOL}; max|logit| {tail.abs().max().item():.2f}); "
+          f"greedy tokens: {int(sure.sum())} of {sure.numel()} held (top-2 "
+          f"margin > {BF16_LOGIT_TOL}), {int(bad.sum())} disagree")
+    if not err < BF16_LOGIT_TOL or bool(bad.any()) or not bool(
+            torch.isfinite(tail).all()):
+        raise AssertionError(f"{name}: decode != teacher-forced forward")
+    del tail
+    # one more step as a CUDA graph (its cache writes land at one
+    # position again and again: a timing, after the checks)
+    tok = nxt[:, None].to(torch.int32)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        lm.decode_step(params, caches, tok, prefix + text_len
+                       + MODAL_DECODE_STEPS)
+    graph_ms = timer(lambda i: graph.replay(), n=10)
+    del graph
+    bound = _decode_read_bytes(lm, params) / HBM_BYTES_PER_S * 1e3
+    print(f"  {name} decode [{smi}]: {graph_ms:.3f} ms a step (B={b}) as a "
+          f"CUDA graph, {step_ms:.3f} eager, against the {bound:.3f} ms "
+          f"weight-read bound ({_decode_read_bytes(lm, params) / 1e9:.2f} "
+          f"GB)")
+    return dict(decode_ms_per_step=graph_ms, eager_decode_ms_per_step=step_ms,
+                decode_bound_ms=bound, decode_vs_forward_err=err,
+                held_tokens=int(sure.sum()), launches=launches)
+
+
+def _check_vision(torch, timer, dev, seed, smi):
+    """17(b): internvl2-2b. 4 layers f32 with ``image_embeds`` against the
+    CPU; 24 layers bf16 through ``_modal_decode``; then
+    ``CascadeEngine.query`` with the image over its 4-layer edge variant,
+    compact and lockstep."""
+    from repro_torch.cascade import CascadeLM, edge_variant
+    from repro_torch.cascade.gate import (ESCALATE, confidence_from_logits,
+                                          make_thresholds)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.frontend import synth_image_embeds
+    from repro_torch.models.model import LM
+    from repro_torch.serving import CascadeEngine
+
+    name = "internvl2-2b"
+    base = _modal_cfg(name, "float32")
+    rng = np.random.default_rng(seed + 20)
+    img = rng.standard_normal((1, base.frontend.num_prefix_tokens,
+                               base.frontend.embed_dim)).astype(np.float32)
+    img /= np.linalg.norm(img, axis=-1, keepdims=True)
+    batch = {"tokens": rng.integers(0, base.vocab_size, (1, 40))
+             .astype(np.int32), "image_embeds": img}
+    _, _, err = _f32_vs_cpu(torch, dev, seed, name, batch)
+    torch.cuda.empty_cache()
+
+    lm = LM(_modal_cfg(name, "bfloat16"), device=dev)
+    params = lm.init(seed, on_device=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    vb = {"tokens": torch.randint(0, lm.cfg.vocab_size, (2, VISION_TEXT),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32),
+          "image_embeds": synth_image_embeds(gen, lm.cfg, 2)}
+    stats = _modal_decode(torch, timer, smi, name, lm, params, vb,
+                          VISION_TEXT)
+    stats["f32_vs_cpu_err"] = err
+
+    edge = LM(edge_variant(lm.cfg, layers=4), device=dev)
+    ep = edge.init(seed + 1, on_device=True)
+    qb = {"tokens": torch.randint(0, lm.cfg.vocab_size,
+                                  (VISION_QUERIES, VISION_TEXT),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32),
+          "image_embeds": synth_image_embeds(gen, lm.cfg, VISION_QUERIES)}
+    el, _ = edge.forward(ep, qb, last_only=True)
+    hi, lo = _tertiles(confidence_from_logits(el[:, 0]).cpu().numpy())
+    cas = CascadeLM(edge, lm, thresholds=make_thresholds(hi, lo),
+                    capacity_frac=0.5)
+    tokens, extra = qb["tokens"].cpu().numpy(), {
+        "image_embeds": qb["image_embeds"]}
+    runs, query_launches = {}, collections.Counter()
+    for how, compact in (("compact", True), ("lockstep", False)):
+        eng = CascadeEngine(cas, ep, params, compact=compact)
+        eng.query(tokens, extra=extra)                     # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        out = eng.query(tokens, extra=extra)
+        got = dict(LAUNCHES)
+        want = {"cascade_gate": 1, "flash_attention": edge.cfg.num_layers
+                + lm.cfg.num_layers, "decode_attention": 0,
+                "paged_decode_attention": 0, "rglru_scan": 0}
+        if got != want:
+            raise AssertionError(f"vision query {how}: launches {got} != "
+                                 f"{want}")
+        query_launches.update(got)
+        routes = out["routes"]
+        host = [int((routes == r).sum()) for r in range(3)]
+        kern = [int(out[k]) for k in ("accept", "drop", "escalate")]
+        if host != kern or min(host) == 0:
+            raise AssertionError(f"vision query {how}: kernel counts {kern},"
+                                 f" host counts {host}")
+        runs[how] = out
+        print(f"  {name} CascadeEngine.query ({how}, image_embeds in extra):"
+              f" {VISION_QUERIES} queries x ({lm.cfg.frontend.num_prefix_tokens}"
+              f" + {VISION_TEXT}) tokens in "
+              f"{out['latency_s'] * 1e3:.1f} ms [{smi}]; accept/drop/"
+              f"escalate {kern}; launches {got}")
+    a, c = runs["compact"], runs["lockstep"]
+    if not np.array_equal(a["routes"], c["routes"]) or \
+            int((a["routes"] == ESCALATE).sum()) > cas.capacity(
+                VISION_QUERIES):
+        raise AssertionError("vision query: compact routes != lockstep")
+    print(f"  compact routes equal lockstep routes on all {VISION_QUERIES} "
+          f"queries; thresholds hi {hi:.6g}, lo {lo:.6g}")
+    stats.update(query_compact_ms=a["latency_s"] * 1e3,
+                 query_lockstep_ms=c["latency_s"] * 1e3,
+                 routes=[int(x) for x in np.bincount(a["routes"],
+                                                     minlength=3)])
+    return stats, query_launches
+
+
+def _check_audio(torch, timer, dev, seed, smi):
+    """17(c): musicgen-medium. 4 layers f32 on a (1, 40, 4) grid against
+    the CPU; 48 layers bf16 on a (2, AUDIO_PROMPT, 4) grid through
+    ``_modal_decode``."""
+    from repro_torch.models.frontend import synth_audio_tokens
+    from repro_torch.models.model import LM
+
+    name = "musicgen-medium"
+    base = _modal_cfg(name, "float32")
+    tokens = np.random.default_rng(seed + 22).integers(
+        0, base.vocab_size, (1, 40, 4)).astype(np.int32)
+    _, _, err = _f32_vs_cpu(torch, dev, seed, name, {"tokens": tokens})
+    torch.cuda.empty_cache()
+    lm = LM(_modal_cfg(name, "bfloat16"), device=dev)
+    params = lm.init(seed, on_device=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    batch = {"tokens": synth_audio_tokens(gen, lm.cfg, 2, AUDIO_PROMPT)}
+    stats = _modal_decode(torch, timer, smi, name, lm, params, batch,
+                          AUDIO_PROMPT)
+    stats["f32_vs_cpu_err"] = err
+    return stats
+
+
+def check_modalities(torch, timer, dev, seed, smi):
+    """Phase 17: the last three assigned architectures at full width and
+    depth: xlstm-125m (17(a)), internvl2-2b (17(b)), musicgen-medium
+    (17(c)). Returns (stats, launches of the kernels on their main
+    paths)."""
+    launches = collections.Counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["xlstm-125m"] = _check_xlstm(torch, dev, seed, smi)
+    out["xlstm-125m"]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vision, query_launches = _check_vision(torch, timer, dev, seed, smi)
+    vision["seconds"] = time.perf_counter() - t0
+    out["internvl2-2b"] = vision
+    launches.update(vision["launches"])
+    launches.update(query_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["musicgen-medium"] = _check_audio(torch, timer, dev, seed, smi)
+    out["musicgen-medium"]["seconds"] = time.perf_counter() - t0
+    launches.update(out["musicgen-medium"]["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, dict(launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4647,6 +5204,7 @@ def main() -> int:
     hd256_times = check_attention_hd256(torch, timer, dev)
     hd128_times = check_attention_hd128(torch, timer, dev)
     verify_times = check_verify_shapes(torch, timer, dev)
+    modal_times = check_modal_shapes(torch, timer, dev)
     sampler_times = check_sampler(torch, timer, dev)
     rates["sweep"] = sweep_attention(torch, timer, dev)
     phase("[3] model: smollm-135m, 30 layers, full width")
@@ -4723,6 +5281,17 @@ def main() -> int:
     moe_stats, moe_launches = check_moe(torch, dev, args.seed, smi)
     for name, n in moe_launches.items():
         launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("[17] xLSTM and the modality frontends at full width and depth: "
+          "xlstm-125m (4 layers f32 vs the CPU, 12 bf16, graphed ring and "
+          "drain engines), internvl2-2b (24 layers with its 256-token image "
+          "prefix, CascadeEngine.query with the image) and musicgen-medium "
+          "(48 layers on a 4-codebook grid)")
+    modal_stats, modal_launches = check_modalities(torch, timer, dev,
+                                                   args.seed, smi)
+    for name, n in modal_launches.items():
+        launches[name] += n
     if args.profile:
         from repro_torch.configs import get_config
         from repro_torch.models.model import LM
@@ -4780,6 +5349,8 @@ def main() -> int:
                        "attention_hd256": hd256_times,
                        "attention_hd128": hd128_times,
                        "attention_verify": verify_times,
+                       "modal_shapes": modal_times,
+                       "modalities": modal_stats,
                        "sampler": sampler_times,
                        "speculative": spec_stats,
                        "durability": durability, "ace_app": ace_stats,

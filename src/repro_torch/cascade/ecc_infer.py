@@ -8,6 +8,10 @@ emits a next-token distribution; its last-position logits go through the
 confidence falls inside the BP band are *escalated*: compacted to a
 fixed-capacity slice and prefilled by the *cloud* model, whose prediction
 overrides the edge one. Both forwards unembed only the last position.
+A batch may carry more than ``tokens``: a vision model's
+``image_embeds``. Both models read the whole batch, and the cloud's slice
+gathers every such input with the tokens, as ``repro``'s does; the WAN
+count stays ``repro``'s (token ids up, one int32 down).
 """
 from __future__ import annotations
 
@@ -98,15 +102,18 @@ class CascadeLM:
                 "escalate": counts[ESCALATE]}
 
     def serve_step(self, edge_params, cloud_params, batch: dict):
-        """batch['tokens']: (B, S) one-shot queries. Returns a dict of final
-        predictions, per-request route codes and counts (from the kernel),
-        and boundary-traffic bytes, all as device tensors."""
+        """batch['tokens']: (B, S) one-shot queries, and any other input
+        the models take (``image_embeds``; ``labels`` is not one). Returns
+        a dict of final predictions, per-request route codes and counts
+        (from the kernel), and boundary-traffic bytes, all as device
+        tensors."""
         tokens = batch["tokens"]
-        b, s = tokens.shape
+        b, s = tokens.shape[:2]
         cap = self.capacity(b)
         edge_last, conf, routes, counts = self._edge_gate(edge_params, batch)
         routing = compact_escalations(routes == ESCALATE, cap)
-        cloud_batch = {"tokens": gather_compacted(tokens, routing, cap)}
+        cloud_batch = {k: gather_compacted(v, routing, cap)
+                       for k, v in batch.items() if k != "labels"}
         cloud_logits, _ = self.cloud.forward(cloud_params, cloud_batch,
                                              last_only=True)
         final = scatter_back(edge_last, cloud_logits[:, 0], routing)
@@ -119,7 +126,7 @@ class CascadeLM:
         full batch; the gate only selects which logits win. Same accuracy,
         strictly more cloud compute and boundary bytes."""
         tokens = batch["tokens"]
-        b, s = tokens.shape
+        b, s = tokens.shape[:2]
         edge_last, conf, routes, counts = self._edge_gate(edge_params, batch)
         cloud_logits, _ = self.cloud.forward(cloud_params, batch,
                                              last_only=True)

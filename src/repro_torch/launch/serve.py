@@ -7,6 +7,7 @@ or the ACE edge/cloud cascade with --cascade, on the GPU.
     PYTHONPATH=src python -m repro_torch.launch.serve --rate 40 --policy shed
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
 
 The port of ``repro.launch.serve``, with its flags but two: ``--mesh``
 other than 1 raises ``NotImplementedError`` (meshes are a later slice of
@@ -14,7 +15,11 @@ the port) and ``--compile-cache`` is gone (the port's programs are CUDA
 graphs, which live and die with their process). ``--reduced`` serves the
 architecture's reduced config, as ``repro``'s default does, and
 ``--no-reduced`` its full width and depth (``repro``'s flag cannot be
-turned off). ``--device cpu`` runs the plain versions. Weights are random,
+turned off). The engines serve text-token streams: an audio or vision
+architecture (``musicgen-medium``, ``internvl2-2b``) exits with the
+engine's ``NotImplementedError`` message before any weight is made (serve
+those through ``LM`` or ``CascadeEngine.query``, as in ``repro``).
+``--device cpu`` runs the plain versions. Weights are random,
 from seeds 0 (the model, or the cascade's cloud) and 1 (the edge); the
 engine is warmed (``warm_compile``) before the first arrival.
 
@@ -54,6 +59,7 @@ from repro_torch.models.model import LM
 from repro_torch.serving import (CascadeServingEngine, EngineWedgedError,
                                  FaultPlan, RequestJournal, ServingEngine,
                                  ServingGateway, recover_engine)
+from repro_torch.serving.engine import check_text_model
 
 
 def _build_engine(cfg, args, fault_plan=None):
@@ -63,6 +69,7 @@ def _build_engine(cfg, args, fault_plan=None):
     dev = resolve_device(args.device)
     if args.cascade:
         cloud = LM(cfg, device=dev)
+        check_text_model(cloud)
         edge = LM(edge_variant(cfg, layers=1), device=dev)
         cascade = CascadeLM(edge, cloud,
                             thresholds=make_thresholds(hi=0.01, lo=0.001))
@@ -70,6 +77,7 @@ def _build_engine(cfg, args, fault_plan=None):
                                     batch_slots=4, max_seq_len=96,
                                     fault_plan=fault_plan)
     lm = LM(cfg, device=dev)
+    check_text_model(lm)
     return ServingEngine(lm, lm.init(0), batch_slots=4, max_seq_len=96,
                          fault_plan=fault_plan)
 
@@ -143,7 +151,10 @@ def serve(args) -> None:
                      step_timeout_s=args.step_timeout,
                      hang_grace=args.hang_grace)
         print(f"supervised: state in {state_dir}")
-    eng = _build_engine(cfg, args, fault_plan=_demo_fault_plan(args))
+    try:
+        eng = _build_engine(cfg, args, fault_plan=_demo_fault_plan(args))
+    except NotImplementedError as e:
+        raise SystemExit(f"serve --arch {args.arch}: {e}")
     eng.warm_compile()
     gw = ServingGateway(eng, max_queue=args.max_queue, policy=args.policy,
                         **gw_kw)

@@ -1,30 +1,35 @@
-"""The LM: stages of attention, MLA and RG-LRU blocks, full-sequence
-forward / prefill, chunked prefill and one-token decode over a KV-cache
-layout (ring or paged, from ``serving.kv_cache``).
+"""The LM: stages of attention, MLA, RG-LRU, mLSTM and sLSTM blocks,
+full-sequence forward / prefill, chunked prefill and one-token decode over
+a KV-cache layout (ring or paged, from ``serving.kv_cache``).
 
-Port of ``repro.models.model.LM`` for text-only models whose blocks mix
-with GQA attention, DeepSeek's latent attention (MLA) or the RG-LRU
-recurrence and whose MLPs are SwiGLU, GeGLU or a mixture of SwiGLU
-experts: the dense configs (``smollm-135m`` among them), the hybrid
-``recurrentgemma-9b`` and the MoE models ``mixtral-8x22b`` and
-``deepseek-v3-671b`` (with its multi-token-prediction params, which only
-``repro``'s training loss reads). Parameters are the same nested dicts as
-``repro``'s, with per-stage leaves stacked on a leading layer axis, so
-``repro_torch.bridge`` maps one onto the other by name. ``repro``'s
-``lax.scan`` over stacked layers is a Python loop over the layer index
-here; caches keep the same stacked (L, B, ...) layout (K/V rings for
-attention, ``ckv``/``krope`` latent rings for MLA, ``h`` and ``conv``
-state for RG-LRU) and are updated in place.
+Port of ``repro.models.model.LM``, every assigned architecture: blocks
+that mix with GQA attention, DeepSeek's latent attention (MLA), the RG-LRU
+recurrence or xLSTM's mLSTM and sLSTM (which norm their own input and
+have no separate MLP), and MLPs that are SwiGLU, GeGLU or a mixture of
+SwiGLU experts; text tokens, or ``repro``'s two modality frontends: a
+vision prefix (stubbed ViT patch embeddings through a 2-layer projector,
+in front of the text) and audio (a (B, S, C) grid of EnCodec codebook
+tokens, their embeddings summed, one LM head per codebook). Parameters
+are the same nested dicts as ``repro``'s, with per-stage leaves stacked
+on a leading layer axis, so ``repro_torch.bridge`` maps one onto the other
+by name (deepseek-v3's multi-token-prediction params too, which only
+``repro``'s training loss reads). ``repro``'s ``lax.scan`` over stacked
+layers is a Python loop over the layer index here; caches keep the same
+stacked (L, B, ...) layout (K/V rings for attention, ``ckv``/``krope``
+latent rings for MLA, ``h`` and ``conv`` for RG-LRU, ``C``, ``n`` and
+``m`` for mLSTM, ``c``, ``n``, ``h`` and ``m`` for sLSTM) and are updated
+in place.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ATTN, GELU_MLP, MLA, MOE, RGLRU,
-                                      SWIGLU, BlockDef, ModelConfig)
+from repro_torch.configs.base import (ATTN, MLA, MLSTM, MOE, NONE, RGLRU,
+                                      SLSTM, SWIGLU, BlockDef, ModelConfig)
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
@@ -47,26 +52,22 @@ def _attn_width(window: Optional[int], cache_width: int) -> int:
     return min(cache_width, window) if window else cache_width
 
 
+# mixers that norm their own input (no ``norm1``)
+_SELF_NORMED = (MLSTM, SLSTM)
+
+
 class LM:
-    """A text-only language model of GQA-attention, MLA and RG-LRU blocks
-    with dense or MoE MLPs on one device (default "cuda").
-    ``capacity_factor`` is ``repro``'s MoE capacity factor (1.25 there);
-    E / k makes every MoE call dropless."""
+    """A language model of attention, MLA, RG-LRU, mLSTM and sLSTM blocks
+    with dense, MoE or no MLPs, over text, a vision prefix or audio
+    codebooks, on one device (default "cuda"). ``capacity_factor`` is
+    ``repro``'s MoE capacity factor (1.25 there); E / k makes every MoE
+    call dropless."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
                  capacity_factor: float = 1.25):
-        if cfg.frontend.kind != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves text-only models; the "
-                f"{cfg.frontend.kind} frontend is a later slice")
-        for stage in cfg.stages:
-            for bdef in stage.blocks:
-                if bdef.mixer not in (ATTN, MLA, RGLRU) \
-                        or bdef.mlp not in (SWIGLU, GELU_MLP, MOE):
-                    raise NotImplementedError(
-                        f"{cfg.name}: block ({bdef.mixer}, {bdef.mlp}) is a "
-                        "later slice; the port runs attention, MLA or "
-                        "RG-LRU mixers with SwiGLU, GeGLU or MoE MLPs")
+        if cfg.frontend.kind not in ("none", "vision", "audio"):
+            raise ValueError(f"{cfg.name}: unknown frontend "
+                             f"{cfg.frontend.kind!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.capacity_factor = capacity_factor
@@ -79,17 +80,26 @@ class LM:
     def param_spec(self) -> Params:
         """The parameter tree as (shape, dtype, init) leaves — the same
         names, shapes and stacking as ``repro``'s ``LM.init``. init is a
-        normal std (0 means zeros) or ``recurrent.LAMBDA_INIT``."""
+        normal std (0 means zeros), ``recurrent.LAMBDA_INIT`` or a
+        ``recurrent.Constant``. Audio has one embedding and one unembedding
+        table per codebook, (C, V, D)."""
         cfg, dt = self.cfg, self.dtype
         d, vocab = cfg.d_model, cfg.padded_vocab
-        spec: Params = {"embed": {"table": ((vocab, d), dt, 1.0)}}
+        fe = cfg.frontend
+        table = (vocab, d) if fe.kind != "audio" else (fe.num_codebooks,
+                                                       vocab, d)
+        spec: Params = {"embed": {"table": (table, dt, 1.0)}}
+        if fe.kind == "vision":
+            e = fe.embed_dim
+            spec["vision_proj"] = {"w1": ((e, d), dt, e ** -0.5),
+                                   "w2": ((d, d), dt, d ** -0.5)}
         spec["stages"] = [
             {f"b{i}": self._block_spec(bdef, (stage.repeat,))
              for i, bdef in enumerate(stage.blocks)}
             for stage in cfg.stages]
         spec["final_norm"] = {"scale": ((d,), torch.float32, 0.0)}
         if not cfg.tie_embeddings:
-            spec["unembed"] = {"table": ((vocab, d), dt, d ** -0.5)}
+            spec["unembed"] = {"table": (table, dt, d ** -0.5)}
         if cfg.mtp_depth > 0:
             # DeepSeek-V3's depth-1 prediction head: one unstacked block
             spec["mtp"] = {
@@ -111,7 +121,11 @@ class LM:
             return (lead + shape, dtype, std)
 
         if bdef.mixer == RGLRU:
-            mixer = rec.param_spec(cfg, lead[0], dt)
+            mixer = rec.rglru_param_spec(cfg, lead[0], dt)
+        elif bdef.mixer == MLSTM:
+            mixer = rec.mlstm_param_spec(cfg, lead[0], dt)
+        elif bdef.mixer == SLSTM:
+            mixer = rec.slstm_param_spec(cfg, lead[0], dt)
         elif bdef.mixer == MLA:
             m = cfg.mla
             qk = m.qk_nope_head_dim + m.qk_rope_head_dim
@@ -138,6 +152,12 @@ class LM:
             if cfg.use_qk_norm:
                 mixer["q_scale"] = leaf((hd,), f32, 0.0)
                 mixer["k_scale"] = leaf((hd,), f32, 0.0)
+        block: Params = {}
+        if bdef.mixer not in _SELF_NORMED:
+            block["norm1"] = {"scale": leaf((d,), f32, 0.0)}
+        block["mixer"] = mixer
+        if bdef.mlp == NONE:
+            return block
         if bdef.mlp == MOE:
             m = cfg.moe
             e, fe = m.num_experts, m.d_ff_expert
@@ -155,8 +175,9 @@ class LM:
             mlp = {"w_gate": leaf((d, ff), dt, d ** -0.5),
                    "w_up": leaf((d, ff), dt, d ** -0.5),
                    "w_down": leaf((ff, d), dt, ff ** -0.5)}
-        return {"norm1": {"scale": leaf((d,), f32, 0.0)}, "mixer": mixer,
-                "norm2": {"scale": leaf((d,), f32, 0.0)}, "mlp": mlp}
+        block["norm2"] = {"scale": leaf((d,), f32, 0.0)}
+        block["mlp"] = mlp
+        return block
 
     def init(self, seed: int, on_device: bool = False) -> Params:
         """Random parameters, normal(0, std) in float32 and then cast, as
@@ -173,7 +194,9 @@ class LM:
             if isinstance(leaf, list):
                 return [make(v) for v in leaf]
             shape, dtype, std = leaf
-            if std == rec.LAMBDA_INIT:
+            if isinstance(std, rec.Constant):
+                x = std.make(shape, gen_dev)
+            elif std == rec.LAMBDA_INIT:
                 x = rec.init_lambda(shape, gen, gen_dev)
             elif std == 0.0:
                 x = torch.zeros(shape, dtype=torch.float32, device=gen_dev)
@@ -189,15 +212,22 @@ class LM:
         cfg = self.cfg
         table = (params["embed"]["table"] if cfg.tie_embeddings
                  else params["unembed"]["table"])
-        logits = unembed(table, x)
+        if cfg.frontend.kind == "audio":
+            # one head per codebook: (B, S, C, V)
+            logits = torch.einsum("bsd,cvd->bscv", x, table)
+        else:
+            logits = unembed(table, x)
         if cfg.tie_embeddings:
             # the tied table is unit-std (embedding-scaled); rescale
             logits = logits * (cfg.d_model ** -0.5)
         return softcap(logits, cfg.logit_softcap)
 
     def _mlp(self, bdef, p, x, aux=None):
-        """The block's residual MLP. An MoE layer adds its load-balance
-        loss to ``aux`` (a 0-dim f32 tensor), in place, when given."""
+        """The block's residual MLP (none for an xLSTM block). An MoE layer
+        adds its load-balance loss to ``aux`` (a 0-dim f32 tensor), in
+        place, when given."""
+        if bdef.mlp == NONE:
+            return x
         h = rmsnorm(p["norm2"], x, self.cfg.rms_eps)
         if bdef.mlp == MOE:
             y, a = moe_lib.moe_forward(p["mlp"], self.cfg, h,
@@ -218,11 +248,29 @@ class LM:
         return self._logits(params, x)
 
     # -- full-sequence forward ----------------------------------------------
+    def _embed_tokens(self, params, tokens):
+        """Token embeddings (B, S, D) of text tokens (B, S), or of audio
+        tokens (B, S, C): the sum of the C codebooks' embeddings."""
+        table = params["embed"]["table"]
+        if self.cfg.frontend.kind != "audio":
+            return embed(params["embed"], tokens)
+        books = torch.arange(table.shape[0], device=tokens.device)
+        return table[books, tokens.long()].sum(dim=2)
+
     def _embed_inputs(self, params, batch):
-        """Token embeddings (B, S, D) and their positions (B, S) int32."""
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = embed(params["embed"], tokens)
+        """Input embeddings (B, S, D) and their positions (B, S) int32.
+        A vision model puts its projected ``batch["image_embeds"]``
+        (B, P, E) in front of the text: P + S positions."""
+        x = self._embed_tokens(params, batch["tokens"])
+        if self.cfg.frontend.kind == "vision":
+            img = batch["image_embeds"]
+            vp = params["vision_proj"]
+            # einsum's type promotion: f32 embeddings project in f32
+            dt = torch.promote_types(img.dtype, vp["w1"].dtype)
+            h = F.gelu((img.to(dt) @ vp["w1"].to(dt)).float(),
+                       approximate="tanh")
+            x = torch.cat([h.to(x.dtype) @ vp["w2"], x], dim=1)
+        b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None, :].expand(b, s)
         return x, positions
@@ -249,9 +297,10 @@ class LM:
                             min(hi - first, stage.repeat)):
                 for bi, bdef in enumerate(stage.blocks):
                     p = _layer(sp[f"b{bi}"], li)
-                    h = rmsnorm(p["norm1"], x, cfg.rms_eps)
-                    if bdef.mixer == RGLRU:
-                        y, state = rec.rglru_block_forward(
+                    h = (x if bdef.mixer in _SELF_NORMED
+                         else rmsnorm(p["norm1"], x, cfg.rms_eps))
+                    if bdef.mixer in _RECURRENT_FORWARD:
+                        y, state = _RECURRENT_FORWARD[bdef.mixer](
                             p["mixer"], cfg, h, lengths)
                         if caches is not None:
                             _store(_layer(caches[si][bi], li), state)
@@ -303,9 +352,11 @@ class LM:
     def init_cache(self, batch: int, seq_len: int) -> List[Any]:
         """Per stage, a tuple over blocks of dicts of stacked (L, B, ...)
         tensors: K/V rings (positions start at -1, empty) for attention,
-        ``ckv``/``krope`` latent rings for MLA, a zero ``h`` and ``conv``
-        state for RG-LRU."""
+        ``ckv``/``krope`` latent rings for MLA, zero recurrent state for
+        RG-LRU (``h``, ``conv``), mLSTM (``C``, ``n``, ``m``) and sLSTM
+        (``c``, ``n``, ``h``, ``m``)."""
         cfg = self.cfg
+        h, hd = cfg.num_heads, cfg.resolved_head_dim
         caches = []
         for stage in cfg.stages:
             blocks = []
@@ -313,6 +364,10 @@ class LM:
                 if bdef.mixer == RGLRU:
                     one = rec.rglru_state_spec(cfg, batch, self.dtype,
                                                self.device)
+                elif bdef.mixer == MLSTM:
+                    one = rec.mlstm_state_init(batch, h, hd, self.device)
+                elif bdef.mixer == SLSTM:
+                    one = rec.slstm_state_init(batch, h, hd, self.device)
                 elif bdef.mixer == MLA:
                     one = att.init_mla_cache(
                         cfg, batch, _attn_width(bdef.window, seq_len),
@@ -340,7 +395,8 @@ class LM:
 
     def decode_step(self, params, caches, tokens, cur_pos, *,
                     layout=None, block_tables=None, valid=None):
-        """One-token decode. tokens (B, 1); ``cur_pos`` scalar or (B,);
+        """One-token decode. tokens (B, 1) (audio: (B, 1, C)); ``cur_pos``
+        scalar or (B,) (a vision model's positions count its prefix);
         ``valid`` (B, 1): False rows compute logits but leave the cache
         (and the recurrent state) untouched. Returns (logits (B, 1, V),
         caches), the caches updated in place."""
@@ -352,12 +408,14 @@ class LM:
                       layout=None, block_tables=None, valid=None,
                       logits_index=None):
         """Resume prefill with a T-token chunk per slot starting at
-        ``start_pos`` (T = 1 is ``decode_step``). ``valid`` (B, T) masks
-        right-pad tokens out of the cache; ``logits_index`` (B,) unembeds
-        one chunk position per row. Chunks longer than one token need
-        attention or MLA mixers. Returns (logits, caches)."""
+        ``start_pos`` (T = 1 is ``decode_step``). tokens (B, T), audio
+        (B, T, C); a vision model's chunk is plain text (its image prefix
+        already lives in the cache). ``valid`` (B, T) masks right-pad
+        tokens out of the cache; ``logits_index`` (B,) unembeds one chunk
+        position per row. Chunks longer than one token need attention or
+        MLA mixers. Returns (logits, caches)."""
         cfg = self.cfg
-        b, t = tokens.shape
+        b, t = tokens.shape[:2]
         if t > 1:
             bad = self.chunk_incompatible_mixer()
             if bad is not None:
@@ -365,16 +423,17 @@ class LM:
                     f"prefill_chunk needs attention mixers "
                     f"(got {bad!r}); chunk length must be 1")
         start = att.positions_1d(start_pos, b, tokens.device)
-        x = embed(params["embed"], tokens)
+        x = self._embed_tokens(params, tokens)
         for stage, sp, sc in zip(cfg.stages, params["stages"], caches):
             for li in range(stage.repeat):
                 for bi, bdef in enumerate(stage.blocks):
                     p = _layer(sp[f"b{bi}"], li)
                     c = _layer(sc[bi], li)
-                    h = rmsnorm(p["norm1"], x, cfg.rms_eps)
-                    if bdef.mixer == RGLRU:
-                        y, state = rec.rglru_block_decode(p["mixer"], cfg, h,
-                                                          c, valid)
+                    h = (x if bdef.mixer in _SELF_NORMED
+                         else rmsnorm(p["norm1"], x, cfg.rms_eps))
+                    if bdef.mixer in _RECURRENT_DECODE:
+                        y, state = _RECURRENT_DECODE[bdef.mixer](
+                            p["mixer"], cfg, h, c, valid)
                         _store(c, state)
                     elif bdef.mixer == MLA:
                         y, _ = att.mla_decode(
@@ -388,6 +447,16 @@ class LM:
                             block_tables=block_tables, valid=valid)
                     x = self._mlp(bdef, p, x + y)
         return self._head(params, x, False, logits_index), caches
+
+
+# the recurrent mixers' full-sequence forward (params, cfg, x, lengths) and
+# one-token decode (params, cfg, x1, state, valid)
+_RECURRENT_FORWARD = {RGLRU: rec.rglru_block_forward,
+                      MLSTM: rec.mlstm_block_forward,
+                      SLSTM: rec.slstm_block_forward}
+_RECURRENT_DECODE = {RGLRU: rec.rglru_block_decode,
+                     MLSTM: rec.mlstm_block_decode,
+                     SLSTM: rec.slstm_block_decode}
 
 
 def _store(cache: dict, state: dict) -> None:

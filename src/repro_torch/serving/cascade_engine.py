@@ -109,11 +109,16 @@ class CascadeEngine:
         self.metrics = CascadeMetrics()
         self._step = cascade.serve_step if compact else cascade.lockstep_step
 
-    def query(self, tokens: np.ndarray) -> dict:
+    def query(self, tokens: np.ndarray, extra: Dict = None) -> dict:
         """tokens: (B, S) one-shot queries -> predictions + route info, as
-        numpy arrays."""
+        numpy arrays. ``extra``: the models' other inputs by name (a
+        vision model's ``image_embeds`` (B, P, E)), as arrays or
+        tensors."""
+        dev = self.cascade.edge.device
         batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int32),
-                                           device=self.cascade.edge.device)}
+                                           device=dev)}
+        for k, v in (extra or {}).items():
+            batch[k] = torch.as_tensor(v, device=dev)
         t0 = time.time()
         out = self._step(self.edge_params, self.cloud_params, batch)
         out = {k: v.cpu().numpy() for k, v in out.items()}

@@ -410,6 +410,39 @@ def _has_windowed_blocks(lm: LM) -> bool:
                for stage in lm.cfg.stages for bdef in stage.blocks)
 
 
+def check_text_model(lm: LM, role: str = "engine") -> None:
+    """The engines serve text-token streams. Audio is refused with
+    ``repro``'s messages ("engine serves text-token streams", "draft model
+    must serve text-token streams"). ``repro``'s engines accept a vision
+    model and then fail on it with a ``KeyError`` on ``image_embeds``: its
+    cache backend traces a prefill of tokens alone for the cache's
+    structure, as its monolithic admission and its drain batcher prefill
+    tokens alone, and its chunked prefill embeds the text without the
+    image. No path takes a per-request image, so the port refuses vision
+    at construction."""
+    kind = lm.cfg.frontend.kind
+    if kind == "audio":
+        raise NotImplementedError(
+            "engine serves text-token streams" if role == "engine"
+            else f"{role} must serve text-token streams")
+    if kind == "vision":
+        raise NotImplementedError(
+            f"{role}: a vision model's image prefix has no per-request "
+            f"path: repro's engines prefill tokens alone (KeyError on "
+            f"'image_embeds') and its chunked prefill embeds the text "
+            f"without the image; serve vision through LM.prefill / "
+            f"decode_step or CascadeEngine.query(tokens, "
+            f"extra={{'image_embeds': ...}})")
+
+
+def _needs_lengths(lm: LM) -> bool:
+    """Whether a right-padded prefill must know the true lengths: a
+    window-wide ring would keep pad rows, and recurrent state would fold
+    the pads in."""
+    return _has_windowed_blocks(lm) or lm.chunk_incompatible_mixer() \
+        is not None
+
+
 def validate_prompt(prompt: np.ndarray, max_new_tokens: int,
                     max_seq_len: int, truncate: bool) -> np.ndarray:
     """Prompt + budget must fit the cache: raise, or with ``truncate`` keep
@@ -460,6 +493,7 @@ class ServingEngine(_GraphedPrograms):
             if value is not None:
                 raise NotImplementedError(
                     f"{name}: meshes are a later slice of the port")
+        check_text_model(lm)
         self.lm = lm
         self.params = params
         self.device = lm.device
@@ -641,6 +675,7 @@ class ServingEngine(_GraphedPrograms):
             return False
         if draft_params is None:
             raise ValueError("draft_model needs draft_params")
+        check_text_model(draft_model, "draft model")
         if draft_model.cfg.padded_vocab != self.lm.cfg.padded_vocab:
             raise ValueError(
                 f"draft vocab ({draft_model.cfg.padded_vocab}) must match "
@@ -1930,8 +1965,10 @@ class DrainBatchEngine(_GraphedPrograms):
     per token off ``prng_key(seed)`` and samples the whole batch from it,
     so its sampled streams are ``repro``'s drain streams (and depend on the
     batch). Right-padding is exact: attention is causal, the first token's
-    logits come from each row's last real position, and a pad's cache
-    entry sits above every query until decode overwrites it.
+    logits come from each row's last real position, a pad's cache entry
+    sits above every query until decode overwrites it, and a recurrent
+    layer keeps each row's state after its last real token (``repro``'s
+    folds the pads in, ROADMAP Queue 3).
 
     Where ``repro`` jits its prefill and decode, the engine keeps a
     (``batch_slots``, ``max_seq_len``) cache and its decode state at fixed
@@ -1946,6 +1983,7 @@ class DrainBatchEngine(_GraphedPrograms):
     def __init__(self, lm: LM, params, *, batch_slots: int = 8,
                  max_seq_len: int = 512, seed: int = 0,
                  truncate_prompts: bool = False):
+        check_text_model(lm)
         self.lm = lm
         self.params = params
         self.device = dev = lm.device
@@ -1954,7 +1992,7 @@ class DrainBatchEngine(_GraphedPrograms):
         self.buckets = prompt_buckets(max_seq_len)
         self.rng = prng_key(seed, device=dev)       # split in place a token
         self.truncate_prompts = truncate_prompts
-        self._windowed = _has_windowed_blocks(lm)
+        self._lengths = _needs_lengths(lm)
         self._queue: List[Request] = []
         self._next_id = 0
         self.generated_tokens = 0
@@ -2008,11 +2046,12 @@ class DrainBatchEngine(_GraphedPrograms):
         a = self._args
         lengths = a["lengths"]
         tokens = a["tokens"].view(self.batch_slots, -1)[:, :bucket]
-        # lengths matter only where a window-wide ring could keep pad rows;
-        # the first token's logits come from each row's last real position
+        # lengths matter only where a window-wide ring could keep pad rows
+        # or recurrent state would fold them in; the first token's logits
+        # come from each row's last real position
         logits, caches = self.lm.prefill(
             self.params, {"tokens": tokens}, cache_width=self.max_seq_len,
-            lengths=lengths if self._windowed else None,
+            lengths=lengths if self._lengths else None,
             logits_index=lengths - 1)
         _map_block_dicts(_copy_leaves, self._caches, caches)
         self._last.copy_(logits[:, 0].float())

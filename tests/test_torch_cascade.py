@@ -16,6 +16,10 @@
   within 1e-5; routes, counts and ``wan_bytes`` equal; ``pred`` equal
   wherever ``repro``'s top-2 final-logit margin exceeds 1e-4. Within the
   port, compact equals lockstep when every escalation fits the capacity.
+- The same over a vision pair (``internvl2-2b`` reduced and its 1-layer
+  edge variant, both behind the image prefix): ``image_embeds`` rides the
+  batch, the cloud's slice gathers it with the tokens;
+  ``CascadeEngine.query(tokens, extra=...)`` equals ``repro``'s.
 
 ``tests/test_torch_gpu.py`` holds the CUDA kernel against the plain
 version on the card.
@@ -46,6 +50,8 @@ from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.cascade_gate import (cascade_gate,  # noqa: E402
                                               cascade_gate_plain)
 from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.serving import CascadeEngine  # noqa: E402
+from repro.serving import CascadeEngine as JaxCascadeEngine  # noqa: E402
 
 F32_TOL, BF16_TOL = 1e-5, 1e-2
 NEAR = 1e-6        # rows this close to a threshold may rightly flip
@@ -290,30 +296,37 @@ def test_edge_variant_field_equal(name):
 # -- CascadeLM ------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _cascade_models():
-    """smollm-135m reduced as the cloud, its 1-layer edge draft, in both
+def _cascade_models(name="smollm-135m"):
+    """``name`` reduced as the cloud, its 1-layer edge draft, in both
     packages, the port's weights bridged from ``repro``'s (cloud from
-    PRNGKey(0), edge from PRNGKey(1))."""
-    jc = jax_configs.get_config("smollm-135m").reduced()
+    PRNGKey(0), edge from PRNGKey(1)); 12 one-shot queries (12 tokens, and
+    for a vision model unit-norm ``image_embeds``) as a numpy batch; the
+    edge's and the cloud's last logits from ``repro``."""
+    jc = jax_configs.get_config(name).reduced()
     je = jax_ecc.edge_variant(jc, layers=1)
-    tc = tcfg.get_config("smollm-135m").reduced()
+    tc = tcfg.get_config(name).reduced()
     te = ecc_infer.edge_variant(tc, layers=1)
     jcloud, jedge = JaxLM(jc, kv_chunk=16), JaxLM(je, kv_chunk=16)
     jcp = jax.jit(lambda k: jcloud.init(k)[0])(jax.random.PRNGKey(0))
     jep = jax.jit(lambda k: jedge.init(k)[0])(jax.random.PRNGKey(1))
     tcp = params_from_numpy(jax.tree.map(np.asarray, jcp), tc, "cpu")
     tep = params_from_numpy(jax.tree.map(np.asarray, jep), te, "cpu")
-    tokens = np.random.default_rng(2).integers(0, 100, (12, 12)).astype(
-        np.int32)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, 100, (12, 12)).astype(np.int32)}
+    if tc.frontend.kind == "vision":
+        img = rng.standard_normal((12, tc.frontend.num_prefix_tokens,
+                                   tc.frontend.embed_dim))
+        batch["image_embeds"] = (img / np.linalg.norm(
+            img, axis=-1, keepdims=True)).astype(np.float32)
 
     def last(lm, p):
-        fwd = jax.jit(lambda p, t: lm.forward(p, {"tokens": t})[0][:, -1])
-        return np.array(fwd(p, tokens), np.float32)
+        fwd = jax.jit(lambda p, b: lm.forward(p, b)[0][:, -1])
+        return np.array(fwd(p, batch), np.float32)
 
     edge_last, cloud_last = last(jedge, jep), last(jcloud, jcp)
     return ((jedge, jcloud, jep, jcp), (LM(te, device="cpu"),
                                         LM(tc, device="cpu"), tep, tcp),
-            tokens, edge_last, cloud_last)
+            batch, edge_last, cloud_last)
 
 
 def _tertile_thresholds(conf):
@@ -338,8 +351,21 @@ def _margins(x):
 @pytest.mark.parametrize("step", ["serve_step", "lockstep_step"])
 @pytest.mark.parametrize("capacity_frac", [0.25, 1.0])
 def test_cascade_lm_matches_repro(step, capacity_frac):
-    (jedge, jcloud, jep, jcp), (edge, cloud, tep, tcp), tokens, edge_last, \
-        cloud_last = _cascade_models()
+    _cascade_lm_matches_repro(step, capacity_frac, "smollm-135m")
+
+
+@pytest.mark.parametrize("step", ["serve_step", "lockstep_step"])
+@pytest.mark.parametrize("capacity_frac", [0.25, 1.0])
+def test_vision_cascade_lm_matches_repro(step, capacity_frac):
+    """internvl2-2b's queries, their image prefix in the batch: the cloud's
+    slice gathers ``image_embeds`` with the tokens, as ``repro``'s does."""
+    _cascade_lm_matches_repro(step, capacity_frac, "internvl2-2b")
+
+
+def _cascade_lm_matches_repro(step, capacity_frac, name):
+    (jedge, jcloud, jep, jcp), (edge, cloud, tep, tcp), batch, edge_last, \
+        cloud_last = _cascade_models(name)
+    tokens = batch["tokens"]
     conf0 = np.asarray(jax_gate.confidence_from_logits(jnp.asarray(
         edge_last)))
     hi, lo = _tertile_thresholds(conf0)
@@ -350,9 +376,10 @@ def test_cascade_lm_matches_repro(step, capacity_frac):
         edge, cloud, thresholds=gate.make_thresholds(hi, lo),
         capacity_frac=capacity_frac)
     theirs = {k: np.asarray(v) for k, v in jax.jit(
-        getattr(theirs_cas, step))(jep, jcp, {"tokens": tokens}).items()}
+        getattr(theirs_cas, step))(jep, jcp, batch).items()}
     ours = {k: v.numpy() for k, v in getattr(ours_cas, step)(
-        tep, tcp, {"tokens": torch.from_numpy(tokens)}).items()}
+        tep, tcp, {k: torch.from_numpy(v) for k, v in batch.items()}
+    ).items()}
     assert set(ours) == set(theirs)
     np.testing.assert_allclose(ours["conf"], theirs["conf"], rtol=0,
                                atol=F32_TOL)
@@ -378,16 +405,55 @@ def test_cascade_lm_compact_matches_lockstep():
     """Within capacity, the compacted cascade agrees with the
     paper-faithful lockstep on every row, and ships fewer bytes when not
     everything escalates."""
-    _, (edge, cloud, tep, tcp), tokens, edge_last, _ = _cascade_models()
+    _cascade_lm_compact_matches_lockstep("smollm-135m")
+
+
+def test_vision_cascade_lm_compact_matches_lockstep():
+    """The same with a vision query's image riding with its tokens to the
+    cloud's slice."""
+    _cascade_lm_compact_matches_lockstep("internvl2-2b")
+
+
+def _cascade_lm_compact_matches_lockstep(name):
+    _, (edge, cloud, tep, tcp), batch, edge_last, _ = _cascade_models(name)
     hi, lo = _tertile_thresholds(
         gate.confidence_from_logits(torch.from_numpy(edge_last)).numpy())
     cas = ecc_infer.CascadeLM(edge, cloud,
                               thresholds=gate.make_thresholds(hi, lo),
                               capacity_frac=1.0)
-    batch = {"tokens": torch.from_numpy(tokens)}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     a = cas.serve_step(tep, tcp, batch)
     b = cas.lockstep_step(tep, tcp, batch)
     assert torch.equal(a["routes"], b["routes"])
     assert torch.equal(a["pred"], b["pred"])
-    assert int(a["escalate"]) < len(tokens)
+    assert int(a["escalate"]) < len(batch["tokens"])
     assert int(a["wan_bytes"]) < int(b["wan_bytes"])
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_cascade_engine_query_with_extra_matches_repro(compact):
+    """``CascadeEngine.query(tokens, extra={"image_embeds": ...})`` over
+    the vision pair, twice, against ``repro``'s: conf within 1e-5, routes,
+    counts and ``wan_bytes`` equal, and the running metrics equal."""
+    (jedge, jcloud, jep, jcp), (edge, cloud, tep, tcp), batch, edge_last, \
+        _ = _cascade_models("internvl2-2b")
+    conf0 = np.asarray(jax_gate.confidence_from_logits(jnp.asarray(
+        edge_last)))
+    hi, lo = _tertile_thresholds(conf0)
+    ours = CascadeEngine(ecc_infer.CascadeLM(
+        edge, cloud, thresholds=gate.make_thresholds(hi, lo),
+        capacity_frac=0.5), tep, tcp, compact=compact)
+    theirs = JaxCascadeEngine(jax_ecc.CascadeLM(
+        jedge, jcloud, thresholds=jax_gate.make_thresholds(hi, lo),
+        capacity_frac=0.5), jep, jcp, compact=compact)
+    extra = {"image_embeds": batch["image_embeds"]}
+    for _ in range(2):
+        a = ours.query(batch["tokens"], extra=extra)
+        b = theirs.query(batch["tokens"], extra=extra)
+        np.testing.assert_allclose(a["conf"], b["conf"], rtol=0,
+                                   atol=F32_TOL)
+        for key in ("routes", "accept", "drop", "escalate", "wan_bytes"):
+            np.testing.assert_array_equal(a[key], b[key])
+        assert min(int(a[k]) for k in ("accept", "drop", "escalate")) > 0
+    for key in ("queries", "escalated", "accepted", "dropped", "wan_bytes"):
+        assert getattr(ours.metrics, key) == getattr(theirs.metrics, key)

@@ -45,7 +45,7 @@ def test_port_imports_no_jax_and_no_repro():
                "repro_torch.core", "repro_torch.core.platform",
                "repro_torch.core.video_query", "repro_torch.core.patterns",
                "repro_torch.models.cnn", "repro_torch.data.video",
-               "repro_torch.optim"]
+               "repro_torch.optim", "repro_torch.models.frontend"]
     for first in (entries[0], entries[1], "repro_torch.core"):
         code = (f"import sys, {first}, {', '.join(entries)}; "
                 "bad = [m for m in sys.modules if m in ('jax', 'repro', "
@@ -55,20 +55,16 @@ def test_port_imports_no_jax_and_no_repro():
                        timeout=120)
 
 
-# the archs the port builds: dense GQA (smollm and the hd-128 zoo), the
-# RG-LRU hybrid and the MoE models (mixtral's windowed GQA, deepseek's
-# MLA); the rest need xLSTM or a frontend
-PORTED = ("smollm-135m", "qwen3-4b", "glm4-9b", "starcoder2-7b",
-          "recurrentgemma-9b", "mixtral-8x22b", "deepseek-v3-671b")
-
-
 @pytest.mark.parametrize("name", torch_configs.ASSIGNED_ARCHS)
 def test_lm_builds_the_ported_archs_and_refuses_the_rest(name):
+    """The port builds every assigned architecture (dense GQA, the RG-LRU
+    hybrid, the MoE models, xLSTM, the vision and audio frontends); what
+    is left to refuse is a frontend kind that no config has."""
     from repro_torch.models.model import LM
 
     cfg = torch_configs.get_config(name)
-    if name in PORTED:
-        assert LM(cfg, device="cpu").cfg is cfg
-    else:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            LM(cfg, device="cpu")
+    assert LM(cfg, device="cpu").cfg is cfg
+    odd = dataclasses.replace(cfg, frontend=dataclasses.replace(
+        cfg.frontend, kind="video"))
+    with pytest.raises(ValueError, match="unknown frontend"):
+        LM(odd, device="cpu")

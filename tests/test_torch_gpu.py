@@ -92,6 +92,12 @@ DECODE_CASES = [
     # 1024-wide ring: a step, and a 128-token chunk (768 rows a KV head)
     (2, 1024, 48, 8, 128, 4096, 700, 700, 1),
     (1, 1024, 48, 8, 128, 4096, 600, 600, 128),
+    # musicgen-medium's MHA at hd 64 (G = 1: one query row a KV head),
+    # partly filled and wrapped; internvl2-2b's G = 2 at hd 128 behind its
+    # 256-token image prefix
+    (2, 1024, 24, 24, 64, None, 700, 700, 1),
+    (2, 1024, 24, 24, 64, None, 1024, 1500, 1),
+    (2, 1024, 16, 8, 128, None, 389, 389, 1),
 ]
 
 # (h, kv, hd, bs, window, fills, t): the block sizes and cases of
@@ -145,7 +151,9 @@ PAGED_CASES = [
 GATE_CASES = [(1, 49152, False), (64, 49152, False), (100, 500, False),
               (7, 8000, False), (3, 501, False), (5, 1024, True),
               (1, 151936, False), (1, 256000, False), (2, 49152, False),
-              (4096, 32768, False), (1, 49152, True)]
+              (4096, 32768, False), (1, 49152, True),
+              # internvl2-2b's padded vocab: a query batch and one row
+              (16, 92672, False), (1, 92672, False)]
 
 # (b, sq, sk, h, kv, hd, window)
 FLASH_CASES = [
@@ -167,6 +175,10 @@ FLASH_CASES = [
     # deepseek-v3-671b's MLA prefill: hd 192 (the 256 template), G = 1
     (1, 300, 300, 16, 16, 192, None),
     (2, 130, 130, 8, 8, 192, 50),
+    # musicgen-medium's MHA at hd 64 (G = 1); internvl2-2b's G = 2 at hd
+    # 128 over its 256-token image prefix and 100 text tokens
+    (2, 300, 300, 24, 24, 64, None),
+    (1, 356, 356, 16, 8, 128, None),
 ]
 
 # (b, s, w): the serving shape, odd S and W with B > 1, one step, one
@@ -1641,4 +1653,110 @@ def test_moe_engine_on_gpu_graphed_equals_eager(cuda, name, backend):
             "cascade_gate": 0, "rglru_scan": 0}
         outs[graphed] = [done[i].output for i in ids]
     for a, b in zip(outs[True], outs[False]):
+        np.testing.assert_array_equal(a, b)
+
+
+# -- xLSTM and the modality frontends ---------------------------------------------
+
+def _cut(name, layers, dtype="float32"):
+    """``name`` at full width with its stage repeated to ``layers`` layers,
+    in ``dtype``."""
+    import dataclasses
+    cfg = tcfg.get_config(name)
+    st = cfg.stages[0]
+    return dataclasses.replace(
+        cfg, param_dtype=dtype, num_layers=layers,
+        stages=(dataclasses.replace(st, repeat=layers // len(st.blocks)),))
+
+
+def test_xlstm_forward_on_gpu_matches_the_cpu(cuda):
+    """xlstm-125m at full width cut to 4 layers (two mLSTM, two sLSTM), f32
+    (TF32 off): the card's forward, and a prefill + decode step, equal the
+    CPU's within 1e-4 (summation order)."""
+    from repro_torch.models.model import LM
+
+    cfg = _cut("xlstm-125m", 4)
+    cpu = LM(cfg, device="cpu")
+    params = cpu.init(0)
+    gparams = _to(params, cuda)
+    lm = LM(cfg, device=cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 70),
+                        generator=torch.Generator().manual_seed(2),
+                        dtype=torch.int32)
+    want, _ = cpu.forward(params, {"tokens": tok})
+    got, _ = lm.forward(gparams, {"tokens": tok.to(cuda)})
+    assert (got.cpu() - want).abs().max().item() < 1e-4
+    _, caches = lm.prefill(gparams, {"tokens": tok[:, :69].to(cuda)},
+                           cache_width=70)
+    step, _ = lm.decode_step(gparams, caches, tok[:, 69:].to(cuda), 69)
+    assert (step[:, 0].cpu() - want[:, 69]).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("name", ["internvl2-2b", "musicgen-medium"])
+def test_modal_decode_step_on_gpu_goes_through_the_kernels(cuda, name):
+    """A reduced internvl2-2b (its image prefix) and musicgen-medium (a
+    (B, S, 4) grid), f32: the prefill runs flash once a layer, each decode
+    step the ring kernel once a layer, and the logits equal the CPU's
+    within 1e-4."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.frontend import make_batch
+    from repro_torch.models.model import LM
+
+    cfg = tcfg.get_config(name).reduced()
+    cpu, lm = LM(cfg, device="cpu"), LM(cfg, device=cuda)
+    params = cpu.init(0)
+    gparams = _to(params, cuda)
+    batch = make_batch(torch.Generator().manual_seed(3), cfg, 2, 20)
+    batch.pop("labels")
+    # make_batch's 20 positions hold the image prefix and the text
+    text = batch["tokens"].shape[1]
+    prefix = cfg.frontend.num_prefix_tokens if "image_embeds" in batch \
+        else 0
+    width = prefix + text + 3
+    want, caches = cpu.prefill(params, batch, cache_width=width)
+    reset_launches()
+    got, gcaches = lm.prefill(gparams, _to(batch, cuda), cache_width=width)
+    assert LAUNCHES["flash_attention"] == cfg.num_layers
+    assert (got.cpu() - want).abs().max().item() < 1e-4
+    tok = batch["tokens"][:, -1:]
+    for t in range(3):
+        pos = prefix + text + t
+        want, caches = cpu.decode_step(params, caches, tok, pos)
+        got, gcaches = lm.decode_step(gparams, gcaches, tok.to(cuda), pos)
+        assert (got.cpu() - want).abs().max().item() < 1e-4
+    torch.cuda.synchronize()
+    assert LAUNCHES["decode_attention"] == 3 * cfg.num_layers
+    assert LAUNCHES["flash_attention"] == cfg.num_layers
+
+
+def test_xlstm_engine_on_gpu_graphed_equals_eager(cuda):
+    """A reduced xlstm-125m (f32) on the ring engine, K = 4: the graphed
+    engine (its admissions capture the sLSTM's sequential steps) gives the
+    eager engine's streams, captures nothing in traffic and launches none
+    of the five kernels (``repro``'s mLSTM and sLSTM are jnp)."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServingEngine
+
+    cfg = tcfg.get_config("xlstm-125m").reduced()
+    lm = LM(cfg, device=cuda)
+    params = lm.init(0)
+    prompts = [np.random.default_rng(i).integers(0, 500, n).astype(np.int32)
+               for i, n in enumerate((5, 12, 20, 2, 16, 33))]
+    outs = []
+    for graphs in (False, True):
+        eng = ServingEngine(lm, params, batch_slots=2, max_seq_len=64,
+                            max_decode_steps=4, seed=1)
+        eng._use_graphs = graphs
+        eng.warm_compile()
+        keys = dict(eng._programs)
+        assert eng.graphs() == (len(keys) if graphs else 0)
+        ids = [eng.submit(p, max_new_tokens=6, temperature=0.7 * (i % 2))
+               for i, p in enumerate(prompts)]
+        reset_launches()
+        done = eng.run()
+        assert not any(LAUNCHES.values())
+        assert dict(eng._programs) == keys
+        outs.append([done[i].output for i in ids])
+    for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
