@@ -183,7 +183,33 @@ on failure:
    4-layer edge variant, compact and lockstep: equal routes, the gate's
    counts equal the host's, one gate launch a query batch; (c)
    musicgen-medium: 4 layers f32 on a (1, 40, 4) grid against the CPU;
-   48 layers bf16 on a (2, 64, 4) grid through (b)'s decode checks.
+   48 layers bf16 on a (2, 64, 4) grid through (b)'s decode checks;
+18. training on one device (``repro_torch.training``): (a) the backward
+   kernels against their plain versions, bf16 and f32: flash's dq, dk and
+   dv row by row at smollm-135m's (B 8, S 512, 9 heads over 3, hd 64),
+   qwen3-4b's (G = 4, hd 128), MLA's (128 heads of 192 dims, G = 1) and
+   recurrentgemma-9b's (S 4096, 16 heads over 1, hd 256, window 2048)
+   layouts from the forward kernel's output and log-sum-exp (itself held
+   against the plain one), the scan's da, db and dh0 at (1, 512, 4096) and
+   (1, 4096, 4096) within ``RGLRU_TOL`` (da_t = g_t h_{t-1} against
+   max(1, |h_{t-1}|) max(1, |g_t|); equal bits on a repeated call),
+   each timed against its plain version and its bound, flash also against
+   SDPA's backward under autograd (a yardstick the port never calls); (b)
+   smollm-135m at full width and depth in bf16, AdamW in f32, through
+   ``Trainer.fit`` on ``TokenStream`` (B 8, S 512, ``TRAIN_STEPS`` steps
+   over ``TRAIN_DISTINCT`` batches in turn):
+   the loss falls by more than 1.0 and stays finite, flash forward twice a
+   layer a step (remat) and flash backward once, ms per step by CUDA
+   events, tokens/s, peak memory and 6 N D over the step time as a share
+   of 989 TFLOP/s; the step-10 checkpoint restored by a fresh
+   ``Trainer.restore_or_init`` continues within ``RESUME_TOL`` of the
+   uninterrupted losses; (c) one (rec, rec, attn) repeat of
+   recurrentgemma-9b at full width in f32 (B 1, S 256): loss and every
+   gradient leaf on the card against the CPU, through both backward
+   kernels; (d) each mixer family's ``.reduced()`` config (GQA, MLA + MoE
+   + MTP, RG-LRU, xLSTM, vision, audio): one f32 train step's loss and
+   gradients on the card against the CPU (MoE routes compared first), and
+   the whole step (AdamW) on the card.
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
@@ -277,6 +303,8 @@ ATTN_ROW_REL_TOL = 1e-2
 # there, which moves that token's output by a whole expert, not a
 # rounding. f32: summation order; bf16: activation roundings of two paths
 ROUTE_TOL = {"float32": 1e-3, "bfloat16": 0.08}
+# the backward kernels' counts on a path that computes no gradient
+NO_BACKWARD = {"flash_attention_bwd": 0, "rglru_scan_bwd": 0}
 
 
 def _smi() -> str:
@@ -1832,7 +1860,8 @@ def check_engine(torch, dev, seed, smi, lm, params, reqs, max_seq_len=1024,
     n_attn, n_mla = _attn_layers(lm.cfg)
     want = {"flash_attention": (n_attn + n_mla) * n["admits"],
             "decode_attention": n_attn * n["steps"],
-            "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0}
+            "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0,
+            **NO_BACKWARD}
     print(f"  launches on the main path: {launches} (expected {want}: "
           f"{n_attn + n_mla} per admission x {n['admits']}, {n_attn} per "
           f"decode step x {n['steps']} (MLA decode attends in plain torch);"
@@ -1977,7 +2006,7 @@ def check_paged_engine(torch, dev, seed, smi, lm, params):
     chunks = n["chunks"]
     want = {"paged_decode_attention": n_attn * (n["steps"] + chunks),
             "flash_attention": 0, "decode_attention": 0, "cascade_gate": 0,
-            "rglru_scan": 0}
+            "rglru_scan": 0, **NO_BACKWARD}
     print(f"  launches on the paged path: {launches} (expected {want}: "
           f"{n_attn} per decode step x {n['steps']} + per chunk x "
           f"{chunks}, MLA layers none; programs run {n['runs']})")
@@ -2085,7 +2114,7 @@ def check_cascade_oneshot(torch, dev, seed, models):
         got = dict(LAUNCHES)
         want = {"cascade_gate": 1, "flash_attention": edge.cfg.num_layers
                 + cloud.cfg.num_layers, "decode_attention": 0,
-                "paged_decode_attention": 0, "rglru_scan": 0}
+                "paged_decode_attention": 0, "rglru_scan": 0, **NO_BACKWARD}
         if got != want:
             raise AssertionError(f"one-shot {name}: launches {got} != {want}")
         launches += got["cascade_gate"]
@@ -2206,7 +2235,7 @@ def check_cascade_serving(torch, dev, seed, smi, models):
             "flash_attention": el * (gated + ee.admissions)
             + cl * ce.admissions,
             "decode_attention": el * ee.decode_steps + cl * ce.decode_steps,
-            "paged_decode_attention": 0, "rglru_scan": 0}
+            "paged_decode_attention": 0, "rglru_scan": 0, **NO_BACKWARD}
     print(f"  launches on the cascade path: {launches} (expected {want}: "
           f"{gated} gated, {ee.admissions} edge and {ce.admissions} cloud "
           f"admissions, {ee.decode_steps} edge and {ce.decode_steps} cloud "
@@ -2468,7 +2497,7 @@ def check_hybrid_engine(torch, dev, seed, smi, lm, params):
     want = {"rglru_scan": n_rec * n["admits"],
             "flash_attention": n_attn * n["admits"],
             "decode_attention": n_attn * n["steps"],
-            "paged_decode_attention": 0, "cascade_gate": 0}
+            "paged_decode_attention": 0, "cascade_gate": 0, **NO_BACKWARD}
     print(f"  launches on the hybrid path: {launches} (expected {want}: "
           f"{n_rec} scans and {n_attn} flash per admission x "
           f"{n['admits']}, {n_attn} per decode step x "
@@ -2521,11 +2550,29 @@ def check_hybrid_engine(torch, dev, seed, smi, lm, params):
     return stats, launches, reqs
 
 
+def _device_rows(prof):
+    """(device us, calls, name) of a profile's device-side events only
+    (kernels, copies: an operator's own entry repeats the device time of
+    the kernels it launched), most device time first."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    rows = sorted(((dev_us(e), e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                  reverse=True)
+    if not rows:
+        raise AssertionError("the profiler recorded no device events")
+    return rows
+
+
 def _device_profile(torch, serve, wall_s):
     """Device busy time of ``serve()`` (which returns its wall time), by
     kernel name, from torch.profiler; idle share against the unprofiled
     wall time ``wall_s``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2534,17 +2581,7 @@ def _device_profile(torch, serve, wall_s):
         prof_wall = serve()
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
-    # device-side events only (kernels, copies): an operator's own entry
-    # repeats the device time of the kernels it launched
-    rows = [(dev_us(e), e.count, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    if not rows:
-        raise AssertionError("the profiler recorded no device events")
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     print(f"  profiled run: wall {prof_wall:.3f} s (unprofiled {wall_s:.3f} s)"
           f"; device busy {busy_s:.3f} s -> idle share "
@@ -2753,7 +2790,7 @@ def check_baseline(torch, dev, seed, smi, lm, params):
             want = {"flash_attention": n_layers * batches,
                     "decode_attention": n_layers * eng.host_syncs,
                     "paged_decode_attention": 0, "cascade_gate": 0,
-                    "rglru_scan": 0}
+                    "rglru_scan": 0, **NO_BACKWARD}
             if launches != want:
                 raise AssertionError(f"drain launches {launches} != {want}")
         if kind in outs:
@@ -2872,7 +2909,7 @@ def _spec_launches(eng, n):
             "decode_attention": ld * n["draft_steps"] + (
                 0 if paged else target),
             "paged_decode_attention": target if paged else 0,
-            "cascade_gate": 0, "rglru_scan": 0}
+            "cascade_gate": 0, "rglru_scan": 0, **NO_BACKWARD}
 
 
 def _parted_at_near_tie(torch, lm, params, seed, reqs, out, base, tol):
@@ -3308,7 +3345,7 @@ def _counted(eng, wants):
 def _sum_launches(ws):
     total = {k: 0 for k in ("flash_attention", "decode_attention",
                             "paged_decode_attention", "cascade_gate",
-                            "rglru_scan")}
+                            "rglru_scan", *NO_BACKWARD)}
     for w in ws:
         for k, v in w.items():
             total[k] += v
@@ -4952,7 +4989,8 @@ def _modal_decode(torch, timer, smi, name, lm, params, batch, text_len):
     layers = lm.cfg.num_layers
     want = {"flash_attention": layers,
             "decode_attention": layers * MODAL_DECODE_STEPS,
-            "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0}
+            "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0,
+            **NO_BACKWARD}
     print(f"  {name}: launches over the prefill and {MODAL_DECODE_STEPS} "
           f"decode steps {launches} (expected {want})")
     if launches != want:
@@ -5056,7 +5094,7 @@ def _check_vision(torch, timer, dev, seed, smi):
         got = dict(LAUNCHES)
         want = {"cascade_gate": 1, "flash_attention": edge.cfg.num_layers
                 + lm.cfg.num_layers, "decode_attention": 0,
-                "paged_decode_attention": 0, "rglru_scan": 0}
+                "paged_decode_attention": 0, "rglru_scan": 0, **NO_BACKWARD}
         if got != want:
             raise AssertionError(f"vision query {how}: launches {got} != "
                                  f"{want}")
@@ -5137,6 +5175,572 @@ def check_modalities(torch, timer, dev, seed, smi):
     gc.collect()
     torch.cuda.empty_cache()
     return out, dict(launches)
+
+
+# -- phase 18: training --------------------------------------------------------
+
+# flash's backward, kernel vs plain on the same inputs (both in f32 from
+# them): bf16 per row (dq over (B, Sq), dk and dv over (B, Sk)) relative to
+# the row's norm, where the output's bf16 rounding is ~2^-9 and a missed
+# key tile or a band edge off by a tile is far more; a row's norm is
+# floored at BWD_ROW_FLOOR of the median row's (the first query's dq
+# cancels to 0 in exact arithmetic: it sees one key, so P = 1 and dP = D,
+# and both sides keep only f32 rounding there); f32 absolute against
+# max(1, max|plain|): summation order over up to G x Sq rows
+BWD_ROW_REL_TOL = 1e-2
+BWD_ROW_FLOOR = 1e-3
+BWD_F32_TOL = 1e-4
+# the forward kernel's log-sum-exp against the plain one, natural-log
+# units, absolute (ex2.approx and another summation order)
+LSE_TOL = 1e-3
+# (label, B, S, H, KV, hd, window): the training path's attention layouts
+BWD_SHAPES = (("smollm-135m", 8, 512, 9, 3, 64, None),
+              ("qwen3-4b", 1, 512, 32, 8, 128, None),
+              ("deepseek-v3-671b MLA", 1, 512, 128, 128, 192, None),
+              ("recurrentgemma-9b", 1, 4096, 16, 1, 256, 2048))
+TRAIN_STEPS = 30
+TRAIN_BATCH = (8, 512)
+# distinct TokenStream batches, taken in turn by the TRAIN_STEPS steps
+# (numpy makes one in 1.5-3 s)
+TRAIN_DISTINCT = 4
+TRAIN_LR = 3e-3                # peak, after TRAIN_WARMUP steps, as the tests
+TRAIN_WARMUP = 5
+RESUME_AT = 10
+# a resumed run's losses against the uninterrupted one's, relative: the
+# embedding's backward adds by atomics, so the bits may differ
+RESUME_TOL = 1e-3
+# f32 loss and gradients, card vs CPU: the kernels, cuBLAS and the CPU's
+# BLAS sum in other orders; loss relative, each gradient leaf against the
+# leaf's max |g|
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+FAMILIES = (("GQA", "smollm-135m"), ("MLA+MoE+MTP", "deepseek-v3-671b"),
+            ("RG-LRU", "recurrentgemma-9b"), ("xLSTM", "xlstm-125m"),
+            ("vision", "internvl2-2b"), ("audio", "musicgen-medium"))
+
+
+def _band_pairs(sq, sk, window):
+    """(query, key) pairs a causal (windowed) attention with right-aligned
+    queries computes."""
+    q = np.arange(sq)[:, None] + sk - sq
+    k = np.arange(sk)[None, :]
+    ok = k <= q
+    if window:
+        ok &= k > q - window
+    return int(ok.sum())
+
+
+def _bwd_err(torch, label, got, ref, rows, dt):
+    """|kernel - plain| of one gradient, per row (bf16) or absolute (f32);
+    raises past the tolerance. Returns the max abs error."""
+    diff = (got.float() - ref.float())
+    err = diff.abs().max().item()
+    scale = max(1.0, ref.float().abs().max().item())
+    if dt == torch.bfloat16:
+        num = diff.flatten(rows).norm(dim=-1)
+        den = ref.float().flatten(rows).norm(dim=-1)
+        floor = BWD_ROW_FLOOR * den[den > 0].median()
+        rel = (num / den.clamp_min(floor)).max().item()
+        ok = rel < BWD_ROW_REL_TOL
+        detail = (f"max row |kernel - plain|/|plain| {rel:.3e} (rows' norms "
+                  f"floored at {floor.item():.2e})")
+    else:
+        ok = err <= BWD_F32_TOL * scale
+        detail = f"{err / scale:.3e} of max(1, |plain|)"
+    print(f"    {label}: max|kernel - plain| {err:.3e}, {detail}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees (tol: bf16 row "
+                             f"{BWD_ROW_REL_TOL}, f32 {BWD_F32_TOL})")
+    return err
+
+
+def check_flash_bwd(torch, timer, dev):
+    """Flash's backward kernels against ``flash_attention_bwd_plain`` at
+    the training path's layouts, bf16 and f32, from the forward kernel's
+    output and log-sum-exp; timed in bf16 against the plain version,
+    SDPA's backward under autograd (K and V expanded to the query heads)
+    and the bound (2.5 x the forward's flops in the band at the bf16
+    peak, or the bytes: q, k, v, out, dout and lse read, dq, dk, dv
+    written). Returns (the line's numbers at smollm-135m's layout, every
+    layout's)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    errs, times = [], {}
+    for label, b, s, h, kv, hd, window in BWD_SHAPES:
+        scale = hd ** -0.5
+
+        def make(n, dt):
+            q = torch.randn((n, b, s, h, hd), generator=gen, device=dev,
+                            dtype=dt)
+            k, v = (torch.randn((n, b, s, kv, hd), generator=gen, device=dev,
+                                dtype=dt) for _ in range(2))
+            do = torch.randn((n, b, s, h, hd), generator=gen, device=dev,
+                             dtype=dt)
+            fwd = [_launch(q[i], k[i], v[i], True, window, scale,
+                           with_lse=True) for i in range(n)]
+            return q, k, v, do, [o for o, _ in fwd], [l for _, l in fwd]
+
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do, out, lse = make(1, dt)
+            args = (q[0], k[0], v[0], out[0], lse[0], do[0])
+            _, lse_ref = flash_attention_fwd_plain(q[0], k[0], v[0],
+                                                   causal=True,
+                                                   window=window)
+            fin = torch.isfinite(lse_ref)
+            lse_err = (lse[0][fin] - lse_ref[fin]).abs().max().item()
+            got = flash_attention_bwd(*args, causal=True, window=window)
+            torch.cuda.synchronize()
+            ref = flash_attention_bwd_plain(*args, causal=True,
+                                            window=window)
+            print(f"  flash_attention_bwd {label} B={b} S={s} H={h} KV={kv} "
+                  f"hd={hd} window={window} {str(dt)[6:]}: forward lse vs "
+                  f"plain {lse_err:.3e} (tol {LSE_TOL})")
+            if not (lse_err < LSE_TOL and torch.equal(fin,
+                                                      torch.isfinite(lse[0]))):
+                raise AssertionError(f"flash lse {label} disagrees")
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                e = _bwd_err(torch, name, g, r, 2, dt)
+                if dt == torch.bfloat16:
+                    errs.append(e)
+            del q, k, v, do, out, lse, args, got, ref
+        # bf16 timing: distinct inputs beyond the L2 where they fit
+        n_in = 4 if s <= 512 else 1
+        q, k, v, do, out, lse = make(n_in, torch.bfloat16)
+
+        def kern(i):
+            j = i % n_in
+            return flash_attention_bwd(q[j], k[j], v[j], out[j], lse[j],
+                                       do[j], causal=True, window=window)
+
+        def plain(i):
+            j = i % n_in
+            return flash_attention_bwd_plain(q[j], k[j], v[j], out[j],
+                                             lse[j], do[j], causal=True,
+                                             window=window)
+
+        qt, kt, vt = (x[0].transpose(1, 2).repeat_interleave(
+            h // x.shape[3], dim=1).detach().requires_grad_()
+            for x in (q, k, v))
+        mask = None
+        if window:
+            pos = torch.arange(s, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None)
+        dot = do[0].transpose(1, 2)
+
+        def library(i):
+            return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        n = 25 if s <= 512 else 5
+        ms, plain_ms, lib_ms = (timer(kern, n=n), timer(plain, n=3),
+                                timer(library, n=n))
+        pairs = _band_pairs(s, s, window)
+        flops = 10 * pairs * h * hd * b
+        # q, out, dout, k, v and lse read; dq (q's size), dk, dv written
+        nbytes = (_nbytes(q[0], out[0], do[0], lse[0]) + _nbytes(q[0])
+                  + 2 * _nbytes(k[0], v[0]))
+        bound, by = _bound_ms(nbytes, flops)
+        times[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, library_ms=lib_ms)
+        print(f"  flash_attention_bwd {label} bf16: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; {nbytes} B, {flops} flop); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s in the band")
+        del q, k, v, do, out, lse, qt, kt, vt, lib_out
+        torch.cuda.empty_cache()
+    return (dict(max_abs_err=max(errs), **times["smollm-135m"]), times)
+
+
+def check_rglru_bwd(torch, timer, dev):
+    """The scan's reverse mode against ``rglru_scan_bwd_plain`` at the
+    hybrid's training widths (B 1, W 4096; S 512 and 4096), f32, from the
+    forward kernel's states with h0 != 0 and both output gradients; equal
+    bits on a repeated call after a forward launch on the same stream;
+    timed against the plain loop and the bound (a, h and dh read, da and
+    db written: 20 bytes an element). Returns (the line's numbers at S =
+    4096, both shapes')."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
+                                                rglru_scan_bwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    errs, times = [], {}
+    for b, s, w in ((1, 512, 4096), (1, 4096, 4096)):
+        n_in = 4 if s <= 512 else 2
+
+        def make():
+            a = 0.8 + 0.1999 * torch.rand((n_in, b, s, w), generator=gen,
+                                          device=dev)
+            x, dh = (torch.randn((n_in, b, s, w), generator=gen, device=dev)
+                     for _ in range(2))
+            h0, dl = (torch.randn((n_in, b, w), generator=gen, device=dev)
+                      for _ in range(2))
+            hs = [rglru_scan(a[i], x[i], h0[i])[0] for i in range(n_in)]
+            return a, hs, h0, dh, dl
+
+        a, hs, h0, dh, dl = make()
+        args = (a[0], hs[0], h0[0], dh[0], dl[0])
+        got = rglru_scan_bwd(*args)
+        rglru_scan(a[1], dh[1], h0[1])        # the stream's state moves on
+        again = rglru_scan_bwd(*args)
+        torch.cuda.synchronize()
+        ref = rglru_scan_bwd_plain(*args)
+        # db and dh0 against max(1, |plain|); da_t = g_t h_{t-1} carries g's
+        # error times h_{t-1}: against max(1, |h_{t-1}|) max(1, |g_t|)
+        prev = torch.cat([h0[0][:, None], hs[0][:, :-1]], dim=1)
+        scales = (prev.abs().clamp_min(1) * ref[1].abs().clamp_min(1),
+                  ref[1].abs().clamp_min(1), ref[2].abs().clamp_min(1))
+        rel = max(((g - r).abs() / sc).max().item()
+                  for g, r, sc in zip(got, ref, scales))
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        print(f"  rglru_scan_bwd ({b}, {s}, {w}) f32: max|kernel - plain| "
+              f"{err:.3e}, {rel:.3e} of max(1, |plain|) (da: of max(1, "
+              f"|h_(t-1)|) max(1, |db|); tol {RGLRU_TOL}); repeated call "
+              f"equal bits: {same}")
+        if not (rel <= RGLRU_TOL and same):
+            raise AssertionError(f"rglru_scan_bwd ({b}, {s}, {w}) disagrees")
+        errs.append(err)
+
+        def kern(i):
+            j = i % n_in
+            return rglru_scan_bwd(a[j], hs[j], h0[j], dh[j], dl[j])
+
+        def plain(i):
+            j = i % n_in
+            return rglru_scan_bwd_plain(a[j], hs[j], h0[j], dh[j], dl[j])
+
+        ms, plain_ms = timer(kern), timer(plain, n=2)
+        nbytes = 20 * b * s * w + 12 * b * w
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * b * s * w / F32_FLOPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        times[s] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, library_ms=None)
+        print(f"  rglru_scan_bwd ({b}, {s}, {w}) f32: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library: none, bound {bound:.4f} ms "
+              f"({by}; {nbytes} B)")
+        del a, hs, h0, dh, dl, args, got, again, ref
+    return (dict(max_abs_err=max(errs), **times[4096]),
+            {f"S={s}": r for s, r in times.items()})
+
+
+def _train_launches(cfg, steps):
+    """The launches ``steps`` train steps make: each attention (or MLA) and
+    RG-LRU layer's forward kernel twice (the forward and its recomputation
+    in the backward pass), its backward kernel once; the MTP block (not
+    rematerialised) once each."""
+    n = collections.Counter()
+    for st in cfg.stages:
+        for bdef in st.blocks:
+            n[bdef.mixer] += st.repeat
+    attn, rec, mtp = n["attn"] + n["mla"], n["rglru"], int(cfg.mtp_depth > 0)
+    return {"flash_attention": steps * (2 * attn + mtp),
+            "flash_attention_bwd": steps * (attn + mtp),
+            "rglru_scan": steps * 2 * rec, "rglru_scan_bwd": steps * rec,
+            "decode_attention": 0, "paged_decode_attention": 0,
+            "cascade_gate": 0}
+
+
+def _profile_steps(torch, step, step_ms, n=2):
+    """``n`` calls of ``step`` under ``torch.profiler``: the device's busy
+    ms a step, the idle share against the unprofiled ``step_ms``, the
+    device events a step and the eight with the most device time a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3 / n
+    return dict(busy_ms=busy, idle_share=1 - busy / step_ms,
+                launches=sum(r[1] for r in rows) // n,
+                top=[(name[:40], us / 1e3 / n) for us, _, name in rows[:8]])
+
+
+def check_train_smollm(torch, dev, seed, smi):
+    """Phase 18(b): smollm-135m at full width and depth in bf16 through
+    ``Trainer.fit`` on ``TRAIN_DISTINCT`` ``TokenStream`` batches in turn;
+    then a fresh ``Trainer`` restores the step-10 checkpoint and runs the
+    remaining steps on the same batches."""
+    import itertools
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.training import Trainer
+    from repro_torch.training.train_loop import to_device
+
+    cfg = get_config("smollm-135m")
+    b, s = TRAIN_BATCH
+    t0 = time.perf_counter()
+    made = list(itertools.islice(
+        TokenStream(cfg.vocab_size, seed=seed).batches(b, s, seed),
+        TRAIN_DISTINCT))
+    data_s = time.perf_counter() - t0
+    batches = [made[i % TRAIN_DISTINCT] for i in range(TRAIN_STEPS)]
+    sched = linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        tr = Trainer(LM(cfg, device=dev), sched, ckpt_dir=f"{root}/run",
+                     log_every=1, ckpt_every=RESUME_AT)
+        params, opt = tr.init_state(seed)
+        n_params = _tree_numel(params)
+        events, step = [], tr.train_step
+
+        def timed(p, o, batch):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = step(p, o, batch)
+            end.record()
+            events.append((start, end))
+            return out
+
+        tr.train_step = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        params, opt = tr.fit(params, opt, iter(batches), TRAIN_STEPS,
+                             echo=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        want = _train_launches(cfg, TRAIN_STEPS)
+        step_ms = statistics.median(a.elapsed_time(e) for a, e in events[2:])
+        first = to_device(batches[0], dev)
+        prof = _profile_steps(torch, lambda: step(params, opt, first),
+                              step_ms)
+        losses = [m["loss"] for m in tr.history]
+        tok_s = b * s / step_ms * 1e3
+        share = 6 * n_params * b * s / (step_ms / 1e3) / BF16_FLOPS_PER_S
+        print(f"  smollm-135m train, {cfg.num_layers} layers, B={b} S={s}, "
+              f"bf16 params, AdamW f32, lr {TRAIN_LR} (warmup "
+              f"{TRAIN_WARMUP}) [{smi}]: {TRAIN_STEPS} steps in {wall:.2f} s "
+              f"({TRAIN_DISTINCT} batches in turn, made beforehand in "
+              f"{data_s:.1f} s); "
+              f"{step_ms:.2f} ms"
+              f" per train step (CUDA events, median of steps 2..), "
+              f"{tok_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB, "
+              f"6 N D / step time = {share:.4f} of 989 TFLOP/s (N = "
+              f"{n_params})")
+        print(f"    two more steps under torch.profiler: device busy "
+              f"{prof['busy_ms']:.2f} ms a step (idle share "
+              f"{prof['idle_share']:.3f} of the unprofiled step), "
+              f"{prof['launches']} device events a step; device ms a step "
+              f"by kernel: " + ", ".join(f"{k} {v:.2f}"
+                                        for k, v in prof["top"]))
+        print("    loss by step: " + ", ".join(f"{x:.3f}" for x in losses))
+        print(f"    launches {launches} (expected {want}: flash forward "
+              f"twice a layer a step under remat, backward once)")
+        if not all(np.isfinite(losses)):
+            raise AssertionError("smollm-135m train: a loss is not finite")
+        if not losses[-1] < losses[0] - 1.0:
+            raise AssertionError("smollm-135m train: the loss did not fall "
+                                 "by 1.0")
+        if launches != want:
+            raise AssertionError("smollm-135m train: launches do not match "
+                                 "the path")
+        # resume: only the step-10 checkpoint in a fresh directory
+        os.makedirs(f"{root}/resume")
+        shutil.copy(f"{root}/run/step_{RESUME_AT}.npz", f"{root}/resume")
+        tr2 = Trainer(LM(cfg, device=dev), sched, ckpt_dir=f"{root}/resume",
+                      log_every=1, ckpt_every=0)
+        p2, o2 = tr2.restore_or_init(seed + 1)   # other weights, replaced
+        if int(o2.step) != RESUME_AT:
+            raise AssertionError(f"restored step {int(o2.step)}")
+        reset_launches()
+        tr2.fit(p2, o2, iter(batches[RESUME_AT:]), TRAIN_STEPS - RESUME_AT,
+                echo=False)
+        resumed = [m["loss"] for m in tr2.history]
+        rel = max(abs(x - y) / abs(y)
+                  for x, y in zip(resumed, losses[RESUME_AT:]))
+        print(f"    resumed from step {RESUME_AT} by a fresh "
+              f"Trainer.restore_or_init: losses {rel:.3e} relative of the "
+              f"uninterrupted run's (tol {RESUME_TOL})")
+        if not rel < RESUME_TOL:
+            raise AssertionError("the resumed run departs from the "
+                                 "uninterrupted one")
+        more = dict(LAUNCHES)
+        for name in launches:
+            launches[name] += more[name]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(steps=TRAIN_STEPS, batch=b, seq=s, ms_per_step=step_ms,
+                profile=prof, tokens_per_s=tok_s, peak_bytes=peak,
+                flops_share=share,
+                n_params=n_params, losses=losses, resumed_losses=resumed,
+                resume_rel=rel, wall_s=wall, data_s=data_s), launches
+
+
+def _card_vs_cpu_step(torch, dev, label, cfg, params, batch):
+    """Loss, its parts and every gradient leaf of one f32 train step on the
+    card against the CPU, on the same weights (made on the card, copied)
+    and ``batch`` (numpy); MoE routes compared first (equal expert sets).
+    Returns (loss rel err, worst leaf err / max|g|, the card's launches)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.training import loss_and_grads
+    from repro_torch.utils.tree import flat_paths
+
+    results = []
+    for where in ("cpu", dev):
+        lm = LM(cfg, device=where)
+        p = _to_device(params, where)
+        bt = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        reset_launches()
+        with _Routes(torch) as routes:
+            loss, metrics, grads = loss_and_grads(lm, p, bt)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        results.append((loss, metrics, flat_paths(grads), routes.calls,
+                        dict(LAUNCHES)))
+        del p, bt
+    (lc, mc, gc_, rc, _), (lg, mg, gg, rg, launches) = results
+    if len(rc) != len(rg) or any(not torch.equal(a.cpu(), b)
+                                 for (a, _), (b, _) in zip(rg, rc)):
+        raise AssertionError(f"{label}: the card routes MoE tokens to "
+                             f"other experts than the CPU")
+    gap = min((g.min().item() for _, g in rc), default=None)
+    rel = max(abs(float(mg[k]) - float(mc[k])) / max(abs(float(mc[k])),
+                                                     1e-6)
+              for k in mc)
+    rel = max(rel, abs(float(lg) - float(lc)) / abs(float(lc)))
+    worst, where_ = 0.0, None
+    for key, ref in gc_.items():
+        scale = ref.abs().max().item()
+        e = (gg[key].cpu() - ref).abs().max().item() / max(scale, 1e-30)
+        if e > worst:
+            worst, where_ = e, key
+    print(f"  {label}: loss {float(lg):.5f} (card) vs {float(lc):.5f} "
+          f"(CPU), parts {sorted(mc)}: {rel:.3e} relative (tol "
+          f"{TRAIN_LOSS_TOL}); gradients of {len(gc_)} leaves: worst "
+          f"{worst:.3e} of the leaf's max|g| at {where_} (tol "
+          f"{TRAIN_GRAD_TOL})" + (f"; MoE routes equal, least top-k gap "
+                                  f"{gap:.3e}" if gap is not None else ""))
+    if not (rel <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"{label}: the card's step departs from the "
+                             f"CPU's")
+    return rel, worst, launches
+
+
+def check_train_hybrid(torch, dev, seed):
+    """Phase 18(c): one (rec, rec, attn) repeat of recurrentgemma-9b at
+    full width in f32, B 1, S 256 (the scan in several chunks): loss and
+    gradients on the card against the CPU, through both backward
+    kernels."""
+    from repro_torch.models.model import LM
+
+    cfg = _cut_stages(_hybrid_cfg("float32"), (1,))
+    params = _to_device(LM(cfg, device=dev).init(seed, on_device=True),
+                        "cpu")
+    rng = np.random.default_rng(seed + 18)
+    tokens = rng.integers(0, cfg.vocab_size, (1, 257)).astype(np.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    rel, worst, launches = _card_vs_cpu_step(
+        torch, dev, f"recurrentgemma-9b 1 repeat ({cfg.num_layers} layers, "
+        f"{_tree_numel(params) / 1e9:.2f} B values) f32 B=1 S=256", cfg,
+        params, batch)
+    want = _train_launches(cfg, 1)
+    print(f"    launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError("hybrid train step: launches do not match")
+    return dict(loss_rel=rel, grad_worst=worst), launches
+
+
+def check_train_families(torch, dev, seed, smi):
+    """Phase 18(d): each mixer family's ``.reduced()`` config, f32: one
+    train step's loss and gradients on the card against the CPU, then the
+    whole step (AdamW) on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw_init, linear_warmup_cosine
+    from repro_torch.training import make_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    stats, total = {}, collections.Counter()
+    for label, name in FAMILIES:
+        cfg = get_config(name).reduced()
+        params = LM(cfg, device="cpu").init(seed)
+        rng = np.random.default_rng(seed + 19)
+        fe = cfg.frontend
+        shape = (2, 33, fe.num_codebooks) if fe.kind == "audio" else (2, 33)
+        tokens = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        if fe.kind == "vision":
+            img = rng.standard_normal((2, fe.num_prefix_tokens,
+                                       fe.embed_dim)).astype(np.float32)
+            batch["image_embeds"] = img / np.linalg.norm(img, axis=-1,
+                                                         keepdims=True)
+        rel, worst, launches = _card_vs_cpu_step(
+            torch, dev, f"{label} ({cfg.name}) f32", cfg, params, batch)
+        lm = LM(cfg, device=dev)
+        p = _to_device(params, dev)
+        step = make_train_step(lm, linear_warmup_cosine(3e-4, 10, 50))
+        reset_launches()
+        p, _, m = step(p, adamw_init(p), {k: torch.from_numpy(v).to(dev)
+                                          for k, v in batch.items()})
+        torch.cuda.synchronize()
+        for k, v in LAUNCHES.items():
+            launches[k] += v
+        want = _train_launches(cfg, 2)
+        if launches != want or not all(bool(torch.isfinite(t).all())
+                                        for t in tree_leaves(p)):
+            raise AssertionError(f"{label}: launches {launches} != {want}, "
+                                 f"or a stepped weight is not finite")
+        stats[label] = dict(loss_rel=rel, grad_worst=worst,
+                            step_loss=float(m["loss"]))
+        total.update(launches)
+    print(f"    launches of the 12 steps (loss and gradients, then the "
+          f"whole step, per family): {dict(total)}")
+    return stats, dict(total)
+
+
+def check_training(torch, timer, dev, seed, smi):
+    """Phase 18: returns (the kernels-line numbers of the two backward
+    kernels, the phase's record, its launches)."""
+    results, launches = {}, collections.Counter()
+    print("  (a) backward kernels vs plain versions")
+    results["flash_attention_bwd"], flash_times = check_flash_bwd(
+        torch, timer, dev)
+    results["rglru_scan_bwd"], scan_times = check_rglru_bwd(torch, timer,
+                                                            dev)
+    torch.cuda.empty_cache()
+    print("  (b) smollm-135m, full width and depth, bf16, Trainer.fit")
+    smollm, got = check_train_smollm(torch, dev, seed, smi)
+    launches.update(got)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  (c) recurrentgemma-9b, one (rec, rec, attn) repeat, full width, "
+          "f32, card vs CPU")
+    hybrid, got = check_train_hybrid(torch, dev, seed)
+    launches.update(got)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  (d) each mixer family's reduced config, f32, card vs CPU")
+    families, got = check_train_families(torch, dev, seed, smi)
+    launches.update(got)
+    return results, dict(flash_bwd=flash_times, scan_bwd=scan_times,
+                         smollm=smollm, hybrid=hybrid,
+                         families=families), dict(launches)
 
 
 def main() -> int:
@@ -5292,6 +5896,17 @@ def main() -> int:
                                                    args.seed, smi)
     for name, n in modal_launches.items():
         launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("[18] training on one device: the backward kernels vs their plain "
+          "versions; smollm-135m (30 layers, bf16) through Trainer.fit and a "
+          "resumed Trainer; recurrentgemma-9b (one repeat, f32) and each "
+          "family's reduced config (f32), card vs CPU")
+    train_results, train_stats, train_launches = check_training(
+        torch, timer, dev, args.seed, smi)
+    results.update(train_results)
+    for name, n in train_launches.items():
+        launches[name] += n
     if args.profile:
         from repro_torch.configs import get_config
         from repro_torch.models.model import LM
@@ -5334,6 +5949,12 @@ def main() -> int:
             "src/repro/kernels/decode_attention.py:282"),
         "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                        "src/repro/kernels/rglru_scan.py:77"),
+        # no Pallas backward exists: the JAX gradients they compute
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/models/attention.py:226"),
+        "rglru_scan_bwd": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                           "src/repro/models/recurrent.py:80"),
     }
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name],
@@ -5354,7 +5975,7 @@ def main() -> int:
                        "sampler": sampler_times,
                        "speculative": spec_stats,
                        "durability": durability, "ace_app": ace_stats,
-                       "moe": moe_stats,
+                       "moe": moe_stats, "training": train_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

@@ -1,6 +1,7 @@
 """Checkpointing to .npz in ``repro``'s flat key-path format, numpy only."""
 from repro_torch.checkpoint.io import (json_leaf, json_unleaf, latest_step,
-                                       load_checkpoint_tree, save_checkpoint)
+                                       load_checkpoint, load_checkpoint_tree,
+                                       save_checkpoint)
 
-__all__ = ["save_checkpoint", "load_checkpoint_tree", "json_leaf",
-           "json_unleaf", "latest_step"]
+__all__ = ["save_checkpoint", "load_checkpoint", "load_checkpoint_tree",
+           "json_leaf", "json_unleaf", "latest_step"]

@@ -15,8 +15,9 @@ from typing import Dict
 import torch
 
 LAUNCHES: Dict[str, int] = {"cascade_gate": 0, "decode_attention": 0,
-                             "flash_attention": 0,
-                             "paged_decode_attention": 0, "rglru_scan": 0}
+                             "flash_attention": 0, "flash_attention_bwd": 0,
+                             "paged_decode_attention": 0, "rglru_scan": 0,
+                             "rglru_scan_bwd": 0}
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
 

@@ -38,8 +38,16 @@
 // are hand-written, both count as launches, and neither stands in for the
 // other when a build or launch fails.
 //
+// Log-sum-exp (training): when the caller passes an lse pointer, each row
+// also writes lse = log(sum_j exp(s_j * scale)) over its valid keys in
+// natural-log units, f32 (B, Sq, H), -inf for a row with no valid key: the
+// statistic flash_attention_bwd.cu rebuilds P from. The serving path
+// passes null and writes nothing more.
+//
 // Layouts (all contiguous): q, out (B, Sq, H, hd); k, v (B, Sk, KV, hd);
-// q, k and v 16-byte aligned.
+// q, k and v 16-byte aligned; lse (B, Sq, H) or null.
+#include <math.h>
+
 #include "attention_mma.cuh"
 
 using namespace attn;
@@ -57,8 +65,8 @@ __global__ void __launch_bounds__(128, 1)
 flash_mma_kernel(const mma::bf16* __restrict__ q,
                  const mma::bf16* __restrict__ k,
                  const mma::bf16* __restrict__ v, mma::bf16* __restrict__ out,
-                 int sq, int sk, int h, int kvh_n, int hd, int causal,
-                 int window, int groups, float scale) {
+                 float* __restrict__ lse, int sq, int sk, int h, int kvh_n,
+                 int hd, int causal, int window, int groups, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int KW = kWarpKeys<HDMAX>;
   using S = mma::Shape<HDMAX>;
@@ -91,12 +99,22 @@ flash_mma_kernel(const mma::bf16* __restrict__ q,
                          ntiles, groups, first, last, causal != 0, window,
                          scale, acc);
   mma::store_rows<HDMAX>(s, acc, role, out, nrows, hd);
+  if (lse != nullptr && role.group == 0 && (threadIdx.x & 3) == 0) {
+    // a group-0 quad's first lane: its two rows' merged (m, l), m in log2
+    // units
+    for (int r = 0; r < 2; ++r) {
+      const int row = role.row0 + ((threadIdx.x & 31) >> 2) + 8 * r;
+      if (row < nrows)
+        lse[s.roff[row] / hd] = acc.l[r] > 0.f
+            ? acc.m[r] * mma::kLn2 + logf(acc.l[r]) : -INFINITY;
+    }
+  }
 }
 
 template <int HDMAX>
 static int launch_mma(const void* q, const void* k, const void* v, void* out,
-                      int b, int sq, int sk, int h, int kvh_n, int hd,
-                      int causal, int window, int q_tile, int groups,
+                      float* lse, int b, int sq, int sk, int h, int kvh_n,
+                      int hd, int causal, int window, int q_tile, int groups,
                       float scale, cudaStream_t stream) {
   constexpr int KW = kWarpKeys<HDMAX>;
   using S = mma::Shape<HDMAX>;
@@ -108,36 +126,37 @@ static int launch_mma(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((sq + q_tile - 1) / q_tile, h, b);
   kernel<<<grid, 2 * q_tile * groups, smem, stream>>>(
       static_cast<const mma::bf16*>(q), static_cast<const mma::bf16*>(k),
-      static_cast<const mma::bf16*>(v), static_cast<mma::bf16*>(out), sq, sk,
-      h, kvh_n, hd, causal, window, groups, scale);
+      static_cast<const mma::bf16*>(v), static_cast<mma::bf16*>(out), lse,
+      sq, sk, h, kvh_n, hd, causal, window, groups, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // window <= 0: no sliding window; q_tile: query rows per CTA (16, 32 or
 // 64); groups: warps that split each query tile's keys (1, 2 or 4, at most
-// 2 above 64 dims, q_tile / 16 * groups <= 4 warps). Returns a cudaError_t
-// (0 = launched).
+// 2 above 64 dims, q_tile / 16 * groups <= 4 warps); lse: (B, Sq, H) f32
+// or null. Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int b, int sq,
-                                    int sk, int h, int kvh_n, int hd,
-                                    int causal, int window, int q_tile,
-                                    int groups, float scale, void* stream) {
+                                    const void* v, void* out, float* lse,
+                                    int b, int sq, int sk, int h, int kvh_n,
+                                    int hd, int causal, int window,
+                                    int q_tile, int groups, float scale,
+                                    void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if ((q_tile != 16 && q_tile != 32 && q_tile != 64) ||
       (groups != 1 && groups != 2 && groups != 4) ||
       q_tile / 16 * groups > 4 || (hd > 64 && groups > 2))
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 32)
-    return launch_mma<32>(q, k, v, out, b, sq, sk, h, kvh_n, hd, causal,
+    return launch_mma<32>(q, k, v, out, lse, b, sq, sk, h, kvh_n, hd, causal,
                           window, q_tile, groups, scale, st);
   if (hd <= 64)
-    return launch_mma<64>(q, k, v, out, b, sq, sk, h, kvh_n, hd, causal,
+    return launch_mma<64>(q, k, v, out, lse, b, sq, sk, h, kvh_n, hd, causal,
                           window, q_tile, groups, scale, st);
   if (hd <= 128)
-    return launch_mma<128>(q, k, v, out, b, sq, sk, h, kvh_n, hd, causal,
+    return launch_mma<128>(q, k, v, out, lse, b, sq, sk, h, kvh_n, hd, causal,
                            window, q_tile, groups, scale, st);
   if (hd <= 256)
-    return launch_mma<256>(q, k, v, out, b, sq, sk, h, kvh_n, hd, causal,
+    return launch_mma<256>(q, k, v, out, lse, b, sq, sk, h, kvh_n, hd, causal,
                            window, q_tile, groups, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -151,8 +170,9 @@ __global__ void __launch_bounds__(128)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int sq, int sk, int h, int kvh_n, int hd, int causal,
-                       int window, float scale) {
+                       float* __restrict__ lse, int sq, int sk, int h,
+                       int kvh_n, int hd, int causal, int window,
+                       float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int q0 = blockIdx.x * kQTile, head = blockIdx.y, b = blockIdx.z;
   const int nrows = min(kQTile, sq - q0);
@@ -174,12 +194,16 @@ flash_attention_kernel(const float* __restrict__ q,
   attend<LD>(s, k, v, keys, lo, hi, nrows, hd, causal != 0, window,
                     scale);
   store_rows(s, out, nrows, hd);
+  if (lse != nullptr)
+    for (int r = threadIdx.x; r < nrows; r += blockDim.x)
+      lse[s.roff[r] / hd] =
+          s.l[r] > 0.f ? s.m[r] + logf(s.l[r]) : -INFINITY;
 }
 
 template <int LD>
 static int launch_f32(const void* q, const void* k, const void* v, void* out,
-                      int b, int sq, int sk, int h, int kvh_n, int hd,
-                      int causal, int window, float scale,
+                      float* lse, int b, int sq, int sk, int h, int kvh_n,
+                      int hd, int causal, int window, float scale,
                       cudaStream_t stream) {
   const size_t smem = smem_bytes(kQTile, hd);
   auto kernel = flash_attention_kernel<LD>;
@@ -188,29 +212,30 @@ static int launch_f32(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((sq + kQTile - 1) / kQTile, h, b);
   kernel<<<grid, 128, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sq, sk, h,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, sq, sk, h,
       kvh_n, hd, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// window <= 0: no sliding window. Returns a cudaError_t (0 = launched).
+// window <= 0: no sliding window; lse: (B, Sq, H) f32 or null. Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* out, int b, int sq,
-                                   int sk, int h, int kvh_n, int hd,
-                                   int causal, int window, float scale,
-                                   void* stream) {
+                                   const void* v, void* out, float* lse,
+                                   int b, int sq, int sk, int h, int kvh_n,
+                                   int hd, int causal, int window,
+                                   float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (hd <= 32)
-    return launch_f32<1>(q, k, v, out, b, sq, sk, h, kvh_n, hd, causal,
-                         window, scale, st);
+    return launch_f32<1>(q, k, v, out, lse, b, sq, sk, h, kvh_n, hd,
+                         causal, window, scale, st);
   if (hd <= 64)
-    return launch_f32<2>(q, k, v, out, b, sq, sk, h, kvh_n, hd, causal,
-                         window, scale, st);
+    return launch_f32<2>(q, k, v, out, lse, b, sq, sk, h, kvh_n, hd,
+                         causal, window, scale, st);
   if (hd <= 128)
-    return launch_f32<4>(q, k, v, out, b, sq, sk, h, kvh_n, hd, causal,
-                         window, scale, st);
+    return launch_f32<4>(q, k, v, out, lse, b, sq, sk, h, kvh_n, hd,
+                         causal, window, scale, st);
   if (hd <= 256)
-    return launch_f32<8>(q, k, v, out, b, sq, sk, h, kvh_n, hd, causal,
-                         window, scale, st);
+    return launch_f32<8>(q, k, v, out, lse, b, sq, sk, h, kvh_n, hd,
+                         causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -52,6 +52,22 @@
 // ticket counter, so a flag left by an earlier launch is never taken for
 // this one's and no scratch is cleared between calls.
 //
+// Reverse mode (rglru_scan_bwd_f32, the training path's gradient; it
+// replaces no TPU kernel: repro differentiates rglru_scan_ref with JAX
+// autodiff, src/repro/models/recurrent.py): with g the gradient of the
+// running state, g_t = dh_t + a_{t+1} g_{t+1} from g_S = dh_last (a_S = 1)
+// is the same recurrence run backward in time with a shifted by one step.
+// The same kernel body runs it (kRev): chunk k of a chain covers the k-th
+// chunk counted from the end, a row of it is one step earlier in time than
+// the row before, and it loads a_{t+1} and dh_t where the forward loads a_t
+// and b_t. The tickets, the groups, the fixed-order look-back and the
+// scratch protocol (ctl, flags, vals) are the forward's, so one launch of
+// either mode leaves the scratch ready for the next launch of either mode
+// on that stream. Its epilogue writes db_t = g_t and da_t = g_t h_{t-1}
+// (h_{-1} = h0, reading the forward's states), and the chain's last chunk
+// dh0 = a_0 g_0: the whole gradient is one launch. Bytes: a, dh and h read,
+// da and db written, 20 per element.
+//
 // Layouts (all contiguous): a, b, h (B, S, W); h0, h_last (B, W). Scratch:
 // ctl (3 x u32: ticket, retired CTAs, epoch) and flags (one u32 per CTA),
 // both zeroed once by their owner and kept across calls on one stream;
@@ -110,12 +126,17 @@ __device__ __forceinline__ void publish(unsigned* flag, unsigned v) {
 // kVec: W % 4 == 0 and a, b, h 16-byte aligned, so a warp moves 512
 // contiguous bytes of one step per instruction (thread t: step t / 32 + 4 i,
 // channels 4 (t % 32) ..); else thread t moves channel t of every step.
-template <bool kVec>
+// kRev: the reverse mode (see the header): b is dh, h0 is dh_last, h_out
+// takes db and h_last dh0; hf and hf0 are the forward's h and h0, da takes
+// da. The forward passes null for those three.
+template <bool kVec, bool kRev>
 __global__ void __launch_bounds__(kThreads)
 rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   const float* __restrict__ h0, float* __restrict__ h_out,
                   float* __restrict__ h_last, unsigned* __restrict__ ctl,
                   unsigned* __restrict__ flags, float* __restrict__ vals,
+                  const float* __restrict__ hf,
+                  const float* __restrict__ hf0, float* __restrict__ da,
                   int s, int w, int chunk, int group, int chains,
                   int nchunks) {
   __shared__ __align__(16) float sa[kMaxChunk][kThreads];
@@ -134,21 +155,34 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int row = chain / tiles, c0 = (chain - row * tiles) * kThreads;
   const int nch = min(kThreads, w - c0);       // channels in this tile
   const int t0 = k * chunk, n = min(chunk, s - t0);
-  const long long off = (static_cast<long long>(row) * s + t0) * w + c0;
+  // row u of the chunk is step t0 + u, or in reverse step s - 1 - t0 - u,
+  // whose a is read one step later (a_{t+1}; a_S = 1)
+  const long long step = kRev ? -static_cast<long long>(w) : w;
+  const long long off =
+      (static_cast<long long>(row) * s + (kRev ? s - 1 - t0 : t0)) * w + c0;
+  const long long a_shift = kRev ? w : 0;
+  const bool a_one = kRev && k == 0;           // row 0 holds a_S = 1
 
   if constexpr (kVec) {
     const int j = (tid & 31) * 4;
     for (int u = tid >> 5; u < n; u += kThreads / 32) {
-      const long long i = off + static_cast<long long>(u) * w + j;
+      const long long i = off + u * step + j;
       const bool rd = j < nch;
-      cp_async16(&sa[u][j], rd ? a + i : a, rd);
+      if (a_one && u == 0)
+        *reinterpret_cast<float4*>(&sa[0][j]) =
+            make_float4(1.f, 1.f, 1.f, 1.f);
+      else
+        cp_async16(&sa[u][j], rd ? a + i + a_shift : a, rd);
       cp_async16(&sh[u][j], rd ? b + i : b, rd);
     }
   } else {
     const bool rd = tid < nch;
     for (int u = 0; u < n; ++u) {
-      const long long i = off + static_cast<long long>(u) * w + tid;
-      cp_async4(&sa[u][tid], rd ? a + i : a, rd);
+      const long long i = off + u * step + tid;
+      if (a_one && u == 0)
+        sa[0][tid] = 1.f;
+      else
+        cp_async4(&sa[u][tid], rd ? a + i + a_shift : a, rd);
       cp_async4(&sh[u][tid], rd ? b + i : b, rd);
     }
   }
@@ -228,19 +262,38 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   } else {
     __syncthreads();                             // sh is complete
   }
+  // the step before row u's, for da = g h_{t-1}: h_{-1} = h0
+  const bool from_h0 = kRev && k + 1 == nchunks;
+  const long long first = static_cast<long long>(row) * w + c0;
   if constexpr (kVec) {
     const int j = (tid & 31) * 4;
     if (j < nch)
-      for (int u = tid >> 5; u < n; u += kThreads / 32)
-        *reinterpret_cast<float4*>(h_out + off +
-                                   static_cast<long long>(u) * w + j) =
-            *reinterpret_cast<const float4*>(&sh[u][j]);
+      for (int u = tid >> 5; u < n; u += kThreads / 32) {
+        const long long i = off + u * step + j;
+        const float4 g = *reinterpret_cast<const float4*>(&sh[u][j]);
+        *reinterpret_cast<float4*>(h_out + i) = g;
+        if constexpr (kRev) {
+          const float4 p = from_h0 && u == n - 1
+              ? *reinterpret_cast<const float4*>(hf0 + first + j)
+              : *reinterpret_cast<const float4*>(hf + i - w);
+          *reinterpret_cast<float4*>(da + i) =
+              make_float4(g.x * p.x, g.y * p.y, g.z * p.z, g.w * p.w);
+        }
+      }
   } else if (tid < nch) {
-    for (int u = 0; u < n; ++u)
-      h_out[off + static_cast<long long>(u) * w + tid] = sh[u][tid];
+    for (int u = 0; u < n; ++u) {
+      const long long i = off + u * step + tid;
+      h_out[i] = sh[u][tid];
+      if constexpr (kRev)
+        da[i] = sh[u][tid] *
+                (from_h0 && u == n - 1 ? hf0[first + tid] : hf[i - w]);
+    }
   }
-  if (k + 1 == nchunks && tid < nch)
-    h_last[static_cast<long long>(row) * w + c0 + tid] = h;
+  if (k + 1 == nchunks && tid < nch) {
+    // reverse: dh0 = a_0 g_0, a_0 the chain's first step
+    h_last[first + tid] =
+        kRev ? a[static_cast<long long>(row) * s * w + c0 + tid] * h : h;
+  }
   // the last CTA to retire readies the scratch for the next launch
   if (tid == 0) {
     const unsigned done = atomicAdd(&ctl[1], 1u);
@@ -252,12 +305,13 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-template <bool kVec>
+template <bool kVec, bool kRev>
 int launch(const float* a, const float* b, const float* h0, float* h,
-           float* h_last, unsigned* ctl, unsigned* flags, float* vals, int s,
-           int w, int chunk, int group, int chains, int nchunks,
+           float* h_last, unsigned* ctl, unsigned* flags, float* vals,
+           const float* hf, const float* hf0, float* da, int s, int w,
+           int chunk, int group, int chains, int nchunks,
            cudaStream_t stream) {
-  auto kernel = rglru_scan_kernel<kVec>;
+  auto kernel = rglru_scan_kernel<kVec, kRev>;
   static bool carved = false;
   if (!carved) {     // all of the SM's shared memory: more CTAs resident
     const cudaError_t err = cudaFuncSetAttribute(
@@ -267,8 +321,8 @@ int launch(const float* a, const float* b, const float* h0, float* h,
     carved = true;
   }
   kernel<<<chains * nchunks, kThreads, 0, stream>>>(
-      a, b, h0, h, h_last, ctl, flags, vals, s, w, chunk, group, chains,
-      nchunks);
+      a, b, h0, h, h_last, ctl, flags, vals, hf, hf0, da, s, w, chunk, group,
+      chains, nchunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,8 +347,42 @@ extern "C" int rglru_scan_f32(const float* a, const float* b, const float* h0,
                    ((reinterpret_cast<unsigned long long>(a) |
                      reinterpret_cast<unsigned long long>(b) |
                      reinterpret_cast<unsigned long long>(h)) & 15) == 0;
-  return vec ? launch<true>(a, b, h0, h, h_last, ctl, flags, vals, s, w,
-                            chunk, group, chains, nchunks, stream)
-             : launch<false>(a, b, h0, h, h_last, ctl, flags, vals, s, w,
-                             chunk, group, chains, nchunks, stream);
+  return vec ? launch<true, false>(a, b, h0, h, h_last, ctl, flags, vals,
+                                   nullptr, nullptr, nullptr, s, w, chunk,
+                                   group, chains, nchunks, stream)
+             : launch<false, false>(a, b, h0, h, h_last, ctl, flags, vals,
+                                    nullptr, nullptr, nullptr, s, w, chunk,
+                                    group, chains, nchunks, stream);
+}
+
+// The reverse mode: from a (B, S, W), the forward's states h (B, S, W) and
+// h0 (B, W), and the gradients dh (B, S, W) and dh_last (B, W), writes da,
+// db (B, S, W) and dh0 (B, W). chunk, group, ctl, flags and vals as for
+// rglru_scan_f32 (the same scratch may serve both). Returns a cudaError_t
+// (0 = launched).
+extern "C" int rglru_scan_bwd_f32(const float* a, const float* h,
+                                  const float* h0, const float* dh,
+                                  const float* dh_last, float* da, float* db,
+                                  float* dh0, unsigned* ctl, unsigned* flags,
+                                  float* vals, int batch, int s, int w,
+                                  int chunk, int group, void* stream_ptr) {
+  auto stream = static_cast<cudaStream_t>(stream_ptr);
+  if (batch < 1 || s < 1 || w < 1 || chunk < 1 || chunk > kMaxChunk ||
+      group < 1 || group > kMaxGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nchunks = (s + chunk - 1) / chunk;
+  const int chains = batch * ((w + kThreads - 1) / kThreads);
+  const bool vec = w % 4 == 0 &&
+                   ((reinterpret_cast<unsigned long long>(a) |
+                     reinterpret_cast<unsigned long long>(h) |
+                     reinterpret_cast<unsigned long long>(h0) |
+                     reinterpret_cast<unsigned long long>(dh) |
+                     reinterpret_cast<unsigned long long>(da) |
+                     reinterpret_cast<unsigned long long>(db)) & 15) == 0;
+  return vec ? launch<true, true>(a, dh, dh_last, db, dh0, ctl, flags, vals,
+                                  h, h0, da, s, w, chunk, group, chains,
+                                  nchunks, stream)
+             : launch<false, true>(a, dh, dh_last, db, dh0, ctl, flags, vals,
+                                   h, h0, da, s, w, chunk, group, chains,
+                                   nchunks, stream);
 }

@@ -11,6 +11,15 @@ sequential loop over time: the CPU path and the kernel's reference.
 
 Contract shared by both: a, b (B, S, W) f32 and h0 (B, W) f32 -> (h
 (B, S, W) f32, h_last (B, W) f32), for any S, W >= 1.
+
+Training: when grad is enabled and an input requires it, ``rglru_scan``
+goes through ``RGLRUScan`` (a ``torch.autograd.Function``), whose backward
+is the same kernel's reverse mode (``rglru_scan_bwd_f32``; ``LAUNCHES
+["rglru_scan_bwd"]``): with g the gradient of the running state, g_t =
+dh_t + a_{t+1} g_{t+1} from g_{S-1} = dh_{S-1} + dh_last, da_t = g_t
+h_{t-1} (h_{-1} = h0), db_t = g_t, dh0 = a_0 g_0, in one launch. It keeps
+the forward's look-back protocol and shares its per-stream state. On CPU
+tensors ``rglru_scan_bwd_plain`` (a sequential reverse loop) runs instead.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from repro_torch.kernels import (LAUNCHES, build, check_cuda_tensors,
                                  raise_on_error)
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p])
 _THREADS = 128          # channels per CTA (csrc/rglru_scan.cu kThreads)
 _MAX_CHUNK = 32         # steps a CTA holds in shared memory (kMaxChunk)
 _MIN_CHUNK = 8          # steps per chunk at least, where S allows
@@ -48,6 +59,26 @@ def rglru_scan_plain(a, b, h0):
         h = a[:, t].float() * h + b[:, t].float()
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def rglru_scan_bwd_plain(a, h, h0, dh, dh_last):
+    """Sequential f32 reverse loop: the gradient (da, db, dh0) of
+    ``rglru_scan_plain``'s (h, h_last) with respect to (a, b, h0), given
+    the forward's states ``h`` and the output gradients ``dh`` (B, S, W)
+    and ``dh_last`` (B, W)."""
+    s = a.shape[1]
+    g = dh_last.float()
+    das, dbs = [], []
+    for t in range(s - 1, -1, -1):
+        if t + 1 < s:
+            g = a[:, t + 1].float() * g
+        g = g + dh[:, t].float()
+        prev = h[:, t - 1].float() if t > 0 else h0.float()
+        das.append(g * prev)
+        dbs.append(g)
+    da = torch.stack(das[::-1], dim=1)
+    db = torch.stack(dbs[::-1], dim=1)
+    return da, db, a[:, 0].float() * g
 
 
 def chunk_len(batch: int, s: int, w: int, sms: int) -> int:
@@ -100,21 +131,32 @@ def _lib():
     lib = build.load("rglru_scan")
     lib.rglru_scan_f32.argtypes = _ARGTYPES
     lib.rglru_scan_f32.restype = ctypes.c_int
+    lib.rglru_scan_bwd_f32.argtypes = _BWD_ARGTYPES
+    lib.rglru_scan_bwd_f32.restype = ctypes.c_int
     return lib
 
 
-def _launch(a, b, h0):
-    check_cuda_tensors("rglru_scan", {"a": a, "b": b, "h0": h0}, {})
+def _check(name, seqs: dict, lasts: dict):
+    """f32 CUDA inputs: ``seqs`` (B, S, W) and ``lasts`` (B, W), B, S, W
+    >= 1."""
+    check_cuda_tensors(name, {**seqs, **lasts}, {})
+    a = next(iter(seqs.values()))
     if a.dtype != torch.float32:
-        raise TypeError(f"rglru_scan: a/b/h0 must be float32 (got {a.dtype})")
+        raise TypeError(f"{name}: {'/'.join({**seqs, **lasts})} must be "
+                        f"float32 (got {a.dtype})")
     bsz, s, w = a.shape
-    if b.shape != a.shape or h0.shape != (bsz, w) or not (s and w and bsz):
-        raise ValueError(
-            f"rglru_scan: shapes a {tuple(a.shape)}, b {tuple(b.shape)}, h0 "
-            f"{tuple(h0.shape)} do not form (B,S,W)/(B,W) with B, S, W >= 1")
-    dev = a.device
-    h = torch.empty_like(a)
-    h_last = torch.empty_like(h0)
+    if any(t.shape != a.shape for t in seqs.values()) \
+            or any(t.shape != (bsz, w) for t in lasts.values()) \
+            or not (s and w and bsz):
+        shapes = ", ".join(f"{k} {tuple(t.shape)}"
+                           for k, t in {**seqs, **lasts}.items())
+        raise ValueError(f"{name}: shapes {shapes} do not form (B,S,W)/"
+                         f"(B,W) with B, S, W >= 1")
+
+
+def _scratch(dev, bsz: int, s: int, w: int):
+    """(chunk, the stream's look-back state, vals) of a launch over (B, S,
+    W): the same for the forward and the reverse mode."""
     chunk = chunk_len(bsz, s, w,
                       torch.cuda.get_device_properties(dev)
                       .multi_processor_count)
@@ -122,6 +164,16 @@ def _launch(a, b, h0):
     stream = torch.cuda.current_stream(dev).cuda_stream
     ctl, flags = _state(dev, stream, ctas)
     vals = torch.empty(2 * ctas * _THREADS, dtype=torch.float32, device=dev)
+    return chunk, stream, ctl, flags, vals
+
+
+def _launch(a, b, h0):
+    _check("rglru_scan", {"a": a, "b": b}, {"h0": h0})
+    bsz, s, w = a.shape
+    dev = a.device
+    h = torch.empty_like(a)
+    h_last = torch.empty_like(h0)
+    chunk, stream, ctl, flags, vals = _scratch(dev, bsz, s, w)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.rglru_scan_f32(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
@@ -134,14 +186,74 @@ def _launch(a, b, h0):
     return h, h_last
 
 
-def rglru_scan(a, b, h0):
-    """Launch the CUDA kernel for CUDA tensors, run the plain version for
-    CPU tensors. a, b (B, S, W), h0 (B, W), all f32 -> (h, h_last)."""
-    if a.dim() != 3 or h0.dim() != 2:
-        raise ValueError(f"rglru_scan: a must be (B, S, W) and h0 (B, W) "
-                         f"(got {tuple(a.shape)}, {tuple(h0.shape)})")
+def _launch_bwd(a, h, h0, dh, dh_last):
+    _check("rglru_scan_bwd", {"a": a, "h": h, "dh": dh},
+           {"h0": h0, "dh_last": dh_last})
+    bsz, s, w = a.shape
+    dev = a.device
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty_like(h0)
+    chunk, stream, ctl, flags, vals = _scratch(dev, bsz, s, w)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.rglru_scan_bwd_f32(
+            a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(),
+            dh_last.data_ptr(), da.data_ptr(), db.data_ptr(), dh0.data_ptr(),
+            ctl.data_ptr(), flags.data_ptr(), vals.data_ptr(), bsz, s, w,
+            chunk, _GROUP, stream)
+    raise_on_error("rglru_scan_bwd", err)
+    LAUNCHES["rglru_scan_bwd"] += 1
+    return da, db, dh0
+
+
+def _forward(a, b, h0):
+    """(h, h_last) on the inputs' device: the kernel for CUDA tensors, the
+    plain loop for CPU tensors."""
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0)
     if a.is_cuda:
         return _launch(a.contiguous(), b.contiguous(), h0.contiguous())
     raise ValueError(f"rglru_scan: unsupported device {a.device}")
+
+
+def rglru_scan_bwd(a, h, h0, dh, dh_last):
+    """(da, db, dh0) of the scan: the kernel's reverse mode for CUDA
+    tensors, the plain reverse loop for CPU tensors."""
+    if a.device.type == "cpu":
+        return rglru_scan_bwd_plain(a, h, h0, dh, dh_last)
+    if a.is_cuda:
+        return _launch_bwd(*(t.contiguous() for t in (a, h, h0, dh,
+                                                      dh_last)))
+    raise ValueError(f"rglru_scan_bwd: unsupported device {a.device}")
+
+
+class RGLRUScan(torch.autograd.Function):
+    """``rglru_scan`` with its gradient (see the module docstring). Saves
+    a, h0 and the states h."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h, h_last = _forward(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        a, h0, h = ctx.saved_tensors
+        dh = torch.zeros_like(h) if dh is None else dh.float()
+        dh_last = (torch.zeros_like(h0) if dh_last is None
+                   else dh_last.float())
+        return rglru_scan_bwd(a, h, h0, dh, dh_last)
+
+
+def rglru_scan(a, b, h0):
+    """Launch the CUDA kernel for CUDA tensors, run the plain version for
+    CPU tensors; through ``RGLRUScan`` when a gradient is needed. a, b
+    (B, S, W), h0 (B, W), all f32 -> (h, h_last)."""
+    if a.dim() != 3 or h0.dim() != 2:
+        raise ValueError(f"rglru_scan: a must be (B, S, W) and h0 (B, W) "
+                         f"(got {tuple(a.shape)}, {tuple(h0.shape)})")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
+                                    or h0.requires_grad):
+        return RGLRUScan.apply(a, b, h0)
+    return _forward(a, b, h0)

@@ -12,8 +12,8 @@ in front of the text) and audio (a (B, S, C) grid of EnCodec codebook
 tokens, their embeddings summed, one LM head per codebook). Parameters
 are the same nested dicts as ``repro``'s, with per-stage leaves stacked
 on a leading layer axis, so ``repro_torch.bridge`` maps one onto the other
-by name (deepseek-v3's multi-token-prediction params too, which only
-``repro``'s training loss reads). ``repro``'s ``lax.scan`` over stacked
+by name (deepseek-v3's multi-token-prediction params too, which only the
+training loss reads). ``repro``'s ``lax.scan`` over stacked
 layers is a Python loop over the layer index here; caches keep the same
 stacked (L, B, ...) layout (K/V rings for attention, ``ckv``/``krope``
 latent rings for MLA, ``h`` and ``conv`` for RG-LRU, ``C``, ``n`` and
@@ -22,10 +22,12 @@ in place.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, MLA, MLSTM, MOE, NONE, RGLRU,
@@ -222,18 +224,19 @@ class LM:
             logits = logits * (cfg.d_model ** -0.5)
         return softcap(logits, cfg.logit_softcap)
 
-    def _mlp(self, bdef, p, x, aux=None):
+    def _mlp(self, bdef, p, x, auxes=None):
         """The block's residual MLP (none for an xLSTM block). An MoE layer
-        adds its load-balance loss to ``aux`` (a 0-dim f32 tensor), in
-        place, when given."""
+        appends its load-balance loss (a 0-dim f32 tensor) to the list
+        ``auxes`` when given: nothing is updated in place, so a
+        rematerialised layer recomputes it without side effects."""
         if bdef.mlp == NONE:
             return x
         h = rmsnorm(p["norm2"], x, self.cfg.rms_eps)
         if bdef.mlp == MOE:
             y, a = moe_lib.moe_forward(p["mlp"], self.cfg, h,
                                        capacity_factor=self.capacity_factor)
-            if aux is not None:
-                aux.add_(a)
+            if auxes is not None:
+                auxes.append(a)
             return x + y
         mlp = swiglu if bdef.mlp == SWIGLU else gelu_mlp
         return x + mlp(p["mlp"], h)
@@ -280,66 +283,152 @@ class LM:
         """Layers in stage-repeat units (``repro``'s scanned layers)."""
         return sum(stage.repeat for stage in self.cfg.stages)
 
+    def _block(self, bdef, p, x, positions, cache=None, lengths=None,
+               auxes=None):
+        """One block over the full sequence ``x``: its mixer (filling
+        ``cache`` when given) and its MLP, both residual."""
+        cfg = self.cfg
+        h = (x if bdef.mixer in _SELF_NORMED
+             else rmsnorm(p["norm1"], x, cfg.rms_eps))
+        if bdef.mixer in _RECURRENT_FORWARD:
+            y, state = _RECURRENT_FORWARD[bdef.mixer](p["mixer"], cfg, h,
+                                                      lengths)
+            if cache is not None:
+                _store(cache, state)
+        elif bdef.mixer == MLA:
+            y, (ckv, krope) = att.mla_forward(p["mixer"], cfg, h, positions,
+                                              window=bdef.window)
+            if cache is not None:
+                att.mla_cache_fill(cache, ckv, krope, x.shape[1], lengths)
+        else:
+            y, (k, v) = att.attn_forward(p["mixer"], cfg, h, positions,
+                                         window=bdef.window)
+            if cache is not None:
+                att.cache_fill(cache, k, v, x.shape[1], lengths)
+        return self._mlp(bdef, p, x + y, auxes)
+
+    def _repeat(self, stage, layer, x, positions, caches=None,
+                lengths=None):
+        """One scanned layer: every block of a stage repeat, each filling
+        its cache in ``caches`` when given. Returns (x, the MoE blocks'
+        load-balance losses, a list), so that a rematerialised layer
+        recomputes them without side effects."""
+        auxes = []
+        for bi, bdef in enumerate(stage.blocks):
+            x = self._block(bdef, layer[bi], x, positions,
+                            None if caches is None else caches[bi], lengths,
+                            auxes)
+        return x, auxes
+
     def _layer_range(self, params, x, positions, lo: int = 0,
                      hi: Optional[int] = None, *, caches=None,
-                     lengths=None, aux=None):
+                     lengths=None, auxes=None, train: bool = False):
         """Scanned layers [lo, hi) (stage-repeat units, every block of a
         repeat) over the full sequence ``x``; with ``caches`` each layer
-        also fills its cache, with ``aux`` (a 0-dim f32 tensor) the MoE
-        layers add their load-balance losses to it. The one layer loop of
-        ``forward`` and of ``core.patterns.inference.PartitionedLM``."""
+        also fills its cache, with ``auxes`` (a list) each MoE block
+        appends its load-balance loss. ``train`` rematerialises every layer
+        in the backward pass (``repro``'s ``jax.checkpoint`` around its
+        scanned body): one ``torch.utils.checkpoint`` call per layer. The
+        one layer loop of ``forward``, of ``loss`` and of
+        ``core.patterns.inference.PartitionedLM``."""
         cfg = self.cfg
         hi = self.num_scanned_layers if hi is None else hi
-        s = x.shape[1]
+        body = (partial(checkpoint, self._repeat, use_reentrant=False)
+                if train else self._repeat)
         first = 0                       # this stage's first scanned layer
         for si, (stage, sp) in enumerate(zip(cfg.stages, params["stages"])):
-            for li in range(max(lo - first, 0),
-                            min(hi - first, stage.repeat)):
-                for bi, bdef in enumerate(stage.blocks):
-                    p = _layer(sp[f"b{bi}"], li)
-                    h = (x if bdef.mixer in _SELF_NORMED
-                         else rmsnorm(p["norm1"], x, cfg.rms_eps))
-                    if bdef.mixer in _RECURRENT_FORWARD:
-                        y, state = _RECURRENT_FORWARD[bdef.mixer](
-                            p["mixer"], cfg, h, lengths)
-                        if caches is not None:
-                            _store(_layer(caches[si][bi], li), state)
-                    elif bdef.mixer == MLA:
-                        y, (ckv, krope) = att.mla_forward(
-                            p["mixer"], cfg, h, positions,
-                            window=bdef.window)
-                        if caches is not None:
-                            att.mla_cache_fill(_layer(caches[si][bi], li),
-                                               ckv, krope, s, lengths)
-                    else:
-                        y, (k, v) = att.attn_forward(p["mixer"], cfg, h,
-                                                     positions,
-                                                     window=bdef.window)
-                        if caches is not None:
-                            att.cache_fill(_layer(caches[si][bi], li), k, v,
-                                           s, lengths)
-                    x = self._mlp(bdef, p, x + y, aux)
+            lis = range(max(lo - first, 0), min(hi - first, stage.repeat))
+            nb = range(len(stage.blocks))
+            if train:
+                # one unbind per leaf: its backward stacks the layers'
+                # gradients once, where indexing would add a stage-sized
+                # gradient per layer
+                blocks = [_unstack(sp[f"b{bi}"]) for bi in nb]
+            for li in lis:
+                layer = ([blk[li] for blk in blocks] if train
+                         else [_layer(sp[f"b{bi}"], li) for bi in nb])
+                cache = (None if caches is None
+                         else [_layer(caches[si][bi], li) for bi in nb])
+                x, got = body(stage, layer, x, positions, cache, lengths)
+                if auxes is not None:
+                    auxes.extend(got)
             first += stage.repeat
         return x
 
     def forward(self, params, batch, *, want_cache: bool = False,
                 cache_width: Optional[int] = None, last_only: bool = False,
-                lengths=None, logits_index=None, with_aux: bool = False):
+                lengths=None, logits_index=None, with_aux: bool = False,
+                train: bool = False, with_hidden: bool = False):
         """Returns (logits, caches or None), and with ``with_aux`` the MoE
-        layers' summed load-balance loss third (0 without MoE), as
-        ``repro``'s ``forward`` sums it. ``last_only`` unembeds only the
-        final position, ``logits_index`` (B,) only the given one;
-        ``lengths`` (B,) keeps right-pad rows out of the ring at install
-        (see ``attention._fill_slots``) and out of the recurrent state
-        (identity steps past each row's length)."""
+        layers' summed load-balance loss next (0 without MoE), as
+        ``repro``'s ``forward`` sums it, and with ``with_hidden`` the final
+        normed hidden state (B, S, D) last (``repro``'s ``h_final``).
+        ``last_only`` unembeds only the final position, ``logits_index``
+        (B,) only the given one; ``lengths`` (B,) keeps right-pad rows out
+        of the ring at install (see ``attention._fill_slots``) and out of
+        the recurrent state (identity steps past each row's length).
+        ``train`` rematerialises each layer in the backward pass (no
+        caches)."""
+        if train and want_cache:
+            raise ValueError("forward: train=True keeps no caches")
         x, positions = self._embed_inputs(params, batch)
         caches = (self.init_cache(x.shape[0], cache_width) if want_cache
                   else None)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        auxes = []
         x = self._layer_range(params, x, positions, caches=caches,
-                              lengths=lengths, aux=aux)
-        logits = self._head(params, x, last_only, logits_index)
-        return (logits, caches, aux) if with_aux else (logits, caches)
+                              lengths=lengths, auxes=auxes, train=train)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in auxes:
+            aux = aux + a
+        out = (self._head(params, x, last_only, logits_index), caches)
+        if with_aux:
+            out += (aux,)
+        if with_hidden:
+            out += (rmsnorm(params["final_norm"], x, self.cfg.rms_eps),)
+        return out
+
+    # -- losses ---------------------------------------------------------------
+    def loss(self, params, batch, train: bool = True):
+        """Next-token cross entropy, plus ``router_aux_loss`` times the MoE
+        load-balance loss, plus 0.1 times the depth-1 MTP loss when
+        ``mtp_depth > 0`` and ``train``; a vision model counts only its
+        text positions. Returns (loss, {"ce", "aux"[, "mtp"]}), as
+        ``repro``'s ``LM.loss``. ``train`` also rematerialises each layer
+        in the backward pass."""
+        cfg = self.cfg
+        logits, _, aux, h_final = self.forward(params, batch, train=train,
+                                               with_aux=True,
+                                               with_hidden=True)
+        if cfg.frontend.kind == "vision":
+            logits = logits[:, cfg.frontend.num_prefix_tokens:]
+        ce = _xent(logits, batch["labels"])
+        total = ce + (cfg.moe.router_aux_loss * aux if cfg.moe else 0.0)
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp_depth > 0 and train:
+            mtp = self._mtp_loss(params, batch, h_final)
+            total = total + 0.1 * mtp
+            metrics["mtp"] = mtp
+        return total, metrics
+
+    def _mtp_loss(self, params, batch, h_final):
+        """DeepSeek-V3's multi-token prediction: a depth-1 head predicts
+        token t + 2 from [h_t ; embed(token_{t+1})] through ``proj``, one
+        unstacked attention (or MLA) + SwiGLU block and its own norm,
+        against ``labels[:, 1:]``."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        if cfg.frontend.kind == "vision":
+            h_final = h_final[:, cfg.frontend.num_prefix_tokens:]
+        emb_next = embed(params["embed"], tokens[:, 1:])
+        h = torch.cat([h_final[:, :-1], emb_next], dim=-1)
+        h = h @ params["mtp"]["proj"]
+        b, s = h.shape[:2]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=h.device)[None, :].expand(b, s)
+        bdef = BlockDef(mixer=ATTN if cfg.mla is None else MLA, mlp=SWIGLU)
+        h = self._block(bdef, params["mtp"]["block"], h, positions)
+        h = rmsnorm(params["mtp"]["norm"], h, cfg.rms_eps)
+        return _xent(self._logits(params, h), labels[:, 1:])
 
     def prefill(self, params, batch, cache_width: int,
                 last_only: bool = False, lengths=None, logits_index=None):
@@ -457,6 +546,28 @@ _RECURRENT_FORWARD = {RGLRU: rec.rglru_block_forward,
 _RECURRENT_DECODE = {RGLRU: rec.rglru_block_decode,
                      MLSTM: rec.mlstm_block_decode,
                      SLSTM: rec.slstm_block_decode}
+
+
+def _xent(logits, labels):
+    """Masked softmax cross entropy in f32, averaged over the labels >= 0
+    (at least one); labels < 0 are ignored. Logits (..., V), labels the
+    leading shape (audio: (B, S, C))."""
+    mask = labels >= 0
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp_min(0).long()[..., None])[
+        ..., 0]
+    nll = torch.where(mask, nll, torch.zeros_like(nll))
+    return nll.sum() / torch.clamp_min(mask.sum(), 1)
+
+
+def _unstack(tree):
+    """A stacked dict tree as a list of per-layer trees (``torch.unbind``
+    of every leaf)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _store(cache: dict, state: dict) -> None:

@@ -202,6 +202,7 @@ def rglru_state_spec(cfg, batch: int, dtype, device) -> dict:
 # ---------------------------------------------------------------------------
 
 _PAD_LOG_I = -1e30      # a step with log_i = -1e30, log_f = 0 keeps C, n, m
+_TINY = torch.finfo(torch.float32).tiny
 
 
 def mlstm_param_spec(cfg, n: int, dt) -> dict:
@@ -315,7 +316,11 @@ def mlstm_cell_chunkwise(q, k, v, log_i, log_f, state=None, chunk: int = 64):
                                                                 -torch.inf)))
         sc = (qh @ kh.transpose(-1, -2)) * wmat
         num = num + sc @ vh
-        den = torch.maximum(torch.abs(den + sc.sum(-1)), torch.exp(-m_t))
+        # floored at f32's least normal: a pad step (q = 0) behind a
+        # stabiliser m_t > 87 would divide 0 by 0, and the NaN gradient of
+        # that row reaches the inputs though the row is sliced off
+        den = torch.maximum(torch.abs(den + sc.sum(-1)),
+                            torch.exp(-m_t)).clamp_min(_TINY)
         hs.append((num / den[..., None]).transpose(1, 2))
         # the state at the chunk's end
         m_last = m_t[..., -1]

@@ -45,7 +45,9 @@ def test_port_imports_no_jax_and_no_repro():
                "repro_torch.core", "repro_torch.core.platform",
                "repro_torch.core.video_query", "repro_torch.core.patterns",
                "repro_torch.models.cnn", "repro_torch.data.video",
-               "repro_torch.optim", "repro_torch.models.frontend"]
+               "repro_torch.optim", "repro_torch.models.frontend",
+               "repro_torch.training", "repro_torch.launch.train",
+               "repro_torch.checkpoint"]
     for first in (entries[0], entries[1], "repro_torch.core"):
         code = (f"import sys, {first}, {', '.join(entries)}; "
                 "bad = [m for m in sys.modules if m in ('jax', 'repro', "

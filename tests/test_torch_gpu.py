@@ -26,7 +26,17 @@ graphs; the launch counts follow from the programs run
 ones (graphs off): equal, or parted at a near-tie. The video-query
 classifiers (cuDNN convolutions, TF32 off inside each call whatever the
 global flags say) against their CPU forward: 1e-4 relative to the largest
-logit, f32 (cuDNN's algorithms sum in other orders than oneDNN's).
+logit, f32 (cuDNN's algorithms sum in other orders than oneDNN's). The
+backward kernels against their plain backward versions on the same
+inputs (both compute in f32): flash's dq, dk, dv 1e-4 of max(1, |plain|)
+in f32 and 1e-2 per row in bf16 (the output's rounding, ~2^-9; a row's
+norm floored at 1e-3 of the median row's, since the first query's dq
+cancels to 0 in exact arithmetic), the
+forward's log-sum-exp 1e-3 absolute; the scan's da, db, dh0 1e-5 *
+max(1, |plain|), as its forward (da_t = g_t h_{t-1}: 1e-5 * max(1,
+|h_{t-1}|) * max(1, |db_t|)). A train step's loss (1e-5 relative) and
+gradients (1e-4 of each leaf's max |g|) on the card against the CPU in
+f32.
 ``PartitionedLM``'s two halves equal ``LM.forward`` bit for bit: the same
 kernels run in the same order.
 """
@@ -46,11 +56,15 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd_plain, flash_attention_plain)
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
-    rglru_scan, rglru_scan_plain)
+    rglru_scan, rglru_scan_bwd, rglru_scan_bwd_plain, rglru_scan_plain)
 
 pytestmark = pytest.mark.gpu
+
+# the backward kernels' counts on a path that computes no gradient
+NO_BACKWARD = {"flash_attention_bwd": 0, "rglru_scan_bwd": 0}
 
 # (b, w, h, kv, hd, window, filled, total_pos, t)
 DECODE_CASES = [
@@ -575,7 +589,7 @@ def test_engine_on_gpu_goes_through_the_kernels(cuda):
         assert LAUNCHES == {"flash_attention": 3 * eng.admissions,
                             "decode_attention": 3 * eng.decode_steps,
                             "paged_decode_attention": 0, "cascade_gate": 0,
-                            "rglru_scan": 0}
+                            "rglru_scan": 0, **NO_BACKWARD}
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
@@ -626,7 +640,7 @@ def test_drain_engine_on_gpu_matches_the_continuous_engine(cuda):
     assert launches == {"flash_attention": 3 * 3,
                         "decode_attention": 3 * steps,
                         "paged_decode_attention": 0, "cascade_gate": 0,
-                        "rglru_scan": 0}
+                        "rglru_scan": 0, **NO_BACKWARD}
     cont, card, host = outs
     keys, rng = [], prng_key(0)
     for i in range(0, 5, 2):                  # the drain's key schedule
@@ -716,7 +730,7 @@ def test_speculative_engine_on_gpu_matches_its_baseline(cuda, backend):
             "flash_attention": n["fills"] + 3 * n["admits"],
             "decode_attention": n["draft_steps"] + (0 if paged else target),
             "paged_decode_attention": target if paged else 0,
-            "cascade_gate": 0, "rglru_scan": 0}
+            "cascade_gate": 0, "rglru_scan": 0, **NO_BACKWARD}
         if spec:
             assert n["rounds"] > 0 and n["fills"] >= len(prompts)
         outs.append([done[i].output for i in ids])
@@ -801,7 +815,7 @@ def test_graphed_engine_matches_the_eager_engine(cuda, dtype, backend, mode):
             "flash_attention": n["fills"] + 3 * n["admits"],
             "decode_attention": n["draft_steps"] + (0 if paged else target),
             "paged_decode_attention": target if paged else 0,
-            "cascade_gate": 0, "rglru_scan": 0}
+            "cascade_gate": 0, "rglru_scan": 0, **NO_BACKWARD}
         assert n["steps"] + n["rounds"] > 0
         if mode.startswith("spec"):
             assert n["rounds"] > 0
@@ -905,7 +919,8 @@ def test_hybrid_engine_on_gpu_goes_through_the_kernels(cuda):
         assert LAUNCHES == {"flash_attention": eng.admissions,
                             "decode_attention": eng.decode_steps,
                             "rglru_scan": 2 * eng.admissions,
-                            "paged_decode_attention": 0, "cascade_gate": 0}
+                            "paged_decode_attention": 0, "cascade_gate": 0,
+                            **NO_BACKWARD}
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
@@ -950,7 +965,7 @@ def test_paged_engine_on_gpu_goes_through_the_paged_kernel(cuda):
         assert LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
                             "paged_decode_attention":
                             3 * (eng.decode_steps + chunks[0]),
-                            "cascade_gate": 0, "rglru_scan": 0}
+                            "cascade_gate": 0, "rglru_scan": 0, **NO_BACKWARD}
         eng.assert_invariants()
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
@@ -1272,7 +1287,7 @@ def test_graphed_drain_engine_equals_the_eager_one(cuda, temperature):
         assert LAUNCHES == {"flash_attention": 3 * 2,
                             "decode_attention": 3 * steps,
                             "paged_decode_attention": 0, "cascade_gate": 0,
-                            "rglru_scan": 0}
+                            "rglru_scan": 0, **NO_BACKWARD}
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
@@ -1407,7 +1422,7 @@ def test_a_draft_fallback_and_a_recompute_resume_capture_nothing(cuda):
     assert LAUNCHES == {"flash_attention": n["fills"] + 3 * n["admits"],
                         "decode_attention": n["draft_steps"],
                         "paged_decode_attention": target,
-                        "cascade_gate": 0, "rglru_scan": 0}
+                        "cascade_gate": 0, "rglru_scan": 0, **NO_BACKWARD}
 
 
 def _video_classifiers(dev):
@@ -1650,7 +1665,7 @@ def test_moe_engine_on_gpu_graphed_equals_eager(cuda, name, backend):
             "decode_attention": 0 if paged else attn * n["steps"],
             "paged_decode_attention": (attn * (n["steps"] + n["chunks"])
                                        if paged else 0),
-            "cascade_gate": 0, "rglru_scan": 0}
+            "cascade_gate": 0, "rglru_scan": 0, **NO_BACKWARD}
         outs[graphed] = [done[i].output for i in ids]
     for a, b in zip(outs[True], outs[False]):
         np.testing.assert_array_equal(a, b)
@@ -1760,3 +1775,183 @@ def test_xlstm_engine_on_gpu_graphed_equals_eager(cuda):
         outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+# (b, sq, sk, h, kv, hd, window): the backward's edges (ragged tiles, Sq <
+# Sk, Sq > Sk with rows that see nothing, windows, hd 8 to 256) and the
+# training layouts of chip_smoke.py's phase 18: smollm-135m, qwen3-4b,
+# deepseek-v3-671b's MLA and recurrentgemma-9b
+FLASH_BWD_CASES = [
+    (1, 64, 64, 4, 4, 32, None),
+    (2, 100, 100, 6, 2, 64, None),
+    (1, 70, 150, 4, 2, 128, None),
+    (1, 90, 60, 4, 2, 64, None),
+    (2, 200, 200, 4, 4, 8, 24),
+    (1, 70, 90, 4, 1, 40, 16),
+    (2, 130, 130, 8, 8, 192, 50),
+    (1, 300, 300, 16, 1, 256, 100),
+    (8, 512, 512, 9, 3, 64, None),
+    (1, 512, 512, 32, 8, 128, None),
+    (1, 512, 512, 128, 128, 192, None),
+    (1, 4096, 4096, 16, 1, 256, 2048),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES,
+                         ids=[str(c) for c in FLASH_BWD_CASES])
+def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
+    """The forward kernel's log-sum-exp against the plain one, then the
+    backward kernels' dq, dk, dv against ``flash_attention_bwd_plain`` on
+    the same (q, k, v, out, lse, dout); a row that sees no key gets 0."""
+    import repro_torch.kernels.flash_attention as fa
+    b, sq, sk, h, kv, hd, window = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    q, k, v, do = (torch.randn(shape, generator=gen).to(cuda, dt)
+                   for shape in ((b, sq, h, hd), (b, sk, kv, hd),
+                                 (b, sk, kv, hd), (b, sq, h, hd)))
+    out, lse = fa._launch(q, k, v, True, window, hd ** -0.5, with_lse=True)
+    _, lse_ref = flash_attention_fwd_plain(q, k, v, window=window)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    fin = torch.isfinite(lse_ref)
+    assert (lse[fin] - lse_ref[fin]).abs().max().item() < 1e-3
+    n = LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == n + 1
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, window=window)
+    for g, r in zip(got, ref):
+        assert g.dtype == dt and g.shape == r.shape
+        diff = (g.float() - r.float()).flatten(2)
+        if dt == torch.float32:
+            scale = max(1.0, r.abs().max().item())
+            assert diff.abs().max().item() <= 1e-4 * scale
+        else:
+            # a row's norm floored at 1e-3 of the median row's: the first
+            # query's dq cancels to 0 (one key seen: P = 1, dP = D)
+            den = r.float().flatten(2).norm(dim=-1)
+            den = den.clamp_min(1e-3 * den[den > 0].median())
+            assert (diff.norm(dim=-1) / den).max().item() < 1e-2
+    if sq > sk:          # rows that see no key: zero gradients
+        assert not got[0][:, :sq - sk].any()
+
+
+def test_flash_autograd_counts_launches_and_serving_writes_no_lse(
+        cuda, monkeypatch):
+    """Under autograd ``flash_attention`` launches the forward kernel with
+    the log-sum-exp once and the backward once, and equals the serving
+    launch's output; without a gradient it takes the serving launch, which
+    writes no log-sum-exp."""
+    import repro_torch.kernels.flash_attention as fa
+    asked = []
+    launch = fa._launch
+
+    def recording(*a, with_lse=False, **kw):
+        asked.append(with_lse)
+        return launch(*a, with_lse=with_lse, **kw)
+
+    monkeypatch.setattr(fa, "_launch", recording)
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    q, k, v = (torch.randn(s, generator=gen).to(cuda, torch.bfloat16)
+               for s in ((2, 80, 6, 64), (2, 80, 2, 64), (2, 80, 2, 64)))
+    with torch.no_grad():
+        served = flash_attention(q, k, v, window=32)
+    assert asked == [False]
+    before = dict(LAUNCHES)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, window=32)
+    grads = torch.autograd.grad(out.float().square().sum(), leaves)
+    torch.cuda.synchronize()
+    assert asked == [False, True]
+    assert torch.equal(out.detach(), served)
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        "flash_attention": 1, "flash_attention_bwd": 1, "decode_attention": 0,
+        "paged_decode_attention": 0, "cascade_gate": 0, "rglru_scan": 0,
+        "rglru_scan_bwd": 0}
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+
+
+RGLRU_BWD_CASES = [(1, 512, 4096), (1, 4096, 4096), (2, 77, 4000),
+                   (2, 77, 1001), (3, 1, 129), (1, 33, 128), (1, 65536, 128),
+                   (8, 2048, 1024)]
+
+
+@pytest.mark.parametrize("case", RGLRU_BWD_CASES,
+                         ids=[str(c) for c in RGLRU_BWD_CASES])
+def test_rglru_scan_bwd_kernel_matches_plain(cuda, case):
+    """The reverse mode's da, db, dh0 against the plain reverse loop from
+    the forward kernel's states (h0 != 0, both output gradients), and a
+    repeated call, with a forward launch between, gives equal bits."""
+    b, s, w = case
+    gen = torch.Generator(device="cpu").manual_seed(s + w + 1)
+    a = (0.8 + 0.1999 * torch.rand((b, s, w), generator=gen)).to(cuda)
+    x, dh = (torch.randn((b, s, w), generator=gen).to(cuda) for _ in "xy")
+    h0, dl = (torch.randn((b, w), generator=gen).to(cuda) for _ in "xy")
+    h, _ = rglru_scan(a, x, h0)
+    n = LAUNCHES["rglru_scan_bwd"]
+    got = rglru_scan_bwd(a, h, h0, dh, dl)
+    rglru_scan(a, dh, h0)
+    again = rglru_scan_bwd(a, h, h0, dh, dl)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan_bwd"] == n + 2
+    ref = rglru_scan_bwd_plain(a, h, h0, dh, dl)
+    # da_t = g_t h_{t-1} carries g's error (db's) times h_{t-1}
+    prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+    scales = (prev.abs().clamp_min(1) * ref[1].abs().clamp_min(1),
+              ref[1].abs().clamp_min(1), ref[2].abs().clamp_min(1))
+    for g, r, sc, g2 in zip(got, ref, scales, again):
+        assert torch.all((g - r).abs() <= 1e-5 * sc)
+        assert torch.equal(g, g2)
+
+
+def test_rglru_autograd_counts_launches(cuda):
+    """Under autograd ``rglru_scan`` launches the forward once and the
+    reverse mode once, and its gradients equal the plain reverse loop's."""
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    a = (0.8 + 0.1999 * torch.rand((2, 300, 512), generator=gen)).to(cuda)
+    x = torch.randn((2, 300, 512), generator=gen).to(cuda)
+    h0 = torch.randn((2, 512), generator=gen).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in (a, x, h0)]
+    before = dict(LAUNCHES)
+    h, last = rglru_scan(*leaves)
+    grads = torch.autograd.grad(h.sum() + 2 * last.sum(), leaves)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        "rglru_scan": 1, "rglru_scan_bwd": 1, "flash_attention": 0,
+        "flash_attention_bwd": 0, "decode_attention": 0,
+        "paged_decode_attention": 0, "cascade_gate": 0}
+    dl = torch.full_like(h0, 2.0)
+    ref = rglru_scan_bwd_plain(a, h.detach(), h0, torch.ones_like(h), dl)
+    prev = torch.cat([h0[:, None], h.detach()[:, :-1]], dim=1)
+    scales = (prev.abs().clamp_min(1) * ref[1].abs().clamp_min(1),
+              ref[1].abs().clamp_min(1), ref[2].abs().clamp_min(1))
+    for g, r, sc in zip(grads, ref, scales):
+        assert torch.all((g - r).abs() <= 1e-5 * sc)
+
+
+@pytest.mark.parametrize("name", ["smollm-135m", "recurrentgemma-9b",
+                                  "deepseek-v3-671b"])
+def test_train_step_on_gpu_matches_the_cpu(cuda, name):
+    """``loss_and_grads`` of a ``.reduced()`` config in f32 on the card
+    (through both backward kernels where the config has their layers)
+    against the CPU on the same weights and batch."""
+    from repro_torch.models.model import LM
+    from repro_torch.training import loss_and_grads
+    from repro_torch.utils.tree import flat_paths, tree_map
+
+    cfg = tcfg.get_config(name).reduced()
+    params = LM(cfg, device="cpu").init(0)
+    rng = np.random.default_rng(14)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 41)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens[:, :-1]),
+             "labels": torch.from_numpy(tokens[:, 1:])}
+    ref = loss_and_grads(LM(cfg, device="cpu"), params, batch)
+    got = loss_and_grads(LM(cfg, device=cuda),
+                         tree_map(lambda t: t.to(cuda), params),
+                         {k: t.to(cuda) for k, t in batch.items()})
+    assert abs(float(got[0]) - float(ref[0])) <= 1e-5 * abs(float(ref[0]))
+    want = flat_paths(ref[2])
+    for key, g in flat_paths(got[2]).items():
+        scale = want[key].abs().max().item()
+        assert (g.cpu() - want[key]).abs().max().item() <= 1e-4 * scale, key
