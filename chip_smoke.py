@@ -29,10 +29,13 @@ on failure:
    band, the decode's GB/s, its key splits and the bytes of its f32
    partials; the paged kernel likewise, at every head_dim class (24-256)
    at T = 1 and T > 1, with holes, one split and more keys than a split
-   stages; then flash, ``rglru_scan`` and ``cascade_gate`` inside CUDA
-   graphs: each captured into two graphs, each graph replayed twice on
-   new inputs with an eager launch between, every replay held against the
-   plain version;
+   stages; the ring and paged kernels with ``kv_range`` at a tensor-
+   parallel rank's shape (glm4-9b on 4 ranks: 8 query heads reading one
+   of 2 KV heads in place, T = 1 and a T = 5 verify chunk), against the
+   plain version and bit for bit against a copy of the range; then
+   flash, ``rglru_scan`` and ``cascade_gate`` inside CUDA graphs: each
+   captured into two graphs, each graph replayed twice on new inputs with
+   an eager launch between, every replay held against the plain version;
 3. smollm-135m at full width (30 layers, random weights from a seed):
    prefill-then-decode logits equal a full forward, and the GPU forward
    equals the plain CPU forward in f32;
@@ -209,7 +212,24 @@ on failure:
    kernels; (d) each mixer family's ``.reduced()`` config (GQA, MLA + MoE
    + MTP, RG-LRU, xLSTM, vision, audio): one f32 train step's loss and
    gradients on the card against the CPU (MoE routes compared first), and
-   the whole step (AdamW) on the card.
+   the whole step (AdamW) on the card;
+19. tensor-parallel serving (``launch.mesh``, ``serving.sharding``): (a)
+   qwen3-4b at full width and depth on a one-rank NCCL mesh, ring and
+   paged engines (K = 4, 8 slots, max_seq_len ``TP_SEQ``), graphed: the
+   streams equal the ``mesh=None`` engines' bit for bit (every split the
+   whole, every collective the identity), the launches equal theirs, and
+   each captured program holds its collectives (1 + 2 a layer all-
+   reduces and 1 all-gather a decode step); tokens/s and decode ms per
+   step beside ``mesh=None``'s; on a machine with more cards, on
+   min(count, 4) of them too; (b) real splits on this card, ranks as
+   processes over gloo, each on it, eager
+   (``TP_SPLITS``: qwen3-4b at 8 layers on 2 ranks, heads and KV heads
+   split; glm4-9b at 4 layers on 4 ranks, its 2 KV heads whole on every
+   rank, each rank's 8 query heads reading one in place): the ranks'
+   streams equal bit for bit (and ``assert_invariants`` checks lockstep
+   after each run), equal ``mesh=None``'s or part first at a near-tie
+   (``BF16_LOGIT_TOL``), the K/V bytes a rank holds 1/N of the whole where
+   the KV heads divide, and each rank's launches.
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
@@ -635,6 +655,85 @@ def check_paged(torch, timer, dev):
           f"bound {bound:.4f} ms ({by}; {nbytes} B, {flops} flop)")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=lib_ms)
+
+
+def check_kv_range(torch, dev):
+    """The ring and paged kernels at a tensor-parallel rank's shapes with
+    ``kv_range``: glm4-9b on 4 ranks, where each rank's 8 query heads
+    (hd 128) read one of the 2 KV heads that every rank keeps whole, in
+    place (``kv_range=(1, 1)``: ranks 2 and 3), at T = 1 and at a T = 5
+    verify chunk, over a wrapped ring and a pool with a hole. Each case is
+    held against the plain version on the same range (``_check_rows``) and
+    bit for bit against the kernel on a copy of the range, and its bf16
+    in-place launch counts one launch. Returns each kernel's bf16 max abs
+    error."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, paged_decode_attention,
+        paged_decode_attention_plain)
+
+    b, w, row, h, hd, bs = 8, 1024, 2, 8, 128, 16
+    first, count = kv_range = (1, 1)
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    k_pos, ring_next = _ring_positions(
+        torch, [300, 512, 2524, 0, 17, 900, 1023, 1500], w, dev)
+    fills = [1, 17, 200, 480, 1000, 0, 700, 333]
+    m = w // bs
+    pos, bt = (torch.from_numpy(x).to(dev) for x in _paged_pool(
+        np.random.default_rng(12), fills, bs, m, b * m + 1, [(6, 3)]))
+    pool_next = torch.tensor(fills, dtype=torch.int32, device=dev)
+    kernels = {
+        "decode_attention": (
+            (randn(b, w, row, hd), randn(b, w, row, hd)), ring_next,
+            lambda q, k, v, qp, r: decode_attention(q, k, v, qp, k_pos,
+                                                    kv_range=r),
+            lambda q, k, v, qp, r: decode_attention_plain(
+                q, k, v, qp, k_pos, kv_range=r)),
+        "paged_decode_attention": (
+            (randn(b * m + 1, bs, row, hd), randn(b * m + 1, bs, row, hd)),
+            pool_next,
+            lambda q, k, v, qp, r: paged_decode_attention(
+                q, k, v, qp, pos, bt, kv_range=r),
+            lambda q, k, v, qp, r: paged_decode_attention_plain(
+                q, k, v, qp, pos, bt, kv_range=r)),
+    }
+    errs = {}
+    for name, ((k, v), nxt, kern, plain) in kernels.items():
+        errs[name] = []
+        launches = 0
+        for t in (1, 5):
+            q = randn(b, t, h, hd)
+            qp = torch.clamp(nxt - t, min=0)
+            label = (f"{name} kv_range={kv_range} of {row} KV heads, H={h} "
+                     f"hd={hd} T={t}")
+            errs[name].append(_check_rows(
+                torch, label,
+                lambda q, k, v, qp=qp: kern(q, k, v, qp, kv_range),
+                lambda q, k, v, qp=qp: plain(q, k, v, qp, kv_range),
+                (q, k, v), rows=2, bf16_abs=BF16_TOL))
+            before = LAUNCHES[name]
+            got = kern(q, k, v, qp, kv_range)
+            torch.cuda.synchronize()
+            if LAUNCHES[name] != before + 1:
+                raise AssertionError(f"{label}: the launch counted "
+                                     f"{LAUNCHES[name] - before}")
+            launches += 1
+            copy = kern(q, k[..., first:first + count, :].contiguous(),
+                        v[..., first:first + count, :].contiguous(), qp,
+                        None)
+            if not torch.equal(got, copy):
+                raise AssertionError(f"{label}: reading the range in place "
+                                     f"!= the kernel on a copy of it")
+        print(f"  {name} kv_range={kv_range}: T=1 and T=5 agree with the "
+              f"plain version and bit for bit with the kernel on a copied "
+              f"range; {launches} in-place launches counted")
+        errs[name] = max(errs[name])
+    return errs
 
 
 def _tertiles(conf):
@@ -5743,6 +5842,315 @@ def check_training(torch, timer, dev, seed, smi):
                          families=families), dict(launches)
 
 
+# -- phase 19: tensor-parallel serving ------------------------------------------
+
+# 19(b): (model, layers served at full width, ranks) sharing one card over
+# gloo: qwen3-4b's 32 heads and 8 KV heads split 2 ways; glm4-9b's 32 heads
+# split 4 ways over 2 KV heads that every rank keeps whole (each rank's 8
+# query heads read one of them in place)
+TP_SPLITS = (("qwen3-4b", 8, 2), ("glm4-9b", 4, 4))
+TP_MAX_NEW = 16
+TP_SEQ = 512
+
+
+def _tp_trace(seed, vocab):
+    """8 prompts of 16-400 tokens, the last sampled at 0.8."""
+    rng = np.random.default_rng(seed + 40)
+    return [(rng.integers(0, vocab, int(n)).astype(np.int32),
+             0.8 if i == 7 else 0.0)
+            for i, n in enumerate(rng.integers(16, 401, 8))]
+
+
+def _tp_engine(lm, params, seed, backend, mesh=None):
+    """Phase 4's ring engine or phase 5's paged one (K = 4), at
+    ``TP_SEQ``."""
+    from repro_torch.serving import ServingEngine
+
+    kw = dict(batch_slots=8, max_seq_len=TP_SEQ, seed=seed,
+              max_decode_steps=4, mesh=mesh)
+    if backend == "paged":
+        kw.update(cache_backend="paged", block_size=16, chunk_tokens=128)
+    return ServingEngine(lm, params, **kw)
+
+
+def _tp_kv_bytes(eng):
+    """(this rank's K/V bytes, its position bytes, the engine's global
+    bytes, its per-device bytes)."""
+    from repro_torch.serving.kv_cache import _leaves
+
+    kv = pos = 0
+    for key, t in _leaves(eng._cache_state["caches"]):
+        n = t.numel() * t.element_size()
+        if key in ("k", "v"):
+            kv += n
+        else:
+            pos += n
+    return kv, pos, eng.hbm_bytes(), eng.hbm_bytes_per_device()
+
+
+def _tp_serve(torch, eng, reqs, graphed):
+    """Serve ``reqs`` (``TP_MAX_NEW`` tokens each) with the launch counters
+    zeroed just before: graphed after ``warm_compile`` (and no capture
+    during traffic), or eager. Returns (requests, wall s, launches)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cuda = eng.device.type == "cuda"
+    if graphed:
+        warmed = _warm(eng)
+    else:
+        eng._use_graphs = False
+    if cuda:
+        torch.cuda.synchronize()
+    reset_launches()
+    out, wall = _serve(eng, reqs, TP_MAX_NEW)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if graphed:
+        _no_capture(eng, warmed, "tensor-parallel engine")
+    eng.assert_invariants()
+    return out, wall, launches
+
+
+def _tp_rank(rank, out_dir, cfg, seed, reqs, graphed, device="cuda"):
+    """One rank of a phase-19 mesh (spawned): ``cfg`` made on its device
+    from ``seed`` (the parent's values), both engines on the mesh, its
+    streams, launches, K/V bytes and times to ``out_dir``. Under NCCL each
+    rank has its own card; over gloo every rank shares card 0 (or, to
+    rehearse on the CPU, ``device="cpu"``)."""
+    import torch
+
+    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh
+    from repro_torch.models.model import LM
+
+    world = torch.distributed.get_world_size()
+    if device == "cuda":
+        nccl = torch.distributed.get_backend() == "nccl"
+        device = f"cuda:{rank}" if nccl else "cuda:0"
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    mesh = make_host_mesh(world, device=dev)
+    lm = LM(cfg, device=dev)
+    params = lm.init(seed, on_device=True)
+    rec = {}
+    for backend in ("ring", "paged"):
+        eng = _tp_engine(lm, params, seed, backend, mesh)
+        if backend == "ring":
+            del params          # the engine keeps this rank's shards
+        before = dict(COLLECTIVES)
+        out, wall, launches = _tp_serve(torch, eng, reqs, graphed)
+        step = eng.decode_s / eng.decode_steps * 1e3
+        rec[backend] = dict(
+            streams=[r.output.tolist() for r in out], wall_s=wall,
+            tokens_per_s=sum(len(r.output) for r in out) / wall,
+            decode_ms_per_step=step, launches=launches,
+            all_reduces=COLLECTIVES["all_reduce"] - before["all_reduce"],
+            all_gathers=COLLECTIVES["all_gather"] - before["all_gather"],
+            kv_bytes=_tp_kv_bytes(eng), graphs=eng.graphs(),
+            mesh_devices=eng.metrics()["mesh_devices"])
+        if backend == "ring":
+            params = eng.params
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _tp_mesh(cfg, ranks, seed, reqs, graphed, backend, device="cuda"):
+    """Spawn ``ranks`` processes of ``_tp_rank``; their records."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    out_dir = tempfile.mkdtemp(prefix="tp_")
+    spawn(_tp_rank, ranks, args=(out_dir, cfg, seed, reqs, graphed, device),
+          backend=backend, timeout_s=600)
+    recs = []
+    for r in range(ranks):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _tp_hold(torch, label, smi, lm, params, seed, reqs, recs, base, cfg,
+             ranks):
+    """Hold a spawned mesh's records: every rank's streams equal rank 0's
+    bit for bit; rank 0's equal ``base`` (the ``mesh=None`` engine's on the
+    same trace) or part first at a near-tie (``BF16_LOGIT_TOL``); the K/V
+    bytes a rank holds are 1/N of the whole where the KV heads divide
+    (whole on every rank where they do not); the launches per rank."""
+    out = {}
+    for backend in ("ring", "paged"):
+        mine = [rec[backend] for rec in recs]
+        for r, rec in enumerate(mine[1:], 1):
+            if rec["streams"] != mine[0]["streams"]:
+                raise AssertionError(f"{label} {backend}: rank {r}'s "
+                                     f"streams differ from rank 0's")
+        equal, parted = _quiet(
+            _parted_at_near_tie, torch, lm, params, seed, reqs,
+            _as_requests(mine[0]["streams"]), _as_requests(base[backend]),
+            BF16_LOGIT_TOL)
+        kv, pos, whole, per_dev = mine[0]["kv_bytes"]
+        split = cfg.num_kv_heads % ranks == 0
+        if per_dev != kv + pos or (kv * ranks + pos == whole) != split \
+                or (not split and per_dev != whole):
+            raise AssertionError(f"{label} {backend}: K/V bytes {kv} a rank"
+                                 f" + {pos} positions against {whole} whole")
+        for r, rec in enumerate(mine):
+            print(f"  {label} {backend}, rank {r} [{smi}]: "
+                  f"{rec['tokens_per_s']:.1f} tokens/s; decode "
+                  f"{rec['decode_ms_per_step']:.2f} ms per step; "
+                  f"{rec['all_reduces']} all-reduces, {rec['all_gathers']} "
+                  f"all-gathers; graphs "
+                  f"{rec['graphs']}; launches {rec['launches']}")
+        print(f"  {label} {backend}: the {ranks} ranks' streams are equal "
+              f"bit for bit; against mesh=None {equal} equal, {parted} "
+              f"part first at a near-tie (margin <= {BF16_LOGIT_TOL}); K/V "
+              f"{kv / 1e6:.1f} MB a rank of {(whole - pos) / 1e6:.1f} MB "
+              f"({'1/%d' % ranks if split else 'whole: the KV heads do not'
+               ' divide'}), positions {pos / 1e6:.2f} MB on every rank")
+        if mine[0]["mesh_devices"] != ranks or not any(
+                mine[0]["launches"].values()):
+            raise AssertionError(f"{label} {backend}: no kernel launched")
+        out[backend] = dict(ranks=mine, equal=equal, parted=parted)
+    return out
+
+
+def _tp_base(torch, seed, lm, params, reqs, graphed, bound=None):
+    """The ``mesh=None`` engines on ``reqs``: their streams, launches and,
+    with ``bound``, their ``_leg`` records."""
+    base, launches, legs = {}, {}, {}
+    for backend in ("ring", "paged"):
+        eng = _tp_engine(lm, params, seed, backend)
+        out, wall, launches[backend] = _tp_serve(torch, eng, reqs, graphed)
+        base[backend] = [r.output.tolist() for r in out]
+        if bound is not None:
+            legs[backend] = _leg(eng, out, wall, bound)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return base, launches, legs
+
+
+def _tp_nccl_one(torch, dev, seed, smi):
+    """19(a): qwen3-4b at full width and depth on a one-rank NCCL mesh,
+    graphed, against ``mesh=None`` in the same call: streams bit for bit
+    (every collective the identity), the all-reduces inside each captured
+    program, tokens/s and decode ms per step side by side. Returns (record,
+    launches of the mesh legs, the mesh=None streams, lm, params)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import free_port, make_host_mesh
+    from repro_torch.models.model import LM
+
+    cfg = get_config("qwen3-4b")
+    lm = LM(cfg, device=dev)
+    params = lm.init(seed, on_device=True)
+    bound = _weight_bytes(params) / HBM_BYTES_PER_S * 1e3
+    reqs = _tp_trace(seed, cfg.vocab_size)
+    base, none_launches, none_legs = _tp_base(torch, seed, lm, params, reqs,
+                                              True, bound)
+    per_step = 1 + 2 * cfg.num_layers
+    rec, total = {}, collections.Counter()
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{free_port()}")
+    try:
+        mesh = make_host_mesh(1, device=dev)
+        for backend in ("ring", "paged"):
+            eng = _tp_engine(lm, params, seed, backend, mesh)
+            out, wall, launches = _tp_serve(torch, eng, reqs, True)
+            total.update(launches)
+            got = [r.output.tolist() for r in out]
+            if got != base[backend]:
+                raise AssertionError(f"qwen3-4b {backend}: the NCCL mesh "
+                                     f"of one != mesh=None")
+            if launches != none_launches[backend]:
+                raise AssertionError(f"qwen3-4b {backend}: launches "
+                                     f"{launches} != mesh=None's "
+                                     f"{none_launches[backend]}")
+            for key, prog in eng._programs.items():
+                n = prog.collectives.get("all_reduce", 0)
+                g = prog.collectives.get("all_gather", 0)
+                want = ((per_step * key[1], key[1]) if key[0] == "decode"
+                        else (n, g))
+                if (n, g) != want or n == 0 or g == 0:
+                    raise AssertionError(
+                        f"program {key}: {n} all-reduces and {g} all-gathers"
+                        f" captured (want {want}, each > 0)")
+            legs = {"mesh=None": none_legs[backend],
+                    "NCCL mesh of 1": _leg(eng, out, wall, bound)}
+            for label, x in legs.items():
+                print(f"  qwen3-4b {backend}, {label} [{smi}]: "
+                      f"{x['tokens_per_s']:.1f} tokens/s; decode "
+                      f"{x['decode_ms_per_step']:.2f} ms per step "
+                      f"({x['bound_ratio']:.1f}x the {bound:.2f} ms "
+                      f"weight-read bound); prefill {x['prefill_ms']:.1f} "
+                      f"ms; warm_compile {x['warm_compile_s']:.2f} s, "
+                      f"{x['graphs']} graphs")
+            print(f"  qwen3-4b {backend}: the mesh streams equal mesh=None's"
+                  f" bit for bit; {len(eng._programs)} programs captured, "
+                  f"each with its collectives inside ({per_step} all-"
+                  f"reduces and 1 all-gather a decode step); launches "
+                  f"{launches}")
+            rec[backend] = legs
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, dict(total), base, lm, params, reqs
+
+
+def check_tensor_parallel(torch, dev, seed, smi, splits=True):
+    """Phase 19: (a) the NCCL mesh of one rank (``_tp_nccl_one``), and on
+    min(count, 4) cards when the machine has more than one; (b), unless
+    ``splits`` is off, real splits on this one card: ranks as processes
+    over gloo, each on it, eager (``TP_SPLITS``), held to each other and to
+    ``mesh=None``. Returns (record, the 19(a) mesh legs' launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    rec = {}
+    rec["nccl_one"], launches, base, lm, params, reqs = _tp_nccl_one(
+        torch, dev, seed, smi)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = min(cards, 4)
+        print(f"  {cards} cards: qwen3-4b over an NCCL mesh of {n}, one card"
+              f" a rank, graphed")
+        recs = _tp_mesh(lm.cfg, n, seed, reqs, True, "nccl")
+        rec[f"nccl_{n}"] = _tp_hold(torch, f"qwen3-4b NCCL x{n}", smi, lm,
+                                    params, seed, reqs, recs, base,
+                                    lm.cfg, n)
+    else:
+        print("  one card: no multi-card NCCL mesh on this machine")
+    del lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, layers, ranks in TP_SPLITS if splits else ():
+        cfg = _cut_depth(get_config(name), layers)
+        lm = LM(cfg, device=dev)
+        params = lm.init(seed, on_device=True)
+        reqs = _tp_trace(seed, cfg.vocab_size)
+        base, _, _ = _tp_base(torch, seed, lm, params, reqs, False)
+        t0 = time.perf_counter()
+        recs = _tp_mesh(cfg, ranks, seed, reqs, False, "gloo",
+                        dev.type)
+        label = f"{name} ({layers} layers) over gloo x{ranks} on one card"
+        rec[name] = _tp_hold(torch, label, smi, lm, params, seed, reqs, recs,
+                             base, cfg, ranks)
+        rec[name]["seconds"] = time.perf_counter() - t0
+        del lm, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5750,6 +6158,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile the phase-4, 5, 7, 9 and qwen3-4b's "
                          "phase-10 ring traces on the device")
+    ap.add_argument("--only", choices=["19", "19a"],
+                    help="run phase 1 and this phase alone, or 19(a) alone "
+                         "(the NCCL meshes; no result lines: the contract's "
+                         "run is the whole script)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -5792,6 +6204,13 @@ def main() -> int:
     if spills:       # the tensor-core bodies keep O in registers
         raise AssertionError(f"bf16 tensor-core kernels spill: {spills}")
 
+    if args.only:
+        phase(f"[{args.only}] tensor-parallel serving alone")
+        check_tensor_parallel(torch, dev, args.seed, smi,
+                              splits=args.only == "19")
+        phase("phase 19 passed")
+        return 0
+
     phase("[2] kernels vs plain versions (bf16; the gate also f32; the "
           "RG-LRU scan f32)")
     timer = Timer(torch)
@@ -5801,6 +6220,8 @@ def main() -> int:
     results["flash_attention"], rates["flash_attention"] = check_flash(
         torch, timer, dev)
     results["paged_decode_attention"] = check_paged(torch, timer, dev)
+    for name, err in check_kv_range(torch, dev).items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     results["cascade_gate"], gate_times = check_cascade_gate(torch, timer,
                                                              dev)
     results["rglru_scan"], rglru_times = check_rglru(torch, timer, dev)
@@ -5907,6 +6328,15 @@ def main() -> int:
     results.update(train_results)
     for name, n in train_launches.items():
         launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("[19] tensor-parallel serving: qwen3-4b on a one-rank NCCL mesh "
+          "(ring and paged, graphed) against mesh=None; real splits on this "
+          "card over gloo: qwen3-4b (8 layers) on 2 ranks, glm4-9b (4 "
+          "layers) on 4")
+    tp_stats, tp_launches = check_tensor_parallel(torch, dev, args.seed, smi)
+    for name, n in tp_launches.items():
+        launches[name] += n
     if args.profile:
         from repro_torch.configs import get_config
         from repro_torch.models.model import LM
@@ -5976,6 +6406,7 @@ def main() -> int:
                        "speculative": spec_stats,
                        "durability": durability, "ace_app": ace_stats,
                        "moe": moe_stats, "training": train_stats,
+                       "tensor_parallel": tp_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

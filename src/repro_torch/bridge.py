@@ -6,8 +6,11 @@ leaves stacked on a leading layer axis), and returns the port's tree with
 the same names, shapes and stacking. It checks the tree against the port's
 ``LM.param_spec`` so a mismatch fails loudly. bfloat16 leaves (numpy's
 ``ml_dtypes`` bfloat16) go through float32, which is exact.
-``classifier_params_from_numpy`` does the same for ``repro``'s
-``Classifier.init(...)[0]`` against the port's ``Classifier``.
+With ``mesh=`` (a ``launch.mesh.HostMesh``) it returns this rank's
+shards (``serving.sharding.place_params``), so every rank carries the
+same weights. ``classifier_params_from_numpy`` does the same for
+``repro``'s ``Classifier.init(...)[0]`` against the port's
+``Classifier``.
 """
 from __future__ import annotations
 
@@ -52,11 +55,24 @@ def _convert(tree, spec, device):
     return conv(tree, spec, "")
 
 
-def params_from_numpy(tree, cfg, device="cuda"):
+def params_from_numpy(tree, cfg, device="cuda", mesh=None):
     """``repro`` params as numpy (nested dicts/lists) -> the port's params
-    for ``cfg`` on ``device``."""
+    for ``cfg`` on ``device`` (on a mesh, this rank's shards)."""
     device = resolve_device(device)
-    return _convert(tree, LM(cfg, device="cpu").param_spec(), device)
+    lm = LM(cfg, device="cpu")
+    if mesh is None:
+        return _convert(tree, lm.param_spec(), device)
+    from repro_torch.serving.sharding import place_params
+    local = place_params(mesh, lm, _convert(tree, lm.param_spec(), "cpu"))
+    return _to_device(local, device)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
 
 
 def classifier_params_from_numpy(tree, cfg, device="cuda"):

@@ -43,10 +43,14 @@
 // launches, and neither stands in for the other when a build or launch
 // fails.
 //
-// Layouts (all contiguous): q, out (B, T, H, hd); k, v (B, W, KV, hd);
+// Layouts (all contiguous): q, out (B, T, H, hd); k, v (B, W, KV_ROW, hd);
 // q_pos (B, T) int32; k_pos (B, W) int32 with -1 = empty slot; scratch
 // m_part, l_part (B*T*H, splits) and acc_part (B*T*H, splits, hd) f32.
 // q, k and v 16-byte aligned. Rows with no valid key are written as 0.
+// The query heads attend KV heads kv0 .. kv0 + kvh_n - 1 of the KV_ROW a
+// cache row holds (H / kvh_n query heads each): all of them on one device,
+// or a tensor-parallel rank's share of KV heads that every rank keeps whole
+// (glm4-9b's 2 over 4 ranks), read in place, without a copy.
 #include "attention_mma.cuh"
 
 using namespace attn;
@@ -64,12 +68,13 @@ decode_mma_kernel(const mma::bf16* __restrict__ q,
                   const int* __restrict__ k_pos, mma::bf16* __restrict__ out,
                   float* __restrict__ m_part, float* __restrict__ l_part,
                   float* __restrict__ acc_part, int tq, int h, int kvh_n,
-                  int w, int hd, int split_len, int window, float scale) {
+                  int kv_row, int kv0, int w, int hd, int split_len,
+                  int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x / kvh_n, kvh = blockIdx.x - b * kvh_n;
-  const long long stride = static_cast<long long>(kvh_n) * hd;
-  const long long base =
-      static_cast<long long>(b) * w * stride + static_cast<long long>(kvh) * hd;
+  const long long stride = static_cast<long long>(kv_row) * hd;
+  const long long base = static_cast<long long>(b) * w * stride +
+                         static_cast<long long>(kv0 + kvh) * hd;
   const StridedKeys keys{base, stride, k_pos + static_cast<long long>(b) * w};
   mma::decode_cta<HDMAX>(smem_raw, q, k, v, q_pos, keys, out, m_part, l_part,
                          acc_part, b, kvh, tq, h, kvh_n, w, hd, split_len,
@@ -80,8 +85,9 @@ template <int HDMAX>
 static int launch_mma(const void* q, const void* k, const void* v,
                       const int* q_pos, const int* k_pos, void* out,
                       float* m_part, float* l_part, float* acc_part, int b,
-                      int tq, int h, int kvh_n, int w, int hd, int split_len,
-                      int window, float scale, cudaStream_t stream) {
+                      int tq, int h, int kvh_n, int kv_row, int kv0, int w,
+                      int hd, int split_len, int window, float scale,
+                      cudaStream_t stream) {
   if (split_len % mma::kDecodeWarpKeys<HDMAX>)
     return static_cast<int>(cudaErrorInvalidValue);
   const mma::DecodeGrid d =
@@ -93,7 +99,7 @@ static int launch_mma(const void* q, const void* k, const void* v,
   kernel<<<d.grid, d.threads, d.smem, stream>>>(
       static_cast<const mma::bf16*>(q), static_cast<const mma::bf16*>(k),
       static_cast<const mma::bf16*>(v), q_pos, k_pos, o, m_part, l_part,
-      acc_part, tq, h, kvh_n, w, hd, split_len, window, scale);
+      acc_part, tq, h, kvh_n, kv_row, kv0, w, hd, split_len, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || d.nsplit == 1) return static_cast<int>(err);
   combine_kernel<mma::bf16><<<b * tq * h, 64, 0, stream>>>(
@@ -111,24 +117,29 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      const int* k_pos, void* out,
                                      void* m_part, void* l_part,
                                      void* acc_part, int b, int tq, int h,
-                                     int kvh_n, int w, int hd, int split_len,
-                                     int window, float scale, void* stream) {
+                                     int kvh_n, int kv_row, int kv0, int w,
+                                     int hd, int split_len, int window,
+                                     float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto mp = static_cast<float*>(m_part), lp = static_cast<float*>(l_part),
        ap = static_cast<float*>(acc_part);
   if (split_len < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 32)
     return launch_mma<32>(q, k, v, q_pos, k_pos, out, mp, lp, ap, b, tq, h,
-                          kvh_n, w, hd, split_len, window, scale, st);
+                          kvh_n, kv_row, kv0, w, hd, split_len, window, scale,
+                          st);
   if (hd <= 64)
     return launch_mma<64>(q, k, v, q_pos, k_pos, out, mp, lp, ap, b, tq, h,
-                          kvh_n, w, hd, split_len, window, scale, st);
+                          kvh_n, kv_row, kv0, w, hd, split_len, window, scale,
+                          st);
   if (hd <= 128)
     return launch_mma<128>(q, k, v, q_pos, k_pos, out, mp, lp, ap, b, tq, h,
-                           kvh_n, w, hd, split_len, window, scale, st);
+                           kvh_n, kv_row, kv0, w, hd, split_len, window, scale,
+                           st);
   if (hd <= 256)
     return launch_mma<256>(q, k, v, q_pos, k_pos, out, mp, lp, ap, b, tq, h,
-                           kvh_n, w, hd, split_len, window, scale, st);
+                           kvh_n, kv_row, kv0, w, hd, split_len, window, scale,
+                           st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -143,8 +154,9 @@ decode_attention_kernel(const float* __restrict__ q,
                         const int* __restrict__ k_pos,
                         float* __restrict__ m_part, float* __restrict__ l_part,
                         float* __restrict__ acc_part, int tq, int h,
-                        int kvh_n, int w, int hd, int rows_per_cta,
-                        int split_len, int window, float scale) {
+                        int kvh_n, int kv_row, int kv0, int w, int hd,
+                        int rows_per_cta, int split_len, int window,
+                        float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x / kvh_n, kvh = blockIdx.x - b * kvh_n;
   const int g = h / kvh_n, rows = tq * g;
@@ -154,9 +166,9 @@ decode_attention_kernel(const float* __restrict__ q,
   const Smem s = carve(smem_raw, rows_per_cta, hd);
   decode_rows(s.roff, s.qpos, q_pos, b, kvh, tq, h, g, hd, row0, nrows);
   load_rows(s, q, nrows, hd);
-  const long long stride = static_cast<long long>(kvh_n) * hd;
-  const long long base =
-      static_cast<long long>(b) * w * stride + static_cast<long long>(kvh) * hd;
+  const long long stride = static_cast<long long>(kv_row) * hd;
+  const long long base = static_cast<long long>(b) * w * stride +
+                         static_cast<long long>(kv0 + kvh) * hd;
   const int lo = split * split_len, hi = min(w, lo + split_len);
   const StridedKeys keys{base, stride, k_pos + static_cast<long long>(b) * w};
   attend<LD>(s, k, v, keys, lo, hi, nrows, hd, /*causal=*/true,
@@ -168,8 +180,9 @@ template <int LD>
 static int launch_f32(const void* q, const void* k, const void* v,
                       const int* q_pos, const int* k_pos, void* out,
                       float* m_part, float* l_part, float* acc_part, int b,
-                      int tq, int h, int kvh_n, int w, int hd, int split_len,
-                      int window, float scale, cudaStream_t stream) {
+                      int tq, int h, int kvh_n, int kv_row, int kv0, int w,
+                      int hd, int split_len, int window, float scale,
+                      cudaStream_t stream) {
   const int rows = tq * (h / kvh_n);
   const int rb = rows < kMaxRows ? rows : kMaxRows;
   const int nsplit = (w + split_len - 1) / split_len;
@@ -181,7 +194,7 @@ static int launch_f32(const void* q, const void* k, const void* v,
   kernel<<<grid, 128, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), q_pos, k_pos, m_part, l_part, acc_part,
-      tq, h, kvh_n, w, hd, rb, split_len, window, scale);
+      tq, h, kvh_n, kv_row, kv0, w, hd, rb, split_len, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   combine_kernel<float><<<b * tq * h, 64, 0, stream>>>(
@@ -197,23 +210,28 @@ extern "C" int decode_attention_f32(const void* q, const void* k,
                                     const int* k_pos, void* out,
                                     void* m_part, void* l_part,
                                     void* acc_part, int b, int tq, int h,
-                                    int kvh_n, int w, int hd, int split_len,
-                                    int window, float scale, void* stream) {
+                                    int kvh_n, int kv_row, int kv0, int w,
+                                    int hd, int split_len, int window,
+                                    float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto mp = static_cast<float*>(m_part), lp = static_cast<float*>(l_part),
        ap = static_cast<float*>(acc_part);
   if (split_len < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 32)
     return launch_f32<1>(q, k, v, q_pos, k_pos, out, mp, lp, ap, b, tq, h,
-                         kvh_n, w, hd, split_len, window, scale, st);
+                         kvh_n, kv_row, kv0, w, hd, split_len, window, scale,
+                         st);
   if (hd <= 64)
     return launch_f32<2>(q, k, v, q_pos, k_pos, out, mp, lp, ap, b, tq, h,
-                         kvh_n, w, hd, split_len, window, scale, st);
+                         kvh_n, kv_row, kv0, w, hd, split_len, window, scale,
+                         st);
   if (hd <= 128)
     return launch_f32<4>(q, k, v, q_pos, k_pos, out, mp, lp, ap, b, tq, h,
-                         kvh_n, w, hd, split_len, window, scale, st);
+                         kvh_n, kv_row, kv0, w, hd, split_len, window, scale,
+                         st);
   if (hd <= 256)
     return launch_f32<8>(q, k, v, q_pos, k_pos, out, mp, lp, ap, b, tq, h,
-                         kvh_n, w, hd, split_len, window, scale, st);
+                         kvh_n, kv_row, kv0, w, hd, split_len, window, scale,
+                         st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -38,22 +38,25 @@
 // wrapper's split_len, as for the ring: tensor cores would take f32 as
 // TF32, which the port's f32 checks would not pass.
 //
-// Layouts (all contiguous): q, out (B, T, H, hd); k, v (N, bs, KV, hd);
+// Layouts (all contiguous): q, out (B, T, H, hd); k, v (N, bs, KV_ROW, hd);
 // q_pos (B, T) int32; k_pos (N, bs) int32 with -1 = never written; tables
 // (B, M) int32 with -1 = hole; scratch m_part, l_part (B*T*H, splits) and
 // acc_part (B*T*H, splits, hd) f32. q, k and v 16-byte aligned. Rows with
-// no valid key are written 0.
+// no valid key are written 0. The query heads attend KV heads kv0 .. kv0 +
+// kvh_n - 1 of the pool's KV_ROW, as in the ring kernel: a tensor-parallel
+// rank's share of KV heads that every rank keeps whole, read in place.
 #include "attention_mma.cuh"
 
 using namespace attn;
 
 __device__ __forceinline__ PagedKeys paged_keys(const int* __restrict__ k_pos,
                                                 const int* __restrict__ tables,
-                                                int b, int kvh, int kvh_n,
-                                                int bs, int m, int hd) {
+                                                int b, int kvh, int kv_row,
+                                                int kv0, int bs, int m,
+                                                int hd) {
   return PagedKeys{tables + static_cast<long long>(b) * m, k_pos, bs,
-                   static_cast<long long>(kvh_n) * hd,
-                   static_cast<long long>(kvh) * hd};
+                   static_cast<long long>(kv_row) * hd,
+                   static_cast<long long>(kv0 + kvh) * hd};
 }
 
 // -- bf16: tensor cores -------------------------------------------------------
@@ -72,11 +75,12 @@ paged_decode_mma_kernel(const mma::bf16* __restrict__ q,
                         float* __restrict__ m_part,
                         float* __restrict__ l_part,
                         float* __restrict__ acc_part, int tq, int h,
-                        int kvh_n, int bs, int m, int hd, int split_len,
-                        int window, float scale) {
+                        int kvh_n, int kv_row, int kv0, int bs, int m,
+                        int hd, int split_len, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x / kvh_n, kvh = blockIdx.x - b * kvh_n;
-  const PagedKeys keys = paged_keys(k_pos, tables, b, kvh, kvh_n, bs, m, hd);
+  const PagedKeys keys =
+      paged_keys(k_pos, tables, b, kvh, kv_row, kv0, bs, m, hd);
   mma::decode_cta<HDMAX>(smem_raw, q, k, v, q_pos, keys, out, m_part, l_part,
                          acc_part, b, kvh, tq, h, kvh_n, m * bs, hd,
                          split_len, window, scale);
@@ -87,8 +91,9 @@ static int launch_mma(const void* q, const void* k, const void* v,
                       const int* q_pos, const int* k_pos, const int* tables,
                       void* out, float* m_part, float* l_part,
                       float* acc_part, int b, int tq, int h, int kvh_n,
-                      int bs, int m, int hd, int split_len, int window,
-                      float scale, cudaStream_t stream) {
+                      int kv_row, int kv0, int bs, int m, int hd,
+                      int split_len, int window, float scale,
+                      cudaStream_t stream) {
   if (split_len % mma::kDecodeWarpKeys<HDMAX>)
     return static_cast<int>(cudaErrorInvalidValue);
   const mma::DecodeGrid d =
@@ -100,7 +105,8 @@ static int launch_mma(const void* q, const void* k, const void* v,
   kernel<<<d.grid, d.threads, d.smem, stream>>>(
       static_cast<const mma::bf16*>(q), static_cast<const mma::bf16*>(k),
       static_cast<const mma::bf16*>(v), q_pos, k_pos, tables, o, m_part,
-      l_part, acc_part, tq, h, kvh_n, bs, m, hd, split_len, window, scale);
+      l_part, acc_part, tq, h, kvh_n, kv_row, kv0, bs, m, hd, split_len,
+      window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || d.nsplit == 1) return static_cast<int>(err);
   combine_kernel<mma::bf16><<<b * tq * h, 64, 0, stream>>>(
@@ -116,28 +122,29 @@ static int launch_mma(const void* q, const void* k, const void* v,
 extern "C" int paged_decode_attention_bf16(
     const void* q, const void* k, const void* v, const int* q_pos,
     const int* k_pos, const int* tables, void* out, void* m_part,
-    void* l_part, void* acc_part, int b, int tq, int h, int kvh_n, int bs,
-    int m, int hd, int split_len, int window, float scale, void* stream) {
+    void* l_part, void* acc_part, int b, int tq, int h, int kvh_n,
+    int kv_row, int kv0, int bs, int m, int hd, int split_len, int window,
+    float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto mp = static_cast<float*>(m_part), lp = static_cast<float*>(l_part),
        ap = static_cast<float*>(acc_part);
   if (split_len < 1 || bs < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 32)
     return launch_mma<32>(q, k, v, q_pos, k_pos, tables, out, mp, lp, ap, b,
-                          tq, h, kvh_n, bs, m, hd, split_len, window, scale,
-                          st);
+                          tq, h, kvh_n, kv_row, kv0, bs, m, hd, split_len,
+                          window, scale, st);
   if (hd <= 64)
     return launch_mma<64>(q, k, v, q_pos, k_pos, tables, out, mp, lp, ap, b,
-                          tq, h, kvh_n, bs, m, hd, split_len, window, scale,
-                          st);
+                          tq, h, kvh_n, kv_row, kv0, bs, m, hd, split_len,
+                          window, scale, st);
   if (hd <= 128)
     return launch_mma<128>(q, k, v, q_pos, k_pos, tables, out, mp, lp, ap, b,
-                           tq, h, kvh_n, bs, m, hd, split_len, window, scale,
-                           st);
+                           tq, h, kvh_n, kv_row, kv0, bs, m, hd, split_len,
+                           window, scale, st);
   if (hd <= 256)
     return launch_mma<256>(q, k, v, q_pos, k_pos, tables, out, mp, lp, ap, b,
-                           tq, h, kvh_n, bs, m, hd, split_len, window, scale,
-                           st);
+                           tq, h, kvh_n, kv_row, kv0, bs, m, hd, split_len,
+                           window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -154,7 +161,8 @@ paged_decode_attention_kernel(const float* __restrict__ q,
                               float* __restrict__ m_part,
                               float* __restrict__ l_part,
                               float* __restrict__ acc_part, int tq, int h,
-                              int kvh_n, int bs, int m, int hd,
+                              int kvh_n, int kv_row, int kv0, int bs, int m,
+                              int hd,
                               int rows_per_cta, int split_len, int window,
                               float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -166,7 +174,8 @@ paged_decode_attention_kernel(const float* __restrict__ q,
   const Smem s = carve(smem_raw, rows_per_cta, hd);
   decode_rows(s.roff, s.qpos, q_pos, b, kvh, tq, h, g, hd, row0, nrows);
   load_rows(s, q, nrows, hd);
-  const PagedKeys keys = paged_keys(k_pos, tables, b, kvh, kvh_n, bs, m, hd);
+  const PagedKeys keys =
+      paged_keys(k_pos, tables, b, kvh, kv_row, kv0, bs, m, hd);
   const int lo = split * split_len, hi = min(m * bs, lo + split_len);
   attend<LD>(s, k, v, keys, lo, hi, nrows, hd, /*causal=*/true,
                     window, scale);
@@ -178,8 +187,9 @@ static int launch_f32(const void* q, const void* k, const void* v,
                       const int* q_pos, const int* k_pos, const int* tables,
                       void* out, float* m_part, float* l_part,
                       float* acc_part, int b, int tq, int h, int kvh_n,
-                      int bs, int m, int hd, int split_len, int window,
-                      float scale, cudaStream_t stream) {
+                      int kv_row, int kv0, int bs, int m, int hd,
+                      int split_len, int window, float scale,
+                      cudaStream_t stream) {
   const int rows = tq * (h / kvh_n);
   const int rb = rows < kMaxRows ? rows : kMaxRows;
   const int nsplit = (m * bs + split_len - 1) / split_len;
@@ -191,7 +201,8 @@ static int launch_f32(const void* q, const void* k, const void* v,
   kernel<<<grid, 128, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), q_pos, k_pos, tables, m_part, l_part,
-      acc_part, tq, h, kvh_n, bs, m, hd, rb, split_len, window, scale);
+      acc_part, tq, h, kvh_n, kv_row, kv0, bs, m, hd, rb, split_len, window,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   combine_kernel<float><<<b * tq * h, 64, 0, stream>>>(
@@ -205,27 +216,28 @@ static int launch_f32(const void* q, const void* k, const void* v,
 extern "C" int paged_decode_attention_f32(
     const void* q, const void* k, const void* v, const int* q_pos,
     const int* k_pos, const int* tables, void* out, void* m_part,
-    void* l_part, void* acc_part, int b, int tq, int h, int kvh_n, int bs,
-    int m, int hd, int split_len, int window, float scale, void* stream) {
+    void* l_part, void* acc_part, int b, int tq, int h, int kvh_n,
+    int kv_row, int kv0, int bs, int m, int hd, int split_len, int window,
+    float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto mp = static_cast<float*>(m_part), lp = static_cast<float*>(l_part),
        ap = static_cast<float*>(acc_part);
   if (split_len < 1 || bs < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 32)
     return launch_f32<1>(q, k, v, q_pos, k_pos, tables, out, mp, lp, ap, b,
-                         tq, h, kvh_n, bs, m, hd, split_len, window, scale,
-                         st);
+                         tq, h, kvh_n, kv_row, kv0, bs, m, hd, split_len,
+                         window, scale, st);
   if (hd <= 64)
     return launch_f32<2>(q, k, v, q_pos, k_pos, tables, out, mp, lp, ap, b,
-                         tq, h, kvh_n, bs, m, hd, split_len, window, scale,
-                         st);
+                         tq, h, kvh_n, kv_row, kv0, bs, m, hd, split_len,
+                         window, scale, st);
   if (hd <= 128)
     return launch_f32<4>(q, k, v, q_pos, k_pos, tables, out, mp, lp, ap, b,
-                         tq, h, kvh_n, bs, m, hd, split_len, window, scale,
-                         st);
+                         tq, h, kvh_n, kv_row, kv0, bs, m, hd, split_len,
+                         window, scale, st);
   if (hd <= 256)
     return launch_f32<8>(q, k, v, q_pos, k_pos, tables, out, mp, lp, ap, b,
-                         tq, h, kvh_n, bs, m, hd, split_len, window, scale,
-                         st);
+                         tq, h, kvh_n, kv_row, kv0, bs, m, hd, split_len,
+                         window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,7 +20,10 @@ per-token positions; k_pos (B, W) int32 with -1 = empty slot. A key is
 visible to a query iff 0 <= k_pos <= q_pos (and k_pos > q_pos - window).
 Rows with no visible key are 0. Paged contract: the same, with k, v the
 pool (N, bs, KV, hd), k_pos (N, bs) and block_tables (B, M) int32 (-1 = a
-hole: no key).
+hole: no key). ``kv_range=(first, count)`` attends only KV heads first ..
+first + count - 1 of the KV in k, v (H / count query heads each), read in
+place: a tensor-parallel rank whose query heads share KV heads that every
+rank keeps whole (``sharding.TensorParallel.kv_range``).
 """
 from __future__ import annotations
 
@@ -34,9 +37,9 @@ from repro_torch.kernels import (LAUNCHES, build, check_cuda_inputs,
 
 NEG_INF = -1e30
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
-_PAGED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_void_p])
 _TILE_K = 32          # keys per tile in the scalar body
 _ROWS_PER_CTA = 64    # query rows per CTA in either body
@@ -65,12 +68,22 @@ def _visible(k_pos, qp, window: Optional[int]) -> torch.Tensor:
     return valid
 
 
+def _kv_heads(k, v, kv_range):
+    """The K/V heads a call attends (views)."""
+    if kv_range is None:
+        return k, v
+    first, count = kv_range
+    return k[..., first:first + count, :], v[..., first:first + count, :]
+
+
 def decode_attention_plain(q, k, v, q_pos, k_pos, *,
                            window: Optional[int] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           kv_range=None) -> torch.Tensor:
     """Dense f32 version (``repro.kernels.ref.decode_attention_ref``'s
     arithmetic), with rows that see no key pinned to 0 as the kernel
     writes them. q: (B, T, H, hd)."""
+    k, v = _kv_heads(k, v, kv_range)
     b, t, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -157,19 +170,23 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch(q, k, v, qp, kp, window: Optional[int], scale: float):
+def _launch(q, k, v, qp, kp, window: Optional[int], scale: float,
+            kv_range=None):
     b, t, h, hd = q.shape
-    w, kv = k.shape[1], k.shape[2]
+    w, row = k.shape[1], k.shape[2]
+    kv0, kv = (0, row) if kv_range is None else kv_range
     check_cuda_inputs("decode_attention", {"q": q, "k": k, "v": v},
                       {"q_pos": qp, "k_pos": kp}, hd)
     if q.data_ptr() % 16:       # the bf16 kernel stages q by 16-byte copies
         q = q.clone()
-    if k.shape != (b, w, kv, hd) or v.shape != k.shape or h % kv \
+    if k.shape != (b, w, row, hd) or v.shape != k.shape or h % kv \
+            or not 0 <= kv0 < kv0 + kv <= row \
             or qp.shape != (b, t) or kp.shape != (b, w):
         raise ValueError(
             f"decode_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}"
             f", v {tuple(v.shape)}, q_pos {tuple(qp.shape)}, k_pos "
-            f"{tuple(kp.shape)} do not form a (B,T,H,hd)/(B,W,KV,hd) ring")
+            f"{tuple(kp.shape)}, kv_range {kv_range} do not form a "
+            f"(B,T,H,hd)/(B,W,KV,hd) ring")
     out = torch.empty_like(q)
     if out.numel() == 0 or w == 0:
         return out.zero_()
@@ -184,8 +201,9 @@ def _launch(q, k, v, qp, kp, window: Optional[int], scale: float):
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
                  kp.data_ptr(), out.data_ptr(), m_part.data_ptr(),
-                 l_part.data_ptr(), acc_part.data_ptr(), b, t, h, kv, w, hd,
-                 chunk, window if window is not None else 0, scale,
+                 l_part.data_ptr(), acc_part.data_ptr(), b, t, h, kv, row,
+                 kv0, w, hd, chunk, window if window is not None else 0,
+                 scale,
                  torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error("decode_attention", err)
     LAUNCHES["decode_attention"] += 1
@@ -193,7 +211,8 @@ def _launch(q, k, v, qp, kp, window: Optional[int], scale: float):
 
 
 def decode_attention(q, k, v, q_pos, k_pos, *, window: Optional[int] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     kv_range=None) -> torch.Tensor:
     """Launch the CUDA kernel for CUDA tensors, run the plain version for
     CPU tensors. Returns attention output shaped like q."""
     no_time = q.dim() == 3
@@ -206,10 +225,10 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window: Optional[int] = None,
     qp = query_positions(q_pos, t)
     if q.device.type == "cpu":
         out = decode_attention_plain(q, k, v, qp, k_pos, window=window,
-                                     scale=scale)
+                                     scale=scale, kv_range=kv_range)
     elif q.is_cuda:
         out = _launch(q.contiguous(), k, v, qp.contiguous(),
-                      k_pos.contiguous(), window, scale)
+                      k_pos.contiguous(), window, scale, kv_range)
     else:
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     return out[:, 0] if no_time else out
@@ -234,11 +253,12 @@ def gather_paged_kv(pool, pos, block_tables):
 
 def paged_decode_attention_plain(q, k, v, q_pos, k_pos, block_tables, *,
                                  window: Optional[int] = None,
-                                 scale: Optional[float] = None
-                                 ) -> torch.Tensor:
+                                 scale: Optional[float] = None,
+                                 kv_range=None) -> torch.Tensor:
     """``repro.kernels.ref.paged_decode_attention_ref``'s arithmetic: gather
     each slot's blocks, then the ring plain version (a row that sees no key
     is 0). q: (B, T, H, hd)."""
+    k, v = _kv_heads(k, v, kv_range)
     kc, pc = gather_paged_kv(k, k_pos, block_tables)
     vc, _ = gather_paged_kv(v, k_pos, block_tables)
     return decode_attention_plain(q, kc, vc, q_pos, pc, window=window,
@@ -254,20 +274,23 @@ def _paged_lib():
     return lib
 
 
-def _launch_paged(q, k, v, qp, kp, bt, window: Optional[int], scale: float):
+def _launch_paged(q, k, v, qp, kp, bt, window: Optional[int], scale: float,
+                  kv_range=None):
     b, t, h, hd = q.shape
-    n, bs, kv = k.shape[0], k.shape[1], k.shape[2]
+    n, bs, row = k.shape[0], k.shape[1], k.shape[2]
+    kv0, kv = (0, row) if kv_range is None else kv_range
     m = bt.shape[-1]
     check_cuda_inputs("paged_decode_attention", {"q": q, "k": k, "v": v},
                       {"q_pos": qp, "k_pos": kp, "block_tables": bt}, hd)
-    if k.shape != (n, bs, kv, hd) or v.shape != k.shape or h % kv \
+    if k.shape != (n, bs, row, hd) or v.shape != k.shape or h % kv \
+            or not 0 <= kv0 < kv0 + kv <= row \
             or qp.shape != (b, t) or kp.shape != (n, bs) \
             or bt.shape != (b, m):
         raise ValueError(
             f"paged_decode_attention: shapes q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}, q_pos {tuple(qp.shape)}"
-            f", k_pos {tuple(kp.shape)}, block_tables {tuple(bt.shape)} do "
-            f"not form (B,T,H,hd)/(N,bs,KV,hd)/(B,M)")
+            f", k_pos {tuple(kp.shape)}, block_tables {tuple(bt.shape)}, "
+            f"kv_range {kv_range} do not form (B,T,H,hd)/(N,bs,KV,hd)/(B,M)")
     if q.data_ptr() % 16:       # the bf16 kernel stages q by 16-byte copies
         q = q.clone()
     out = torch.empty_like(q)
@@ -285,7 +308,7 @@ def _launch_paged(q, k, v, qp, kp, bt, window: Optional[int], scale: float):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
                  kp.data_ptr(), bt.data_ptr(), out.data_ptr(),
                  m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-                 b, t, h, kv, bs, m, hd, chunk,
+                 b, t, h, kv, row, kv0, bs, m, hd, chunk,
                  window if window is not None else 0, scale,
                  torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error("paged_decode_attention", err)
@@ -295,7 +318,8 @@ def _launch_paged(q, k, v, qp, kp, bt, window: Optional[int], scale: float):
 
 def paged_decode_attention(q, k, v, q_pos, k_pos, block_tables, *,
                            window: Optional[int] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           kv_range=None) -> torch.Tensor:
     """Launch the paged CUDA kernel for CUDA tensors, run the plain version
     for CPU tensors. Returns attention output shaped like q."""
     no_time = q.dim() == 3
@@ -308,11 +332,12 @@ def paged_decode_attention(q, k, v, q_pos, k_pos, block_tables, *,
     qp = query_positions(q_pos, t)
     if q.device.type == "cpu":
         out = paged_decode_attention_plain(q, k, v, qp, k_pos, block_tables,
-                                           window=window, scale=scale)
+                                           window=window, scale=scale,
+                                           kv_range=kv_range)
     elif q.is_cuda:
         out = _launch_paged(q.contiguous(), k, v, qp.contiguous(),
                             k_pos.contiguous(), block_tables.contiguous(),
-                            window, scale)
+                            window, scale, kv_range)
     else:
         raise ValueError(
             f"paged_decode_attention: unsupported device {q.device}")

@@ -8,11 +8,19 @@ or the ACE edge/cloud cascade with --cascade, on the GPU.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2 --device cpu
 
-The port of ``repro.launch.serve``, with its flags but two: ``--mesh``
-other than 1 raises ``NotImplementedError`` (meshes are a later slice of
-the port) and ``--compile-cache`` is gone (the port's programs are CUDA
-graphs, which live and die with their process). ``--reduced`` serves the
+The port of ``repro.launch.serve``, with its flags but one:
+``--compile-cache`` is gone (the port's programs are CUDA graphs, which
+live and die with their process). ``--mesh N`` serves tensor-parallel on
+N ranks, one process each (``launch.mesh.spawn``): NCCL with one card a
+rank, or gloo with ``--device cpu``. Rank 0 runs the gateway, the journal
+and the watchdog and prints what the one-process run prints; the other
+ranks follow its engine calls (``serving.gateway.follow``). Dense GQA
+architectures only (MoE, MLA, recurrent mixers and the frontends exit
+with the engine's ``NotImplementedError``); ``--hang-demo`` runs on a
+mesh, ``--supervise`` (and ``--wedge-demo``) does not yet. ``--reduced`` serves the
 architecture's reduced config, as ``repro``'s default does, and
 ``--no-reduced`` its full width and depth (``repro``'s flag cannot be
 turned off). The engines serve text-token streams: an audio or vision
@@ -55,18 +63,18 @@ from repro_torch.cascade.ecc_infer import CascadeLM, edge_variant
 from repro_torch.cascade.gate import make_thresholds
 from repro_torch.configs import get_config
 from repro_torch.core.monitoring import MonitoringService
+from repro_torch.launch.mesh import AbstractMesh, make_host_mesh, spawn
 from repro_torch.models.model import LM
 from repro_torch.serving import (CascadeServingEngine, EngineWedgedError,
-                                 FaultPlan, RequestJournal, ServingEngine,
-                                 ServingGateway, recover_engine)
+                                 FaultPlan, MeshLeader, RequestJournal,
+                                 ServingEngine, ServingGateway, follow,
+                                 recover_engine)
 from repro_torch.serving.engine import check_text_model
+from repro_torch.sharding import tensor_parallel
 
 
-def _build_engine(cfg, args, fault_plan=None):
-    if int(args.mesh or 1) > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: meshes are a later slice of the port")
-    dev = resolve_device(args.device)
+def _build_engine(cfg, args, fault_plan=None, mesh=None):
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     if args.cascade:
         cloud = LM(cfg, device=dev)
         check_text_model(cloud)
@@ -75,11 +83,11 @@ def _build_engine(cfg, args, fault_plan=None):
                             thresholds=make_thresholds(hi=0.01, lo=0.001))
         return CascadeServingEngine(cascade, edge.init(1), cloud.init(0),
                                     batch_slots=4, max_seq_len=96,
-                                    fault_plan=fault_plan)
+                                    fault_plan=fault_plan, mesh=mesh)
     lm = LM(cfg, device=dev)
     check_text_model(lm)
     return ServingEngine(lm, lm.init(0), batch_slots=4, max_seq_len=96,
-                         fault_plan=fault_plan)
+                         fault_plan=fault_plan, mesh=mesh)
 
 
 async def _client(gw: ServingGateway, prompt, max_new: int,
@@ -135,7 +143,8 @@ async def _front(args, cfg, eng, gw, monitor):
     return results, wedged
 
 
-def serve(args) -> None:
+def serve(args, mesh=None) -> None:
+    """The launcher's run, in this process or as rank 0 of ``mesh``."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -152,9 +161,22 @@ def serve(args) -> None:
                      hang_grace=args.hang_grace)
         print(f"supervised: state in {state_dir}")
     try:
-        eng = _build_engine(cfg, args, fault_plan=_demo_fault_plan(args))
+        eng = _build_engine(cfg, args, fault_plan=_demo_fault_plan(args),
+                            mesh=mesh)
     except NotImplementedError as e:
         raise SystemExit(f"serve --arch {args.arch}: {e}")
+    if mesh is not None:
+        eng = MeshLeader(eng, mesh)
+    try:
+        _serve_engine(args, cfg, eng, monitor, journal, gw_kw)
+    finally:
+        if mesh is not None:
+            eng.stop()
+    if journal is not None:
+        journal.close()
+
+
+def _serve_engine(args, cfg, eng, monitor, journal, gw_kw) -> None:
     eng.warm_compile()
     gw = ServingGateway(eng, max_queue=args.max_queue, policy=args.policy,
                         **gw_kw)
@@ -183,8 +205,48 @@ def serve(args) -> None:
         print(f"recovered {info['restored']} + replayed "
               f"{info['replayed']}; post-restart drain: {dict(statuses)}")
         print(f"durability: {monitor.durability_counters()}")
-    if journal is not None:
-        journal.close()
+
+
+def _serve_rank(rank: int, args) -> None:
+    """One rank of ``--mesh N``: rank 0 serves, the others follow."""
+    device = "cpu" if args.device == "cpu" else f"cuda:{rank}"
+    mesh = make_host_mesh(args.mesh, device=device)
+    if rank == 0:
+        serve(args, mesh)
+        return
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    try:
+        eng = _build_engine(cfg, args, fault_plan=_demo_fault_plan(args),
+                            mesh=mesh)
+    except NotImplementedError:
+        return                          # rank 0 reports it and stops
+    follow(eng, mesh)
+
+
+def serve_mesh(args) -> None:
+    """``--mesh N``: N ranks as processes, NCCL on N cards or gloo on the
+    CPU."""
+    import torch
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    try:
+        check_text_model(LM(cfg, device="cpu"))
+        tensor_parallel(cfg, AbstractMesh(args.mesh))
+    except NotImplementedError as e:
+        raise SystemExit(f"serve --arch {args.arch} --mesh {args.mesh}: {e}")
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    if backend == "nccl":
+        resolve_device(args.device)
+        if torch.cuda.device_count() < args.mesh:
+            raise SystemExit(
+                f"--mesh {args.mesh} needs {args.mesh} cards, one a rank "
+                f"(found {torch.cuda.device_count()}); --device cpu serves "
+                f"the mesh on the CPU over gloo")
+    spawn(_serve_rank, args.mesh, args=(args,), backend=backend)
 
 
 def main(argv=None) -> None:
@@ -216,8 +278,10 @@ def main(argv=None) -> None:
     ap.add_argument("--state-dir", default=None,
                     help="journal/snapshot directory (default: tmpdir)")
     ap.add_argument("--mesh", type=int, default=1,
-                    help="tensor-parallel ways; only 1 (meshes are a "
-                         "later slice of the port)")
+                    help="tensor-parallel ways: N ranks, one process each "
+                         "(NCCL with one card a rank, gloo with --device "
+                         "cpu); dense GQA architectures; --supervise does "
+                         "not run on a mesh yet")
     ap.add_argument("--step-timeout", type=float, default=5.0,
                     help="watchdog wall-clock deadline per step (s)")
     ap.add_argument("--hang-grace", type=float, default=1.0,
@@ -229,9 +293,17 @@ def main(argv=None) -> None:
     ap.add_argument("--wedge-demo", action="store_true",
                     help="inject a stall past grace (supervised restart)")
     args = ap.parse_args(argv)
+    if args.mesh > 1 and (args.supervise or args.wedge_demo):
+        raise SystemExit(
+            f"--mesh {args.mesh}: NotImplementedError: --supervise (a "
+            f"restart from snapshot + journal) does not run on a mesh yet "
+            f"(ROADMAP Queue 1); --hang-demo does")
     if args.hang_demo or args.wedge_demo:
         args.supervise = True
-    serve(args)
+    if args.mesh > 1:
+        serve_mesh(args)
+    else:
+        serve(args)
 
 
 if __name__ == "__main__":

@@ -29,9 +29,9 @@ from repro_torch.models.model import LM
 from repro_torch.optim import adamw_init, linear_warmup_cosine
 from repro_torch.training.train_loop import make_train_step, to_device
 
-MESH_REFUSAL = ("meshes are not ported yet (ROADMAP Queue 1: "
-                "tensor-parallel serving, then federated training and the "
-                "mesh launcher); the port trains on one device")
+MESH_REFUSAL = ("training meshes are not ported yet (ROADMAP Queue 1: "
+                "federated training and the mesh launcher); the port "
+                "trains on one device and serves on a mesh")
 
 
 def train(args) -> list:

@@ -3,6 +3,13 @@ multi-head latent attention (MLA), each with full-sequence prefill through
 the flash kernel, cached decode through a cache layout (ring or paged),
 and its per-layer cache. Port of ``repro.models.attention``.
 
+On a mesh (``tp``, a ``sharding.TensorParallel``) the GQA mixer runs this
+rank's shards: its query heads and its KV heads (all of them where the KV
+heads do not split), then ``wo``'s partial sums all-reduced in f32. Where
+its query heads share KV heads that every rank keeps whole (glm4-9b's 2
+over 4 ranks), they attend ``tp.kv_range``: the kernels read that range of
+the cache in place; prefill hands the flash kernel a copy of it.
+
 ``repro`` prefills through the jnp ``blockwise_attention`` on arange
 positions; the port calls ``kernels.flash_attention``, which computes the
 same function (causal or windowed, keys and queries both at 0..S-1). MLA
@@ -137,23 +144,39 @@ def _qkv(params, cfg, x, positions):
     return q, k, v
 
 
-def _out(out, wo):
-    """out (B, S, H, hd) @ wo (H, hd, D) -> (B, S, D)."""
+def _out(out, wo, tp=None):
+    """out (B, S, H, hd) @ wo (H, hd, D) -> (B, S, D), summed over the
+    ranks where the heads split."""
     h, hd, d = wo.shape
-    return out.reshape(*out.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+    y = out.reshape(*out.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+    return y if tp is None else tp.reduce(y, tp.heads)
 
 
-def attn_forward(params, cfg, x, positions, *, window: Optional[int]):
+def _kv_range(tp, kv: int):
+    """The KV heads this rank's queries attend, or None for all ``kv``."""
+    if tp is None or tp.kv_range == (0, kv):
+        return None
+    return tp.kv_range
+
+
+def attn_forward(params, cfg, x, positions, *, window: Optional[int],
+                 tp=None):
     """Full-sequence causal attention (prefill). x: (B, S, D); positions:
-    (B, S), the arange 0..S-1 of every full-sequence call."""
+    (B, S), the arange 0..S-1 of every full-sequence call. Returns the
+    output and this rank's (k, v) for the cache."""
     q, k, v = _qkv(params, cfg, x, positions)
-    out = flash_attention(q, k, v, causal=True, window=window,
+    kq, vq = k, v
+    rng = _kv_range(tp, k.shape[2])
+    if rng is not None:
+        kq = k[:, :, rng[0]:rng[0] + rng[1]].contiguous()
+        vq = v[:, :, rng[0]:rng[0] + rng[1]].contiguous()
+    out = flash_attention(q, kq, vq, causal=True, window=window,
                           scale=cfg.resolved_head_dim ** -0.5)
-    return _out(out, params["wo"]), (k, v)
+    return _out(out, params["wo"], tp), (k, v)
 
 
 def attn_decode(params, cfg, x, cache, cur_pos, *, window: Optional[int],
-                layout=None, block_tables=None, valid=None):
+                layout=None, block_tables=None, valid=None, tp=None):
     """Cached-attention step: one decode token or a T-token prompt chunk.
     x: (B, T, D); ``cur_pos``: scalar or (B,) start positions (token i at
     ``cur_pos + i``); ``valid``: optional (B, T) write mask. The chunk's
@@ -168,8 +191,9 @@ def attn_decode(params, cfg, x, cache, cur_pos, *, window: Optional[int],
     cache = layout.append(cache, {"k": k1, "v": v1}, start, block_tables,
                           valid=valid)
     out = layout.attend(q, cache, positions, block_tables, window=window,
-                        scale=cfg.resolved_head_dim ** -0.5)
-    return _out(out, params["wo"]), cache
+                        scale=cfg.resolved_head_dim ** -0.5,
+                        kv_range=_kv_range(tp, k1.shape[2]))
+    return _out(out, params["wo"], tp), cache
 
 
 # ---------------------------------------------------------------------------

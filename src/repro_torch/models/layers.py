@@ -3,6 +3,14 @@
 Port of ``repro.models.layers`` with the same numerics: norms and the
 SwiGLU and GeGLU gates run in float32 and cast back, RoPE angles are
 float32.
+
+On a mesh (``tp``, a ``sharding.TensorParallel``) the layers take this
+rank's shards and end each split with its collective, Megatron-style:
+the MLPs are column-parallel in ``w_gate``/``w_up`` (a d_ff slice) and
+row-parallel in ``w_down``, whose partial sums are all-reduced in f32;
+the embedding is vocab-parallel (a masked lookup of this rank's rows,
+then an all-reduce) and the unembedding gathers each rank's logits over
+the vocab. ``tp=None`` is the one-device code, unchanged.
 """
 from __future__ import annotations
 
@@ -27,29 +35,44 @@ def norm_only(x, eps: float):
     return (x * torch.rsqrt(var + eps)).to(dtype)
 
 
-def swiglu(params, x):
+def swiglu(params, x, tp=None):
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    return y if tp is None else tp.reduce(y, tp.mlp)
 
 
-def gelu_mlp(params, x):
+def gelu_mlp(params, x, tp=None):
     """GeGLU: the tanh-approximate GELU of the gate in f32, cast back, times
     the up projection, then projected down."""
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = F.gelu(g.float(), approximate="tanh").to(x.dtype) * u
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    return y if tp is None else tp.reduce(y, tp.mlp)
 
 
-def embed(params, tokens):
-    return params["table"][tokens]
+def embed(params, tokens, tp=None):
+    table = params["table"]
+    if tp is None or not tp.vocab:
+        return table[tokens]
+    # vocab-parallel: this rank holds rows [rank * V/N, (rank + 1) * V/N)
+    rows = table.shape[0]
+    local = tokens.long() - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)]
+    x = torch.where(mine[..., None], x, torch.zeros_like(x))
+    return tp.reduce(x, True)
 
 
-def unembed(table, x):
-    """x (..., D) @ table^T (V, D) -> (..., V) logits."""
-    return x @ table.t()
+def unembed(table, x, tp=None):
+    """x (..., D) @ table^T (V, D) -> (..., V) logits (on a mesh, each
+    rank's vocab slice gathered)."""
+    logits = x @ table.t()
+    if tp is None or not tp.vocab:
+        return logits
+    return tp.mesh.gather(logits, -1)
 
 
 def rope(x, positions, theta: float):

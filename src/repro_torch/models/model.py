@@ -19,6 +19,17 @@ stacked (L, B, ...) layout (K/V rings for attention, ``ckv``/``krope``
 latent rings for MLA, ``h`` and ``conv`` for RG-LRU, ``C``, ``n`` and
 ``m`` for mLSTM, ``c``, ``n``, ``h`` and ``m`` for sLSTM) and are updated
 in place.
+
+``forward``, ``prefill``, ``prefill_chunk`` and ``decode_step`` take
+``mesh=None`` as ``repro``'s do. With a mesh (a
+``launch.mesh.HostMesh``) the params are this rank's shards
+(``serving.sharding.place_params``) and the dense GQA layers run
+tensor-parallel with explicit collectives (``models.layers``,
+``models.attention``); every rank ends each call with the same full
+logits. Mixers and frontends not ported to the mesh raise
+``NotImplementedError`` (``sharding.tensor_parallel``). ``repro``'s
+``rules`` (activation hints) have no counterpart: explicit collectives
+make them moot. ``mesh=None`` runs the one-device code unchanged.
 """
 from __future__ import annotations
 
@@ -34,9 +45,11 @@ from repro_torch.configs.base import (ATTN, MLA, MLSTM, MOE, NONE, RGLRU,
                                       SLSTM, SWIGLU, BlockDef, ModelConfig)
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import param as P
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (embed, gelu_mlp, rmsnorm, softcap,
                                        swiglu, unembed)
+from repro_torch.sharding import tensor_parallel
 
 Params = Dict[str, Any]
 
@@ -111,6 +124,39 @@ class LM:
                     BlockDef(mixer=ATTN if cfg.mla is None else MLA,
                              mlp=SWIGLU), ())}
         return spec
+
+    def param_axes(self) -> Params:
+        """The logical axes of every leaf of ``param_spec`` (tuples of
+        ``models.param`` names, the stacked layer axis first): the tree
+        ``repro``'s ``LM.abstract()[1]`` returns, which
+        ``launch.sharding_rules`` maps onto a mesh."""
+        spec = self.param_spec()
+        table = ((None, P.VOCAB, P.EMBED) if self.cfg.frontend.kind == "audio"
+                 else (P.VOCAB, P.EMBED))
+        axes: Params = {"embed": {"table": table}}
+        if "vision_proj" in spec:
+            axes["vision_proj"] = {"w1": (None, P.EMBED),
+                                   "w2": (P.EMBED, P.EMBED)}
+        axes["stages"] = [
+            {f"b{i}": self._block_axes(bdef, sp[f"b{i}"], (P.STACK,))
+             for i, bdef in enumerate(stage.blocks)}
+            for stage, sp in zip(self.cfg.stages, spec["stages"])]
+        axes["final_norm"] = P.NORM
+        if "unembed" in spec:
+            axes["unembed"] = {"table": table}
+        if "mtp" in spec:
+            bdef = BlockDef(mixer=ATTN if self.cfg.mla is None else MLA,
+                            mlp=SWIGLU)
+            axes["mtp"] = {"proj": (P.EMBED, P.EMBED), "norm": P.NORM,
+                           "block": self._block_axes(
+                               bdef, spec["mtp"]["block"], ())}
+        return axes
+
+    @staticmethod
+    def _block_axes(bdef, spec, lead: tuple) -> Params:
+        return P.axes_like(spec, {
+            "norm1": P.NORM, "mixer": P.MIXER[bdef.mixer], "norm2": P.NORM,
+            "mlp": P.MOE_MLP if bdef.mlp == MOE else P.DENSE_MLP}, lead)
 
     def _block_spec(self, bdef, lead: tuple) -> Params:
         """One block's leaves, each shape prefixed by ``lead`` (the
@@ -210,7 +256,7 @@ class LM:
         return make(self.param_spec())
 
     # -- pieces ---------------------------------------------------------------
-    def _logits(self, params, x):
+    def _logits(self, params, x, tp=None):
         cfg = self.cfg
         table = (params["embed"]["table"] if cfg.tie_embeddings
                  else params["unembed"]["table"])
@@ -218,13 +264,13 @@ class LM:
             # one head per codebook: (B, S, C, V)
             logits = torch.einsum("bsd,cvd->bscv", x, table)
         else:
-            logits = unembed(table, x)
+            logits = unembed(table, x, tp)
         if cfg.tie_embeddings:
             # the tied table is unit-std (embedding-scaled); rescale
             logits = logits * (cfg.d_model ** -0.5)
         return softcap(logits, cfg.logit_softcap)
 
-    def _mlp(self, bdef, p, x, auxes=None):
+    def _mlp(self, bdef, p, x, auxes=None, tp=None):
         """The block's residual MLP (none for an xLSTM block). An MoE layer
         appends its load-balance loss (a 0-dim f32 tensor) to the list
         ``auxes`` when given: nothing is updated in place, so a
@@ -239,32 +285,32 @@ class LM:
                 auxes.append(a)
             return x + y
         mlp = swiglu if bdef.mlp == SWIGLU else gelu_mlp
-        return x + mlp(p["mlp"], h)
+        return x + mlp(p["mlp"], h, tp)
 
-    def _head(self, params, x, last_only: bool, logits_index):
+    def _head(self, params, x, last_only: bool, logits_index, tp=None):
         x = rmsnorm(params["final_norm"], x, self.cfg.rms_eps)
         if logits_index is not None:
             idx = att.positions_1d(logits_index, x.shape[0], x.device).long()
             x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
         elif last_only:
             x = x[:, -1:]
-        return self._logits(params, x)
+        return self._logits(params, x, tp)
 
     # -- full-sequence forward ----------------------------------------------
-    def _embed_tokens(self, params, tokens):
+    def _embed_tokens(self, params, tokens, tp=None):
         """Token embeddings (B, S, D) of text tokens (B, S), or of audio
         tokens (B, S, C): the sum of the C codebooks' embeddings."""
         table = params["embed"]["table"]
         if self.cfg.frontend.kind != "audio":
-            return embed(params["embed"], tokens)
+            return embed(params["embed"], tokens, tp)
         books = torch.arange(table.shape[0], device=tokens.device)
         return table[books, tokens.long()].sum(dim=2)
 
-    def _embed_inputs(self, params, batch):
+    def _embed_inputs(self, params, batch, tp=None):
         """Input embeddings (B, S, D) and their positions (B, S) int32.
         A vision model puts its projected ``batch["image_embeds"]``
         (B, P, E) in front of the text: P + S positions."""
-        x = self._embed_tokens(params, batch["tokens"])
+        x = self._embed_tokens(params, batch["tokens"], tp)
         if self.cfg.frontend.kind == "vision":
             img = batch["image_embeds"]
             vp = params["vision_proj"]
@@ -284,7 +330,7 @@ class LM:
         return sum(stage.repeat for stage in self.cfg.stages)
 
     def _block(self, bdef, p, x, positions, cache=None, lengths=None,
-               auxes=None):
+               auxes=None, tp=None):
         """One block over the full sequence ``x``: its mixer (filling
         ``cache`` when given) and its MLP, both residual."""
         cfg = self.cfg
@@ -302,13 +348,13 @@ class LM:
                 att.mla_cache_fill(cache, ckv, krope, x.shape[1], lengths)
         else:
             y, (k, v) = att.attn_forward(p["mixer"], cfg, h, positions,
-                                         window=bdef.window)
+                                         window=bdef.window, tp=tp)
             if cache is not None:
                 att.cache_fill(cache, k, v, x.shape[1], lengths)
-        return self._mlp(bdef, p, x + y, auxes)
+        return self._mlp(bdef, p, x + y, auxes, tp)
 
     def _repeat(self, stage, layer, x, positions, caches=None,
-                lengths=None):
+                lengths=None, tp=None):
         """One scanned layer: every block of a stage repeat, each filling
         its cache in ``caches`` when given. Returns (x, the MoE blocks'
         load-balance losses, a list), so that a rematerialised layer
@@ -317,12 +363,13 @@ class LM:
         for bi, bdef in enumerate(stage.blocks):
             x = self._block(bdef, layer[bi], x, positions,
                             None if caches is None else caches[bi], lengths,
-                            auxes)
+                            auxes, tp)
         return x, auxes
 
     def _layer_range(self, params, x, positions, lo: int = 0,
                      hi: Optional[int] = None, *, caches=None,
-                     lengths=None, auxes=None, train: bool = False):
+                     lengths=None, auxes=None, train: bool = False,
+                     tp=None):
         """Scanned layers [lo, hi) (stage-repeat units, every block of a
         repeat) over the full sequence ``x``; with ``caches`` each layer
         also fills its cache, with ``auxes`` (a list) each MoE block
@@ -349,7 +396,7 @@ class LM:
                          else [_layer(sp[f"b{bi}"], li) for bi in nb])
                 cache = (None if caches is None
                          else [_layer(caches[si][bi], li) for bi in nb])
-                x, got = body(stage, layer, x, positions, cache, lengths)
+                x, got = body(stage, layer, x, positions, cache, lengths, tp)
                 if auxes is not None:
                     auxes.extend(got)
             first += stage.repeat
@@ -358,7 +405,8 @@ class LM:
     def forward(self, params, batch, *, want_cache: bool = False,
                 cache_width: Optional[int] = None, last_only: bool = False,
                 lengths=None, logits_index=None, with_aux: bool = False,
-                train: bool = False, with_hidden: bool = False):
+                train: bool = False, with_hidden: bool = False,
+                mesh=None):
         """Returns (logits, caches or None), and with ``with_aux`` the MoE
         layers' summed load-balance loss next (0 without MoE), as
         ``repro``'s ``forward`` sums it, and with ``with_hidden`` the final
@@ -368,19 +416,22 @@ class LM:
         of the ring at install (see ``attention._fill_slots``) and out of
         the recurrent state (identity steps past each row's length).
         ``train`` rematerialises each layer in the backward pass (no
-        caches)."""
+        caches). ``mesh``: this rank's shards on a mesh (module
+        docstring); the caches are its shards too."""
         if train and want_cache:
             raise ValueError("forward: train=True keeps no caches")
-        x, positions = self._embed_inputs(params, batch)
-        caches = (self.init_cache(x.shape[0], cache_width) if want_cache
-                  else None)
+        tp = tensor_parallel(self.cfg, mesh)
+        x, positions = self._embed_inputs(params, batch, tp)
+        caches = (self.init_cache(x.shape[0], cache_width, mesh=mesh)
+                  if want_cache else None)
         auxes = []
         x = self._layer_range(params, x, positions, caches=caches,
-                              lengths=lengths, auxes=auxes, train=train)
+                              lengths=lengths, auxes=auxes, train=train,
+                              tp=tp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for a in auxes:
             aux = aux + a
-        out = (self._head(params, x, last_only, logits_index), caches)
+        out = (self._head(params, x, last_only, logits_index, tp), caches)
         if with_aux:
             out += (aux,)
         if with_hidden:
@@ -431,21 +482,27 @@ class LM:
         return _xent(self._logits(params, h), labels[:, 1:])
 
     def prefill(self, params, batch, cache_width: int,
-                last_only: bool = False, lengths=None, logits_index=None):
+                last_only: bool = False, lengths=None, logits_index=None,
+                mesh=None):
         """Full forward that also returns populated caches."""
         return self.forward(params, batch, want_cache=True,
                             cache_width=cache_width, last_only=last_only,
-                            lengths=lengths, logits_index=logits_index)
+                            lengths=lengths, logits_index=logits_index,
+                            mesh=mesh)
 
     # -- decode -------------------------------------------------------------
-    def init_cache(self, batch: int, seq_len: int) -> List[Any]:
+    def init_cache(self, batch: int, seq_len: int, mesh=None) -> List[Any]:
         """Per stage, a tuple over blocks of dicts of stacked (L, B, ...)
         tensors: K/V rings (positions start at -1, empty) for attention,
         ``ckv``/``krope`` latent rings for MLA, zero recurrent state for
         RG-LRU (``h``, ``conv``), mLSTM (``C``, ``n``, ``m``) and sLSTM
-        (``c``, ``n``, ``h``, ``m``)."""
+        (``c``, ``n``, ``h``, ``m``). On a mesh, this rank's shard: the
+        K/V rings hold its KV heads when they split."""
         cfg = self.cfg
         h, hd = cfg.num_heads, cfg.resolved_head_dim
+        tp = tensor_parallel(cfg, mesh)
+        kv = (cfg.num_kv_heads // tp.ways if tp is not None and tp.kv
+              else cfg.num_kv_heads)
         caches = []
         for stage in cfg.stages:
             blocks = []
@@ -463,9 +520,8 @@ class LM:
                         self.dtype, self.device)
                 else:
                     one = att.init_kv_cache(
-                        batch, _attn_width(bdef.window, seq_len),
-                        cfg.num_kv_heads, cfg.resolved_head_dim, self.dtype,
-                        self.device)
+                        batch, _attn_width(bdef.window, seq_len), kv,
+                        cfg.resolved_head_dim, self.dtype, self.device)
                 blocks.append({k: v[None].repeat(
                     (stage.repeat,) + (1,) * v.dim()) for k, v in one.items()})
             caches.append(tuple(blocks))
@@ -483,7 +539,8 @@ class LM:
         return None
 
     def decode_step(self, params, caches, tokens, cur_pos, *,
-                    layout=None, block_tables=None, valid=None):
+                    layout=None, block_tables=None, valid=None,
+                    mesh=None):
         """One-token decode. tokens (B, 1) (audio: (B, 1, C)); ``cur_pos``
         scalar or (B,) (a vision model's positions count its prefix);
         ``valid`` (B, 1): False rows compute logits but leave the cache
@@ -491,19 +548,21 @@ class LM:
         caches), the caches updated in place."""
         return self.prefill_chunk(params, caches, tokens, cur_pos,
                                   layout=layout, block_tables=block_tables,
-                                  valid=valid)
+                                  valid=valid, mesh=mesh)
 
     def prefill_chunk(self, params, caches, tokens, start_pos, *,
                       layout=None, block_tables=None, valid=None,
-                      logits_index=None):
+                      logits_index=None, mesh=None):
         """Resume prefill with a T-token chunk per slot starting at
         ``start_pos`` (T = 1 is ``decode_step``). tokens (B, T), audio
         (B, T, C); a vision model's chunk is plain text (its image prefix
         already lives in the cache). ``valid`` (B, T) masks right-pad
         tokens out of the cache; ``logits_index`` (B,) unembeds one chunk
         position per row. Chunks longer than one token need attention or
-        MLA mixers. Returns (logits, caches)."""
+        MLA mixers. ``mesh``: as in ``forward``. Returns (logits,
+        caches)."""
         cfg = self.cfg
+        tp = tensor_parallel(cfg, mesh)
         b, t = tokens.shape[:2]
         if t > 1:
             bad = self.chunk_incompatible_mixer()
@@ -512,7 +571,7 @@ class LM:
                     f"prefill_chunk needs attention mixers "
                     f"(got {bad!r}); chunk length must be 1")
         start = att.positions_1d(start_pos, b, tokens.device)
-        x = self._embed_tokens(params, tokens)
+        x = self._embed_tokens(params, tokens, tp)
         for stage, sp, sc in zip(cfg.stages, params["stages"], caches):
             for li in range(stage.repeat):
                 for bi, bdef in enumerate(stage.blocks):
@@ -533,9 +592,9 @@ class LM:
                         y, _ = att.attn_decode(
                             p["mixer"], cfg, h, c, start,
                             window=bdef.window, layout=layout,
-                            block_tables=block_tables, valid=valid)
-                    x = self._mlp(bdef, p, x + y)
-        return self._head(params, x, False, logits_index), caches
+                            block_tables=block_tables, valid=valid, tp=tp)
+                    x = self._mlp(bdef, p, x + y, tp=tp)
+        return self._head(params, x, False, logits_index, tp), caches
 
 
 # the recurrent mixers' full-sequence forward (params, cfg, x, lengths) and

@@ -17,8 +17,11 @@ For the gateway it has ``repro``'s protocol: ``on_tokens`` (the legs' taps,
 inner request ids translated to cascade ids), ``enqueue(ahead_extra=)``,
 ``note_hang``, ``known_request_ids``, and ``snapshot``/``restore``/
 ``requeue_lost`` in ``repro``'s wire format (both legs' snapshots, the
-cascade's request table, routing maps, breaker and metrics). Meshes are a
-later slice: ``mesh`` and ``rules`` raise ``NotImplementedError``.
+cascade's request table, routing maps, breaker and metrics). With a
+``mesh`` both legs serve tensor-parallel on it (``ServingEngine``'s mesh),
+and the gate reads the edge's logits gathered over the vocab, so the
+``cascade_gate`` kernel is the one-device kernel; ``replay_enqueue`` takes
+the mesh gateway's requests on the follower ranks.
 """
 from __future__ import annotations
 
@@ -189,12 +192,8 @@ class CascadeServingEngine(_GraphedPrograms):
                  admission_policy: Optional[str] = None,
                  speculative_tokens: int = 0,
                  mesh=None, rules=None):
-        later = {"mesh": mesh, "rules": rules}
-        for name, value in later.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}: meshes are a later slice of the port")
         self.cascade = cascade
+        self.mesh = mesh
         self.batch_slots = batch_slots
         self.max_seq_len = max_seq_len
         self.truncate_prompts = truncate_prompts
@@ -220,7 +219,10 @@ class CascadeServingEngine(_GraphedPrograms):
                          chunk_tokens=chunk_tokens, token_budget=token_budget,
                          prefix_sharing=prefix_sharing,
                          max_decode_steps=max_decode_steps,
-                         admission_policy=admission_policy)
+                         admission_policy=admission_policy,
+                         # both legs ride the same mesh, each placing its
+                         # own params and pool
+                         mesh=mesh, rules=rules)
         self.edge_engine = ServingEngine(cascade.edge, edge_params,
                                          seed=seed, **engine_kw)
         # speculative cloud decode drafts with the cascade's own edge model:
@@ -232,7 +234,8 @@ class CascadeServingEngine(_GraphedPrograms):
             draft_model=cascade.edge if spec else None,
             draft_params=edge_params if spec else None,
             speculative_tokens=speculative_tokens, **engine_kw)
-        self._edge_params = edge_params
+        # the edge leg's params, this rank's shards on a mesh
+        self._edge_params = self.edge_engine.params
         # the gate program's staged prompt and its outputs
         self.device = cascade.edge.device
         self._gate_args = _Staged(self.device, length=1,
@@ -244,6 +247,8 @@ class CascadeServingEngine(_GraphedPrograms):
             "counts": torch.zeros((3,), dtype=torch.int32,
                                   device=self.device)}
         self._init_programs()
+        if mesh is not None and not mesh.capturable:
+            self._use_graphs = False
         self._requests: List[CascadeRequest] = []
         self._next_id = 0
         # routed-but-live requests by *inner* request id, and terminal
@@ -289,6 +294,12 @@ class CascadeServingEngine(_GraphedPrograms):
         ``ahead_extra`` is taken for the gateway's protocol."""
         del ahead_extra
         r.enqueue_s = time.perf_counter()
+        self._requests.append(r)
+
+    def replay_enqueue(self, r: CascadeRequest) -> None:
+        """Take a request as another rank's ``enqueue`` left it (the mesh
+        gateway's followers)."""
+        self._next_id = max(self._next_id, r.request_id + 1)
         self._requests.append(r)
 
     @property
@@ -356,7 +367,7 @@ class CascadeServingEngine(_GraphedPrograms):
         a = self._gate_args
         logits, _ = self.cascade.edge.forward(
             self._edge_params, {"tokens": a["tokens"][:bucket][None]},
-            logits_index=a["length"] - 1)
+            logits_index=a["length"] - 1, mesh=self.mesh)
         for name, x in zip(("conf", "route", "counts"),
                            gate_logits(logits[:, 0],
                                        GateThresholds(hi, lo))):

@@ -54,8 +54,26 @@ each round's new tokens after its one host sync (the gateway's stream).
 ``repro``'s wire format (``save_snapshot``/``load_snapshot``, the .npz
 envelope of ``repro_torch.checkpoint``): live slots resume token for token
 from their decode checkpoint and, on the paged backend, their K/V.
-Meshes are a later slice: ``mesh`` and ``rules`` raise
-``NotImplementedError``.
+
+With ``mesh`` (a ``launch.mesh.HostMesh``) the engine serves
+tensor-parallel, one process per rank (SPMD): every rank runs this same
+host scheduler on the same calls and holds its shards, the params cut by
+the decode-mode rules (``serving.sharding.place_params``) and the K/V
+pools split on the KV-head dim where it divides; tables, positions and
+the allocator stay whole on every rank. The model's collectives leave
+every rank the same full logits, so the same keys sample the same tokens
+everywhere, and ``assert_invariants`` checks that the ranks' streams and
+host state agree. The draft rides the same mesh. A snapshot gathers the
+KV heads into ``repro``'s host-global wire format and a restore takes
+this rank's shard of it, so snapshots cross between a mesh and
+``mesh=None`` both ways; a swap or a fault rollback keeps each rank's own
+shard. Under NCCL ``warm_compile`` captures each rank's programs with
+their collectives inside; gloo's cannot be captured, so a gloo mesh on the
+card serves eager and ``warm_compile`` raises. Dense GQA models only:
+MoE, MLA, recurrent mixers and a split whose query heads straddle KV
+groups raise ``NotImplementedError`` at construction
+(``sharding.tensor_parallel``). ``rules`` (``repro``'s activation hints)
+are accepted and dropped: explicit collectives make them moot.
 
 Where ``repro`` jits its serving programs for XLA (the single step, the
 K-step scan, the speculative round, the admission per bucket, the prompt
@@ -77,6 +95,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import time
 from typing import Dict, List, Optional
 
@@ -87,7 +106,9 @@ from repro_torch.checkpoint.io import (json_leaf, json_unleaf,
                                        load_checkpoint_tree, save_checkpoint)
 from repro_torch.kernels import (LAUNCHES, build, cascade_gate,
                                  rglru_scan)
+from repro_torch.launch.mesh import COLLECTIVES, HostMesh, same_device
 from repro_torch.models.model import LM
+from repro_torch.sharding import tensor_parallel
 from repro_torch.serving.faults import FaultError, FaultPlan
 from repro_torch.serving.kv_cache import (RingCache, RingLayout,
                                           _map_block_dicts, host_tensor,
@@ -98,6 +119,7 @@ from repro_torch.serving.sampler import (accepted_prefix_length, prng_key,
 from repro_torch.serving.scheduler import (MONOLITHIC, PrefillProgress,
                                            Scheduler, bucket_for,
                                            prompt_buckets, request_rank)
+from repro_torch.serving.sharding import assert_cache_placement, place_params
 from repro_torch.utils.tree import flat_paths
 
 
@@ -175,19 +197,29 @@ class _Program:
     any allocation: so the collector is off during a capture. The capture
     is begun and ended directly rather than through ``torch.cuda.graph``,
     which empties the allocator's cache (and may collect) before every
-    capture: an engine captures dozens of programs in a row."""
+    capture: an engine captures dozens of programs in a row.
 
-    def __init__(self, key, pool, stream, body):
+    On a mesh (``meshed``) the program's NCCL collectives are captured with
+    it, counted in ``collectives`` as launches are (``launch.mesh.
+    COLLECTIVES``), and the capture is thread-local: the process group's
+    watchdog thread polls its events while a capture is open."""
+
+    def __init__(self, key, pool, stream, body, meshed: bool = False):
         rglru_scan.prepare_stream(stream.device, stream)
         cascade_gate.prepare_stream(stream.device, stream)
         before = dict(LAUNCHES)
+        before_c = dict(COLLECTIVES)
         self.graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
         try:
             torch.cuda.synchronize(stream.device)
             with torch.cuda.stream(stream):
-                self.graph.capture_begin(pool=pool)
+                if meshed:
+                    self.graph.capture_begin(
+                        pool=pool, capture_error_mode="thread_local")
+                else:
+                    self.graph.capture_begin(pool=pool)
                 try:
                     body()
                 finally:
@@ -202,6 +234,10 @@ class _Program:
                              for name, n in before.items()
                              if LAUNCHES[name] != n}
             LAUNCHES.update(before)
+            self.collectives = {name: COLLECTIVES[name] - n
+                                for name, n in before_c.items()
+                                if COLLECTIVES[name] != n}
+            COLLECTIVES.update(before_c)
 
     def replay(self, key) -> None:
         try:
@@ -211,6 +247,8 @@ class _Program:
                                f"{err}") from err
         for name, n in self.launches.items():
             LAUNCHES[name] += n
+        for name, n in self.collectives.items():
+            COLLECTIVES[name] += n
 
 
 _CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
@@ -252,7 +290,9 @@ class _GraphedPrograms:
             try:
                 prog = _Program(key, self._graph_pool,
                                 capture_stream(self.device),
-                                lambda: self._program_body(key))
+                                lambda: self._program_body(key),
+                                meshed=getattr(self, "mesh", None)
+                                is not None)
             except RuntimeError:
                 # the allocator still counts a failed capture's pool as
                 # recording: later programs capture into a fresh pool
@@ -489,14 +529,23 @@ class ServingEngine(_GraphedPrograms):
                  backoff_base_steps: int = 1,
                  backoff_cap_steps: int = 8,
                  mesh=None, rules=None):
-        for name, value in {"mesh": mesh, "rules": rules}.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}: meshes are a later slice of the port")
         check_text_model(lm)
         self.lm = lm
         self.params = params
         self.device = lm.device
+        # tensor-parallel serving: this rank's shards of the params (and,
+        # below, of the pools); mesh=None keeps every one-device path
+        self.mesh = mesh
+        del rules
+        if mesh is not None:
+            if not isinstance(mesh, HostMesh):
+                raise TypeError(f"mesh must be a launch.mesh.HostMesh (got "
+                                f"{type(mesh).__name__})")
+            tensor_parallel(lm.cfg, mesh)      # refuses what cannot split
+            if not same_device(lm.device, mesh.device):
+                raise ValueError(f"the model is on {lm.device}, this rank's "
+                                 f"mesh device is {mesh.device}")
+            self.params = place_params(mesh, lm, params)
         self.batch_slots = batch_slots
         self.max_seq_len = max_seq_len
         self.seed = seed
@@ -588,6 +637,8 @@ class ServingEngine(_GraphedPrograms):
                 "(paged); the ring backend resumes by recompute")
         self._preempt_swap = (preempt_mode in ("auto", "swap")
                               and self.backend.supports_swap)
+        if mesh is not None:
+            self.backend.note_placement(mesh)
         self._cache_state = self.backend.init()
         b, v, dev = batch_slots, lm.cfg.padded_vocab, self.device
         i32 = dict(dtype=torch.int32, device=dev)
@@ -620,6 +671,12 @@ class ServingEngine(_GraphedPrograms):
             self._draft_backend = RingCache(draft_model,
                                             batch_slots=batch_slots,
                                             max_seq_len=max_seq_len)
+            if mesh is not None:
+                # the draft rides the same mesh, split by the same rules
+                tensor_parallel(draft_model.cfg, mesh)
+                self.draft_params = place_params(mesh, draft_model,
+                                                 draft_params)
+                self._draft_backend.note_placement(mesh)
             self._draft_state = self._draft_backend.init()
             # slots whose draft cache missed tokens that plain decode
             # rounds generated: re-synced by a draft prefill before the
@@ -640,8 +697,11 @@ class ServingEngine(_GraphedPrograms):
         # ("chunk", bucket, ctx) a prompt chunk and ("draft_fill", bucket)
         # a draft-cache fill. On the card each is a CUDA graph (a
         # _Program) in one memory pool per engine; on the CPU, or with
-        # _use_graphs off (eager A/B legs), the eager call (None)
+        # _use_graphs off (eager A/B legs), the eager call (None). A gloo
+        # mesh's collectives run on the host: they cannot be captured
         self._init_programs()
+        if mesh is not None and not mesh.capturable:
+            self._use_graphs = False
 
     def _validate_chunk_mixers(self, chunk_tokens: int) -> None:
         if not (1 <= chunk_tokens <= self.max_seq_len):
@@ -748,6 +808,16 @@ class ServingEngine(_GraphedPrograms):
                 r.downgraded = True
         r.enqueue_s = time.perf_counter()
         self._queue.append(r)
+
+    def replay_enqueue(self, r: Request) -> None:
+        """Take a request as another rank's ``enqueue`` left it (the mesh
+        gateway's followers): its id, its stamps and its admission verdict
+        come with it, so no rank judges a deadline by its own clock."""
+        self._next_id = max(self._next_id, r.request_id + 1)
+        if r.status == "rejected":
+            self._terminal(r, "rejected", r.failure_reason)
+        else:
+            self._queue.append(r)
 
     def queue_depth(self) -> int:
         """Requests waiting in the engine's own queue (resumes included)."""
@@ -864,7 +934,7 @@ class ServingEngine(_GraphedPrograms):
         logits, one_caches = self.lm.prefill(
             self.params, {"tokens": a["tokens"][:bucket][None]},
             cache_width=self.max_seq_len, lengths=length,
-            logits_index=length - 1)
+            logits_index=length - 1, mesh=self.mesh)
         self._cache_state = self.backend.prefill_fill(
             self._cache_state, one_caches, slot, length, a["row"])
         self._state["last"].index_copy_(0, slot, logits[:, 0].float())
@@ -886,7 +956,7 @@ class ServingEngine(_GraphedPrograms):
         logits, view = self.lm.prefill_chunk(
             self.params, view, a["tokens"][:bucket][None], a["start"],
             layout=self.backend.layout, block_tables=tables, valid=valid,
-            logits_index=length - 1)
+            logits_index=length - 1, mesh=self.mesh)
         self._cache_state = self.backend.slot_update(self._cache_state, slot,
                                                      view)
         last = self._state["last"]
@@ -921,7 +991,8 @@ class ServingEngine(_GraphedPrograms):
         logits, _ = self.lm.decode_step(
             self.params, self._cache_state["caches"], feed, st["pos"],
             layout=self.backend.layout,
-            block_tables=self._cache_state["tables"], valid=active[:, None])
+            block_tables=self._cache_state["tables"], valid=active[:, None],
+            mesh=self.mesh)
         finished = steps >= st["budget"]
         if self.eos_id is not None:
             finished |= nxt == self.eos_id
@@ -950,7 +1021,8 @@ class ServingEngine(_GraphedPrograms):
                                          torch.zeros_like(after)))
         _, one_caches = self.draft_lm.prefill(
             self.draft_params, {"tokens": tokens[None]},
-            cache_width=self.max_seq_len, last_only=True, lengths=length)
+            cache_width=self.max_seq_len, last_only=True, lengths=length,
+            mesh=self.mesh)
         self._draft_state = self._draft_backend.prefill_fill(
             self._draft_state, one_caches, slot, length, None)
 
@@ -986,7 +1058,8 @@ class ServingEngine(_GraphedPrograms):
             feed = torch.where(active, tok, torch.zeros_like(tok))[:, None]
             dlogits, dcaches = self.draft_lm.decode_step(
                 self.draft_params, dcaches, feed, pos + i,
-                layout=self._draft_backend.layout, valid=ok[:, None])
+                layout=self._draft_backend.layout, valid=ok[:, None],
+                mesh=self.mesh)
             tok = self._sample(rid, steps + i + 1, dlogits[:, 0].float(),
                                temp, sampled)
             drafted.append(tok)
@@ -998,7 +1071,8 @@ class ServingEngine(_GraphedPrograms):
         logits, _ = self.lm.prefill_chunk(
             self.params, self._cache_state["caches"], chunk, pos,
             layout=self.backend.layout,
-            block_tables=self._cache_state["tables"], valid=ok)
+            block_tables=self._cache_state["tables"], valid=ok,
+            mesh=self.mesh)
         logits = logits.float()                                  # (B, k+1, V)
         # s_i reads logits row i-1 (the plain engine's ``last`` at step
         # steps + i); the B*k verifications sample as one flattened batch
@@ -1097,6 +1171,13 @@ class ServingEngine(_GraphedPrograms):
         if self._slots or self._prefilling:
             raise RuntimeError("warm_compile needs an idle engine: its "
                                "warm-up runs would advance live slots")
+        if self.mesh is not None and self.device.type == "cuda" \
+                and not self.mesh.capturable:
+            raise RuntimeError(
+                f"warm_compile: a {self.mesh.backend} mesh's collectives "
+                f"run on the host and cannot be captured in a CUDA graph; "
+                f"this engine serves eager (use NCCL, one card a rank, to "
+                f"capture)")
         if self.warm_compile_s is not None and set(self._programs) >= set(
                 self.program_keys()):
             return                     # warm already (the gateway calls it)
@@ -1526,6 +1607,7 @@ class ServingEngine(_GraphedPrograms):
             "speculative": self.speculative_metrics(),
             "warm_compile_s": self.warm_compile_s,
             "graphs": self.graphs(),
+            "mesh_devices": self.mesh.size if self.mesh is not None else 1,
         }
 
     def speculative_metrics(self) -> Dict[str, object]:
@@ -1721,10 +1803,51 @@ class ServingEngine(_GraphedPrograms):
         """Device-resident KV-cache footprint of this engine."""
         return self.backend.hbm_bytes()
 
+    def hbm_bytes_per_device(self) -> int:
+        """Per-device KV footprint: on a mesh the pools split their KV-head
+        dim ``kv_shards`` ways where it divides, so each device pays that
+        share of the K/V bytes (positions and tables are whole). Equals
+        ``hbm_bytes()`` without a mesh."""
+        return self.backend.hbm_bytes_per_device()
+
     def assert_invariants(self) -> None:
         """The backend's allocator invariants, checked against the live
-        device tables (no mesh in the port yet)."""
+        device tables and pool; on a mesh also the placement of every
+        cache leaf (this rank's shard of what ``cache_pspecs`` splits) and
+        lockstep: every rank's tokens, sampling state and host state equal
+        this rank's (``_lockstep_digest``)."""
         self.backend.assert_invariants(self._cache_state)
+        if self.mesh is None:
+            return
+        assert_cache_placement(self.mesh, self._cache_state,
+                               self.backend._proto)
+        if self.speculative:
+            assert_cache_placement(self.mesh, self._draft_state,
+                                   self._draft_backend._proto)
+        mine = torch.tensor([self._lockstep_digest()], dtype=torch.int64,
+                            device=self.mesh.device)
+        every = self.mesh.gather(mine, 0).cpu().tolist()
+        assert len(set(every)) == 1, (
+            f"ranks out of lockstep: state digests {every} (rank "
+            f"{self.mesh.rank})")
+
+    def _lockstep_digest(self) -> int:
+        """A digest of what must be equal on every rank: the device
+        sampling state (tokens, positions, steps, budgets, ids, the active
+        mask and the ``last`` logits), the tables and the host scheduler's
+        slots, queue, free list, counters and allocator."""
+        h = hashlib.sha256()
+        for name in sorted(self._state):
+            h.update(self._state[name].cpu().numpy().tobytes())
+        if self._cache_state["tables"] is not None:
+            h.update(self._cache_state["tables"].cpu().numpy().tobytes())
+        host = (sorted((s, r.request_id) for s, r in self._slots.items()),
+                [r.request_id for r in self._queue], list(self._prefilling),
+                sorted(self._scanned.items()), list(self._free),
+                self._next_id, self._step_count, sorted(self._done),
+                sorted(getattr(self.backend, "_slot_blocks", {}).items()))
+        h.update(repr(host).encode())
+        return int.from_bytes(h.digest()[:7], "little")
 
     # -- durability -----------------------------------------------------------
     def note_hang(self) -> None:
@@ -1882,8 +2005,8 @@ class ServingEngine(_GraphedPrograms):
                 kv = None
                 if template is not None and "kv" in rec:
                     kv = {"n_blocks": int(np.asarray(rec["kv"]["n_blocks"])),
-                          "caches": _rebuild_like(template,
-                                                  rec["kv"]["caches"])}
+                          "caches": self.backend.local_wire(_rebuild_like(
+                              template, rec["kv"]["caches"]))}
                 tokens = rec.get("tokens")
                 r.resume = _ResumeState(
                     steps=steps,

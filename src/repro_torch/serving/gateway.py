@@ -59,6 +59,16 @@ restartable with token-exact survivors —
 into a cold engine, then replay the journal to re-queue acknowledged
 submissions the snapshot missed.
 
+On a mesh (one process per rank) rank 0 runs the gateway, the journal
+and the watchdog over a ``MeshLeader``, its engine as the gateway sees it:
+the engine calls that change host state (make_request, enqueue, cancel,
+take_done, note_hang) are logged, and the calls that run the model
+(step, snapshot, warm_compile, restore) first broadcast the log and
+themselves to ``follow``, the loop of every other rank, which replays
+them in order on its own engine. So every rank steps the same scheduler
+on the same calls, and a follower takes each request with rank 0's
+admission verdict (``replay_enqueue``).
+
 A copy of ``repro.serving.gateway`` (numpy and asyncio only) over the
 port's engines, journal and scheduler. On the card ``step()`` replays the
 engine's CUDA graphs in the executor thread, and so does ``warm_compile``,
@@ -73,6 +83,8 @@ on the card.
 from __future__ import annotations
 
 import asyncio
+import pickle
+import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -596,3 +608,85 @@ def recover_engine(engine, *, snapshot_dir: Optional[str] = None,
     if journal is not None:
         info["replayed"] = journal.replay(engine)
     return info
+
+
+class MeshLeader:
+    """Rank 0's engine on a mesh, for the gateway (module docstring).
+    Attributes it does not define are the engine's own (reads only).
+    ``stop`` releases the followers; call it once rank 0 is done."""
+
+    def __init__(self, engine, mesh) -> None:
+        self.__dict__.update(_engine=engine, _mesh=mesh, _log=[],
+                             _lock=threading.Lock())
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def __setattr__(self, name, value) -> None:
+        setattr(self._engine, name, value)     # on_tokens: rank 0's tap
+
+    def _note(self, name: str, *args, **kw) -> None:
+        with self._lock:
+            self._log.append(pickle.dumps((name, args, kw)))
+
+    def _broadcast(self, name: str, *args):
+        """Send the log and this call to the followers, then make it."""
+        self._note(name, *args)
+        with self._lock:
+            log, self._log[:] = list(self._log), []
+        self._mesh.broadcast_object(log)
+        return None if name == "stop" else getattr(self._engine,
+                                                    name)(*args)
+
+    def make_request(self, *args, **kw):
+        r = self._engine.make_request(*args, **kw)
+        self._note("make_request", *args, **kw)
+        return r
+
+    def enqueue(self, r, **kw) -> None:
+        self._engine.enqueue(r, **kw)
+        self._note("replay_enqueue", r)
+
+    def cancel(self, request_id: int) -> bool:
+        ok = self._engine.cancel(request_id)
+        self._note("cancel", request_id)
+        return ok
+
+    def take_done(self):
+        done = self._engine.take_done()
+        if done:
+            self._note("take_done")
+        return done
+
+    def note_hang(self) -> None:
+        self._engine.note_hang()
+        self._note("note_hang")
+
+    def step(self) -> None:
+        self._broadcast("step")
+
+    def warm_compile(self) -> None:
+        self._broadcast("warm_compile")
+
+    def snapshot(self):
+        return self._broadcast("snapshot")
+
+    def restore(self, snap):
+        return self._broadcast("restore", snap)
+
+    def assert_invariants(self) -> None:
+        self._broadcast("assert_invariants")
+
+    def stop(self) -> None:
+        self._broadcast("stop")
+
+
+def follow(engine, mesh) -> None:
+    """The loop of a rank other than 0: replay rank 0's engine calls, in
+    order, until it stops."""
+    while True:
+        for blob in mesh.broadcast_object():
+            name, args, kw = pickle.loads(blob)
+            if name == "stop":
+                return
+            getattr(engine, name)(*args, **kw)

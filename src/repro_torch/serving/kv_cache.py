@@ -26,9 +26,18 @@ Where ``repro`` returns new cache arrays (and the engine donates the old
 buffers to XLA), the port updates the cache tensors in place and the
 returned dicts alias the inputs. ``repro`` drops writes by scattering them
 out of bounds, which JAX ignores; ``index_put_`` raises there, so the port
-masks them explicitly. What ``repro`` keeps only for meshes or XLA
-compiles (``shardings``, the ``*_per_device`` accounting, ``warm_swap``)
-is not ported here.
+masks them explicitly. What ``repro`` keeps only for XLA compiles
+(``warm_swap``) is not ported here.
+
+On a mesh (``note_placement``, before ``init``) a backend's device state
+is this rank's shard: each K/V leaf holds its KV heads when they split
+(``serving.sharding``), and the byte accounting has ``repro``'s
+per-device walkers (``kv_shards``, ``hbm_bytes_per_device``,
+``block_bytes_per_device``). The allocator, the tables and the positions
+are the same on every rank. A swap keeps each rank's own shard on its
+host; a slot checkpoint leaves in the host-global wire format
+(``wire_caches`` gathers the KV heads) and comes back as this rank's
+shard (``local_wire``).
 
 A slot's K/V checkpoint crosses a process boundary in ``repro``'s wire
 format (``PagedCache.checkpoint_slot``, ``wire_caches``): the cache tree
@@ -50,6 +59,8 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   gather_paged_kv,
                                                   paged_decode_attention)
 from repro_torch.models.attention import positions_1d
+from repro_torch.serving.sharding import kv_shard_divisor as _kv_shard_divisor
+from repro_torch.serving.sharding import model_axis_size
 
 
 def _map_block_dicts(fn, tree, other=None):
@@ -153,9 +164,10 @@ class RingLayout:
         return cache
 
     def attend(self, q, cache, q_pos, block_tables=None, *,
-               window: Optional[int], scale: float):
+               window: Optional[int], scale: float, kv_range=None):
         return decode_attention(q, cache["k"], cache["v"], q_pos,
-                                cache["pos"], window=window, scale=scale)
+                                cache["pos"], window=window, scale=scale,
+                                kv_range=kv_range)
 
     def context(self, cache, block_tables=None) -> Dict[str, torch.Tensor]:
         """Per-slot contiguous view (identity for the ring)."""
@@ -195,10 +207,11 @@ class PagedLayout:
         return cache
 
     def attend(self, q, cache, q_pos, block_tables=None, *,
-               window: Optional[int], scale: float):
+               window: Optional[int], scale: float, kv_range=None):
         return paged_decode_attention(q, cache["k"], cache["v"], q_pos,
                                       cache["pos"], block_tables,
-                                      window=window, scale=scale)
+                                      window=window, scale=scale,
+                                      kv_range=kv_range)
 
     def context(self, cache, block_tables=None) -> Dict[str, torch.Tensor]:
         """Gather each slot's blocks into a contiguous (B, M*bs, ...) view;
@@ -318,6 +331,73 @@ class KVCacheBackend:
     def hbm_bytes_per_slot(self) -> float:
         raise NotImplementedError
 
+    # -- mesh placement (tensor-parallel decode) -----------------------------
+    # K/V leaves split their KV-head dim over the mesh's 'model' axis when
+    # it divides; tables, positions and the allocator stay host-global.
+    kv_shards: int = 1
+    mesh = None
+
+    def note_placement(self, mesh) -> None:
+        """Place this backend on ``mesh`` (call before ``init``): its state
+        becomes this rank's shard, and the per-device walkers divide the
+        K/V leaves whose KV dim divides ``kv_shards`` ways."""
+        self.mesh = mesh
+        self.kv_shards = model_axis_size(mesh)
+
+    def _shard_shape(self, key: str, shape) -> tuple:
+        """A global cache-leaf shape cut to this rank's shard."""
+        shape = tuple(shape)
+        div = _kv_shard_divisor(key, shape, self.kv_shards)
+        return shape[:3] + (shape[3] // div,) + shape[4:] if div > 1 \
+            else shape
+
+    def _bytes(self, rows: int, cols: Optional[int],
+               per_device: bool) -> int:
+        """Bytes of the per-request proto's leaves (L, 1, W, ...) at
+        ``rows`` in place of 1 and ``cols`` in place of W (None keeps each
+        leaf's W): the global leaves, or one rank's shards."""
+        total = 0
+        for key, (shape, dtype) in _leaves(self._proto):
+            full = (shape[0], rows, shape[2] if cols is None else cols) \
+                + tuple(shape[3:])
+            n = math.prod(full)
+            if per_device:
+                n //= _kv_shard_divisor(key, full, self.kv_shards)
+            total += n * dtype.itemsize
+        return total
+
+    def hbm_bytes_per_device(self) -> int:
+        """Per-device KV footprint (== ``hbm_bytes`` without a mesh)."""
+        return self.hbm_bytes()
+
+    def local_wire(self, caches):
+        """A slot checkpoint's caches in the host-global wire format (CPU
+        tensors), cut to this rank's shard of each split K/V leaf."""
+        if self.mesh is None or self.kv_shards == 1:
+            return caches
+
+        def cut(d):
+            out = {}
+            for key, t in d.items():
+                div = _kv_shard_divisor(key, t.shape, self.kv_shards)
+                out[key] = (self.mesh.shard(t, 3).contiguous() if div > 1
+                            else t)
+            return out
+        return _map_block_dicts(cut, caches)
+
+    def _gather_kv(self, d, proto):
+        """One block dict of this rank's checkpoint (CPU tensors) with the
+        K/V leaves that split (by the global ``proto`` dict) gathered over
+        the ranks: the host-global leaves."""
+        if self.mesh is None or self.kv_shards == 1:
+            return d
+        out = {}
+        for key, t in d.items():
+            if _kv_shard_divisor(key, proto[key][0], self.kv_shards) > 1:
+                t = self.mesh.gather(t.to(self.mesh.device), 3).cpu()
+            out[key] = t
+        return out
+
 
 def _prompt_spec(prompt):
     """A length (int) or a token array -> (length, tokens or None)."""
@@ -361,7 +441,8 @@ class RingCache(KVCacheBackend):
 
     def init(self) -> Dict[str, Any]:
         return {"caches": self.lm.init_cache(self.batch_slots,
-                                             self.max_seq_len),
+                                             self.max_seq_len,
+                                             mesh=self.mesh),
                 "tables": None}
 
     def can_admit(self, prompt, max_new: int) -> bool:
@@ -413,14 +494,13 @@ class RingCache(KVCacheBackend):
         return cache_state
 
     def hbm_bytes(self) -> int:
-        total = 0
-        for _, (shape, dtype) in _leaves(self._proto):
-            n = math.prod((shape[0], self.batch_slots) + shape[2:])
-            total += n * dtype.itemsize
-        return total
+        return self._bytes(self.batch_slots, None, per_device=False)
 
     def hbm_bytes_per_slot(self) -> float:
         return self.hbm_bytes() / self.batch_slots
+
+    def hbm_bytes_per_device(self) -> int:
+        return self._bytes(self.batch_slots, None, per_device=True)
 
 
 class HostSwapHandle:
@@ -555,12 +635,14 @@ class PagedCache(KVCacheBackend):
         def pool(d):
             out = {}
             for key, (shape, dtype) in d.items():
-                # (L, 1, W, ...) per-request line -> (L, N, bs, ...) pool
+                # (L, 1, W, ...) per-request line -> (L, N, bs, ...) pool,
+                # on a mesh this rank's shard of it
                 if key == "pos":
                     out[key] = torch.full((shape[0], n, bs), -1,
                                           dtype=dtype, device=dev)
                 else:
-                    out[key] = torch.zeros((shape[0], n, bs) + shape[3:],
+                    full = (shape[0], n, bs) + shape[3:]
+                    out[key] = torch.zeros(self._shard_shape(key, full),
                                            dtype=dtype, device=dev)
             return out
 
@@ -853,9 +935,9 @@ class PagedCache(KVCacheBackend):
         blocks (positions -1)."""
         m = self.blocks_per_slot
 
-        def pad(d):
+        def pad(d, proto):
             out = {}
-            for key, t in d.items():
+            for key, t in self._gather_kv(d, proto).items():
                 n = t.shape[1]
                 if n < m:
                     fill = torch.full((t.shape[0], m - n) + tuple(t.shape[2:]),
@@ -865,7 +947,8 @@ class PagedCache(KVCacheBackend):
                 out[key] = host_array(t)
             return out
 
-        return _map_block_dicts(pad, resolve_swap_caches(host_kv))
+        return _map_block_dicts(pad, resolve_swap_caches(host_kv),
+                                self._proto)
 
     def available_blocks(self) -> int:
         """Free blocks not spoken for by commitments (what ``can_admit``
@@ -971,6 +1054,28 @@ class PagedCache(KVCacheBackend):
             for slot, blocks in self._slot_blocks.items():
                 row = tables[slot]
                 assert row[:len(blocks)].tolist() == blocks, (slot, row)
+            self._assert_pool_placement(cache_state)
+
+    def _assert_pool_placement(self, cache_state) -> None:
+        """Sharded-pool accounting (``repro``'s): the device pool is still
+        the ledger's (width ``num_blocks``), each K/V leaf is this rank's
+        ``kv_shards``-way shard of its KV-head dim (or whole when it does
+        not divide), and its leaves' bytes add up to
+        ``hbm_bytes_per_device()``."""
+        per_dev = 0
+        for (key, leaf), (_, (shape, dtype)) in zip(
+                _leaves(cache_state["caches"]), _leaves(self._proto)):
+            assert leaf.shape[1] == self.num_blocks, (
+                f"pool width {leaf.shape[1]} != ledger's {self.num_blocks}")
+            full = (shape[0], self.num_blocks, self.block_size) + shape[3:]
+            want = self._shard_shape(key, full)
+            assert tuple(leaf.shape) == want and leaf.dtype == dtype, (
+                f"pool leaf {key}: {tuple(leaf.shape)} {leaf.dtype}, the "
+                f"ledger expects the {self.kv_shards}-way shard {want} "
+                f"{dtype}")
+            per_dev += leaf.numel() * leaf.element_size()
+        assert per_dev == self.hbm_bytes_per_device(), (
+            per_dev, self.hbm_bytes_per_device())
 
     # -- chunked-prefill admission seam --------------------------------------
     def begin_slot(self, cache_state, slot, table_row, shared_blocks):
@@ -1059,14 +1164,19 @@ class PagedCache(KVCacheBackend):
     # -- accounting ----------------------------------------------------------
     def block_bytes(self) -> int:
         """Bytes one pool block costs across all layers."""
-        total = 0
-        for _, (shape, dtype) in _leaves(self._proto):
-            per_tok = math.prod(shape[:1] + shape[3:])
-            total += per_tok * self.block_size * dtype.itemsize
-        return total
+        return self._bytes(1, self.block_size, per_device=False)
+
+    def block_bytes_per_device(self) -> int:
+        """Per-device bytes of one pool block: K/V leaves split their
+        KV-head dim ``kv_shards`` ways when it divides; positions are
+        whole on every device."""
+        return self._bytes(1, self.block_size, per_device=True)
 
     def hbm_bytes(self) -> int:
         return self.block_bytes() * self.num_blocks
+
+    def hbm_bytes_per_device(self) -> int:
+        return self.block_bytes_per_device() * self.num_blocks
 
     def hbm_bytes_per_slot(self) -> float:
         """Average bytes drawn per admitted request (blocks committed but

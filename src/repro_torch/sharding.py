@@ -1,0 +1,132 @@
+"""Logical activation axes and the rule resolver of tensor-parallel serving.
+
+A copy of ``repro.sharding``'s names and of its ``resolve``. ``repro`` is
+single-controller GSPMD: model code annotates activations with logical
+axes (``hint``) and XLA partitions the program. The port is SPMD with one
+process per rank and explicit collectives (``models.layers`` and
+``models.attention`` reduce and gather where a split dimension ends), so
+it has no activation hints. ``resolve`` is what placement uses: it maps a
+leaf's logical axes to mesh axes, dropping a split whose dimension does
+not divide.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+# logical activation axes
+BATCH = "act_batch"
+SEQ = "act_seq"
+EMBED = "act_embed"
+HEADS = "act_heads"
+KV = "act_kv"
+VOCAB = "act_vocab"
+EXPERT = "act_expert"
+EXP_SLOT = "act_exp_slot"
+MLP = "act_mlp"
+
+Spec = Tuple[object, ...]
+
+
+def resolve(rules: Dict[str, object], axes: Sequence[Optional[str]],
+            shape: Optional[Tuple[int, ...]] = None,
+            mesh_shape: Optional[Dict[str, int]] = None) -> Spec:
+    """Map logical axes to a spec: a tuple with, per dimension, a mesh-axis
+    name, a tuple of them, or None (replicated). As ``repro``'s: a split is
+    dropped when the dimension does not divide by the mesh axes' product,
+    and a mesh axis is used at most once per spec, in logical-axis order.
+    ``mesh_shape`` maps mesh-axis names to sizes."""
+    spec = []
+    used = set()
+    for i, ax in enumerate(axes):
+        mesh_axes = rules.get(ax) if ax is not None else None
+        if mesh_axes is None:
+            spec.append(None)
+            continue
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        mesh_axes = tuple(m for m in mesh_axes if m not in used)
+        if not mesh_axes:
+            spec.append(None)
+            continue
+        if shape is not None and mesh_shape is not None:
+            size = 1
+            for m in mesh_axes:
+                size *= mesh_shape[m]
+            if shape[i] % size != 0:
+                spec.append(None)
+                continue
+        used.update(mesh_axes)
+        spec.append(tuple(mesh_axes) if len(mesh_axes) > 1 else mesh_axes[0])
+    return tuple(spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """How one rank runs a dense GQA model on a mesh's ``model`` axis:
+    which dimensions its shards split (each exactly when the decode-mode
+    placement rules split the leaves that hold it) and the KV heads its
+    query heads read. ``kv_range`` is (first, count) in the KV-head dim of
+    this rank's K/V (its own heads when they split, all of them when they
+    are replicated)."""
+    mesh: object
+    ways: int
+    rank: int
+    heads: bool           # query heads (wq, wo) split
+    kv: bool              # KV heads (wk, wv, the K/V pools) split
+    mlp: bool             # d_ff (w_gate, w_up, w_down) split
+    vocab: bool           # the embedding and unembedding tables split
+    kv_range: Tuple[int, int]
+
+    def reduce(self, x, split: bool):
+        """Sum a row-parallel partial over the ranks when ``split``."""
+        return self.mesh.all_reduce(x) if split else x
+
+
+# mixers and MLPs whose mesh paths are still to be ported, by ROADMAP item
+_LATER = {"mla": "MLA on the mesh", "rglru": "RG-LRU widths on the mesh",
+          "mlstm": "xLSTM widths on the mesh",
+          "slstm": "xLSTM widths on the mesh",
+          "moe": "MoE expert parallelism on the mesh"}
+
+
+def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
+    """The ``TensorParallel`` of ``cfg`` on ``mesh`` (None without one).
+    Raises ``NotImplementedError`` for what the mesh does not serve yet:
+    MoE, MLA, recurrent mixers, modality frontends, and a split whose
+    ranks' query heads straddle KV groups unevenly."""
+    if mesh is None:
+        return None
+    n = int(mesh.shape["model"])
+    for stage in cfg.stages:
+        for bdef in stage.blocks:
+            for kind in (bdef.mixer, bdef.mlp):
+                if kind in _LATER:
+                    raise NotImplementedError(
+                        f"{cfg.name}: {kind!r} blocks do not run on a mesh "
+                        f"yet ({_LATER[kind]}, ROADMAP Queue 1)")
+    if cfg.frontend.kind != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend.kind} frontend does not run on "
+            f"a mesh yet (the frontends on the mesh, ROADMAP Queue 1)")
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    heads, kvs = h % n == 0, kv % n == 0
+    rank = int(getattr(mesh, "rank", 0))
+    if heads and not kvs:
+        # each rank's local = h/n query heads read one shared KV head
+        # when they lie inside one group of h/kv heads (local/group = kv/n
+        # is never whole here, so a rank cannot hold whole groups)
+        local, group = h // n, h // kv
+        if group % local == 0:
+            kv_range = (rank * local // group, 1)
+        else:
+            raise NotImplementedError(
+                f"{cfg.name}: a {n}-way split gives each rank {local} query "
+                f"heads, which straddle the KV groups of {group} heads "
+                f"unevenly; serve it on a mesh whose size divides "
+                f"{kv} KV heads or whose rank share divides a group")
+    else:
+        kv_range = (0, kv // n if kvs else kv)
+    return TensorParallel(mesh=mesh, ways=n, rank=rank, heads=heads, kv=kvs,
+                          mlp=cfg.d_ff % n == 0,
+                          vocab=cfg.padded_vocab % n == 0, kv_range=kv_range)

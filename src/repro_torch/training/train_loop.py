@@ -10,7 +10,8 @@ backward goes through the hand-written backward kernels on the card
 Functions), then ``optim.adamw_update`` with its global-norm clip. Params
 and optimizer state are the same trees as ``repro``'s, and a checkpoint of
 ``(params, opt)`` has ``repro``'s key paths, so either package restores
-the other's. Meshes and federated training are later slices of the port.
+the other's. Training on a mesh and federated training are later slices
+of the port (serving on a mesh is ported: ``serving.sharding``).
 """
 from __future__ import annotations
 

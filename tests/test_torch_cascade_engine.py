@@ -319,9 +319,12 @@ def test_cascade_submit_validates_and_later_slices_raise():
     eng = CascadeServingEngine(cas, tep, tcp, batch_slots=2, max_seq_len=16)
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.submit(np.arange(30), max_new_tokens=4)
-    for kw in (dict(mesh=object()), dict(rules=object())):
-        with pytest.raises(NotImplementedError):
-            CascadeServingEngine(cas, tep, tcp, **KW, **kw)
+    # a mesh must be a HostMesh (both legs check it); rules (repro's
+    # activation hints) are accepted and dropped
+    with pytest.raises(TypeError, match="HostMesh"):
+        CascadeServingEngine(cas, tep, tcp, **KW, mesh=object())
+    quiet = CascadeServingEngine(cas, tep, tcp, **KW, rules=object())
+    assert quiet.edge_engine.mesh is None and quiet.cloud_engine.mesh is None
     # the durability protocol is ported now (tests/test_torch_crash_restart
     # .py and tests/test_torch_gateway.py hold it); the tap starts unset
     for name in ("snapshot", "restore", "note_hang",

@@ -688,15 +688,15 @@ def test_flat_paths_and_save_checkpoint_match_repro(tmp_path):
 
 def test_serve_cli_flags_against_repro(monkeypatch, capsys):
     """``python -m repro_torch.launch.serve`` keeps ``repro``'s flags but
-    two, and its ``--reduced`` can be turned off where ``repro``'s cannot
+    ``--compile-cache``, and its ``--reduced`` can be turned off where ``repro``'s cannot
     (``store_true`` with ``default=True``: ``--no-reduced`` is an error
-    there). ``--mesh`` other than 1 raises; a short run on the CPU serves
-    every arrival through the gateway."""
-    import argparse
+    there). ``--mesh N`` refuses, before it starts a rank, what a mesh
+    does not serve yet (``--supervise``, MoE; the mesh itself is
+    ``tests/test_torch_sharded_serving.py``'s); a short run on the CPU
+    serves every arrival through the gateway."""
     import sys
 
     import repro.launch.serve as jserve
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve as tserve
 
     seen = []
@@ -719,10 +719,13 @@ def test_serve_cli_flags_against_repro(monkeypatch, capsys):
     assert got[0].device == "cuda" and not hasattr(got[0], "compile_cache")
     with pytest.raises(SystemExit):
         tserve.main(["--compile-cache"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tserve._build_engine(get_config("smollm-135m").reduced(),
-                             argparse.Namespace(mesh=2, device="cpu",
-                                                cascade=False))
+    with pytest.raises(SystemExit, match="supervise.*does not run on a "
+                                         "mesh"):
+        tserve.main(["--mesh", "2", "--device", "cpu", "--supervise"])
+    with pytest.raises(SystemExit, match="'moe' blocks do not run on a "
+                                         "mesh"):
+        tserve.main(["--mesh", "2", "--device", "cpu", "--arch",
+                     "mixtral-8x22b"])
     monkeypatch.undo()
     tserve.main(["--device", "cpu", "--requests", "3", "--max-new", "3",
                  "--quiet", "--rate", "1000"])

@@ -222,7 +222,9 @@ def test_keyed_sampler_is_a_pure_function_of_its_key():
 def test_engine_edges_and_later_slices():
     """Oversized prompts, cancel (queued, and mid-prefill on the chunked
     paged engine), max_new_tokens=0 and an EOS stop, on the ring and the
-    paged backend; meshes are a later slice and still raise (faults are
+    paged backend; a mesh that is not a ``HostMesh`` raises, and ``rules``
+    (``repro``'s activation hints) are accepted and dropped (the mesh is
+    ``tests/test_torch_sharded_serving.py``'s, faults are
     ``tests/test_torch_faults.py``'s)."""
     _, _, lm, tp = _models()
     for backend in (dict(), dict(cache_backend="paged", block_size=8,
@@ -257,9 +259,10 @@ def test_engine_edges_and_later_slices():
             assert eng.run()[r4].failure_reason == "cancelled: mid-prefill"
             eng.assert_invariants()
             assert eng.backend.blocks_in_use == 0
-    for kw in (dict(mesh=object()), dict(rules=object())):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(lm, tp, **kw)
+    with pytest.raises(TypeError, match="HostMesh"):
+        ServingEngine(lm, tp, mesh=object())
+    eng = ServingEngine(lm, tp, rules=object())
+    assert eng.mesh is None
 
 
 def _admission(engine):

@@ -39,7 +39,14 @@ gradients (1e-4 of each leaf's max |g|) on the card against the CPU in
 f32.
 ``PartitionedLM``'s two halves equal ``LM.forward`` bit for bit: the same
 kernels run in the same order.
+The tensor-parallel path: the ring and paged kernels read a rank's
+``kv_range`` of the cache in place, equal bit for bit to the kernel on a
+copy of the range; a one-rank NCCL mesh serves the ``mesh=None`` streams
+bit for bit with its all-reduces captured in the graphs, and a gloo mesh
+serves eager and refuses a capture.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -1955,3 +1962,176 @@ def test_train_step_on_gpu_matches_the_cpu(cuda, name):
     for key, g in flat_paths(got[2]).items():
         scale = want[key].abs().max().item()
         assert (g.cpu() - want[key]).abs().max().item() <= 1e-4 * scale, key
+
+
+# -- tensor-parallel serving ---------------------------------------------------
+# (h, row, kv_range, hd, t): a rank's query heads over the KV heads of its
+# cache row: glm4-9b on 4 ranks (8 query heads a rank over both KV heads,
+# which every rank keeps whole; each rank reads one) at T = 1 and the verify
+# chunk T = 5, and the same at 2 query heads a rank; the whole row
+# (qwen3-4b on 2 ranks: 16 heads over its own 4 KV heads) as the identity
+KV_RANGE_CASES = [(8, 2, (0, 1), 128, 1), (8, 2, (1, 1), 128, 5),
+                  (2, 2, (1, 1), 64, 1), (16, 4, (0, 4), 128, 1),
+                  (6, 4, (1, 3), 32, 8)]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", KV_RANGE_CASES,
+                         ids=[str(c) for c in KV_RANGE_CASES])
+def test_decode_kernels_read_a_kv_range_in_place(cuda, case, dtype, paged):
+    """The ring and paged kernels at a tensor-parallel rank's shapes, their
+    ``kv_range`` read in place: against the plain version on the same
+    range, and bit for bit against the kernel on a copy of the range."""
+    h, row, (first, count), hd, t = case
+    dt = getattr(torch, dtype)
+    if paged:
+        q, k, v, q_pos, pos, bt = _pool(cuda, dt, h, row, hd, 16, (300, 77),
+                                        t)
+
+        def run(kk, vv, rng=None):
+            return paged_decode_attention(q, kk, vv, q_pos, pos, bt,
+                                          kv_range=rng)
+
+        def plain(rng):
+            return paged_decode_attention_plain(q, k, v, q_pos, pos, bt,
+                                                kv_range=rng)
+        name = "paged_decode_attention"
+    else:
+        q, k, v, q_pos, k_pos = _ring(cuda, dt, 2, 512, h, row, hd, 300,
+                                      300, t)
+
+        def run(kk, vv, rng=None):
+            return decode_attention(q, kk, vv, q_pos, k_pos, kv_range=rng)
+
+        def plain(rng):
+            return decode_attention_plain(q, k, v, q_pos, k_pos,
+                                          kv_range=rng)
+        name = "decode_attention"
+    n = LAUNCHES[name]
+    out = run(k, v, (first, count))
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == n + 1
+    _assert_attention(out, plain((first, count)), dt)
+    copy = run(k[..., first:first + count, :].contiguous(),
+               v[..., first:first + count, :].contiguous())
+    assert torch.equal(out, copy)
+
+
+# (b, s, h, kv, hd): a rank's prefill: glm4-9b on 4 ranks (8 query heads
+# over the one KV head they read, copied out of both), qwen3-4b on 2 (16
+# over 4) and starcoder2-7b on 4 (9 over 1)
+TP_FLASH_CASES = [(1, 300, 8, 1, 128), (2, 200, 16, 4, 128),
+                  (1, 300, 9, 1, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", TP_FLASH_CASES,
+                         ids=[str(c) for c in TP_FLASH_CASES])
+def test_flash_kernel_at_per_rank_shapes(cuda, case, dtype):
+    b, s, h, kv, hd = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, dt) for shape in
+               ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    n = LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == n + 1
+    _assert_attention(out, flash_attention_plain(q, k, v), dt)
+
+
+@contextlib.contextmanager
+def _process_group(backend):
+    """A one-rank process group in this process, and its mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import free_port, make_host_mesh
+    dist.init_process_group(backend, rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{free_port()}")
+    try:
+        yield make_host_mesh(1, device="cuda:0")
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_model(cuda):
+    from repro_torch.models.model import LM
+    cfg = tcfg.ModelConfig(
+        name="tp-tiny", family="dense", source="t", num_layers=2,
+        d_model=128, num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256,
+        vocab_size=500, stages=tcfg.dense_stages(2), param_dtype="bfloat16")
+    return LM(cfg, device=cuda)
+
+
+def _mesh_trace():
+    rng = np.random.default_rng(3)
+    return [(rng.integers(0, 500, 4 + 3 * i).astype(np.int32), 6,
+             0.7 * (i % 2)) for i in range(5)]
+
+
+@pytest.mark.parametrize("backend", ["ring", "paged"])
+def test_nccl_mesh_of_one_equals_mesh_none_with_collectives_captured(
+        cuda, backend):
+    """A one-rank NCCL mesh: every split is the whole, every collective the
+    identity, so the graphed streams equal the ``mesh=None`` engine's bit
+    for bit; each decode program's graph holds its collectives (all-reduces:
+    one for the embedding and two a layer; one all-gather of the logits, a
+    step)."""
+    from repro_torch.serving import ServingEngine
+    lm = _mesh_model(cuda)
+    params = lm.init(0)
+    outs = []
+    with _process_group("nccl") as mesh:
+        for m in (None, mesh):
+            eng = ServingEngine(lm, params, batch_slots=3, max_seq_len=64,
+                                cache_backend=backend, max_decode_steps=2,
+                                mesh=m)
+            eng.warm_compile()
+            ids = [eng.submit(p, max_new_tokens=n, temperature=t)
+                   for p, n, t in _mesh_trace()]
+            done = eng.run()
+            eng.assert_invariants()
+            outs.append([done[i].output for i in ids])
+            progs = eng._programs
+            assert eng.graphs() == len(progs)
+            per_step = 1 + 2 * lm.cfg.num_layers
+            for key, prog in progs.items():
+                got = prog.collectives.get("all_reduce", 0)
+                gathers = prog.collectives.get("all_gather", 0)
+                if m is None:
+                    assert got == 0 and gathers == 0, key
+                elif key[0] == "decode":
+                    assert got == per_step * key[1], (key, got)
+                    assert gathers == key[1], (key, gathers)
+                else:
+                    assert got > 0 and gathers > 0, key
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_gloo_mesh_on_the_card_serves_eager_and_refuses_capture(cuda):
+    """gloo's collectives run on the host: an engine on a gloo mesh on the
+    card captures nothing, ``warm_compile`` raises and says why, and its
+    eager streams equal the eager ``mesh=None`` engine's."""
+    from repro_torch.serving import ServingEngine
+    lm = _mesh_model(cuda)
+    params = lm.init(0)
+    outs = []
+    with _process_group("gloo") as mesh:
+        for m in (None, mesh):
+            eng = ServingEngine(lm, params, batch_slots=3, max_seq_len=64,
+                                cache_backend="paged", mesh=m)
+            if m is None:
+                eng._use_graphs = False
+            else:
+                with pytest.raises(RuntimeError, match="cannot be captured"):
+                    eng.warm_compile()
+            ids = [eng.submit(p, max_new_tokens=n, temperature=t)
+                   for p, n, t in _mesh_trace()]
+            done = eng.run()
+            eng.assert_invariants()
+            assert eng.graphs() == 0
+            outs.append([done[i].output for i in ids])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
