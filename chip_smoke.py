@@ -4422,8 +4422,9 @@ class _Routes:
     ``moe.route`` call, the sorted top-k expert sets (T, k) and the gap
     between the k-th and (k+1)-th router logits (T,). ``moe_forward`` looks
     ``route`` up at call time, so the wrapper sees every MoE layer (a
-    model without MoE records nothing). Never active around a graph
-    capture or replay."""
+    model without MoE records nothing; on a mesh each rank gathers the
+    logits again, all ranks alike). Never active around a graph capture or
+    replay."""
 
     def __init__(self, torch):
         self.torch, self.calls = torch, []
@@ -4433,10 +4434,10 @@ class _Routes:
         self._lib, self._route = moe_lib, moe_lib.route
         torch, orig, calls = self.torch, moe_lib.route, self.calls
 
-        def route(params, cfg, x_flat):
-            idx, w, aux = orig(params, cfg, x_flat)
+        def route(params, cfg, x_flat, tp=None):
+            idx, w, aux = orig(params, cfg, x_flat, tp)
             k = cfg.moe.num_experts_per_tok
-            logits = x_flat.float() @ params["router"].float()
+            logits = moe_lib.router_logits(params, x_flat, tp)
             top = torch.topk(logits, k + 1, dim=-1).values
             calls.append((idx.sort(dim=-1).values, top[:, k - 1] - top[:, k]))
             return idx, w, aux
@@ -4568,24 +4569,24 @@ def _moe_f32_vs_cpu(torch, dev, seed, name, base):
                 max_abs_err=err, widest_flipped_gap=widest)
 
 
-def _moe_prefill_vs_forward(torch, lm, params, tokens, prompt):
+def _moe_prefill_vs_forward(torch, lm, params, tokens, prompt, mesh=None):
     """(b) Phase 3's check on an MoE model, routes first: prefill
     ``tokens[:, :prompt]`` then decode the rest, against one forward over
     ``tokens``. A token's first route that differs must be a near-tie
     (within ``ROUTE_TOL['bfloat16']`` on both paths, ``_route_flips``);
     the logits of every position whose routes agree are held to
-    ``BF16_LOGIT_TOL``."""
+    ``BF16_LOGIT_TOL``. ``mesh``: both paths on this rank's shards."""
     b, s = tokens.shape
     n_moe = _moe_layers(lm.cfg)
     with _Routes(torch) as fwd:
-        full, _ = lm.forward(params, {"tokens": tokens})
+        full, _ = lm.forward(params, {"tokens": tokens}, mesh=mesh)
     with _Routes(torch) as dec:
         logits, caches = lm.prefill(params, {"tokens": tokens[:, :prompt]},
-                                    cache_width=64)
+                                    cache_width=64, mesh=mesh)
         rows = [logits[:, -1]]
         for t in range(prompt, s):
             step, caches = lm.decode_step(params, caches, tokens[:, t:t + 1],
-                                          t)
+                                          t, mesh=mesh)
             rows.append(step[:, 0])
     got = torch.stack(rows, dim=1).float()                 # prompt-1 .. s-1
     want = full[:, prompt - 1:].float()
@@ -4608,26 +4609,28 @@ def _moe_prefill_vs_forward(torch, lm, params, tokens, prompt):
     return dict(err=err, max_logit=want.abs().max().item(),
                 flipped=int(flipped.sum()), tokens=b * s,
                 compared=int(ok.sum()), positions=ok.numel(), bad=bad,
+                compared_rows=ok.sum(dim=1).tolist(),
                 widest_flipped_gap=widest, moe_layers=n_moe)
 
 
-def _count_drops(torch, lm, params, reqs, eng):
+def _count_drops(torch, lm, params, reqs, eng, mesh=None):
     """The (token, choice) pairs that ``reqs``' admissions drop on ``eng``
     (monolithic prefill at each prompt's bucket, right-padded, every MoE
     layer), recomputed eagerly: each MoE call's routing re-run on its
     input by ``moe.dropped_pairs`` over the prompt's real tokens.
-    Returns (dropped, pairs)."""
+    ``mesh``: on this rank's shards. Returns (dropped, pairs)."""
     from repro_torch.models import moe as moe_lib
 
     total = [0, 0]
     orig = moe_lib.moe_forward
     k = lm.cfg.moe.num_experts_per_tok
 
-    def counted(p, cfg, x, *, capacity_factor):
+    def counted(p, cfg, x, *, capacity_factor, tp=None):
         total[0] += int(moe_lib.dropped_pairs(
-            p, cfg, x, capacity_factor=capacity_factor, length=length[0]))
+            p, cfg, x, capacity_factor=capacity_factor, length=length[0],
+            tp=tp))
         total[1] += length[0] * k
-        return orig(p, cfg, x, capacity_factor=capacity_factor)
+        return orig(p, cfg, x, capacity_factor=capacity_factor, tp=tp)
 
     length = [0]
     moe_lib.moe_forward = counted
@@ -4641,7 +4644,7 @@ def _count_drops(torch, lm, params, reqs, eng):
                 lm.device)}, cache_width=eng.max_seq_len,
                 lengths=torch.tensor([len(prompt)], device=lm.device),
                 logits_index=torch.tensor([len(prompt) - 1],
-                                          device=lm.device))
+                                          device=lm.device), mesh=mesh)
     finally:
         moe_lib.moe_forward = orig
     return total[0], total[1]
@@ -5958,20 +5961,27 @@ def _tp_rank(rank, out_dir, cfg, seed, reqs, graphed, device="cuda"):
         json.dump(rec, f)
 
 
-def _tp_mesh(cfg, ranks, seed, reqs, graphed, backend, device="cuda"):
-    """Spawn ``ranks`` processes of ``_tp_rank``; their records."""
+def _spawn_ranks(fn, ranks, args, backend, timeout_s=600):
+    """Spawn ``ranks`` processes of ``fn(rank, out_dir, *args)``, each
+    writing its record to ``out_dir``; the records in rank order."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn
 
     out_dir = tempfile.mkdtemp(prefix="tp_")
-    spawn(_tp_rank, ranks, args=(out_dir, cfg, seed, reqs, graphed, device),
-          backend=backend, timeout_s=600)
+    spawn(fn, ranks, args=(out_dir,) + tuple(args), backend=backend,
+          timeout_s=timeout_s)
     recs = []
     for r in range(ranks):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             recs.append(json.load(f))
     return recs
+
+
+def _tp_mesh(cfg, ranks, seed, reqs, graphed, backend, device="cuda"):
+    """Spawn ``ranks`` processes of ``_tp_rank``; their records."""
+    return _spawn_ranks(_tp_rank, ranks, (cfg, seed, reqs, graphed, device),
+                        backend)
 
 
 def _tp_hold(torch, label, smi, lm, params, seed, reqs, recs, base, cfg,
@@ -6034,26 +6044,30 @@ def _tp_base(torch, seed, lm, params, reqs, graphed, bound=None):
     return base, launches, legs
 
 
-def _tp_nccl_one(torch, dev, seed, smi):
-    """19(a): qwen3-4b at full width and depth on a one-rank NCCL mesh,
-    graphed, against ``mesh=None`` in the same call: streams bit for bit
-    (every collective the identity), the all-reduces inside each captured
-    program, tokens/s and decode ms per step side by side. Returns (record,
-    launches of the mesh legs, the mesh=None streams, lm, params)."""
+def _step_collectives(cfg):
+    """(all-reduces, all-gathers) a decode step issues on a mesh, by the
+    code, where every dimension splits (a mesh of one): the embedding's
+    reduce and one for each layer's mixer and MLP (an MoE layer's routed
+    and shared partials reduce once); a gather of each MoE layer's router
+    logits and one of the logits."""
+    return 1 + 2 * cfg.num_layers, _moe_layers(cfg) + 1
+
+
+def _nccl_one(torch, dev, seed, smi, lm, params, reqs, bound):
+    """``lm`` on a one-rank NCCL mesh, ring and paged, graphed, against
+    ``mesh=None`` in the same call: streams and launches bit for bit
+    (every collective the identity), the collectives inside each captured
+    program (``_step_collectives`` a decode step), tokens/s and decode ms
+    per step side by side. Returns (record, launches of the mesh legs,
+    the mesh=None streams)."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import free_port, make_host_mesh
-    from repro_torch.models.model import LM
 
-    cfg = get_config("qwen3-4b")
-    lm = LM(cfg, device=dev)
-    params = lm.init(seed, on_device=True)
-    bound = _weight_bytes(params) / HBM_BYTES_PER_S * 1e3
-    reqs = _tp_trace(seed, cfg.vocab_size)
+    name = lm.cfg.name
     base, none_launches, none_legs = _tp_base(torch, seed, lm, params, reqs,
                                               True, bound)
-    per_step = 1 + 2 * cfg.num_layers
+    reduces, gathers = _step_collectives(lm.cfg)
     rec, total = {}, collections.Counter()
     dist.init_process_group("nccl", rank=0, world_size=1,
                             init_method=f"tcp://localhost:{free_port()}")
@@ -6065,17 +6079,17 @@ def _tp_nccl_one(torch, dev, seed, smi):
             total.update(launches)
             got = [r.output.tolist() for r in out]
             if got != base[backend]:
-                raise AssertionError(f"qwen3-4b {backend}: the NCCL mesh "
+                raise AssertionError(f"{name} {backend}: the NCCL mesh "
                                      f"of one != mesh=None")
             if launches != none_launches[backend]:
-                raise AssertionError(f"qwen3-4b {backend}: launches "
+                raise AssertionError(f"{name} {backend}: launches "
                                      f"{launches} != mesh=None's "
                                      f"{none_launches[backend]}")
             for key, prog in eng._programs.items():
                 n = prog.collectives.get("all_reduce", 0)
                 g = prog.collectives.get("all_gather", 0)
-                want = ((per_step * key[1], key[1]) if key[0] == "decode"
-                        else (n, g))
+                want = ((reduces * key[1], gathers * key[1])
+                        if key[0] == "decode" else (n, g))
                 if (n, g) != want or n == 0 or g == 0:
                     raise AssertionError(
                         f"program {key}: {n} all-reduces and {g} all-gathers"
@@ -6083,18 +6097,19 @@ def _tp_nccl_one(torch, dev, seed, smi):
             legs = {"mesh=None": none_legs[backend],
                     "NCCL mesh of 1": _leg(eng, out, wall, bound)}
             for label, x in legs.items():
-                print(f"  qwen3-4b {backend}, {label} [{smi}]: "
+                print(f"  {name} {backend}, {label} [{smi}]: "
                       f"{x['tokens_per_s']:.1f} tokens/s; decode "
                       f"{x['decode_ms_per_step']:.2f} ms per step "
                       f"({x['bound_ratio']:.1f}x the {bound:.2f} ms "
                       f"weight-read bound); prefill {x['prefill_ms']:.1f} "
                       f"ms; warm_compile {x['warm_compile_s']:.2f} s, "
                       f"{x['graphs']} graphs")
-            print(f"  qwen3-4b {backend}: the mesh streams equal mesh=None's"
+            print(f"  {name} {backend}: the mesh streams equal mesh=None's"
                   f" bit for bit; {len(eng._programs)} programs captured, "
-                  f"each with its collectives inside ({per_step} all-"
-                  f"reduces and 1 all-gather a decode step); launches "
-                  f"{launches}")
+                  f"each with its collectives inside ({reduces} all-"
+                  f"reduces and {gathers} all-gather{'s' * (gathers > 1)} "
+                  f"a decode step); launches {launches}")
+            legs["collectives_per_step"] = [reduces, gathers]
             rec[backend] = legs
             del eng
             gc.collect()
@@ -6103,7 +6118,24 @@ def _tp_nccl_one(torch, dev, seed, smi):
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    return rec, dict(total), base, lm, params, reqs
+    return rec, dict(total), base
+
+
+def _tp_nccl_one(torch, dev, seed, smi):
+    """19(a): qwen3-4b at full width and depth on a one-rank NCCL mesh
+    (``_nccl_one``). Returns (record, launches of the mesh legs, the
+    mesh=None streams, lm, params, the requests)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    cfg = get_config("qwen3-4b")
+    lm = LM(cfg, device=dev)
+    params = lm.init(seed, on_device=True)
+    bound = _weight_bytes(params) / HBM_BYTES_PER_S * 1e3
+    reqs = _tp_trace(seed, cfg.vocab_size)
+    rec, launches, base = _nccl_one(torch, dev, seed, smi, lm, params, reqs,
+                                    bound)
+    return rec, launches, base, lm, params, reqs
 
 
 def check_tensor_parallel(torch, dev, seed, smi, splits=True):
@@ -6151,6 +6183,353 @@ def check_tensor_parallel(torch, dev, seed, smi, splits=True):
     return rec, launches
 
 
+# -- phase 20: MoE and MLA on the mesh ----------------------------------------
+
+# 20(b): (model, layers per stage at full width, ranks) sharing one card
+# over gloo, eager: mixtral's 8 experts 2 a rank (48 heads 12 a rank, its
+# 8 KV heads 2 a rank); deepseek's 256 experts 64 a rank, its MLA's 128
+# heads 32 a rank, the shared expert's and the dense layers' d_ff split
+MESH_MOE_GLOO = (("mixtral-8x22b", (2,), 4), ("deepseek-v3-671b", (3, 1), 4))
+# 20(c), one card a rank on a machine with >= 2 cards, ring and paged
+# engines: mixtral at full depth and deepseek's 3 dense + 9 MoE layers
+# (MTP's params too), at 4 ranks; fewer cards serve the depth that fits as
+# 4 would, scaled by N / 4
+MESH_MOE_CARDS = {"mixtral-8x22b": (56,), "deepseek-v3-671b": (3, 9)}
+
+
+def _expert_bytes(params) -> int:
+    """Bytes of the routed experts' leaves (``w_gate``, ``w_up``,
+    ``w_down`` of every MoE layer) in ``params`` (a rank's, or whole)."""
+    out = 0
+    for stage in params["stages"]:
+        for block in stage.values():
+            mlp = block.get("mlp", {})
+            if "router" in mlp:
+                out += sum(mlp[k].numel() * mlp[k].element_size()
+                           for k in ("w_gate", "w_up", "w_down"))
+    return out
+
+
+def _moe_rank(rank, out_dir, cfg, seed, reqs, graphed, backends,
+              device="cuda"):
+    """One rank of a phase-20 mesh (spawned): ``cfg`` at the dropless
+    factor, its shards drawn by ``LM.init(..., mesh=)`` on its device from
+    ``seed`` (the parent's values); ranks sharing one card over gloo draw
+    them one after another. Over gloo (eager) it counts the pairs the
+    trace's admissions drop at 1.25; under NCCL (graphed) it holds prefill
+    then decode against a forward, both on the mesh. Then ``backends``'
+    engines serve the trace. Its record to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh
+    from repro_torch.models.model import LM
+
+    world = dist.get_world_size()
+    nccl = dist.get_backend() == "nccl"
+    if device == "cuda":
+        if not nccl:
+            # ranks sharing a card: segments that grow in place, so a
+            # rank's freed init temporaries do not strand its share
+            os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                                  "expandable_segments:True")
+        device = f"cuda:{rank}" if nccl else "cuda:0"
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    mesh = make_host_mesh(world, device=dev)
+    lm = LM(cfg, device=dev, capacity_factor=_dropless(cfg))
+    t0 = time.perf_counter()
+    for turn in range(1 if nccl else world):
+        if nccl or turn == rank:
+            if cuda and rank == world - 1:
+                free, _ = torch.cuda.mem_get_info(dev)
+                print(f"  rank {rank}: {free / 1e9:.2f} GB free on the "
+                      f"card before it draws its shards", flush=True)
+            params = lm.init(seed, on_device=True, mesh=mesh)
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+        if not nccl:
+            dist.barrier()
+    rec = dict(init_s=time.perf_counter() - t0,
+               weight_bytes=_weight_bytes(params),
+               expert_bytes=_expert_bytes(params))
+    if nccl:
+        tokens = torch.from_numpy(np.random.default_rng(seed + 32).integers(
+            0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(dev)
+        rec["prefill_vs_forward"] = _moe_prefill_vs_forward(
+            torch, lm, params, tokens, 24, mesh=mesh)
+    else:
+        probe = _tp_engine(lm, params, seed, "ring", mesh)
+        rec["drops"] = _count_drops(
+            torch, LM(cfg, device=dev, capacity_factor=1.25), params, reqs,
+            probe, mesh=mesh)
+        del probe
+    for backend in backends:
+        eng = _tp_engine(lm, params, seed, backend, mesh)
+        before = dict(COLLECTIVES)
+        out, wall, launches = _tp_serve(torch, eng, reqs, graphed)
+        step = eng.decode_s / eng.decode_steps * 1e3
+        rec[backend] = dict(
+            streams=[r.output.tolist() for r in out], wall_s=wall,
+            tokens_per_s=sum(len(r.output) for r in out) / wall,
+            decode_ms_per_step=step, launches=launches,
+            all_reduces=COLLECTIVES["all_reduce"] - before["all_reduce"],
+            all_gathers=COLLECTIVES["all_gather"] - before["all_gather"],
+            graphs=eng.graphs(), pool_bytes=eng.graph_pool_bytes(),
+            mesh_devices=eng.metrics()["mesh_devices"])
+        del eng
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    if cuda:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _teacher_ties(torch, lm, params, seed, reqs, streams):
+    """For each ``mesh=None`` stream, per generated token: whether a
+    teacher-forced forward parts there at a near-tie, its top-2 margin
+    within ``BF16_LOGIT_TOL`` (of logits / T plus that step's Gumbel noise
+    within ``BF16_LOGIT_TOL / T`` for a sampled request), or some MoE
+    layer's router gap within ``ROUTE_TOL['bfloat16']`` at a position up
+    to it. Lists of bools, computed before the mesh runs."""
+    from repro_torch.serving.sampler import gumbel, prng_key, request_keys
+
+    out = []
+    for rid, ((prompt, temp), got) in enumerate(zip(reqs, streams)):
+        got = np.asarray(got, np.int32)
+        ctx = torch.from_numpy(np.concatenate([prompt, got[:-1]]).astype(
+            np.int32))[None].to(lm.device)
+        with _Routes(torch) as routes:
+            logits, _ = lm.forward(params, {"tokens": ctx})
+        tail = logits[0, len(prompt) - 1:].float()
+        del logits
+        router = np.maximum.accumulate(routes.near_ties(
+            ROUTE_TOL["bfloat16"])[0])[len(prompt) - 1:]
+        ties = []
+        for j in range(len(got)):
+            x, tol = tail[j], BF16_LOGIT_TOL
+            if temp > 0:
+                i32 = dict(dtype=torch.int32, device=lm.device)
+                key = request_keys(prng_key(seed, device=lm.device),
+                                   torch.tensor([rid], **i32),
+                                   torch.tensor([j], **i32))
+                x, tol = x / temp + gumbel(key, x.shape)[0], tol / temp
+            top2 = torch.topk(x, 2).values
+            ties.append(bool((top2[0] - top2[1]).item() <= tol
+                             or router[j]))
+        out.append(ties)
+    return out
+
+
+def _moe_hold(label, smi, recs, base, ties, none_launches, whole_experts,
+              ranks, backends):
+    """Hold a phase-20 mesh's records: every rank's streams equal rank 0's
+    bit for bit; rank 0's equal ``base`` (``mesh=None``'s) or part first
+    where ``ties`` says the teacher-forced ``mesh=None`` forward is at a
+    near-tie; every rank launches what ``mesh=None`` launched on the same
+    schedule (MLA's chunks and decode launch none); every rank holds 1/N
+    of the routed experts' bytes."""
+    out = {}
+    for r, rec in enumerate(recs):
+        if rec["expert_bytes"] * ranks != whole_experts:
+            raise AssertionError(f"{label}: rank {r} holds "
+                                 f"{rec['expert_bytes']} expert bytes of "
+                                 f"{whole_experts}")
+    for backend in backends:
+        mine = [rec[backend] for rec in recs]
+        for r, rec in enumerate(mine[1:], 1):
+            if rec["streams"] != mine[0]["streams"]:
+                raise AssertionError(f"{label} {backend}: rank {r}'s "
+                                     f"streams differ from rank 0's")
+        equal = parted = 0
+        for rid, (got, want) in enumerate(zip(mine[0]["streams"],
+                                              base[backend])):
+            if got == want:
+                equal += 1
+                continue
+            p = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            print(f"    request {rid}: parts from mesh=None at token {p} "
+                  f"(near-tie: {ties[backend][rid][p]})")
+            if not ties[backend][rid][p]:
+                raise AssertionError(f"{label} {backend}: request {rid} "
+                                     f"parts from mesh=None at token {p}, "
+                                     f"not at a near-tie")
+            parted += 1
+        for r, rec in enumerate(mine):
+            print(f"  {label} {backend}, rank {r} [{smi}]: "
+                  f"{rec['tokens_per_s']:.1f} tokens/s; decode "
+                  f"{rec['decode_ms_per_step']:.2f} ms per step; "
+                  f"{rec['all_reduces']} all-reduces, {rec['all_gathers']} "
+                  f"all-gathers; graphs {rec['graphs']}; launches "
+                  f"{rec['launches']}")
+        print(f"  {label} {backend}: the {ranks} ranks' streams are equal "
+              f"bit for bit; against mesh=None {equal} equal, {parted} "
+              f"part first at a near-tie (top-2 margin <= {BF16_LOGIT_TOL} "
+              f"or a router gap <= {ROUTE_TOL['bfloat16']})")
+        if mine[0]["mesh_devices"] != ranks or any(
+                rec["launches"] != none_launches[backend] for rec in mine):
+            raise AssertionError(f"{label} {backend}: launches "
+                                 f"{mine[0]['launches']} != mesh=None's "
+                                 f"{none_launches[backend]}")
+        out[backend] = dict(ranks=mine, equal=equal, parted=parted)
+    return out
+
+
+def _moe_gloo(torch, dev, seed, smi, name, depth, ranks):
+    """20(b): ``name`` cut to ``depth`` at full width on ``ranks`` gloo
+    ranks sharing this card, eager, ring and paged, against ``mesh=None``
+    (its streams and their near-ties computed, then its weights freed
+    before the ranks start)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    cfg = _cut_stages(get_config(name), depth)
+    lm = LM(cfg, device=dev, capacity_factor=_dropless(cfg))
+    params = lm.init(seed, on_device=True)
+    reqs = _tp_trace(seed, cfg.vocab_size)
+    base, none_launches, _ = _tp_base(torch, seed, lm, params, reqs, False)
+    ties = {b: _quiet(_teacher_ties, torch, lm, params, seed, reqs, base[b])
+            for b in base}
+    probe = _tp_engine(lm, params, seed, "ring")
+    drops = _count_drops(torch, LM(cfg, device=dev, capacity_factor=1.25),
+                         params, reqs, probe)
+    whole = _expert_bytes(params)
+    del lm, params, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"  {name}: before the ranks start this process holds "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          f"({torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved); the "
+          f"card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    t0 = time.perf_counter()
+    recs = _spawn_ranks(_moe_rank, ranks, (cfg, seed, reqs, False,
+                                           ("ring", "paged"), dev.type),
+                        "gloo")
+    label = (f"{name} ({'+'.join(map(str, depth))} layers) over gloo "
+             f"x{ranks} on one card")
+    rec = _moe_hold(label, smi, recs, base, ties, none_launches, whole,
+                    ranks, ("ring", "paged"))
+    per_rank = [r["drops"] for r in recs]
+    if any(d != per_rank[0] for d in per_rank):
+        raise AssertionError(f"{label}: the ranks drop different pairs at "
+                             f"1.25: {per_rank}")
+    mine = recs[0]["expert_bytes"] / 1e9
+    print(f"  {label}: at 1.25 the admissions drop {per_rank[0][0]} of "
+          f"{per_rank[0][1]} (token, choice) pairs on every rank "
+          f"(mesh=None {drops[0]}); routed experts {mine:.2f} GB a rank "
+          f"of {whole / 1e9:.2f} GB (1/{ranks}); "
+          f"weights {recs[0]['weight_bytes'] / 1e9:.2f} GB a rank; shards "
+          f"drawn in {max(r['init_s'] for r in recs):.1f} s")
+    rec.update(drops=per_rank, drops_none=list(drops),
+               expert_bytes_whole=whole, seconds=time.perf_counter() - t0)
+    return rec
+
+
+def _moe_cards(torch, seed, smi, name, n):
+    """20(c): ``name`` at ``MESH_MOE_CARDS``' depth (scaled by n / 4) on
+    n cards, one a rank, NCCL, the ring and paged engines graphed: the
+    ranks in lockstep with equal streams, prefill then decode against a
+    forward on the mesh (routes first), per-rank weight bytes, peak
+    memory, decode ms a step against the per-rank weight-read bound,
+    tokens/s."""
+    from repro_torch.configs import get_config
+
+    base = get_config(name)
+    depth = tuple(max(1, d * n // 4) for d in MESH_MOE_CARDS[name])
+    cfg = _cut_stages(base, depth)
+    reqs = _tp_trace(seed, cfg.vocab_size)
+    t0 = time.perf_counter()
+    backends = ("ring", "paged")
+    recs = _spawn_ranks(_moe_rank, n, (cfg, seed, reqs, True, backends),
+                        "nccl", timeout_s=900)
+    label = f"{name} ({cfg.num_layers} of {base.num_layers} layers) NCCL x{n}"
+    for r, rec in enumerate(recs[1:], 1):
+        for backend in backends:
+            if rec[backend]["streams"] != recs[0][backend]["streams"]:
+                raise AssertionError(f"{label} {backend}: rank {r}'s "
+                                     f"streams differ")
+    for r, rec in enumerate(recs):
+        pf, ring = rec["prefill_vs_forward"], rec["ring"]
+        bound = rec["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+        legs = "; ".join(
+            f"{b} {rec[b]['tokens_per_s']:.1f} tokens/s, decode "
+            f"{rec[b]['decode_ms_per_step']:.2f} ms a step "
+            f"({rec[b]['decode_ms_per_step'] / bound:.2f}x), "
+            f"{rec[b]['graphs']} graphs, pool "
+            f"{rec[b]['pool_bytes'] / 1e9:.2f} GB" for b in backends)
+        print(f"  {label}, rank {r} [{smi}]: weights "
+              f"{rec['weight_bytes'] / 1e9:.2f} GB (experts "
+              f"{rec['expert_bytes'] / 1e9:.2f}), peak "
+              f"{rec.get('peak_bytes', 0) / 1e9:.2f} GB; shards drawn in "
+              f"{rec['init_s']:.1f} s; per-rank weight-read bound "
+              f"{bound:.2f} ms; {legs}; prefill+decode vs "
+              f"forward: max|diff| {pf['err']:.3e} over {pf['compared']} of "
+              f"{pf['positions']} positions, routes flipped at "
+              f"{pf['flipped']} of {pf['tokens']} tokens x "
+              f"{pf['moe_layers']} MoE layers ({pf['bad']} first flips "
+              f"off a near-tie; largest gap at a first flip "
+              f"{pf['widest_flipped_gap']:.3f}, tol "
+              f"{ROUTE_TOL['bfloat16']})")
+        # a flip reaches every later position of its row, and at 9 or more
+        # MoE layers of top-8 of 256 most rows meet a near-tie early: each
+        # row must keep a compared position (phase 16's one MoE layer keeps
+        # half of them)
+        rows = np.asarray(pf["compared_rows"])
+        if pf["bad"] or not (np.isfinite(pf["max_logit"])
+                             and pf["err"] < BF16_LOGIT_TOL) \
+                or not (rows > 0).all():
+            raise AssertionError(f"{label}: rank {r}: prefill+decode != "
+                                 f"forward on the mesh")
+        if not any(ring["launches"].values()):
+            raise AssertionError(f"{label}: no kernel launched")
+    return dict(ranks=recs, layers=cfg.num_layers,
+                seconds=time.perf_counter() - t0)
+
+
+def check_moe_mesh(torch, dev, seed, smi, legs="abc"):
+    """Phase 20, its ``legs``: (a) mixtral-8x22b and deepseek-v3-671b at
+    phase 16's depths on a one-rank NCCL mesh against ``mesh=None``,
+    dropless, graphed (``_nccl_one``); (b) both split 4 ways over gloo on
+    this card (``_moe_gloo``); (c) on min(cards, 4) cards when the machine
+    has more than one (``_moe_cards``). Returns (record, the (a) mesh
+    legs' launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    rec, launches = {}, collections.Counter()
+    for name in MOE_MODELS if "a" in legs else ():
+        cfg = _cut_stages(get_config(name), MOE_DEPTH[name])
+        lm = LM(cfg, device=dev, capacity_factor=_dropless(cfg))
+        params = lm.init(seed, on_device=True)
+        bound = _weight_bytes(params) / HBM_BYTES_PER_S * 1e3
+        reqs = _tp_trace(seed, cfg.vocab_size)
+        rec[f"{name}_nccl_one"], got, _ = _nccl_one(
+            torch, dev, seed, smi, lm, params, reqs, bound)
+        launches.update(got)
+        del lm, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, depth, ranks in MESH_MOE_GLOO if "b" in legs else ():
+        rec[f"{name}_gloo"] = _moe_gloo(torch, dev, seed, smi, name, depth,
+                                        ranks)
+        gc.collect()
+        torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    if cards >= 2 and "c" in legs:
+        n = min(cards, 4)
+        for name in MOE_MODELS:
+            rec[f"{name}_nccl_{n}"] = _moe_cards(torch, seed, smi, name, n)
+    elif "c" in legs:
+        print("  one card: no multi-card NCCL mesh on this machine")
+    return rec, dict(launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6158,10 +6537,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile the phase-4, 5, 7, 9 and qwen3-4b's "
                          "phase-10 ring traces on the device")
-    ap.add_argument("--only", choices=["19", "19a"],
-                    help="run phase 1 and this phase alone, or 19(a) alone "
-                         "(the NCCL meshes; no result lines: the contract's "
-                         "run is the whole script)")
+    ap.add_argument("--only", choices=["19", "19a", "20", "20a", "20c"],
+                    help="run phase 1 and this phase alone, or its NCCL "
+                         "meshes alone (19a, 20a), or 20(c) alone, the "
+                         "multi-card meshes (no result lines: the "
+                         "contract's run is the whole script)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -6205,10 +6585,16 @@ def main() -> int:
         raise AssertionError(f"bf16 tensor-core kernels spill: {spills}")
 
     if args.only:
-        phase(f"[{args.only}] tensor-parallel serving alone")
-        check_tensor_parallel(torch, dev, args.seed, smi,
-                              splits=args.only == "19")
-        phase("phase 19 passed")
+        if args.only.startswith("19"):
+            phase(f"[{args.only}] tensor-parallel serving alone")
+            check_tensor_parallel(torch, dev, args.seed, smi,
+                                  splits=args.only == "19")
+        else:
+            phase(f"[{args.only}] MoE and MLA on the mesh alone")
+            check_moe_mesh(torch, dev, args.seed, smi,
+                           legs={"20": "abc", "20a": "ac",
+                                 "20c": "c"}[args.only])
+        phase(f"phase {args.only[:2]} passed")
         return 0
 
     phase("[2] kernels vs plain versions (bf16; the gate also f32; the "
@@ -6337,6 +6723,17 @@ def main() -> int:
     tp_stats, tp_launches = check_tensor_parallel(torch, dev, args.seed, smi)
     for name, n in tp_launches.items():
         launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("[20] MoE and MLA on the mesh: mixtral-8x22b (6 layers) and "
+          "deepseek-v3-671b (3 + 1) on a one-rank NCCL mesh (ring and "
+          "paged, graphed, dropless) against mesh=None; real splits on this "
+          "card over gloo: mixtral (2 layers) and deepseek (3 + 1) on 4 "
+          "ranks")
+    moe_mesh_stats, moe_mesh_launches = check_moe_mesh(torch, dev,
+                                                       args.seed, smi)
+    for name, n in moe_mesh_launches.items():
+        launches[name] += n
     if args.profile:
         from repro_torch.configs import get_config
         from repro_torch.models.model import LM
@@ -6407,6 +6804,7 @@ def main() -> int:
                        "durability": durability, "ace_app": ace_stats,
                        "moe": moe_stats, "training": train_stats,
                        "tensor_parallel": tp_stats,
+                       "moe_mesh": moe_mesh_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

@@ -10,6 +10,10 @@ or the ACE edge/cloud cascade with --cascade, on the GPU.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
     PYTHONPATH=src python -m repro_torch.launch.serve --mesh 4
     PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2 --device cpu \
+        --arch mixtral-8x22b
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 4 \
+        --arch mixtral-8x22b --no-reduced
 
 The port of ``repro.launch.serve``, with its flags but one:
 ``--compile-cache`` is gone (the port's programs are CUDA graphs, which
@@ -17,18 +21,21 @@ live and die with their process). ``--mesh N`` serves tensor-parallel on
 N ranks, one process each (``launch.mesh.spawn``): NCCL with one card a
 rank, or gloo with ``--device cpu``. Rank 0 runs the gateway, the journal
 and the watchdog and prints what the one-process run prints; the other
-ranks follow its engine calls (``serving.gateway.follow``). Dense GQA
-architectures only (MoE, MLA, recurrent mixers and the frontends exit
-with the engine's ``NotImplementedError``); ``--hang-demo`` runs on a
-mesh, ``--supervise`` (and ``--wedge-demo``) does not yet. ``--reduced`` serves the
-architecture's reduced config, as ``repro``'s default does, and
+ranks follow its engine calls (``serving.gateway.follow``). Dense GQA,
+MoE and MLA architectures (mixtral-8x22b's experts split by expert,
+deepseek-v3-671b's too and its MLA heads; recurrent mixers and the
+frontends exit with the engine's ``NotImplementedError``); each rank draws
+only its shards (``LM.init(..., mesh=)``); ``--hang-demo`` runs on a
+mesh, ``--supervise`` (and ``--wedge-demo``) does not yet. ``--reduced``
+serves the architecture's reduced config, as ``repro``'s default does, and
 ``--no-reduced`` its full width and depth (``repro``'s flag cannot be
 turned off). The engines serve text-token streams: an audio or vision
 architecture (``musicgen-medium``, ``internvl2-2b``) exits with the
 engine's ``NotImplementedError`` message before any weight is made (serve
 those through ``LM`` or ``CascadeEngine.query``, as in ``repro``).
 ``--device cpu`` runs the plain versions. Weights are random,
-from seeds 0 (the model, or the cascade's cloud) and 1 (the edge); the
+from seeds 0 (the model, or the cascade's cloud) and 1 (the edge), drawn
+on the card unless ``--device cpu``; the
 engine is warmed (``warm_compile``) before the first arrival.
 
 Arrivals are an open-loop Poisson process (``--rate`` req/s); beyond
@@ -75,19 +82,23 @@ from repro_torch.sharding import tensor_parallel
 
 def _build_engine(cfg, args, fault_plan=None, mesh=None):
     dev = mesh.device if mesh is not None else resolve_device(args.device)
+    # on a card the weights are drawn there (layer by layer); on a mesh each
+    # rank draws only its shards whole, one leaf or layer at a time
+    kw = dict(on_device=dev.type != "cpu", mesh=mesh)
     if args.cascade:
         cloud = LM(cfg, device=dev)
         check_text_model(cloud)
         edge = LM(edge_variant(cfg, layers=1), device=dev)
         cascade = CascadeLM(edge, cloud,
                             thresholds=make_thresholds(hi=0.01, lo=0.001))
-        return CascadeServingEngine(cascade, edge.init(1), cloud.init(0),
-                                    batch_slots=4, max_seq_len=96,
-                                    fault_plan=fault_plan, mesh=mesh)
+        return CascadeServingEngine(cascade, edge.init(1, **kw),
+                                    cloud.init(0, **kw), batch_slots=4,
+                                    max_seq_len=96, fault_plan=fault_plan,
+                                    mesh=mesh)
     lm = LM(cfg, device=dev)
     check_text_model(lm)
-    return ServingEngine(lm, lm.init(0), batch_slots=4, max_seq_len=96,
-                         fault_plan=fault_plan, mesh=mesh)
+    return ServingEngine(lm, lm.init(0, **kw), batch_slots=4,
+                         max_seq_len=96, fault_plan=fault_plan, mesh=mesh)
 
 
 async def _client(gw: ServingGateway, prompt, max_new: int,
@@ -280,8 +291,8 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", type=int, default=1,
                     help="tensor-parallel ways: N ranks, one process each "
                          "(NCCL with one card a rank, gloo with --device "
-                         "cpu); dense GQA architectures; --supervise does "
-                         "not run on a mesh yet")
+                         "cpu); dense GQA, MoE and MLA architectures; "
+                         "--supervise does not run on a mesh yet")
     ap.add_argument("--step-timeout", type=float, default=5.0,
                     help="watchdog wall-clock deadline per step (s)")
     ap.add_argument("--hang-grace", type=float, default=1.0,

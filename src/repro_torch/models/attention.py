@@ -144,12 +144,14 @@ def _qkv(params, cfg, x, positions):
     return q, k, v
 
 
-def _out(out, wo, tp=None):
+def _out(out, wo, tp=None, mla: bool = False):
     """out (B, S, H, hd) @ wo (H, hd, D) -> (B, S, D), summed over the
-    ranks where the heads split."""
+    ranks where the heads (of attention, or with ``mla`` of MLA) split."""
     h, hd, d = wo.shape
     y = out.reshape(*out.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
-    return y if tp is None else tp.reduce(y, tp.heads)
+    if tp is None:
+        return y
+    return tp.reduce(y, tp.mla_heads if mla else tp.heads)
 
 
 def _kv_range(tp, kv: int):
@@ -218,13 +220,16 @@ def _mla_kv_latent(params, cfg, x, positions):
     return ckv, krope
 
 
-def mla_forward(params, cfg, x, positions, *, window: Optional[int]):
+def mla_forward(params, cfg, x, positions, *, window: Optional[int],
+                tp=None):
     """Expanded-form MLA (prefill) through the flash kernel: q = [q_nope,
     q_rope], k = [k_nope, krope broadcast to every head], H = KV (G = 1),
     V zero-padded to the qk width as ``repro`` pads it, scale qk^-0.5, the
-    output cut back to ``v_head_dim``. Returns (y, (ckv, krope))."""
+    output cut back to ``v_head_dim``. Returns (y, (ckv, krope)). On a
+    mesh (``tp``) the heads are this rank's (``w_uq``, ``w_uk``, ``w_uv``,
+    ``wo`` split), the latents whole, and y is summed over the ranks."""
     m = cfg.mla
-    h = cfg.num_heads
+    h = params["w_uk"].shape[1]                 # this rank's heads
     q_nope, q_rope = _mla_q(params, cfg, x, positions)
     ckv, krope = _mla_kv_latent(params, cfg, x, positions)
     k_nope = _proj(ckv, params["w_uk"])
@@ -236,7 +241,8 @@ def mla_forward(params, cfg, x, positions, *, window: Optional[int]):
     vpad = F.pad(v, (0, qk - m.v_head_dim))
     out = flash_attention(q, k, vpad, causal=True, window=window,
                           scale=qk ** -0.5)
-    return _out(out[..., :m.v_head_dim], params["wo"]), (ckv, krope)
+    return _out(out[..., :m.v_head_dim], params["wo"], tp, mla=True), \
+        (ckv, krope)
 
 
 def init_mla_cache(cfg, batch: int, width: int, dtype, device) -> dict:
@@ -259,14 +265,16 @@ def mla_cache_fill(cache: dict, ckv, krope, seq_len: int,
 
 
 def mla_decode(params, cfg, x, cache, cur_pos, *, window: Optional[int],
-               layout=None, block_tables=None, valid=None):
+               layout=None, block_tables=None, valid=None, tp=None):
     """Absorbed-form MLA step: one decode token or a T-token chunk from
     ``cur_pos``. W_uk is folded into the query and W_uv applied after the
     attend, so scores and values stay in the latent space and the cache
     keeps only (ckv, krope) a token. The attend runs over
     ``layout.context`` (the ring itself, or a block-table gather on the
     paged layout): MQA over a (kv_lora + rope)-wide key, with f32 scores
-    and accumulation. ``valid``: optional (B, T) write mask."""
+    and accumulation. ``valid``: optional (B, T) write mask. On a mesh
+    (``tp``) the heads are this rank's and the latent cache whole, as in
+    ``mla_forward``."""
     layout = _ring_layout() if layout is None else layout
     m = cfg.mla
     b, t = x.shape[0], x.shape[1]
@@ -295,4 +303,4 @@ def mla_decode(params, cfg, x, cache, cur_pos, *, window: Optional[int],
     o_lat = torch.einsum("bthc,bcr->bthr", p.to(ckv_c.dtype).float(),
                          ckv_c.float())
     out = torch.einsum("bthr,rhk->bthk", o_lat.to(x.dtype), params["w_uv"])
-    return _out(out, params["wo"]), cache
+    return _out(out, params["wo"], tp, mla=True), cache

@@ -23,13 +23,14 @@ in place.
 ``forward``, ``prefill``, ``prefill_chunk`` and ``decode_step`` take
 ``mesh=None`` as ``repro``'s do. With a mesh (a
 ``launch.mesh.HostMesh``) the params are this rank's shards
-(``serving.sharding.place_params``) and the dense GQA layers run
-tensor-parallel with explicit collectives (``models.layers``,
-``models.attention``); every rank ends each call with the same full
-logits. Mixers and frontends not ported to the mesh raise
-``NotImplementedError`` (``sharding.tensor_parallel``). ``repro``'s
-``rules`` (activation hints) have no counterpart: explicit collectives
-make them moot. ``mesh=None`` runs the one-device code unchanged.
+(``serving.sharding.place_params``, or ``init(..., mesh=)``) and the
+GQA, MLA, dense and MoE layers run tensor-parallel with explicit
+collectives (``models.layers``, ``models.attention``, ``models.moe``);
+every rank ends each call with the same full logits. Mixers and
+frontends not ported to the mesh raise ``NotImplementedError``
+(``sharding.tensor_parallel``). ``repro``'s ``rules`` (activation hints)
+have no counterpart: explicit collectives make them moot. ``mesh=None``
+runs the one-device code unchanged.
 """
 from __future__ import annotations
 
@@ -227,33 +228,66 @@ class LM:
         block["mlp"] = mlp
         return block
 
-    def init(self, seed: int, on_device: bool = False) -> Params:
+    def init(self, seed: int, on_device: bool = False,
+             mesh=None) -> Params:
         """Random parameters, normal(0, std) in float32 and then cast, as
         ``repro`` does. By default from a CPU ``torch.Generator`` seeded
-        with ``seed`` (the same values on every device), moved to the
-        model's device; with ``on_device`` from a generator on the model's
-        device (much faster at billions of parameters, other values)."""
+        with ``seed`` (the same values on every device), each leaf drawn
+        whole, moved to the model's device; with ``on_device`` from a
+        generator on the model's device (much faster at billions of
+        parameters, other values), where on a card a stacked leaf is drawn
+        one layer at a time, so that at most one layer of one leaf is ever
+        held in f32.
+        With ``mesh`` (a ``launch.mesh.HostMesh``) this rank's shards
+        (``serving.sharding.place_params`` of the whole init, bit for bit):
+        each leaf, or each layer of a stacked leaf on the device, is drawn
+        whole from the same generator in the same order, cut to this
+        rank's slice and freed, so a rank never holds the whole model."""
         gen_dev = self.device if on_device else torch.device("cpu")
         gen = torch.Generator(device=gen_dev).manual_seed(seed)
+        layerwise = on_device and gen_dev.type != "cpu"
+        specs = None
+        if mesh is not None:
+            from repro_torch.serving.sharding import (cut_leaf,
+                                                      param_shardings,
+                                                      shard_shape)
+            specs = param_shardings(mesh, self)
 
-        def make(leaf):
-            if isinstance(leaf, dict):
-                return {k: make(v) for k, v in leaf.items()}
-            if isinstance(leaf, list):
-                return [make(v) for v in leaf]
-            shape, dtype, std = leaf
+        def draw(shape, std):
             if isinstance(std, rec.Constant):
-                x = std.make(shape, gen_dev)
-            elif std == rec.LAMBDA_INIT:
-                x = rec.init_lambda(shape, gen, gen_dev)
-            elif std == 0.0:
-                x = torch.zeros(shape, dtype=torch.float32, device=gen_dev)
-            else:
-                x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                                device=gen_dev).mul_(std)
-            return x.to(dtype).to(self.device)
+                return std.make(shape, gen_dev)
+            if std == rec.LAMBDA_INIT:
+                return rec.init_lambda(shape, gen, gen_dev)
+            if std == 0.0:
+                return torch.zeros(shape, dtype=torch.float32,
+                                   device=gen_dev)
+            return torch.randn(shape, generator=gen, dtype=torch.float32,
+                               device=gen_dev).mul_(std)
 
-        return make(self.param_spec())
+        def cut(x, spec, shape):
+            return x if spec is None else cut_leaf(mesh, x, spec, shape)
+
+        def make(leaf, spec, stacked):
+            if isinstance(leaf, dict):
+                return {k: make(v, None if spec is None else spec[k],
+                                stacked or k == "stages")
+                        for k, v in leaf.items()}
+            if isinstance(leaf, list):
+                return [make(v, None if spec is None else spec[i], stacked)
+                        for i, v in enumerate(leaf)]
+            shape, dtype, std = leaf
+            if not (layerwise and stacked):
+                x = cut(draw(shape, std), spec, shape)
+                return x.to(dtype).contiguous().to(self.device)
+            local = (shape if spec is None
+                     else shard_shape(mesh, shape, spec))
+            out = torch.empty(local, dtype=dtype, device=self.device)
+            for i in range(shape[0]):
+                out[i] = cut(draw(shape[1:], std),
+                             None if spec is None else spec[1:], shape[1:])
+            return out
+
+        return make(self.param_spec(), specs, False)
 
     # -- pieces ---------------------------------------------------------------
     def _logits(self, params, x, tp=None):
@@ -280,7 +314,8 @@ class LM:
         h = rmsnorm(p["norm2"], x, self.cfg.rms_eps)
         if bdef.mlp == MOE:
             y, a = moe_lib.moe_forward(p["mlp"], self.cfg, h,
-                                       capacity_factor=self.capacity_factor)
+                                       capacity_factor=self.capacity_factor,
+                                       tp=tp)
             if auxes is not None:
                 auxes.append(a)
             return x + y
@@ -343,7 +378,7 @@ class LM:
                 _store(cache, state)
         elif bdef.mixer == MLA:
             y, (ckv, krope) = att.mla_forward(p["mixer"], cfg, h, positions,
-                                              window=bdef.window)
+                                              window=bdef.window, tp=tp)
             if cache is not None:
                 att.mla_cache_fill(cache, ckv, krope, x.shape[1], lengths)
         else:
@@ -587,7 +622,7 @@ class LM:
                         y, _ = att.mla_decode(
                             p["mixer"], cfg, h, c, start,
                             window=bdef.window, layout=layout,
-                            block_tables=block_tables, valid=valid)
+                            block_tables=block_tables, valid=valid, tp=tp)
                     else:
                         y, _ = att.attn_decode(
                             p["mixer"], cfg, h, c, start,

@@ -17,6 +17,16 @@ with shared experts (DeepSeek-V3, inferred from ``num_shared_experts``),
 plus the switch load-balance auxiliary loss. The router's logits are f32
 from an f32 router. Every shape is fixed by (B, S), so a CUDA graph
 captures the whole function.
+
+On a mesh (``tp``, a ``sharding.TensorParallel``) a rank holds its E/N
+routed experts (or, where the experts do not divide, every expert's d_ff
+slice), its E/N router columns and its d_ff slice of the shared expert.
+It gathers the (T, E) logits from every rank before the top-k (exact, so
+every rank routes alike), keeps the slot bookkeeping over all E experts at
+the global capacity (so a pair drops on every rank as under ``tp=None``),
+runs its own experts' slots, combines with weight 0 for a pair whose
+expert lives elsewhere, and sums the routed and shared partials over the
+ranks in one f32 all-reduce.
 """
 from __future__ import annotations
 
@@ -37,13 +47,23 @@ def _one_hot(idx, n: int) -> torch.Tensor:
     return idx[..., None] == torch.arange(n, device=idx.device)
 
 
-def route(params, cfg, x_flat) -> Tuple[torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
+def router_logits(params, x_flat, tp=None) -> torch.Tensor:
+    """The (T, E) f32 router logits of x_flat (T, D). On a mesh whose
+    router columns split, this rank's E/N columns joined with every
+    other rank's (an exact gather), so every rank routes alike."""
+    logits = x_flat.float() @ params["router"].float()
+    if tp is not None and tp.router:
+        logits = tp.mesh.gather(logits, -1)
+    return logits
+
+
+def route(params, cfg, x_flat, tp=None) -> Tuple[torch.Tensor,
+                                                 torch.Tensor, torch.Tensor]:
     """x_flat (T, D) -> (topk_idx (T, k) int64, topk_w (T, k) f32, aux
     loss, a 0-dim f32 tensor). The top-k is in descending order: the
     flattened (token, choice) order decides which pairs a capacity keeps."""
     m = cfg.moe
-    logits = x_flat.float() @ params["router"].float()
+    logits = router_logits(params, x_flat, tp)
     if m.num_shared_experts > 0:        # DeepSeek-style sigmoid routing
         scores = torch.sigmoid(logits)
         topk_w, topk_idx = torch.topk(scores, m.num_experts_per_tok, dim=-1)
@@ -92,15 +112,21 @@ def _experts(x_pad, src_tok, b: int, e: int, cap: int, params):
     return torch.bmm(h, params["w_down"])
 
 
-def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25):
-    """x (B, S, D) -> (y (B, S, D), aux loss)."""
+def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25,
+                tp=None):
+    """x (B, S, D) -> (y (B, S, D), aux loss). On a mesh ``params`` are
+    this rank's shards and y is summed over the ranks (module
+    docstring)."""
     m = cfg.moe
     b, s, d = x.shape
     k, e = m.num_experts_per_tok, m.num_experts
     x_flat = x.reshape(b * s, d)
-    topk_idx, topk_w, aux = route(params, cfg, x_flat)
+    topk_idx, topk_w, aux = route(params, cfg, x_flat, tp)
     cap = capacity(s, k, e, capacity_factor)
     keep, target = dispatch(topk_idx, b, s, e, cap)
+    # this rank's experts: a run of ``count`` from ``first`` (all of them
+    # without a mesh, or where d_ff splits inside every expert)
+    first, count = (0, e) if tp is None else tp.expert_range
 
     # the source pair of each expert slot (sentinel S*k: an empty slot);
     # ``repro`` scatters into E*C + 1 columns and slices the last one off
@@ -108,40 +134,63 @@ def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25):
     src = torch.full((b, e * cap + 1), s * k, dtype=torch.int64,
                      device=x.device)
     src.scatter_(1, target, pairs)
-    src = src[:, :e * cap]                                   # (B, E*C)
+    src = src[:, first * cap:(first + count) * cap]          # (B, E'*C)
     src_tok = torch.where(src >= s * k, torch.full_like(src, s),
                           torch.clamp(src, 0, s * k - 1) // k)
     x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)    # row S: zeros
-    ye = _experts(x_pad, src_tok, b, e, cap, params)
-    ye = ye.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+    ye = _experts(x_pad, src_tok, b, count, cap, params)
+    ye = ye.reshape(count, b, cap, d).transpose(0, 1).reshape(
+        b, count * cap, d)
 
     # combine: gather back in (token, choice) order, weight, sum over k.
     # ``repro`` gathers a dropped pair from an appended zero row; here it
-    # reads any row and its weight is zeroed, which gives the same 0
-    gathered = torch.gather(ye, 1, torch.clamp(target, max=e * cap - 1)[
+    # reads any row and its weight is zeroed, which gives the same 0; so
+    # does a pair whose expert lives on another rank
+    col = target - first * cap
+    gathered = torch.gather(ye, 1, torch.clamp(col, 0, count * cap - 1)[
         ..., None].expand(b, s * k, d))
     w = topk_w.reshape(b, s * k) * keep
+    if count != e:
+        w = w * ((col >= 0) & (col < count * cap))
     y = (gathered * w[..., None].to(x.dtype)).reshape(b, s, k, d).sum(dim=2)
 
+    ys = None
     if m.num_shared_experts > 0:
         sp = params["shared"]
         gs = x_flat @ sp["w_gate"]
         us = x_flat @ sp["w_up"]
         hs = F.silu(gs.float()).to(x.dtype) * us
-        y = y + (hs @ sp["w_down"]).reshape(b, s, d)
-    return y, aux
+        ys = (hs @ sp["w_down"]).reshape(b, s, d)
+    if tp is None:
+        return (y if ys is None else y + ys), aux
+    # one f32 sum over the ranks of every split partial; a part that is
+    # whole on every rank joins after it. On a mesh of one this is
+    # ``tp=None``'s arithmetic: the bf16 sum of two values is their f32
+    # sum rounded once
+    parts = [(y, tp.experts or tp.expert_mlp)]
+    if ys is not None:
+        parts.append((ys, tp.shared_mlp))
+    split = [p.float() for p, cut in parts if cut]
+    whole = [p for p, cut in parts if not cut]
+    out = None
+    if split:
+        out = tp.mesh.all_reduce(sum(split[1:], split[0])).to(x.dtype)
+    for p in whole:
+        out = p if out is None else out + p
+    return out, aux
 
 
 def dropped_pairs(params, cfg, x, *, capacity_factor: float = 1.25,
-                  length=None) -> torch.Tensor:
+                  length=None, tp=None) -> torch.Tensor:
     """How many (token, choice) pairs ``moe_forward`` drops on ``x``
     (B, S, D), counting only each row's first ``length`` tokens when given
     ((B,) or an int; right-pad tokens come last in the cumulative count,
-    so they never take a real token's slot). A 0-dim int64 tensor."""
+    so they never take a real token's slot). A 0-dim int64 tensor, the
+    same on every rank of a mesh (``tp``)."""
     m = cfg.moe
     b, s, _ = x.shape
     k, e = m.num_experts_per_tok, m.num_experts
-    topk_idx, _, _ = route(params, cfg, x.reshape(b * s, -1))
+    topk_idx, _, _ = route(params, cfg, x.reshape(b * s, -1), tp)
     keep, _ = dispatch(topk_idx, b, s, e,
                        capacity(s, k, e, capacity_factor))
     real = torch.ones((b, s), dtype=torch.bool, device=x.device)

@@ -66,14 +66,18 @@ everywhere, and ``assert_invariants`` checks that the ranks' streams and
 host state agree. The draft rides the same mesh. A snapshot gathers the
 KV heads into ``repro``'s host-global wire format and a restore takes
 this rank's shard of it, so snapshots cross between a mesh and
-``mesh=None`` both ways; a swap or a fault rollback keeps each rank's own
-shard. Under NCCL ``warm_compile`` captures each rank's programs with
-their collectives inside; gloo's cannot be captured, so a gloo mesh on the
-card serves eager and ``warm_compile`` raises. Dense GQA models only:
-MoE, MLA, recurrent mixers and a split whose query heads straddle KV
-groups raise ``NotImplementedError`` at construction
-(``sharding.tensor_parallel``). ``rules`` (``repro``'s activation hints)
-are accepted and dropped: explicit collectives make them moot.
+``mesh=None`` both ways; a swap or a fault rollback keeps each rank's
+own shard. Under NCCL ``warm_compile`` captures each rank's programs
+with their collectives inside; gloo's cannot be captured, so a gloo mesh
+on the card serves eager and ``warm_compile`` raises. Dense GQA, MoE
+(experts split by expert or by d_ff, the router's logits gathered before
+the top-k) and MLA (heads split, latents whole on every rank, so a
+snapshot takes them from any rank) models; recurrent mixers, the
+frontends and a split whose query heads straddle KV groups raise
+``NotImplementedError`` at construction (``sharding.tensor_parallel``).
+``params`` may be whole or already this rank's shards (``LM.init(...,
+mesh=)``). ``rules`` (``repro``'s activation hints) are accepted and
+dropped: explicit collectives make them moot.
 
 Where ``repro`` jits its serving programs for XLA (the single step, the
 K-step scan, the speculative round, the admission per bucket, the prompt

@@ -5,8 +5,11 @@ host-global is ``repro``'s: parameters split by the decode-mode rules of
 ``launch.sharding_rules`` (attention and KV heads, MLP and vocab on the
 mesh's ``model`` axis); the K/V pools, ring lines (L, B, W, KV, hd) and
 paged pools (L, N, bs, KV, hd), split their KV-head dim (dim 3) when it
-divides. Block tables, position slots, MLA latents (no head dim), the
-free list and the commitment ledger stay replicated. Where ``repro``
+divides. Block tables, position slots, MLA latents (no head dim: every rank
+computes them whole from the replicated down-projections), the free list
+and the commitment ledger stay replicated. MoE experts split by expert
+(the expert dim's ("data", "model") cuts like ``model`` on a data-1
+mesh) or by d_ff inside every expert, as the rules resolve. Where ``repro``
 commits arrays to ``NamedSharding``s, a rank here holds its shard of each
 leaf: "placing" slices it, and a spec is a tuple of mesh axes per
 dimension.
@@ -42,6 +45,22 @@ def shard_shape(mesh, shape, spec):
     return tuple(out)
 
 
+def cut_leaf(mesh, leaf, spec, glob):
+    """This rank's slice of a whole leaf of shape ``glob`` under ``spec``
+    (a view): every dimension its spec splits is narrowed to this rank's
+    part. A tuple of mesh axes cuts like ``model`` when its other axes
+    have size 1 (the expert dim's ("data", "model") on a data-1 mesh)."""
+    local = shard_shape(mesh, glob, spec)
+    out = leaf
+    for dim, ax in enumerate(spec):
+        if ax is not None and glob[dim] != local[dim]:
+            axes = (ax,) if isinstance(ax, str) else tuple(ax)
+            if any(a != "model" and mesh.shape[a] != 1 for a in axes):
+                raise NotImplementedError(f"placement on {ax!r}")
+            out = mesh.shard(out, dim)
+    return out
+
+
 def place_params(mesh, lm, params):
     """This rank's shards of ``params``: each leaf cut to its slice of
     every dimension its spec splits (a contiguous copy). A leaf that is
@@ -60,13 +79,7 @@ def place_params(mesh, lm, params):
         if tuple(leaf.shape) != glob:
             raise ValueError(f"a parameter of shape {tuple(leaf.shape)} is "
                              f"neither {glob} nor its shard {local}")
-        out = leaf
-        for dim, ax in enumerate(spec):
-            if ax is not None and glob[dim] != local[dim]:
-                if ax != "model":
-                    raise NotImplementedError(f"placement on {ax!r}")
-                out = mesh.shard(out, dim)
-        return out.contiguous()
+        return cut_leaf(mesh, leaf, spec, glob).contiguous()
 
     return place(params, specs, lm.param_spec())
 

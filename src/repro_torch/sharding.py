@@ -63,12 +63,18 @@ def resolve(rules: Dict[str, object], axes: Sequence[Optional[str]],
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """How one rank runs a dense GQA model on a mesh's ``model`` axis:
-    which dimensions its shards split (each exactly when the decode-mode
+    """How one rank runs a model on a mesh's ``model`` axis: which
+    dimensions its shards split (each exactly when the decode-mode
     placement rules split the leaves that hold it) and the KV heads its
     query heads read. ``kv_range`` is (first, count) in the KV-head dim of
     this rank's K/V (its own heads when they split, all of them when they
-    are replicated)."""
+    are replicated). An MoE layer's routed experts split by expert
+    (``experts``: this rank holds ``expert_range``, (first, count), of
+    them) or, where the experts do not divide, by d_ff inside every expert
+    (``expert_mlp``); the router's columns split with the experts
+    (``router``); the shared expert by its d_ff (``shared_mlp``). MLA
+    splits its heads (``mla_heads``: ``w_uq``, ``w_uk``, ``w_uv``, ``wo``)
+    and keeps its down-projections and latents whole."""
     mesh: object
     ways: int
     rank: int
@@ -77,6 +83,12 @@ class TensorParallel:
     mlp: bool             # d_ff (w_gate, w_up, w_down) split
     vocab: bool           # the embedding and unembedding tables split
     kv_range: Tuple[int, int]
+    experts: bool = False             # routed experts split by expert
+    expert_range: Tuple[int, int] = (0, 0)
+    expert_mlp: bool = False          # d_ff split inside every expert
+    shared_mlp: bool = False          # the shared expert's d_ff split
+    router: bool = False              # the router's expert columns split
+    mla_heads: bool = False           # MLA's heads split
 
     def reduce(self, x, split: bool):
         """Sum a row-parallel partial over the ranks when ``split``."""
@@ -84,17 +96,16 @@ class TensorParallel:
 
 
 # mixers and MLPs whose mesh paths are still to be ported, by ROADMAP item
-_LATER = {"mla": "MLA on the mesh", "rglru": "RG-LRU widths on the mesh",
+_LATER = {"rglru": "RG-LRU widths on the mesh",
           "mlstm": "xLSTM widths on the mesh",
-          "slstm": "xLSTM widths on the mesh",
-          "moe": "MoE expert parallelism on the mesh"}
+          "slstm": "xLSTM widths on the mesh"}
 
 
 def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
     """The ``TensorParallel`` of ``cfg`` on ``mesh`` (None without one).
     Raises ``NotImplementedError`` for what the mesh does not serve yet:
-    MoE, MLA, recurrent mixers, modality frontends, and a split whose
-    ranks' query heads straddle KV groups unevenly."""
+    recurrent mixers, modality frontends, and a split whose ranks' query
+    heads straddle KV groups unevenly."""
     if mesh is None:
         return None
     n = int(mesh.shape["model"])
@@ -127,6 +138,23 @@ def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
                 f"{kv} KV heads or whose rank share divides a group")
     else:
         kv_range = (0, kv // n if kvs else kv)
+    moe, routed = cfg.moe, {}
+    if moe is not None:
+        # EXPERT takes ("data", "model") in decode; with data = 1 the
+        # experts split exactly when they divide by N, and then the MLP
+        # axis of w_gate/w_up/w_down is left whole (a mesh axis splits one
+        # dimension of a leaf); else d_ff splits inside every expert
+        e = moe.num_experts
+        experts = e % n == 0
+        routed = dict(
+            experts=experts,
+            expert_range=(rank * (e // n), e // n) if experts else (0, e),
+            expert_mlp=not experts and moe.d_ff_expert % n == 0,
+            shared_mlp=moe.num_shared_experts > 0
+            and moe.d_ff_shared % n == 0,
+            router=e % n == 0)
     return TensorParallel(mesh=mesh, ways=n, rank=rank, heads=heads, kv=kvs,
                           mlp=cfg.d_ff % n == 0,
-                          vocab=cfg.padded_vocab % n == 0, kv_range=kv_range)
+                          vocab=cfg.padded_vocab % n == 0, kv_range=kv_range,
+                          mla_heads=cfg.mla is not None and h % n == 0,
+                          **routed)

@@ -43,7 +43,10 @@ The tensor-parallel path: the ring and paged kernels read a rank's
 ``kv_range`` of the cache in place, equal bit for bit to the kernel on a
 copy of the range; a one-rank NCCL mesh serves the ``mesh=None`` streams
 bit for bit with its all-reduces captured in the graphs, and a gloo mesh
-serves eager and refuses a capture.
+serves eager and refuses a capture. A full-width MoE layer and MLA on a
+one-rank NCCL mesh are bit-equal to ``mesh=None`` with the router's
+all-gather and the all-reduces captured in a graph; the sharded
+``LM.init`` equals ``place_params`` of the whole init on the card.
 """
 import contextlib
 
@@ -2135,3 +2138,141 @@ def test_gloo_mesh_on_the_card_serves_eager_and_refuses_capture(cuda):
             outs.append([done[i].output for i in ids])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+def _one_moe_layer(name):
+    """``name`` at full width cut to one layer of its MoE stage (MLA for
+    deepseek-v3-671b), without the MTP head."""
+    import dataclasses
+    base = tcfg.get_config(name)
+    stage = dataclasses.replace(base.stages[-1], repeat=1)
+    return dataclasses.replace(base, num_layers=1, stages=(stage,),
+                               mtp_depth=0)
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_moe_and_mla_on_an_nccl_mesh_of_one_bit_equal_and_captured(
+        cuda, name):
+    """One full-width MoE layer (and deepseek's MLA) on a one-rank NCCL
+    mesh: ``moe_forward`` at 1.25 and dropless, MLA prefill and a decode
+    step over a ring are bit-equal to ``mesh=None`` with the same drops
+    (every split the whole, every collective the identity); captured into
+    a CUDA graph, the router's all-gather and the MoE (and MLA) all-reduce
+    are inside it, and a replay on new inputs equals the eager
+    ``mesh=None`` call bit for bit."""
+    from repro_torch.models import attention as att
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import _Program, capture_stream
+    from repro_torch.serving.sharding import place_params
+    from repro_torch.sharding import tensor_parallel
+
+    cfg = _one_moe_layer(name)
+    lm = LM(cfg, device=cuda)
+    params = lm.init(0, on_device=True)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dt = lm.dtype
+    x = torch.randn((2, 16, cfg.d_model), generator=gen, device=cuda).to(dt)
+    x1 = torch.randn((2, 1, cfg.d_model), generator=gen, device=cuda).to(dt)
+    pos = torch.tensor([16, 9], dtype=torch.int32, device=cuda)
+    e, k = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
+    mla = cfg.mla is not None
+    with _process_group("nccl") as mesh:
+        tp = tensor_parallel(cfg, mesh)
+        local = place_params(mesh, lm, params)
+        full_mlp, mesh_mlp = (_moe_params(cfg, p) for p in (params, local))
+        for cf in (1.25, e / k):
+            y, aux = moe_lib.moe_forward(full_mlp, cfg, x, capacity_factor=cf)
+            ym, auxm = moe_lib.moe_forward(mesh_mlp, cfg, x,
+                                           capacity_factor=cf, tp=tp)
+            assert torch.equal(y, ym) and torch.equal(aux, auxm)
+            assert int(moe_lib.dropped_pairs(
+                mesh_mlp, cfg, x, capacity_factor=cf, tp=tp)) == int(
+                moe_lib.dropped_pairs(full_mlp, cfg, x, capacity_factor=cf))
+        if mla:
+            full_att, mesh_att = ({n: v[0] for n, v in
+                                   p["stages"][0]["b0"]["mixer"].items()}
+                                  for p in (params, local))
+            positions = torch.arange(16, dtype=torch.int32,
+                                     device=cuda)[None].expand(2, 16)
+            caches = []
+            for p, t in ((full_att, None), (mesh_att, tp)):
+                got, (ckv, krope) = att.mla_forward(p, cfg, x, positions,
+                                                    window=None, tp=t)
+                cache = att.init_mla_cache(cfg, 2, 32, dt, cuda)
+                att.mla_cache_fill(cache, ckv, krope, 16)
+                step, cache = att.mla_decode(p, cfg, x1, cache, pos,
+                                             window=None, tp=t)
+                caches.append((got, step, cache))
+            (a, sa, ca), (b, sb, cb) = caches
+            assert torch.equal(a, b) and torch.equal(sa, sb)
+            for key in ca:
+                assert torch.equal(ca[key], cb[key])
+        res = {}
+
+        def body():
+            res["moe"] = moe_lib.moe_forward(mesh_mlp, cfg, x, tp=tp)[0]
+            if mla:
+                res["mla"] = att.mla_decode(mesh_att, cfg, x1, cb, pos,
+                                            window=None, tp=tp)[0]
+
+        body()                                   # eager collectives first
+        prog = _Program(("moe",), torch.cuda.graph_pool_handle(),
+                        capture_stream(cuda), body, meshed=True)
+        assert prog.collectives == {"all_reduce": 1 + mla,
+                                    "all_gather": 1}, prog.collectives
+        for step in range(2):
+            x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
+            x1.copy_(torch.randn(x1.shape, generator=gen, device=cuda))
+            pos.add_(1)
+            if mla:
+                before = {n: v.clone() for n, v in cb.items()}
+            prog.replay(("moe",))
+            torch.cuda.synchronize()
+            assert torch.equal(res["moe"], moe_lib.moe_forward(
+                full_mlp, cfg, x)[0])
+            if mla:
+                want, again = att.mla_decode(full_att, cfg, x1, before, pos,
+                                             window=None)
+                assert torch.equal(res["mla"], want)
+                for key in cb:
+                    assert torch.equal(cb[key], again[key])
+
+
+class _StandInMesh:
+    """A mesh's shape, rank and ``shard``, without a process group: what
+    placement and the sharded init read."""
+
+    def __init__(self, n, rank):
+        self.shape, self.rank = {"data": 1, "model": n}, rank
+
+    def shard(self, x, dim):
+        w = x.shape[dim] // self.shape["model"]
+        return x.narrow(dim, self.rank * w, w)
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_sharded_init_on_the_card_equals_placed_whole_init(cuda, name):
+    """``LM.init(seed, on_device=True, mesh=)`` draws each stacked leaf a
+    layer at a time on the card, cuts this rank's slice and frees the
+    rest: bit for bit ``place_params`` of the whole on-card init, for
+    every rank of 2 and 4 (the reduced configs, two MoE layers)."""
+    import dataclasses
+
+    from repro_torch.models.model import LM
+    from repro_torch.serving.sharding import place_params
+    from repro_torch.utils.tree import flat_paths
+
+    cfg = tcfg.get_config(name).reduced()
+    stages = tuple(dataclasses.replace(st, repeat=2) for st in cfg.stages)
+    cfg = dataclasses.replace(cfg, stages=stages, num_layers=2 * len(stages))
+    lm = LM(cfg, device=cuda)
+    whole = lm.init(4, on_device=True)
+    for n in (2, 4):
+        for rank in range(n):
+            mesh = _StandInMesh(n, rank)
+            want = flat_paths(place_params(mesh, lm, whole))
+            got = flat_paths(lm.init(4, on_device=True, mesh=mesh))
+            assert sorted(got) == sorted(want)
+            for key, t in want.items():
+                assert torch.equal(got[key], t), (n, rank, key)

@@ -72,9 +72,12 @@ def test_param_axes_match_repro(name):
 @pytest.mark.parametrize("name", ASSIGNED_ARCHS)
 def test_param_split_matches_repro_decode_pspecs(name, ways):
     """Every leaf's split at N ways is ``repro``'s decode-mode spec. Where
-    the engine would refuse the mesh (mixers not ported to it yet), the
-    refusal names its reason; no assigned architecture's query heads
-    straddle KV groups."""
+    the engine would refuse the mesh (recurrent mixers and frontends, not
+    ported to it yet), the refusal names its reason; no assigned
+    architecture's query heads straddle KV groups. Elsewhere the plan's
+    fields (heads, KV, MLP, vocab; MLA heads; experts, this rank's expert
+    range, d_ff inside every expert, the router, the shared expert) split
+    exactly what the specs split."""
     abstract, axes = RLM(repro_config(name)).abstract()
     ref = param_pspecs(AbstractMesh((1, ways), ("data", "model")), abstract,
                        axes, mode="decode")
@@ -88,14 +91,43 @@ def test_param_split_matches_repro_decode_pspecs(name, ways):
     except NotImplementedError as e:
         assert "on a mesh" in str(e) and "ROADMAP" in str(e)
         assert "straddle" not in str(e)
+        assert cfg.frontend.kind != "none" or any(
+            b.mixer in ("rglru", "mlstm", "slstm")
+            for st in cfg.stages for b in st.blocks), name
         return
     # the plan splits exactly what the specs split
-    stage = got["['stages'][0]['b0']['mixer']['wq']"]
-    assert tp.heads == (stage[2] == "model")
-    assert tp.kv == (got["['stages'][0]['b0']['mixer']['wk']"][2] == "model")
+    blocks = {b: got[k] for k in got for b in ("wq", "wk", "w_uq", "wo")
+              if k.startswith("['stages']") and k.endswith(
+                  f"['mixer']['{b}']")}
+    mlp = {k.split("['mlp']")[1]: v for k, v in got.items()
+           if k.startswith("['stages']") and "['mlp']" in k}
     assert tp.vocab == (got["['embed']['table']"][0] == "model")
-    assert tp.mlp == (got["['stages'][0]['b0']['mlp']['w_down']"][1]
-                      == "model")
+    if cfg.mla is None:
+        assert tp.heads == (blocks["wq"][2] == "model")
+        assert tp.kv == (blocks["wk"][2] == "model")
+        assert not tp.mla_heads
+    else:
+        assert tp.mla_heads == (blocks["w_uq"][2] == "model")
+        assert tp.mla_heads == (blocks["wo"][1] == "model")
+    dense = [v for k, v in got.items() if k.startswith("['stages']")
+             and k.endswith("['mlp']['w_down']") and len(v) == 3]
+    if dense:
+        assert tp.mlp == (dense[0][1] == "model")
+    if cfg.moe is None:
+        assert not (tp.experts or tp.expert_mlp or tp.router
+                    or tp.shared_mlp)
+        return
+    e = cfg.moe.num_experts
+    gate, down = mlp["['w_gate']"], mlp["['w_down']"]
+    assert tp.experts == (gate[1] == ("data", "model"))
+    assert tp.expert_range == ((0, e // ways) if tp.experts else (0, e))
+    assert tp.expert_mlp == (gate[3] == "model") == (down[2] == "model")
+    assert tp.router == (mlp["['router']"][2] == "model")
+    if cfg.moe.num_shared_experts:
+        assert tp.shared_mlp == (mlp["['shared']['w_gate']"][2] == "model")
+        assert tp.shared_mlp == (mlp["['shared']['w_down']"][1] == "model")
+    else:
+        assert not tp.shared_mlp
 
 
 def test_resolve_drops_splits_that_do_not_divide():

@@ -97,8 +97,8 @@ def _route_gaps(monkeypatch):
     gaps = []
     route = moe_lib.route
 
-    def recording(params, cfg, x_flat):
-        out = route(params, cfg, x_flat)
+    def recording(params, cfg, x_flat, tp=None):
+        out = route(params, cfg, x_flat, tp)
         logits = x_flat.detach().float() @ params["router"].detach().float()
         scores = (torch.sigmoid(logits) if cfg.moe.num_shared_experts
                   else logits)
