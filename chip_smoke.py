@@ -843,7 +843,8 @@ def check_rglru(torch, timer, dev):
     1024) and same-shape calls queued back to back on other values (a
     stale look-back flag would hand the second the first's states), then
     on the first's again (equal bits), all with h0 != 0; timed at the two
-    serving shapes."""
+    serving shapes and at the widths a rank of phase 21's meshes scans,
+    (1, 4096, 2048) at N = 2 and (1, 4096, 1024) at N = 4."""
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -879,13 +880,14 @@ def check_rglru(torch, timer, dev):
             and torch.equal(got[0][1], got[2][1])):
         raise AssertionError("rglru_scan: two calls on the same inputs "
                              "differ (the engine's streams need equal bits)")
-    for b, s, w in ((1, 512, 4096), (1, 4096, 4096), (2, 77, 4000),
-                    (1, 65536, 128), (8, 2048, 1024)):
+    for b, s, w in ((1, 512, 4096), (1, 4096, 4096), (1, 4096, 2048),
+                    (1, 4096, 1024), (2, 77, 4000), (1, 65536, 128),
+                    (8, 2048, 1024)):
         a, x, h0 = inputs(1, b, s, w)
         got = rglru_scan(a[0], x[0], h0[0])
         torch.cuda.synchronize()
         errs.append(check(f"({b}, {s}, {w})", (a[0], x[0], h0[0]), got))
-        if b > 1 or w < 4096:
+        if b > 1 or w < 1024:
             continue
         n_in = LAYERS if s <= 512 else 3        # both beyond L2 at S = 4096
         a, x, h0 = inputs(n_in, b, s, w)
@@ -904,15 +906,16 @@ def check_rglru(torch, timer, dev):
         t_ops = 2 * b * s * w / F32_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        times[s] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                        bound_by=by, library_ms=None)
+        times[s, w] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, library_ms=None)
         print(f"  rglru_scan ({b}, {s}, {w}) f32: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library: none (no PyTorch call computes a "
               f"linear recurrence), bound {bound:.4f} ms ({by}; {nbytes} B)")
         del a, x, h0
     # the line's numbers: the longest prefill bucket of the hybrid trace
-    return dict(max_abs_err=max(errs), **times[4096]), \
-        {f"S={s}": r for s, r in times.items()}
+    return dict(max_abs_err=max(errs), **times[4096, 4096]), \
+        {f"S={s}" + ("" if w == 4096 else f" W={w}"): r
+         for (s, w), r in times.items()}
 
 
 def check_kernels_in_graphs(torch, dev):
@@ -1758,17 +1761,18 @@ def check_model(torch, dev, seed):
         del params, full
 
 
-def _prefill_vs_forward(lm, params, tokens, prompt: int):
+def _prefill_vs_forward(lm, params, tokens, prompt: int, mesh=None):
     """Prefill ``tokens[:, :prompt]`` into a 64-wide cache, decode the rest
     one token at a time: the largest |logit| difference against one full
     forward over ``tokens``, the forward's largest |logit|, and the
-    forward's logits."""
-    full, _ = lm.forward(params, {"tokens": tokens})
+    forward's logits. ``mesh``: both paths on this rank's shards."""
+    full, _ = lm.forward(params, {"tokens": tokens}, mesh=mesh)
     logits, caches = lm.prefill(params, {"tokens": tokens[:, :prompt]},
-                                cache_width=64)
+                                cache_width=64, mesh=mesh)
     err = (logits[:, -1] - full[:, prompt - 1]).abs().max().item()
     for t in range(prompt, tokens.shape[1]):
-        step, caches = lm.decode_step(params, caches, tokens[:, t:t + 1], t)
+        step, caches = lm.decode_step(params, caches, tokens[:, t:t + 1], t,
+                                      mesh=mesh)
         err = max(err, (step[:, 0] - full[:, t]).abs().max().item())
     return err, full.float().abs().max().item(), full
 
@@ -5894,12 +5898,14 @@ def _tp_kv_bytes(eng):
 def _tp_serve(torch, eng, reqs, graphed):
     """Serve ``reqs`` (``TP_MAX_NEW`` tokens each) with the launch counters
     zeroed just before: graphed after ``warm_compile`` (and no capture
-    during traffic), or eager. Returns (requests, wall s, launches)."""
+    during traffic: the graph pool's bytes the same after the traffic as
+    after the warm-up), or eager. Returns (requests, wall s, launches)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     cuda = eng.device.type == "cuda"
     if graphed:
         warmed = _warm(eng)
+        pool = eng.graph_pool_bytes()
     else:
         eng._use_graphs = False
     if cuda:
@@ -5911,6 +5917,9 @@ def _tp_serve(torch, eng, reqs, graphed):
     launches = dict(LAUNCHES)
     if graphed:
         _no_capture(eng, warmed, "tensor-parallel engine")
+        if eng.graph_pool_bytes() != pool:
+            raise AssertionError(f"the graph pool grew during traffic: "
+                                 f"{pool} -> {eng.graph_pool_bytes()} B")
     eng.assert_invariants()
     return out, wall, launches
 
@@ -6028,11 +6037,12 @@ def _tp_hold(torch, label, smi, lm, params, seed, reqs, recs, base, cfg,
     return out
 
 
-def _tp_base(torch, seed, lm, params, reqs, graphed, bound=None):
+def _tp_base(torch, seed, lm, params, reqs, graphed, bound=None,
+             backends=("ring", "paged")):
     """The ``mesh=None`` engines on ``reqs``: their streams, launches and,
     with ``bound``, their ``_leg`` records."""
     base, launches, legs = {}, {}, {}
-    for backend in ("ring", "paged"):
+    for backend in backends:
         eng = _tp_engine(lm, params, seed, backend)
         out, wall, launches[backend] = _tp_serve(torch, eng, reqs, graphed)
         base[backend] = [r.output.tolist() for r in out]
@@ -6047,33 +6057,44 @@ def _tp_base(torch, seed, lm, params, reqs, graphed, bound=None):
 def _step_collectives(cfg):
     """(all-reduces, all-gathers) a decode step issues on a mesh, by the
     code, where every dimension splits (a mesh of one): the embedding's
-    reduce and one for each layer's mixer and MLP (an MoE layer's routed
-    and shared partials reduce once); a gather of each MoE layer's router
-    logits and one of the logits."""
-    return 1 + 2 * cfg.num_layers, _moe_layers(cfg) + 1
+    reduce; one for each attention, MLA and mLSTM mixer, two for an RG-LRU
+    (its gates' partials and its ``w_out``), one for an sLSTM (its GeGLU's
+    ``w_down``) beside its gather of the head outputs; one for each dense
+    or MoE MLP (an MoE layer's routed and shared partials reduce once)
+    and a gather of each MoE layer's router logits; a gather of the
+    logits."""
+    reduces = gathers = 1
+    for st in cfg.stages:
+        for b in st.blocks:
+            reduces += st.repeat * ((2 if b.mixer == "rglru" else 1)
+                                    + (b.mlp != "none"))
+            gathers += st.repeat * ((b.mixer == "slstm") + (b.mlp == "moe"))
+    return reduces, gathers
 
 
-def _nccl_one(torch, dev, seed, smi, lm, params, reqs, bound):
-    """``lm`` on a one-rank NCCL mesh, ring and paged, graphed, against
+def _nccl_one(torch, dev, seed, smi, lm, params, reqs, bound,
+              backends=("ring", "paged")):
+    """``lm`` on a one-rank NCCL mesh, on ``backends``, graphed, against
     ``mesh=None`` in the same call: streams and launches bit for bit
     (every collective the identity), the collectives inside each captured
     program (``_step_collectives`` a decode step), tokens/s and decode ms
-    per step side by side. Returns (record, launches of the mesh legs,
-    the mesh=None streams)."""
+    per step side by side. ``params`` serve both legs (a one-rank
+    placement keeps every leaf as it is). Returns (record, launches of
+    the mesh legs, the mesh=None streams)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import free_port, make_host_mesh
 
     name = lm.cfg.name
     base, none_launches, none_legs = _tp_base(torch, seed, lm, params, reqs,
-                                              True, bound)
+                                              True, bound, backends)
     reduces, gathers = _step_collectives(lm.cfg)
     rec, total = {}, collections.Counter()
     dist.init_process_group("nccl", rank=0, world_size=1,
                             init_method=f"tcp://localhost:{free_port()}")
     try:
         mesh = make_host_mesh(1, device=dev)
-        for backend in ("ring", "paged"):
+        for backend in backends:
             eng = _tp_engine(lm, params, seed, backend, mesh)
             out, wall, launches = _tp_serve(torch, eng, reqs, True)
             total.update(launches)
@@ -6308,8 +6329,9 @@ def _teacher_ties(torch, lm, params, seed, reqs, streams):
             logits, _ = lm.forward(params, {"tokens": ctx})
         tail = logits[0, len(prompt) - 1:].float()
         del logits
-        router = np.maximum.accumulate(routes.near_ties(
-            ROUTE_TOL["bfloat16"])[0])[len(prompt) - 1:]
+        router = (np.maximum.accumulate(routes.near_ties(
+            ROUTE_TOL["bfloat16"])[0])[len(prompt) - 1:] if routes.calls
+            else np.zeros(len(got), bool))
         ties = []
         for j in range(len(got)):
             x, tol = tail[j], BF16_LOGIT_TOL
@@ -6328,18 +6350,25 @@ def _teacher_ties(torch, lm, params, seed, reqs, streams):
 
 def _moe_hold(label, smi, recs, base, ties, none_launches, whole_experts,
               ranks, backends):
-    """Hold a phase-20 mesh's records: every rank's streams equal rank 0's
-    bit for bit; rank 0's equal ``base`` (``mesh=None``'s) or part first
-    where ``ties`` says the teacher-forced ``mesh=None`` forward is at a
-    near-tie; every rank launches what ``mesh=None`` launched on the same
-    schedule (MLA's chunks and decode launch none); every rank holds 1/N
-    of the routed experts' bytes."""
-    out = {}
+    """Hold a phase-20 mesh's records (``_mesh_hold``), and that every rank
+    holds 1/N of the routed experts' bytes."""
     for r, rec in enumerate(recs):
         if rec["expert_bytes"] * ranks != whole_experts:
             raise AssertionError(f"{label}: rank {r} holds "
                                  f"{rec['expert_bytes']} expert bytes of "
                                  f"{whole_experts}")
+    return _mesh_hold(label, smi, recs, base, ties, none_launches, ranks,
+                      backends)
+
+
+def _mesh_hold(label, smi, recs, base, ties, none_launches, ranks,
+               backends):
+    """Hold a spawned mesh's engine records: every rank's streams equal
+    rank 0's bit for bit; rank 0's equal ``base`` (``mesh=None``'s) or part
+    first where ``ties`` says the teacher-forced ``mesh=None`` forward is
+    at a near-tie; every rank launches what ``mesh=None`` launched on the
+    same schedule (MLA's chunks and decode launch none)."""
+    out = {}
     for backend in backends:
         mine = [rec[backend] for rec in recs]
         for r, rec in enumerate(mine[1:], 1):
@@ -6530,6 +6559,495 @@ def check_moe_mesh(torch, dev, seed, smi, legs="abc"):
     return rec, dict(launches)
 
 
+# -- phase 21: the recurrent mixers and the frontends on the mesh -------------
+
+REC_MESH_MODELS = ("recurrentgemma-9b", "xlstm-125m")
+# 21(b): (model, stage repeats at full width (None: full depth), ranks)
+# sharing one card over gloo, eager: recurrentgemma's one (rec, rec, attn)
+# repeat and one trailing rec block, its 4,096 channels 1,024 a rank (16
+# query heads 4 a rank, each reading the one KV head whole); xlstm whole,
+# its 4 heads 2 and 1 a rank, its sLSTM GeGLU's 1,536 columns split
+MESH_REC_GLOO = (("recurrentgemma-9b", (1, 1), 4), ("xlstm-125m", None, 2),
+                 ("xlstm-125m", None, 4))
+# 21(a) whole and 21(b) at MESH_MODAL_LAYERS layers on MESH_MODAL_RANKS
+# ranks, through LM: internvl2's projector whole on every rank, musicgen's
+# 2,048 rows of each of its 4 codebooks 512 a rank
+MESH_MODAL = ("internvl2-2b", "musicgen-medium")
+MESH_MODAL_LAYERS = 4
+MESH_MODAL_RANKS = 4
+MESH_MODAL_STEPS = 8       # greedy decode steps after the prefill (B = 2)
+# 21(c): recurrentgemma-9b at all 38 layers on min(cards, 4) cards
+MESH_REC_CARDS = "recurrentgemma-9b"
+
+
+def _rec_cfg(name, depth=None):
+    """``name``'s config, its stage repeats cut to ``depth`` (None: whole),
+    widths unchanged."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return cfg if depth is None else _cut_stages(cfg, depth)
+
+
+def _rec_state_bytes(eng) -> int:
+    """Bytes of the recurrent state an engine's cache holds (on a mesh
+    this rank's)."""
+    from repro_torch.serving.kv_cache import _split_leaves
+
+    return sum(t.numel() * t.element_size() for _, t, _, mixer in
+               _split_leaves(eng._cache_state["caches"])
+               if mixer in _RECURRENT)
+
+
+def _collectives_alone(torch, mesh, cfg, b=8, n=20):
+    """Device ms of one decode step's collectives alone on ``mesh``, as a
+    CUDA graph replayed ``n`` times (CUDA events, the median): what
+    ``_step_collectives`` counts, at the shapes a ``b``-slot step gives
+    them: a (b, 1, d_model) partial a reduce, (b, 1, 2 W) for an RG-LRU's
+    two gates, an sLSTM's (b, 1, H hd / N) head outputs and the
+    (b, 1, V / N) logits gathered; no MoE or audio layer."""
+    dt, dev = torch.bfloat16, mesh.device
+    d, ways = cfg.d_model, mesh.shape["model"]
+    parts = [("r", d)]
+    for st in cfg.stages:
+        for blk in st.blocks:
+            one = []
+            if blk.mixer == "rglru":
+                one += [("r", 2 * cfg.resolved_lru_width // ways), ("r", d)]
+            elif blk.mixer == "slstm":
+                one += [("g", cfg.num_heads * cfg.resolved_head_dim // ways),
+                        ("r", d)]
+            else:
+                one += [("r", d)]
+            if blk.mlp != "none":
+                one += [("r", d)]
+            parts += one * st.repeat
+    parts.append(("g", cfg.padded_vocab // ways))
+    bufs = [(kind, torch.zeros((b, 1, w), dtype=dt, device=dev))
+            for kind, w in parts]
+
+    def step():
+        for kind, x in bufs:
+            if kind == "r":
+                mesh.all_reduce(x)
+            else:
+                mesh.gather(x, -1)
+
+    step()                                   # the communicator, eagerly
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        step()
+    times = []
+    for _ in range(n):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        graph.replay()
+        e.record()
+        times.append((s, e))
+    torch.cuda.synchronize()
+    del graph
+    reduces = sum(kind == "r" for kind, _ in parts)
+    return dict(ms=statistics.median(s.elapsed_time(e) for s, e in times),
+                all_reduces=reduces, all_gathers=len(parts) - reduces)
+
+
+def _rec_rank(rank, out_dir, cfg, seed, reqs, graphed, device="cuda"):
+    """One rank of a phase-21 recurrent mesh (spawned): its shards drawn by
+    ``LM.init(..., mesh=)`` on its device from ``seed`` (ranks sharing one
+    card over gloo draw in turns); under NCCL prefill then decode against a
+    forward, both on the mesh, and a decode step's collectives timed alone;
+    then the ring engine serves the trace, graphed or eager. Its record to
+    ``out_dir``, the engine's under "ring"."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh
+    from repro_torch.models.model import LM
+
+    world = dist.get_world_size()
+    nccl = dist.get_backend() == "nccl"
+    if device == "cuda":
+        if not nccl:
+            # ranks sharing a card: segments that grow in place, so a
+            # rank's freed init temporaries do not strand its share
+            os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                                  "expandable_segments:True")
+        device = f"cuda:{rank}" if nccl else "cuda:0"
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    mesh = make_host_mesh(world, device=dev)
+    lm = LM(cfg, device=dev)
+    t0 = time.perf_counter()
+    for turn in range(1 if nccl else world):
+        if nccl or turn == rank:
+            params = lm.init(seed, on_device=True, mesh=mesh)
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+        if not nccl:
+            dist.barrier()
+    rec = dict(init_s=time.perf_counter() - t0,
+               weight_bytes=_weight_bytes(params))
+    if nccl:
+        tokens = torch.from_numpy(np.random.default_rng(seed + 33).integers(
+            0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(dev)
+        err, top, _ = _prefill_vs_forward(lm, params, tokens, 24, mesh=mesh)
+        rec["prefill_vs_forward"] = dict(err=err, max_logit=top)
+        rec["collectives_alone"] = _collectives_alone(torch, mesh, cfg)
+    eng = _tp_engine(lm, params, seed, "ring", mesh)
+    before = dict(COLLECTIVES)
+    out, wall, launches = _tp_serve(torch, eng, reqs, graphed)
+    rec["ring"] = dict(
+        streams=[r.output.tolist() for r in out], wall_s=wall,
+        tokens_per_s=sum(len(r.output) for r in out) / wall,
+        decode_ms_per_step=eng.decode_s / eng.decode_steps * 1e3,
+        launches=launches,
+        all_reduces=COLLECTIVES["all_reduce"] - before["all_reduce"],
+        all_gathers=COLLECTIVES["all_gather"] - before["all_gather"],
+        graphs=eng.graphs(), pool_bytes=eng.graph_pool_bytes(),
+        mesh_devices=eng.metrics()["mesh_devices"])
+    rec["state_bytes"] = _rec_state_bytes(eng)
+    del eng
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _rec_gloo(torch, dev, seed, smi, name, depth, ranks):
+    """21(b): ``name`` (cut to ``depth`` at full width) on ``ranks`` gloo
+    ranks sharing this card, eager, ring, against ``mesh=None`` (its
+    streams and their near-ties computed, then its weights freed before
+    the ranks start): the ranks' streams equal, rank 0's equal
+    ``mesh=None``'s or parted at a near-tie, every rank's launches
+    ``mesh=None``'s, and 1/N of the recurrent state's bytes a rank."""
+    from repro_torch.models.model import LM
+
+    cfg = _rec_cfg(name, depth)
+    lm = LM(cfg, device=dev)
+    params = lm.init(seed, on_device=True)
+    reqs = _tp_trace(seed, cfg.vocab_size)
+    base, none_launches, _ = _tp_base(torch, seed, lm, params, reqs, False,
+                                      backends=("ring",))
+    ties = {"ring": _quiet(_teacher_ties, torch, lm, params, seed, reqs,
+                           base["ring"])}
+    probe = _tp_engine(lm, params, seed, "ring")
+    whole = _rec_state_bytes(probe)
+    del lm, params, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = _spawn_ranks(_rec_rank, ranks, (cfg, seed, reqs, False,
+                                           dev.type), "gloo")
+    label = f"{name} ({cfg.num_layers} layers) over gloo x{ranks} on one card"
+    for r, rec in enumerate(recs):
+        if rec["state_bytes"] * ranks != whole:
+            raise AssertionError(f"{label}: rank {r} holds "
+                                 f"{rec['state_bytes']} recurrent state "
+                                 f"bytes of {whole}")
+    out = _mesh_hold(label, smi, recs, base, ties, none_launches, ranks,
+                     ("ring",))
+    print(f"  {label}: recurrent state {recs[0]['state_bytes'] / 1e6:.2f} MB"
+          f" a rank of {whole / 1e6:.2f} MB (1/{ranks}); weights "
+          f"{recs[0]['weight_bytes'] / 1e9:.2f} GB a rank; shards drawn in "
+          f"{max(r['init_s'] for r in recs):.1f} s")
+    out.update(state_bytes=[r["state_bytes"] for r in recs],
+               state_bytes_whole=whole, seconds=time.perf_counter() - t0)
+    return out
+
+
+def _rec_cards(torch, seed, smi, n):
+    """21(c): recurrentgemma-9b at all 38 layers on ``n`` cards, one a
+    rank, NCCL, the ring engine graphed: the ranks' streams equal, prefill
+    then decode within ``BF16_LOGIT_TOL`` of a forward on the mesh; per
+    rank the weight bytes, peak memory, decode ms a step against the
+    per-rank weight-read bound, a step's collectives alone, tokens/s."""
+    cfg = _rec_cfg(MESH_REC_CARDS)
+    reqs = _tp_trace(seed, cfg.vocab_size)
+    t0 = time.perf_counter()
+    recs = _spawn_ranks(_rec_rank, n, (cfg, seed, reqs, True), "nccl",
+                        timeout_s=900)
+    label = f"{cfg.name} ({cfg.num_layers} layers) NCCL x{n}"
+    for r, rec in enumerate(recs[1:], 1):
+        if rec["ring"]["streams"] != recs[0]["ring"]["streams"]:
+            raise AssertionError(f"{label}: rank {r}'s streams differ")
+    for r, rec in enumerate(recs):
+        pf, ring, alone = (rec["prefill_vs_forward"], rec["ring"],
+                           rec["collectives_alone"])
+        bound = rec["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+        print(f"  {label}, rank {r} [{smi}]: weights "
+              f"{rec['weight_bytes'] / 1e9:.2f} GB, peak "
+              f"{rec.get('peak_bytes', 0) / 1e9:.2f} GB, recurrent state "
+              f"{rec['state_bytes'] / 1e6:.2f} MB; shards drawn in "
+              f"{rec['init_s']:.1f} s; ring {ring['tokens_per_s']:.1f} "
+              f"tokens/s, decode {ring['decode_ms_per_step']:.2f} ms a step "
+              f"({ring['decode_ms_per_step'] / bound:.2f}x the {bound:.2f} ms "
+              f"per-rank weight-read bound), {ring['graphs']} graphs, pool "
+              f"{ring['pool_bytes'] / 1e9:.2f} GB; a step's "
+              f"{alone['all_reduces']} all-reduces and {alone['all_gathers']}"
+              f" all-gather alone {alone['ms']:.3f} ms (a CUDA graph); "
+              f"prefill+decode vs forward: max|diff| {pf['err']:.3e} (max "
+              f"|logit| {pf['max_logit']:.2f}, tol {BF16_LOGIT_TOL})")
+        if not (np.isfinite(pf["max_logit"]) and pf["err"] < BF16_LOGIT_TOL):
+            raise AssertionError(f"{label}: rank {r}: prefill+decode != "
+                                 f"forward on the mesh")
+        if not any(ring["launches"].values()):
+            raise AssertionError(f"{label}: no kernel launched")
+    return dict(ranks=recs, layers=cfg.num_layers,
+                seconds=time.perf_counter() - t0)
+
+
+def _modal_batch(torch, lm, dev, seed):
+    """The frontend's B = 2 inputs (``models.frontend.make_batch``: an
+    image prefix and ``VISION_TEXT`` text tokens, or an ``AUDIO_PROMPT``
+    x 4 codebook grid) from a generator on ``dev``, the same in every
+    process: (batch, its text length)."""
+    from repro_torch.models.frontend import make_batch
+
+    cfg = lm.cfg
+    vision = cfg.frontend.kind == "vision"
+    text = VISION_TEXT if vision else AUDIO_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(seed + 34)
+    batch = make_batch(gen, cfg, 2, text + (cfg.frontend.num_prefix_tokens
+                                            if vision else 0))
+    del batch["labels"]
+    return batch, text
+
+
+def _modal_greedy(torch, lm, params, batch, text_len, steps, mesh=None):
+    """Prefill ``batch``, then ``steps`` greedy decode steps (each
+    codebook's argmax for audio), eager, on ``mesh`` or off it: (the
+    tokens (B, steps[, C]), each call's last-position logits in f32, the
+    last step's (all-reduces, all-gathers), the launches)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import COLLECTIVES
+
+    prefix = lm.cfg.frontend.num_prefix_tokens if "image_embeds" in batch \
+        else 0
+    cuda = lm.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    reset_launches()
+    logits, caches = lm.prefill(params, batch, cache_width=prefix + text_len
+                                + steps, last_only=True, mesh=mesh)
+    seen, gen = [logits[:, -1].float()], []
+    for t in range(steps):
+        nxt = seen[-1].argmax(-1)
+        gen.append(nxt)
+        before = dict(COLLECTIVES)
+        logits, caches = lm.decode_step(params, caches, nxt[:, None].to(
+            torch.int32), prefix + text_len + t, mesh=mesh)
+        seen.append(logits[:, -1].float())
+    if cuda:
+        torch.cuda.synchronize()
+    coll = (COLLECTIVES["all_reduce"] - before["all_reduce"],
+            COLLECTIVES["all_gather"] - before["all_gather"])
+    return torch.stack(gen, 1), seen, coll, dict(LAUNCHES)
+
+
+def _modal_nccl_one(torch, dev, seed, smi, name):
+    """21(a): ``name`` whole (bf16) through ``LM.prefill`` and
+    ``MESH_MODAL_STEPS`` greedy ``LM.decode_step``s, eager, B = 2, off the
+    mesh and on a one-rank NCCL mesh in the same call: every logit and
+    token bit-equal, the launches equal, a decode step's collectives
+    ``_step_collectives``. Returns (record, the mesh leg's launches)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import free_port, make_host_mesh
+    from repro_torch.models.model import LM
+
+    lm = LM(_modal_cfg(name, "bfloat16"), device=dev)
+    params = lm.init(seed, on_device=True)
+    batch, text = _modal_batch(torch, lm, dev, seed)
+    runs = {"mesh=None": _modal_greedy(torch, lm, params, batch, text,
+                                       MESH_MODAL_STEPS)}
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{free_port()}")
+    try:
+        mesh = make_host_mesh(1, device=dev)
+        runs["mesh of 1"] = _modal_greedy(torch, lm, params, batch, text,
+                                          MESH_MODAL_STEPS, mesh)
+    finally:
+        dist.destroy_process_group()
+    (tok0, seen0, _, l0), (tok1, seen1, coll, l1) = runs.values()
+    want = _step_collectives(lm.cfg)
+    same = torch.equal(tok0, tok1) and all(
+        torch.equal(a, b) for a, b in zip(seen0, seen1))
+    print(f"  {name} (whole) through LM.prefill + {MESH_MODAL_STEPS} "
+          f"decode_steps, B = 2 [{smi}]: the NCCL mesh of one "
+          f"{'equals' if same else 'differs from'} mesh=None bit for bit "
+          f"(logits and tokens); a decode step runs {coll[0]} all-reduces"
+          f" and {coll[1]} all-gather (by the code {want[0]} and {want[1]});"
+          f" launches {l1}")
+    if not same:
+        raise AssertionError(f"{name}: the NCCL mesh of one != mesh=None")
+    if l0 != l1 or not l1.get("flash_attention") or not l1.get(
+            "decode_attention"):
+        raise AssertionError(f"{name}: launches {l1} != mesh=None's {l0}")
+    if coll != want:
+        raise AssertionError(f"{name}: {coll} collectives a decode step, "
+                             f"not {want}")
+    del lm, params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(collectives_per_step=list(coll), launches=l1), l1
+
+
+def _modal_rank(rank, out_dir, seed, device="cuda"):
+    """One rank of phase 21(b)'s frontend mesh (spawned, gloo, every rank
+    on card 0): each of ``MESH_MODAL`` at ``MESH_MODAL_LAYERS`` layers, its
+    shards drawn in turns, through ``_modal_greedy`` on the mesh. Its
+    record to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import LM
+
+    world = dist.get_world_size()
+    if device == "cuda":
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        device = "cuda:0"
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    mesh = make_host_mesh(world, device=dev)
+    rec = {}
+    for name in MESH_MODAL:
+        lm = LM(_modal_cfg(name, "bfloat16", MESH_MODAL_LAYERS), device=dev)
+        for turn in range(world):
+            if turn == rank:
+                params = lm.init(seed, on_device=True, mesh=mesh)
+            dist.barrier()
+        batch, text = _modal_batch(torch, lm, dev, seed)
+        t0 = time.perf_counter()
+        tokens, _, _, launches = _modal_greedy(torch, lm, params, batch,
+                                               text, MESH_MODAL_STEPS, mesh)
+        rec[name] = dict(tokens=tokens.tolist(), launches=launches,
+                         seconds=time.perf_counter() - t0,
+                         weight_bytes=_weight_bytes(params))
+        del params
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _modal_gloo(torch, dev, seed, smi):
+    """21(b): ``MESH_MODAL`` at ``MESH_MODAL_LAYERS`` layers on
+    ``MESH_MODAL_RANKS`` gloo ranks sharing this card, through ``LM``,
+    eager, against ``mesh=None`` (computed first, its weights freed): the
+    ranks' tokens equal; rank 0's equal ``mesh=None``'s or part first, in
+    each row, at a step where ``mesh=None``'s top-2 margin (of a codebook
+    that parts) is within ``BF16_LOGIT_TOL``; launches equal."""
+    from repro_torch.models.model import LM
+
+    base = {}
+    for name in MESH_MODAL:
+        lm = LM(_modal_cfg(name, "bfloat16", MESH_MODAL_LAYERS), device=dev)
+        params = lm.init(seed, on_device=True)
+        batch, text = _modal_batch(torch, lm, dev, seed)
+        tokens, seen, _, launches = _modal_greedy(
+            torch, lm, params, batch, text, MESH_MODAL_STEPS)
+        top2 = torch.stack(seen[:-1], 1).topk(2, dim=-1).values
+        base[name] = (tokens.cpu().numpy(), (top2[..., 0] - top2[..., 1])
+                      .cpu().numpy(), launches, _weight_bytes(params))
+        del lm, params, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n = MESH_MODAL_RANKS
+    recs = _spawn_ranks(_modal_rank, n, (seed, dev.type), "gloo")
+    out = {}
+    for name in MESH_MODAL:
+        want, margin, launches, whole = base[name]
+        mine = [np.asarray(r[name]["tokens"]) for r in recs]
+        label = (f"{name} ({MESH_MODAL_LAYERS} layers) over gloo x{n} on "
+                 f"one card through LM")
+        if any(not np.array_equal(m, mine[0]) for m in mine[1:]):
+            raise AssertionError(f"{label}: the ranks' tokens differ")
+        if any(r[name]["launches"] != launches for r in recs):
+            raise AssertionError(f"{label}: launches "
+                                 f"{recs[0][name]['launches']} != mesh=None's "
+                                 f"{launches}")
+        equal = parted = 0
+        for row in range(want.shape[0]):
+            diff = (mine[0][row] != want[row]).reshape(want.shape[1], -1)
+            steps = np.nonzero(diff.any(-1))[0]
+            if not len(steps):
+                equal += 1
+                continue
+            t = int(steps[0])
+            gap = float(margin[row, t].reshape(-1)[diff[t]].min())
+            print(f"    row {row}: parts from mesh=None at step {t} "
+                  f"(mesh=None's top-2 margin {gap:.4f})")
+            if gap > BF16_LOGIT_TOL:
+                raise AssertionError(f"{label}: row {row} parts from "
+                                     f"mesh=None at step {t}, not at a "
+                                     f"near-tie")
+            parted += 1
+        per_rank = recs[0][name]["weight_bytes"]
+        print(f"  {label} [{smi}]: the {n} ranks' tokens are equal; against "
+              f"mesh=None {equal} of {want.shape[0]} rows equal, {parted} "
+              f"part first at a near-tie (margin <= {BF16_LOGIT_TOL}); "
+              f"weights {per_rank / 1e9:.2f} GB a rank of {whole / 1e9:.2f} "
+              f"GB; {max(r[name]['seconds'] for r in recs):.1f} s a rank; "
+              f"launches {launches}")
+        out[name] = dict(equal=equal, parted=parted, weight_bytes=per_rank,
+                         whole_bytes=whole)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_rec_mesh(torch, dev, seed, smi, legs="abc"):
+    """Phase 21, its ``legs``: (a) recurrentgemma-9b at all 38 layers and
+    xlstm-125m whole on a one-rank NCCL mesh against ``mesh=None``, the
+    ring engine graphed (``_nccl_one``), then internvl2-2b and
+    musicgen-medium whole through ``LM`` (``_modal_nccl_one``); (b) real
+    splits over gloo on this card (``_rec_gloo``, ``_modal_gloo``); (c) on
+    min(cards, 4) cards when the machine has more than one
+    (``_rec_cards``). Returns (record, the (a) mesh legs' launches)."""
+    from repro_torch.models.model import LM
+
+    rec, launches = {}, collections.Counter()
+    for name in REC_MESH_MODELS if "a" in legs else ():
+        lm = LM(_rec_cfg(name), device=dev)
+        params = lm.init(seed, on_device=True)
+        bound = _weight_bytes(params) / HBM_BYTES_PER_S * 1e3
+        reqs = _tp_trace(seed, lm.cfg.vocab_size)
+        t0 = time.perf_counter()
+        rec[f"{name}_nccl_one"], got, _ = _nccl_one(
+            torch, dev, seed, smi, lm, params, reqs, bound,
+            backends=("ring",))
+        rec[f"{name}_nccl_one"]["seconds"] = time.perf_counter() - t0
+        launches.update(got)
+        del lm, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in MESH_MODAL if "a" in legs else ():
+        rec[f"{name}_nccl_one"], got = _modal_nccl_one(torch, dev, seed, smi,
+                                                       name)
+        launches.update(got)
+    for name, depth, ranks in MESH_REC_GLOO if "b" in legs else ():
+        rec[f"{name}_gloo_{ranks}"] = _rec_gloo(torch, dev, seed, smi, name,
+                                                depth, ranks)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "b" in legs:
+        rec["modal_gloo"] = _modal_gloo(torch, dev, seed, smi)
+    cards = torch.cuda.device_count()
+    if cards >= 2 and "c" in legs:
+        n = min(cards, 4)
+        rec[f"{MESH_REC_CARDS}_nccl_{n}"] = _rec_cards(torch, seed, smi, n)
+    elif "c" in legs:
+        print("  one card: no multi-card NCCL mesh on this machine")
+    return rec, dict(launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6537,11 +7055,12 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile the phase-4, 5, 7, 9 and qwen3-4b's "
                          "phase-10 ring traces on the device")
-    ap.add_argument("--only", choices=["19", "19a", "20", "20a", "20c"],
+    ap.add_argument("--only", choices=["19", "19a", "20", "20a", "20c", "21",
+                                       "21a", "21c"],
                     help="run phase 1 and this phase alone, or its NCCL "
-                         "meshes alone (19a, 20a), or 20(c) alone, the "
-                         "multi-card meshes (no result lines: the "
-                         "contract's run is the whole script)")
+                         "meshes alone (19a, 20a, 21a), or 20(c) or 21(c) "
+                         "alone, the multi-card meshes (no result lines: "
+                         "the contract's run is the whole script)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -6589,6 +7108,12 @@ def main() -> int:
             phase(f"[{args.only}] tensor-parallel serving alone")
             check_tensor_parallel(torch, dev, args.seed, smi,
                                   splits=args.only == "19")
+        elif args.only.startswith("21"):
+            phase(f"[{args.only}] the recurrent mixers and the frontends on "
+                  f"the mesh alone")
+            check_rec_mesh(torch, dev, args.seed, smi,
+                           legs={"21": "abc", "21a": "ac",
+                                 "21c": "c"}[args.only])
         else:
             phase(f"[{args.only}] MoE and MLA on the mesh alone")
             check_moe_mesh(torch, dev, args.seed, smi,
@@ -6734,6 +7259,18 @@ def main() -> int:
                                                        args.seed, smi)
     for name, n in moe_mesh_launches.items():
         launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("[21] the recurrent mixers and the frontends on the mesh: "
+          "recurrentgemma-9b (38 layers) and xlstm-125m on a one-rank NCCL "
+          "mesh (ring, graphed), internvl2-2b and musicgen-medium through "
+          "LM, against mesh=None; real splits on this card over gloo: "
+          "recurrentgemma (4 layers) on 4 ranks, xlstm on 2 and 4, the "
+          "frontends (4 layers) on 4")
+    rec_mesh_stats, rec_mesh_launches = check_rec_mesh(torch, dev,
+                                                       args.seed, smi)
+    for name, n in rec_mesh_launches.items():
+        launches[name] += n
     if args.profile:
         from repro_torch.configs import get_config
         from repro_torch.models.model import LM
@@ -6805,6 +7342,7 @@ def main() -> int:
                        "moe": moe_stats, "training": train_stats,
                        "tensor_parallel": tp_stats,
                        "moe_mesh": moe_mesh_stats,
+                       "rec_mesh": rec_mesh_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

@@ -14,6 +14,10 @@ or the ACE edge/cloud cascade with --cascade, on the GPU.
         --arch mixtral-8x22b
     PYTHONPATH=src python -m repro_torch.launch.serve --mesh 4 \
         --arch mixtral-8x22b --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2 --device cpu \
+        --arch recurrentgemma-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2 --device cpu \
+        --arch xlstm-125m
 
 The port of ``repro.launch.serve``, with its flags but one:
 ``--compile-cache`` is gone (the port's programs are CUDA graphs, which
@@ -21,11 +25,11 @@ live and die with their process). ``--mesh N`` serves tensor-parallel on
 N ranks, one process each (``launch.mesh.spawn``): NCCL with one card a
 rank, or gloo with ``--device cpu``. Rank 0 runs the gateway, the journal
 and the watchdog and prints what the one-process run prints; the other
-ranks follow its engine calls (``serving.gateway.follow``). Dense GQA,
-MoE and MLA architectures (mixtral-8x22b's experts split by expert,
-deepseek-v3-671b's too and its MLA heads; recurrent mixers and the
-frontends exit with the engine's ``NotImplementedError``); each rank draws
-only its shards (``LM.init(..., mesh=)``); ``--hang-demo`` runs on a
+ranks follow its engine calls (``serving.gateway.follow``). Every
+text-token architecture splits: dense GQA, MoE and MLA (mixtral-8x22b's
+experts split by expert, deepseek-v3-671b's too and its MLA heads), the
+RG-LRU hybrid (recurrentgemma-9b's width) and xLSTM (xlstm-125m's heads);
+each rank draws only its shards (``LM.init(..., mesh=)``); ``--hang-demo`` runs on a
 mesh, ``--supervise`` (and ``--wedge-demo``) does not yet. ``--reduced``
 serves the architecture's reduced config, as ``repro``'s default does, and
 ``--no-reduced`` its full width and depth (``repro``'s flag cannot be
@@ -291,7 +295,7 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", type=int, default=1,
                     help="tensor-parallel ways: N ranks, one process each "
                          "(NCCL with one card a rank, gloo with --device "
-                         "cpu); dense GQA, MoE and MLA architectures; "
+                         "cpu); every text-token architecture; "
                          "--supervise does not run on a mesh yet")
     ap.add_argument("--step-timeout", type=float, default=5.0,
                     help="watchdog wall-clock deadline per step (s)")

@@ -23,14 +23,16 @@ in place.
 ``forward``, ``prefill``, ``prefill_chunk`` and ``decode_step`` take
 ``mesh=None`` as ``repro``'s do. With a mesh (a
 ``launch.mesh.HostMesh``) the params are this rank's shards
-(``serving.sharding.place_params``, or ``init(..., mesh=)``) and the
-GQA, MLA, dense and MoE layers run tensor-parallel with explicit
-collectives (``models.layers``, ``models.attention``, ``models.moe``);
-every rank ends each call with the same full logits. Mixers and
-frontends not ported to the mesh raise ``NotImplementedError``
-(``sharding.tensor_parallel``). ``repro``'s ``rules`` (activation hints)
-have no counterpart: explicit collectives make them moot. ``mesh=None``
-runs the one-device code unchanged.
+(``serving.sharding.place_params``, or ``init(..., mesh=)``) and every
+layer runs tensor-parallel with explicit collectives (``models.layers``,
+``models.attention``, ``models.moe``, ``models.recurrent``): GQA, MLA,
+dense, MoE, RG-LRU, mLSTM and sLSTM; the recurrent states hold the rank's
+channels or heads. The vision projector is whole on every rank; audio's
+per-codebook tables split their vocab (a masked lookup in each codebook,
+the codebooks summed, one all-reduce; the logits gathered on V). Every
+rank ends each call with the same full logits. ``repro``'s ``rules``
+(activation hints) have no counterpart: explicit collectives make them
+moot. ``mesh=None`` runs the one-device code unchanged.
 """
 from __future__ import annotations
 
@@ -295,8 +297,11 @@ class LM:
         table = (params["embed"]["table"] if cfg.tie_embeddings
                  else params["unembed"]["table"])
         if cfg.frontend.kind == "audio":
-            # one head per codebook: (B, S, C, V)
+            # one head per codebook: (B, S, C, V) (on a mesh each rank's
+            # V/N columns of every codebook, gathered)
             logits = torch.einsum("bsd,cvd->bscv", x, table)
+            if tp is not None and tp.vocab:
+                logits = tp.mesh.gather(logits, -1)
         else:
             logits = unembed(table, x, tp)
         if cfg.tie_embeddings:
@@ -334,12 +339,21 @@ class LM:
     # -- full-sequence forward ----------------------------------------------
     def _embed_tokens(self, params, tokens, tp=None):
         """Token embeddings (B, S, D) of text tokens (B, S), or of audio
-        tokens (B, S, C): the sum of the C codebooks' embeddings."""
+        tokens (B, S, C): the sum of the C codebooks' embeddings (on a
+        mesh each rank looks up its V/N rows of every codebook, masked as
+        ``layers.embed`` does, sums the codebooks and all-reduces once)."""
         table = params["embed"]["table"]
         if self.cfg.frontend.kind != "audio":
             return embed(params["embed"], tokens, tp)
         books = torch.arange(table.shape[0], device=tokens.device)
-        return table[books, tokens.long()].sum(dim=2)
+        if tp is None or not tp.vocab:
+            return table[books, tokens.long()].sum(dim=2)
+        rows = table.shape[1]
+        local = tokens.long() - tp.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = table[books, local.clamp(0, rows - 1)]
+        x = torch.where(mine[..., None], x, torch.zeros_like(x))
+        return tp.reduce(x.sum(dim=2), True)
 
     def _embed_inputs(self, params, batch, tp=None):
         """Input embeddings (B, S, D) and their positions (B, S) int32.
@@ -373,7 +387,7 @@ class LM:
              else rmsnorm(p["norm1"], x, cfg.rms_eps))
         if bdef.mixer in _RECURRENT_FORWARD:
             y, state = _RECURRENT_FORWARD[bdef.mixer](p["mixer"], cfg, h,
-                                                      lengths)
+                                                      lengths, tp=tp)
             if cache is not None:
                 _store(cache, state)
         elif bdef.mixer == MLA:
@@ -532,10 +546,12 @@ class LM:
         ``ckv``/``krope`` latent rings for MLA, zero recurrent state for
         RG-LRU (``h``, ``conv``), mLSTM (``C``, ``n``, ``m``) and sLSTM
         (``c``, ``n``, ``h``, ``m``). On a mesh, this rank's shard: the
-        K/V rings hold its KV heads when they split."""
+        K/V rings hold its KV heads when they split, the RG-LRU state its
+        channels and the xLSTM states its heads."""
         cfg = self.cfg
-        h, hd = cfg.num_heads, cfg.resolved_head_dim
+        hd = cfg.resolved_head_dim
         tp = tensor_parallel(cfg, mesh)
+        h = rec.rec_heads(cfg, tp)
         kv = (cfg.num_kv_heads // tp.ways if tp is not None and tp.kv
               else cfg.num_kv_heads)
         caches = []
@@ -544,7 +560,7 @@ class LM:
             for bdef in stage.blocks:
                 if bdef.mixer == RGLRU:
                     one = rec.rglru_state_spec(cfg, batch, self.dtype,
-                                               self.device)
+                                               self.device, tp)
                 elif bdef.mixer == MLSTM:
                     one = rec.mlstm_state_init(batch, h, hd, self.device)
                 elif bdef.mixer == SLSTM:
@@ -616,7 +632,7 @@ class LM:
                          else rmsnorm(p["norm1"], x, cfg.rms_eps))
                     if bdef.mixer in _RECURRENT_DECODE:
                         y, state = _RECURRENT_DECODE[bdef.mixer](
-                            p["mixer"], cfg, h, c, valid)
+                            p["mixer"], cfg, h, c, valid, tp=tp)
                         _store(c, state)
                     elif bdef.mixer == MLA:
                         y, _ = att.mla_decode(
@@ -632,8 +648,8 @@ class LM:
         return self._head(params, x, False, logits_index, tp), caches
 
 
-# the recurrent mixers' full-sequence forward (params, cfg, x, lengths) and
-# one-token decode (params, cfg, x1, state, valid)
+# the recurrent mixers' full-sequence forward (params, cfg, x, lengths, tp=)
+# and one-token decode (params, cfg, x1, state, valid, tp=)
 _RECURRENT_FORWARD = {RGLRU: rec.rglru_block_forward,
                       MLSTM: rec.mlstm_block_forward,
                       SLSTM: rec.slstm_block_forward}

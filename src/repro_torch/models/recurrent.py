@@ -25,6 +25,21 @@ Two departures from ``repro``, both about serving:
 - the block decodes take ``valid`` (B, 1): rows that are not valid keep
   their state, the decode contract of ``LM.decode_step`` (``repro``'s
   recurrent decode ignores it).
+
+On a mesh (``tp``, a ``sharding.TensorParallel``) each block takes this
+rank's shards and its state holds this rank's part; ``tp=None`` runs the
+one-device code unchanged. The RG-LRU runs on its W/N channels
+(``tp.lru``): ``w_in_x``, ``w_in_gate`` and the conv by column, the two
+gate matrices (whose rows alone split) as partial products summed in one
+all-reduce, cast to the param dtype where ``tp=None``'s GEMM rounds, of
+which each rank keeps its columns; then the scan on its channels and
+``w_out`` row-parallel. The mLSTM runs on its heads (``tp.rec_heads``),
+``w_out`` row-parallel. The sLSTM's recurrence is block-diagonal by head,
+so its time loop runs on the rank's heads with no collective inside; the
+normed head outputs are joined over the ranks (one gather, exact), and
+its GeGLU is column-parallel in ``w_up1``/``w_up2`` and row-parallel in
+``w_down`` (``tp.rec_mlp``). Every row-parallel partial is all-reduced in
+f32; a dimension that does not divide stays whole, with no reduction.
 """
 from __future__ import annotations
 
@@ -128,10 +143,23 @@ def _conv_step(x1, prev, w, b):
     return out.to(x1.dtype)[:, None, :], buf[:, 1:]
 
 
-def _rglru_gates(params, xc):
+def _gate_products(params, xc, tp):
+    """``xc @ w_rgate`` and ``xc @ w_igate`` in the param dtype. On a mesh
+    that splits the width, ``xc`` and the matrices' rows are this rank's:
+    the two partial products are summed over the ranks in one all-reduce
+    and each rank keeps its W/N columns of the sums."""
+    if tp is None or not tp.lru:
+        return xc @ params["w_rgate"], xc @ params["w_igate"]
+    both = torch.cat([xc @ params["w_rgate"], xc @ params["w_igate"]], -1)
+    pr, pi = tp.mesh.all_reduce(both).chunk(2, dim=-1)
+    return tp.mesh.shard(pr, -1), tp.mesh.shard(pi, -1)
+
+
+def _rglru_gates(params, xc, tp=None):
     """The recurrence's a_t and input b_t (both f32) from the conv output."""
-    r = torch.sigmoid((xc @ params["w_rgate"]).float() + params["b_rgate"])
-    i = torch.sigmoid((xc @ params["w_igate"]).float() + params["b_igate"])
+    pr, pi = _gate_products(params, xc, tp)
+    r = torch.sigmoid(pr.float() + params["b_rgate"])
+    i = torch.sigmoid(pi.float() + params["b_igate"])
     log_a = -_RGLRU_C * softplus(params["lam"]) * r      # (B, S, W) f32
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -143,15 +171,23 @@ def _gate_branch(params, x):
     return F.gelu((x @ params["w_in_gate"]).float(), approximate="tanh")
 
 
-def rglru_block_forward(params, cfg, x, lengths=None):
+def _row_parallel(y, w, tp, field: str):
+    """``y @ w``, summed over the ranks where the mesh ``tp`` splits its
+    ``field`` (``lru``, ``rec_heads`` or ``rec_mlp``)."""
+    out = y @ w
+    return out if tp is None else tp.reduce(out, getattr(tp, field))
+
+
+def rglru_block_forward(params, cfg, x, lengths=None, tp=None):
     """Full-sequence recurrent block from a zero state. x: (B, S, D);
     ``lengths`` (B,): true lengths of right-padded rows. Returns (out
-    (B, S, D), state {"h": (B, W) f32, "conv": (B, cw-1, W)})."""
+    (B, S, D), state {"h": (B, W) f32, "conv": (B, cw-1, W)}; on a mesh
+    this rank's W/N channels of it)."""
     b, s, _ = x.shape
     gate = _gate_branch(params, x)
     xin = x @ params["w_in_x"]
     xc = _causal_conv(xin, params["conv_w"], params["conv_b"])
-    a, bx = _rglru_gates(params, xc)
+    a, bx = _rglru_gates(params, xc, tp)
     if lengths is None:
         length = torch.full((b,), s, dtype=torch.int64, device=x.device)
     else:
@@ -163,7 +199,7 @@ def rglru_block_forward(params, cfg, x, lengths=None):
     h0 = torch.zeros((b, a.shape[2]), dtype=torch.float32, device=x.device)
     h, h_last = rglru_scan(a, bx, h0)
     y = (h * gate).to(x.dtype)
-    out = y @ params["w_out"]
+    out = _row_parallel(y, params["w_out"], tp, "lru")
     # the last cw-1 real inputs, zero-filled on the left of short rows
     idx = (length[:, None] - (cfg.rglru_conv_width - 1)
            + torch.arange(cfg.rglru_conv_width - 1, device=x.device)[None])
@@ -173,25 +209,28 @@ def rglru_block_forward(params, cfg, x, lengths=None):
     return out, {"h": h_last, "conv": tail}
 
 
-def rglru_block_decode(params, cfg, x1, state, valid=None):
+def rglru_block_decode(params, cfg, x1, state, valid=None, tp=None):
     """One-step decode. x1: (B, 1, D); state {"h": (B, W), "conv":
-    (B, cw-1, W)}; ``valid`` (B, 1): rows that are False keep their state.
-    Returns (out (B, 1, D), the new state)."""
+    (B, cw-1, W)} (on a mesh this rank's channels); ``valid`` (B, 1): rows
+    that are False keep their state. Returns (out (B, 1, D), the new
+    state)."""
     gate = _gate_branch(params, x1)
     xin = x1 @ params["w_in_x"]
     xc, conv = _conv_step(xin, state["conv"], params["conv_w"],
                           params["conv_b"])
-    a, bx = _rglru_gates(params, xc)
+    a, bx = _rglru_gates(params, xc, tp)
     h = a[:, 0] * state["h"] + bx[:, 0]
     y = (h[:, None, :] * gate).to(x1.dtype)
-    out = y @ params["w_out"]
+    out = _row_parallel(y, params["w_out"], tp, "lru")
     return out, _keep_invalid({"h": h, "conv": conv}, state, valid)
 
 
-def rglru_state_spec(cfg, batch: int, dtype, device) -> dict:
+def rglru_state_spec(cfg, batch: int, dtype, device, tp=None) -> dict:
     """A zero state: ``h`` (B, W) f32 and ``conv`` (B, cw-1, W) in the
-    param dtype."""
+    param dtype; W/N channels on a mesh that splits the width."""
     w = cfg.resolved_lru_width
+    if tp is not None and tp.lru:
+        w //= tp.ways
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cfg.rglru_conv_width - 1, w),
                                 dtype=dtype, device=device)}
@@ -344,16 +383,19 @@ def _mlstm_inputs(params, cfg, x):
     return q, k, v, log_i, log_f, o
 
 
-def _mlstm_out(params, cfg, h, o, dtype):
+def _mlstm_out(params, cfg, h, o, dtype, tp=None):
     h = _headnorm(h, params["gn_scale"], cfg.rms_eps) * o
     w = params["w_out"]
-    return h.to(dtype).flatten(2) @ w.reshape(-1, w.shape[-1])
+    return _row_parallel(h.to(dtype).flatten(2), w.reshape(-1, w.shape[-1]),
+                         tp, "rec_heads")
 
 
-def mlstm_block_forward(params, cfg, x, lengths=None, chunk: int = 64):
+def mlstm_block_forward(params, cfg, x, lengths=None, chunk: int = 64,
+                        tp=None):
     """Full-sequence mLSTM block from a zero state (chunkwise). x:
     (B, S, D); ``lengths`` (B,): steps past a row's length keep its state.
-    Returns (out (B, S, D), state {"C", "n", "m"})."""
+    Returns (out (B, S, D), state {"C", "n", "m"}; on a mesh this rank's
+    heads' state)."""
     q, k, v, log_i, log_f, o = _mlstm_inputs(params, cfg, x)
     if lengths is not None:
         b, s = x.shape[:2]
@@ -363,16 +405,16 @@ def mlstm_block_forward(params, cfg, x, lengths=None, chunk: int = 64):
         log_i = torch.where(real, log_i, torch.full_like(log_i, _PAD_LOG_I))
         log_f = torch.where(real, log_f, torch.zeros_like(log_f))
     h, state = mlstm_cell_chunkwise(q, k, v, log_i, log_f, chunk=chunk)
-    return _mlstm_out(params, cfg, h, o, x.dtype), state
+    return _mlstm_out(params, cfg, h, o, x.dtype, tp), state
 
 
-def mlstm_block_decode(params, cfg, x1, state, valid=None):
+def mlstm_block_decode(params, cfg, x1, state, valid=None, tp=None):
     """One-step decode through the sequential cell. x1: (B, 1, D); state
     {"C", "n", "m"}; ``valid`` (B, 1): rows that are False keep their
     state. Returns (out (B, 1, D), the new state)."""
     q, k, v, log_i, log_f, o = _mlstm_inputs(params, cfg, x1)
     h, new = mlstm_cell_ref(q, k, v, log_i, log_f, state)
-    return (_mlstm_out(params, cfg, h, o, x1.dtype),
+    return (_mlstm_out(params, cfg, h, o, x1.dtype, tp),
             _keep_invalid(new, state, valid))
 
 
@@ -463,30 +505,40 @@ def _slstm_scan(params, zx, state, lengths):
     return seq["h"], final
 
 
-def _slstm_out(params, cfg, hs, dtype):
-    """Head norm, then the block's internal GeGLU. hs: (B, S, H, hd)."""
+def _slstm_out(params, cfg, hs, dtype, tp=None):
+    """Head norm, then the block's internal GeGLU. hs: (B, S, H, hd) (on a
+    mesh this rank's heads, joined over the ranks in rank order into the
+    whole (B, S, H * hd) row that ``w_up1``/``w_up2`` read)."""
     y = _headnorm(hs, params["gn_scale"], cfg.rms_eps).flatten(2).to(dtype)
+    if tp is not None and tp.rec_heads:
+        y = tp.mesh.gather(y, -1)
     g = F.gelu((y @ params["w_up1"]).float(), approximate="tanh")
     u = y @ params["w_up2"]
-    return (g.to(dtype) * u) @ params["w_down"]
+    return _row_parallel(g.to(dtype) * u, params["w_down"], tp, "rec_mlp")
 
 
-def slstm_block_forward(params, cfg, x, lengths=None, state=None):
+def rec_heads(cfg, tp=None) -> int:
+    """The mLSTM / sLSTM heads a rank runs (all of them without a mesh)."""
+    h = cfg.num_heads
+    return h // tp.ways if tp is not None and tp.rec_heads else h
+
+
+def slstm_block_forward(params, cfg, x, lengths=None, state=None, tp=None):
     """Full-sequence sLSTM block (from a zero state, or ``state``). x:
     (B, S, D); ``lengths`` (B,): the state returned is the one after each
     row's last real step. Returns (out (B, S, D), state {"c", "n", "h",
-    "m"})."""
+    "m"}; on a mesh this rank's heads' state)."""
     if state is None:
-        state = slstm_state_init(x.shape[0], cfg.num_heads,
+        state = slstm_state_init(x.shape[0], rec_heads(cfg, tp),
                                  cfg.resolved_head_dim, x.device)
     xn = rmsnorm(params["norm"], x, cfg.rms_eps)
     zx = _proj(xn, params["wx"])                         # (B, S, 4, H, hd)
     hs, state = _slstm_scan(params, zx, state, lengths)
-    return _slstm_out(params, cfg, hs, x.dtype), state
+    return _slstm_out(params, cfg, hs, x.dtype, tp), state
 
 
-def slstm_block_decode(params, cfg, x1, state, valid=None):
+def slstm_block_decode(params, cfg, x1, state, valid=None, tp=None):
     """One-step decode. x1: (B, 1, D); ``valid`` (B, 1): rows that are
     False keep their state. Returns (out (B, 1, D), the new state)."""
-    out, new = slstm_block_forward(params, cfg, x1, state=state)
+    out, new = slstm_block_forward(params, cfg, x1, state=state, tp=tp)
     return out, _keep_invalid(new, state, valid)

@@ -71,10 +71,14 @@ own shard. Under NCCL ``warm_compile`` captures each rank's programs
 with their collectives inside; gloo's cannot be captured, so a gloo mesh
 on the card serves eager and ``warm_compile`` raises. Dense GQA, MoE
 (experts split by expert or by d_ff, the router's logits gathered before
-the top-k) and MLA (heads split, latents whole on every rank, so a
-snapshot takes them from any rank) models; recurrent mixers, the
-frontends and a split whose query heads straddle KV groups raise
-``NotImplementedError`` at construction (``sharding.tensor_parallel``).
+the top-k), MLA (heads split, latents whole on every rank, so a
+snapshot takes them from any rank), RG-LRU (its width split, the state a
+rank's channels) and xLSTM (heads split, the states a rank's heads; the
+ring engine's snapshots carry no state, so a restore recomputes it)
+models; the recurrent ones keep their one-device limits (ring backend,
+monolithic prefill, no speculation). A split whose query heads straddle
+KV groups raises ``NotImplementedError`` at construction
+(``sharding.tensor_parallel``).
 ``params`` may be whole or already this rank's shards (``LM.init(...,
 mesh=)``). ``rules`` (``repro``'s activation hints) are accepted and
 dropped: explicit collectives make them moot.

@@ -30,8 +30,9 @@ masks them explicitly. What ``repro`` keeps only for XLA compiles
 (``warm_swap``) is not ported here.
 
 On a mesh (``note_placement``, before ``init``) a backend's device state
-is this rank's shard: each K/V leaf holds its KV heads when they split
-(``serving.sharding``), and the byte accounting has ``repro``'s
+is this rank's shard: each K/V leaf holds its KV heads when they split,
+each recurrent state its channels or heads (``serving.sharding``'s
+``SPLIT_DIMS``), and the byte accounting has ``repro``'s
 per-device walkers (``kv_shards``, ``hbm_bytes_per_device``,
 ``block_bytes_per_device``). The allocator, the tables and the positions
 are the same on every rank. A swap keeps each rank's own shard on its
@@ -59,8 +60,8 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   gather_paged_kv,
                                                   paged_decode_attention)
 from repro_torch.models.attention import positions_1d
-from repro_torch.serving.sharding import kv_shard_divisor as _kv_shard_divisor
-from repro_torch.serving.sharding import model_axis_size
+from repro_torch.serving.sharding import (block_mixer, model_axis_size,
+                                          shard_divisor, split_dims)
 
 
 def _map_block_dicts(fn, tree, other=None):
@@ -84,6 +85,19 @@ def _leaves(tree):
     dict key, in order."""
     out = []
     _map_block_dicts(lambda d: out.extend(d.items()), tree)
+    return out
+
+
+def _split_leaves(tree):
+    """(key, leaf, split dim or None, block mixer) of every leaf of a
+    cache tree, in order (``serving.sharding.SPLIT_DIMS``)."""
+    out = []
+
+    def walk(d):
+        mixer = block_mixer(d)
+        out.extend((key, d[key], dim, mixer)
+                   for key, dim in split_dims(d).items())
+    _map_block_dicts(walk, tree)
     return out
 
 
@@ -332,37 +346,43 @@ class KVCacheBackend:
         raise NotImplementedError
 
     # -- mesh placement (tensor-parallel decode) -----------------------------
-    # K/V leaves split their KV-head dim over the mesh's 'model' axis when
-    # it divides; tables, positions and the allocator stay host-global.
+    # Each cache leaf splits on the dim its block's mixer names
+    # (``serving.sharding.SPLIT_DIMS``: the KV heads of K/V, the RG-LRU
+    # width, the xLSTM heads) over the mesh's 'model' axis when it divides;
+    # tables, positions and the allocator stay host-global.
     kv_shards: int = 1
     mesh = None
 
     def note_placement(self, mesh) -> None:
         """Place this backend on ``mesh`` (call before ``init``): its state
-        becomes this rank's shard, and the per-device walkers divide the
-        K/V leaves whose KV dim divides ``kv_shards`` ways."""
+        becomes this rank's shard, and the per-device walkers divide each
+        leaf whose split dim divides ``kv_shards`` ways."""
         self.mesh = mesh
         self.kv_shards = model_axis_size(mesh)
 
-    def _shard_shape(self, key: str, shape) -> tuple:
-        """A global cache-leaf shape cut to this rank's shard."""
-        shape = tuple(shape)
-        div = _kv_shard_divisor(key, shape, self.kv_shards)
-        return shape[:3] + (shape[3] // div,) + shape[4:] if div > 1 \
-            else shape
+    def _shard_shape(self, dim, shape) -> tuple:
+        """A global cache-leaf shape cut to this rank's shard on ``dim``."""
+        shape = list(shape)
+        if dim is not None:
+            shape[dim] //= shard_divisor(dim, shape, self.kv_shards)
+        return tuple(shape)
 
     def _bytes(self, rows: int, cols: Optional[int],
                per_device: bool) -> int:
         """Bytes of the per-request proto's leaves (L, 1, W, ...) at
-        ``rows`` in place of 1 and ``cols`` in place of W (None keeps each
-        leaf's W): the global leaves, or one rank's shards."""
+        ``rows`` in place of 1 and, in attention and MLA blocks, ``cols``
+        in place of the window W (None keeps each leaf's W; a recurrent
+        leaf's dim 2 is its width or heads, never a window): the global
+        leaves, or one rank's shards."""
         total = 0
-        for key, (shape, dtype) in _leaves(self._proto):
-            full = (shape[0], rows, shape[2] if cols is None else cols) \
-                + tuple(shape[3:])
+        for _, (shape, dtype), dim, mixer in _split_leaves(self._proto):
+            full = list(shape)
+            full[1] = rows
+            if cols is not None and mixer in ("attn", "mla"):
+                full[2] = cols
             n = math.prod(full)
             if per_device:
-                n //= _kv_shard_divisor(key, full, self.kv_shards)
+                n //= shard_divisor(dim, full, self.kv_shards)
             total += n * dtype.itemsize
         return total
 
@@ -372,29 +392,31 @@ class KVCacheBackend:
 
     def local_wire(self, caches):
         """A slot checkpoint's caches in the host-global wire format (CPU
-        tensors), cut to this rank's shard of each split K/V leaf."""
+        tensors), cut to this rank's shard of each split leaf."""
         if self.mesh is None or self.kv_shards == 1:
             return caches
 
         def cut(d):
             out = {}
-            for key, t in d.items():
-                div = _kv_shard_divisor(key, t.shape, self.kv_shards)
-                out[key] = (self.mesh.shard(t, 3).contiguous() if div > 1
-                            else t)
+            for key, dim in split_dims(d).items():
+                t = d[key]
+                out[key] = (self.mesh.shard(t, dim).contiguous()
+                            if shard_divisor(dim, t.shape,
+                                             self.kv_shards) > 1 else t)
             return out
         return _map_block_dicts(cut, caches)
 
     def _gather_kv(self, d, proto):
         """One block dict of this rank's checkpoint (CPU tensors) with the
-        K/V leaves that split (by the global ``proto`` dict) gathered over
-        the ranks: the host-global leaves."""
+        leaves that split (by the global ``proto`` dict) gathered over the
+        ranks: the host-global leaves."""
         if self.mesh is None or self.kv_shards == 1:
             return d
         out = {}
-        for key, t in d.items():
-            if _kv_shard_divisor(key, proto[key][0], self.kv_shards) > 1:
-                t = self.mesh.gather(t.to(self.mesh.device), 3).cpu()
+        for key, dim in split_dims(d).items():
+            t = d[key]
+            if shard_divisor(dim, proto[key][0], self.kv_shards) > 1:
+                t = self.mesh.gather(t.to(self.mesh.device), dim).cpu()
             out[key] = t
         return out
 
@@ -634,7 +656,8 @@ class PagedCache(KVCacheBackend):
 
         def pool(d):
             out = {}
-            for key, (shape, dtype) in d.items():
+            for key, dim in split_dims(d).items():
+                shape, dtype = d[key]
                 # (L, 1, W, ...) per-request line -> (L, N, bs, ...) pool,
                 # on a mesh this rank's shard of it
                 if key == "pos":
@@ -642,7 +665,7 @@ class PagedCache(KVCacheBackend):
                                           dtype=dtype, device=dev)
                 else:
                     full = (shape[0], n, bs) + shape[3:]
-                    out[key] = torch.zeros(self._shard_shape(key, full),
+                    out[key] = torch.zeros(self._shard_shape(dim, full),
                                            dtype=dtype, device=dev)
             return out
 
@@ -1063,12 +1086,13 @@ class PagedCache(KVCacheBackend):
         not divide), and its leaves' bytes add up to
         ``hbm_bytes_per_device()``."""
         per_dev = 0
-        for (key, leaf), (_, (shape, dtype)) in zip(
-                _leaves(cache_state["caches"]), _leaves(self._proto)):
+        for (key, leaf), (_, (shape, dtype), dim, _) in zip(
+                _leaves(cache_state["caches"]),
+                _split_leaves(self._proto)):
             assert leaf.shape[1] == self.num_blocks, (
                 f"pool width {leaf.shape[1]} != ledger's {self.num_blocks}")
             full = (shape[0], self.num_blocks, self.block_size) + shape[3:]
-            want = self._shard_shape(key, full)
+            want = self._shard_shape(dim, full)
             assert tuple(leaf.shape) == want and leaf.dtype == dtype, (
                 f"pool leaf {key}: {tuple(leaf.shape)} {leaf.dtype}, the "
                 f"ledger expects the {self.kv_shards}-way shard {want} "

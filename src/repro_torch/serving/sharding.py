@@ -5,9 +5,16 @@ host-global is ``repro``'s: parameters split by the decode-mode rules of
 ``launch.sharding_rules`` (attention and KV heads, MLP and vocab on the
 mesh's ``model`` axis); the K/V pools, ring lines (L, B, W, KV, hd) and
 paged pools (L, N, bs, KV, hd), split their KV-head dim (dim 3) when it
-divides. Block tables, position slots, MLA latents (no head dim: every rank
-computes them whole from the replicated down-projections), the free list
-and the commitment ledger stay replicated. MoE experts split by expert
+divides. Recurrent states split where their mixer's weights do, on a dim
+chosen by the block's mixer (``SPLIT_DIMS``): the RG-LRU's width (``h``
+dim 2, ``conv`` dim 3, as ``repro``'s ``launch.sharding_rules.
+cache_pspecs``), and the mLSTM's and sLSTM's heads (dim 2 of every leaf).
+The xLSTM states are a departure: ``repro`` keeps them whole on 'model'
+and lets GSPMD move the data to the sharded heads, while the port's
+explicit SPMD keeps each rank's heads. Block tables, position slots, MLA
+latents (no head dim: every rank computes them whole from the replicated
+down-projections), the free list and the commitment ledger stay
+replicated. MoE experts split by expert
 (the expert dim's ("data", "model") cuts like ``model`` on a data-1
 mesh) or by d_ff inside every expert, as the rules resolve. Where ``repro``
 commits arrays to ``NamedSharding``s, a rank here holds its shard of each
@@ -84,19 +91,44 @@ def place_params(mesh, lm, params):
     return place(params, specs, lm.param_spec())
 
 
-def _kv_pool_leaf(key: str, shape) -> bool:
-    """The K/V leaves of both backends, ring lines (L, B, W, KV, hd) and
-    paged pools (L, N, bs, KV, hd); MLA latents and ``pos`` are not."""
-    return key in ("k", "v") and len(shape) == 5
+# a cache block's mixer, told by its leaves' names together: ``h`` and ``n``
+# belong to two mixers each, with their split on different dims
+_BLOCK_MIXER = {frozenset(("k", "v", "pos")): "attn",
+                frozenset(("ckv", "krope", "pos")): "mla",
+                frozenset(("h", "conv")): "rglru",
+                frozenset(("C", "n", "m")): "mlstm",
+                frozenset(("c", "n", "h", "m")): "slstm"}
+
+# per mixer, the dim of each cache leaf that splits on 'model' when it
+# divides (a leaf not named stays whole): the KV heads of the K/V lines
+# (L, B, W, KV, hd) and pools (L, N, bs, KV, hd); the RG-LRU width of
+# ``h`` (L, B, W) and ``conv`` (L, B, cw-1, W); the heads of the mLSTM's
+# ``C`` (L, B, H, hd, hd), ``n`` (L, B, H, hd), ``m`` (L, B, H) and of the
+# sLSTM's (L, B, H, hd) leaves. MLA latents and positions stay whole
+SPLIT_DIMS = {"attn": {"k": 3, "v": 3},
+              "mla": {},
+              "rglru": {"h": 2, "conv": 3},
+              "mlstm": {"C": 2, "n": 2, "m": 2},
+              "slstm": {"c": 2, "n": 2, "h": 2, "m": 2}}
 
 
-def kv_shard_divisor(key: str, shape, kv_shards: int) -> int:
-    """Ways a cache leaf's bytes split over the ranks (``repro``'s
-    ``_kv_shard_divisor``): a K/V leaf whose KV-head dim divides splits
-    ``kv_shards`` ways, everything else is replicated. ``shape`` is the
-    global shape."""
-    if _kv_pool_leaf(key, shape) and shape[3] % max(kv_shards, 1) == 0:
-        return max(kv_shards, 1)
+def block_mixer(block: dict) -> str:
+    """The mixer of a cache block dict, by its leaves."""
+    return _BLOCK_MIXER[frozenset(block)]
+
+
+def split_dims(block: dict) -> dict:
+    """{leaf name: the dim it may split on, or None} of a cache block."""
+    dims = SPLIT_DIMS[block_mixer(block)]
+    return {key: dims.get(key) for key in block}
+
+
+def shard_divisor(dim, shape, ways: int) -> int:
+    """Ways a cache leaf of global ``shape`` splits over ``ways`` ranks on
+    ``dim`` (None: whole): ``ways`` when that dim divides, else 1."""
+    ways = max(ways, 1)
+    if dim is not None and shape[dim] % ways == 0:
+        return ways
     return 1
 
 
@@ -108,18 +140,18 @@ def _shape(leaf):
 def cache_pspecs(mesh, cache_state):
     """The spec of each leaf of a cache state at its global shapes
     ({"caches": ..., "tables": ...}, tensors or a backend's (shape, dtype)
-    proto leaves): K/V split dim 3 on 'model' when it divides, everything
-    else (tables, positions, latents) replicated."""
+    proto leaves): each leaf's ``SPLIT_DIMS`` dim on 'model' when it
+    divides, everything else (tables, positions, latents) replicated."""
     from repro_torch.serving.kv_cache import _map_block_dicts
     msize = model_axis_size(mesh)
 
     def spec(d):
         out = {}
-        for key, leaf in d.items():
-            shape = _shape(leaf)
+        for key, dim in split_dims(d).items():
+            shape = _shape(d[key])
             dims = [None] * len(shape)
-            if _kv_pool_leaf(key, shape) and shape[3] % msize == 0:
-                dims[3] = "model"
+            if dim is not None and shape[dim] % msize == 0:
+                dims[dim] = "model"
             out[key] = tuple(dims)
         return out
 
@@ -132,24 +164,31 @@ def cache_pspecs(mesh, cache_state):
 def assert_cache_placement(mesh, cache_state, proto) -> None:
     """Placement sweep of this rank's ``cache_state`` against the global
     per-request ``proto`` of its backend ((L, 1, W, ...) leaves): each
-    leaf's trailing dims must be the shard its spec prescribes (the K/V
-    head dim cut ``kv_shard_divisor`` ways, everything else whole), so its
-    bytes times the ways rebuild the global leaf's."""
-    from repro_torch.serving.kv_cache import _leaves
+    leaf's dims past the layer, slot and (for attention and MLA) window or
+    block dims must be the shard its spec prescribes (its split dim cut
+    ``shard_divisor`` ways, everything else whole), so its bytes times the
+    ways rebuild the global leaf's."""
+    from repro_torch.serving.kv_cache import _map_block_dicts
     msize = model_axis_size(mesh)
-    got, want = _leaves(cache_state["caches"]), _leaves(proto)
-    assert [k for k, _ in got] == [k for k, _ in want], "cache tree differs"
-    for (key, leaf), (_, (gshape, dtype)) in zip(got, want):
-        div = kv_shard_divisor(key, gshape, msize)
-        tail = list(gshape[3:])
-        if div > 1:
-            tail[0] //= div
-        assert tuple(leaf.shape[3:]) == tuple(tail) \
-            and leaf.dtype == dtype, (
-                f"cache leaf {key}: shard {tuple(leaf.shape)} "
-                f"{leaf.dtype} is not the {div}-way split of {gshape} "
-                f"{dtype}")
-        local = leaf.numel() * leaf.element_size()
-        whole = math.prod(tuple(leaf.shape[:3]) + tuple(gshape[3:])) \
-            * leaf.element_size()
-        assert local * div == whole, (key, local, div, whole)
+
+    def check(d, want):
+        assert set(d) == set(want), "cache tree differs"
+        fixed = 3 if block_mixer(want) in ("attn", "mla") else 2
+        for key, dim in split_dims(want).items():
+            leaf, (gshape, dtype) = d[key], want[key]
+            div = shard_divisor(dim, gshape, msize)
+            tail = list(gshape[fixed:])
+            if div > 1:
+                tail[dim - fixed] //= div
+            assert tuple(leaf.shape[fixed:]) == tuple(tail) \
+                and leaf.dtype == dtype, (
+                    f"cache leaf {key}: shard {tuple(leaf.shape)} "
+                    f"{leaf.dtype} is not the {div}-way split of {gshape} "
+                    f"{dtype}")
+            local = leaf.numel() * leaf.element_size()
+            whole = math.prod(tuple(leaf.shape[:fixed]) + tuple(
+                gshape[fixed:])) * leaf.element_size()
+            assert local * div == whole, (key, local, div, whole)
+        return d
+
+    _map_block_dicts(check, cache_state["caches"], proto)

@@ -12,6 +12,7 @@ not divide.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 # logical activation axes
@@ -74,7 +75,11 @@ class TensorParallel:
     (``expert_mlp``); the router's columns split with the experts
     (``router``); the shared expert by its d_ff (``shared_mlp``). MLA
     splits its heads (``mla_heads``: ``w_uq``, ``w_uk``, ``w_uv``, ``wo``)
-    and keeps its down-projections and latents whole."""
+    and keeps its down-projections and latents whole. The recurrent
+    mixers split their width (``lru``: the RG-LRU's channels) or their
+    heads (``rec_heads``: mLSTM and sLSTM), and the sLSTM's internal GeGLU
+    its columns (``rec_mlp``). ``mlp`` is the dense MLP's d_ff; a model
+    with no dense MLP (xLSTM, an all-MoE stack) has it False."""
     mesh: object
     ways: int
     rank: int
@@ -89,37 +94,57 @@ class TensorParallel:
     shared_mlp: bool = False          # the shared expert's d_ff split
     router: bool = False              # the router's expert columns split
     mla_heads: bool = False           # MLA's heads split
+    lru: bool = False                 # the RG-LRU width split
+    rec_heads: bool = False           # mLSTM / sLSTM heads split
+    rec_mlp: bool = False             # the sLSTM GeGLU's columns split
 
     def reduce(self, x, split: bool):
         """Sum a row-parallel partial over the ranks when ``split``."""
         return self.mesh.all_reduce(x) if split else x
 
 
-# mixers and MLPs whose mesh paths are still to be ported, by ROADMAP item
-_LATER = {"rglru": "RG-LRU widths on the mesh",
-          "mlstm": "xLSTM widths on the mesh",
-          "slstm": "xLSTM widths on the mesh"}
+def _split(spec, dim: int) -> bool:
+    return spec[dim] == "model"
+
+
+@functools.lru_cache(maxsize=64)
+def _leaf_splits(cfg, n: int) -> Dict[str, bool]:
+    """Which of the dense MLP's d_ff, the RG-LRU width, the recurrent heads
+    and the sLSTM GeGLU's columns an ``n``-way mesh splits: read off the
+    resolved decode-mode spec of a stacked leaf that holds each dimension
+    (``serving.sharding.param_shardings``), False where no leaf holds it."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import LM
+    from repro_torch.serving.sharding import param_shardings
+
+    out = dict(mlp=False, lru=False, rec_heads=False, rec_mlp=False)
+    specs = param_shardings(AbstractMesh(n), LM(cfg, device="cpu"))
+    for stage in specs["stages"]:
+        for block in stage.values():
+            mixer, mlp = block["mixer"], block.get("mlp", {})
+            if "w_gate" in mlp and "router" not in mlp:
+                # a dense MLP's w_down (L, MLP, D)
+                out["mlp"] = _split(mlp["w_down"], 1)
+            if "lam" in mixer:
+                # the RG-LRU's w_in_x (L, D, LRU)
+                out["lru"] = _split(mixer["w_in_x"], 2)
+            elif "w_if" in mixer:
+                # the mLSTM's wq (L, D, H, hd)
+                out["rec_heads"] = _split(mixer["wq"], 2)
+            elif "rh" in mixer:
+                # the sLSTM's wx (L, D, 4, H, hd) and w_up1 (L, H hd, 2 D)
+                out["rec_heads"] = _split(mixer["wx"], 3)
+                out["rec_mlp"] = _split(mixer["w_up1"], 2)
+    return out
 
 
 def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
     """The ``TensorParallel`` of ``cfg`` on ``mesh`` (None without one).
-    Raises ``NotImplementedError`` for what the mesh does not serve yet:
-    recurrent mixers, modality frontends, and a split whose ranks' query
-    heads straddle KV groups unevenly."""
+    Raises ``NotImplementedError`` for a split whose ranks' query heads
+    straddle KV groups unevenly."""
     if mesh is None:
         return None
     n = int(mesh.shape["model"])
-    for stage in cfg.stages:
-        for bdef in stage.blocks:
-            for kind in (bdef.mixer, bdef.mlp):
-                if kind in _LATER:
-                    raise NotImplementedError(
-                        f"{cfg.name}: {kind!r} blocks do not run on a mesh "
-                        f"yet ({_LATER[kind]}, ROADMAP Queue 1)")
-    if cfg.frontend.kind != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend.kind} frontend does not run on "
-            f"a mesh yet (the frontends on the mesh, ROADMAP Queue 1)")
     h, kv = cfg.num_heads, cfg.num_kv_heads
     heads, kvs = h % n == 0, kv % n == 0
     rank = int(getattr(mesh, "rank", 0))
@@ -154,7 +179,6 @@ def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
             and moe.d_ff_shared % n == 0,
             router=e % n == 0)
     return TensorParallel(mesh=mesh, ways=n, rank=rank, heads=heads, kv=kvs,
-                          mlp=cfg.d_ff % n == 0,
                           vocab=cfg.padded_vocab % n == 0, kv_range=kv_range,
                           mla_heads=cfg.mla is not None and h % n == 0,
-                          **routed)
+                          **_leaf_splits(cfg, n), **routed)

@@ -691,9 +691,9 @@ def test_serve_cli_flags_against_repro(monkeypatch, capsys):
     ``--compile-cache``, and its ``--reduced`` can be turned off where ``repro``'s cannot
     (``store_true`` with ``default=True``: ``--no-reduced`` is an error
     there). ``--mesh N`` refuses, before it starts a rank, what a mesh
-    does not serve yet (``--supervise``, the recurrent mixers; the mesh
-    itself is ``tests/test_torch_sharded_serving.py``'s and
-    ``tests/test_torch_moe_mesh.py``'s); a short run on the CPU
+    does not serve yet (``--supervise``; the mesh itself is
+    ``tests/test_torch_sharded_serving.py``'s, ``tests/test_torch_moe_mesh
+    .py``'s and ``tests/test_torch_recurrent_mesh.py``'s); a short run on the CPU
     serves every arrival through the gateway."""
     import sys
 
@@ -723,10 +723,6 @@ def test_serve_cli_flags_against_repro(monkeypatch, capsys):
     with pytest.raises(SystemExit, match="supervise.*does not run on a "
                                          "mesh"):
         tserve.main(["--mesh", "2", "--device", "cpu", "--supervise"])
-    with pytest.raises(SystemExit, match="'rglru' blocks do not run on a "
-                                         "mesh"):
-        tserve.main(["--mesh", "2", "--device", "cpu", "--arch",
-                     "recurrentgemma-9b"])
     monkeypatch.undo()
     tserve.main(["--device", "cpu", "--requests", "3", "--max-new", "3",
                  "--quiet", "--rate", "1000"])

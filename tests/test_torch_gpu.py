@@ -2251,12 +2251,14 @@ class _StandInMesh:
         return x.narrow(dim, self.rank * w, w)
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v3-671b",
+                                  "recurrentgemma-9b", "xlstm-125m"])
 def test_sharded_init_on_the_card_equals_placed_whole_init(cuda, name):
     """``LM.init(seed, on_device=True, mesh=)`` draws each stacked leaf a
     layer at a time on the card, cuts this rank's slice and frees the
     rest: bit for bit ``place_params`` of the whole on-card init, for
-    every rank of 2 and 4 (the reduced configs, two MoE layers)."""
+    every rank of 2 and 4 (the reduced configs, two layers a stage: MoE
+    layers; the RG-LRU's ``lam`` and the xLSTM's constant leaves)."""
     import dataclasses
 
     from repro_torch.models.model import LM
@@ -2265,7 +2267,8 @@ def test_sharded_init_on_the_card_equals_placed_whole_init(cuda, name):
 
     cfg = tcfg.get_config(name).reduced()
     stages = tuple(dataclasses.replace(st, repeat=2) for st in cfg.stages)
-    cfg = dataclasses.replace(cfg, stages=stages, num_layers=2 * len(stages))
+    cfg = dataclasses.replace(cfg, stages=stages, num_layers=sum(
+        2 * len(st.blocks) for st in stages))
     lm = LM(cfg, device=cuda)
     whole = lm.init(4, on_device=True)
     for n in (2, 4):
@@ -2276,3 +2279,72 @@ def test_sharded_init_on_the_card_equals_placed_whole_init(cuda, name):
             assert sorted(got) == sorted(want)
             for key, t in want.items():
                 assert torch.equal(got[key], t), (n, rank, key)
+
+
+@pytest.mark.parametrize("w", [2048, 1024])
+def test_rglru_scan_at_the_mesh_rank_widths(cuda, w):
+    """The scan at the width a rank of recurrentgemma-9b's 4,096 channels
+    scans on a 2- and a 4-way mesh, at its longest prefill (S = 4096):
+    within 1e-5 of max(1, |h|) of the plain version, one launch."""
+    test_rglru_scan_kernel_matches_plain(cuda, (1, 4096, w))
+
+
+def _rec_mesh_model(cuda, name):
+    """The reduced ``name`` in bf16 on the card."""
+    import dataclasses
+
+    from repro_torch.models.model import LM
+    cfg = dataclasses.replace(tcfg.get_config(name).reduced(),
+                              param_dtype="bfloat16")
+    return LM(cfg, device=cuda)
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "xlstm-125m"])
+def test_recurrent_nccl_mesh_of_one_equals_mesh_none_with_collectives(
+        cuda, name):
+    """The reduced hybrid and xlstm on a one-rank NCCL mesh, the ring
+    engine graphed: streams bit-equal to the ``mesh=None`` engine's (every
+    split the whole, every collective the identity, the gates' partials
+    rounded where ``mesh=None``'s GEMM rounds); each decode program's graph
+    holds its collectives: the embedding's all-reduce, two an RG-LRU
+    block, one an attention, mLSTM or sLSTM mixer and one a GeGLU MLP, an
+    all-gather an sLSTM block and one of the logits, a step."""
+    from repro_torch.serving import ServingEngine
+    lm = _rec_mesh_model(cuda, name)
+    params = lm.init(0, on_device=True)
+    reduces = gathers = 1
+    for st in lm.cfg.stages:
+        for b in st.blocks:
+            reduces += st.repeat * ((2 if b.mixer == "rglru" else 1)
+                                    + (b.mlp != "none"))
+            gathers += st.repeat * (b.mixer == "slstm")
+    outs, launches = [], []
+    with _process_group("nccl") as mesh:
+        for m in (None, mesh):
+            eng = ServingEngine(lm, params, batch_slots=3, max_seq_len=64,
+                                max_decode_steps=2, mesh=m)
+            eng.warm_compile()
+            before = dict(LAUNCHES)
+            ids = [eng.submit(p, max_new_tokens=n, temperature=t)
+                   for p, n, t in _mesh_trace()]
+            done = eng.run()
+            eng.assert_invariants()
+            launches.append({k: LAUNCHES[k] - before[k] for k in before})
+            outs.append([done[i].output for i in ids])
+            progs = eng._programs
+            assert eng.graphs() == len(progs)
+            for key, prog in progs.items():
+                got = prog.collectives.get("all_reduce", 0)
+                gat = prog.collectives.get("all_gather", 0)
+                if m is None:
+                    assert got == 0 and gat == 0, key
+                elif key[0] == "decode":
+                    assert (got, gat) == (reduces * key[1],
+                                          gathers * key[1]), (key, got, gat)
+                else:
+                    assert got > 0 and gat > 0, key
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    assert launches[0] == launches[1]
+    if name == "recurrentgemma-9b":
+        assert launches[1]["rglru_scan"] > 0

@@ -168,11 +168,13 @@ def _kv_bytes(eng):
 def replicated_worker(rank, out_dir, tree, cfg, etree, ecfg, reqs):
     """8 query heads over 2 KV heads on 4 ranks (each rank's 2 query heads
     read one KV head of a pool every rank keeps whole), on both backends,
-    and the generative cascade on the same mesh; then the refusals."""
+    and the generative cascade on the same mesh; then what the mesh
+    refuses by architecture (nothing: every assigned architecture's plan,
+    and ring engines of the reduced recurrent models)."""
     from repro_torch.bridge import params_from_numpy
     from repro_torch.cascade.ecc_infer import CascadeLM
     from repro_torch.cascade.gate import make_thresholds
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
     from repro_torch.models.model import LM
     from repro_torch.serving import CascadeServingEngine, ServingEngine
     from repro_torch.sharding import tensor_parallel
@@ -210,10 +212,17 @@ def replicated_worker(rank, out_dir, tree, cfg, etree, ecfg, reqs):
                                          done[i].output.tolist()]
                                 for i in ids}
     refused = {}
+    for name in ASSIGNED_ARCHS:
+        for c in (get_config(name), get_config(name).reduced()):
+            try:
+                tensor_parallel(c, mesh)
+            except NotImplementedError as e:
+                refused[c.name] = str(e)
     for name in ("recurrentgemma-9b", "xlstm-125m"):
         big = LM(get_config(name).reduced(), device="cpu")
         try:
-            ServingEngine(big, None, mesh=mesh)
+            ServingEngine(big, big.init(0, mesh=mesh), batch_slots=2,
+                          max_seq_len=32, mesh=mesh).assert_invariants()
         except NotImplementedError as e:
             refused[name] = str(e)
     rec["refused"] = refused
@@ -341,7 +350,9 @@ def test_replicated_kv_and_cascade_on_four_ranks(tmp_path):
     """8 heads over 2 KV heads on 4 ranks: the KV heads do not divide, so
     every rank keeps both and its 2 query heads attend one of them
     (``kv_range``); the pool is whole on every rank. Then the generative
-    cascade with both legs on the mesh, and the mesh's refusals."""
+    cascade with both legs on the mesh, and no refusal by architecture:
+    every assigned architecture's plan, whole and reduced, and the
+    reduced recurrent models' ring engines on the mesh."""
     cfg, ecfg = _cfg(8, 2, 2), _cfg(8, 2, 1, "shard-edge")
     _, tree = _repro_tree(cfg, 0)
     _, etree = _repro_tree(ecfg, 1)
@@ -363,9 +374,7 @@ def test_replicated_kv_and_cascade_on_four_ranks(tmp_path):
     assert routes == {"accept", "escalate"}, routes
     kv, pos, whole, per_dev, devices = rec["kv_bytes"]
     assert devices == 4 and per_dev == whole == kv + pos  # nothing splits
-    assert set(rec["refused"]) == {"recurrentgemma-9b", "xlstm-125m"}
-    for reason in rec["refused"].values():
-        assert "on a mesh" in reason and "ROADMAP" in reason
+    assert rec["refused"] == {}
 
 
 def test_gather_forms_join_rank_slices_in_order(tmp_path):

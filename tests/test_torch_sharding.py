@@ -71,13 +71,13 @@ def test_param_axes_match_repro(name):
 @pytest.mark.parametrize("ways", [2, 4])
 @pytest.mark.parametrize("name", ASSIGNED_ARCHS)
 def test_param_split_matches_repro_decode_pspecs(name, ways):
-    """Every leaf's split at N ways is ``repro``'s decode-mode spec. Where
-    the engine would refuse the mesh (recurrent mixers and frontends, not
-    ported to it yet), the refusal names its reason; no assigned
-    architecture's query heads straddle KV groups. Elsewhere the plan's
-    fields (heads, KV, MLP, vocab; MLA heads; experts, this rank's expert
-    range, d_ff inside every expert, the router, the shared expert) split
-    exactly what the specs split."""
+    """Every leaf's split at N ways is ``repro``'s decode-mode spec, and
+    the mesh takes every assigned architecture (no assigned architecture's
+    query heads straddle KV groups). The plan's fields (heads, KV, the
+    dense MLP, vocab; MLA heads; experts, this rank's expert range, d_ff
+    inside every expert, the router, the shared expert; the RG-LRU width,
+    the recurrent heads and the sLSTM GeGLU's columns) split exactly what
+    the specs split, and a model with no dense MLP has ``mlp`` False."""
     abstract, axes = RLM(repro_config(name)).abstract()
     ref = param_pspecs(AbstractMesh((1, ways), ("data", "model")), abstract,
                        axes, mode="decode")
@@ -86,22 +86,49 @@ def test_param_split_matches_repro_decode_pspecs(name, ways):
     got = _flat(param_shardings(tmesh.AbstractMesh(ways),
                                 LM(cfg, device="cpu")))
     assert got == want
-    try:
-        tp = tensor_parallel(cfg, tmesh.AbstractMesh(ways))
-    except NotImplementedError as e:
-        assert "on a mesh" in str(e) and "ROADMAP" in str(e)
-        assert "straddle" not in str(e)
-        assert cfg.frontend.kind != "none" or any(
-            b.mixer in ("rglru", "mlstm", "slstm")
-            for st in cfg.stages for b in st.blocks), name
-        return
+    tp = tensor_parallel(cfg, tmesh.AbstractMesh(ways))
+    mixers = {b.mixer for st in cfg.stages for b in st.blocks}
+
+    def leaf(block, key):
+        """The spec of ``key`` in every stage's ``block`` ('mixer' or
+        'mlp') that holds it."""
+        return {v for k, v in got.items() if k.startswith("['stages']")
+                and k.endswith(f"['{block}']['{key}']")}
+
+    lru = leaf("mixer", "w_in_x")
+    assert ("rglru" in mixers) == bool(lru)
+    assert tp.lru == (lru == {(None, "data", "model")})   # (L, D, W)
+    if tp.lru:
+        # the channels' leaves split with it; the gates' second LRU axis
+        # finds 'model' used, so their rows alone split
+        assert leaf("mixer", "lam") == {(None, "model")}
+        assert leaf("mixer", "w_rgate") == {(None, "model", None)}
+        assert leaf("mixer", "w_out") == {(None, "model", None)}
+    heads = {v[3] for v in leaf("mixer", "wx")}          # (L, D, 4, H, hd)
+    if "mlstm" in mixers:
+        heads |= {v[2] for v in leaf("mixer", "wq")}     # (L, D, H, hd)
+    assert bool(heads) == bool(mixers & {"mlstm", "slstm"})
+    assert tp.rec_heads == (heads == {"model"})
+    up = {v[2] for v in leaf("mixer", "w_up1")}          # (L, H hd, 2 D)
+    assert tp.rec_mlp == (up == {"model"})
+    if name == "xlstm-125m":
+        # d_ff = 0: no dense MLP; the sLSTM's 2 d_model GeGLU splits
+        assert not tp.mlp and tp.rec_mlp and tp.rec_heads
+    dense = [v for k, v in got.items() if k.startswith("['stages']")
+             and k.endswith("['mlp']['w_down']") and len(v) == 3]
+    assert tp.mlp == (bool(dense) and dense[0][1] == "model")
+    if cfg.frontend.kind == "vision":
+        # EMBED resolves to ('data',) of size 1: the projector stays whole
+        assert "model" not in got["['vision_proj']['w1']"] + \
+            got["['vision_proj']['w2']"]
     # the plan splits exactly what the specs split
     blocks = {b: got[k] for k in got for b in ("wq", "wk", "w_uq", "wo")
               if k.startswith("['stages']") and k.endswith(
                   f"['mixer']['{b}']")}
     mlp = {k.split("['mlp']")[1]: v for k, v in got.items()
            if k.startswith("['stages']") and "['mlp']" in k}
-    assert tp.vocab == (got["['embed']['table']"][0] == "model")
+    vocab_dim = 1 if cfg.frontend.kind == "audio" else 0   # (C, V, D)
+    assert tp.vocab == (got["['embed']['table']"][vocab_dim] == "model")
     if cfg.mla is None:
         assert tp.heads == (blocks["wq"][2] == "model")
         assert tp.kv == (blocks["wk"][2] == "model")
@@ -109,10 +136,6 @@ def test_param_split_matches_repro_decode_pspecs(name, ways):
     else:
         assert tp.mla_heads == (blocks["w_uq"][2] == "model")
         assert tp.mla_heads == (blocks["wo"][1] == "model")
-    dense = [v for k, v in got.items() if k.startswith("['stages']")
-             and k.endswith("['mlp']['w_down']") and len(v) == 3]
-    if dense:
-        assert tp.mlp == (dense[0][1] == "model")
     if cfg.moe is None:
         assert not (tp.experts or tp.expert_mlp or tp.router
                     or tp.shared_mlp)
