@@ -224,7 +224,7 @@ on failure:
    min(count, 4) of them too; (b) real splits on this card, ranks as
    processes over gloo, each on it, eager
    (``TP_SPLITS``: qwen3-4b at 8 layers on 2 ranks, heads and KV heads
-   split; glm4-9b at 4 layers on 4 ranks, its 2 KV heads whole on every
+   split; glm4-9b at 2 layers on 4 ranks, its 2 KV heads whole on every
    rank, each rank's 8 query heads reading one in place): the ranks'
    streams equal bit for bit (and ``assert_invariants`` checks lockstep
    after each run), equal ``mesh=None``'s or part first at a near-tie
@@ -4438,8 +4438,8 @@ class _Routes:
         self._lib, self._route = moe_lib, moe_lib.route
         torch, orig, calls = self.torch, moe_lib.route, self.calls
 
-        def route(params, cfg, x_flat, tp=None):
-            idx, w, aux = orig(params, cfg, x_flat, tp)
+        def route(params, cfg, x_flat, tp=None, over_data=None):
+            idx, w, aux = orig(params, cfg, x_flat, tp, over_data)
             k = cfg.moe.num_experts_per_tok
             logits = moe_lib.router_logits(params, x_flat, tp)
             top = torch.topk(logits, k + 1, dim=-1).values
@@ -4629,12 +4629,13 @@ def _count_drops(torch, lm, params, reqs, eng, mesh=None):
     orig = moe_lib.moe_forward
     k = lm.cfg.moe.num_experts_per_tok
 
-    def counted(p, cfg, x, *, capacity_factor, tp=None):
+    def counted(p, cfg, x, *, capacity_factor, tp=None, over_data=None):
         total[0] += int(moe_lib.dropped_pairs(
             p, cfg, x, capacity_factor=capacity_factor, length=length[0],
             tp=tp))
         total[1] += length[0] * k
-        return orig(p, cfg, x, capacity_factor=capacity_factor, tp=tp)
+        return orig(p, cfg, x, capacity_factor=capacity_factor, tp=tp,
+                    over_data=over_data)
 
     length = [0]
     moe_lib.moe_forward = counted
@@ -5854,8 +5855,9 @@ def check_training(torch, timer, dev, seed, smi):
 # 19(b): (model, layers served at full width, ranks) sharing one card over
 # gloo: qwen3-4b's 32 heads and 8 KV heads split 2 ways; glm4-9b's 32 heads
 # split 4 ways over 2 KV heads that every rank keeps whole (each rank's 8
-# query heads read one of them in place)
-TP_SPLITS = (("qwen3-4b", 8, 2), ("glm4-9b", 4, 4))
+# query heads read one of them in place); glm4 cut to 2 layers, to keep
+# the script inside its time limit on a slower host
+TP_SPLITS = (("qwen3-4b", 8, 2), ("glm4-9b", 2, 4))
 TP_MAX_NEW = 16
 TP_SEQ = 512
 
@@ -5932,7 +5934,7 @@ def _tp_rank(rank, out_dir, cfg, seed, reqs, graphed, device="cuda"):
     rehearse on the CPU, ``device="cpu"``)."""
     import torch
 
-    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh
+    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh, tally
     from repro_torch.models.model import LM
 
     world = torch.distributed.get_world_size()
@@ -5952,13 +5954,14 @@ def _tp_rank(rank, out_dir, cfg, seed, reqs, graphed, device="cuda"):
             del params          # the engine keeps this rank's shards
         before = dict(COLLECTIVES)
         out, wall, launches = _tp_serve(torch, eng, reqs, graphed)
+        since = tally(COLLECTIVES, before=before)
         step = eng.decode_s / eng.decode_steps * 1e3
         rec[backend] = dict(
             streams=[r.output.tolist() for r in out], wall_s=wall,
             tokens_per_s=sum(len(r.output) for r in out) / wall,
             decode_ms_per_step=step, launches=launches,
-            all_reduces=COLLECTIVES["all_reduce"] - before["all_reduce"],
-            all_gathers=COLLECTIVES["all_gather"] - before["all_gather"],
+            all_reduces=since["all_reduce"],
+            all_gathers=since["all_gather"],
             kv_bytes=_tp_kv_bytes(eng), graphs=eng.graphs(),
             mesh_devices=eng.metrics()["mesh_devices"])
         if backend == "ring":
@@ -6083,7 +6086,7 @@ def _nccl_one(torch, dev, seed, smi, lm, params, reqs, bound,
     the mesh legs, the mesh=None streams)."""
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import free_port, make_host_mesh
+    from repro_torch.launch.mesh import free_port, make_host_mesh, tally
 
     name = lm.cfg.name
     base, none_launches, none_legs = _tp_base(torch, seed, lm, params, reqs,
@@ -6107,8 +6110,8 @@ def _nccl_one(torch, dev, seed, smi, lm, params, reqs, bound,
                                      f"{launches} != mesh=None's "
                                      f"{none_launches[backend]}")
             for key, prog in eng._programs.items():
-                n = prog.collectives.get("all_reduce", 0)
-                g = prog.collectives.get("all_gather", 0)
+                got = tally(prog.collectives)
+                n, g = got["all_reduce"], got["all_gather"]
                 want = ((reduces * key[1], gathers * key[1])
                         if key[0] == "decode" else (n, g))
                 if (n, g) != want or n == 0 or g == 0:
@@ -6209,8 +6212,9 @@ def check_tensor_parallel(torch, dev, seed, smi, splits=True):
 # 20(b): (model, layers per stage at full width, ranks) sharing one card
 # over gloo, eager: mixtral's 8 experts 2 a rank (48 heads 12 a rank, its
 # 8 KV heads 2 a rank); deepseek's 256 experts 64 a rank, its MLA's 128
-# heads 32 a rank, the shared expert's and the dense layers' d_ff split
-MESH_MOE_GLOO = (("mixtral-8x22b", (2,), 4), ("deepseek-v3-671b", (3, 1), 4))
+# heads 32 a rank, the shared expert's and the dense layers' d_ff split;
+# deepseek cut to one dense and one MoE layer, for the script's time limit
+MESH_MOE_GLOO = (("mixtral-8x22b", (2,), 4), ("deepseek-v3-671b", (1, 1), 4))
 # 20(c), one card a rank on a machine with >= 2 cards, ring and paged
 # engines: mixtral at full depth and deepseek's 3 dense + 9 MoE layers
 # (MTP's params too), at 4 ranks; fewer cards serve the depth that fits as
@@ -6243,7 +6247,7 @@ def _moe_rank(rank, out_dir, cfg, seed, reqs, graphed, backends,
     import torch
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh
+    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh, tally
     from repro_torch.models.model import LM
 
     world = dist.get_world_size()
@@ -6292,13 +6296,14 @@ def _moe_rank(rank, out_dir, cfg, seed, reqs, graphed, backends,
         eng = _tp_engine(lm, params, seed, backend, mesh)
         before = dict(COLLECTIVES)
         out, wall, launches = _tp_serve(torch, eng, reqs, graphed)
+        since = tally(COLLECTIVES, before=before)
         step = eng.decode_s / eng.decode_steps * 1e3
         rec[backend] = dict(
             streams=[r.output.tolist() for r in out], wall_s=wall,
             tokens_per_s=sum(len(r.output) for r in out) / wall,
             decode_ms_per_step=step, launches=launches,
-            all_reduces=COLLECTIVES["all_reduce"] - before["all_reduce"],
-            all_gathers=COLLECTIVES["all_gather"] - before["all_gather"],
+            all_reduces=since["all_reduce"],
+            all_gathers=since["all_gather"],
             graphs=eng.graphs(), pool_bytes=eng.graph_pool_bytes(),
             mesh_devices=eng.metrics()["mesh_devices"])
         del eng
@@ -6565,10 +6570,11 @@ REC_MESH_MODELS = ("recurrentgemma-9b", "xlstm-125m")
 # 21(b): (model, stage repeats at full width (None: full depth), ranks)
 # sharing one card over gloo, eager: recurrentgemma's one (rec, rec, attn)
 # repeat and one trailing rec block, its 4,096 channels 1,024 a rank (16
-# query heads 4 a rank, each reading the one KV head whole); xlstm whole,
-# its 4 heads 2 and 1 a rank, its sLSTM GeGLU's 1,536 columns split
-MESH_REC_GLOO = (("recurrentgemma-9b", (1, 1), 4), ("xlstm-125m", None, 2),
-                 ("xlstm-125m", None, 4))
+# query heads 4 a rank, each reading the one KV head whole); xlstm cut to
+# two of its six (mLSTM, sLSTM) repeats, for the script's time limit, its
+# 4 heads 2 and 1 a rank, its sLSTM GeGLU's 1,536 columns split
+MESH_REC_GLOO = (("recurrentgemma-9b", (1, 1), 4), ("xlstm-125m", (2,), 2),
+                 ("xlstm-125m", (2,), 4))
 # 21(a) whole and 21(b) at MESH_MODAL_LAYERS layers on MESH_MODAL_RANKS
 # ranks, through LM: internvl2's projector whole on every rank, musicgen's
 # 2,048 rows of each of its 4 codebooks 512 a rank
@@ -6662,7 +6668,7 @@ def _rec_rank(rank, out_dir, cfg, seed, reqs, graphed, device="cuda"):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh
+    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh, tally
     from repro_torch.models.model import LM
 
     world = dist.get_world_size()
@@ -6700,13 +6706,14 @@ def _rec_rank(rank, out_dir, cfg, seed, reqs, graphed, device="cuda"):
     eng = _tp_engine(lm, params, seed, "ring", mesh)
     before = dict(COLLECTIVES)
     out, wall, launches = _tp_serve(torch, eng, reqs, graphed)
+    since = tally(COLLECTIVES, before=before)
     rec["ring"] = dict(
         streams=[r.output.tolist() for r in out], wall_s=wall,
         tokens_per_s=sum(len(r.output) for r in out) / wall,
         decode_ms_per_step=eng.decode_s / eng.decode_steps * 1e3,
         launches=launches,
-        all_reduces=COLLECTIVES["all_reduce"] - before["all_reduce"],
-        all_gathers=COLLECTIVES["all_gather"] - before["all_gather"],
+        all_reduces=since["all_reduce"],
+        all_gathers=since["all_gather"],
         graphs=eng.graphs(), pool_bytes=eng.graph_pool_bytes(),
         mesh_devices=eng.metrics()["mesh_devices"])
     rec["state_bytes"] = _rec_state_bytes(eng)
@@ -6825,7 +6832,7 @@ def _modal_greedy(torch, lm, params, batch, text_len, steps, mesh=None):
     tokens (B, steps[, C]), each call's last-position logits in f32, the
     last step's (all-reduces, all-gathers), the launches)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.launch.mesh import COLLECTIVES, tally
 
     prefix = lm.cfg.frontend.num_prefix_tokens if "image_embeds" in batch \
         else 0
@@ -6845,8 +6852,8 @@ def _modal_greedy(torch, lm, params, batch, text_len, steps, mesh=None):
         seen.append(logits[:, -1].float())
     if cuda:
         torch.cuda.synchronize()
-    coll = (COLLECTIVES["all_reduce"] - before["all_reduce"],
-            COLLECTIVES["all_gather"] - before["all_gather"])
+    since = tally(COLLECTIVES, before=before)
+    coll = (since["all_reduce"], since["all_gather"])
     return torch.stack(gen, 1), seen, coll, dict(LAUNCHES)
 
 
@@ -7048,6 +7055,649 @@ def check_rec_mesh(torch, dev, seed, smi, legs="abc"):
     return rec, dict(launches)
 
 
+# -- phase 22: the data axis ---------------------------------------------------
+
+# 22(a): (model, stage repeats at full width, backends) on a (2, 2) mesh of
+# gloo ranks sharing this card, eager: qwen3-4b's heads, KV heads and d_ff
+# split 2 ways on 'model' and d_model's contraction side 2 ways on 'data';
+# mixtral's 8 experts over ("data", "model"), 2 a rank, dropless
+DATA_MESH_GLOO = (("qwen3-4b", (8,), ("ring", "paged")),
+                  ("mixtral-8x22b", (2,), ("ring",)))
+DATA_MESH = (2, 2)                 # (data, model)
+DATA_MESH_CARDS = "qwen3-4b"       # 22(b): whole, on 4 cards as (2, 2)
+DP_MODEL = "smollm-135m"
+DP_BATCH = (8, 512)                # 22(c)'s global batch
+DP_F32_STEPS = 3
+DP_BF16_STEPS = 10
+DP_LR = 1e-3
+# f32: each data-parallel step against the one-device step on the global
+# batch from the same state (the first from the init, each later one from
+# the data-parallel state before it, so no step inherits an earlier one's
+# rounding): the loss (relative) and the first step's gradient (each leaf,
+# of its max |g|) as phase 18's TRAIN_LOSS_TOL / TRAIN_GRAD_TOL; every leaf
+# of AdamW's moments within TRAIN_GRAD_TOL of its max |.| (they sum
+# gradients, with no eps in them); every param within DP_PARAM_TOL of its
+# leaf's max |p| plus DP_STEP_TOL lr plus lr times the most by which
+# AdamW's step m^/(sqrt(v^) + eps) of the one-device moments moves when
+# they move by their leaf's measured disagreement (an element whose m is
+# near 0 may step either way, one whose sqrt(v^) is near eps moves with
+# its gradient's last bits), and never past 2.5 lr
+DP_PARAM_TOL = 1e-5
+DP_STEP_TOL = 1e-4
+FED_ROUNDS, FED_LOCAL = 2, 4       # 22(d)
+FED_BATCH = (4, 256)               # each edge cloud's batch
+FED_LR = 0.01
+FED_TOL = 1e-5                     # f32, of a leaf's max |p|
+
+
+def _dm_step_collectives(cfg):
+    """(model, data, world) collectives one decode step issues on a (2, 2)
+    mesh by the design, for a dense GQA or an MoE stack whose heads, KV
+    heads, d_ff, vocab and experts all divide: per attention layer ``wo``'s
+    model sum and one data sum of the joined q/k/v partials; per dense MLP
+    ``w_down``'s model sum and one data sum of gate/up; per MoE layer the
+    router's data sum, its logits' model gather and one sum of the routed
+    and shared partials over the whole mesh; once a step the norm scales'
+    data gather, the embedding's join over the whole mesh and the
+    unembedding's data sum and model gather."""
+    model, data, world = 1, 2, 1
+    for st in cfg.stages:
+        for b in st.blocks:
+            model += st.repeat * (1 + (b.mlp == "moe"))
+            data += st.repeat * 2
+            world += st.repeat * (b.mlp == "moe")
+            model += st.repeat * (b.mlp not in ("moe", "none"))
+    return {"model": model, "data": data, "world": world}
+
+
+def _dm_shard_bytes(lm, data, model):
+    """Bytes a rank's shards of ``lm``'s params take at (data, model) under
+    the decode rules (``serving.sharding``'s specs)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.serving.sharding import param_shardings, shard_shape
+
+    mesh = AbstractMesh(model, data)
+
+    def walk(spec, leaf):
+        if isinstance(spec, dict):
+            return sum(walk(spec[k], leaf[k]) for k in spec)
+        if isinstance(spec, list):
+            return sum(walk(s, x) for s, x in zip(spec, leaf))
+        shape, dtype, _ = leaf
+        return int(np.prod(shard_shape(mesh, shape, spec))) * dtype.itemsize
+
+    return walk(param_shardings(mesh, lm), lm.param_spec())
+
+
+def _dm_rank(rank, out_dir, cfg, seed, reqs, model, backends, graphed,
+             device="cuda"):
+    """One rank of a phase-22 (data, model) mesh (spawned): its 2-D shards
+    drawn by ``LM.init(..., mesh=)`` (ranks sharing one card over gloo in
+    turns), one decode step's collectives by axis, then ``backends``'
+    engines on the trace (graphed under NCCL: each decode program's
+    collectives by axis). Its record to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh, tally
+    from repro_torch.models.model import LM
+
+    world = dist.get_world_size()
+    nccl = dist.get_backend() == "nccl"
+    if device == "cuda":
+        if not nccl:
+            os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                                  "expandable_segments:True")
+        device = f"cuda:{rank}" if nccl else "cuda:0"
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    mesh = make_host_mesh(model, device=dev)
+    lm = LM(cfg, device=dev, capacity_factor=_dropless(cfg) if cfg.moe
+            else 1.25)
+    t0 = time.perf_counter()
+    for turn in range(1 if nccl else world):
+        if nccl or turn == rank:
+            params = lm.init(seed, on_device=True, mesh=mesh)
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+        if not nccl:
+            dist.barrier()
+    rec = dict(init_s=time.perf_counter() - t0,
+               place=[mesh.rank, mesh.data_rank, mesh.model_rank],
+               param_bytes=sum(t.numel() * t.element_size()
+                               for t in _leaves(params)))
+    cache = lm.init_cache(2, 64, mesh=mesh)
+    tokens = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    before = dict(COLLECTIVES)
+    lm.decode_step(params, cache, tokens, 0, mesh=mesh)
+    rec["step_collectives"] = tally(COLLECTIVES, "axis", before)
+    del cache
+    for backend in backends:
+        eng = _tp_engine(lm, params, seed, backend, mesh)
+        before = dict(COLLECTIVES)
+        out, wall, launches = _tp_serve(torch, eng, reqs, graphed)
+        since = tally(COLLECTIVES, before=before)
+        step = eng.decode_s / eng.decode_steps * 1e3
+        rec[backend] = dict(
+            streams=[r.output.tolist() for r in out], wall_s=wall,
+            tokens_per_s=sum(len(r.output) for r in out) / wall,
+            decode_ms_per_step=step, launches=launches,
+            all_reduces=since["all_reduce"],
+            all_gathers=since["all_gather"],
+            kv_bytes=_tp_kv_bytes(eng), graphs=eng.graphs(),
+            mesh_devices=eng.metrics()["mesh_devices"],
+            programs={str(k): p.collectives
+                      for k, p in eng._programs.items()
+                      if graphed and k[0] == "decode"})
+        del eng
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    if cuda:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _dm_serve(torch, dev, seed, smi, name, depth, backends, ranks, backend,
+              graphed, other=None):
+    """22(a) and (b): ``name`` at ``depth`` (None: whole) on a
+    ``DATA_MESH`` mesh of ``ranks`` processes over ``backend``, against
+    ``mesh=None`` (its streams and their near-ties computed first, then its
+    weights freed): the ranks' streams equal, equal ``mesh=None``'s or
+    part first at a near-tie (``_mesh_hold``), launches equal
+    ``mesh=None``'s; each rank's parameter bytes the decode specs' shard
+    at (2, 2); a decode step's collectives by axis the design's
+    (``_dm_step_collectives``), and under NCCL each decode program's; with
+    ``other`` ({backend: streams} of a 1-D mesh of the same model and
+    trace), how many streams equal it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import tally
+    from repro_torch.models.model import LM
+
+    cfg = get_config(name)
+    if depth is not None:
+        cfg = _cut_stages(cfg, depth)
+    lm = LM(cfg, device=dev, capacity_factor=_dropless(cfg) if cfg.moe
+            else 1.25)
+    params = lm.init(seed, on_device=True)
+    reqs = _tp_trace(seed, cfg.vocab_size)
+    base, none_launches, _ = _tp_base(torch, seed, lm, params, reqs,
+                                      graphed, backends=backends)
+    ties = {b: _quiet(_teacher_ties, torch, lm, params, seed, reqs, base[b])
+            for b in base}
+    whole = _weight_bytes(params)
+    shard = _dm_shard_bytes(lm, *DATA_MESH)
+    design = _dm_step_collectives(cfg)
+    del lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = _spawn_ranks(_dm_rank, ranks, (cfg, seed, reqs, DATA_MESH[1],
+                                          backends, graphed, dev.type),
+                        backend)
+    cut = ("whole" if depth is None
+           else "+".join(map(str, depth)) + " layers")
+    label = f"{name} ({cut}) on a (2, 2) mesh over {backend}"
+    rec = _mesh_hold(label, smi, recs, base, ties, none_launches, ranks,
+                     backends)
+    for r, got in enumerate(recs):
+        d, m = r // DATA_MESH[1], r % DATA_MESH[1]
+        if got["place"] != [r, d, m]:
+            raise AssertionError(f"{label}: rank {r} sits at {got['place']}")
+        if got["param_bytes"] != shard:
+            raise AssertionError(f"{label}: rank {r} holds "
+                                 f"{got['param_bytes']} B of params, the "
+                                 f"decode specs' (2, 2) shard is {shard} B")
+        if got["step_collectives"] != design:
+            raise AssertionError(f"{label}: rank {r}'s decode step issues "
+                                 f"{got['step_collectives']}, the design "
+                                 f"{design}")
+        for b in backends:
+            for key, n in got[b]["programs"].items():
+                k = int(key.split(",")[1])
+                if tally(n, "axis") != {a: k * c
+                                        for a, c in design.items()}:
+                    raise AssertionError(f"{label} {b}: program {key} "
+                                         f"captured {n}, the design "
+                                         f"{design} a step")
+    print(f"  {label}: {shard / 1e9:.3f} GB of params a rank (the decode "
+          f"specs' (2, 2) shard of {whole / 1e9:.3f} GB); a decode step "
+          f"issues {design} collectives (model, data, world), the design's;"
+          f" peak {max(g.get('peak_bytes', 0) for g in recs) / 1e9:.2f} GB "
+          f"a rank [{smi}]")
+    for b in backends:
+        if b in (other or {}):
+            same = sum(a == o for a, o in zip(rec[b]["ranks"][0]["streams"],
+                                              other[b]))
+            print(f"  {label} {b}: {same} of {len(reqs)} streams equal the "
+                  f"1-D mesh's")
+            rec[b]["equal_1d"] = same
+    rec.update(param_bytes=shard, whole_bytes=whole, step_collectives=design,
+               seconds=time.perf_counter() - t0)
+    return rec
+
+
+def _dp_f32_schedule(step):
+    import torch
+    return torch.full((), DP_LR, dtype=torch.float32, device=step.device)
+
+
+def _spec_bytes(spec) -> int:
+    """Bytes of a ``param_spec`` tree ((shape, dtype, init) leaves)."""
+    if isinstance(spec, dict):
+        return sum(_spec_bytes(v) for v in spec.values())
+    if isinstance(spec, list):
+        return sum(_spec_bytes(v) for v in spec)
+    shape, dtype, _ = spec
+    return int(np.prod(shape)) * dtype.itemsize
+
+
+def _adam_step_spread(m, v, dm, dv, k, b1=0.9, b2=0.95, eps=1e-8):
+    """The most by which AdamW's step ``m^/(sqrt(v^) + eps)`` after step
+    ``k`` (``optim.adamw_update``'s defaults) moves when its moments ``m``
+    and ``v`` move by up to ``dm`` and ``dv`` (elementwise; the quotient's
+    interval over the box of moments)."""
+    c1, c2 = 1 - b1 ** k, 1 - b2 ** k
+    u = (m / c1) / ((v / c2).sqrt() + eps)
+    d_lo = ((v - dv).clamp_min(0) / c2).sqrt() + eps
+    d_hi = ((v + dv) / c2).sqrt() + eps
+    n_lo, n_hi = (m - dm) / c1, (m + dm) / c1
+    hi = (n_hi / d_lo).maximum(n_hi / d_hi)
+    lo = (n_lo / d_lo).minimum(n_lo / d_hi)
+    return (hi - u).maximum(u - lo)
+
+
+def _dp_leaf_check(k, got, want, moments):
+    """Step ``k``'s params ``got`` and AdamW moments against the one-device
+    step's ``want`` from the same state, leaf by leaf (flat dicts;
+    ``moments`` ((mu, nu) got, (mu, nu) want)), under the ``DP_*`` rule.
+    Returns (the largest moment error of a leaf's max, the share of
+    elements whose tolerance reaches the 2.5 lr cap, the largest |diff|,
+    the failures)."""
+    fails, m_err = [], 0.0
+    dm = {}
+    for name, gm, wm in zip(("mu", "nu"), *moments):
+        for key in wm:
+            b = wm[key].float()
+            off = float((gm[key].float() - b).abs().max())
+            dm[name, key] = off
+            err = off / max(float(b.abs().max()), 1e-30)
+            m_err = max(m_err, err)
+            if err > TRAIN_GRAD_TOL:
+                fails.append(f"{name} of {key} off by {err:.3g} of its max")
+    mu, nu = moments[1]
+    capped = total = 0
+    worst = 0.0
+    cap = 2.5 * DP_LR
+    for key in want:
+        a, b = got[key].float(), want[key].float()
+        off = (a - b).abs()
+        spread = DP_LR * _adam_step_spread(mu[key].float(), nu[key].float(),
+                                           dm["mu", key], dm["nu", key], k)
+        tol = (DP_PARAM_TOL * float(b.abs().max()) + DP_STEP_TOL * DP_LR
+               + spread).clamp_max(cap)
+        bad = off > tol
+        if bool(bad.any()):
+            fails.append(f"{key}: {int(bad.sum())} of {off.numel()} "
+                         f"elements past their tolerance, max |diff| "
+                         f"{float(off[bad].max()):.3g}")
+        capped += int((tol >= cap).sum())
+        total += off.numel()
+        worst = max(worst, float(off.max()))
+    return m_err, capped / total, worst, fails[:8]
+
+
+def _dp_rank(rank, out_dir, seed, device="cuda"):
+    """One rank of 22(c) and (d) on a (world, 1) mesh (spawned). (c):
+    smollm-135m at full width in f32, ``DP_F32_STEPS`` data-parallel steps
+    on its rows of ``DP_BATCH`` global batches, each followed (rank 0) by
+    the one-device step on the global batch from the state the step began
+    from, compared; ``DP_BF16_STEPS`` bf16 steps
+    timed. (d): ``FederatedTrainer`` on ``LM.loss``, each data rank an
+    edge cloud with its own ``TokenStream``, ``FED_ROUNDS`` rounds of
+    ``FED_LOCAL`` steps; the ranks' params hashed after each round, and
+    (rank 0) a one-process simulation. Its record to ``out_dir``."""
+    import hashlib
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh, tally
+    from repro_torch.models.model import LM
+    from repro_torch.optim import (adamw_init, linear_warmup_cosine,
+                                   sgd_init, sgd_update)
+    from repro_torch.training import FederatedTrainer
+    from repro_torch.training.train_loop import (gather_whole, loss_and_grads,
+                                                 make_train_step,
+                                                 mesh_loss_and_grads,
+                                                 place_train_params, rebuild,
+                                                 train_splits)
+    from repro_torch.utils.tree import flat_paths, tree_leaves, tree_map
+
+    nccl = dist.get_backend() == "nccl"
+    if device == "cuda":
+        if not nccl:
+            os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                                  "expandable_segments:True")
+        device = f"cuda:{rank}" if nccl else "cuda:0"
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    mesh = make_host_mesh(1, device=dev)
+    world, lead = mesh.size, rank == 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def to_dev(b):
+        return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+
+    rec, t0 = {}, time.perf_counter()
+    # (c) f32: the data-parallel steps, then the one-device ones
+    cfg32 = dataclasses.replace(get_config(DP_MODEL), param_dtype="float32")
+    lm = LM(cfg32, device=dev)
+    start = lm.init(seed, on_device=True)
+    params = place_train_params(mesh, lm, start)
+    if not lead:
+        del start
+    host = list(zip(range(DP_F32_STEPS), TokenStream(
+        cfg32.vocab_size, seed=seed).batches(*DP_BATCH)))
+    step = make_train_step(lm, _dp_f32_schedule, mesh=mesh)
+    dims = tree_leaves(train_splits(mesh, lm))
+    opt = adamw_init(params)
+    losses, ref, checks = [], [], []
+    if lead:
+        ref_step = make_train_step(lm, _dp_f32_schedule)
+        p, o = start, adamw_init(start)
+    reset_launches()
+    for i, hb in host:
+        rows = next(ShardedLoader(iter([hb]), mesh=mesh, device=dev))
+        if i == 0:
+            _, _, g1 = mesh_loss_and_grads(lm, mesh, params, rows, dims)
+            g1 = rebuild(g1, gather_whole(mesh, tree_leaves(g1), dims))
+        params, opt, m = step(params, opt, rows)
+        losses.append(float(m["loss"]))
+        got = rebuild(params, gather_whole(mesh, tree_leaves(params), dims))
+        mom = [rebuild(params, gather_whole(mesh, tree_leaves(t), dims))
+               for t in (opt.mu, opt.nu)]
+        if lead:
+            # the one-device step on the global batch from the state this
+            # step started from (the data-parallel one after the first)
+            b = to_dev(hb)
+            if i == 0:
+                _, _, rg1 = loss_and_grads(lm, p, b)
+                a, w = flat_paths(g1), flat_paths(rg1)
+                grad_err = max(float((a[k] - w[k]).abs().max()
+                                     / w[k].abs().max().clamp_min(1e-30))
+                               for k in w)
+                del rg1
+            p, o, m = ref_step(p, o, b)
+            ref.append(float(m["loss"]))
+            checks.append(_dp_leaf_check(
+                i + 1, flat_paths(got), flat_paths(p),
+                ([flat_paths(t) for t in mom],
+                 [flat_paths(o.mu), flat_paths(o.nu)])))
+            p, o = got, o._replace(mu=mom[0], nu=mom[1])
+        del got, mom
+    rec["f32"] = dict(losses=losses, launches=dict(LAUNCHES),
+                      seconds=time.perf_counter() - t0)
+    if lead:
+        rec["f32"].update(ref_losses=ref, grad_err=grad_err, steps=checks)
+        del p, o, start
+    del params, opt, g1
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    # (c) bf16: timed steps
+    t0 = time.perf_counter()
+    cfg16 = get_config(DP_MODEL)
+    lm16 = LM(cfg16, device=dev)
+    params = place_train_params(mesh, lm16, lm16.init(seed, on_device=True))
+    opt = adamw_init(params)
+    step = make_train_step(lm16, linear_warmup_cosine(3e-3, 5,
+                                                      DP_BF16_STEPS),
+                           mesh=mesh)
+    # the f32 steps' global batches in turn (numpy makes one in 2-6 s), as
+    # phase 18 takes TRAIN_DISTINCT batches
+    loader = ShardedLoader(itertools.cycle([hb for _, hb in host]),
+                           mesh=mesh, device=dev)
+    times, losses = [], []
+    reset_launches()
+    for _ in range(DP_BF16_STEPS):
+        b = next(loader)
+        sync()
+        ts = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - ts) * 1e3)
+    rec["bf16"] = dict(
+        ms=times, losses=losses, launches=dict(LAUNCHES),
+        param_bytes=sum(t.numel() * t.element_size()
+                        for t in tree_leaves(params)),
+        moment_bytes=sum(t.numel() * t.element_size()
+                         for t in tree_leaves((opt.mu, opt.nu))),
+        whole_param_bytes=_spec_bytes(lm16.param_spec()),
+        peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else 0,
+        seconds=time.perf_counter() - t0)
+    del params, opt
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    # (d) FedAvg over the ranks, each an edge cloud
+    t0 = time.perf_counter()
+    fed_start = lm.init(seed + 1, on_device=True)
+
+    def loss_fn(p, b):
+        return lm.loss(p, b, train=True)[0]
+
+    clouds = [to_dev(next(TokenStream(cfg32.vocab_size,
+                                      seed=seed + 100 + c).batches(
+                                          *FED_BATCH))) for c in range(world)]
+    ft = FederatedTrainer(loss_fn, mesh, lr=FED_LR, local_steps=FED_LOCAL)
+    params = ft.replicate(fed_start)
+    opt = ft.init_opt(params)
+    fed = dict(losses=[], digests=[], rounds=[], counts=[])
+    reset_launches()
+    for _ in range(FED_ROUNDS):
+        before = dict(COLLECTIVES)
+        params, opt, loss = ft.round(params, opt, clouds[mesh.data_rank])
+        fed["counts"].append(tally(COLLECTIVES, "axis", before))
+        fed["losses"].append(float(loss))
+        h = hashlib.sha1()
+        for t in tree_leaves(params):
+            h.update(t.detach().cpu().numpy().tobytes())
+        box = [None] * world
+        dist.all_gather_object(box, h.hexdigest(), group=mesh._host)
+        fed["digests"].append(box)
+        if lead:
+            fed["rounds"].append(tree_map(lambda t: t.detach().clone(),
+                                          params))
+    fed["launches"] = dict(LAUNCHES)
+    if lead:
+        # the one-process simulation: the replicas stepped in turn, then
+        # their f32 mean
+        reps = [tree_map(lambda t: t.clone(), fed_start)
+                for _ in range(world)]
+        opts = [sgd_init(r) for r in reps]
+        errs = []
+        for rnd in range(FED_ROUNDS):
+            for c in range(world):
+                for _ in range(FED_LOCAL):
+                    live = tree_map(lambda t: t.detach().requires_grad_(),
+                                    reps[c])
+                    leaves = tree_leaves(live)
+                    with torch.enable_grad():
+                        loss = loss_fn(live, clouds[c])
+                        grads = torch.autograd.grad(loss, leaves,
+                                                    allow_unused=True)
+                    g = rebuild(reps[c], [torch.zeros_like(x) if d is None
+                                          else d
+                                          for x, d in zip(leaves, grads)])
+                    reps[c], opts[c] = sgd_update(reps[c], g, opts[c],
+                                                  lr=FED_LR)
+            flats = [flat_paths(r) for r in reps]
+            mean = {k: sum(f[k].float() for f in flats) / world
+                    for k in flats[0]}
+            reps = [rebuild(fed_start, list(mean.values()))
+                    for _ in range(world)]
+            mine = flat_paths(fed["rounds"][rnd])
+            errs.append(max(float((mine[k] - mean[k]).abs().max()
+                                  / mean[k].abs().max().clamp_min(1e-30))
+                            for k in mean))
+        fed["sim_err"] = errs
+    del fed["rounds"]
+    fed["seconds"] = time.perf_counter() - t0
+    rec["fed"] = fed
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def check_data_parallel(torch, dev, seed, smi, ranks, backend):
+    """22(c) and (d) on ``ranks`` processes over ``backend`` (``_dp_rank``),
+    held: each of ``DP_F32_STEPS`` f32 data-parallel steps against the
+    one-device step from the same state, its loss within
+    ``TRAIN_LOSS_TOL``, the first step's reduced gradient every leaf's
+    within ``TRAIN_GRAD_TOL`` of its max |g|, the moments and params under
+    the ``DP_*`` rule (``_dp_leaf_check``); the bf16 ms a
+    step, each rank's params and moments bytes (1/ranks of the whole
+    where the train rules split), the flash launches a step; FedAvg: the
+    ranks' params bit-equal after each round, each round one all-reduce
+    over 'data' and no other collective, within ``FED_TOL`` of the
+    one-process simulation, the mean loss falling. Returns (record, rank
+    0's launches)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    recs = _spawn_ranks(_dp_rank, ranks, (seed, dev.type), backend)
+    lead = recs[0]
+    f32, bf16, fed = lead["f32"], lead["bf16"], lead["fed"]
+    label = f"smollm-135m data-parallel on {ranks} {backend} ranks"
+    for r, rec in enumerate(recs):
+        if rec["f32"]["losses"] != f32["losses"] or \
+                rec["bf16"]["losses"] != bf16["losses"]:
+            raise AssertionError(f"{label}: rank {r}'s losses differ")
+    for a, b in zip(f32["losses"], f32["ref_losses"]):
+        if abs(a - b) > TRAIN_LOSS_TOL * abs(b):
+            raise AssertionError(f"{label}: f32 losses {f32['losses']} != "
+                                 f"the one-device {f32['ref_losses']}")
+    if f32["grad_err"] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"{label}: a reduced gradient leaf is off by "
+                             f"{f32['grad_err']:.3g} of its max |g|")
+    for k, (_, _, _, fails) in enumerate(f32["steps"], 1):
+        if fails:
+            raise AssertionError(f"{label}: after step {k}: "
+                                 + "; ".join(fails))
+    cfg = get_config(DP_MODEL)
+    want = _train_launches(cfg, DP_BF16_STEPS)
+    for k in ("flash_attention", "flash_attention_bwd"):
+        if bf16["launches"].get(k, 0) != want[k]:
+            raise AssertionError(f"{label}: {k} launched "
+                                 f"{bf16['launches'].get(k, 0)} times in "
+                                 f"{DP_BF16_STEPS} steps, want {want[k]}")
+    ms = statistics.median(bf16["ms"][2:])
+    print(f"  {label}, f32, {DP_F32_STEPS} steps of {DP_BATCH[0]} x "
+          f"{DP_BATCH[1]}: losses {[round(x, 6) for x in f32['losses']]} "
+          f"against one device's {[round(x, 6) for x in f32['ref_losses']]}"
+          f"; first-step gradient within {f32['grad_err']:.2g} of each "
+          f"leaf's max |g|; after each step, the moments within "
+          f"{[f'{c[0]:.2g}' for c in f32['steps']]} of each leaf's max, the"
+          f" params within {DP_PARAM_TOL} max|p| + {DP_STEP_TOL} lr + the "
+          f"moments' spread (the 2.5 lr cap for "
+          f"{[f'{c[1]:.2g}' for c in f32['steps']]} of the elements), max "
+          f"|diff| {[f'{c[2]:.3g}' for c in f32['steps']]}")
+    print(f"  {label}, bf16 [{smi}]: {ms:.1f} ms a step (median of steps "
+          f"3-{DP_BF16_STEPS}), loss {bf16['losses'][0]:.3f} -> "
+          f"{bf16['losses'][-1]:.3f}; params {bf16['param_bytes'] / 1e6:.1f}"
+          f" MB and moments {bf16['moment_bytes'] / 1e6:.1f} MB a rank (of "
+          f"{bf16['whole_param_bytes'] / 1e6:.1f} MB of params whole); "
+          f"peak {bf16['peak_bytes'] / 1e9:.2f} GB; launches "
+          f"{bf16['launches']}")
+    for r, rec in enumerate(recs):
+        for rnd, box in enumerate(rec["fed"]["digests"]):
+            if len(set(box)) != 1:
+                raise AssertionError(f"{label}: FedAvg round {rnd}: the "
+                                     f"ranks' params differ")
+        for rnd, c in enumerate(rec["fed"]["counts"]):
+            if c != {"model": 0, "data": 1, "world": 0}:
+                raise AssertionError(f"{label}: FedAvg round {rnd} issued "
+                                     f"{c} collectives")
+    if max(fed["sim_err"]) > FED_TOL or \
+            not fed["losses"][-1] < fed["losses"][0]:
+        raise AssertionError(f"{label}: FedAvg against the simulation "
+                             f"{fed['sim_err']}, losses {fed['losses']}")
+    print(f"  {label}: rank 0's seconds: f32 (with the one-device steps) "
+          f"{f32['seconds']:.1f}, bf16 {bf16['seconds']:.1f}, FedAvg (with "
+          f"the simulation) {fed['seconds']:.1f}; the phase "
+          f"{time.perf_counter() - t0:.1f} with the spawn")
+    print(f"  FedAvg on {ranks} edge clouds ({FED_ROUNDS} rounds of "
+          f"{FED_LOCAL} local steps, {FED_BATCH[0]} x {FED_BATCH[1]} a "
+          f"cloud, f32): the ranks' params bit-equal after every round; one"
+          f" all-reduce over 'data' a round and no other collective; "
+          f"within {max(fed['sim_err']):.2g} of the one-process simulation;"
+          f" mean loss {fed['losses']}; launches {fed['launches']}")
+    launches = collections.Counter(bf16["launches"])
+    launches.update(f32["launches"])
+    launches.update(fed["launches"])
+    return dict(ranks=ranks, backend=backend, f32=f32,
+                bf16=dict(bf16, median_ms=ms), fed=fed,
+                seconds=time.perf_counter() - t0), dict(launches)
+
+
+def check_data_axis(torch, dev, seed, smi, legs="abcd", tp_stats=None):
+    """Phase 22, its ``legs``: (a) ``DATA_MESH_GLOO`` on a (2, 2) mesh of
+    4 gloo ranks sharing this card, eager (``_dm_serve``; qwen3-4b's
+    streams also against phase 19's (1, 2) mesh when given); (b) with 4
+    cards or more, ``DATA_MESH_CARDS`` whole on a (2, 2) NCCL mesh, graphed
+    (against phase 19's four-card streams when given); (c) and (d) on
+    min(cards, 4) NCCL ranks, or 2 gloo ranks sharing this card
+    (``check_data_parallel``). Returns (record, launches of (a)'s rank 0
+    and of (c) and (d))."""
+    rec, launches = {}, collections.Counter()
+    for name, depth, backends in DATA_MESH_GLOO if "a" in legs else ():
+        other = None
+        if tp_stats is not None and name in tp_stats:
+            other = {b: tp_stats[name][b]["ranks"][0]["streams"]
+                     for b in backends if b in tp_stats[name]}
+        got = _dm_serve(torch, dev, seed, smi, name, depth, backends, 4,
+                        "gloo", False, other)
+        for b in backends:
+            launches.update(got[b]["ranks"][0]["launches"])
+        rec[f"{name}_gloo"] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    if "b" in legs and cards >= 4:
+        other = None
+        if tp_stats is not None and "nccl_4" in tp_stats:
+            other = {b: tp_stats["nccl_4"][b]["ranks"][0]["streams"]
+                     for b in ("ring", "paged")}
+        rec[f"{DATA_MESH_CARDS}_nccl_4"] = _dm_serve(
+            torch, dev, seed, smi, DATA_MESH_CARDS, None, ("ring", "paged"),
+            4, "nccl", True, other)
+    elif "b" in legs:
+        print(f"  {cards} card{'s' * (cards > 1)}: 22(b), the (2, 2) NCCL "
+              f"mesh, needs 4 cards; skipped")
+    if "c" in legs:
+        n = min(cards, 4)
+        ranks, backend = (n, "nccl") if n >= 2 else (2, "gloo")
+        rec["train"], got = check_data_parallel(torch, dev, seed, smi,
+                                                ranks, backend)
+        launches.update(got)
+    return rec, dict(launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7056,10 +7706,10 @@ def main() -> int:
                     help="also profile the phase-4, 5, 7, 9 and qwen3-4b's "
                          "phase-10 ring traces on the device")
     ap.add_argument("--only", choices=["19", "19a", "20", "20a", "20c", "21",
-                                       "21a", "21c"],
+                                       "21a", "21c", "22", "22b", "22c"],
                     help="run phase 1 and this phase alone, or its NCCL "
-                         "meshes alone (19a, 20a, 21a), or 20(c) or 21(c) "
-                         "alone, the multi-card meshes (no result lines: "
+                         "meshes alone (19a, 20a, 21a), or 20(c), 21(c), "
+                         "22(b) or 22(c) and (d) alone (no result lines: "
                          "the contract's run is the whole script)")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -7108,6 +7758,11 @@ def main() -> int:
             phase(f"[{args.only}] tensor-parallel serving alone")
             check_tensor_parallel(torch, dev, args.seed, smi,
                                   splits=args.only == "19")
+        elif args.only.startswith("22"):
+            phase(f"[{args.only}] the data axis alone")
+            check_data_axis(torch, dev, args.seed, smi,
+                            legs={"22": "abc", "22b": "b",
+                                  "22c": "c"}[args.only])
         elif args.only.startswith("21"):
             phase(f"[{args.only}] the recurrent mixers and the frontends on "
                   f"the mesh alone")
@@ -7243,7 +7898,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("[19] tensor-parallel serving: qwen3-4b on a one-rank NCCL mesh "
           "(ring and paged, graphed) against mesh=None; real splits on this "
-          "card over gloo: qwen3-4b (8 layers) on 2 ranks, glm4-9b (4 "
+          "card over gloo: qwen3-4b (8 layers) on 2 ranks, glm4-9b (2 "
           "layers) on 4")
     tp_stats, tp_launches = check_tensor_parallel(torch, dev, args.seed, smi)
     for name, n in tp_launches.items():
@@ -7253,7 +7908,7 @@ def main() -> int:
     phase("[20] MoE and MLA on the mesh: mixtral-8x22b (6 layers) and "
           "deepseek-v3-671b (3 + 1) on a one-rank NCCL mesh (ring and "
           "paged, graphed, dropless) against mesh=None; real splits on this "
-          "card over gloo: mixtral (2 layers) and deepseek (3 + 1) on 4 "
+          "card over gloo: mixtral (2 layers) and deepseek (1 + 1) on 4 "
           "ranks")
     moe_mesh_stats, moe_mesh_launches = check_moe_mesh(torch, dev,
                                                        args.seed, smi)
@@ -7265,11 +7920,24 @@ def main() -> int:
           "recurrentgemma-9b (38 layers) and xlstm-125m on a one-rank NCCL "
           "mesh (ring, graphed), internvl2-2b and musicgen-medium through "
           "LM, against mesh=None; real splits on this card over gloo: "
-          "recurrentgemma (4 layers) on 4 ranks, xlstm on 2 and 4, the "
+          "recurrentgemma (4 layers) on 4 ranks, xlstm (4 layers) on 2 and "
+          "4, the "
           "frontends (4 layers) on 4")
     rec_mesh_stats, rec_mesh_launches = check_rec_mesh(torch, dev,
                                                        args.seed, smi)
     for name, n in rec_mesh_launches.items():
+        launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("[22] the data axis: qwen3-4b (8 layers, ring and paged) and "
+          "mixtral-8x22b (2 layers, ring) on a (2, 2) mesh of gloo ranks on "
+          "this card against mesh=None; with 4 cards qwen3-4b whole on a "
+          "(2, 2) NCCL mesh, graphed; smollm-135m data-parallel training "
+          "(f32 against one device, bf16 timed) and FedAvg on min(cards, "
+          "4) NCCL ranks or 2 gloo ranks")
+    dm_stats, dm_launches = check_data_axis(torch, dev, args.seed, smi,
+                                            tp_stats=tp_stats)
+    for name, n in dm_launches.items():
         launches[name] += n
     if args.profile:
         from repro_torch.configs import get_config
@@ -7343,6 +8011,7 @@ def main() -> int:
                        "tensor_parallel": tp_stats,
                        "moe_mesh": moe_mesh_stats,
                        "rec_mesh": rec_mesh_stats,
+                       "data_axis": dm_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

@@ -1,22 +1,32 @@
 """Meshes over ``torch.distributed``: one process per rank.
 
 ``repro`` builds a ``jax.sharding.Mesh`` of ("data", "model") over the
-devices one controller sees. The port runs SPMD instead: each rank is a
-process holding its shards, and ``HostMesh`` is its view of the mesh over
-an initialised process group, shape ``{"data": 1, "model": N}``, with its
-rank, the device its shards live on and the collectives the model and the
-engine issue. NCCL on the card (each rank on its own card, or gloo with
-several ranks on one card, which is the only way one card sees real
-splits); gloo on the CPU. A ``data`` axis above 1 (``repro``'s FSDP over
-``data``) is not ported.
+devices one controller sees, laid out as (n // model, model). The port
+runs SPMD instead: each rank is a process holding its shards, and
+``HostMesh`` is its view of the mesh over an initialised process group,
+shape ``{"data": D, "model": M}``: rank r sits at data index ``r // M``
+and model index ``r % M``, as ``repro``'s device grid numbers them, so a
+dimension split over ("data", "model") gives rank r chunk r. NCCL on the
+card (each rank on its own card, or gloo with several ranks on one card,
+which is the only way one card sees real splits); gloo on the CPU.
+
+Each collective names the axis it runs over: ``"model"`` (the default:
+the ranks of this rank's data row, as every call of the tensor-parallel
+layers means), ``"data"`` (the ranks of this rank's model column) or
+``"world"`` (every rank). Every rank builds the same subgroups in the same
+order (each data row's model group, then each model column's data group),
+as ``dist.new_group`` requires; an axis of the whole mesh is the group
+itself, so a data-1 mesh issues exactly the calls on exactly the group it
+always did.
 
 Float payloads reduce in float32 and are cast back, so a sum of bf16
 partials rounds once. A gather is NCCL's ``all_gather_into_tensor``; on
 gloo, which takes only ``all_reduce`` and ``broadcast`` on CUDA tensors,
 it is an ``all_reduce`` of a zero-filled full tensor holding each rank's
-slice (exact: a sum with zeros). ``COLLECTIVES`` counts the calls, as
-``kernels.LAUNCHES`` counts kernel launches, so a CUDA graph can say that
-it captured them.
+slice (exact: a sum with zeros). ``COLLECTIVES`` counts the calls by kind
+and axis ("all_reduce/data", ...), as ``kernels.LAUNCHES`` counts kernel
+launches, so a CUDA graph can say that it captured them; ``tally`` sums
+such counts by kind or by axis.
 
 ``spawn`` starts N ranks as processes (``torch.multiprocessing``, each
 with its own rendezvous), and ``free_port`` finds a port for a TCP
@@ -33,8 +43,32 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
-                               "broadcast": 0}
+# every call, by kind and the axis it ran over: "all_reduce/data" and so
+# on (a broadcast's axis is "world")
+COLLECTIVES: Dict[str, int] = {}
+KINDS = ("all_reduce", "all_gather", "broadcast", "reduce_scatter")
+AXES = ("model", "data", "world")
+
+# the group of an axis of size 1 inside a larger mesh (no collective)
+_TRIVIAL = object()
+
+
+def _count(kind: str, axis: str) -> None:
+    key = f"{kind}/{axis}"
+    COLLECTIVES[key] = COLLECTIVES.get(key, 0) + 1
+
+
+def tally(counts: Dict[str, int], by: str = "kind",
+          before: Optional[Dict[str, int]] = None) -> Dict[str, int]:
+    """``counts`` ("kind/axis" keys: ``COLLECTIVES`` or a captured
+    program's record) less ``before`` (an earlier copy), summed by
+    ``by``: "kind" ({"all_reduce": n, ...} over ``KINDS``) or "axis"
+    ({"model": n, "data": n, "world": n})."""
+    part = 0 if by == "kind" else 1
+    out = dict.fromkeys(KINDS if by == "kind" else AXES, 0)
+    for key, n in counts.items():
+        out[key.split("/")[part]] += n - (before or {}).get(key, 0)
+    return out
 
 
 class AbstractMesh:
@@ -55,11 +89,14 @@ class AbstractMesh:
 
 class HostMesh(AbstractMesh):
     """This rank's view of a ("data", "model") mesh over the process group
-    ``group`` (the default group if None). ``device`` is where this rank's
-    shards live (default: ``cuda:<rank>`` under NCCL, the CPU under
-    gloo). Host messages (``broadcast_object``) travel on a gloo group of
-    their own, so they never queue behind the card's work nor pair up
-    with a model collective that a rank has still to issue."""
+    ``group`` (the default group if None), with a ``model``-way model axis
+    (default: every rank) and a data axis of the ranks over it. ``rank`` is
+    this rank's place in the mesh (``data_rank * M + model_rank``);
+    ``device`` is where its shards live (default: ``cuda:<rank>`` under
+    NCCL, the CPU under gloo). Host messages (``broadcast_object``) travel
+    on a gloo group of every rank, so they never queue behind the card's
+    work nor pair up with a model collective that a rank has still to
+    issue."""
 
     def __init__(self, model: Optional[int] = None, device=None, group=None):
         if not dist.is_initialized():
@@ -67,25 +104,57 @@ class HostMesh(AbstractMesh):
                                "(torch.distributed.init_process_group)")
         world = dist.get_world_size(group)
         model = world if model is None else model
-        if world % model:
+        if model < 1 or world % model:
             raise ValueError(f"a {model}-way model axis does not divide "
                              f"{world} ranks")
-        if world // model > 1:
-            raise NotImplementedError(
-                f"a data axis of {world // model} (repro's FSDP over 'data' "
-                f"in decode) is not ported: the mesh is {{'data': 1, "
-                f"'model': N}} (ROADMAP Queue 1)")
-        super().__init__(model=model, data=1)
+        super().__init__(model=model, data=world // model)
         self.group = group
         self.rank = dist.get_rank(group)
+        self.model_rank = self.rank % model
+        self.data_rank = self.rank // model
         self.backend = dist.get_backend(group)
         if device is None:
             device = (f"cuda:{self.rank}" if self.backend == "nccl"
                       else "cpu")
         self.device = torch.device(device)
-        self._host = dist.new_group(
-            ranks=None if group is None else dist.get_process_group_ranks(
-                group), backend="gloo")
+        ranks = (list(range(world)) if group is None
+                 else dist.get_process_group_ranks(group))
+        data = world // model
+        # every rank makes every subgroup, in one order: each data row's
+        # model group, then each model column's data group. An axis that
+        # spans the mesh is the group itself; one of size 1 inside a larger
+        # mesh has no group, and its collectives are the identity
+        self._groups = {"world": group}
+        rows = [ranks[d * model:(d + 1) * model] for d in range(data)]
+        cols = [ranks[m::model] for m in range(model)]
+        for axis, size, members, mine in (
+                ("model", model, rows, self.data_rank),
+                ("data", data, cols, self.model_rank)):
+            if size == world:
+                self._groups[axis] = group
+            elif size == 1:
+                self._groups[axis] = _TRIVIAL
+            else:
+                made = [dist.new_group(ranks=r) for r in members]
+                self._groups[axis] = made[mine]
+        self._host = dist.new_group(ranks=None if group is None else ranks,
+                                    backend="gloo")
+        if data > 1 and self.backend == "nccl":
+            # NCCL makes a subgroup's communicator at its first collective,
+            # which a CUDA graph's capture cannot be: make them now
+            for axis in ("model", "data"):
+                if self._groups[axis] not in (group, _TRIVIAL):
+                    dist.all_reduce(torch.zeros(1, device=self.device),
+                                    group=self._groups[axis])
+
+    def axis_size(self, axis: str) -> int:
+        """Ranks along ``axis`` ("model", "data" or "world")."""
+        return self.size if axis == "world" else self.shape[axis]
+
+    def axis_rank(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        return {"model": self.model_rank, "data": self.data_rank,
+                "world": self.rank}[axis]
 
     @property
     def capturable(self) -> bool:
@@ -93,25 +162,32 @@ class HostMesh(AbstractMesh):
         gloo's run on the host)."""
         return self.backend == "nccl"
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the ranks, reduced in float32 (integers as
-        they are) and returned in ``x``'s dtype."""
+    def all_reduce(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """The sum of ``x`` over the ranks of ``axis``, reduced in float32
+        (integers as they are) and returned in ``x``'s dtype (a float32
+        ``x`` is reduced in place)."""
+        if self._groups[axis] is _TRIVIAL:
+            return x
         y = x.float() if x.is_floating_point() else x.clone()
-        dist.all_reduce(y, group=self.group)
-        COLLECTIVES["all_reduce"] += 1
+        dist.all_reduce(y, group=self._groups[axis])
+        _count("all_reduce", axis)
         return y.to(x.dtype)
 
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The ranks' equal slices ``x`` joined along ``dim`` in rank order:
-        an all-gather on NCCL, on gloo the all-reduce of a zero-filled full
-        tensor."""
+    def gather(self, x: torch.Tensor, dim: int,
+               axis: str = "model") -> torch.Tensor:
+        """The ranks' equal slices ``x`` joined along ``dim`` in their order
+        on ``axis``: an all-gather on NCCL, on gloo the all-reduce of a
+        zero-filled full tensor."""
         dim = dim % x.dim()
-        n = self.shape["model"]
+        n = self.axis_size(axis)
+        group = self._groups[axis]
+        if group is _TRIVIAL:
+            return x
         if self.backend == "nccl":
             out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                               dtype=x.dtype, device=x.device)
-            dist.all_gather_into_tensor(out, x.contiguous(), group=self.group)
-            COLLECTIVES["all_gather"] += 1
+            dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+            _count("all_gather", axis)
             shape = list(x.shape)
             shape[dim] *= n
             return out.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(
@@ -122,22 +198,48 @@ class HostMesh(AbstractMesh):
         full = torch.zeros(shape, dtype=torch.float32
                            if x.is_floating_point() else x.dtype,
                            device=x.device)
-        full.narrow(dim, self.rank * w, w).copy_(x)
-        dist.all_reduce(full, group=self.group)
-        COLLECTIVES["all_reduce"] += 1
+        full.narrow(dim, self.axis_rank(axis) * w, w).copy_(x)
+        dist.all_reduce(full, group=group)
+        _count("all_reduce", axis)
         return full.to(x.dtype)
 
-    def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """This rank's slice of ``x`` along ``dim`` (a view)."""
-        n = x.shape[dim] // self.shape["model"]
-        return x.narrow(dim, self.rank * n, n)
+    def shard(self, x: torch.Tensor, dim: int,
+              axis: str = "model") -> torch.Tensor:
+        """This rank's slice of ``x`` along ``dim`` on ``axis`` (a view)."""
+        n = x.shape[dim] // self.axis_size(axis)
+        return x.narrow(dim, self.axis_rank(axis) * n, n)
+
+    def reduce_scatter(self, x: torch.Tensor,
+                       axis: str = "data") -> torch.Tensor:
+        """Row ``i`` of the sum over the ranks of ``axis`` of ``x`` (n, ...),
+        n the axis' size, for this rank's index ``i`` on it; reduced in
+        float32 and returned in ``x``'s dtype. NCCL's reduce-scatter; on
+        gloo, which has none, an all-reduce of which each rank keeps its
+        row."""
+        group = self._groups[axis]
+        if group is _TRIVIAL:
+            return x[0]
+        y = x.float() if x.is_floating_point() else x.clone()
+        if self.backend == "nccl":
+            out = torch.empty(y.shape[1:], dtype=y.dtype, device=y.device)
+            dist.reduce_scatter_tensor(out, y.contiguous(), group=group)
+            _count("reduce_scatter", axis)
+        else:
+            dist.all_reduce(y, group=group)
+            _count("all_reduce", axis)
+            out = y[self.axis_rank(axis)]
+        return out.to(x.dtype)
+
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh is here (on the host group)."""
+        dist.barrier(group=self._host)
 
     def broadcast_object(self, obj=None, src: int = 0):
-        """``obj`` from rank ``src`` to every rank (pickled, on the host
-        group); the other ranks pass None and get it back."""
+        """``obj`` from rank ``src`` to every rank of the mesh (pickled, on
+        the host group); the other ranks pass None and get it back."""
         box = [obj]
         dist.broadcast_object_list(box, src=src, group=self._host)
-        COLLECTIVES["broadcast"] += 1
+        _count("broadcast", "world")
         return box[0]
 
 
@@ -155,7 +257,8 @@ def same_device(a, b) -> bool:
 
 def make_host_mesh(model: int = 1, device=None) -> HostMesh:
     """A (data, model) mesh over the initialised default process group,
-    with a ``model``-way model axis (``repro``'s ``make_host_mesh``)."""
+    with a ``model``-way model axis and the other ranks' factor on
+    ``data`` (``repro``'s ``make_host_mesh``: (n // model, model))."""
     return HostMesh(model, device=device)
 
 

@@ -18,14 +18,23 @@ or the ACE edge/cloud cascade with --cascade, on the GPU.
         --arch recurrentgemma-9b
     PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2 --device cpu \
         --arch xlstm-125m
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2 --world 4 \
+        --device cpu
 
 The port of ``repro.launch.serve``, with its flags but one:
 ``--compile-cache`` is gone (the port's programs are CUDA graphs, which
 live and die with their process). ``--mesh N`` serves tensor-parallel on
-N ranks, one process each (``launch.mesh.spawn``): NCCL with one card a
-rank, or gloo with ``--device cpu``. Rank 0 runs the gateway, the journal
-and the watchdog and prints what the one-process run prints; the other
-ranks follow its engine calls (``serving.gateway.follow``). Every
+an N-way model axis, one process a rank (``launch.mesh.spawn``): NCCL
+with one card a rank, or gloo with ``--device cpu``. ``repro`` takes the
+mesh's data axis from the device count (``make_host_mesh(model=N)`` over
+every device); so does the port: under NCCL the world is the visible
+cards, on gloo ``--world`` ranks (default N, the stand-in for ``repro``'s
+host device count), and N must divide it: the mesh is (world / N, N),
+whose data ranks hold the decode rules' d_model shards and equal caches.
+As in ``repro``, ``--mesh 1`` serves on one device. Rank 0 runs the
+gateway, the journal and the watchdog and prints what the one-process
+run prints; the other ranks follow its engine calls
+(``serving.gateway.follow``). Every
 text-token architecture splits: dense GQA, MoE and MLA (mixtral-8x22b's
 experts split by expert, deepseek-v3-671b's too and its MLA heads), the
 RG-LRU hybrid (recurrentgemma-9b's width) and xLSTM (xlstm-125m's heads);
@@ -240,28 +249,44 @@ def _serve_rank(rank: int, args) -> None:
     follow(eng, mesh)
 
 
-def serve_mesh(args) -> None:
-    """``--mesh N``: N ranks as processes, NCCL on N cards or gloo on the
-    CPU."""
+def mesh_world(args) -> int:
+    """The ranks of ``--mesh N``'s mesh: the visible cards under NCCL,
+    ``--world`` (default N) on gloo; N must divide it."""
     import torch
 
+    if args.device == "cpu":
+        world = args.world or args.mesh
+    else:
+        if args.world is not None:
+            raise SystemExit("--world sets the gloo ranks of --device cpu; "
+                             "under NCCL the world is the visible cards")
+        resolve_device(args.device)
+        world = torch.cuda.device_count()
+        if world < args.mesh:
+            raise SystemExit(
+                f"--mesh {args.mesh} needs {args.mesh} cards, one a rank "
+                f"(found {world}); --device cpu serves the mesh on the CPU "
+                f"over gloo")
+    if world % args.mesh:
+        raise SystemExit(f"--mesh {args.mesh} does not divide a world of "
+                         f"{world} ranks")
+    return world
+
+
+def serve_mesh(args) -> None:
+    """``--mesh N``: a (world / N, N) mesh of ranks as processes, NCCL on
+    the cards or gloo on the CPU."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    world = mesh_world(args)
     try:
         check_text_model(LM(cfg, device="cpu"))
-        tensor_parallel(cfg, AbstractMesh(args.mesh))
+        tensor_parallel(cfg, AbstractMesh(args.mesh, world // args.mesh))
     except NotImplementedError as e:
         raise SystemExit(f"serve --arch {args.arch} --mesh {args.mesh}: {e}")
     backend = "gloo" if args.device == "cpu" else "nccl"
-    if backend == "nccl":
-        resolve_device(args.device)
-        if torch.cuda.device_count() < args.mesh:
-            raise SystemExit(
-                f"--mesh {args.mesh} needs {args.mesh} cards, one a rank "
-                f"(found {torch.cuda.device_count()}); --device cpu serves "
-                f"the mesh on the CPU over gloo")
-    spawn(_serve_rank, args.mesh, args=(args,), backend=backend)
+    spawn(_serve_rank, world, args=(args,), backend=backend)
 
 
 def main(argv=None) -> None:
@@ -297,6 +322,10 @@ def main(argv=None) -> None:
                          "(NCCL with one card a rank, gloo with --device "
                          "cpu); every text-token architecture; "
                          "--supervise does not run on a mesh yet")
+    ap.add_argument("--world", type=int, default=None,
+                    help="with --device cpu, the gloo ranks of the --mesh "
+                         "N mesh, (world / N, N) over (data, model); "
+                         "default N (under NCCL: the visible cards)")
     ap.add_argument("--step-timeout", type=float, default=5.0,
                     help="watchdog wall-clock deadline per step (s)")
     ap.add_argument("--hang-grace", type=float, default=1.0,
@@ -308,6 +337,9 @@ def main(argv=None) -> None:
     ap.add_argument("--wedge-demo", action="store_true",
                     help="inject a stall past grace (supervised restart)")
     args = ap.parse_args(argv)
+    if args.world is not None and args.mesh == 1:
+        raise SystemExit("--world sets the ranks of a --mesh N mesh; "
+                         "--mesh 1 serves on one device")
     if args.mesh > 1 and (args.supervise or args.wedge_demo):
         raise SystemExit(
             f"--mesh {args.mesh}: NotImplementedError: --supervise (a "

@@ -8,7 +8,10 @@ rank's shards: its query heads and its KV heads (all of them where the KV
 heads do not split), then ``wo``'s partial sums all-reduced in f32. Where
 its query heads share KV heads that every rank keeps whole (glm4-9b's 2
 over 4 ranks), they attend ``tp.kv_range``: the kernels read that range of
-the cache in place; prefill hands the flash kernel a copy of it.
+the cache in place; prefill hands the flash kernel a copy of it. Where
+the mesh's data axis splits d_model's contraction side, the input
+projections (GQA's ``wq``/``wk``/``wv``, MLA's ``w_dq``/``w_dkv``/
+``w_krope``) are one joined reduction over 'data' (``layers.project``).
 
 ``repro`` prefills through the jnp ``blockwise_attention`` on arange
 positions; the port calls ``kernels.flash_attention``, which computes the
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
-from repro_torch.models.layers import norm_only, rmsnorm, rope
+from repro_torch.models.layers import norm_only, project, rmsnorm, rope
 
 
 def _ring_layout():
@@ -132,10 +135,16 @@ def _proj(x, w):
     return (x @ w.reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
 
 
-def _qkv(params, cfg, x, positions):
-    q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+def _projs(x, ws, tp):
+    """x (B, S, D) @ each w (D, ...) -> (B, S, ...), one reduction over
+    'data' for all of them where the mesh ``tp`` splits D there."""
+    outs = project(x, [w.reshape(w.shape[0], -1) for w in ws], tp,
+                   tp is not None and tp.data_proj)
+    return [o.reshape(*x.shape[:-1], *w.shape[1:]) for o, w in zip(outs, ws)]
+
+
+def _qkv(params, cfg, x, positions, tp=None):
+    q, k, v = _projs(x, [params["wq"], params["wk"], params["wv"]], tp)
     if cfg.use_qk_norm:
         q = norm_only(q, cfg.rms_eps) * (1.0 + params["q_scale"]).to(q.dtype)
         k = norm_only(k, cfg.rms_eps) * (1.0 + params["k_scale"]).to(k.dtype)
@@ -166,7 +175,7 @@ def attn_forward(params, cfg, x, positions, *, window: Optional[int],
     """Full-sequence causal attention (prefill). x: (B, S, D); positions:
     (B, S), the arange 0..S-1 of every full-sequence call. Returns the
     output and this rank's (k, v) for the cache."""
-    q, k, v = _qkv(params, cfg, x, positions)
+    q, k, v = _qkv(params, cfg, x, positions, tp)
     kq, vq = k, v
     rng = _kv_range(tp, k.shape[2])
     if rng is not None:
@@ -189,7 +198,7 @@ def attn_decode(params, cfg, x, cache, cur_pos, *, window: Optional[int],
     start = positions_1d(cur_pos, b, x.device)
     positions = start[:, None] + torch.arange(t, dtype=torch.int32,
                                               device=x.device)[None, :]
-    q, k1, v1 = _qkv(params, cfg, x, positions)
+    q, k1, v1 = _qkv(params, cfg, x, positions, tp)
     cache = layout.append(cache, {"k": k1, "v": v1}, start, block_tables,
                           valid=valid)
     out = layout.attend(q, cache, positions, block_tables, window=window,
@@ -202,21 +211,29 @@ def attn_decode(params, cfg, x, cache, cur_pos, *, window: Optional[int],
 # MLA (DeepSeek multi-head latent attention)
 # ---------------------------------------------------------------------------
 
-def _mla_q(params, cfg, x, positions):
-    """Queries through the low-rank path: (q_nope, q_rope), (B, S, H, *)."""
+def _mla_downs(params, x, tp=None):
+    """The down-projections of x: (x @ w_dq, x @ w_dkv, x @ w_krope), one
+    reduction over 'data' where the mesh ``tp`` splits D there."""
+    return _projs(x, [params["w_dq"], params["w_dkv"], params["w_krope"]],
+                  tp)
+
+
+def _mla_q(params, cfg, dq, positions):
+    """Queries through the low-rank path from ``dq = x @ w_dq``:
+    (q_nope, q_rope), (B, S, H, *)."""
     m = cfg.mla
-    cq = rmsnorm({"scale": params["q_norm"]}, x @ params["w_dq"], cfg.rms_eps)
+    cq = rmsnorm({"scale": params["q_norm"]}, dq, cfg.rms_eps)
     q = _proj(cq, params["w_uq"])
     q_rope = rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
     return q[..., :m.qk_nope_head_dim], q_rope
 
 
-def _mla_kv_latent(params, cfg, x, positions):
-    """The compressed cache entries: ckv (B, S, kv_lora) and the shared
-    rotary key krope (B, S, rope)."""
-    ckv = rmsnorm({"scale": params["kv_norm"]}, x @ params["w_dkv"],
-                  cfg.rms_eps)
-    krope = rope(x @ params["w_krope"], positions, cfg.rope_theta)
+def _mla_kv_latent(params, cfg, dkv, kr, positions):
+    """The compressed cache entries from ``dkv = x @ w_dkv`` and ``kr = x
+    @ w_krope``: ckv (B, S, kv_lora) and the shared rotary key krope
+    (B, S, rope)."""
+    ckv = rmsnorm({"scale": params["kv_norm"]}, dkv, cfg.rms_eps)
+    krope = rope(kr, positions, cfg.rope_theta)
     return ckv, krope
 
 
@@ -230,8 +247,9 @@ def mla_forward(params, cfg, x, positions, *, window: Optional[int],
     ``wo`` split), the latents whole, and y is summed over the ranks."""
     m = cfg.mla
     h = params["w_uk"].shape[1]                 # this rank's heads
-    q_nope, q_rope = _mla_q(params, cfg, x, positions)
-    ckv, krope = _mla_kv_latent(params, cfg, x, positions)
+    dq, dkv, kr = _mla_downs(params, x, tp)
+    q_nope, q_rope = _mla_q(params, cfg, dq, positions)
+    ckv, krope = _mla_kv_latent(params, cfg, dkv, kr, positions)
     k_nope = _proj(ckv, params["w_uk"])
     v = _proj(ckv, params["w_uv"])
     k_rope = krope[:, :, None, :].expand(-1, -1, h, -1)
@@ -281,8 +299,9 @@ def mla_decode(params, cfg, x, cache, cur_pos, *, window: Optional[int],
     start = positions_1d(cur_pos, b, x.device)
     positions = start[:, None] + torch.arange(t, dtype=torch.int32,
                                               device=x.device)[None, :]
-    q_nope, q_rope = _mla_q(params, cfg, x, positions)         # (B,T,H,*)
-    ckv1, krope1 = _mla_kv_latent(params, cfg, x, positions)   # (B,T,r)
+    dq, dkv, kr = _mla_downs(params, x, tp)
+    q_nope, q_rope = _mla_q(params, cfg, dq, positions)        # (B,T,H,*)
+    ckv1, krope1 = _mla_kv_latent(params, cfg, dkv, kr, positions)
     cache = layout.append(cache, {"ckv": ckv1, "krope": krope1}, start,
                           block_tables, valid=valid)
     ctx = layout.context(cache, block_tables)

@@ -10,7 +10,13 @@ the MLPs are column-parallel in ``w_gate``/``w_up`` (a d_ff slice) and
 row-parallel in ``w_down``, whose partial sums are all-reduced in f32;
 the embedding is vocab-parallel (a masked lookup of this rank's rows,
 then an all-reduce) and the unembedding gathers each rank's logits over
-the vocab. ``tp=None`` is the one-device code, unchanged.
+the vocab. Where the mesh's data axis splits d_model's contraction side
+(``tp.data_proj``, ``tp.data_table``), an input projection multiplies
+this rank's columns of the replicated activation by its rows and sums
+the partials over 'data' in one f32 all-reduce (``project``); the
+embedding's D/data columns are joined into the whole row, and the
+unembedding's partial logits summed over 'data' before the vocab gather.
+``tp=None`` is the one-device code, unchanged.
 """
 from __future__ import annotations
 
@@ -35,9 +41,22 @@ def norm_only(x, eps: float):
     return (x * torch.rsqrt(var + eps)).to(dtype)
 
 
+def project(x, ws, tp=None, split: bool = False):
+    """``[x @ w for w in ws]``; on a mesh whose data axis splits the
+    weights' rows (``split``), one reduction of the partials over 'data'
+    (``sharding.TensorParallel.project``)."""
+    if tp is None or not split:
+        return [x @ w for w in ws]
+    return tp.project(x, ws, True)
+
+
+def _gate_up(params, x, tp):
+    return project(x, [params["w_gate"], params["w_up"]], tp,
+                   tp is not None and tp.data_proj)
+
+
 def swiglu(params, x, tp=None):
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
+    g, u = _gate_up(params, x, tp)
     h = F.silu(g.float()).to(x.dtype) * u
     y = h @ params["w_down"]
     return y if tp is None else tp.reduce(y, tp.mlp)
@@ -46,8 +65,7 @@ def swiglu(params, x, tp=None):
 def gelu_mlp(params, x, tp=None):
     """GeGLU: the tanh-approximate GELU of the gate in f32, cast back, times
     the up projection, then projected down."""
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
+    g, u = _gate_up(params, x, tp)
     h = F.gelu(g.float(), approximate="tanh").to(x.dtype) * u
     y = h @ params["w_down"]
     return y if tp is None else tp.reduce(y, tp.mlp)
@@ -55,21 +73,42 @@ def gelu_mlp(params, x, tp=None):
 
 def embed(params, tokens, tp=None):
     table = params["table"]
-    if tp is None or not tp.vocab:
+    if tp is None or not (tp.vocab or tp.data_table):
         return table[tokens]
+    if not tp.vocab:
+        return join_rows(table[tokens], tp)
     # vocab-parallel: this rank holds rows [rank * V/N, (rank + 1) * V/N)
     rows = table.shape[0]
     local = tokens.long() - tp.rank * rows
     mine = (local >= 0) & (local < rows)
     x = table[local.clamp(0, rows - 1)]
     x = torch.where(mine[..., None], x, torch.zeros_like(x))
-    return tp.reduce(x, True)
+    return join_rows(x, tp)
+
+
+def join_rows(x, tp):
+    """Embedding rows looked up on a mesh into the whole replicated rows:
+    ``x`` holds this rank's vocab rows (zero where another rank owns the
+    token, when ``tp.vocab``) and, with ``tp.data_table``, its D/data
+    columns of them. Model-split rows are summed over 'model'; data-split
+    columns are placed at this rank's offset of a zero row and summed
+    over the whole mesh at once (exact: each element has one nonzero
+    term), or gathered over 'data' where the vocab is whole."""
+    if not tp.data_table:
+        return tp.reduce(x, tp.vocab)
+    if not tp.vocab:
+        return tp.mesh.gather(x, -1, axis="data")
+    w = x.shape[-1]
+    full = x.new_zeros(x.shape[:-1] + (w * tp.data_ways,))
+    full.narrow(-1, tp.data_rank * w, w).copy_(x)
+    return tp.mesh.all_reduce(full, axis="world")
 
 
 def unembed(table, x, tp=None):
     """x (..., D) @ table^T (V, D) -> (..., V) logits (on a mesh, each
-    rank's vocab slice gathered)."""
-    logits = x @ table.t()
+    rank's vocab slice gathered; a data-split D summed over 'data'
+    first)."""
+    logits, = project(x, [table.t()], tp, tp is not None and tp.data_table)
     if tp is None or not tp.vocab:
         return logits
     return tp.mesh.gather(logits, -1)

@@ -32,7 +32,13 @@ per-codebook tables split their vocab (a masked lookup in each codebook,
 the codebooks summed, one all-reduce; the logits gathered on V). Every
 rank ends each call with the same full logits. ``repro``'s ``rules``
 (activation hints) have no counterpart: explicit collectives make them
-moot. ``mesh=None`` runs the one-device code unchanged.
+moot. On a mesh with a data axis above 1 the decode rules also split
+d_model's contraction side on 'data' (norm scales, the tables' D, every
+input projection's rows, ``vision_proj``): the activations stay
+replicated on every rank, each call first gathers every norm scale over
+'data' in one collective (``_whole_norms``), and the projections reduce
+their partials over 'data' (``layers.project``). ``mesh=None`` runs the
+one-device code unchanged.
 """
 from __future__ import annotations
 
@@ -50,8 +56,8 @@ from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import param as P
 from repro_torch.models import recurrent as rec
-from repro_torch.models.layers import (embed, gelu_mlp, rmsnorm, softcap,
-                                       swiglu, unembed)
+from repro_torch.models.layers import (embed, gelu_mlp, join_rows, project,
+                                       rmsnorm, softcap, swiglu, unembed)
 from repro_torch.sharding import tensor_parallel
 
 Params = Dict[str, Any]
@@ -299,7 +305,12 @@ class LM:
         if cfg.frontend.kind == "audio":
             # one head per codebook: (B, S, C, V) (on a mesh each rank's
             # V/N columns of every codebook, gathered)
-            logits = torch.einsum("bsd,cvd->bscv", x, table)
+            if tp is not None and tp.data_table:
+                logits = tp.mesh.all_reduce(torch.einsum(
+                    "bsd,cvd->bscv", tp.mesh.shard(x, -1, axis="data"),
+                    table), axis="data")
+            else:
+                logits = torch.einsum("bsd,cvd->bscv", x, table)
             if tp is not None and tp.vocab:
                 logits = tp.mesh.gather(logits, -1)
         else:
@@ -309,18 +320,19 @@ class LM:
             logits = logits * (cfg.d_model ** -0.5)
         return softcap(logits, cfg.logit_softcap)
 
-    def _mlp(self, bdef, p, x, auxes=None, tp=None):
+    def _mlp(self, bdef, p, x, auxes=None, tp=None, over_data=None):
         """The block's residual MLP (none for an xLSTM block). An MoE layer
-        appends its load-balance loss (a 0-dim f32 tensor) to the list
-        ``auxes`` when given: nothing is updated in place, so a
-        rematerialised layer recomputes it without side effects."""
+        appends its load-balance loss (a 0-dim f32 tensor, ``over_data``
+        as ``moe.route``'s) to the list ``auxes`` when given: nothing is
+        updated in place, so a rematerialised layer recomputes it without
+        side effects."""
         if bdef.mlp == NONE:
             return x
         h = rmsnorm(p["norm2"], x, self.cfg.rms_eps)
         if bdef.mlp == MOE:
             y, a = moe_lib.moe_forward(p["mlp"], self.cfg, h,
                                        capacity_factor=self.capacity_factor,
-                                       tp=tp)
+                                       tp=tp, over_data=over_data)
             if auxes is not None:
                 auxes.append(a)
             return x + y
@@ -346,14 +358,16 @@ class LM:
         if self.cfg.frontend.kind != "audio":
             return embed(params["embed"], tokens, tp)
         books = torch.arange(table.shape[0], device=tokens.device)
-        if tp is None or not tp.vocab:
+        if tp is None or not (tp.vocab or tp.data_table):
             return table[books, tokens.long()].sum(dim=2)
+        if not tp.vocab:
+            return join_rows(table[books, tokens.long()].sum(dim=2), tp)
         rows = table.shape[1]
         local = tokens.long() - tp.rank * rows
         mine = (local >= 0) & (local < rows)
         x = table[books, local.clamp(0, rows - 1)]
         x = torch.where(mine[..., None], x, torch.zeros_like(x))
-        return tp.reduce(x.sum(dim=2), True)
+        return join_rows(x.sum(dim=2), tp)
 
     def _embed_inputs(self, params, batch, tp=None):
         """Input embeddings (B, S, D) and their positions (B, S) int32.
@@ -366,8 +380,12 @@ class LM:
             # einsum's type promotion: f32 embeddings project in f32
             dt = torch.promote_types(img.dtype, vp["w1"].dtype)
             h = F.gelu((img.to(dt) @ vp["w1"].to(dt)).float(),
-                       approximate="tanh")
-            x = torch.cat([h.to(x.dtype) @ vp["w2"], x], dim=1)
+                       approximate="tanh").to(x.dtype)
+            if tp is not None and tp.data_vision:
+                # w1's output D is this rank's columns: join them
+                h = tp.mesh.gather(h, -1, axis="data")
+            v, = project(h, [vp["w2"]], tp, tp is not None and tp.data_proj)
+            x = torch.cat([v, x], dim=1)
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None, :].expand(b, s)
@@ -379,7 +397,7 @@ class LM:
         return sum(stage.repeat for stage in self.cfg.stages)
 
     def _block(self, bdef, p, x, positions, cache=None, lengths=None,
-               auxes=None, tp=None):
+               auxes=None, tp=None, over_data=None):
         """One block over the full sequence ``x``: its mixer (filling
         ``cache`` when given) and its MLP, both residual."""
         cfg = self.cfg
@@ -400,10 +418,10 @@ class LM:
                                          window=bdef.window, tp=tp)
             if cache is not None:
                 att.cache_fill(cache, k, v, x.shape[1], lengths)
-        return self._mlp(bdef, p, x + y, auxes, tp)
+        return self._mlp(bdef, p, x + y, auxes, tp, over_data)
 
     def _repeat(self, stage, layer, x, positions, caches=None,
-                lengths=None, tp=None):
+                lengths=None, tp=None, over_data=None):
         """One scanned layer: every block of a stage repeat, each filling
         its cache in ``caches`` when given. Returns (x, the MoE blocks'
         load-balance losses, a list), so that a rematerialised layer
@@ -412,13 +430,13 @@ class LM:
         for bi, bdef in enumerate(stage.blocks):
             x = self._block(bdef, layer[bi], x, positions,
                             None if caches is None else caches[bi], lengths,
-                            auxes, tp)
+                            auxes, tp, over_data)
         return x, auxes
 
     def _layer_range(self, params, x, positions, lo: int = 0,
                      hi: Optional[int] = None, *, caches=None,
                      lengths=None, auxes=None, train: bool = False,
-                     tp=None):
+                     tp=None, over_data=None):
         """Scanned layers [lo, hi) (stage-repeat units, every block of a
         repeat) over the full sequence ``x``; with ``caches`` each layer
         also fills its cache, with ``auxes`` (a list) each MoE block
@@ -445,7 +463,8 @@ class LM:
                          else [_layer(sp[f"b{bi}"], li) for bi in nb])
                 cache = (None if caches is None
                          else [_layer(caches[si][bi], li) for bi in nb])
-                x, got = body(stage, layer, x, positions, cache, lengths, tp)
+                x, got = body(stage, layer, x, positions, cache, lengths, tp,
+                              over_data)
                 if auxes is not None:
                     auxes.extend(got)
             first += stage.repeat
@@ -455,7 +474,7 @@ class LM:
                 cache_width: Optional[int] = None, last_only: bool = False,
                 lengths=None, logits_index=None, with_aux: bool = False,
                 train: bool = False, with_hidden: bool = False,
-                mesh=None):
+                mesh=None, over_data=None):
         """Returns (logits, caches or None), and with ``with_aux`` the MoE
         layers' summed load-balance loss next (0 without MoE), as
         ``repro``'s ``forward`` sums it, and with ``with_hidden`` the final
@@ -466,17 +485,20 @@ class LM:
         the recurrent state (identity steps past each row's length).
         ``train`` rematerialises each layer in the backward pass (no
         caches). ``mesh``: this rank's shards on a mesh (module
-        docstring); the caches are its shards too."""
+        docstring); the caches are its shards too. ``over_data`` sums the
+        MoE layers' routing counts over a data-parallel step's ranks
+        (``moe.route``)."""
         if train and want_cache:
             raise ValueError("forward: train=True keeps no caches")
         tp = tensor_parallel(self.cfg, mesh)
+        params = _whole_norms(params, tp)
         x, positions = self._embed_inputs(params, batch, tp)
         caches = (self.init_cache(x.shape[0], cache_width, mesh=mesh)
                   if want_cache else None)
         auxes = []
         x = self._layer_range(params, x, positions, caches=caches,
                               lengths=lengths, auxes=auxes, train=train,
-                              tp=tp)
+                              tp=tp, over_data=over_data)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for a in auxes:
             aux = aux + a
@@ -488,29 +510,47 @@ class LM:
         return out
 
     # -- losses ---------------------------------------------------------------
-    def loss(self, params, batch, train: bool = True):
+    def loss(self, params, batch, train: bool = True, denoms=None,
+             over_data=None):
         """Next-token cross entropy, plus ``router_aux_loss`` times the MoE
         load-balance loss, plus 0.1 times the depth-1 MTP loss when
         ``mtp_depth > 0`` and ``train``; a vision model counts only its
         text positions. Returns (loss, {"ce", "aux"[, "mtp"]}), as
         ``repro``'s ``LM.loss``. ``train`` also rematerialises each layer
-        in the backward pass."""
+        in the backward pass. ``denoms`` ({"ce": n[, "mtp": n]}, counts of
+        the labels >= 0 over a global batch that this batch is a part of)
+        makes each cross entropy this batch's share of the global one, its
+        summed losses over that count (``label_counts``), so that the
+        shares of the parts add up to the loss of the whole; with
+        ``over_data``, which sums a tensor over a data-parallel step's
+        ranks, so does the MoE aux loss (``moe.route``)."""
         cfg = self.cfg
+        denoms = denoms or {}
         logits, _, aux, h_final = self.forward(params, batch, train=train,
                                                with_aux=True,
-                                               with_hidden=True)
+                                               with_hidden=True,
+                                               over_data=over_data)
         if cfg.frontend.kind == "vision":
             logits = logits[:, cfg.frontend.num_prefix_tokens:]
-        ce = _xent(logits, batch["labels"])
+        ce = _xent(logits, batch["labels"], denoms.get("ce"))
         total = ce + (cfg.moe.router_aux_loss * aux if cfg.moe else 0.0)
         metrics = {"ce": ce, "aux": aux}
         if cfg.mtp_depth > 0 and train:
-            mtp = self._mtp_loss(params, batch, h_final)
+            mtp = self._mtp_loss(params, batch, h_final, denoms.get("mtp"))
             total = total + 0.1 * mtp
             metrics["mtp"] = mtp
         return total, metrics
 
-    def _mtp_loss(self, params, batch, h_final):
+    def label_counts(self, batch, train: bool = True) -> torch.Tensor:
+        """The labels >= 0 that ``loss`` averages over: (ce[, mtp]) int64,
+        the MTP count when ``loss`` computes the MTP loss."""
+        labels = batch["labels"]
+        counts = [(labels >= 0).sum()]
+        if self.cfg.mtp_depth > 0 and train:
+            counts.append((labels[:, 1:] >= 0).sum())
+        return torch.stack(counts)
+
+    def _mtp_loss(self, params, batch, h_final, denom=None):
         """DeepSeek-V3's multi-token prediction: a depth-1 head predicts
         token t + 2 from [h_t ; embed(token_{t+1})] through ``proj``, one
         unstacked attention (or MLA) + SwiGLU block and its own norm,
@@ -528,7 +568,7 @@ class LM:
         bdef = BlockDef(mixer=ATTN if cfg.mla is None else MLA, mlp=SWIGLU)
         h = self._block(bdef, params["mtp"]["block"], h, positions)
         h = rmsnorm(params["mtp"]["norm"], h, cfg.rms_eps)
-        return _xent(self._logits(params, h), labels[:, 1:])
+        return _xent(self._logits(params, h), labels[:, 1:], denom)
 
     def prefill(self, params, batch, cache_width: int,
                 last_only: bool = False, lengths=None, logits_index=None,
@@ -622,6 +662,7 @@ class LM:
                     f"prefill_chunk needs attention mixers "
                     f"(got {bad!r}); chunk length must be 1")
         start = att.positions_1d(start_pos, b, tokens.device)
+        params = _whole_norms(params, tp)
         x = self._embed_tokens(params, tokens, tp)
         for stage, sp, sc in zip(cfg.stages, params["stages"], caches):
             for li in range(stage.repeat):
@@ -658,16 +699,58 @@ _RECURRENT_DECODE = {RGLRU: rec.rglru_block_decode,
                      SLSTM: rec.slstm_block_decode}
 
 
-def _xent(logits, labels):
+def _xent(logits, labels, denom=None):
     """Masked softmax cross entropy in f32, averaged over the labels >= 0
-    (at least one); labels < 0 are ignored. Logits (..., V), labels the
-    leading shape (audio: (B, S, C))."""
+    (at least one; or summed over ``denom``, a global count); labels < 0
+    are ignored. Logits (..., V), labels the leading shape (audio:
+    (B, S, C))."""
     mask = labels >= 0
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.clamp_min(0).long()[..., None])[
         ..., 0]
     nll = torch.where(mask, nll, torch.zeros_like(nll))
-    return nll.sum() / torch.clamp_min(mask.sum(), 1)
+    return nll.sum() / torch.clamp_min(mask.sum() if denom is None
+                                       else denom, 1)
+
+
+def _whole_norms(params, tp):
+    """``params`` with every norm scale (a ``scale`` leaf: the blocks'
+    ``norm1``/``norm2``, the xLSTM mixers' ``norm``, ``final_norm``) whole
+    over 'data' where the mesh ``tp`` splits it there: this rank's D/data
+    columns of every one joined into one gather. Other leaves are the
+    same tensors; without a data split, ``params`` itself."""
+    if tp is None or not tp.data_norm:
+        return params
+    found = []
+
+    def collect(tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                if k == "scale" and not isinstance(v, (dict, list)):
+                    found.append(v)
+                else:
+                    collect(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                collect(v)
+
+    collect(params)
+    w = found[0].shape[-1]
+    rows = [t.reshape(-1, w) for t in found]
+    whole = iter(tp.mesh.gather(torch.cat(rows, 0), -1, axis="data").split(
+        [r.shape[0] for r in rows], 0))
+    done = {id(t): next(whole).reshape(*t.shape[:-1], w * tp.data_ways)
+            for t in found}
+
+    def swap(tree):
+        if isinstance(tree, dict):
+            return {k: (done[id(v)] if k == "scale" and id(v) in done
+                        else swap(v)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [swap(v) for v in tree]
+        return tree
+
+    return swap(params)
 
 
 def _unstack(tree):

@@ -27,6 +27,17 @@ the global capacity (so a pair drops on every rank as under ``tp=None``),
 runs its own experts' slots, combines with weight 0 for a pair whose
 expert lives elsewhere, and sums the routed and shared partials over the
 ranks in one f32 all-reduce.
+
+On a mesh with a data axis the decode rules put the experts on ("data",
+"model"): each rank runs its E/(D·M) whole experts on the replicated
+tokens, and the routed partials are summed over the whole mesh. The
+router's and the shared expert's D rows split on 'data', so their
+products are one reduction over 'data' each (``layers.project``). The
+shared expert's ``w_down`` partial is the same on every rank of a model
+column: data rank 0 alone adds it to the mesh-wide sum. Where the
+experts do not divide by D·M, every expert's D splits on 'data' and its
+d_ff on 'model', and the routed partial is a model sum, as the shared
+one.
 """
 from __future__ import annotations
 
@@ -34,6 +45,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.layers import project
 
 
 def capacity(s: int, k: int, e: int, capacity_factor: float) -> int:
@@ -51,17 +64,23 @@ def router_logits(params, x_flat, tp=None) -> torch.Tensor:
     """The (T, E) f32 router logits of x_flat (T, D). On a mesh whose
     router columns split, this rank's E/N columns joined with every
     other rank's (an exact gather), so every rank routes alike."""
-    logits = x_flat.float() @ params["router"].float()
+    logits, = project(x_flat.float(), [params["router"].float()], tp,
+                      tp is not None and tp.data_router)
     if tp is not None and tp.router:
         logits = tp.mesh.gather(logits, -1)
     return logits
 
 
-def route(params, cfg, x_flat, tp=None) -> Tuple[torch.Tensor,
-                                                 torch.Tensor, torch.Tensor]:
+def route(params, cfg, x_flat, tp=None,
+          over_data=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x_flat (T, D) -> (topk_idx (T, k) int64, topk_w (T, k) f32, aux
     loss, a 0-dim f32 tensor). The top-k is in descending order: the
-    flattened (token, choice) order decides which pairs a capacity keeps."""
+    flattened (token, choice) order decides which pairs a capacity keeps.
+    ``over_data(t)``, when given, sums a tensor over the data ranks of a
+    data-parallel step: the aux loss is then this rank's share of the
+    global batch's, ``E · Σ_e frac_e · mean_p_e`` over every rank's tokens
+    (one collective a MoE layer). The shares add up to the global loss and
+    their gradients to its gradient."""
     m = cfg.moe
     logits = router_logits(params, x_flat, tp)
     if m.num_shared_experts > 0:        # DeepSeek-style sigmoid routing
@@ -73,9 +92,14 @@ def route(params, cfg, x_flat, tp=None) -> Tuple[torch.Tensor,
         topk_l, topk_idx = torch.topk(logits, m.num_experts_per_tok, dim=-1)
         topk_w = torch.softmax(topk_l, dim=-1)
         probs = torch.softmax(logits, dim=-1)
-    # switch load-balance loss: E * sum_e fraction_e * mean_prob_e
-    frac = _one_hot(topk_idx[:, 0], m.num_experts).float().mean(dim=0)
-    aux = m.num_experts * torch.sum(frac * probs.mean(dim=0))
+    # switch load-balance loss: E * sum_e fraction_e * mean_prob_e, the
+    # fractions' counts and the token count summed over the data ranks
+    top1 = _one_hot(topk_idx[:, 0], m.num_experts).float()
+    sums = torch.cat([top1.sum(dim=0), top1.new_full((1,), top1.shape[0])])
+    if over_data is not None:
+        sums = over_data(sums)
+    frac = sums[:-1] / sums[-1]
+    aux = m.num_experts * torch.sum(frac * probs.sum(dim=0) / sums[-1])
     return topk_idx, topk_w, aux
 
 
@@ -95,33 +119,42 @@ def dispatch(topk_idx, b: int, s: int, e: int, cap: int):
     return keep, target
 
 
-def _experts(x_pad, src_tok, b: int, e: int, cap: int, params):
+def _experts(x_pad, src_tok, b: int, e: int, cap: int, params, tp=None):
     """Gather each expert slot's token (row S of ``x_pad``, zeros, for an
     empty slot) and run SwiGLU over every expert's slots: -> (E, B*C, D),
     the gate's silu in f32. The (E, B*C, D) buffers are the call's
     largest (E*C is S*E at the dropless factor): the gathered input is
-    freed before the f32 gate and the output are made."""
+    freed before the f32 gate and the output are made. Where the mesh
+    ``tp`` splits the experts' D on 'data', the gate and up products are
+    partials of this rank's columns, summed over 'data' in one f32
+    all-reduce."""
     d = x_pad.shape[-1]
     xe = torch.gather(x_pad, 1, src_tok[..., None].expand(b, e * cap, d))
     xe = xe.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    if tp is not None and tp.expert_data_in:
+        xe = tp.mesh.shard(xe, -1, axis="data")
     g = torch.bmm(xe, params["w_gate"])
     u = torch.bmm(xe, params["w_up"])
     del xe
+    if tp is not None and tp.expert_data_in:
+        f = g.shape[-1]
+        g, u = tp.mesh.all_reduce(torch.cat([g, u], -1),
+                                  axis="data").split(f, -1)
     h = F.silu(g.float(), inplace=True).to(u.dtype).mul_(u)
     del g, u
     return torch.bmm(h, params["w_down"])
 
 
 def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25,
-                tp=None):
+                tp=None, over_data=None):
     """x (B, S, D) -> (y (B, S, D), aux loss). On a mesh ``params`` are
     this rank's shards and y is summed over the ranks (module
-    docstring)."""
+    docstring); ``over_data`` as ``route``'s."""
     m = cfg.moe
     b, s, d = x.shape
     k, e = m.num_experts_per_tok, m.num_experts
     x_flat = x.reshape(b * s, d)
-    topk_idx, topk_w, aux = route(params, cfg, x_flat, tp)
+    topk_idx, topk_w, aux = route(params, cfg, x_flat, tp, over_data)
     cap = capacity(s, k, e, capacity_factor)
     keep, target = dispatch(topk_idx, b, s, e, cap)
     # this rank's experts: a run of ``count`` from ``first`` (all of them
@@ -138,7 +171,7 @@ def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25,
     src_tok = torch.where(src >= s * k, torch.full_like(src, s),
                           torch.clamp(src, 0, s * k - 1) // k)
     x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)    # row S: zeros
-    ye = _experts(x_pad, src_tok, b, count, cap, params)
+    ye = _experts(x_pad, src_tok, b, count, cap, params, tp)
     ye = ye.reshape(count, b, cap, d).transpose(0, 1).reshape(
         b, count * cap, d)
 
@@ -157,8 +190,8 @@ def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25,
     ys = None
     if m.num_shared_experts > 0:
         sp = params["shared"]
-        gs = x_flat @ sp["w_gate"]
-        us = x_flat @ sp["w_up"]
+        gs, us = project(x_flat, [sp["w_gate"], sp["w_up"]], tp,
+                         tp is not None and tp.data_proj)
         hs = F.silu(gs.float()).to(x.dtype) * us
         ys = (hs @ sp["w_down"]).reshape(b, s, d)
     if tp is None:
@@ -167,6 +200,17 @@ def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25,
     # whole on every rank joins after it. On a mesh of one this is
     # ``tp=None``'s arithmetic: the bf16 sum of two values is their f32
     # sum rounded once
+    if tp.data_experts:
+        # the routed partial is this rank's experts': one sum over the
+        # mesh, which the shared partial (a model sum, equal on every data
+        # rank) joins from data rank 0 alone; a whole shared part after it
+        out = y.float()
+        if ys is not None and tp.shared_mlp and tp.data_rank == 0:
+            out = out + ys.float()
+        out = tp.mesh.all_reduce(out, axis="world").to(x.dtype)
+        if ys is not None and not tp.shared_mlp:
+            out = out + ys
+        return out, aux
     parts = [(y, tp.experts or tp.expert_mlp)]
     if ys is not None:
         parts.append((ys, tp.shared_mlp))

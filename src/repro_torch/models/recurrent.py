@@ -40,6 +40,10 @@ normed head outputs are joined over the ranks (one gather, exact), and
 its GeGLU is column-parallel in ``w_up1``/``w_up2`` and row-parallel in
 ``w_down`` (``tp.rec_mlp``). Every row-parallel partial is all-reduced in
 f32; a dimension that does not divide stays whole, with no reduction.
+Where the mesh's data axis splits d_model's contraction side, each
+mixer's input projections (the RG-LRU's ``w_in_x``/``w_in_gate``, the
+mLSTM's five, the sLSTM's ``wx``) are one joined reduction over 'data'
+(``layers.project``).
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import project, rmsnorm
 
 _RGLRU_C = 8.0
 LAMBDA_INIT = "rglru_lambda"    # the param spec's leaf kind for ``lam``
@@ -167,8 +171,12 @@ def _rglru_gates(params, xc, tp=None):
     return a, gated_x
 
 
-def _gate_branch(params, x):
-    return F.gelu((x @ params["w_in_gate"]).float(), approximate="tanh")
+def _rglru_inputs(params, x, tp):
+    """The gate branch gelu(x @ w_in_gate) in f32 and x @ w_in_x, one
+    reduction over 'data' where the mesh ``tp`` splits D there."""
+    gin, xin = project(x, [params["w_in_gate"], params["w_in_x"]], tp,
+                       tp is not None and tp.data_proj)
+    return F.gelu(gin.float(), approximate="tanh"), xin
 
 
 def _row_parallel(y, w, tp, field: str):
@@ -184,8 +192,7 @@ def rglru_block_forward(params, cfg, x, lengths=None, tp=None):
     (B, S, D), state {"h": (B, W) f32, "conv": (B, cw-1, W)}; on a mesh
     this rank's W/N channels of it)."""
     b, s, _ = x.shape
-    gate = _gate_branch(params, x)
-    xin = x @ params["w_in_x"]
+    gate, xin = _rglru_inputs(params, x, tp)
     xc = _causal_conv(xin, params["conv_w"], params["conv_b"])
     a, bx = _rglru_gates(params, xc, tp)
     if lengths is None:
@@ -214,8 +221,7 @@ def rglru_block_decode(params, cfg, x1, state, valid=None, tp=None):
     (B, cw-1, W)} (on a mesh this rank's channels); ``valid`` (B, 1): rows
     that are False keep their state. Returns (out (B, 1, D), the new
     state)."""
-    gate = _gate_branch(params, x1)
-    xin = x1 @ params["w_in_x"]
+    gate, xin = _rglru_inputs(params, x1, tp)
     xc, conv = _conv_step(xin, state["conv"], params["conv_w"],
                           params["conv_b"])
     a, bx = _rglru_gates(params, xc, tp)
@@ -274,6 +280,14 @@ def _headnorm(x, scale, eps):
 def _proj(x, w):
     """x (B, S, D) @ w (D, *out) -> (B, S, *out)."""
     return (x @ w.reshape(w.shape[0], -1)).view(x.shape[:2] + w.shape[1:])
+
+
+def _projs(x, ws, tp):
+    """``_proj`` of x by each w, one reduction over 'data' for all of them
+    where the mesh ``tp`` splits D there."""
+    outs = project(x, [w.reshape(w.shape[0], -1) for w in ws], tp,
+                   tp is not None and tp.data_proj)
+    return [o.view(x.shape[:2] + w.shape[1:]) for o, w in zip(outs, ws)]
 
 
 def mlstm_state_init(batch: int, heads: int, head_dim: int,
@@ -371,15 +385,16 @@ def mlstm_cell_chunkwise(q, k, v, log_i, log_f, state=None, chunk: int = 64):
     return torch.cat(hs, dim=1)[:, :s], {"C": C, "n": n, "m": m}
 
 
-def _mlstm_inputs(params, cfg, x):
+def _mlstm_inputs(params, cfg, x, tp=None):
     """q, k, v (B, S, H, hd) in x's dtype; log_i, log_f (B, S, H) and the
     output gate o (B, S, H, hd), f32."""
     xn = rmsnorm(params["norm"], x, cfg.rms_eps)
-    q, k, v = (_proj(xn, params[w]) for w in ("wq", "wk", "wv"))
-    gif = _proj(xn, params["w_if"]).float() + params["b_if"]
+    q, k, v, gif, og = _projs(xn, [params[w] for w in (
+        "wq", "wk", "wv", "w_if", "w_ogate")], tp)
+    gif = gif.float() + params["b_if"]
     log_i = gif[..., 0]
     log_f = log_sigmoid(gif[..., 1])
-    o = torch.sigmoid(_proj(xn, params["w_ogate"]).float())
+    o = torch.sigmoid(og.float())
     return q, k, v, log_i, log_f, o
 
 
@@ -396,7 +411,7 @@ def mlstm_block_forward(params, cfg, x, lengths=None, chunk: int = 64,
     (B, S, D); ``lengths`` (B,): steps past a row's length keep its state.
     Returns (out (B, S, D), state {"C", "n", "m"}; on a mesh this rank's
     heads' state)."""
-    q, k, v, log_i, log_f, o = _mlstm_inputs(params, cfg, x)
+    q, k, v, log_i, log_f, o = _mlstm_inputs(params, cfg, x, tp)
     if lengths is not None:
         b, s = x.shape[:2]
         length = lengths.to(device=x.device, dtype=torch.int64).reshape(b)
@@ -412,7 +427,7 @@ def mlstm_block_decode(params, cfg, x1, state, valid=None, tp=None):
     """One-step decode through the sequential cell. x1: (B, 1, D); state
     {"C", "n", "m"}; ``valid`` (B, 1): rows that are False keep their
     state. Returns (out (B, 1, D), the new state)."""
-    q, k, v, log_i, log_f, o = _mlstm_inputs(params, cfg, x1)
+    q, k, v, log_i, log_f, o = _mlstm_inputs(params, cfg, x1, tp)
     h, new = mlstm_cell_ref(q, k, v, log_i, log_f, state)
     return (_mlstm_out(params, cfg, h, o, x1.dtype, tp),
             _keep_invalid(new, state, valid))
@@ -532,7 +547,7 @@ def slstm_block_forward(params, cfg, x, lengths=None, state=None, tp=None):
         state = slstm_state_init(x.shape[0], rec_heads(cfg, tp),
                                  cfg.resolved_head_dim, x.device)
     xn = rmsnorm(params["norm"], x, cfg.rms_eps)
-    zx = _proj(xn, params["wx"])                         # (B, S, 4, H, hd)
+    zx, = _projs(xn, [params["wx"]], tp)                 # (B, S, 4, H, hd)
     hs, state = _slstm_scan(params, zx, state, lengths)
     return _slstm_out(params, cfg, hs, x.dtype, tp), state
 

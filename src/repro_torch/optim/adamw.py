@@ -51,13 +51,17 @@ def _pick(tree, i: int):
 def adamw_update(params, grads, state: AdamWState, *, lr, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.0,
-                 grad_clip: Optional[float] = 1.0):
+                 grad_clip: Optional[float] = 1.0, mesh=None, split=None):
     """Returns (new_params, new_state). ``lr`` may be a scalar or a
-    schedule value already resolved for this step."""
+    schedule value already resolved for this step. On a mesh (``mesh``, a
+    ``launch.mesh.HostMesh``) ``params``, ``grads`` and the moments are
+    this rank's shards, and ``split`` (a tree like ``params`` of bools)
+    says which leaves are cut over 'data': the clip's global norm sums
+    their squares over the data ranks and adds the whole leaves' squares
+    once."""
     step = state.step + 1
     if grad_clip is not None:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in tree_leaves(grads)))
+        gnorm = torch.sqrt(_global_sq(grads, mesh, split))
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
@@ -82,6 +86,20 @@ def adamw_update(params, grads, state: AdamWState, *, lr, b1: float = 0.9,
     out = tree_map(upd, params, grads, state.mu, state.nu)
     new_params, new_mu, new_nu = (_pick(out, i) for i in range(3))
     return new_params, AdamWState(step=step, mu=new_mu, nu=new_nu)
+
+
+def _global_sq(grads, mesh, split):
+    """The sum of every gradient element's square, of the whole tree (on a
+    mesh: each data-split leaf's shards summed over the data ranks, each
+    replicated leaf counted once)."""
+    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    if mesh is None:
+        return sum(sq)
+    cut = tree_leaves(split)
+    zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+    parts = sum((q for q, c in zip(sq, cut) if c), zero)
+    whole = sum((q for q, c in zip(sq, cut) if not c), zero)
+    return mesh.all_reduce(parts, axis="data") + whole
 
 
 class SGDState(NamedTuple):

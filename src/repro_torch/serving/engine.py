@@ -208,8 +208,9 @@ class _Program:
     capture: an engine captures dozens of programs in a row.
 
     On a mesh (``meshed``) the program's NCCL collectives are captured with
-    it, counted in ``collectives`` as launches are (``launch.mesh.
-    COLLECTIVES``), and the capture is thread-local: the process group's
+    it, counted in ``collectives`` by kind and axis as launches are
+    (``launch.mesh.COLLECTIVES``), and the capture is thread-local: the
+    process group's
     watchdog thread polls its events while a capture is open."""
 
     def __init__(self, key, pool, stream, body, meshed: bool = False):
@@ -242,9 +243,10 @@ class _Program:
                              for name, n in before.items()
                              if LAUNCHES[name] != n}
             LAUNCHES.update(before)
-            self.collectives = {name: COLLECTIVES[name] - n
-                                for name, n in before_c.items()
-                                if COLLECTIVES[name] != n}
+            self.collectives = {name: n - before_c.get(name, 0)
+                                for name, n in COLLECTIVES.items()
+                                if n != before_c.get(name, 0)}
+            COLLECTIVES.clear()
             COLLECTIVES.update(before_c)
 
     def replay(self, key) -> None:
@@ -256,7 +258,7 @@ class _Program:
         for name, n in self.launches.items():
             LAUNCHES[name] += n
         for name, n in self.collectives.items():
-            COLLECTIVES[name] += n
+            COLLECTIVES[name] = COLLECTIVES.get(name, 0) + n
 
 
 _CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
@@ -1834,7 +1836,7 @@ class ServingEngine(_GraphedPrograms):
                                    self._draft_backend._proto)
         mine = torch.tensor([self._lockstep_digest()], dtype=torch.int64,
                             device=self.mesh.device)
-        every = self.mesh.gather(mine, 0).cpu().tolist()
+        every = self.mesh.gather(mine, 0, axis="world").cpu().tolist()
         assert len(set(every)) == 1, (
             f"ranks out of lockstep: state digests {every} (rank "
             f"{self.mesh.rank})")

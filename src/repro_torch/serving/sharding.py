@@ -14,9 +14,12 @@ and lets GSPMD move the data to the sharded heads, while the port's
 explicit SPMD keeps each rank's heads. Block tables, position slots, MLA
 latents (no head dim: every rank computes them whole from the replicated
 down-projections), the free list and the commitment ledger stay
-replicated. MoE experts split by expert
-(the expert dim's ("data", "model") cuts like ``model`` on a data-1
-mesh) or by d_ff inside every expert, as the rules resolve. Where ``repro``
+replicated. MoE experts split by expert over ("data", "model") or by
+d_ff inside every expert, as the rules resolve. On a mesh with a data
+axis above 1 the decode rules also cut d_model's contraction side
+(``EMBED``) on 'data'; every cache stays whole over 'data' (``repro``'s
+serving cache specs split on 'model' alone), so the ranks of a model
+column hold equal caches. Where ``repro``
 commits arrays to ``NamedSharding``s, a rank here holds its shard of each
 leaf: "placing" slices it, and a spec is a tuple of mesh axes per
 dimension.
@@ -35,10 +38,11 @@ def model_axis_size(mesh) -> int:
     return int(dict(mesh.shape).get("model", 1))
 
 
-def param_shardings(mesh, lm):
-    """The spec tree of ``lm``'s params under the decode-mode rules."""
+def param_shardings(mesh, lm, mode: str = "decode"):
+    """The spec tree of ``lm``'s params under the decode-mode rules (or
+    ``mode``'s: "train" for FSDP training)."""
     return sr.param_pspecs(mesh, lm.param_spec(), lm.param_axes(),
-                           mode="decode")
+                           mode=mode)
 
 
 def shard_shape(mesh, shape, spec):
@@ -55,24 +59,28 @@ def shard_shape(mesh, shape, spec):
 def cut_leaf(mesh, leaf, spec, glob):
     """This rank's slice of a whole leaf of shape ``glob`` under ``spec``
     (a view): every dimension its spec splits is narrowed to this rank's
-    part. A tuple of mesh axes cuts like ``model`` when its other axes
-    have size 1 (the expert dim's ("data", "model") on a data-1 mesh)."""
+    part. A dimension split over a tuple of axes is cut into the product
+    of their sizes, chunk ``i`` for the rank whose indices on them, read
+    as one number in the tuple's order, make ``i`` (("data", "model"):
+    chunk ``d·M + m``, the rank's place in the mesh)."""
     local = shard_shape(mesh, glob, spec)
     out = leaf
     for dim, ax in enumerate(spec):
-        if ax is not None and glob[dim] != local[dim]:
-            axes = (ax,) if isinstance(ax, str) else tuple(ax)
-            if any(a != "model" and mesh.shape[a] != 1 for a in axes):
-                raise NotImplementedError(f"placement on {ax!r}")
-            out = mesh.shard(out, dim)
+        if ax is None or glob[dim] == local[dim]:
+            continue
+        chunk = 0
+        for a in ((ax,) if isinstance(ax, str) else tuple(ax)):
+            chunk = chunk * mesh.shape[a] + mesh.axis_rank(a)
+        out = out.narrow(dim, chunk * local[dim], local[dim])
     return out
 
 
-def place_params(mesh, lm, params):
+def place_params(mesh, lm, params, mode: str = "decode"):
     """This rank's shards of ``params``: each leaf cut to its slice of
-    every dimension its spec splits (a contiguous copy). A leaf that is
-    not split, or is already this rank's shard, is kept as it is."""
-    specs = param_shardings(mesh, lm)
+    every dimension its spec (under ``mode``'s rules) splits (a contiguous
+    copy). A leaf that is not split, or is already this rank's shard, is
+    kept as it is."""
+    specs = param_shardings(mesh, lm, mode)
 
     def place(leaf, spec, shape):
         if isinstance(leaf, dict):

@@ -15,6 +15,8 @@ import dataclasses
 import functools
 from typing import Dict, Optional, Sequence, Tuple
 
+import torch
+
 # logical activation axes
 BATCH = "act_batch"
 SEQ = "act_seq"
@@ -64,10 +66,12 @@ def resolve(rules: Dict[str, object], axes: Sequence[Optional[str]],
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """How one rank runs a model on a mesh's ``model`` axis: which
-    dimensions its shards split (each exactly when the decode-mode
-    placement rules split the leaves that hold it) and the KV heads its
-    query heads read. ``kv_range`` is (first, count) in the KV-head dim of
+    """How one rank runs a model on a (data, model) mesh: which dimensions
+    its shards split (each exactly when the decode-mode placement rules
+    split the leaves that hold it) and the KV heads its query heads read.
+
+    On ``model`` (``ways`` ranks; ``rank`` is this rank's index inside its
+    model group): ``kv_range`` is (first, count) in the KV-head dim of
     this rank's K/V (its own heads when they split, all of them when they
     are replicated). An MoE layer's routed experts split by expert
     (``experts``: this rank holds ``expert_range``, (first, count), of
@@ -79,7 +83,19 @@ class TensorParallel:
     mixers split their width (``lru``: the RG-LRU's channels) or their
     heads (``rec_heads``: mLSTM and sLSTM), and the sLSTM's internal GeGLU
     its columns (``rec_mlp``). ``mlp`` is the dense MLP's d_ff; a model
-    with no dense MLP (xLSTM, an all-MoE stack) has it False."""
+    with no dense MLP (xLSTM, an all-MoE stack) has it False.
+
+    On ``data`` (``data_ways`` ranks, this one ``data_rank``), the decode
+    rules put d_model's contraction side (``EMBED``): ``data_proj`` for
+    every input projection (attention's and MLA's, the dense and shared
+    MLPs' ``w_gate``/``w_up``, the recurrent mixers' inputs, the vision
+    projector's ``w2``), ``data_norm`` for the norm scales, ``data_table``
+    for the embedding and unembedding tables' D, ``data_router`` for the
+    router's rows, ``expert_data_in`` for the routed experts' D where
+    they do not split by expert, and ``data_vision`` for ``vision_proj.
+    w1``'s output dim. ``data_experts``: the routed experts split over
+    ("data", "model"), each rank holding E/(D·M) of them by its place in
+    the mesh. Every data field is False on a data-1 mesh."""
     mesh: object
     ways: int
     rank: int
@@ -97,34 +113,86 @@ class TensorParallel:
     lru: bool = False                 # the RG-LRU width split
     rec_heads: bool = False           # mLSTM / sLSTM heads split
     rec_mlp: bool = False             # the sLSTM GeGLU's columns split
+    data_ways: int = 1
+    data_rank: int = 0
+    data_proj: bool = False           # input projections' D on data
+    data_norm: bool = False           # norm scales on data
+    data_table: bool = False          # the tables' D on data
+    data_router: bool = False         # the router's D on data
+    data_experts: bool = False        # routed experts on (data, model)
+    expert_data_in: bool = False      # the routed experts' D on data
+    data_vision: bool = False         # vision_proj.w1's output D on data
 
     def reduce(self, x, split: bool):
-        """Sum a row-parallel partial over the ranks when ``split``."""
+        """Sum a row-parallel partial over the model ranks when ``split``."""
         return self.mesh.all_reduce(x) if split else x
 
+    def project(self, x, ws, split: bool):
+        """``[x @ w for w in ws]`` for a replicated activation ``x``
+        (..., D) and 2-D weights. Where ``split`` (the weights' rows are
+        this rank's D/data_ways of d_model), each product is a partial of
+        ``x``'s matching columns: the partials are joined into one f32
+        all-reduce over ``data`` and cast back, as a whole product's GEMM
+        rounds once."""
+        if not split:
+            return [x @ w for w in ws]
+        xs = self.mesh.shard(x, -1, axis="data")
+        parts = [xs @ w for w in ws]
+        sizes = [p.shape[-1] for p in parts]
+        both = self.mesh.all_reduce(torch.cat(parts, -1), axis="data")
+        return list(both.split(sizes, -1))
 
-def _split(spec, dim: int) -> bool:
-    return spec[dim] == "model"
+
+def _split(spec, dim: int, axis: str = "model") -> bool:
+    return spec[dim] == axis
+
+
+def _has(spec, dim: int, axis: str) -> bool:
+    ax = spec[dim]
+    return ax == axis or (isinstance(ax, tuple) and axis in ax)
 
 
 @functools.lru_cache(maxsize=64)
-def _leaf_splits(cfg, n: int) -> Dict[str, bool]:
-    """Which of the dense MLP's d_ff, the RG-LRU width, the recurrent heads
-    and the sLSTM GeGLU's columns an ``n``-way mesh splits: read off the
-    resolved decode-mode spec of a stacked leaf that holds each dimension
-    (``serving.sharding.param_shardings``), False where no leaf holds it."""
+def _leaf_splits(cfg, n: int, data: int = 1) -> Dict[str, bool]:
+    """Which dimensions an (``data``, ``n``) mesh splits, read off the
+    resolved decode-mode spec of a leaf that holds each
+    (``serving.sharding.param_shardings``), False where no leaf holds it:
+    on ``model`` the dense MLP's d_ff, the RG-LRU width, the recurrent
+    heads, the sLSTM GeGLU's columns and the routed experts (by expert,
+    or their d_ff); on ``data`` (above 1) d_model in every place the
+    decode rules name it (``TensorParallel``'s data fields)."""
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.models.model import LM
     from repro_torch.serving.sharding import param_shardings
 
     out = dict(mlp=False, lru=False, rec_heads=False, rec_mlp=False)
-    specs = param_shardings(AbstractMesh(n), LM(cfg, device="cpu"))
+    dd = dict(data_proj=False, data_norm=False, data_table=False,
+              data_router=False, data_experts=False, expert_data_in=False,
+              data_vision=False)
+    moe = {}
+    specs = param_shardings(AbstractMesh(n, data), LM(cfg, device="cpu"))
+    dd["data_norm"] = _split(specs["final_norm"]["scale"], 0, "data")
+    dd["data_table"] = _split(specs["embed"]["table"], -1, "data")
+    if "vision_proj" in specs:
+        dd["data_vision"] = _split(specs["vision_proj"]["w1"], 1, "data")
     for stage in specs["stages"]:
         for block in stage.values():
             mixer, mlp = block["mixer"], block.get("mlp", {})
             if "w_gate" in mlp and "router" not in mlp:
                 # a dense MLP's w_down (L, MLP, D)
                 out["mlp"] = _split(mlp["w_down"], 1)
+            if "router" in mlp:
+                # the router (L, D, E); the routed experts' w_gate
+                # (L, E, D, MLP); the shared expert's w_down (L, MLP, D)
+                moe = dict(
+                    experts=mlp["w_gate"][1] is not None,
+                    expert_mlp=_split(mlp["w_gate"], 3),
+                    router=_has(mlp["router"], 2, "model"),
+                    shared_mlp="shared" in mlp
+                    and _split(mlp["shared"]["w_down"], 1))
+                dd["data_router"] = _split(mlp["router"], 1, "data")
+                dd["data_experts"] = _has(mlp["w_gate"], 1, "data")
+                dd["expert_data_in"] = _split(mlp["w_gate"], 2, "data")
             if "lam" in mixer:
                 # the RG-LRU's w_in_x (L, D, LRU)
                 out["lru"] = _split(mixer["w_in_x"], 2)
@@ -135,7 +203,13 @@ def _leaf_splits(cfg, n: int) -> Dict[str, bool]:
                 # the sLSTM's wx (L, D, 4, H, hd) and w_up1 (L, H hd, 2 D)
                 out["rec_heads"] = _split(mixer["wx"], 3)
                 out["rec_mlp"] = _split(mixer["w_up1"], 2)
-    return out
+            # every mixer's first input projection: (L, D, ...)
+            first = next(iter(k for k in ("wq", "w_dq", "w_in_x", "wx")
+                              if k in mixer))
+            dd["data_proj"] = _split(mixer[first], 1, "data")
+    if data == 1:
+        dd = {k: False for k in dd}
+    return {**out, **moe, **dd}
 
 
 def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
@@ -145,9 +219,18 @@ def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
     if mesh is None:
         return None
     n = int(mesh.shape["model"])
+    data = int(mesh.shape.get("data", 1))
+    if cfg.d_model % data:
+        # d_model's contraction side would stay whole, and the decode
+        # rules then put the router's columns on ("data", "model")
+        raise NotImplementedError(
+            f"{cfg.name}: d_model {cfg.d_model} does not divide by a "
+            f"{data}-way data axis")
     h, kv = cfg.num_heads, cfg.num_kv_heads
     heads, kvs = h % n == 0, kv % n == 0
-    rank = int(getattr(mesh, "rank", 0))
+    # this rank's place in the mesh, and its index in its model group
+    place = int(getattr(mesh, "rank", 0))
+    rank = int(getattr(mesh, "model_rank", place % n))
     if heads and not kvs:
         # each rank's local = h/n query heads read one shared KV head
         # when they lie inside one group of h/kv heads (local/group = kv/n
@@ -163,22 +246,20 @@ def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
                 f"{kv} KV heads or whose rank share divides a group")
     else:
         kv_range = (0, kv // n if kvs else kv)
-    moe, routed = cfg.moe, {}
-    if moe is not None:
-        # EXPERT takes ("data", "model") in decode; with data = 1 the
-        # experts split exactly when they divide by N, and then the MLP
-        # axis of w_gate/w_up/w_down is left whole (a mesh axis splits one
-        # dimension of a leaf); else d_ff splits inside every expert
-        e = moe.num_experts
-        experts = e % n == 0
-        routed = dict(
-            experts=experts,
-            expert_range=(rank * (e // n), e // n) if experts else (0, e),
-            expert_mlp=not experts and moe.d_ff_expert % n == 0,
-            shared_mlp=moe.num_shared_experts > 0
-            and moe.d_ff_shared % n == 0,
-            router=e % n == 0)
+    splits = dict(_leaf_splits(cfg, n, data))
+    if cfg.moe is not None:
+        # EXPERT takes ("data", "model") in decode: chunk d·M + m of the
+        # experts is rank (d, m)'s, which is its place in the mesh; where
+        # the experts do not divide by D·M they stay whole, and d_ff
+        # splits inside every expert instead (a mesh axis splits one
+        # dimension of a leaf)
+        e = cfg.moe.num_experts
+        per = e // (n * data)
+        splits["expert_range"] = ((place * per, per) if splits["experts"]
+                                  else (0, e))
     return TensorParallel(mesh=mesh, ways=n, rank=rank, heads=heads, kv=kvs,
                           vocab=cfg.padded_vocab % n == 0, kv_range=kv_range,
                           mla_heads=cfg.mla is not None and h % n == 0,
-                          **_leaf_splits(cfg, n), **routed)
+                          data_ways=data,
+                          data_rank=int(getattr(mesh, "data_rank", 0)),
+                          **splits)

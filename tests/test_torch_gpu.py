@@ -46,7 +46,11 @@ bit for bit with its all-reduces captured in the graphs, and a gloo mesh
 serves eager and refuses a capture. A full-width MoE layer and MLA on a
 one-rank NCCL mesh are bit-equal to ``mesh=None`` with the router's
 all-gather and the all-reduces captured in a graph; the sharded
-``LM.init`` equals ``place_params`` of the whole init on the card.
+``LM.init`` equals ``place_params`` of the whole init on the card. The
+data axis on a one-rank mesh of the card: the joined projection, the world
+all-reduce, the data gather and reduce-scatter; a data-parallel train
+step against the one-device step (f32: the loss 1e-5 relative, each param
+1e-5 of its leaf's max |p| plus 1e-4 lr).
 """
 import contextlib
 
@@ -70,6 +74,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_fwd_plain, flash_attention_plain)
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan, rglru_scan_bwd, rglru_scan_bwd_plain, rglru_scan_plain)
+from repro_torch.launch.mesh import tally  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -2100,8 +2105,8 @@ def test_nccl_mesh_of_one_equals_mesh_none_with_collectives_captured(
             assert eng.graphs() == len(progs)
             per_step = 1 + 2 * lm.cfg.num_layers
             for key, prog in progs.items():
-                got = prog.collectives.get("all_reduce", 0)
-                gathers = prog.collectives.get("all_gather", 0)
+                got, gathers = (tally(prog.collectives)[k]
+                                for k in ("all_reduce", "all_gather"))
                 if m is None:
                     assert got == 0 and gathers == 0, key
                 elif key[0] == "decode":
@@ -2219,8 +2224,9 @@ def test_moe_and_mla_on_an_nccl_mesh_of_one_bit_equal_and_captured(
         body()                                   # eager collectives first
         prog = _Program(("moe",), torch.cuda.graph_pool_handle(),
                         capture_stream(cuda), body, meshed=True)
-        assert prog.collectives == {"all_reduce": 1 + mla,
-                                    "all_gather": 1}, prog.collectives
+        assert tally(prog.collectives) == {
+            "all_reduce": 1 + mla, "all_gather": 1, "broadcast": 0,
+            "reduce_scatter": 0}, prog.collectives
         for step in range(2):
             x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
             x1.copy_(torch.randn(x1.shape, generator=gen, device=cuda))
@@ -2240,11 +2246,14 @@ def test_moe_and_mla_on_an_nccl_mesh_of_one_bit_equal_and_captured(
 
 
 class _StandInMesh:
-    """A mesh's shape, rank and ``shard``, without a process group: what
-    placement and the sharded init read."""
+    """A mesh's shape, rank, ``axis_rank`` and ``shard``, without a process
+    group: what placement and the sharded init read."""
 
     def __init__(self, n, rank):
         self.shape, self.rank = {"data": 1, "model": n}, rank
+
+    def axis_rank(self, axis):
+        return self.rank if axis in ("model", "world") else 0
 
     def shard(self, x, dim):
         w = x.shape[dim] // self.shape["model"]
@@ -2334,8 +2343,8 @@ def test_recurrent_nccl_mesh_of_one_equals_mesh_none_with_collectives(
             progs = eng._programs
             assert eng.graphs() == len(progs)
             for key, prog in progs.items():
-                got = prog.collectives.get("all_reduce", 0)
-                gat = prog.collectives.get("all_gather", 0)
+                got, gat = (tally(prog.collectives)[k]
+                            for k in ("all_reduce", "all_gather"))
                 if m is None:
                     assert got == 0 and gat == 0, key
                 elif key[0] == "decode":
@@ -2348,3 +2357,68 @@ def test_recurrent_nccl_mesh_of_one_equals_mesh_none_with_collectives(
     assert launches[0] == launches[1]
     if name == "recurrentgemma-9b":
         assert launches[1]["rglru_scan"] > 0
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_data_helper_and_world_reduce_on_a_one_rank_card_mesh(cuda,
+                                                              backend):
+    """On a one-rank mesh of the card every axis is the whole group: the
+    data axis' joined projection (``TensorParallel.project``) equals the
+    plain products bit for bit (one bf16 product, summed in f32 over one
+    rank and cast back), and the world all-reduce, the data gather and the
+    data reduce-scatter return what they were given."""
+    from repro_torch.sharding import tensor_parallel
+    lm = _mesh_model(cuda)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(3, 5, 128, device=cuda, generator=g).to(torch.bfloat16)
+    ws = [torch.randn(128, n, device=cuda, generator=g).to(torch.bfloat16)
+          for n in (64, 32)]
+    with _process_group(backend) as mesh:
+        tp = tensor_parallel(lm.cfg, mesh)
+        got = tp.project(x, ws, True)
+        for a, w in zip(got, ws):
+            assert torch.equal(a, x @ w)
+        y = torch.randn(4, 6, device=cuda, generator=g)
+        assert torch.equal(mesh.all_reduce(y.clone(), axis="world"), y)
+        assert torch.equal(mesh.gather(y, -1, axis="data"), y)
+        assert torch.equal(mesh.reduce_scatter(y[None], axis="data"), y)
+        mesh.barrier()
+
+
+def test_data_parallel_step_on_the_card_equals_the_one_device_step(cuda):
+    """The data-parallel train step on a one-rank NCCL mesh of the card
+    (f32): its loss equals the one-device step's within 1e-5, and each
+    param within 1e-5 of its leaf's max |p| plus 1e-4 lr (the clip's norm
+    sums the split and the whole leaves apart: another order)."""
+    import dataclasses
+
+    from repro_torch.optim import adamw_init
+    from repro_torch.training.train_loop import (make_train_step,
+                                                 place_train_params)
+    lm = _mesh_model(cuda)
+    lm = type(lm)(dataclasses.replace(lm.cfg, param_dtype="float32"),
+                  device=cuda)
+    params = lm.init(0)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, 500, (4, 24))).to(cuda)
+    labels = torch.roll(toks, -1, 1)
+    labels[0, 5:] = -1
+    batch = {"tokens": toks, "labels": labels}
+    lr = 1e-3
+
+    def sched(step):
+        return torch.full((), lr, device=step.device)
+
+    want, _, wm = make_train_step(lm, sched)(params, adamw_init(params),
+                                             batch)
+    with _process_group("nccl") as mesh:
+        local = place_train_params(mesh, lm, params)
+        got, _, gm = make_train_step(lm, sched, mesh=mesh)(
+            local, adamw_init(local), batch)
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= 1e-5 * float(
+        wm["loss"])
+    from repro_torch.utils.tree import flat_paths
+    a, b = flat_paths(got), flat_paths(want)
+    for k in b:
+        tol = 1e-5 * float(b[k].abs().max()) + 1e-4 * lr
+        assert float((a[k] - b[k]).abs().max()) <= tol, k

@@ -343,11 +343,11 @@ def _near_tie_streams(lm, params, reqs, got_streams, base, seed=0):
         gaps = []
         orig = moe_lib.route
 
-        def recording(params, cfg, x_flat, tp=None):
+        def recording(params, cfg, x_flat, tp=None, over_data=None):
             logits = moe_lib.router_logits(params, x_flat, tp)
             top = torch.topk(logits, cfg.moe.num_experts_per_tok + 1, -1)[0]
             gaps.append(float((top[:, -2] - top[:, -1]).min()))
-            return orig(params, cfg, x_flat, tp)
+            return orig(params, cfg, x_flat, tp, over_data)
 
         moe_lib.route = recording
         try:

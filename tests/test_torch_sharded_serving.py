@@ -233,7 +233,7 @@ def gather_worker(rank, out_dir):
     """``HostMesh.gather`` by both of its forms (NCCL's all-gather runs on
     gloo's CPU tensors too, so the backend name picks the form here) and
     ``broadcast_object`` on its own host group."""
-    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh
+    from repro_torch.launch.mesh import COLLECTIVES, make_host_mesh, tally
 
     mesh = make_host_mesh(4)
     rec = {"host_group_own": mesh._host is not mesh.group}
@@ -247,8 +247,8 @@ def gather_worker(rank, out_dir):
             y = mesh.gather(x, dim)
             got.append([str(y.dtype), y.float().tolist()])
         got.append(mesh.gather(torch.tensor([7 + rank]), 0).tolist())
-        rec[backend] = {"got": got, "counts": {
-            k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}}
+        rec[backend] = {"got": got,
+                        "counts": tally(COLLECTIVES, before=before)}
     rec["broadcast"] = mesh.broadcast_object(
         {"stop": True} if rank == 0 else None)
     _dump(out_dir, rank, rec)
@@ -394,9 +394,9 @@ def test_gather_forms_join_rank_slices_in_order(tmp_path):
         assert rec["host_group_own"] and rec["broadcast"] == {"stop": True}
         assert rec["gloo"]["got"] == want and rec["nccl"]["got"] == want
         assert rec["gloo"]["counts"] == {"all_reduce": 4, "all_gather": 0,
-                                         "broadcast": 0}
+                                         "broadcast": 0, "reduce_scatter": 0}
         assert rec["nccl"]["counts"] == {"all_reduce": 0, "all_gather": 4,
-                                         "broadcast": 0}
+                                         "broadcast": 0, "reduce_scatter": 0}
 
 
 def test_mesh_none_is_unchanged():

@@ -97,8 +97,8 @@ def _route_gaps(monkeypatch):
     gaps = []
     route = moe_lib.route
 
-    def recording(params, cfg, x_flat, tp=None):
-        out = route(params, cfg, x_flat, tp)
+    def recording(params, cfg, x_flat, tp=None, over_data=None):
+        out = route(params, cfg, x_flat, tp, over_data)
         logits = x_flat.detach().float() @ params["router"].detach().float()
         scores = (torch.sigmoid(logits) if cfg.moe.num_shared_experts
                   else logits)
@@ -230,7 +230,8 @@ def test_resumed_trainer_equals_the_uninterrupted_one(tmp_path):
 
 def test_train_cli_flags_against_repro(monkeypatch, capsys):
     """``python -m repro_torch.launch.train`` keeps ``repro``'s flags and
-    their defaults, adds ``--device`` and ``--no-reduced``, refuses
+    their defaults, adds ``--device``, ``--mesh-data`` (the port's stand-in
+    for ``repro``'s device count) and ``--no-reduced``, refuses
     ``--production`` and ``--multi-pod`` (meshes: ROADMAP Queue 1), and a
     short run on the CPU logs steps 0, 10 and the last."""
     import argparse
@@ -255,7 +256,7 @@ def test_train_cli_flags_against_repro(monkeypatch, capsys):
     monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse)
     theirs, ours = ({a.dest: a for a in p._actions if a.dest != "help"}
                     for p in parsers)
-    assert set(ours) == set(theirs) | {"device"}
+    assert set(ours) == set(theirs) | {"device", "mesh_data"}
     for dest in ("arch", "steps", "batch", "seq", "lr", "production",
                  "multi_pod"):
         assert ours[dest].default == theirs[dest].default, dest
