@@ -223,13 +223,31 @@ on failure:
    step beside ``mesh=None``'s; on a machine with more cards, on
    min(count, 4) of them too; (b) real splits on this card, ranks as
    processes over gloo, each on it, eager
-   (``TP_SPLITS``: qwen3-4b at 8 layers on 2 ranks, heads and KV heads
-   split; glm4-9b at 2 layers on 4 ranks, its 2 KV heads whole on every
+   (``TP_SPLITS``: qwen3-4b at 4 layers on 2 ranks, heads and KV heads
+   split; glm4-9b at 1 layer on 4 ranks, its 2 KV heads whole on every
    rank, each rank's 8 query heads reading one in place): the ranks'
    streams equal bit for bit (and ``assert_invariants`` checks lockstep
    after each run), equal ``mesh=None``'s or part first at a near-tie
    (``BF16_LOGIT_TOL``), the K/V bytes a rank holds 1/N of the whole where
    the KV heads divide, and each rank's launches.
+
+Phases 20-22 put MoE and MLA, the recurrent mixers and the frontends, and
+the data axis on the mesh (``check_moe_mesh``, ``check_rec_mesh``,
+``check_data_axis``). Phase 23 is a supervised restart on the mesh
+(``check_supervise``): (a) smollm-135m whole on 2 gloo ranks of this card,
+ring, eager: the trace served uninterrupted, then through rank 0's gateway
+(journal, a snapshot every step, the watchdog) while every rank's fault
+plan stalls step 2 past the grace window; after ``EngineWedgedError``
+every rank releases its engine (a weak reference to it dead, at most
+``SUP_RELEASED`` of its own bytes still allocated above what the rank
+held before building it) before the fresh one is
+built, the leader recovers from the snapshot and the journal and drains:
+no acknowledged request lost, every stream equal to the uninterrupted
+run's token for token and to ``mesh=None``'s or parted first at a
+near-tie; restart -> first token and each rank's peak memory before the
+wedge and after the restart; (b) with 2 cards or more, ``launch/serve.py
+--arch qwen3-4b --no-reduced --mesh min(cards, 4) --wedge-demo`` over
+NCCL, graphed, its printed restart lines held.
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
@@ -5585,6 +5603,9 @@ def check_train_smollm(torch, dev, seed, smi):
     import shutil
     import tempfile
 
+    from repro_torch.analysis import param_counts, step_record
+    from repro_torch.analysis.roofline import (format_table,
+                                               roofline_from_record)
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -5608,6 +5629,10 @@ def check_train_smollm(torch, dev, seed, smi):
                      log_every=1, ckpt_every=RESUME_AT)
         params, opt = tr.init_state(seed)
         n_params = _tree_numel(params)
+        n_active = param_counts("smollm-135m")["active"]
+        if n_active != n_params:
+            raise AssertionError(f"param_counts gives {n_active} active "
+                                 f"parameters, the tree holds {n_params}")
         events, step = [], tr.train_step
 
         def timed(p, o, batch):
@@ -5635,9 +5660,13 @@ def check_train_smollm(torch, dev, seed, smi):
         first = to_device(batches[0], dev)
         prof = _profile_steps(torch, lambda: step(params, opt, first),
                               step_ms)
+        roof = roofline_from_record(step_record(
+            lambda: step(params, opt, first), arch="smollm-135m",
+            mode="train", seq_len=s, global_batch=b, params=params,
+            device=dev, shape=f"B{b} S{s}"))
         losses = [m["loss"] for m in tr.history]
         tok_s = b * s / step_ms * 1e3
-        share = 6 * n_params * b * s / (step_ms / 1e3) / BF16_FLOPS_PER_S
+        share = 6 * n_active * b * s / (step_ms / 1e3) / BF16_FLOPS_PER_S
         print(f"  smollm-135m train, {cfg.num_layers} layers, B={b} S={s}, "
               f"bf16 params, AdamW f32, lr {TRAIN_LR} (warmup "
               f"{TRAIN_WARMUP}) [{smi}]: {TRAIN_STEPS} steps in {wall:.2f} s "
@@ -5654,6 +5683,17 @@ def check_train_smollm(torch, dev, seed, smi):
               f"{prof['launches']} device events a step; device ms a step "
               f"by kernel: " + ", ".join(f"{k} {v:.2f}"
                                         for k, v in prof["top"]))
+        print(f"    roofline of one step (analysis.step_record: "
+              f"FlopCounterMode + the kernels' FLOPs; bytes the params' "
+              f"alone, a lower bound) [{smi}]:")
+        for line in format_table([roof]).splitlines():
+            print(f"      {line}")
+        top = max(roof["t_compute_s"], roof["t_memory_s"]) * 1e3
+        print(f"    the step's largest term {top:.3f} ms against "
+              f"{step_ms:.2f} ms measured; FLOPs counted "
+              f"{roof['hlo_flops_total']:.4g}, 6 N "
+              f"D {roof['model_flops']:.4g} (useful ratio "
+              f"{roof['useful_ratio']:.3f})")
         print("    loss by step: " + ", ".join(f"{x:.3f}" for x in losses))
         print(f"    launches {launches} (expected {want}: flash forward "
               f"twice a layer a step under remat, backward once)")
@@ -5692,7 +5732,7 @@ def check_train_smollm(torch, dev, seed, smi):
         shutil.rmtree(root, ignore_errors=True)
     return dict(steps=TRAIN_STEPS, batch=b, seq=s, ms_per_step=step_ms,
                 profile=prof, tokens_per_s=tok_s, peak_bytes=peak,
-                flops_share=share,
+                flops_share=share, roofline=roof,
                 n_params=n_params, losses=losses, resumed_losses=resumed,
                 resume_rel=rel, wall_s=wall, data_s=data_s), launches
 
@@ -5855,9 +5895,9 @@ def check_training(torch, timer, dev, seed, smi):
 # 19(b): (model, layers served at full width, ranks) sharing one card over
 # gloo: qwen3-4b's 32 heads and 8 KV heads split 2 ways; glm4-9b's 32 heads
 # split 4 ways over 2 KV heads that every rank keeps whole (each rank's 8
-# query heads read one of them in place); glm4 cut to 2 layers, to keep
-# the script inside its time limit on a slower host
-TP_SPLITS = (("qwen3-4b", 8, 2), ("glm4-9b", 2, 4))
+# query heads read one of them in place); qwen3 cut to 4 layers and glm4
+# to 1, to keep the script inside its time limit on a slower host
+TP_SPLITS = (("qwen3-4b", 4, 2), ("glm4-9b", 1, 4))
 TP_MAX_NEW = 16
 TP_SEQ = 512
 
@@ -6214,7 +6254,7 @@ def check_tensor_parallel(torch, dev, seed, smi, splits=True):
 # 8 KV heads 2 a rank); deepseek's 256 experts 64 a rank, its MLA's 128
 # heads 32 a rank, the shared expert's and the dense layers' d_ff split;
 # deepseek cut to one dense and one MoE layer, for the script's time limit
-MESH_MOE_GLOO = (("mixtral-8x22b", (2,), 4), ("deepseek-v3-671b", (1, 1), 4))
+MESH_MOE_GLOO = (("mixtral-8x22b", (1,), 4), ("deepseek-v3-671b", (1, 1), 4))
 # 20(c), one card a rank on a machine with >= 2 cards, ring and paged
 # engines: mixtral at full depth and deepseek's 3 dense + 9 MoE layers
 # (MTP's params too), at 4 ranks; fewer cards serve the depth that fits as
@@ -7061,8 +7101,8 @@ def check_rec_mesh(torch, dev, seed, smi, legs="abc"):
 # gloo ranks sharing this card, eager: qwen3-4b's heads, KV heads and d_ff
 # split 2 ways on 'model' and d_model's contraction side 2 ways on 'data';
 # mixtral's 8 experts over ("data", "model"), 2 a rank, dropless
-DATA_MESH_GLOO = (("qwen3-4b", (8,), ("ring", "paged")),
-                  ("mixtral-8x22b", (2,), ("ring",)))
+DATA_MESH_GLOO = (("qwen3-4b", (4,), ("ring", "paged")),
+                  ("mixtral-8x22b", (1,), ("ring",)))
 DATA_MESH = (2, 2)                 # (data, model)
 DATA_MESH_CARDS = "qwen3-4b"       # 22(b): whole, on 4 cards as (2, 2)
 DP_MODEL = "smollm-135m"
@@ -7698,6 +7738,287 @@ def check_data_axis(torch, dev, seed, smi, legs="abcd", tp_stats=None):
     return rec, dict(launches)
 
 
+SUP_MODEL = "smollm-135m"            # 23(a): whole, on gloo ranks
+SUP_RANKS = 2
+SUP_STEP_TIMEOUT = 2.0               # s, the watchdog's deadline a step
+SUP_GRACE = 0.5                      # of the deadline
+SUP_HANG_S = SUP_STEP_TIMEOUT * (1 + SUP_GRACE) + 2.0   # step 2's stall
+SUP_RELEASED = 0.25                  # of the engine's own bytes left after
+SUP_CARDS = "qwen3-4b"               # 23(b): whole, NCCL, graphed
+
+
+def _sup_rank(rank, out_dir, cfg, seed, reqs, device="cuda"):
+    """One rank of 23(a) (spawned; gloo, card 0 shared): the trace served
+    uninterrupted on the mesh (every rank the same calls), then again
+    through rank 0's gateway over a ``MeshLeader`` (journal, a snapshot
+    every step, the watchdog), every rank's fault plan stalling step 2
+    past the grace window; after the wedge, each rank's engine written
+    off (a weak reference to it dead, the bytes it held released) before
+    ``rebuild`` makes the fresh one (weights drawn again from ``seed``),
+    ``recover_engine`` over the leader and ``MeshLeader.run``. gloo's
+    collectives cannot be captured, so these engines serve eager and
+    ``warm_compile`` (which refuses a gloo mesh on the card) is skipped.
+    Its record to ``out_dir`` (``device="cpu"`` rehearses it on the CPU,
+    memory read as 0)."""
+    import asyncio
+    import tempfile
+    import weakref
+
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.serving import (EngineWedgedError, FaultPlan,
+                                     MeshLeader, RequestJournal,
+                                     ServingEngine, ServingGateway, follow,
+                                     recover_engine)
+
+    dev = torch.device("cuda:0" if device == "cuda" else device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def mem(peak=False):
+        if not cuda:
+            return 0
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() if peak
+                else torch.cuda.memory_allocated())
+
+    mesh = make_host_mesh(torch.distributed.get_world_size(), device=dev)
+    lm = LM(cfg, device=dev)
+    rec = {"released": []}
+
+    def build(plan=None):
+        eng = ServingEngine(lm, lm.init(seed, on_device=True, mesh=mesh),
+                            batch_slots=8, max_seq_len=TP_SEQ, seed=seed,
+                            max_decode_steps=4, mesh=mesh, fault_plan=plan)
+        eng.warm_compile = lambda: None
+        return eng
+
+    def rebuild(ref):
+        def fresh():
+            rec["released"].append(ref() is None)
+            rec["after_release_bytes"] = mem()
+            rec["peak_before_bytes"] = mem(peak=True)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            return build()
+        return fresh
+
+    eng = build()
+    out, _ = _serve(eng, reqs, TP_MAX_NEW)
+    rec["uninterrupted"] = [r.output.tolist() for r in out]
+    del eng, out
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    plan = FaultPlan(seed=seed, hang=[2], hang_s=SUP_HANG_S)
+    rec["base_bytes"] = mem()
+    reset_launches()
+    if mesh.rank:
+        box = [build(plan)]
+        ref = weakref.ref(box[0])
+        rec["held_bytes"] = mem()
+        follow(box.pop(), mesh, rebuild=rebuild(ref))
+    else:
+        state = tempfile.mkdtemp(prefix="sup_")
+        journal = RequestJournal(os.path.join(state, "journal.jsonl"))
+        snaps = os.path.join(state, "snapshots")
+        eng = build(plan)
+        ref = weakref.ref(eng)
+        rec["held_bytes"] = mem()
+        leader = MeshLeader(eng, mesh)
+        del eng
+        gw = ServingGateway(leader, journal=journal, snapshot_dir=snaps,
+                            snapshot_every=1, step_timeout_s=SUP_STEP_TIMEOUT,
+                            hang_grace=SUP_GRACE)
+        before = {}
+
+        async def clients():
+            async with gw:
+                hs = [await gw.submit(p, max_new_tokens=TP_MAX_NEW,
+                                      temperature=t) for p, t in reqs]
+
+                async def read(h):
+                    toks = [int(x) async for x in h.stream()]
+                    before[h.request_id] = ((await h.result()).status, toks)
+
+                await asyncio.gather(*(read(h) for h in hs))
+
+        try:
+            asyncio.run(clients())
+            rec["wedged"] = False
+        except EngineWedgedError:
+            rec["wedged"] = True
+        stats = gw.stats()
+        first = []
+        restart = time.perf_counter()
+        leader.rebuild(rebuild(ref))
+        leader.on_tokens = lambda ev: first or first.append(
+            time.perf_counter())
+        info = recover_engine(leader, snapshot_dir=snaps, journal=journal)
+        done = leader.run()
+        mem()
+        leader.assert_invariants()
+        leader.stop()
+        journal.close()
+        streams = {rid: toks for rid, (status, toks) in before.items()
+                   if status == "done"}
+        streams.update({rid: r.output.tolist() for rid, r in done.items()
+                        if r.status == "done"})
+        rec.update(
+            streams=[streams.get(i) for i in range(len(reqs))],
+            done_before=sum(st == "done" for st, _ in before.values()),
+            watchdog_timeouts=stats["watchdog_timeouts"],
+            snapshots_taken=stats["snapshots_taken"],
+            restored=info["restored"], replayed=info["replayed"],
+            restart_to_first_token_ms=(first[0] - restart) * 1e3
+            if first else None)
+    rec["launches"] = dict(LAUNCHES)
+    rec["peak_after_bytes"] = mem(peak=True)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _sup_gloo(torch, dev, seed, smi):
+    """23(a): ``SUP_MODEL`` whole on ``SUP_RANKS`` gloo ranks sharing this
+    card (``_sup_rank``), against ``mesh=None`` (its ring streams and
+    their near-ties computed first, then its weights freed): the wedge
+    happened, every rank released its written-off engine before the
+    rebuild, no acknowledged request was lost, every stream equals the
+    mesh's uninterrupted one token for token and ``mesh=None``'s or parts
+    first at a near-tie; restart -> first token, peak memory a rank before
+    the wedge and after the restart. Returns (record, rank 0's launches
+    over the wedged run and the restart)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    cfg = get_config(SUP_MODEL)
+    lm = LM(cfg, device=dev)
+    params = lm.init(seed, on_device=True)
+    reqs = _tp_trace(seed, cfg.vocab_size)
+    base, _, _ = _tp_base(torch, seed, lm, params, reqs, False,
+                          backends=("ring",))
+    ties = _quiet(_teacher_ties, torch, lm, params, seed, reqs, base["ring"])
+    del lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = _spawn_ranks(_sup_rank, SUP_RANKS, (cfg, seed, reqs, dev.type),
+                        "gloo")
+    seconds = time.perf_counter() - t0
+    lead = recs[0]
+    label = f"{SUP_MODEL} (whole) on {SUP_RANKS} gloo ranks of this card"
+    if not lead["wedged"] or lead["watchdog_timeouts"] < 1:
+        raise AssertionError(f"{label}: the hang seam never wedged the "
+                             f"engine")
+    for r, rec in enumerate(recs):
+        if rec["uninterrupted"] != lead["uninterrupted"]:
+            raise AssertionError(f"{label}: rank {r}'s uninterrupted "
+                                 f"streams differ from rank 0's")
+        own = rec["held_bytes"] - rec["base_bytes"]
+        if rec["released"] != [True] or rec["after_release_bytes"] - \
+                rec["base_bytes"] > SUP_RELEASED * own:
+            raise AssertionError(
+                f"{label}: rank {r} built its fresh engine beside the old "
+                f"one (released {rec['released']}, "
+                f"{rec['after_release_bytes']} B left of "
+                f"{rec['held_bytes']} B)")
+    lost = [i for i, got in enumerate(lead["streams"]) if got is None]
+    if lost:
+        raise AssertionError(f"{label}: requests {lost} lost")
+    if lead["streams"] != lead["uninterrupted"]:
+        raise AssertionError(f"{label}: a resumed stream differs from the "
+                             f"uninterrupted run's")
+    equal = parted = 0
+    for rid, (got, want) in enumerate(zip(lead["streams"], base["ring"])):
+        if got == want:
+            equal += 1
+            continue
+        p = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        if not ties["ring"][rid][p]:
+            raise AssertionError(f"{label}: request {rid} parts from "
+                                 f"mesh=None at token {p}, not at a "
+                                 f"near-tie")
+        parted += 1
+    launches = lead["launches"]
+    if not (launches["decode_attention"] and launches["flash_attention"]):
+        raise AssertionError(f"{label}: no kernel launched: {launches}")
+    gib = 2 ** 30
+    print(f"  {label}, ring, eager [{smi}]: wedged at step 2 "
+          f"({SUP_HANG_S:.1f} s stall against a {SUP_STEP_TIMEOUT:.1f} s "
+          f"deadline + {SUP_GRACE} grace) after "
+          f"{lead['watchdog_timeouts']} watchdog timeout(s), "
+          f"{lead['snapshots_taken']} snapshots, {lead['done_before']} done "
+          f"before; every rank released its engine before the rebuild "
+          f"(allocated before the engine / with it / after its release: " +
+          ", ".join(f"rank {r} {rec['base_bytes'] / gib:.3f} / "
+                    f"{rec['held_bytes'] / gib:.3f} / "
+                    f"{rec['after_release_bytes'] / gib:.3f} GiB"
+                    for r, rec in enumerate(recs)) + ")")
+    print(f"    restart: recovered {lead['restored']} + replayed "
+          f"{lead['replayed']}, restart -> first token "
+          f"{lead['restart_to_first_token_ms']:.0f} ms, warm_compile "
+          f"skipped (gloo: eager); peak a rank before the wedge / after "
+          f"the restart: " + ", ".join(
+              f"{rec['peak_before_bytes'] / gib:.3f} / "
+              f"{rec['peak_after_bytes'] / gib:.3f} GiB" for rec in recs))
+    print(f"    no acknowledged request lost; {len(reqs)} streams equal the "
+          f"mesh's uninterrupted run token for token; against mesh=None "
+          f"{equal} equal, {parted} part first at a near-tie; launches "
+          f"(rank 0, wedged run and restart) {launches}; {seconds:.1f} s")
+    return dict(ranks=recs, equal=equal, parted=parted,
+                seconds=seconds), launches
+
+
+def _sup_cards(smi, n):
+    """23(b): ``launch/serve.py --arch SUP_CARDS --no-reduced --mesh n
+    --wedge-demo`` on n cards over NCCL, graphed: the launcher's own
+    lines say it wedged, restarted once and drained every request."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           SUP_CARDS, "--no-reduced", "--mesh", str(n), "--wedge-demo",
+           "--snapshot-every", "1", "--quiet"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=root, env=dict(os.environ, PYTHONPATH=os.path
+                                            .join(root, "src")))
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith(("engine wedged", "recovered", "restart:",
+                               "durability"))]
+    label = f"{SUP_CARDS} (whole) on {n} cards over NCCL, graphed"
+    if out.returncode or "post-restart drain: {'done': 8}" not in out.stdout \
+            or "'restarts': 1" not in out.stdout:
+        raise AssertionError(f"{label}: serve --wedge-demo failed "
+                             f"(exit {out.returncode}):\n{out.stdout[-2000:]}"
+                             f"\n{out.stderr[-2000:]}")
+    print(f"  {label} [{smi}]: serve --wedge-demo in {seconds:.1f} s:")
+    for ln in lines:
+        print(f"    {ln}")
+    return dict(lines=lines, seconds=seconds)
+
+
+def check_supervise(torch, dev, seed, smi):
+    """Phase 23: (a) ``_sup_gloo``; (b) with 2 cards or more,
+    ``_sup_cards`` on min(cards, 4). Returns (record, (a)'s launches)."""
+    rec, launches = _sup_gloo(torch, dev, seed, smi)
+    rec = {"gloo": rec}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["nccl"] = _sup_cards(smi, min(cards, 4))
+    else:
+        print("  1 card: 23(b), serve --wedge-demo over NCCL, needs 2 "
+              "cards; skipped")
+    return rec, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7706,7 +8027,8 @@ def main() -> int:
                     help="also profile the phase-4, 5, 7, 9 and qwen3-4b's "
                          "phase-10 ring traces on the device")
     ap.add_argument("--only", choices=["19", "19a", "20", "20a", "20c", "21",
-                                       "21a", "21c", "22", "22b", "22c"],
+                                       "21a", "21c", "22", "22b", "22c",
+                                       "23"],
                     help="run phase 1 and this phase alone, or its NCCL "
                          "meshes alone (19a, 20a, 21a), or 20(c), 21(c), "
                          "22(b) or 22(c) and (d) alone (no result lines: "
@@ -7754,7 +8076,10 @@ def main() -> int:
         raise AssertionError(f"bf16 tensor-core kernels spill: {spills}")
 
     if args.only:
-        if args.only.startswith("19"):
+        if args.only == "23":
+            phase("[23] supervised restart on the mesh alone")
+            check_supervise(torch, dev, args.seed, smi)
+        elif args.only.startswith("19"):
             phase(f"[{args.only}] tensor-parallel serving alone")
             check_tensor_parallel(torch, dev, args.seed, smi,
                                   splits=args.only == "19")
@@ -7898,8 +8223,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("[19] tensor-parallel serving: qwen3-4b on a one-rank NCCL mesh "
           "(ring and paged, graphed) against mesh=None; real splits on this "
-          "card over gloo: qwen3-4b (8 layers) on 2 ranks, glm4-9b (2 "
-          "layers) on 4")
+          "card over gloo: qwen3-4b (4 layers) on 2 ranks, glm4-9b (1 "
+          "layer) on 4")
     tp_stats, tp_launches = check_tensor_parallel(torch, dev, args.seed, smi)
     for name, n in tp_launches.items():
         launches[name] += n
@@ -7908,7 +8233,7 @@ def main() -> int:
     phase("[20] MoE and MLA on the mesh: mixtral-8x22b (6 layers) and "
           "deepseek-v3-671b (3 + 1) on a one-rank NCCL mesh (ring and "
           "paged, graphed, dropless) against mesh=None; real splits on this "
-          "card over gloo: mixtral (2 layers) and deepseek (1 + 1) on 4 "
+          "card over gloo: mixtral (1 layer) and deepseek (1 + 1) on 4 "
           "ranks")
     moe_mesh_stats, moe_mesh_launches = check_moe_mesh(torch, dev,
                                                        args.seed, smi)
@@ -7929,8 +8254,8 @@ def main() -> int:
         launches[name] += n
     gc.collect()
     torch.cuda.empty_cache()
-    phase("[22] the data axis: qwen3-4b (8 layers, ring and paged) and "
-          "mixtral-8x22b (2 layers, ring) on a (2, 2) mesh of gloo ranks on "
+    phase("[22] the data axis: qwen3-4b (4 layers, ring and paged) and "
+          "mixtral-8x22b (1 layer, ring) on a (2, 2) mesh of gloo ranks on "
           "this card against mesh=None; with 4 cards qwen3-4b whole on a "
           "(2, 2) NCCL mesh, graphed; smollm-135m data-parallel training "
           "(f32 against one device, bf16 timed) and FedAvg on min(cards, "
@@ -7938,6 +8263,16 @@ def main() -> int:
     dm_stats, dm_launches = check_data_axis(torch, dev, args.seed, smi,
                                             tp_stats=tp_stats)
     for name, n in dm_launches.items():
+        launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("[23] supervised restart on the mesh: smollm-135m whole on 2 gloo "
+          "ranks of this card (ring, eager) wedged at step 2, every rank's "
+          "engine written off and rebuilt, recovered from rank 0's snapshot "
+          "and journal; with 2 cards or more, serve --arch qwen3-4b "
+          "--no-reduced --mesh min(cards, 4) --wedge-demo over NCCL")
+    sup_stats, sup_launches = check_supervise(torch, dev, args.seed, smi)
+    for name, n in sup_launches.items():
         launches[name] += n
     if args.profile:
         from repro_torch.configs import get_config
@@ -8012,6 +8347,7 @@ def main() -> int:
                        "moe_mesh": moe_mesh_stats,
                        "rec_mesh": rec_mesh_stats,
                        "data_axis": dm_stats,
+                       "supervise": sup_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

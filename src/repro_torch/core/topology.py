@@ -9,7 +9,58 @@ relations (``connections``), and deployment requirements (``resources``,
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, List, Optional
+
+# strings PyYAML writes plain: no leading digit, dot, dash or space, none
+# of YAML's indicators, and not a word its resolvers read as a bool or null
+_PLAIN = re.compile(r"[A-Za-z_/][A-Za-z0-9_./ -]*(?<! )\Z")
+_RESOLVED = {"y", "n", "yes", "no", "true", "false", "on", "off", "null"}
+
+
+def _scalar(x) -> str:
+    if x is None:
+        return "null"
+    if isinstance(x, bool):
+        return "true" if x else "false"
+    if isinstance(x, int):
+        return repr(x)
+    if isinstance(x, float):
+        if x != x or x in (float("inf"), float("-inf")):
+            return {"nan": ".nan", "inf": ".inf", "-inf": "-.inf"}[repr(x)]
+        text = repr(x).lower()
+        return text.replace("e", ".0e", 1) if "." not in text else text
+    if isinstance(x, str):
+        if _PLAIN.match(x) and x.lower() not in _RESOLVED:
+            return x
+        return "'" + x.replace("'", "''") + "'"
+    raise TypeError(f"to_yaml: cannot write {type(x).__name__} {x!r}")
+
+
+def _block(node, indent: str) -> List[str]:
+    """``node``'s lines in PyYAML's block style (``safe_dump`` with
+    ``sort_keys=False``): a sequence under a key at the key's indent. A
+    string outside ``_PLAIN`` is single-quoted, where PyYAML may write some
+    plain (``a:b``, ``-x``): the text parses to the same data."""
+    lines: List[str] = []
+    items = node.items() if isinstance(node, dict) else \
+        ((None, x) for x in node)
+    for key, val in items:
+        head = f"{indent}{key}:" if key is not None else f"{indent}-"
+        if isinstance(val, (dict, list)) and val:
+            if key is None:
+                sub = _block(val, indent + "  ")
+                lines.append(f"{head} {sub[0].lstrip()}")
+                lines += sub[1:]
+            else:
+                lines.append(head)
+                lines += _block(val, indent + "  " if isinstance(val, dict)
+                                else indent)
+        elif isinstance(val, (dict, list)):
+            lines.append(f"{head} {'{}' if isinstance(val, dict) else '[]'}")
+        else:
+            lines.append(f"{head} {_scalar(val)}")
+    return lines
 
 
 @dataclasses.dataclass
@@ -83,7 +134,7 @@ class Topology:
 
     @classmethod
     def from_yaml(cls, text: str) -> "Topology":
-        import yaml      # only here: the app imports without PyYAML
+        import yaml      # only here: the app runs without PyYAML
         return cls.from_dict(yaml.safe_load(text))
 
     @classmethod
@@ -98,8 +149,9 @@ class Topology:
                                for n, c in self.components.items()}}
 
     def to_yaml(self) -> str:
-        import yaml
-        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+        """The text PyYAML's ``safe_dump(..., sort_keys=False)`` writes
+        (``_block``), without PyYAML (the card's machine has none)."""
+        return "\n".join(_block(self.to_dict(), "")) + "\n"
 
     def validate(self) -> None:
         for name, comp in self.components.items():

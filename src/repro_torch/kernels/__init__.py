@@ -7,6 +7,15 @@ the plain path adds nothing), so a run can show it went through the
 kernels. A serving engine's CUDA graph replays its captured launches
 without calling the wrappers; the engine adds what the capture counted
 on every replay (``serving.engine._Program``).
+
+``FLOPS`` is what ``torch.utils.flop_counter.FlopCounterMode`` cannot see:
+it counts aten's matrix products, and a kernel launched through ``ctypes``
+runs none. So each attention wrapper adds, where it launches, the matrix
+products of its plain version at the same shapes (``*_flops`` in its
+module), which is what the mode counts when the plain version runs on
+the CPU: a step's count (``analysis.roofline.step_record``) is the same on
+both paths. The scan and the gate compute elementwise, which the mode
+counts as nothing, and add nothing.
 """
 from __future__ import annotations
 
@@ -19,12 +28,19 @@ LAUNCHES: Dict[str, int] = {"cascade_gate": 0, "decode_attention": 0,
                              "paged_decode_attention": 0, "rglru_scan": 0,
                              "rglru_scan_bwd": 0}
 
+# matrix-product FLOPs of the attention kernels' launches
+FLOPS: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
+                         "flash_attention_bwd": 0,
+                         "paged_decode_attention": 0}
+
 _SUPPORTED = (torch.bfloat16, torch.float32)
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in FLOPS:
+        FLOPS[name] = 0
 
 
 def check_cuda_tensors(name: str, floats: dict, ints: dict) -> None:

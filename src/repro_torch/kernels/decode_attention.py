@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import (LAUNCHES, build, check_cuda_inputs,
+from repro_torch.kernels import (FLOPS, LAUNCHES, build, check_cuda_inputs,
                                  raise_on_error)
 
 NEG_INF = -1e30
@@ -74,6 +74,13 @@ def _kv_heads(k, v, kv_range):
         return k, v
     first, count = kv_range
     return k[..., first:first + count, :], v[..., first:first + count, :]
+
+
+def decode_attention_flops(b: int, t: int, h: int, w: int, hd: int) -> int:
+    """The matrix-product FLOPs of the plain version (ring or paged, W the
+    keys it attends over: the ring's width, or M * bs gathered blocks): Q
+    K^T and P V over every key, visible or not."""
+    return 4 * b * t * h * w * hd
 
 
 def decode_attention_plain(q, k, v, q_pos, k_pos, *,
@@ -207,6 +214,7 @@ def _launch(q, k, v, qp, kp, window: Optional[int], scale: float,
                  torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error("decode_attention", err)
     LAUNCHES["decode_attention"] += 1
+    FLOPS["decode_attention"] += decode_attention_flops(b, t, h, w, hd)
     return out
 
 
@@ -313,6 +321,8 @@ def _launch_paged(q, k, v, qp, kp, bt, window: Optional[int], scale: float,
                  torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error("paged_decode_attention", err)
     LAUNCHES["paged_decode_attention"] += 1
+    FLOPS["paged_decode_attention"] += decode_attention_flops(b, t, h,
+                                                              m * bs, hd)
     return out
 
 

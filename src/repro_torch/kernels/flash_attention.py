@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import (LAUNCHES, build, check_cuda_inputs,
+from repro_torch.kernels import (FLOPS, LAUNCHES, build, check_cuda_inputs,
                                  raise_on_error)
 
 NEG_INF = -1e30
@@ -79,11 +79,24 @@ def _visible(sq: int, sk: int, causal: bool, window: Optional[int],
     return valid
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """Dense f32 version (``repro.kernels.ref.flash_attention_ref``'s
-    arithmetic), with rows that see no key pinned to 0."""
+def flash_attention_flops(b: int, sq: int, sk: int, h: int,
+                          hd: int) -> int:
+    """The matrix-product FLOPs of the plain forward (with or without its
+    log-sum-exp): Q K^T and P V over the whole (Sq, Sk) rectangle."""
+    return 4 * b * sq * sk * h * hd
+
+
+def flash_attention_bwd_flops(b: int, sq: int, sk: int, h: int,
+                              hd: int) -> int:
+    """The matrix-product FLOPs of the plain backward: Q K^T recomputed,
+    then dV, dP, dQ and dK, each over the whole (Sq, Sk) rectangle."""
+    return 10 * b * sq * sk * h * hd
+
+
+def _plain_forward(q, k, v, causal: bool, window: Optional[int],
+                   scale: Optional[float]):
+    """The dense f32 forward: the output, the scaled scores (B, KV, G, Sq,
+    Sk) and the (Sq, Sk) mask of valid pairs."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -91,10 +104,18 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     qg = q.reshape(b, sq, kv, g, hd).float()
     s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) * scale
     valid = _visible(sq, sk, causal, window, q.device)
-    s = s.masked_fill(~valid, NEG_INF)
-    p = torch.softmax(s, dim=-1) * valid.any(dim=-1)[:, None]
+    p = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1) \
+        * valid.any(dim=-1)[:, None]
     o = torch.einsum("bkgqc,bckd->bqkgd", p, v.float())
-    return o.reshape(b, sq, h, hd).to(q.dtype)
+    return o.reshape(b, sq, h, hd).to(q.dtype), s, valid
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Dense f32 version (``repro.kernels.ref.flash_attention_ref``'s
+    arithmetic), with rows that see no key pinned to 0."""
+    return _plain_forward(q, k, v, causal, window, scale)[0]
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
@@ -102,17 +123,11 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
                               scale: Optional[float] = None):
     """``flash_attention_plain``'s output and the rows' f32 log-sum-exp
     (B, Sq, H) of the scaled scores over their valid keys, -inf for a row
-    with no valid key."""
-    b, sq, h, hd = q.shape
-    sk, kv = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else hd ** -0.5
-    out = flash_attention_plain(q, k, v, causal=causal, window=window,
-                                scale=scale)
-    qg = q.reshape(b, sq, kv, h // kv, hd).float()
-    s = torch.einsum("bqkgd,bckd->bqkgc", qg, k.float()) * scale
-    valid = _visible(sq, sk, causal, window, q.device)[:, None, None, :]
+    with no valid key; the scores are computed once for both."""
+    b, sq, h, _ = q.shape
+    out, s, valid = _plain_forward(q, k, v, causal, window, scale)
     lse = torch.logsumexp(s.masked_fill(~valid, -torch.inf), dim=-1)
-    return out, lse.reshape(b, sq, h)
+    return out, lse.permute(0, 3, 1, 2).reshape(b, sq, h)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -200,6 +215,7 @@ def _launch(q, k, v, causal: bool, window: Optional[int], scale: float,
                  torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
+    FLOPS["flash_attention"] += flash_attention_flops(b, sq, sk, h, hd)
     return (out, lse) if with_lse else out
 
 
@@ -236,6 +252,8 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool,
                  scale, torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error("flash_attention_bwd", err)
     LAUNCHES["flash_attention_bwd"] += 1
+    FLOPS["flash_attention_bwd"] += flash_attention_bwd_flops(b, sq, sk, h,
+                                                              hd)
     return dq, dk, dv
 
 

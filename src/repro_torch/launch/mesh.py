@@ -26,7 +26,14 @@ it is an ``all_reduce`` of a zero-filled full tensor holding each rank's
 slice (exact: a sum with zeros). ``COLLECTIVES`` counts the calls by kind
 and axis ("all_reduce/data", ...), as ``kernels.LAUNCHES`` counts kernel
 launches, so a CUDA graph can say that it captured them; ``tally`` sums
-such counts by kind or by axis.
+such counts by kind or by axis. ``COLLECTIVE_BYTES`` keeps, under the same
+keys, the bytes of each call's result on this rank (the float32 payload of
+a reduction, the joined tensor of a gather), as ``repro``'s roofline counts
+an HLO collective's result once; a host message (``broadcast_object``)
+moves no device bytes and adds none.
+
+The H100 figures below (the SXM data sheet) are what
+``repro_torch.analysis.roofline`` divides by.
 
 ``spawn`` starts N ranks as processes (``torch.multiprocessing``, each
 with its own rendezvous), and ``free_port`` finds a port for a TCP
@@ -44,8 +51,9 @@ import torch
 import torch.distributed as dist
 
 # every call, by kind and the axis it ran over: "all_reduce/data" and so
-# on (a broadcast's axis is "world")
+# on (a broadcast's axis is "world"); and the bytes of their results
 COLLECTIVES: Dict[str, int] = {}
+COLLECTIVE_BYTES: Dict[str, int] = {}
 KINDS = ("all_reduce", "all_gather", "broadcast", "reduce_scatter")
 AXES = ("model", "data", "world")
 
@@ -53,9 +61,21 @@ AXES = ("model", "data", "world")
 _TRIVIAL = object()
 
 
-def _count(kind: str, axis: str) -> None:
+# NVIDIA H100 SXM (data sheet): dense bf16 tensor-core rate, HBM3 rate,
+# and NVLink 4 each way (900 GB/s both ways)
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s per card
+HBM_BW = 3.35e12              # bytes/s per card
+NVLINK_BW = 450e9             # bytes/s per card, one direction
+
+
+def _count(kind: str, axis: str, nbytes: int = 0) -> None:
     key = f"{kind}/{axis}"
     COLLECTIVES[key] = COLLECTIVES.get(key, 0) + 1
+    COLLECTIVE_BYTES[key] = COLLECTIVE_BYTES.get(key, 0) + nbytes
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def tally(counts: Dict[str, int], by: str = "kind",
@@ -170,7 +190,7 @@ class HostMesh(AbstractMesh):
             return x
         y = x.float() if x.is_floating_point() else x.clone()
         dist.all_reduce(y, group=self._groups[axis])
-        _count("all_reduce", axis)
+        _count("all_reduce", axis, _nbytes(y))
         return y.to(x.dtype)
 
     def gather(self, x: torch.Tensor, dim: int,
@@ -187,7 +207,7 @@ class HostMesh(AbstractMesh):
             out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                               dtype=x.dtype, device=x.device)
             dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-            _count("all_gather", axis)
+            _count("all_gather", axis, _nbytes(out))
             shape = list(x.shape)
             shape[dim] *= n
             return out.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(
@@ -200,7 +220,7 @@ class HostMesh(AbstractMesh):
                            device=x.device)
         full.narrow(dim, self.axis_rank(axis) * w, w).copy_(x)
         dist.all_reduce(full, group=group)
-        _count("all_reduce", axis)
+        _count("all_reduce", axis, _nbytes(full))
         return full.to(x.dtype)
 
     def shard(self, x: torch.Tensor, dim: int,
@@ -223,10 +243,10 @@ class HostMesh(AbstractMesh):
         if self.backend == "nccl":
             out = torch.empty(y.shape[1:], dtype=y.dtype, device=y.device)
             dist.reduce_scatter_tensor(out, y.contiguous(), group=group)
-            _count("reduce_scatter", axis)
+            _count("reduce_scatter", axis, _nbytes(out))
         else:
             dist.all_reduce(y, group=group)
-            _count("all_reduce", axis)
+            _count("all_reduce", axis, _nbytes(y))
             out = y[self.axis_rank(axis)]
         return out.to(x.dtype)
 

@@ -38,8 +38,11 @@ run prints; the other ranks follow its engine calls
 text-token architecture splits: dense GQA, MoE and MLA (mixtral-8x22b's
 experts split by expert, deepseek-v3-671b's too and its MLA heads), the
 RG-LRU hybrid (recurrentgemma-9b's width) and xLSTM (xlstm-125m's heads);
-each rank draws only its shards (``LM.init(..., mesh=)``); ``--hang-demo`` runs on a
-mesh, ``--supervise`` (and ``--wedge-demo``) does not yet. ``--reduced``
+each rank draws only its shards (``LM.init(..., mesh=)``). ``--supervise``,
+``--hang-demo`` and ``--wedge-demo`` run on a mesh too: the journal, the
+snapshots and the watchdog live on rank 0, and a supervised restart
+writes off every rank's engine before it builds a fresh one on the same
+mesh (``MeshLeader.rebuild``). ``--reduced``
 serves the architecture's reduced config, as ``repro``'s default does, and
 ``--no-reduced`` its full width and depth (``repro``'s flag cannot be
 turned off). The engines serve text-token streams: an audio or vision
@@ -67,13 +70,23 @@ the recovery ladder end to end:
                    engine from snapshot + journal once the event loop (and
                    the stalled step's thread) has ended; recovered requests
                    finish token-exact, lost ones are replayed
+
+On a mesh every rank's engine stalls in the same step (its own fault
+plan's ``hang`` seam; a follower sleeps in its main thread), so every rank
+reaches the restart after its stalled step has ended, and no rank
+captures a graph while an old step still runs. The restart builds each
+rank's fresh engine (weights drawn again from seed 0, no fault plan) only
+after its wedged one is released: two engines at full width need not fit
+a card. On one device the fresh engine is built beside the wedged one.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import functools
 import os
 import tempfile
+import time
 from collections import Counter
 
 import numpy as np
@@ -184,15 +197,15 @@ def serve(args, mesh=None) -> None:
                      step_timeout_s=args.step_timeout,
                      hang_grace=args.hang_grace)
         print(f"supervised: state in {state_dir}")
+    build = functools.partial(_build_engine, cfg, args, mesh=mesh)
     try:
-        eng = _build_engine(cfg, args, fault_plan=_demo_fault_plan(args),
-                            mesh=mesh)
+        eng = build(fault_plan=_demo_fault_plan(args))
     except NotImplementedError as e:
         raise SystemExit(f"serve --arch {args.arch}: {e}")
     if mesh is not None:
         eng = MeshLeader(eng, mesh)
     try:
-        _serve_engine(args, cfg, eng, monitor, journal, gw_kw)
+        _serve_engine(args, cfg, eng, build, monitor, journal, gw_kw)
     finally:
         if mesh is not None:
             eng.stop()
@@ -200,7 +213,7 @@ def serve(args, mesh=None) -> None:
         journal.close()
 
 
-def _serve_engine(args, cfg, eng, monitor, journal, gw_kw) -> None:
+def _serve_engine(args, cfg, eng, build, monitor, journal, gw_kw) -> None:
     eng.warm_compile()
     gw = ServingGateway(eng, max_queue=args.max_queue, policy=args.policy,
                         **gw_kw)
@@ -218,16 +231,28 @@ def _serve_engine(args, cfg, eng, monitor, journal, gw_kw) -> None:
         # the surviving work (token-exact resumes; lost acknowledged
         # submissions start over from their prompts)
         print(f"engine wedged ({wedged}); restarting from snapshot")
-        eng2 = _build_engine(cfg, args)
-        eng2.warm_compile()
-        info = recover_engine(eng2, snapshot_dir=gw_kw["snapshot_dir"],
+        restart = time.perf_counter()
+        fresh = functools.partial(build, fault_plan=None)
+        if isinstance(eng, MeshLeader):
+            eng.rebuild(fresh)          # every rank, old engine freed first
+        else:
+            eng = fresh()
+        first = []
+        eng.on_tokens = lambda ev: first or first.append(time.perf_counter())
+        warm = time.perf_counter()
+        eng.warm_compile()
+        warm = time.perf_counter() - warm
+        info = recover_engine(eng, snapshot_dir=gw_kw["snapshot_dir"],
                               journal=journal)
         monitor.record_restart("serve", info)
         monitor.record_journal("serve", info["replayed"])
-        done = eng2.run()
+        done = eng.run()
         statuses = Counter(r.status for r in done.values())
         print(f"recovered {info['restored']} + replayed "
               f"{info['replayed']}; post-restart drain: {dict(statuses)}")
+        first_ms = (first[0] - restart) * 1e3 if first else float("nan")
+        print(f"restart: warm_compile {warm:.2f} s, first "
+              f"token {first_ms:.0f} ms after the restart began")
         print(f"durability: {monitor.durability_counters()}")
 
 
@@ -241,12 +266,14 @@ def _serve_rank(rank: int, args) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    build = functools.partial(_build_engine, cfg, args, mesh=mesh)
     try:
-        eng = _build_engine(cfg, args, fault_plan=_demo_fault_plan(args),
-                            mesh=mesh)
+        box = [build(fault_plan=_demo_fault_plan(args))]
     except NotImplementedError:
         return                          # rank 0 reports it and stops
-    follow(eng, mesh)
+    # follow holds the only reference, so a rebuild frees the old engine;
+    # the fresh one has no fault plan
+    follow(box.pop(), mesh, rebuild=functools.partial(build, fault_plan=None))
 
 
 def mesh_world(args) -> int:
@@ -320,8 +347,7 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", type=int, default=1,
                     help="tensor-parallel ways: N ranks, one process each "
                          "(NCCL with one card a rank, gloo with --device "
-                         "cpu); every text-token architecture; "
-                         "--supervise does not run on a mesh yet")
+                         "cpu); every text-token architecture")
     ap.add_argument("--world", type=int, default=None,
                     help="with --device cpu, the gloo ranks of the --mesh "
                          "N mesh, (world / N, N) over (data, model); "
@@ -340,11 +366,6 @@ def main(argv=None) -> None:
     if args.world is not None and args.mesh == 1:
         raise SystemExit("--world sets the ranks of a --mesh N mesh; "
                          "--mesh 1 serves on one device")
-    if args.mesh > 1 and (args.supervise or args.wedge_demo):
-        raise SystemExit(
-            f"--mesh {args.mesh}: NotImplementedError: --supervise (a "
-            f"restart from snapshot + journal) does not run on a mesh yet "
-            f"(ROADMAP Queue 1); --hang-demo does")
     if args.hang_demo or args.wedge_demo:
         args.supervise = True
     if args.mesh > 1:

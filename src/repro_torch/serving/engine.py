@@ -112,9 +112,10 @@ import torch
 
 from repro_torch.checkpoint.io import (json_leaf, json_unleaf,
                                        load_checkpoint_tree, save_checkpoint)
-from repro_torch.kernels import (LAUNCHES, build, cascade_gate,
+from repro_torch.kernels import (FLOPS, LAUNCHES, build, cascade_gate,
                                  rglru_scan)
-from repro_torch.launch.mesh import COLLECTIVES, HostMesh, same_device
+from repro_torch.launch.mesh import (COLLECTIVE_BYTES, COLLECTIVES, HostMesh,
+                                     same_device)
 from repro_torch.models.model import LM
 from repro_torch.sharding import tensor_parallel
 from repro_torch.serving.faults import FaultError, FaultPlan
@@ -191,9 +192,9 @@ class _Program:
     step), captured as a CUDA graph.
 
     Capture records the launches; it executes nothing. A replay runs the
-    kernels without calling their wrappers, so the ``LAUNCHES`` that the
-    capture recorded are taken back out at capture and added on every
-    replay: the counters still say what ran on the card. The graph shares
+    kernels without calling their wrappers, so the ``LAUNCHES`` (and
+    ``FLOPS``) that the capture recorded are taken back out at capture and
+    added on every replay: the counters still say what ran on the card. The graph shares
     its engine's memory pool, and no tensor of that pool outlives a
     replay (every program writes its results into the engine's state).
     Captures run on one stream per device (``capture_stream``), whose
@@ -209,15 +210,17 @@ class _Program:
 
     On a mesh (``meshed``) the program's NCCL collectives are captured with
     it, counted in ``collectives`` by kind and axis as launches are
-    (``launch.mesh.COLLECTIVES``), and the capture is thread-local: the
-    process group's
-    watchdog thread polls its events while a capture is open."""
+    (``launch.mesh.COLLECTIVES``, their bytes in ``collective_bytes``), and
+    the capture is thread-local: the process group's watchdog thread polls
+    its events while a capture is open."""
 
     def __init__(self, key, pool, stream, body, meshed: bool = False):
         rglru_scan.prepare_stream(stream.device, stream)
         cascade_gate.prepare_stream(stream.device, stream)
         before = dict(LAUNCHES)
+        before_f = dict(FLOPS)
         before_c = dict(COLLECTIVES)
+        before_b = dict(COLLECTIVE_BYTES)
         self.graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
@@ -243,11 +246,18 @@ class _Program:
                              for name, n in before.items()
                              if LAUNCHES[name] != n}
             LAUNCHES.update(before)
-            self.collectives = {name: n - before_c.get(name, 0)
-                                for name, n in COLLECTIVES.items()
-                                if n != before_c.get(name, 0)}
-            COLLECTIVES.clear()
-            COLLECTIVES.update(before_c)
+            self.flops = {name: FLOPS[name] - n for name, n in
+                          before_f.items() if FLOPS[name] != n}
+            FLOPS.update(before_f)
+            self.collectives, self.collective_bytes = (
+                {name: n - was.get(name, 0) for name, n in now.items()
+                 if n != was.get(name, 0)}
+                for now, was in ((COLLECTIVES, before_c),
+                                 (COLLECTIVE_BYTES, before_b)))
+            for now, was in ((COLLECTIVES, before_c),
+                             (COLLECTIVE_BYTES, before_b)):
+                now.clear()
+                now.update(was)
 
     def replay(self, key) -> None:
         try:
@@ -257,8 +267,12 @@ class _Program:
                                f"{err}") from err
         for name, n in self.launches.items():
             LAUNCHES[name] += n
-        for name, n in self.collectives.items():
-            COLLECTIVES[name] = COLLECTIVES.get(name, 0) + n
+        for name, n in self.flops.items():
+            FLOPS[name] += n
+        for counts, add in ((COLLECTIVES, self.collectives),
+                            (COLLECTIVE_BYTES, self.collective_bytes)):
+            for name, n in add.items():
+                counts[name] = counts.get(name, 0) + n
 
 
 _CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}

@@ -67,7 +67,13 @@ take_done, note_hang) are logged, and the calls that run the model
 themselves to ``follow``, the loop of every other rank, which replays
 them in order on its own engine. So every rank steps the same scheduler
 on the same calls, and a follower takes each request with rank 0's
-admission verdict (``replay_enqueue``).
+admission verdict (``replay_enqueue``). A journal replay's
+``requeue_lost`` is logged too, and ``run`` drains through broadcast
+steps. After a wedge, ``MeshLeader.rebuild`` writes every rank's engine
+off (weights, caches and CUDA graphs released) before it builds a fresh
+one on the same mesh, so two engines never share a rank's memory;
+``recover_engine`` over the leader then sends the snapshot on to the
+followers (``restore``), each cutting its own shards.
 
 A copy of ``repro.serving.gateway`` (numpy and asyncio only) over the
 port's engines, journal and scheduler. On the card ``step()`` replays the
@@ -83,6 +89,7 @@ on the card.
 from __future__ import annotations
 
 import asyncio
+import gc
 import pickle
 import threading
 import time
@@ -523,13 +530,18 @@ class ServingGateway:
         loop = asyncio.get_running_loop()
         eng = self.engine
         try:
-            if self.step_timeout_s is not None \
+            on_card = getattr(getattr(eng, "device", None), "type",
+                              None) == "cuda"
+            if (self.step_timeout_s is not None or on_card) \
                     and hasattr(eng, "warm_compile"):
                 # arm the watchdog only after the programs are warm: a
                 # first-step graph capture (seconds) is indistinguishable
                 # from a hang by wall-clock alone, and a watchdog that
                 # trips on it would roll back (or declare wedged) a
-                # perfectly healthy engine at startup
+                # perfectly healthy engine at startup. On the card warm
+                # before any step too: a graph captured at first use in an
+                # executor thread fails there (that thread's first cuBLAS
+                # call would fall inside the capture)
                 await loop.run_in_executor(None, eng.warm_compile)
             while True:
                 # cancels first: the engine is idle on this thread
@@ -647,6 +659,11 @@ class MeshLeader:
         self._engine.enqueue(r, **kw)
         self._note("replay_enqueue", r)
 
+    def requeue_lost(self, *args, **kw):
+        r = self._engine.requeue_lost(*args, **kw)
+        self._note("requeue_lost", *args, **kw)
+        return r
+
     def cancel(self, request_id: int) -> bool:
         ok = self._engine.cancel(request_id)
         self._note("cancel", request_id)
@@ -677,16 +694,58 @@ class MeshLeader:
     def assert_invariants(self) -> None:
         self._broadcast("assert_invariants")
 
+    def run(self):
+        """Step every rank until nothing is pending; rank 0's finished
+        requests (``ServingEngine.run``)."""
+        while self._engine.pending:
+            self.step()
+        return self.take_done()
+
+    def rebuild(self, build) -> None:
+        """Write off every rank's engine and build a fresh one on the same
+        mesh: the followers rebuild with their own callable (``follow``),
+        rank 0 with ``build()``, each only after its old engine is
+        released. Calls logged for the old engine are dropped with it."""
+        with self._lock:
+            self._log[:] = []
+        self._mesh.broadcast_object([pickle.dumps(("rebuild", (), {}))])
+        self.__dict__["_engine"] = None
+        _release(self._mesh.device)
+        self.__dict__["_engine"] = build()
+
     def stop(self) -> None:
         self._broadcast("stop")
 
 
-def follow(engine, mesh) -> None:
+def _release(device) -> None:
+    """Free what a dropped engine held: cycles first (an engine's counted
+    methods form some), then the allocator's cache on a card."""
+    gc.collect()
+    if device.type == "cuda":
+        import torch
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+
+
+def follow(engine, mesh, rebuild=None) -> None:
     """The loop of a rank other than 0: replay rank 0's engine calls, in
-    order, until it stops."""
+    order, until it stops. On a ``rebuild`` record (``MeshLeader
+    .rebuild``) the engine is dropped, its memory released, and
+    ``rebuild()`` builds the one followed from then on; without the
+    callable that record raises. Pass the only reference to ``engine``:
+    a caller that keeps one keeps the written-off engine alive."""
     while True:
         for blob in mesh.broadcast_object():
             name, args, kw = pickle.loads(blob)
             if name == "stop":
                 return
+            if name == "rebuild":
+                if rebuild is None:
+                    raise RuntimeError(
+                        f"rank {mesh.rank}: rank 0 rebuilt its engine, and "
+                        f"follow was given no rebuild callable")
+                engine = None
+                _release(mesh.device)
+                engine = rebuild()
+                continue
             getattr(engine, name)(*args, **kw)

@@ -690,10 +690,11 @@ def test_serve_cli_flags_against_repro(monkeypatch, capsys):
     """``python -m repro_torch.launch.serve`` keeps ``repro``'s flags but
     ``--compile-cache``, and its ``--reduced`` can be turned off where ``repro``'s cannot
     (``store_true`` with ``default=True``: ``--no-reduced`` is an error
-    there). ``--mesh N`` refuses, before it starts a rank, what a mesh
-    does not serve yet (``--supervise``; the mesh itself is
+    there). ``--mesh N --supervise`` goes to the mesh launcher
+    (``serve_mesh``; the mesh itself is
     ``tests/test_torch_sharded_serving.py``'s, ``tests/test_torch_moe_mesh
-    .py``'s and ``tests/test_torch_recurrent_mesh.py``'s); a short run on the CPU
+    .py``'s, ``tests/test_torch_recurrent_mesh.py``'s and
+    ``tests/test_torch_mesh_supervise.py``'s); a short run on the CPU
     serves every arrival through the gateway."""
     import sys
 
@@ -720,9 +721,10 @@ def test_serve_cli_flags_against_repro(monkeypatch, capsys):
     assert got[0].device == "cuda" and not hasattr(got[0], "compile_cache")
     with pytest.raises(SystemExit):
         tserve.main(["--compile-cache"])
-    with pytest.raises(SystemExit, match="supervise.*does not run on a "
-                                         "mesh"):
-        tserve.main(["--mesh", "2", "--device", "cpu", "--supervise"])
+    meshed = []
+    monkeypatch.setattr(tserve, "serve_mesh", meshed.append)
+    tserve.main(["--mesh", "2", "--device", "cpu", "--supervise"])
+    assert [(a.mesh, a.supervise) for a in meshed] == [(2, True)]
     monkeypatch.undo()
     tserve.main(["--device", "cpu", "--requests", "3", "--max-new", "3",
                  "--quiet", "--rate", "1000"])

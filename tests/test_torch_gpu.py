@@ -2422,3 +2422,89 @@ def test_data_parallel_step_on_the_card_equals_the_one_device_step(cuda):
     for k in b:
         tol = 1e-5 * float(b[k].abs().max()) + 1e-4 * lr
         assert float((a[k] - b[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.parametrize("name", ["quickstart", "serve_stream",
+                                  "serve_cascade", "train_lm",
+                                  "federated_training", "video_query"])
+def test_examples_run_on_the_card(cuda, name):
+    """Each ``examples/torch`` script at its small flags with the default
+    ``--device`` (the card; NCCL for the federated one's ranks) runs to
+    its end (``tests/test_torch_examples.py`` runs them on the CPU)."""
+    import os
+    import subprocess
+    import sys
+
+    from test_torch_examples import EXAMPLES, ROOT, RUNS
+
+    argv, last = RUNS[name]
+    out = subprocess.run([sys.executable, os.path.join(EXAMPLES,
+                                                       f"{name}.py"), *argv],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert last in out.stdout, out.stdout[-3000:]
+
+
+def test_step_record_counts_the_same_flops_on_the_card_and_the_cpu(cuda):
+    """A prefill through flash and a decode through the ring and the paged
+    kernels: the wrappers add on the card what ``FlopCounterMode`` counts
+    over the plain versions on the CPU."""
+    from repro_torch.analysis import step_record
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 64, h, 64, generator=gen, dtype=torch.float32)
+               .to(torch.bfloat16) for h in (8, 2, 2))
+    qd = q[:, -1:].contiguous()
+    pos = torch.arange(64, dtype=torch.int32).repeat(2, 1)
+    qp = torch.full((2, 1), 63, dtype=torch.int32)
+    tables = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    pool_k, pool_v = (t.reshape(8, 16, 2, 64) for t in (k, v))
+
+    def record(dev):
+        a = [t.to(dev) for t in (q, k, v, qd, pos, qp, tables, pool_k,
+                                 pool_v)]
+
+        def step():
+            flash_attention(a[0], a[1], a[2])
+            decode_attention(a[3], a[1], a[2], a[5], a[4])
+            paged_decode_attention(a[3], a[7], a[8], a[5],
+                                   a[4].reshape(8, 16), a[6])
+        return step_record(step, arch="smollm-135m", mode="prefill",
+                           seq_len=64, global_batch=2, params={}, device=dev)
+
+    got, want = record(cuda), record("cpu")
+    assert got["cost"] == want["cost"] and got["cost"]["flops"] > 0
+
+
+def test_gateway_warms_an_engine_on_the_card_before_its_first_step(cuda):
+    """A gateway with no watchdog over an engine nobody warmed: it captures
+    every program before its first step (a capture at first use, in an
+    executor thread that has made no cuBLAS handle yet, fails), and the
+    streams equal a warmed engine's ``run()``."""
+    import asyncio
+
+    from repro_torch.serving import ServingEngine, ServingGateway
+
+    lm = _mesh_model(cuda)
+    params = lm.init(0)
+    trace = _mesh_trace()
+    ref = ServingEngine(lm, params, batch_slots=3, max_seq_len=64)
+    ref.warm_compile()
+    ids = [ref.submit(p, max_new_tokens=n, temperature=t)
+           for p, n, t in trace]
+    want = ref.run()
+    eng = ServingEngine(lm, params, batch_slots=3, max_seq_len=64)
+
+    async def main():
+        async with ServingGateway(eng) as gw:
+            hs = [await gw.submit(p, max_new_tokens=n, temperature=t)
+                  for p, n, t in trace]
+            return [await h.result() for h in hs]
+
+    got = asyncio.run(main())
+    assert eng.warm_compile_s is not None
+    assert eng.graphs() == len(eng.program_keys())
+    for i, r in zip(ids, got):
+        assert r.status == "done"
+        np.testing.assert_array_equal(r.output, want[i].output)

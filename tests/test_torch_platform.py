@@ -154,8 +154,9 @@ def test_node_shielding_redirects_placement():
 
 
 def test_topology_yaml_roundtrip():
-    """The round trip through PyYAML (imported only by ``from_yaml`` and
-    ``to_yaml``), and the same text as ``repro``'s topology writes."""
+    """The round trip through PyYAML (imported only by ``from_yaml``;
+    ``to_yaml`` writes PyYAML's text itself), and the same text as
+    ``repro``'s topology writes."""
     topo = _topo(a=Component(name="a", image=NULL, connections=[],
                              params={"x": 1}),
                  b=Component(name="b", image=NULL, placement="cloud",
@@ -167,6 +168,23 @@ def test_topology_yaml_roundtrip():
     again = Topology.from_yaml(text)
     assert again.to_dict() == topo.to_dict()
     assert jtopo.Topology.from_yaml(text).to_yaml() == text
+
+
+@pytest.mark.parametrize("data", [
+    {"app": "a", "n": [[1, 2], [3], {"k": [1]}], "e": [{}], "m": {}},
+    {"s": "hello world", "t": "yes", "u": "Off", "q": "", "x": None,
+     "b": [True, False], "f": [0.1, 1.0, 1e-05, 2.5e20, -3, float("inf")],
+     "d": {"a": {"b": [], "c": [{"p": "x/y", "r": 1}]}}},
+])
+def test_to_yaml_writes_pyyamls_text(data):
+    """The port's writer against ``yaml.safe_dump(..., sort_keys=False)``
+    on nested blocks, scalars and the strings YAML would read as other
+    types."""
+    import yaml
+
+    from repro_torch.core.topology import _block
+    assert "\n".join(_block(data, "")) + "\n" == yaml.safe_dump(
+        data, sort_keys=False)
 
 
 def test_topology_validates_connections():

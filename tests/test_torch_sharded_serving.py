@@ -436,7 +436,10 @@ def test_mesh_none_is_unchanged():
 def test_serve_launcher_mesh_two_on_cpu():
     """``launch/serve.py --mesh 2 --device cpu --hang-demo``: two gloo
     ranks, rank 0's gateway, journal and watchdog; the stall rolls back
-    in-process, snapshots gather the KV heads every step, all done."""
+    in-process, snapshots gather the KV heads every step, all done. With
+    ``--wedge-demo`` the stall outlasts the grace window: both ranks
+    rebuild their engines, the restart recovers from the snapshot and the
+    journal, and its drain finishes every request."""
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--mesh", "2",
@@ -448,9 +451,13 @@ def test_serve_launcher_mesh_two_on_cpu():
     assert "'hang_recoveries': 1" in out.stdout, out.stdout
     assert "{'done': 4}" in out.stdout, out.stdout
     assert "'snapshots_taken': 0" not in out.stdout, out.stdout
-    refused = subprocess.run(
+    wedged = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--mesh", "2",
-         "--device", "cpu", "--supervise"],
-        env=env, capture_output=True, text=True, timeout=60, cwd=ROOT)
-    assert refused.returncode != 0 and "NotImplementedError" in \
-        refused.stderr, refused.stderr[-2000:]
+         "--device", "cpu", "--requests", "4", "--max-new", "4", "--quiet",
+         "--wedge-demo", "--step-timeout", "3", "--hang-grace", "0.5",
+         "--snapshot-every", "1"],
+        env=env, capture_output=True, text=True, timeout=180, cwd=ROOT)
+    assert wedged.returncode == 0, wedged.stderr[-3000:]
+    assert "engine wedged" in wedged.stdout, wedged.stdout
+    assert "post-restart drain: {'done': 4}" in wedged.stdout, wedged.stdout
+    assert "'restarts': 1" in wedged.stdout, wedged.stdout
