@@ -247,7 +247,20 @@ run's token for token and to ``mesh=None``'s or parted first at a
 near-tie; restart -> first token and each rank's peak memory before the
 wedge and after the restart; (b) with 2 cards or more, ``launch/serve.py
 --arch qwen3-4b --no-reduced --mesh min(cards, 4) --wedge-demo`` over
-NCCL, graphed, its printed restart lines held.
+NCCL, graphed, its printed restart lines held. Phase 24 trains on a model
+axis above 1 (``check_tp_training``): (a) ``TPT_MODELS`` in f32 on a
+(1, 2) mesh of 2 gloo ranks of this card, run in phase 22's spawn
+after 22(c) and (d), each of ``TPT_STEPS`` steps of
+``make_train_step(mesh=)`` held against the one-device step from the
+same state (loss, the first gradient leaf by leaf, every step's params
+and moments, at their storage precision), with the kernels' launches,
+the heads and scan widths they ran at and the design's collectives a
+step; (b) with 4 cards, ``launch/train.py`` on ``TPT_CARDS`` whole in
+bf16 on a (1, 4) NCCL mesh (ms a step by CUDA events, tokens/s, 6·N·D
+share, peak, bytes a rank, collectives a step, the loss falling), then
+its 4-layer f32 cut held as (a). Phase 2 times flash, its backward and
+the scan's backward at a training rank's layouts
+(``check_tp_train_shapes``).
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
@@ -299,6 +312,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 
 import numpy as np
 
@@ -1410,6 +1424,29 @@ def check_attention_hd128(torch, timer, dev):
         hd=192, window=None, n_in=LAYERS)}
     torch.cuda.empty_cache()
     return out
+
+
+# phase 24's per-rank layouts: glm4-9b's 32 query heads over 2 KV heads
+# on 4 ranks (8 over the one KV head a rank reads, G = 8, hd 128) at its
+# training sequence, and recurrentgemma-9b's scan at W/2 and W/4
+TP_TRAIN_FLASH = ("glm4-9b on 4 ranks", 1, 4096, 8, 1, 128, None)
+TP_TRAIN_SCANS = ((1, 4096, 2048), (1, 4096, 1024))
+
+
+def check_tp_train_shapes(torch, timer, dev):
+    """Phase 24's kernel shapes: flash forward (row by row, against SDPA)
+    and its backward kernels at ``TP_TRAIN_FLASH``, the scan's reverse mode
+    at ``TP_TRAIN_SCANS`` (its forward there: ``check_rglru``), each held
+    against its plain version and timed with its bound."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    label, _, s, h, kv, hd, window = TP_TRAIN_FLASH
+    return {"flash_attention": _flash_case(
+                torch, timer, dev, gen, label, s=s, kv=kv, g=h // kv, hd=hd,
+                window=window, n_in=1),
+            "flash_attention_bwd": check_flash_bwd(
+                torch, timer, dev, (TP_TRAIN_FLASH,))[1],
+            "rglru_scan_bwd": check_rglru_bwd(torch, timer, dev,
+                                              TP_TRAIN_SCANS)[1]}
 
 
 # phase 17's new attention layouts: model -> (KV heads, G, hd, the flash
@@ -5379,15 +5416,16 @@ def _bwd_err(torch, label, got, ref, rows, dt):
     return err
 
 
-def check_flash_bwd(torch, timer, dev):
+def check_flash_bwd(torch, timer, dev, shapes=BWD_SHAPES):
     """Flash's backward kernels against ``flash_attention_bwd_plain`` at
-    the training path's layouts, bf16 and f32, from the forward kernel's
+    the training path's layouts (``shapes``), bf16 and f32, from the
+    forward kernel's
     output and log-sum-exp; timed in bf16 against the plain version,
     SDPA's backward under autograd (K and V expanded to the query heads)
     and the bound (2.5 x the forward's flops in the band at the bf16
     peak, or the bytes: q, k, v, out, dout and lse read, dq, dk, dv
-    written). Returns (the line's numbers at smollm-135m's layout, every
-    layout's)."""
+    written). Returns (the line's numbers at the first layout (smollm-
+    135m's), every layout's)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         _launch, flash_attention_bwd, flash_attention_bwd_plain,
@@ -5395,7 +5433,7 @@ def check_flash_bwd(torch, timer, dev):
 
     gen = torch.Generator(device=dev).manual_seed(18)
     errs, times = [], {}
-    for label, b, s, h, kv, hd, window in BWD_SHAPES:
+    for label, b, s, h, kv, hd, window in shapes:
         scale = hd ** -0.5
 
         def make(n, dt):
@@ -5480,23 +5518,25 @@ def check_flash_bwd(torch, timer, dev):
               f"{flops / ms / 1e9:.1f} TFLOP/s in the band")
         del q, k, v, do, out, lse, qt, kt, vt, lib_out
         torch.cuda.empty_cache()
-    return (dict(max_abs_err=max(errs), **times["smollm-135m"]), times)
+    return (dict(max_abs_err=max(errs), **times[shapes[0][0]]), times)
 
 
-def check_rglru_bwd(torch, timer, dev):
+def check_rglru_bwd(torch, timer, dev,
+                    shapes=((1, 512, 4096), (1, 4096, 4096))):
     """The scan's reverse mode against ``rglru_scan_bwd_plain`` at the
-    hybrid's training widths (B 1, W 4096; S 512 and 4096), f32, from the
+    hybrid's training widths (``shapes``: B 1, W 4096; S 512 and 4096),
+    f32, from the
     forward kernel's states with h0 != 0 and both output gradients; equal
     bits on a repeated call after a forward launch on the same stream;
     timed against the plain loop and the bound (a, h and dh read, da and
-    db written: 20 bytes an element). Returns (the line's numbers at S =
-    4096, both shapes')."""
+    db written: 20 bytes an element). Returns (the line's numbers at the
+    last shape, (1, 4096, 4096), every shape's)."""
     from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
                                                 rglru_scan_bwd_plain)
 
     gen = torch.Generator(device=dev).manual_seed(19)
     errs, times = [], {}
-    for b, s, w in ((1, 512, 4096), (1, 4096, 4096)):
+    for b, s, w in shapes:
         n_in = 4 if s <= 512 else 2
 
         def make():
@@ -5547,14 +5587,14 @@ def check_rglru_bwd(torch, timer, dev):
         t_ops = 4 * b * s * w / F32_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        times[s] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                        bound_by=by, library_ms=None)
+        times[b, s, w] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                              bound_by=by, library_ms=None)
         print(f"  rglru_scan_bwd ({b}, {s}, {w}) f32: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, library: none, bound {bound:.4f} ms "
               f"({by}; {nbytes} B)")
         del a, hs, h0, dh, dl, args, got, again, ref
-    return (dict(max_abs_err=max(errs), **times[4096]),
-            {f"S={s}": r for s, r in times.items()})
+    return (dict(max_abs_err=max(errs), **times[shapes[-1]]),
+            {"x".join(map(str, k)): r for k, r in times.items()})
 
 
 def _train_launches(cfg, steps):
@@ -7351,48 +7391,72 @@ def _adam_step_spread(m, v, dm, dv, k, b1=0.9, b2=0.95, eps=1e-8):
     return (hi - u).maximum(u - lo)
 
 
-def _dp_leaf_check(k, got, want, moments):
-    """Step ``k``'s params ``got`` and AdamW moments against the one-device
-    step's ``want`` from the same state, leaf by leaf (flat dicts;
-    ``moments`` ((mu, nu) got, (mu, nu) want)), under the ``DP_*`` rule.
-    Returns (the largest moment error of a leaf's max, the share of
-    elements whose tolerance reaches the 2.5 lr cap, the largest |diff|,
-    the failures)."""
+def _dp_leaf_check(k, leaves, rounding: float = 0.0):
+    """Step ``k``'s params and AdamW moments against the one-device step's
+    from the same state, leaf by leaf, under the ``DP_*`` rule.
+    ``leaves``: key -> a callable that yields the leaf's parts, each
+    (params got, want, mu got, want, nu got, want) of the same elements
+    (``_whole_parts``: the whole leaf as one; called twice, for the
+    leaf's maxima and then its elements). ``rounding``: the moments'
+    storage unit roundoff (0 for f32; 2^-8 for bf16, where each side
+    rounds its f32 moment, so an element may also differ by 2 x 2^-8 of
+    its value). Returns (the largest moment error of a leaf's max, the
+    share of elements whose tolerance reaches the 2.5 lr cap, the largest
+    |diff|, the failures)."""
     fails, m_err = [], 0.0
-    dm = {}
-    for name, gm, wm in zip(("mu", "nu"), *moments):
-        for key in wm:
-            b = wm[key].float()
-            off = float((gm[key].float() - b).abs().max())
-            dm[name, key] = off
-            err = off / max(float(b.abs().max()), 1e-30)
-            m_err = max(m_err, err)
-            if err > TRAIN_GRAD_TOL:
-                fails.append(f"{name} of {key} off by {err:.3g} of its max")
-    mu, nu = moments[1]
     capped = total = 0
     worst = 0.0
     cap = 2.5 * DP_LR
-    for key in want:
-        a, b = got[key].float(), want[key].float()
-        off = (a - b).abs()
-        spread = DP_LR * _adam_step_spread(mu[key].float(), nu[key].float(),
-                                           dm["mu", key], dm["nu", key], k)
-        tol = (DP_PARAM_TOL * float(b.abs().max()) + DP_STEP_TOL * DP_LR
-               + spread).clamp_max(cap)
-        bad = off > tol
-        if bool(bad.any()):
-            fails.append(f"{key}: {int(bad.sum())} of {off.numel()} "
-                         f"elements past their tolerance, max |diff| "
-                         f"{float(off[bad].max()):.3g}")
-        capped += int((tol >= cap).sum())
-        total += off.numel()
-        worst = max(worst, float(off.max()))
+    for key, parts in leaves.items():
+        # per moment: the largest |diff|, the largest beyond the storage
+        # rounding, the largest |want|; and the params' largest |want|
+        dm, over, top = ({"mu": 0.0, "nu": 0.0} for _ in range(3))
+        top_p = 0.0
+        for part in parts():
+            top_p = max(top_p, float(part[1].float().abs().max()))
+            for name, gm, wm in (("mu", *part[2:4]), ("nu", *part[4:6])):
+                b = wm.float()
+                diff = (gm.float() - b).abs()
+                dm[name] = max(dm[name], float(diff.max()))
+                over[name] = max(over[name], float(
+                    (diff - 2 * rounding * b.abs()).clamp_min(0).max()))
+                top[name] = max(top[name], float(b.abs().max()))
+        for name in ("mu", "nu"):
+            err = over[name] / max(top[name], 1e-30)
+            m_err = max(m_err, err)
+            if err > TRAIN_GRAD_TOL:
+                fails.append(f"{name} of {key} off by {err:.3g} of its max")
+        for gp, wp, _, mu, _, nu in parts():
+            a, b = gp.float(), wp.float()
+            off = (a - b).abs()
+            spread = DP_LR * _adam_step_spread(mu.float(), nu.float(),
+                                               dm["mu"], dm["nu"], k)
+            tol = (DP_PARAM_TOL * top_p + DP_STEP_TOL * DP_LR
+                   + spread).clamp_max(cap)
+            bad = off > tol
+            if bool(bad.any()):
+                fails.append(f"{key}: {int(bad.sum())} of {off.numel()} "
+                             f"elements past their tolerance, max |diff| "
+                             f"{float(off[bad].max()):.3g}")
+            capped += int((tol >= cap).sum())
+            total += off.numel()
+            worst = max(worst, float(off.max()))
     return m_err, capped / total, worst, fails[:8]
 
 
-def _dp_rank(rank, out_dir, seed, device="cuda"):
-    """One rank of 22(c) and (d) on a (world, 1) mesh (spawned). (c):
+def _whole_parts(got, want, moments):
+    """``_dp_leaf_check``'s leaves from flat dicts of whole leaves:
+    ``got`` and ``want`` params, ``moments`` ((mu, nu) got, (mu, nu)
+    want)."""
+    (gm, gv), (wm, wv) = moments
+    return {key: (lambda key=key: [(got[key], want[key], gm[key], wm[key],
+                                    gv[key], wv[key])]) for key in want}
+
+
+def _dp_rank(rank, out_dir, seed, device="cuda", tp_leg=False):
+    """One rank of 22(c) and (d) on a (world, 1) mesh (spawned); with
+    ``tp_leg`` (2 gloo ranks sharing one card) 24(a) after them, in the
+    same processes (``_tpt_leg``: no spawn of its own). (c):
     smollm-135m at full width in f32, ``DP_F32_STEPS`` data-parallel steps
     on its rows of ``DP_BATCH`` global batches, each followed (rank 0) by
     the one-device step on the global batch from the state the step began
@@ -7433,179 +7497,202 @@ def _dp_rank(rank, out_dir, seed, device="cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    mesh = make_host_mesh(1, device=dev)
-    world, lead = mesh.size, rank == 0
+    rec = {}
 
-    def sync():
-        if cuda:
-            torch.cuda.synchronize(dev)
+    def data_legs():
+        """(c) and (d) into ``rec``; their memory goes with the call."""
+        mesh = make_host_mesh(1, device=dev)
+        world, lead = mesh.size, rank == 0
 
-    def to_dev(b):
-        return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+        def sync():
+            if cuda:
+                torch.cuda.synchronize(dev)
 
-    rec, t0 = {}, time.perf_counter()
-    # (c) f32: the data-parallel steps, then the one-device ones
-    cfg32 = dataclasses.replace(get_config(DP_MODEL), param_dtype="float32")
-    lm = LM(cfg32, device=dev)
-    start = lm.init(seed, on_device=True)
-    params = place_train_params(mesh, lm, start)
-    if not lead:
-        del start
-    host = list(zip(range(DP_F32_STEPS), TokenStream(
-        cfg32.vocab_size, seed=seed).batches(*DP_BATCH)))
-    step = make_train_step(lm, _dp_f32_schedule, mesh=mesh)
-    dims = tree_leaves(train_splits(mesh, lm))
-    opt = adamw_init(params)
-    losses, ref, checks = [], [], []
-    if lead:
-        ref_step = make_train_step(lm, _dp_f32_schedule)
-        p, o = start, adamw_init(start)
-    reset_launches()
-    for i, hb in host:
-        rows = next(ShardedLoader(iter([hb]), mesh=mesh, device=dev))
-        if i == 0:
-            _, _, g1 = mesh_loss_and_grads(lm, mesh, params, rows, dims)
-            g1 = rebuild(g1, gather_whole(mesh, tree_leaves(g1), dims))
-        params, opt, m = step(params, opt, rows)
-        losses.append(float(m["loss"]))
-        got = rebuild(params, gather_whole(mesh, tree_leaves(params), dims))
-        mom = [rebuild(params, gather_whole(mesh, tree_leaves(t), dims))
-               for t in (opt.mu, opt.nu)]
+        def to_dev(b):
+            return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+
+        t0 = time.perf_counter()
+        # (c) f32: the data-parallel steps, then the one-device ones
+        cfg32 = dataclasses.replace(get_config(DP_MODEL),
+                                    param_dtype="float32")
+        lm = LM(cfg32, device=dev)
+        start = lm.init(seed, on_device=True)
+        params = place_train_params(mesh, lm, start)
+        if not lead:
+            del start
+        host = list(zip(range(DP_F32_STEPS), TokenStream(
+            cfg32.vocab_size, seed=seed).batches(*DP_BATCH)))
+        step = make_train_step(lm, _dp_f32_schedule, mesh=mesh)
+        dims = tree_leaves(train_splits(mesh, lm))
+        opt = adamw_init(params)
+        losses, ref, checks = [], [], []
         if lead:
-            # the one-device step on the global batch from the state this
-            # step started from (the data-parallel one after the first)
-            b = to_dev(hb)
+            ref_step = make_train_step(lm, _dp_f32_schedule)
+            p, o = start, adamw_init(start)
+        reset_launches()
+        for i, hb in host:
+            rows = next(ShardedLoader(iter([hb]), mesh=mesh, device=dev))
             if i == 0:
-                _, _, rg1 = loss_and_grads(lm, p, b)
-                a, w = flat_paths(g1), flat_paths(rg1)
-                grad_err = max(float((a[k] - w[k]).abs().max()
-                                     / w[k].abs().max().clamp_min(1e-30))
-                               for k in w)
-                del rg1
-            p, o, m = ref_step(p, o, b)
-            ref.append(float(m["loss"]))
-            checks.append(_dp_leaf_check(
-                i + 1, flat_paths(got), flat_paths(p),
-                ([flat_paths(t) for t in mom],
-                 [flat_paths(o.mu), flat_paths(o.nu)])))
-            p, o = got, o._replace(mu=mom[0], nu=mom[1])
-        del got, mom
-    rec["f32"] = dict(losses=losses, launches=dict(LAUNCHES),
-                      seconds=time.perf_counter() - t0)
-    if lead:
-        rec["f32"].update(ref_losses=ref, grad_err=grad_err, steps=checks)
-        del p, o, start
-    del params, opt, g1
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
-    mesh.barrier()
-    # (c) bf16: timed steps
-    t0 = time.perf_counter()
-    cfg16 = get_config(DP_MODEL)
-    lm16 = LM(cfg16, device=dev)
-    params = place_train_params(mesh, lm16, lm16.init(seed, on_device=True))
-    opt = adamw_init(params)
-    step = make_train_step(lm16, linear_warmup_cosine(3e-3, 5,
-                                                      DP_BF16_STEPS),
-                           mesh=mesh)
-    # the f32 steps' global batches in turn (numpy makes one in 2-6 s), as
-    # phase 18 takes TRAIN_DISTINCT batches
-    loader = ShardedLoader(itertools.cycle([hb for _, hb in host]),
-                           mesh=mesh, device=dev)
-    times, losses = [], []
-    reset_launches()
-    for _ in range(DP_BF16_STEPS):
-        b = next(loader)
-        sync()
-        ts = time.perf_counter()
-        params, opt, m = step(params, opt, b)
-        losses.append(float(m["loss"]))
-        times.append((time.perf_counter() - ts) * 1e3)
-    rec["bf16"] = dict(
-        ms=times, losses=losses, launches=dict(LAUNCHES),
-        param_bytes=sum(t.numel() * t.element_size()
-                        for t in tree_leaves(params)),
-        moment_bytes=sum(t.numel() * t.element_size()
-                         for t in tree_leaves((opt.mu, opt.nu))),
-        whole_param_bytes=_spec_bytes(lm16.param_spec()),
-        peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else 0,
-        seconds=time.perf_counter() - t0)
-    del params, opt
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
-    # (d) FedAvg over the ranks, each an edge cloud
-    t0 = time.perf_counter()
-    fed_start = lm.init(seed + 1, on_device=True)
-
-    def loss_fn(p, b):
-        return lm.loss(p, b, train=True)[0]
-
-    clouds = [to_dev(next(TokenStream(cfg32.vocab_size,
-                                      seed=seed + 100 + c).batches(
-                                          *FED_BATCH))) for c in range(world)]
-    ft = FederatedTrainer(loss_fn, mesh, lr=FED_LR, local_steps=FED_LOCAL)
-    params = ft.replicate(fed_start)
-    opt = ft.init_opt(params)
-    fed = dict(losses=[], digests=[], rounds=[], counts=[])
-    reset_launches()
-    for _ in range(FED_ROUNDS):
-        before = dict(COLLECTIVES)
-        params, opt, loss = ft.round(params, opt, clouds[mesh.data_rank])
-        fed["counts"].append(tally(COLLECTIVES, "axis", before))
-        fed["losses"].append(float(loss))
-        h = hashlib.sha1()
-        for t in tree_leaves(params):
-            h.update(t.detach().cpu().numpy().tobytes())
-        box = [None] * world
-        dist.all_gather_object(box, h.hexdigest(), group=mesh._host)
-        fed["digests"].append(box)
+                _, _, g1 = mesh_loss_and_grads(lm, mesh, params, rows, dims)
+                g1 = rebuild(g1, gather_whole(mesh, tree_leaves(g1), dims))
+            params, opt, m = step(params, opt, rows)
+            losses.append(float(m["loss"]))
+            got = rebuild(params, gather_whole(mesh, tree_leaves(params),
+                                               dims))
+            mom = [rebuild(params, gather_whole(mesh, tree_leaves(t), dims))
+                   for t in (opt.mu, opt.nu)]
+            if lead:
+                # the one-device step on the global batch from the state this
+                # step started from (the data-parallel one after the first)
+                b = to_dev(hb)
+                if i == 0:
+                    _, _, rg1 = loss_and_grads(lm, p, b)
+                    a, w = flat_paths(g1), flat_paths(rg1)
+                    grad_err = max(float((a[k] - w[k]).abs().max()
+                                         / w[k].abs().max().clamp_min(1e-30))
+                                   for k in w)
+                    del rg1
+                p, o, m = ref_step(p, o, b)
+                ref.append(float(m["loss"]))
+                checks.append(_dp_leaf_check(i + 1, _whole_parts(
+                    flat_paths(got), flat_paths(p),
+                    ([flat_paths(t) for t in mom],
+                     [flat_paths(o.mu), flat_paths(o.nu)]))))
+                p, o = got, o._replace(mu=mom[0], nu=mom[1])
+            del got, mom
+        rec["f32"] = dict(losses=losses, launches=dict(LAUNCHES),
+                          seconds=time.perf_counter() - t0)
         if lead:
-            fed["rounds"].append(tree_map(lambda t: t.detach().clone(),
-                                          params))
-    fed["launches"] = dict(LAUNCHES)
-    if lead:
-        # the one-process simulation: the replicas stepped in turn, then
-        # their f32 mean
-        reps = [tree_map(lambda t: t.clone(), fed_start)
-                for _ in range(world)]
-        opts = [sgd_init(r) for r in reps]
-        errs = []
-        for rnd in range(FED_ROUNDS):
-            for c in range(world):
-                for _ in range(FED_LOCAL):
-                    live = tree_map(lambda t: t.detach().requires_grad_(),
-                                    reps[c])
-                    leaves = tree_leaves(live)
-                    with torch.enable_grad():
-                        loss = loss_fn(live, clouds[c])
-                        grads = torch.autograd.grad(loss, leaves,
-                                                    allow_unused=True)
-                    g = rebuild(reps[c], [torch.zeros_like(x) if d is None
-                                          else d
-                                          for x, d in zip(leaves, grads)])
-                    reps[c], opts[c] = sgd_update(reps[c], g, opts[c],
-                                                  lr=FED_LR)
-            flats = [flat_paths(r) for r in reps]
-            mean = {k: sum(f[k].float() for f in flats) / world
-                    for k in flats[0]}
-            reps = [rebuild(fed_start, list(mean.values()))
+            rec["f32"].update(ref_losses=ref, grad_err=grad_err, steps=checks)
+            del p, o, start
+        del params, opt, g1
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        mesh.barrier()
+        # (c) bf16: timed steps
+        t0 = time.perf_counter()
+        cfg16 = get_config(DP_MODEL)
+        lm16 = LM(cfg16, device=dev)
+        params = place_train_params(mesh, lm16,
+                                    lm16.init(seed, on_device=True))
+        opt = adamw_init(params)
+        step = make_train_step(lm16, linear_warmup_cosine(3e-3, 5,
+                                                          DP_BF16_STEPS),
+                               mesh=mesh)
+        # the f32 steps' global batches in turn (numpy makes one in 2-6 s), as
+        # phase 18 takes TRAIN_DISTINCT batches
+        loader = ShardedLoader(itertools.cycle([hb for _, hb in host]),
+                               mesh=mesh, device=dev)
+        times, losses = [], []
+        reset_launches()
+        for _ in range(DP_BF16_STEPS):
+            b = next(loader)
+            sync()
+            ts = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - ts) * 1e3)
+        rec["bf16"] = dict(
+            ms=times, losses=losses, launches=dict(LAUNCHES),
+            param_bytes=sum(t.numel() * t.element_size()
+                            for t in tree_leaves(params)),
+            moment_bytes=sum(t.numel() * t.element_size()
+                             for t in tree_leaves((opt.mu, opt.nu))),
+            whole_param_bytes=_spec_bytes(lm16.param_spec()),
+            peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else 0,
+            seconds=time.perf_counter() - t0)
+        del params, opt
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        # (d) FedAvg over the ranks, each an edge cloud
+        t0 = time.perf_counter()
+        fed_start = lm.init(seed + 1, on_device=True)
+
+        def loss_fn(p, b):
+            return lm.loss(p, b, train=True)[0]
+
+        clouds = [to_dev(next(TokenStream(
+            cfg32.vocab_size, seed=seed + 100 + c).batches(*FED_BATCH)))
+            for c in range(world)]
+        ft = FederatedTrainer(loss_fn, mesh, lr=FED_LR, local_steps=FED_LOCAL)
+        params = ft.replicate(fed_start)
+        opt = ft.init_opt(params)
+        fed = dict(losses=[], digests=[], rounds=[], counts=[])
+        reset_launches()
+        for _ in range(FED_ROUNDS):
+            before = dict(COLLECTIVES)
+            params, opt, loss = ft.round(params, opt, clouds[mesh.data_rank])
+            fed["counts"].append(tally(COLLECTIVES, "axis", before))
+            fed["losses"].append(float(loss))
+            h = hashlib.sha1()
+            for t in tree_leaves(params):
+                h.update(t.detach().cpu().numpy().tobytes())
+            box = [None] * world
+            dist.all_gather_object(box, h.hexdigest(), group=mesh._host)
+            fed["digests"].append(box)
+            if lead:
+                fed["rounds"].append(tree_map(lambda t: t.detach().clone(),
+                                              params))
+        fed["launches"] = dict(LAUNCHES)
+        if lead:
+            # the one-process simulation: the replicas stepped in turn, then
+            # their f32 mean
+            reps = [tree_map(lambda t: t.clone(), fed_start)
                     for _ in range(world)]
-            mine = flat_paths(fed["rounds"][rnd])
-            errs.append(max(float((mine[k] - mean[k]).abs().max()
-                                  / mean[k].abs().max().clamp_min(1e-30))
-                            for k in mean))
-        fed["sim_err"] = errs
-    del fed["rounds"]
-    fed["seconds"] = time.perf_counter() - t0
-    rec["fed"] = fed
+            opts = [sgd_init(r) for r in reps]
+            errs = []
+            for rnd in range(FED_ROUNDS):
+                for c in range(world):
+                    for _ in range(FED_LOCAL):
+                        live = tree_map(lambda t: t.detach().requires_grad_(),
+                                        reps[c])
+                        leaves = tree_leaves(live)
+                        with torch.enable_grad():
+                            loss = loss_fn(live, clouds[c])
+                            grads = torch.autograd.grad(loss, leaves,
+                                                        allow_unused=True)
+                        g = rebuild(reps[c], [torch.zeros_like(x) if d is None
+                                              else d
+                                              for x, d in zip(leaves, grads)])
+                        reps[c], opts[c] = sgd_update(reps[c], g, opts[c],
+                                                      lr=FED_LR)
+                flats = [flat_paths(r) for r in reps]
+                mean = {k: sum(f[k].float() for f in flats) / world
+                        for k in flats[0]}
+                reps = [rebuild(fed_start, list(mean.values()))
+                        for _ in range(world)]
+                mine = flat_paths(fed["rounds"][rnd])
+                errs.append(max(float((mine[k] - mean[k]).abs().max()
+                                      / mean[k].abs().max().clamp_min(1e-30))
+                                for k in mean))
+            fed["sim_err"] = errs
+        del fed["rounds"]
+        fed["seconds"] = time.perf_counter() - t0
+        rec["fed"] = fed
+
+    data_legs()
+    if tp_leg:
+        gc.collect()
+        if cuda:
+            # its peers' shards reach rank 0 by CUDA IPC, which takes plain
+            # segments (the allocator keeps its expandable ones apart)
+            torch.cuda.empty_cache()
+            with warnings.catch_warnings():     # its newer name is private
+                warnings.simplefilter("ignore", FutureWarning)
+                torch.cuda.memory._set_allocator_settings(
+                    "expandable_segments:False")
+        rec["tp_train"] = _tpt_leg(torch, make_host_mesh(TPT_RANKS,
+                                                         device=dev),
+                                   dev, seed)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
 
 
 def check_data_parallel(torch, dev, seed, smi, ranks, backend):
-    """22(c) and (d) on ``ranks`` processes over ``backend`` (``_dp_rank``),
+    """22(c) and (d) on ``ranks`` processes over ``backend`` (``_dp_rank``;
+    on 2 gloo ranks 24(a)'s leg too, its records under ``tp_train``),
     held: each of ``DP_F32_STEPS`` f32 data-parallel steps against the
     one-device step from the same state, its loss within
     ``TRAIN_LOSS_TOL``, the first step's reduced gradient every leaf's
@@ -7620,7 +7707,8 @@ def check_data_parallel(torch, dev, seed, smi, ranks, backend):
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
-    recs = _spawn_ranks(_dp_rank, ranks, (seed, dev.type), backend)
+    recs = _spawn_ranks(_dp_rank, ranks, (seed, dev.type,
+                                          backend == "gloo"), backend)
     lead = recs[0]
     f32, bf16, fed = lead["f32"], lead["bf16"], lead["fed"]
     label = f"smollm-135m data-parallel on {ranks} {backend} ranks"
@@ -7692,6 +7780,7 @@ def check_data_parallel(torch, dev, seed, smi, ranks, backend):
     launches.update(fed["launches"])
     return dict(ranks=ranks, backend=backend, f32=f32,
                 bf16=dict(bf16, median_ms=ms), fed=fed,
+                tp_train=[r.get("tp_train") for r in recs],
                 seconds=time.perf_counter() - t0), dict(launches)
 
 
@@ -8019,6 +8108,563 @@ def check_supervise(torch, dev, seed, smi):
     return rec, launches
 
 
+# -- phase 24: training on a model axis above 1 ---------------------------------
+
+# 24(a): (model, what is held, its cut, its moments' dtype) on a (1, 2)
+# mesh of gloo ranks sharing one card, f32, TPT_STEPS steps of
+# make_train_step(mesh=) on TPT_BATCH global batches. "state": each
+# step's loss, params and moments against the one-device step from the
+# state the mesh's step began from (``_tpt_ref_parts``, held by
+# ``_dp_leaf_check``), and the first step's gradient. qwen3-4b at 19(b)'s
+# 4-layer cut; recurrentgemma-9b's (rec, rec, attn) repeat, 2.8 B values,
+# whose moments are stored in bf16 (the port's ``adamw_init(...,
+# torch.bfloat16)``; in f32 the ranks' old and new states and gradients
+# in a step, 77 GB, pass what the card leaves) and held at that precision
+TPT_MODELS = (("qwen3-4b", "state", 4, "float32"),
+              ("recurrentgemma-9b", "state", None, "bfloat16"))
+TPT_RANKS = 2
+TPT_STEPS = 3
+TPT_BATCH = (2, 256)
+TPT_WD, TPT_CLIP = 0.01, 1.0       # make_train_step's weight decay, clip
+# 24(b), with 4 cards: launch/train.py on TPT_CARDS whole, bf16, on a (1, 4)
+# NCCL mesh (warm, timed steps; each global batch drawn once, by one rank:
+# its TokenStream takes ~28 s of a host core at glm4-9b's vocab), then its
+# f32 4-layer cut on the same mesh, "grads": each step's loss and the
+# first gradient (its whole f32 state gathered beside one device's step
+# would not fit a card)
+TPT_CARDS = "glm4-9b"
+TPT_CARD_BATCH = (4, 4096)
+TPT_CARD_STEPS = (2, 10)
+TPT_CARD_LR = 1e-3                # peak, after launch/train.py's warm-up
+TPT_CARD_F32 = (("glm4-9b", "grads", 4, "float32"),)
+
+
+def _tpt_cfg(name, cut):
+    """24's f32 cut of ``name``, widths whole: ``cut`` repeats of its first
+    stage, or (repeats a stage, routed experts kept), or None (whole);
+    recurrentgemma-9b its (rec, rec, attn) repeat."""
+    from repro_torch.configs import get_config
+
+    if name == "recurrentgemma-9b":
+        return _cut_stages(_hybrid_cfg("float32"), (1,))
+    cfg = dataclasses.replace(get_config(name), param_dtype="float32")
+    if cut is None:
+        return cfg
+    repeats, experts = (cut if isinstance(cut, tuple) else ((cut,), None))
+    return _cut_stages(cfg, repeats, experts=experts)
+
+
+def _tpt_batches(cfg, seed, n):
+    """``n`` global ``TPT_BATCH`` batches: ``TokenStream``'s text, or (a
+    frontend) numpy's audio codebook tokens or text behind unit-norm image
+    embeddings."""
+    from repro_torch.data.synthetic import TokenStream
+
+    b, s = TPT_BATCH
+    fe = cfg.frontend
+    if fe.kind == "none":
+        host = TokenStream(cfg.vocab_size, seed=seed + 24).batches(b, s)
+        return [next(host) for _ in range(n)]
+    rng = np.random.default_rng(seed + 24)
+    out = []
+    for _ in range(n):
+        shape = (b, s + 1) + ((fe.num_codebooks,) if fe.kind == "audio"
+                              else ())
+        toks = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if fe.kind == "vision":
+            img = rng.standard_normal((b, fe.num_prefix_tokens,
+                                       fe.embed_dim)).astype(np.float32)
+            batch["image_embeds"] = img / np.linalg.norm(img, axis=-1,
+                                                         keepdims=True)
+        out.append(batch)
+    return out
+
+
+def _tpt_regions(tp, bdef):
+    """A block's collectives over 'model' on a training mesh: (its
+    forward's, its backward's, whether its last op is one)."""
+    i = int
+    if bdef.mixer in ("attn", "mla"):
+        on = i(tp.heads if bdef.mixer == "attn" else tp.mla_heads)
+        f, b, last = on, on, on
+    elif bdef.mixer == "rglru":
+        f, b, last = 2 * i(tp.lru), 2 * i(tp.lru), i(tp.lru)
+    elif bdef.mixer == "mlstm":
+        f, b, last = i(tp.rec_heads), i(tp.rec_heads), i(tp.rec_heads)
+    else:       # sLSTM: the gather after its loop; its GeGLU
+        f = b = i(tp.rec_heads) + i(tp.rec_mlp)
+        last = i(tp.rec_mlp)
+    if bdef.mlp == "moe":
+        routed = i(tp.experts or tp.expert_mlp)
+        entry = i(bool(routed or tp.router or tp.shared_mlp))
+        f, b, last = f + i(tp.router) + entry, b + entry + routed, entry
+    elif bdef.mlp != "none":
+        f, b, last = f + i(tp.mlp), b + i(tp.mlp), i(tp.mlp)
+    return f, b, last
+
+
+def _tpt_design(cfg, ranks):
+    """The collectives over 'model' of one step on a (1, ``ranks``) mesh,
+    by the design (``PERF.md`` §6): each scanned layer's forward
+    ends each split region with its collective (an all-reduce of partial
+    sums, two for the RG-LRU's gates and ``w_out``; the router's and the
+    sLSTM's gathers), its remat runs them again but for the layer's last
+    op (the checkpoint stops once it has what the backward needs), its
+    backward sums the gradient at each region's entry (the RG-LRU's gates'
+    cut and MoE's combine weights one more each); the MTP block, outside
+    the checkpoint, once each way; then, with the vocab split, the
+    embedding's reduce, the loss's max and its joined sums and the
+    unembedding's entry (again for the MTP head); the sum of the partial
+    leaves (``partial_leaves``, when any) and the clip's norm."""
+    from repro_torch.configs.base import ATTN, MLA, SWIGLU, BlockDef
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import LM
+    from repro_torch.sharding import tensor_parallel
+    from repro_torch.training.train_loop import partial_leaves
+    from repro_torch.utils.tree import tree_leaves
+
+    mesh = AbstractMesh(ranks)
+    tp = tensor_parallel(cfg, mesh, mode="train")
+    head = 4 * int(tp.vocab)
+    n = 0
+    for stage in cfg.stages:
+        parts = [_tpt_regions(tp, b) for b in stage.blocks]
+        n += stage.repeat * (2 * sum(p[0] for p in parts) - parts[-1][2]
+                             + sum(p[1] for p in parts))
+    if cfg.mtp_depth:
+        f, b, _ = _tpt_regions(tp, BlockDef(
+            mixer=MLA if cfg.mla else ATTN, mlp=SWIGLU))
+        n += f + b + head
+    partial = any(tree_leaves(partial_leaves(mesh, LM(cfg, device="cpu"))))
+    return n + head + int(partial) + 1
+
+
+def _tpt_pieces(torch, mesh, leaves, dims):
+    """Every rank's shards of ``leaves`` (cut on ``dims`` over 'model', -1:
+    whole) on rank 0, per leaf in model-rank order (a whole leaf: its
+    own); None on the other ranks. Over NCCL (or on the CPU) one gather a
+    dtype (each leaf comes back whole: one piece); gloo ranks sharing one
+    card read
+    each other's memory through CUDA IPC (no copy), which the peers keep
+    until the next ``mesh.barrier()``."""
+    from repro_torch.training.train_loop import gather_whole
+
+    if mesh.backend == "nccl" or mesh.device.type != "cuda":
+        whole = gather_whole(mesh, leaves, dims, "model")
+        return [[w] for w in whole] if mesh.rank == 0 else None
+    from torch.multiprocessing.reductions import (rebuild_cuda_tensor,
+                                                  reduce_tensor)
+    cut = [t for t, d in zip(leaves, dims) if d >= 0]
+    box = [None] * mesh.size
+    torch.distributed.all_gather_object(
+        box, None if mesh.rank == 0 else [reduce_tensor(t)[1] for t in cut],
+        group=mesh._host)
+    if mesh.rank != 0:
+        return None
+    peers = [[rebuild_cuda_tensor(*a) for a in m] for m in box[1:]]
+    out, i = [], 0
+    for t, d in zip(leaves, dims):
+        if d < 0:
+            out.append([t])
+        else:
+            out.append([t] + [p[i] for p in peers])
+            i += 1
+    return out
+
+
+def _tpt_whole(torch, pieces, dims):
+    """Whole leaves from ``_tpt_pieces``' pieces."""
+    return [p[0] if len(p) == 1 else torch.cat(p, d)
+            for p, d in zip(pieces, dims)]
+
+
+def _tpt_err(pieces, dims, want):
+    """The largest |piece - its slice of want| over a leaf's max |want|, of
+    every leaf, and the leaf."""
+    worst, where = 0.0, None
+    for key, p, d, w in zip(want, pieces, dims, want.values()):
+        n = w.shape[d] // len(p) if d >= 0 else 0
+        off = max(float((x.float() - (w if len(p) == 1 else w.narrow(
+            d, i * n, n)).float()).abs().max()) for i, x in enumerate(p))
+        e = off / max(float(w.abs().max()), 1e-30)
+        if e >= worst:
+            worst, where = e, key
+    return worst, where
+
+
+def _tpt_ref_parts(torch, keys, pieces, dims, grads, step, lr):
+    """``_dp_leaf_check``'s leaves for a "state" step of 24(a): per leaf,
+    per rank's piece of it and per run of its rows of at most
+    ``optim.adamw._CHUNK`` elements, (the mesh's new params, the one-device
+    step's; mu and nu alike), the one-device step made on demand from the
+    old pieces and the one-device gradient ``grads`` (whole leaves, in
+    ``keys``' order): AdamW at ``step`` (the old state's count) and ``lr``
+    with ``TPT_WD``, its clip's scale taken from the whole gradient's norm
+    as ``adamw_update`` takes it and applied to each part, as its own
+    chunks apply it (the update is elementwise). ``pieces``: the six trees'
+    ``_tpt_pieces`` (old params, mu, nu; new params, mu, nu)."""
+    from repro_torch.optim.adamw import (_CHUNK, AdamWState, _global_sq,
+                                         adamw_update)
+
+    norm = torch.sqrt(_global_sq(grads, None, None))
+    scale = torch.clamp(TPT_CLIP / torch.clamp(norm, min=1e-9), max=1.0)
+
+    def parts(j):
+        old_p, old_m, old_v, new_p, new_m, new_v = (t[j] for t in pieces)
+        g, d = grads[j], dims[j]
+        for r, p in enumerate(old_p):
+            gr = g if d < 0 else g.narrow(d, r * p.shape[d], p.shape[d])
+            rows = max(1, _CHUNK * p.shape[0] // p.numel()) if p.dim() \
+                else None
+            for i in range(0, p.shape[0] if p.dim() else 1, rows or 1):
+                cut = slice(i, i + rows) if rows else ...
+                w, st = adamw_update(
+                    {"w": p[cut]}, {"w": gr[cut] * scale.to(g.dtype)},
+                    AdamWState(step=step, mu={"w": old_m[r][cut]},
+                               nu={"w": old_v[r][cut]}),
+                    lr=lr, weight_decay=TPT_WD, grad_clip=None)
+                yield (new_p[r][cut], w["w"], new_m[r][cut], st.mu["w"],
+                       new_v[r][cut], st.nu["w"])
+
+    return {key: (lambda j=j: parts(j)) for j, key in enumerate(keys)}
+
+
+def _tpt_leg(torch, mesh, dev, seed, models=TPT_MODELS):
+    """24(a) on this rank of a (1, M) mesh (every rank calls it): per model
+    of ``models``, ``TPT_STEPS`` f32 steps of ``make_train_step(mesh=)``
+    from ``LM.init(seed, mesh=, mode="train")``, rank 0 holding each
+    against the one-device step (``TPT_MODELS``' comment), with the
+    collectives over 'model' and the kernel launches of the mesh's steps
+    alone, and the head layouts and scan widths they ran at. Returns the
+    record."""
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import COLLECTIVES, tally
+    from repro_torch.models import attention as att_mod
+    from repro_torch.models import recurrent as rec_mod
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw_init
+    from repro_torch.training.train_loop import (loss_and_grads,
+                                                 make_train_step,
+                                                 mesh_loss_and_grads, rebuild,
+                                                 train_splits)
+    from repro_torch.utils.tree import flat_paths, tree_leaves
+
+    lead = mesh.rank == 0
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def to_dev(b):
+        return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+
+    def settle():
+        # the peers' views are dropped: hand the checks' memory back to
+        # the card, which the ranks share
+        mesh.barrier()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def whole(tree, pieces):
+        return rebuild(tree, _tpt_whole(torch, pieces, dims))
+
+    seen = {"flash": set(), "scan": set()}
+    flash0, scan0 = att_mod.flash_attention, rec_mod.rglru_scan
+
+    def flash(q, k, v, **kw):
+        seen["flash"].add((q.shape[2], k.shape[2], q.shape[3]))
+        return flash0(q, k, v, **kw)
+
+    def scan(a, b, h0):
+        seen["scan"].add(a.shape[-1])
+        return scan0(a, b, h0)
+
+    out = {}
+    for name, held, layers, moments in models:
+        t0 = time.perf_counter()
+        cfg = _tpt_cfg(name, layers)
+        lm = LM(cfg, device=dev)
+        dims = tree_leaves(train_splits(mesh, lm, "model"))
+        params = lm.init(seed, on_device=True, mesh=mesh, mode="train")
+        keys = list(flat_paths(params))
+        step = make_train_step(lm, _dp_f32_schedule, weight_decay=TPT_WD,
+                               grad_clip=TPT_CLIP, mesh=mesh)
+        batches = _tpt_batches(cfg, seed, TPT_STEPS)
+        rec = dict(losses=[], ref_losses=[], steps=[], counts=[],
+                   launches=collections.Counter())
+        # the first step's gradient from the init, against one device
+        rows = next(ShardedLoader(iter([batches[0]]), mesh=mesh, device=dev))
+        _, _, g = mesh_loss_and_grads(lm, mesh, params, rows)
+        ps = _tpt_pieces(torch, mesh, tree_leaves(params), dims)
+        gs = _tpt_pieces(torch, mesh, tree_leaves(g), dims)
+        if lead:
+            rl, _, rg = loss_and_grads(lm, whole(params, ps),
+                                       to_dev(batches[0]))
+            rec["grad_err"], rec["grad_worst"] = _tpt_err(
+                gs, dims, flat_paths(rg))
+            first = float(rl)
+            del rg
+        del ps, gs
+        settle()
+        del g
+        opt = adamw_init(params, getattr(torch, moments))
+        for i, hb in enumerate(batches):
+            rows = next(ShardedLoader(iter([hb]), mesh=mesh, device=dev))
+            if held == "grads" and i:
+                # the one-device loss from the params this step starts at
+                ps = _tpt_pieces(torch, mesh, tree_leaves(params), dims)
+                if lead:
+                    with torch.no_grad():
+                        loss, _ = lm.loss(whole(params, ps), to_dev(hb),
+                                          train=True)
+                    rec["ref_losses"].append(float(loss))
+                del ps
+                settle()
+            elif held == "grads" and lead:
+                # the gradient check's loss, from the same params
+                rec["ref_losses"].append(first)
+            old = (params, opt)
+            sync()
+            before, was = dict(COLLECTIVES), dict(LAUNCHES)
+            att_mod.flash_attention, rec_mod.rglru_scan = flash, scan
+            try:
+                params, opt, m = step(params, opt, rows)
+                sync()
+            finally:
+                att_mod.flash_attention, rec_mod.rglru_scan = flash0, scan0
+            rec["counts"].append(tally(COLLECTIVES, "axis", before))
+            rec["launches"].update({k: v - was.get(k, 0)
+                                    for k, v in LAUNCHES.items()})
+            rec["losses"].append(float(m["loss"]))
+            if held == "state":
+                # the one-device step from the old state, part by part
+                # against the new one (every rank's pieces by IPC; the
+                # peers' freed blocks handed back to the card first)
+                if cuda:
+                    torch.cuda.empty_cache()
+                pieces = [_tpt_pieces(torch, mesh, tree_leaves(t), dims)
+                          for t in (old[0], old[1].mu, old[1].nu, params,
+                                    opt.mu, opt.nu)]
+                if lead:
+                    rl, _, rg = loss_and_grads(lm, whole(old[0], pieces[0]),
+                                               to_dev(hb))
+                    rec["ref_losses"].append(float(rl))
+                    rec["steps"].append(_dp_leaf_check(
+                        i + 1, _tpt_ref_parts(
+                            torch, keys, pieces, dims, tree_leaves(rg),
+                            old[1].step, _dp_f32_schedule(old[1].step)),
+                        0.0 if moments == "float32" else 2.0 ** -8))
+                    del rg
+                del pieces
+            del old
+            settle()
+        rec.update(launches=dict(rec["launches"]),
+                   flash=sorted(seen["flash"]), scan=sorted(seen["scan"]),
+                   seconds=time.perf_counter() - t0)
+        seen["flash"].clear()
+        seen["scan"].clear()
+        out[name] = rec
+        del params, opt, m
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    return out
+
+
+def _tp_train_rank(rank, out_dir, seed, device="cuda", models=TPT_MODELS):
+    """24(a) (``_tpt_leg``) as ranks of their own (spawned): on one card
+    over gloo (``--only 24``, or beside 22(c) on NCCL ranks), or with
+    ``models`` on one card a rank over NCCL (24(b)'s f32 cut)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if device == "cuda":
+        device = f"cuda:{rank}" if dist.get_backend() == "nccl" else "cuda:0"
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    rec = _tpt_leg(torch, make_host_mesh(dist.get_world_size(), device=dev),
+                   dev, seed, models)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _tpt_hold(recs, models, ranks, label, smi):
+    """24(a)'s records held (``check_tp_training``); rank 0's launches."""
+    launches = collections.Counter()
+    for name, held, layers, moments in models:
+        cfg = _tpt_cfg(name, layers)
+        lead = recs[0][name]
+        what = f"{name} ({cfg.num_layers} layers, f32) {label}"
+        for r, rec in enumerate(recs):
+            if rec[name]["losses"] != lead["losses"]:
+                raise AssertionError(f"{what}: rank {r}'s losses differ")
+        refs = lead["ref_losses"]
+        bad = [(a, b) for a, b in zip(lead["losses"], refs)
+               if abs(a - b) > TRAIN_LOSS_TOL * abs(b)]
+        if bad or len(refs) != TPT_STEPS:
+            raise AssertionError(f"{what}: losses {lead['losses']} against "
+                                 f"one device's {refs}")
+        if lead["grad_err"] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"{what}: the first gradient's "
+                                 f"{lead['grad_worst']} off by "
+                                 f"{lead['grad_err']:.3g} of its max |g|")
+        if len(lead["steps"]) != TPT_STEPS * (held == "state"):
+            raise AssertionError(f"{what}: {len(lead['steps'])} steps' "
+                                 f"states held")
+        for k, (_, _, _, fails) in enumerate(lead["steps"], 1):
+            if fails:
+                raise AssertionError(f"{what}: after step {k}: "
+                                     + "; ".join(fails))
+        want = _train_launches(cfg, TPT_STEPS)
+        for k in ("flash_attention", "flash_attention_bwd", "rglru_scan",
+                  "rglru_scan_bwd"):
+            if lead["launches"].get(k, 0) != want[k]:
+                raise AssertionError(f"{what}: {k} launched "
+                                     f"{lead['launches'].get(k, 0)} times in "
+                                     f"{TPT_STEPS} steps, want {want[k]}")
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        if cfg.mla is not None:     # one KV head a query head, at qk's width
+            kv, hd = h, cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        heads = [[h // ranks, kv // ranks if kv % ranks == 0 else 1, hd]] \
+            if want["flash_attention"] else []
+        widths = [cfg.resolved_lru_width // ranks] if want["rglru_scan"] \
+            else []
+        if lead["flash"] != heads or lead["scan"] != widths:
+            raise AssertionError(f"{what}: flash ran at {lead['flash']} "
+                                 f"(H, KV, hd), want {heads}; the scan at "
+                                 f"widths {lead['scan']}, want {widths}")
+        design = _tpt_design(cfg, ranks)
+        for c in lead["counts"]:
+            if c != {"model": design, "data": 0, "world": 0}:
+                raise AssertionError(f"{what}: a step issued {c} "
+                                     f"collectives, the design {design} over "
+                                     f"'model'")
+        launches.update(lead["launches"])
+        state = ""
+        if lead["steps"]:
+            state = (f"; after each step the {moments} moments within "
+                     f"{[f'{c[0]:.2g}' for c in lead['steps']]} of each "
+                     f"leaf's max"
+                     + (" beyond each element's bf16 rounding (2 x 2^-8 "
+                        "of it)" if moments == "bfloat16" else "")
+                     + f", the params as 22(c) holds them (the 2.5 lr cap "
+                     f"for {[f'{c[1]:.2g}' for c in lead['steps']]} of the "
+                     f"elements, max |diff| "
+                     f"{[f'{c[2]:.3g}' for c in lead['steps']]})")
+        print(f"  {what} [{smi}]: losses "
+              f"{[round(x, 6) for x in lead['losses']]} against one "
+              f"device's {[round(x, 6) for x in refs]} from the same "
+              f"{'state' if held == 'state' else 'params'}; "
+              f"first gradient within {lead['grad_err']:.2g} of each leaf's "
+              f"max |g|{state}; flash at (H, KV, hd) {lead['flash']}"
+              + (f", the scan at W {lead['scan']}" if widths else "")
+              + f"; {design} collectives over 'model' a step (the design's);"
+              f" launches {lead['launches']}; {lead['seconds']:.1f} s on "
+              f"rank 0")
+    return launches
+
+
+def _tpt_cards(torch, seed, smi, n):
+    """24(b) on ``n`` cards: ``launch/train.py --arch TPT_CARDS --no-reduced
+    --mesh-model n`` (bf16, NCCL; its report), the loss falling and
+    finite, the step's collectives the design's; then ``TPT_CARD_F32`` on
+    the same mesh, held as (a)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    report = os.path.join(tempfile.mkdtemp(prefix="tpt_"), "report.json")
+    warm, timed = TPT_CARD_STEPS
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TPT_CARDS, "--no-reduced", "--mesh-model", str(n), "--batch",
+           str(TPT_CARD_BATCH[0]), "--seq", str(TPT_CARD_BATCH[1]),
+           "--steps", str(warm + timed), "--warm", str(warm), "--lr",
+           str(TPT_CARD_LR), "--report", report]
+    log = report + ".log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        try:
+            # the ranks make their batches on the host at once: a share
+            # of its cores each
+            rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                timeout=480, cwd=root,
+                                env=dict(os.environ, PYTHONPATH=os.path.join(
+                                    root, "src"), OMP_NUM_THREADS=str(max(
+                                        1, (os.cpu_count() or n) // n))
+                                         )).returncode
+        except subprocess.TimeoutExpired:
+            rc = "timeout (480 s)"
+    seconds = time.perf_counter() - t0
+    label = f"{TPT_CARDS} whole on a (1, {n}) NCCL mesh, bf16"
+    if rc or not os.path.exists(report):
+        with open(log) as f:
+            raise AssertionError(f"{label}: launch/train.py failed ({rc}) "
+                                 f"after {seconds:.1f} s:\n"
+                                 f"{f.read()[-4000:]}")
+    with open(report) as f:
+        rep = json.load(f)
+    losses = rep["losses"]
+    design = _tpt_design(get_config(TPT_CARDS), n)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses {losses}")
+    if rep["collectives"] != {"all_reduce/model": design}:
+        raise AssertionError(f"{label}: a step's collectives "
+                             f"{rep['collectives']}, the design {design}")
+    print(f"  {label} [{smi}], B {TPT_CARD_BATCH[0]} x S "
+          f"{TPT_CARD_BATCH[1]}: {rep['median_ms']:.1f} ms a step (median of"
+          f" {timed} after {warm}; CUDA events, rank 0), "
+          f"{rep['tokens_per_s']:.0f} tokens/s, 6·N·D "
+          f"{rep['model_flops_share']:.3f} of {n} x 989 TFLOP/s (N "
+          f"{rep['params'] / 1e9:.3f} B); peak {rep['peak_gib']:.2f} GiB a "
+          f"rank; a rank's weights {rep['weight_bytes'] / 2 ** 30:.2f}, "
+          f"gradients {rep['grad_bytes'] / 2 ** 30:.2f}, moments "
+          f"{rep['moment_bytes'] / 2 ** 30:.2f} GiB; {design} all-reduces "
+          f"over 'model' a step; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"the launcher {seconds:.1f} s")
+    recs = _spawn_ranks(_tp_train_rank, n, (seed, "cuda", TPT_CARD_F32),
+                        "nccl")
+    launches = _tpt_hold(recs, TPT_CARD_F32, n, f"on a (1, {n}) NCCL mesh",
+                         smi)
+    return dict(report=rep, seconds=seconds,
+                f32=recs[0]), launches
+
+
+def check_tp_training(torch, dev, seed, smi, recs=None, legs="ab"):
+    """Phase 24, its ``legs``: (a) ``TPT_MODELS`` on a (1, 2) mesh of gloo
+    ranks sharing this card (``recs``: 22(c)'s ranks' records of it; else
+    its own spawn), held by ``_tpt_hold``; (b) with 4 cards,
+    ``_tpt_cards``. Returns (record, (a)'s rank-0 launches and (b)'s)."""
+    t0 = time.perf_counter()
+    rec, launches = {}, collections.Counter()
+    if "a" in legs:
+        if recs is None:
+            recs = _spawn_ranks(_tp_train_rank, TPT_RANKS,
+                                (seed, dev.type), "gloo")
+        launches.update(_tpt_hold(recs, TPT_MODELS, TPT_RANKS,
+                                  f"on a (1, {TPT_RANKS}) mesh of gloo "
+                                  f"ranks on one card", smi))
+        rec = {"gloo": recs[0], "seconds": time.perf_counter() - t0}
+    cards = torch.cuda.device_count()
+    if "b" in legs and cards >= 4:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["cards"], got = _tpt_cards(torch, seed, smi, 4)
+        launches.update(got)
+    elif "b" in legs:
+        print(f"  {cards} card{'s' * (cards > 1)}: 24(b), {TPT_CARDS} whole "
+              f"on a (1, 4) NCCL mesh, needs 4 cards; skipped")
+    return rec, dict(launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8028,10 +8674,11 @@ def main() -> int:
                          "phase-10 ring traces on the device")
     ap.add_argument("--only", choices=["19", "19a", "20", "20a", "20c", "21",
                                        "21a", "21c", "22", "22b", "22c",
-                                       "23"],
+                                       "23", "24", "24b"],
                     help="run phase 1 and this phase alone, or its NCCL "
                          "meshes alone (19a, 20a, 21a), or 20(c), 21(c), "
-                         "22(b) or 22(c) and (d) alone (no result lines: "
+                         "22(b), 22(c) and (d) (on one card with 24(a) in "
+                         "their ranks), or 24(b) alone (no result lines: "
                          "the contract's run is the whole script)")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -8079,15 +8726,22 @@ def main() -> int:
         if args.only == "23":
             phase("[23] supervised restart on the mesh alone")
             check_supervise(torch, dev, args.seed, smi)
+        elif args.only.startswith("24"):
+            phase(f"[{args.only}] training on a model axis above 1 alone")
+            check_tp_training(torch, dev, args.seed, smi,
+                              legs="ab" if args.only == "24" else "b")
         elif args.only.startswith("19"):
             phase(f"[{args.only}] tensor-parallel serving alone")
             check_tensor_parallel(torch, dev, args.seed, smi,
                                   splits=args.only == "19")
         elif args.only.startswith("22"):
             phase(f"[{args.only}] the data axis alone")
-            check_data_axis(torch, dev, args.seed, smi,
-                            legs={"22": "abc", "22b": "b",
-                                  "22c": "c"}[args.only])
+            got, _ = check_data_axis(torch, dev, args.seed, smi,
+                                     legs={"22": "abc", "22b": "b",
+                                           "22c": "c"}[args.only])
+            recs = got.get("train", {}).get("tp_train", [None])
+            if recs[0] is not None:      # 24(a), run in 22(c)'s spawn
+                check_tp_training(torch, dev, args.seed, smi, recs, "a")
         elif args.only.startswith("21"):
             phase(f"[{args.only}] the recurrent mixers and the frontends on "
                   f"the mesh alone")
@@ -8121,6 +8775,7 @@ def main() -> int:
     hd128_times = check_attention_hd128(torch, timer, dev)
     verify_times = check_verify_shapes(torch, timer, dev)
     modal_times = check_modal_shapes(torch, timer, dev)
+    tp_train_times = check_tp_train_shapes(torch, timer, dev)
     sampler_times = check_sampler(torch, timer, dev)
     rates["sweep"] = sweep_attention(torch, timer, dev)
     phase("[3] model: smollm-135m, 30 layers, full width")
@@ -8274,6 +8929,19 @@ def main() -> int:
     sup_stats, sup_launches = check_supervise(torch, dev, args.seed, smi)
     for name, n in sup_launches.items():
         launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"[24] training on a model axis above 1: qwen3-4b (4 layers) and "
+          f"recurrentgemma-9b ((rec, rec, attn)) on a (1, 2) mesh of gloo "
+          f"ranks on this card (run in phase 22's spawn), f32, against one "
+          f"device; with 4 cards {TPT_CARDS} whole on a (1, 4) NCCL mesh "
+          f"through launch/train.py (bf16, timed) and its 4-layer f32 cut")
+    gloo_recs = dm_stats["train"]["tp_train"]
+    tpt_stats, tpt_launches = check_tp_training(
+        torch, dev, args.seed, smi,
+        None if gloo_recs[0] is None else gloo_recs)
+    for name, n in tpt_launches.items():
+        launches[name] += n
     if args.profile:
         from repro_torch.configs import get_config
         from repro_torch.models.model import LM
@@ -8338,6 +9006,7 @@ def main() -> int:
                        "attention_hd128": hd128_times,
                        "attention_verify": verify_times,
                        "modal_shapes": modal_times,
+                       "tp_train_shapes": tp_train_times,
                        "modalities": modal_stats,
                        "sampler": sampler_times,
                        "speculative": spec_stats,
@@ -8348,6 +9017,7 @@ def main() -> int:
                        "rec_mesh": rec_mesh_stats,
                        "data_axis": dm_stats,
                        "supervise": sup_stats,
+                       "tp_training": tpt_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,

@@ -182,14 +182,16 @@ class HostMesh(AbstractMesh):
         gloo's run on the host)."""
         return self.backend == "nccl"
 
-    def all_reduce(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
-        """The sum of ``x`` over the ranks of ``axis``, reduced in float32
-        (integers as they are) and returned in ``x``'s dtype (a float32
-        ``x`` is reduced in place)."""
+    def all_reduce(self, x: torch.Tensor, axis: str = "model",
+                   op: str = "sum") -> torch.Tensor:
+        """The sum (or with ``op="max"`` the maximum) of ``x`` over the
+        ranks of ``axis``, reduced in float32 (integers as they are) and
+        returned in ``x``'s dtype (a float32 ``x`` is reduced in place)."""
         if self._groups[axis] is _TRIVIAL:
             return x
         y = x.float() if x.is_floating_point() else x.clone()
-        dist.all_reduce(y, group=self._groups[axis])
+        dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self._groups[axis])
         _count("all_reduce", axis, _nbytes(y))
         return y.to(x.dtype)
 
@@ -261,6 +263,112 @@ class HostMesh(AbstractMesh):
         dist.broadcast_object_list(box, src=src, group=self._host)
         _count("broadcast", "world")
         return box[0]
+
+
+# -- the collectives under autograd ---------------------------------------------
+#
+# Megatron's conjugate pairs over a mesh's calls, for training on a model
+# axis above 1. An activation is either replicated (equal on every rank of
+# the axis, and so is its gradient: every rank differentiates the same
+# loss) or split (each rank holds its part, or a partial sum). ``reduce``
+# ends a region of partial sums (all-reduce; the replicated gradient goes
+# to every partial as it is), ``copy`` enters a split region (identity;
+# the ranks' partial gradients of the replicated input are summed),
+# ``gather`` joins the ranks' slices into a replicated tensor (its
+# backward keeps this rank's slice of the gradient) and ``scatter`` cuts
+# a replicated tensor into this rank's slice (its backward joins the
+# slices' gradients). Each forward is the mesh's own call, so its values
+# and its count in ``COLLECTIVES`` are those of the call; without a
+# gradient to carry (no grad mode, or an input that needs none) the call
+# is made directly and ``copy`` returns its input.
+
+
+def _fresh(x: torch.Tensor) -> torch.Tensor:
+    """``x``, copied when it is float32 (``all_reduce`` reduces a float32
+    tensor in place, which must not touch a tensor autograd holds)."""
+    return x.clone() if x.dtype == torch.float32 else x
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(_fresh(x), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(_fresh(g), ctx.axis), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim, axis
+        return mesh.gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.shard(g, ctx.dim, ctx.axis), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim, axis
+        return mesh.shard(x, dim, axis).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.gather(g.contiguous(), ctx.dim, ctx.axis), None, \
+            None, None
+
+
+def _carries(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def reduce(mesh, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """``mesh.all_reduce(x, axis)``; its backward passes the gradient on
+    to this rank's partial unchanged."""
+    if not _carries(x):
+        return mesh.all_reduce(x, axis)
+    return _Reduce.apply(x, mesh, axis)
+
+
+def copy(mesh, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """``x`` itself, entering a region split over ``axis``; its backward
+    all-reduces the ranks' partial gradients of ``x`` (f32)."""
+    if not _carries(x):
+        return x
+    return _Copy.apply(x, mesh, axis)
+
+
+def gather(mesh, x: torch.Tensor, dim: int,
+           axis: str = "model") -> torch.Tensor:
+    """``mesh.gather(x, dim, axis)``; its backward keeps this rank's slice
+    of the (replicated) gradient."""
+    if not _carries(x):
+        return mesh.gather(x, dim, axis)
+    return _Gather.apply(x, mesh, dim, axis)
+
+
+def scatter(mesh, x: torch.Tensor, dim: int,
+            axis: str = "model") -> torch.Tensor:
+    """``mesh.shard(x, dim, axis)`` of a replicated ``x``; its backward
+    gathers the ranks' slices of the gradient into the whole one."""
+    if not _carries(x):
+        return mesh.shard(x, dim, axis)
+    return _Scatter.apply(x, mesh, dim, axis)
 
 
 def same_device(a, b) -> bool:

@@ -1,6 +1,6 @@
 """Training launcher of the port: the same ``Trainer`` step the tests
-drive, over the synthetic ``TokenStream``, on one device or data-parallel
-on D ranks.
+drive, over the synthetic ``TokenStream``, on one device or on a (D, M)
+mesh of D × M ranks: data-parallel over D, tensor-parallel over M.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
@@ -9,6 +9,10 @@ on D ranks.
         --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --mesh-data 4 \
         --no-reduced --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --mesh-model 2 \
+        --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
+        --no-reduced --mesh-model 4 --batch 4 --seq 4096 --steps 12 --warm 2
 
 The port of ``repro.launch.train`` with its flags and defaults. ``repro``
 builds a host mesh, ``make_host_mesh()`` over its device count, whose
@@ -16,11 +20,21 @@ model axis is 1, and shards params (FSDP) and optimizer state (ZeRO)
 over its ``data`` axis by the train rules, the batch by ``batch_pspecs``
 (``ShardedLoader``). The port's ``--mesh-data D`` stands for that device
 count: D ranks, one process each (``launch.mesh.spawn``), NCCL with one
-card a rank or gloo with ``--device cpu``, on a (D, 1) mesh, each rank
-drawing its rows of every global ``--batch`` (``data.loader.
+card a rank or gloo with ``--device cpu``, on a (D, 1) mesh, each
+global ``--batch`` drawn by one rank and passed to the others
+(``global_batches``), each rank taking its rows of it (``data.loader.
 ShardedLoader``) and stepping its shards (``training.train_loop``);
-rank 0 prints. ``--production`` and ``--multi-pod`` (256 and 512
-devices) raise ``NotImplementedError``. ``--reduced`` trains the
+rank 0 prints. ``--mesh-model M`` adds ``repro``'s model axis: D × M
+ranks on a (D, M) mesh, the params cut on 'model' by the train rules
+and the loss run tensor-parallel on each model group
+(``training.train_loop``).
+``--production`` and ``--multi-pod`` (256 and 512 devices) raise
+``NotImplementedError``: one process a rank cannot hold them, and their
+dry run is ROADMAP Queue 1's. ``--warm W`` times the steps after the
+first W with CUDA events and prints ms a step, tokens/s, 6·N·D a step
+over the ranks' peak bf16 rate, peak memory, the weight, gradient and
+moment bytes a rank and a step's collectives (``--report`` writes them
+as JSON). ``--reduced`` trains the
 architecture's reduced config, as ``repro``'s default off
 ``--production`` does, ``--no-reduced`` its full width and depth;
 ``--device`` is ``cuda`` (the hand-written kernels) or ``cpu`` (their
@@ -30,6 +44,10 @@ up over 10 steps and decays by a cosine to ``--steps``.
 from __future__ import annotations
 
 import argparse
+import itertools
+import json
+import math
+import time
 
 import torch
 
@@ -37,16 +55,17 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.data.synthetic import TokenStream
-from repro_torch.launch.mesh import make_host_mesh, spawn
+from repro_torch.launch.mesh import (COLLECTIVES, PEAK_FLOPS_BF16,
+                                     make_host_mesh, spawn)
 from repro_torch.models.model import LM
 from repro_torch.optim import adamw_init, linear_warmup_cosine
-from repro_torch.training.train_loop import (make_train_step,
-                                             place_train_params)
+from repro_torch.training.train_loop import make_train_step
+from repro_torch.utils.tree import tree_leaves
 
-MESH_REFUSAL = ("the production meshes (256 and 512 devices, a model "
-                "axis above 1) are not ported (ROADMAP Queue 1); the port "
-                "trains on one device or data-parallel on --mesh-data D "
-                "ranks")
+MESH_REFUSAL = ("the production meshes (256 and 512 devices) are not "
+                "ported: they need their dry run, one rank of the mesh "
+                "traced under fake tensors (ROADMAP Queue 1); the port "
+                "trains on --mesh-data D x --mesh-model M ranks")
 
 
 def _config(args):
@@ -61,14 +80,43 @@ def _config(args):
     return cfg
 
 
+def _bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _spec_numel(spec) -> int:
+    if isinstance(spec, dict):
+        return sum(_spec_numel(v) for v in spec.values())
+    if isinstance(spec, list):
+        return sum(_spec_numel(v) for v in spec)
+    return math.prod(spec[0])
+
+
+def global_batches(stream, batch: int, seq: int, mesh=None):
+    """``stream.batches(batch, seq)``'s global batches in order. On a mesh
+    each is drawn once: rank r draws batch r of each run of world-size
+    batches, and the ranks swap them on the host group, a run at a time
+    (a full-width vocab's batch takes the host tens of seconds)."""
+    if mesh is None or mesh.size == 1:
+        yield from stream.batches(batch, seq)
+        return
+    n = mesh.size
+    for first in itertools.count(0, n):
+        mine = next(stream.batches(batch, seq, seed=first + mesh.rank))
+        run = [None] * n
+        torch.distributed.all_gather_object(run, mine, group=mesh._host)
+        yield from run
+
+
 def train(args, mesh=None) -> list:
-    """Run ``args.steps`` steps (on ``mesh``: this rank's part of a data-
-    parallel run); returns the logged (step, loss) pairs."""
+    """Run ``args.steps`` steps (on ``mesh``: this rank's part of the
+    mesh's run); returns the logged (step, loss) pairs."""
     if args.production or args.multi_pod:
         raise NotImplementedError(f"--production/--multi-pod: "
                                   f"{MESH_REFUSAL}")
     dev = mesh.device if mesh is not None else resolve_device(args.device)
-    if dev.type == "cuda":
+    cuda = dev.type == "cuda"
+    if cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _config(args)
     lm = LM(cfg, device=dev)
@@ -79,45 +127,104 @@ def train(args, mesh=None) -> list:
     step_fn = make_train_step(lm, linear_warmup_cosine(args.lr, 10,
                                                        args.steps),
                               mesh=mesh)
-    params = lm.init(0, on_device=dev.type == "cuda")
-    if mesh is not None:
-        params = place_train_params(mesh, lm, params)
+    params = lm.init(0, on_device=cuda, mesh=mesh, mode="train")
     opt = adamw_init(params)
     stream = TokenStream(cfg.vocab_size, seed=0)
-    batches = ShardedLoader(stream.batches(args.batch, args.seq), mesh=mesh,
-                            device=dev)
-    logged = []
+    batches = ShardedLoader(global_batches(stream, args.batch, args.seq,
+                                           mesh), mesh=mesh, device=dev)
+    logged, marks, counts, losses = [], [], None, []
     for i, batch in zip(range(args.steps), batches):
+        timed = args.warm is not None and i >= args.warm
+        if timed and cuda:
+            marks.append((torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)))
+            marks[-1][0].record()
+        before = dict(COLLECTIVES)
         params, opt, metrics = step_fn(params, opt, batch)
+        if timed and cuda:
+            marks[-1][1].record()
+        if timed and counts is None:
+            counts = {k: v - before.get(k, 0) for k, v in COLLECTIVES.items()
+                      if v != before.get(k, 0)}
+        losses.append(metrics["loss"])
         if i % 10 == 0 or i == args.steps - 1:
             loss = float(metrics["loss"])
             logged.append((i, loss))
             if lead:
                 print(f"step {i:4d} loss {loss:.4f}")
+    if args.warm is not None and marks:
+        _report(args, mesh, lm, params, opt, marks, counts,
+                [float(x) for x in losses], dev)
     return logged
+
+
+def _report(args, mesh, lm, params, opt, marks, counts, losses, dev):
+    """``--warm``: the timed steps' figures (every rank's peak), printed by
+    rank 0 and written to ``--report``."""
+    torch.cuda.synchronize(dev)
+    ms = sorted(a.elapsed_time(b) for a, b in marks)
+    med = ms[len(ms) // 2] if len(ms) % 2 else sum(
+        ms[len(ms) // 2 - 1:len(ms) // 2 + 1]) / 2
+    ranks = 1 if mesh is None else mesh.size
+    n = _spec_numel(lm.param_spec())
+    tokens = args.batch * args.seq
+    peak = torch.cuda.max_memory_allocated(dev)
+    if mesh is not None:
+        box = [None] * mesh.size
+        torch.distributed.all_gather_object(box, peak, group=mesh._host)
+        peak = max(box)
+    rec = dict(arch=lm.cfg.name, ranks=ranks,
+               mesh=None if mesh is None else dict(mesh.shape),
+               batch=args.batch, seq=args.seq, timed_steps=len(ms),
+               ms=ms, median_ms=med, tokens_per_s=tokens / (med / 1e3),
+               params=n, model_flops_share=6 * n * tokens / (med / 1e3)
+               / (ranks * PEAK_FLOPS_BF16),
+               peak_gib=peak / 2 ** 30, weight_bytes=_bytes(params),
+               # a step's gradient: one leaf a param shard, in its dtype
+               # (counted from the params, not read off the step)
+               grad_bytes=_bytes(params),
+               moment_bytes=_bytes((opt.mu, opt.nu)),
+               collectives=counts, losses=losses)
+    if mesh is None or mesh.rank == 0:
+        print(f"timed {len(ms)} steps after {args.warm}: {med:.2f} ms a "
+              f"step (median; CUDA events), {rec['tokens_per_s']:.0f} "
+              f"tokens/s, 6·N·D {rec['model_flops_share']:.3f} of "
+              f"{ranks} x {PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s (N "
+              f"{n / 1e9:.3f} B); peak {rec['peak_gib']:.2f} GiB a rank; "
+              f"a rank's weights {rec['weight_bytes'] / 2 ** 30:.2f} GiB, "
+              f"gradients {rec['grad_bytes'] / 2 ** 30:.2f} GiB, moments "
+              f"{rec['moment_bytes'] / 2 ** 30:.2f} GiB; collectives a "
+              f"step {counts}")
+        if args.report:
+            with open(args.report, "w") as f:
+                json.dump(rec, f)
 
 
 def _train_rank(rank: int, args) -> None:
     device = "cpu" if args.device == "cpu" else f"cuda:{rank}"
-    train(args, make_host_mesh(1, device=device))
+    train(args, make_host_mesh(args.mesh_model, device=device))
 
 
 def train_mesh(args) -> None:
-    """``--mesh-data D``: D ranks as processes, NCCL on D cards or gloo on
-    the CPU."""
+    """``--mesh-data D --mesh-model M``: D × M ranks as processes, NCCL on
+    D × M cards or gloo on the CPU."""
     if args.production or args.multi_pod:
         raise NotImplementedError(f"--production/--multi-pod: "
                                   f"{MESH_REFUSAL}")
     _config(args)
+    world = args.mesh_data * args.mesh_model
     backend = "gloo" if args.device == "cpu" else "nccl"
     if backend == "nccl":
         resolve_device(args.device)
-        if torch.cuda.device_count() < args.mesh_data:
+        if torch.cuda.device_count() < world:
             raise SystemExit(
-                f"--mesh-data {args.mesh_data} needs {args.mesh_data} "
-                f"cards, one a rank (found {torch.cuda.device_count()}); "
-                f"--device cpu trains the mesh on the CPU over gloo")
-    spawn(_train_rank, args.mesh_data, args=(args,), backend=backend)
+                f"a ({args.mesh_data}, {args.mesh_model}) mesh needs "
+                f"{world} cards, one a rank (found "
+                f"{torch.cuda.device_count()}); --device cpu trains the "
+                f"mesh on the CPU over gloo")
+    t0 = time.perf_counter()
+    spawn(_train_rank, world, args=(args,), backend=backend)
+    print(f"{world} ranks done in {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> None:
@@ -141,8 +248,16 @@ def main(argv=None) -> None:
                     help="data-parallel ranks, repro's device count: D "
                          "processes (NCCL with one card a rank, gloo with "
                          "--device cpu), FSDP params and ZeRO moments")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="tensor-parallel ranks of each data rank's model "
+                         "group: D x M processes in all")
+    ap.add_argument("--warm", type=int, default=None,
+                    help="time every step after the first WARM (CUDA "
+                         "events) and print the step's figures")
+    ap.add_argument("--report", default=None,
+                    help="with --warm, also write the figures here (JSON)")
     args = ap.parse_args(argv)
-    if args.mesh_data > 1:
+    if args.mesh_data * args.mesh_model > 1:
         train_mesh(args)
     else:
         train(args)

@@ -143,7 +143,21 @@ def _projs(x, ws, tp):
     return [o.reshape(*x.shape[:-1], *w.shape[1:]) for o, w in zip(outs, ws)]
 
 
+def region_reads(names, tp, mla: bool = False) -> set:
+    """Which of an attention mixer's leaves (``names``) a rank reads inside
+    its region split over 'model': all of them when the heads split, for
+    the region starts at the mixer's input (``tp.enter`` in ``_qkv`` and
+    ``mla_forward``). One that the rules keep whole there (a wk/wv over KV
+    heads that do not divide, of which a rank reads its ``kv_range``; the
+    q/k norm scales; MLA's down-projections and latent norms) gets a
+    partial gradient on each rank (``training.train_loop.
+    partial_leaves``)."""
+    return set(names) if (tp.mla_heads if mla else tp.heads) else set()
+
+
 def _qkv(params, cfg, x, positions, tp=None):
+    if tp is not None:
+        x = tp.enter(x, tp.heads)        # the heads' region (region_reads)
     q, k, v = _projs(x, [params["wq"], params["wk"], params["wv"]], tp)
     if cfg.use_qk_norm:
         q = norm_only(q, cfg.rms_eps) * (1.0 + params["q_scale"]).to(q.dtype)
@@ -247,6 +261,8 @@ def mla_forward(params, cfg, x, positions, *, window: Optional[int],
     ``wo`` split), the latents whole, and y is summed over the ranks."""
     m = cfg.mla
     h = params["w_uk"].shape[1]                 # this rank's heads
+    if tp is not None:
+        x = tp.enter(x, tp.mla_heads)    # the heads' region (region_reads)
     dq, dkv, kr = _mla_downs(params, x, tp)
     q_nope, q_rope = _mla_q(params, cfg, dq, positions)
     ckv, krope = _mla_kv_latent(params, cfg, dkv, kr, positions)

@@ -16,6 +16,10 @@ this rank's columns of the replicated activation by its rows and sums
 the partials over 'data' in one f32 all-reduce (``project``); the
 embedding's D/data columns are joined into the whole row, and the
 unembedding's partial logits summed over 'data' before the vocab gather.
+Every collective is ``launch.mesh``'s differentiable one, and each split
+region starts with ``tp.enter`` (the identity, whose backward sums the
+ranks' partial gradients of its replicated input), so a loss on a mesh
+differentiates as on one device (training on a model axis above 1).
 ``tp=None`` is the one-device code, unchanged.
 """
 from __future__ import annotations
@@ -50,7 +54,16 @@ def project(x, ws, tp=None, split: bool = False):
     return tp.project(x, ws, True)
 
 
+def mlp_region_reads(names, tp) -> set:
+    """Which of a dense MLP's leaves (``names``) a rank reads inside its
+    region split over 'model': all of them when d_ff splits (the region
+    starts at ``_gate_up``), as ``attention.region_reads``."""
+    return set(names) if tp.mlp else set()
+
+
 def _gate_up(params, x, tp):
+    if tp is not None:
+        x = tp.enter(x, tp.mlp)          # the region of mlp_region_reads
     return project(x, [params["w_gate"], params["w_up"]], tp,
                    tp is not None and tp.data_proj)
 
@@ -97,21 +110,24 @@ def join_rows(x, tp):
     if not tp.data_table:
         return tp.reduce(x, tp.vocab)
     if not tp.vocab:
-        return tp.mesh.gather(x, -1, axis="data")
+        return tp.gather(x, -1, axis="data")
     w = x.shape[-1]
     full = x.new_zeros(x.shape[:-1] + (w * tp.data_ways,))
     full.narrow(-1, tp.data_rank * w, w).copy_(x)
-    return tp.mesh.all_reduce(full, axis="world")
+    return tp.reduce(full, True, axis="world")
 
 
-def unembed(table, x, tp=None):
+def unembed(table, x, tp=None, local: bool = False):
     """x (..., D) @ table^T (V, D) -> (..., V) logits (on a mesh, each
     rank's vocab slice gathered; a data-split D summed over 'data'
-    first)."""
+    first). ``local``: this rank's vocab slice alone, ungathered (the
+    vocab-parallel loss's input)."""
+    if tp is not None:
+        x = tp.enter(x, tp.vocab)
     logits, = project(x, [table.t()], tp, tp is not None and tp.data_table)
-    if tp is None or not tp.vocab:
+    if tp is None or not tp.vocab or local:
         return logits
-    return tp.mesh.gather(logits, -1)
+    return tp.gather(logits, -1)
 
 
 def rope(x, positions, theta: float):

@@ -56,8 +56,9 @@ from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import param as P
 from repro_torch.models import recurrent as rec
-from repro_torch.models.layers import (embed, gelu_mlp, join_rows, project,
-                                       rmsnorm, softcap, swiglu, unembed)
+from repro_torch.models.layers import (embed, gelu_mlp, join_rows,
+                                       mlp_region_reads, project, rmsnorm,
+                                       softcap, swiglu, unembed)
 from repro_torch.sharding import tensor_parallel
 
 Params = Dict[str, Any]
@@ -167,6 +168,22 @@ class LM:
             "norm1": P.NORM, "mixer": P.MIXER[bdef.mixer], "norm2": P.NORM,
             "mlp": P.MOE_MLP if bdef.mlp == MOE else P.DENSE_MLP}, lead)
 
+    @staticmethod
+    def region_reads(bdef, block, tp) -> Dict[str, set]:
+        """For the mixer and the MLP of a block (``block``: a tree of its
+        leaves), the names of the leaves a rank reads inside a region split
+        over 'model' on the mesh of ``tp`` (each module's
+        ``region_reads``); the block's norms are read before any region."""
+        if bdef.mixer in (ATTN, MLA):
+            mixer = att.region_reads(block["mixer"], tp, bdef.mixer == MLA)
+        else:
+            mixer = rec.region_reads(bdef.mixer, block["mixer"], tp)
+        out = {"mixer": mixer}
+        if "mlp" in block:
+            out["mlp"] = (moe_lib.region_reads if bdef.mlp == MOE
+                          else mlp_region_reads)(block["mlp"], tp)
+        return out
+
     def _block_spec(self, bdef, lead: tuple) -> Params:
         """One block's leaves, each shape prefixed by ``lead`` (the
         stage's layer axis, or nothing for the MTP block)."""
@@ -237,7 +254,7 @@ class LM:
         return block
 
     def init(self, seed: int, on_device: bool = False,
-             mesh=None) -> Params:
+             mesh=None, mode: str = "decode") -> Params:
         """Random parameters, normal(0, std) in float32 and then cast, as
         ``repro`` does. By default from a CPU ``torch.Generator`` seeded
         with ``seed`` (the same values on every device), each leaf drawn
@@ -250,7 +267,9 @@ class LM:
         (``serving.sharding.place_params`` of the whole init, bit for bit):
         each leaf, or each layer of a stacked leaf on the device, is drawn
         whole from the same generator in the same order, cut to this
-        rank's slice and freed, so a rank never holds the whole model."""
+        rank's slice and freed, so a rank never holds the whole model;
+        ``mode`` names the rules ("train": ``training.train_loop.
+        place_train_params``' shards)."""
         gen_dev = self.device if on_device else torch.device("cpu")
         gen = torch.Generator(device=gen_dev).manual_seed(seed)
         layerwise = on_device and gen_dev.type != "cpu"
@@ -259,7 +278,7 @@ class LM:
             from repro_torch.serving.sharding import (cut_leaf,
                                                       param_shardings,
                                                       shard_shape)
-            specs = param_shardings(mesh, self)
+            specs = param_shardings(mesh, self, mode)
 
         def draw(shape, std):
             if isinstance(std, rec.Constant):
@@ -298,23 +317,28 @@ class LM:
         return make(self.param_spec(), specs, False)
 
     # -- pieces ---------------------------------------------------------------
-    def _logits(self, params, x, tp=None):
+    def _logits(self, params, x, tp=None, local: bool = False):
+        """The logits of the final hidden state ``x``; on a mesh every
+        rank's whole logits, or with ``local`` this rank's vocab slice of
+        them (the vocab-parallel loss's input)."""
         cfg = self.cfg
         table = (params["embed"]["table"] if cfg.tie_embeddings
                  else params["unembed"]["table"])
         if cfg.frontend.kind == "audio":
             # one head per codebook: (B, S, C, V) (on a mesh each rank's
-            # V/N columns of every codebook, gathered)
+            # V/N columns of every codebook, gathered unless ``local``)
+            if tp is not None:
+                x = tp.enter(x, tp.vocab)
             if tp is not None and tp.data_table:
                 logits = tp.mesh.all_reduce(torch.einsum(
                     "bsd,cvd->bscv", tp.mesh.shard(x, -1, axis="data"),
                     table), axis="data")
             else:
                 logits = torch.einsum("bsd,cvd->bscv", x, table)
-            if tp is not None and tp.vocab:
-                logits = tp.mesh.gather(logits, -1)
+            if tp is not None and tp.vocab and not local:
+                logits = tp.gather(logits, -1)
         else:
-            logits = unembed(table, x, tp)
+            logits = unembed(table, x, tp, local)
         if cfg.tie_embeddings:
             # the tied table is unit-std (embedding-scaled); rescale
             logits = logits * (cfg.d_model ** -0.5)
@@ -339,14 +363,15 @@ class LM:
         mlp = swiglu if bdef.mlp == SWIGLU else gelu_mlp
         return x + mlp(p["mlp"], h, tp)
 
-    def _head(self, params, x, last_only: bool, logits_index, tp=None):
+    def _head(self, params, x, last_only: bool, logits_index, tp=None,
+              local: bool = False):
         x = rmsnorm(params["final_norm"], x, self.cfg.rms_eps)
         if logits_index is not None:
             idx = att.positions_1d(logits_index, x.shape[0], x.device).long()
             x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
         elif last_only:
             x = x[:, -1:]
-        return self._logits(params, x, tp)
+        return self._logits(params, x, tp, local)
 
     # -- full-sequence forward ----------------------------------------------
     def _embed_tokens(self, params, tokens, tp=None):
@@ -488,12 +513,25 @@ class LM:
         docstring); the caches are its shards too. ``over_data`` sums the
         MoE layers' routing counts over a data-parallel step's ranks
         (``moe.route``)."""
+        return self._forward(params, batch, tensor_parallel(self.cfg, mesh),
+                             want_cache=want_cache, cache_width=cache_width,
+                             last_only=last_only, lengths=lengths,
+                             logits_index=logits_index, with_aux=with_aux,
+                             train=train, with_hidden=with_hidden,
+                             over_data=over_data)
+
+    def _forward(self, params, batch, tp, *, want_cache=False,
+                 cache_width=None, last_only=False, lengths=None,
+                 logits_index=None, with_aux=False, train=False,
+                 with_hidden=False, over_data=None, local=False):
+        """``forward`` on the ``TensorParallel`` ``tp`` (None: one
+        device); ``local`` keeps each rank's vocab slice of the logits."""
         if train and want_cache:
             raise ValueError("forward: train=True keeps no caches")
-        tp = tensor_parallel(self.cfg, mesh)
         params = _whole_norms(params, tp)
         x, positions = self._embed_inputs(params, batch, tp)
-        caches = (self.init_cache(x.shape[0], cache_width, mesh=mesh)
+        caches = (self.init_cache(x.shape[0], cache_width,
+                                  mesh=None if tp is None else tp.mesh)
                   if want_cache else None)
         auxes = []
         x = self._layer_range(params, x, positions, caches=caches,
@@ -502,7 +540,8 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for a in auxes:
             aux = aux + a
-        out = (self._head(params, x, last_only, logits_index, tp), caches)
+        out = (self._head(params, x, last_only, logits_index, tp, local),
+               caches)
         if with_aux:
             out += (aux,)
         if with_hidden:
@@ -511,7 +550,7 @@ class LM:
 
     # -- losses ---------------------------------------------------------------
     def loss(self, params, batch, train: bool = True, denoms=None,
-             over_data=None):
+             over_data=None, mesh=None):
         """Next-token cross entropy, plus ``router_aux_loss`` times the MoE
         load-balance loss, plus 0.1 times the depth-1 MTP loss when
         ``mtp_depth > 0`` and ``train``; a vision model counts only its
@@ -523,20 +562,25 @@ class LM:
         summed losses over that count (``label_counts``), so that the
         shares of the parts add up to the loss of the whole; with
         ``over_data``, which sums a tensor over a data-parallel step's
-        ranks, so does the MoE aux loss (``moe.route``)."""
+        ranks, so does the MoE aux loss (``moe.route``). ``mesh``: a mesh
+        whose model axis (above 1) splits ``params`` by the train rules,
+        whole over 'data' (``training.train_loop``'s step); the layers run
+        tensor-parallel and each cross entropy is vocab-parallel on each
+        rank's slice of the logits (``_xent``), never gathered."""
         cfg = self.cfg
         denoms = denoms or {}
-        logits, _, aux, h_final = self.forward(params, batch, train=train,
-                                               with_aux=True,
-                                               with_hidden=True,
-                                               over_data=over_data)
+        tp = tensor_parallel(cfg, mesh, mode="train")
+        logits, _, aux, h_final = self._forward(
+            params, batch, tp, train=train, with_aux=True, with_hidden=True,
+            over_data=over_data, local=True)
         if cfg.frontend.kind == "vision":
             logits = logits[:, cfg.frontend.num_prefix_tokens:]
-        ce = _xent(logits, batch["labels"], denoms.get("ce"))
+        ce = _xent(logits, batch["labels"], denoms.get("ce"), tp)
         total = ce + (cfg.moe.router_aux_loss * aux if cfg.moe else 0.0)
         metrics = {"ce": ce, "aux": aux}
         if cfg.mtp_depth > 0 and train:
-            mtp = self._mtp_loss(params, batch, h_final, denoms.get("mtp"))
+            mtp = self._mtp_loss(params, batch, h_final, denoms.get("mtp"),
+                                 tp)
             total = total + 0.1 * mtp
             metrics["mtp"] = mtp
         return total, metrics
@@ -550,25 +594,27 @@ class LM:
             counts.append((labels[:, 1:] >= 0).sum())
         return torch.stack(counts)
 
-    def _mtp_loss(self, params, batch, h_final, denom=None):
+    def _mtp_loss(self, params, batch, h_final, denom=None, tp=None):
         """DeepSeek-V3's multi-token prediction: a depth-1 head predicts
         token t + 2 from [h_t ; embed(token_{t+1})] through ``proj``, one
         unstacked attention (or MLA) + SwiGLU block and its own norm,
-        against ``labels[:, 1:]``."""
+        against ``labels[:, 1:]`` (on a mesh ``tp``, tensor-parallel and
+        vocab-parallel as ``loss``)."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         if cfg.frontend.kind == "vision":
             h_final = h_final[:, cfg.frontend.num_prefix_tokens:]
-        emb_next = embed(params["embed"], tokens[:, 1:])
+        emb_next = embed(params["embed"], tokens[:, 1:], tp)
         h = torch.cat([h_final[:, :-1], emb_next], dim=-1)
         h = h @ params["mtp"]["proj"]
         b, s = h.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=h.device)[None, :].expand(b, s)
         bdef = BlockDef(mixer=ATTN if cfg.mla is None else MLA, mlp=SWIGLU)
-        h = self._block(bdef, params["mtp"]["block"], h, positions)
+        h = self._block(bdef, params["mtp"]["block"], h, positions, tp=tp)
         h = rmsnorm(params["mtp"]["norm"], h, cfg.rms_eps)
-        return _xent(self._logits(params, h), labels[:, 1:], denom)
+        return _xent(self._logits(params, h, tp, local=True), labels[:, 1:],
+                     denom, tp)
 
     def prefill(self, params, batch, cache_width: int,
                 last_only: bool = False, lengths=None, logits_index=None,
@@ -699,18 +745,44 @@ _RECURRENT_DECODE = {RGLRU: rec.rglru_block_decode,
                      SLSTM: rec.slstm_block_decode}
 
 
-def _xent(logits, labels, denom=None):
+def _xent(logits, labels, denom=None, tp=None):
     """Masked softmax cross entropy in f32, averaged over the labels >= 0
     (at least one; or summed over ``denom``, a global count); labels < 0
     are ignored. Logits (..., V), labels the leading shape (audio:
-    (B, S, C))."""
+    (B, S, C)). Where the mesh ``tp`` splits the vocab, ``logits`` are
+    this rank's V/M slice and the loss is vocab-parallel (``_vocab_nll``):
+    every rank returns the same loss, and the whole logits never exist."""
     mask = labels >= 0
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels.clamp_min(0).long()[..., None])[
-        ..., 0]
+    if tp is not None and tp.vocab:
+        nll = _vocab_nll(logits, labels, mask, tp)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.clamp_min(0).long()[
+            ..., None])[..., 0]
     nll = torch.where(mask, nll, torch.zeros_like(nll))
     return nll.sum() / torch.clamp_min(mask.sum() if denom is None
                                        else denom, 1)
+
+
+def _vocab_nll(logits, labels, mask, tp):
+    """-log softmax at each label from this rank's vocab slice ``logits``
+    (..., V/M) of the whole (..., V): the row max (one f32 max-reduce over
+    'model', outside autograd: the log-sum-exp does not depend on it),
+    then the sum of exps and the label's logit (on the rank that holds
+    it, else 0), both summed over 'model' in one f32 all-reduce
+    (``tp.reduce``: under autograd each rank's slice gets the replicated
+    gradient). log_softmax's own formula, max + log(sum exp(z - max)) -
+    z_label, with the vocab's sums split by rank."""
+    z = logits.float()
+    v = z.shape[-1]
+    top = tp.mesh.all_reduce(z.detach().amax(-1), op="max")
+    local = labels.long() - tp.rank * v
+    mine = mask & (local >= 0) & (local < v)
+    zt = torch.gather(z, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    zt = torch.where(mine, zt, torch.zeros_like(zt))
+    se = torch.exp(z - top[..., None]).sum(-1)
+    se, zt = tp.reduce(torch.stack([se, zt]), True).unbind(0)
+    return torch.log(se) + top - zt
 
 
 def _whole_norms(params, tp):
@@ -737,7 +809,7 @@ def _whole_norms(params, tp):
     collect(params)
     w = found[0].shape[-1]
     rows = [t.reshape(-1, w) for t in found]
-    whole = iter(tp.mesh.gather(torch.cat(rows, 0), -1, axis="data").split(
+    whole = iter(tp.gather(torch.cat(rows, 0), -1, axis="data").split(
         [r.shape[0] for r in rows], 0))
     done = {id(t): next(whole).reshape(*t.shape[:-1], w * tp.data_ways)
             for t in found}

@@ -67,7 +67,7 @@ def router_logits(params, x_flat, tp=None) -> torch.Tensor:
     logits, = project(x_flat.float(), [params["router"].float()], tp,
                       tp is not None and tp.data_router)
     if tp is not None and tp.router:
-        logits = tp.mesh.gather(logits, -1)
+        logits = tp.gather(logits, -1)
     return logits
 
 
@@ -145,6 +145,18 @@ def _experts(x_pad, src_tok, b: int, e: int, cap: int, params, tp=None):
     return torch.bmm(h, params["w_down"])
 
 
+def region_reads(names, tp) -> set:
+    """Which of a MoE layer's leaves (``names``) a rank reads inside a
+    region split over 'model', each entered in ``moe_forward``: the
+    router when its columns split, the routed experts when they split (by
+    expert or by d_ff), the shared expert when its d_ff splits; as
+    ``attention.region_reads``. A part every rank runs whole reads the
+    input as it is, outside any region."""
+    routed = tp.experts or tp.expert_mlp
+    return {n for n in names if {"router": tp.router,
+                                 "shared": tp.shared_mlp}.get(n, routed)}
+
+
 def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25,
                 tp=None, over_data=None):
     """x (B, S, D) -> (y (B, S, D), aux loss). On a mesh ``params`` are
@@ -153,8 +165,21 @@ def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25,
     m = cfg.moe
     b, s, d = x.shape
     k, e = m.num_experts_per_tok, m.num_experts
-    x_flat = x.reshape(b * s, d)
-    topk_idx, topk_w, aux = route(params, cfg, x_flat, tp, over_data)
+    routed = tp is not None and (tp.experts or tp.expert_mlp)
+    if tp is not None and (routed or tp.router or tp.shared_mlp):
+        # the split regions (the router's columns, the routed experts, the
+        # shared expert's d_ff) read the input through one entry; a part
+        # that every rank runs whole reads it as it is (region_reads)
+        xs = tp.enter(x, True)
+        pick = {True: xs, False: x}
+    else:
+        pick = {False: x}
+    topk_idx, topk_w, aux = route(
+        params, cfg, pick[tp is not None and tp.router].reshape(b * s, d),
+        tp, over_data)
+    if routed:
+        # the combine weights are replicated; each rank weighs its part
+        topk_w = tp.enter(topk_w, True)
     cap = capacity(s, k, e, capacity_factor)
     keep, target = dispatch(topk_idx, b, s, e, cap)
     # this rank's experts: a run of ``count`` from ``first`` (all of them
@@ -170,7 +195,8 @@ def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25,
     src = src[:, first * cap:(first + count) * cap]          # (B, E'*C)
     src_tok = torch.where(src >= s * k, torch.full_like(src, s),
                           torch.clamp(src, 0, s * k - 1) // k)
-    x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)    # row S: zeros
+    xr = pick[routed]
+    x_pad = torch.cat([xr, xr.new_zeros((b, 1, d))], dim=1)  # row S: zeros
     ye = _experts(x_pad, src_tok, b, count, cap, params, tp)
     ye = ye.reshape(count, b, cap, d).transpose(0, 1).reshape(
         b, count * cap, d)
@@ -190,7 +216,8 @@ def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25,
     ys = None
     if m.num_shared_experts > 0:
         sp = params["shared"]
-        gs, us = project(x_flat, [sp["w_gate"], sp["w_up"]], tp,
+        xsh = pick[tp is not None and tp.shared_mlp].reshape(b * s, d)
+        gs, us = project(xsh, [sp["w_gate"], sp["w_up"]], tp,
                          tp is not None and tp.data_proj)
         hs = F.silu(gs.float()).to(x.dtype) * us
         ys = (hs @ sp["w_down"]).reshape(b, s, d)
@@ -218,7 +245,7 @@ def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25,
     whole = [p for p, cut in parts if not cut]
     out = None
     if split:
-        out = tp.mesh.all_reduce(sum(split[1:], split[0])).to(x.dtype)
+        out = tp.reduce(sum(split[1:], split[0]), True).to(x.dtype)
     for p in whole:
         out = p if out is None else out + p
     return out, aux

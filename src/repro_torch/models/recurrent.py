@@ -155,8 +155,10 @@ def _gate_products(params, xc, tp):
     if tp is None or not tp.lru:
         return xc @ params["w_rgate"], xc @ params["w_igate"]
     both = torch.cat([xc @ params["w_rgate"], xc @ params["w_igate"]], -1)
-    pr, pi = tp.mesh.all_reduce(both).chunk(2, dim=-1)
-    return tp.mesh.shard(pr, -1), tp.mesh.shard(pi, -1)
+    # the sums are replicated; each rank's columns of both are one cut
+    # (under autograd one gather of their gradients)
+    both = tp.reduce(both, True).unflatten(-1, (2, -1))
+    return tp.scatter(both, -1).unbind(-2)
 
 
 def _rglru_gates(params, xc, tp=None):
@@ -171,9 +173,31 @@ def _rglru_gates(params, xc, tp=None):
     return a, gated_x
 
 
+_SLSTM_MLP = ("w_up1", "w_up2", "w_down")
+
+
+def region_reads(mixer: str, names, tp) -> set:
+    """Which of a recurrent mixer's leaves (``names``; ``mixer`` "rglru",
+    "mlstm" or "slstm") a rank reads inside a region split over 'model',
+    as ``attention.region_reads``: the RG-LRU's from its input
+    (``_rglru_inputs``) when its width splits; the mLSTM's and sLSTM's
+    after their own norm (``_mlstm_inputs``, ``slstm_block_forward``)
+    when their heads split, but the sLSTM's GeGLU, which reads the heads
+    gathered (``_slstm_out``), only when its columns split."""
+    if mixer == "rglru":
+        return set(names) if tp.lru else set()
+    heads = set(names) - {"norm"} if tp.rec_heads else set()
+    if mixer == "mlstm":
+        return heads
+    mlp = set(_SLSTM_MLP) & set(names)
+    return (heads - mlp) | (mlp if tp.rec_mlp else set())
+
+
 def _rglru_inputs(params, x, tp):
     """The gate branch gelu(x @ w_in_gate) in f32 and x @ w_in_x, one
     reduction over 'data' where the mesh ``tp`` splits D there."""
+    if tp is not None:
+        x = tp.enter(x, tp.lru)          # the region of region_reads
     gin, xin = project(x, [params["w_in_gate"], params["w_in_x"]], tp,
                        tp is not None and tp.data_proj)
     return F.gelu(gin.float(), approximate="tanh"), xin
@@ -389,6 +413,8 @@ def _mlstm_inputs(params, cfg, x, tp=None):
     """q, k, v (B, S, H, hd) in x's dtype; log_i, log_f (B, S, H) and the
     output gate o (B, S, H, hd), f32."""
     xn = rmsnorm(params["norm"], x, cfg.rms_eps)
+    if tp is not None:
+        xn = tp.enter(xn, tp.rec_heads)
     q, k, v, gif, og = _projs(xn, [params[w] for w in (
         "wq", "wk", "wv", "w_if", "w_ogate")], tp)
     gif = gif.float() + params["b_if"]
@@ -526,7 +552,9 @@ def _slstm_out(params, cfg, hs, dtype, tp=None):
     whole (B, S, H * hd) row that ``w_up1``/``w_up2`` read)."""
     y = _headnorm(hs, params["gn_scale"], cfg.rms_eps).flatten(2).to(dtype)
     if tp is not None and tp.rec_heads:
-        y = tp.mesh.gather(y, -1)
+        y = tp.gather(y, -1)
+    if tp is not None:
+        y = tp.enter(y, tp.rec_mlp)
     g = F.gelu((y @ params["w_up1"]).float(), approximate="tanh")
     u = y @ params["w_up2"]
     return _row_parallel(g.to(dtype) * u, params["w_down"], tp, "rec_mlp")
@@ -547,6 +575,8 @@ def slstm_block_forward(params, cfg, x, lengths=None, state=None, tp=None):
         state = slstm_state_init(x.shape[0], rec_heads(cfg, tp),
                                  cfg.resolved_head_dim, x.device)
     xn = rmsnorm(params["norm"], x, cfg.rms_eps)
+    if tp is not None:
+        xn = tp.enter(xn, tp.rec_heads)
     zx, = _projs(xn, [params["wx"]], tp)                 # (B, S, 4, H, hd)
     hs, state = _slstm_scan(params, zx, state, lengths)
     return _slstm_out(params, cfg, hs, x.dtype, tp), state

@@ -55,16 +55,22 @@ def adamw_update(params, grads, state: AdamWState, *, lr, b1: float = 0.9,
     """Returns (new_params, new_state). ``lr`` may be a scalar or a
     schedule value already resolved for this step. On a mesh (``mesh``, a
     ``launch.mesh.HostMesh``) ``params``, ``grads`` and the moments are
-    this rank's shards, and ``split`` (a tree like ``params`` of bools)
-    says which leaves are cut over 'data': the clip's global norm sums
-    their squares over the data ranks and adds the whole leaves' squares
-    once."""
+    this rank's shards, and ``split`` (a tree like ``params``) says which
+    mesh axes each leaf is cut over: "data", "model", "data,model" or ""
+    (``training.train_loop.clip_axes``). The clip's global norm sums each
+    leaf's squares over the axes that cut it and counts it once on the
+    others.
+
+    A leaf is updated ``_CHUNK`` elements at a time along its first dim
+    (the update is elementwise, so the values are those of one pass), and
+    the clip's scale is applied inside that pass: a step's transient
+    memory is a chunk's, not a multiple of the largest leaf's."""
     step = state.step + 1
+    scale = None
     if grad_clip is not None:
         gnorm = torch.sqrt(_global_sq(grads, mesh, split))
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
-        grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
 
     sdt = tree_leaves(state.mu)[0].dtype
     t = step.float()
@@ -73,8 +79,8 @@ def adamw_update(params, grads, state: AdamWState, *, lr, b1: float = 0.9,
     c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                     device=t.device), t)
 
-    def upd(p, g, m, v):
-        g32 = g.float()
+    def one(p, g, m, v):
+        g32 = (g if scale is None else g * scale.to(g.dtype)).float()
         m_new = b1 * m.float() + (1 - b1) * g32
         v_new = b2 * v.float() + (1 - b2) * torch.square(g32)
         delta = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
@@ -83,23 +89,48 @@ def adamw_update(params, grads, state: AdamWState, *, lr, b1: float = 0.9,
         p_new = p.float() - lr * delta
         return p_new.to(p.dtype), m_new.to(sdt), v_new.to(sdt)
 
+    def upd(p, g, m, v):
+        if p.numel() <= _CHUNK or p.dim() == 0:
+            return one(p, g, m, v)
+        out = (torch.empty_like(p), torch.empty_like(m, dtype=sdt),
+               torch.empty_like(v, dtype=sdt))
+        rows = max(1, _CHUNK * p.shape[0] // p.numel())
+        for i in range(0, p.shape[0], rows):
+            part = slice(i, i + rows)
+            for o, x in zip(out, one(p[part], g[part], m[part], v[part])):
+                o[part] = x
+        return out
+
     out = tree_map(upd, params, grads, state.mu, state.nu)
     new_params, new_mu, new_nu = (_pick(out, i) for i in range(3))
     return new_params, AdamWState(step=step, mu=new_mu, nu=new_nu)
 
 
+# elements of a leaf that one pass of the AdamW update takes (256 MiB of f32)
+_CHUNK = 1 << 26
+
+
 def _global_sq(grads, mesh, split):
     """The sum of every gradient element's square, of the whole tree (on a
-    mesh: each data-split leaf's shards summed over the data ranks, each
-    replicated leaf counted once)."""
+    mesh: each leaf's shards summed over the axes that cut it, 'data',
+    'model' or both, and counted once on an axis that holds it whole; one
+    all-reduce over 'data', then one over 'model')."""
     sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
     if mesh is None:
         return sum(sq)
-    cut = tree_leaves(split)
     zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
-    parts = sum((q for q, c in zip(sq, cut) if c), zero)
-    whole = sum((q for q, c in zip(sq, cut) if not c), zero)
-    return mesh.all_reduce(parts, axis="data") + whole
+    by = {}
+    for q, axes in zip(sq, tree_leaves(split)):
+        key = tuple(a in axes.split(",") for a in ("data", "model"))
+        by[key] = by.get(key, zero) + q
+    # [cut on both, cut on data] over 'data'; then [the first, cut on
+    # model] over 'model' (on a 1-way axis its call returns its input)
+    d = mesh.all_reduce(torch.stack([by.get((True, True), zero),
+                                     by.get((True, False), zero)]),
+                        axis="data")
+    m = mesh.all_reduce(torch.stack([d[0], by.get((False, True), zero)]),
+                        axis="model")
+    return m[0] + d[1] + m[1] + by.get((False, False), zero)
 
 
 class SGDState(NamedTuple):

@@ -17,6 +17,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.launch import mesh as mcoll
+
 # logical activation axes
 BATCH = "act_batch"
 SEQ = "act_seq"
@@ -123,9 +125,27 @@ class TensorParallel:
     expert_data_in: bool = False      # the routed experts' D on data
     data_vision: bool = False         # vision_proj.w1's output D on data
 
-    def reduce(self, x, split: bool):
-        """Sum a row-parallel partial over the model ranks when ``split``."""
-        return self.mesh.all_reduce(x) if split else x
+    def reduce(self, x, split: bool, axis: str = "model"):
+        """Sum a row-parallel partial over the ranks of ``axis`` when
+        ``split`` (``launch.mesh.reduce``: under autograd its gradient
+        goes to every partial as it is)."""
+        return mcoll.reduce(self.mesh, x, axis) if split else x
+
+    def enter(self, x, split: bool):
+        """``x``, a replicated activation, entering a region split over
+        'model' when ``split`` (``launch.mesh.copy``: the identity, whose
+        backward sums the ranks' partial gradients of ``x``)."""
+        return mcoll.copy(self.mesh, x) if split else x
+
+    def gather(self, x, dim: int, axis: str = "model"):
+        """The ranks' slices of ``x`` joined along ``dim`` (``launch.mesh.
+        gather``)."""
+        return mcoll.gather(self.mesh, x, dim, axis)
+
+    def scatter(self, x, dim: int, axis: str = "model"):
+        """This rank's slice of the replicated ``x`` along ``dim``
+        (``launch.mesh.scatter``)."""
+        return mcoll.scatter(self.mesh, x, dim, axis)
 
     def project(self, x, ws, split: bool):
         """``[x @ w for w in ws]`` for a replicated activation ``x``
@@ -133,13 +153,14 @@ class TensorParallel:
         this rank's D/data_ways of d_model), each product is a partial of
         ``x``'s matching columns: the partials are joined into one f32
         all-reduce over ``data`` and cast back, as a whole product's GEMM
-        rounds once."""
+        rounds once. Under autograd the cut of ``x`` gathers its gradient
+        over 'data' and the reduction passes it on to every partial."""
         if not split:
             return [x @ w for w in ws]
-        xs = self.mesh.shard(x, -1, axis="data")
+        xs = self.scatter(x, -1, axis="data")
         parts = [xs @ w for w in ws]
         sizes = [p.shape[-1] for p in parts]
-        both = self.mesh.all_reduce(torch.cat(parts, -1), axis="data")
+        both = self.reduce(torch.cat(parts, -1), True, axis="data")
         return list(both.split(sizes, -1))
 
 
@@ -153,9 +174,11 @@ def _has(spec, dim: int, axis: str) -> bool:
 
 
 @functools.lru_cache(maxsize=64)
-def _leaf_splits(cfg, n: int, data: int = 1) -> Dict[str, bool]:
+def _leaf_splits(cfg, n: int, data: int = 1,
+                 mode: str = "decode") -> Dict[str, bool]:
     """Which dimensions an (``data``, ``n``) mesh splits, read off the
-    resolved decode-mode spec of a leaf that holds each
+    resolved spec under ``mode``'s rules ("decode", or "train", where the
+    routed experts split on 'model' alone) of a leaf that holds each
     (``serving.sharding.param_shardings``), False where no leaf holds it:
     on ``model`` the dense MLP's d_ff, the RG-LRU width, the recurrent
     heads, the sLSTM GeGLU's columns and the routed experts (by expert,
@@ -170,7 +193,8 @@ def _leaf_splits(cfg, n: int, data: int = 1) -> Dict[str, bool]:
               data_router=False, data_experts=False, expert_data_in=False,
               data_vision=False)
     moe = {}
-    specs = param_shardings(AbstractMesh(n, data), LM(cfg, device="cpu"))
+    specs = param_shardings(AbstractMesh(n, data), LM(cfg, device="cpu"),
+                            mode)
     dd["data_norm"] = _split(specs["final_norm"]["scale"], 0, "data")
     dd["data_table"] = _split(specs["embed"]["table"], -1, "data")
     if "vision_proj" in specs:
@@ -212,14 +236,18 @@ def _leaf_splits(cfg, n: int, data: int = 1) -> Dict[str, bool]:
     return {**out, **moe, **dd}
 
 
-def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
+def tensor_parallel(cfg, mesh, mode: str = "decode"
+                    ) -> Optional[TensorParallel]:
     """The ``TensorParallel`` of ``cfg`` on ``mesh`` (None without one).
     Raises ``NotImplementedError`` for a split whose ranks' query heads
-    straddle KV groups unevenly."""
+    straddle KV groups unevenly. ``mode="train"``: the model splits of the
+    train rules, on params that a training step has gathered whole over
+    'data' (every data field False, ``data_ways`` 1)."""
     if mesh is None:
         return None
     n = int(mesh.shape["model"])
-    data = int(mesh.shape.get("data", 1))
+    train = mode == "train"
+    data = 1 if train else int(mesh.shape.get("data", 1))
     if cfg.d_model % data:
         # d_model's contraction side would stay whole, and the decode
         # rules then put the router's columns on ("data", "model")
@@ -246,20 +274,21 @@ def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
                 f"{kv} KV heads or whose rank share divides a group")
     else:
         kv_range = (0, kv // n if kvs else kv)
-    splits = dict(_leaf_splits(cfg, n, data))
+    splits = dict(_leaf_splits(cfg, n, data, mode))
     if cfg.moe is not None:
         # EXPERT takes ("data", "model") in decode: chunk d·M + m of the
         # experts is rank (d, m)'s, which is its place in the mesh; where
         # the experts do not divide by D·M they stay whole, and d_ff
         # splits inside every expert instead (a mesh axis splits one
-        # dimension of a leaf)
+        # dimension of a leaf). In train 'model' alone: chunk m
         e = cfg.moe.num_experts
         per = e // (n * data)
-        splits["expert_range"] = ((place * per, per) if splits["experts"]
-                                  else (0, e))
+        splits["expert_range"] = (((rank if train else place) * per, per)
+                                  if splits["experts"] else (0, e))
     return TensorParallel(mesh=mesh, ways=n, rank=rank, heads=heads, kv=kvs,
                           vocab=cfg.padded_vocab % n == 0, kv_range=kv_range,
                           mla_heads=cfg.mla is not None and h % n == 0,
                           data_ways=data,
-                          data_rank=int(getattr(mesh, "data_rank", 0)),
+                          data_rank=0 if train
+                          else int(getattr(mesh, "data_rank", 0)),
                           **splits)

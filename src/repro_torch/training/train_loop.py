@@ -13,18 +13,35 @@ and optimizer state are the same trees as ``repro``'s, and a checkpoint of
 ``(params, opt)`` has ``repro``'s key paths, so either package restores
 the other's.
 
-On a mesh (``mesh=``, a ``launch.mesh.HostMesh`` with a 1-way model axis:
-``repro``'s host leg) a rank holds its shards under ``repro``'s train
-rules, FSDP params and ZeRO moments (``launch.sharding_rules``), and its
-rows of the global batch (``data.loader.ShardedLoader``). A step gathers
-the params whole over 'data' (one collective a dtype), takes this rank's
-share of the global loss (``LM.loss``'s ``denoms``: the cross entropies
-over the global label counts; the MoE aux loss over the global token
-fractions, ``models.moe.route``), so the shares' gradients add up to
-the global batch's, reduce-scatters the gradients of the split leaves and
+On a mesh (``mesh=``, a ``launch.mesh.HostMesh``) a rank holds its
+shards under ``repro``'s train rules, FSDP params and ZeRO moments
+(``launch.sharding_rules``), and its rows of the global batch
+(``data.loader.ShardedLoader``). A step gathers the params whole over
+'data' (one collective a dtype), takes this rank's share of the global
+loss (``LM.loss``'s ``denoms``: the cross entropies over the global label
+counts; the MoE aux loss over the global token fractions,
+``models.moe.route``), so the shares' gradients add up to the global
+batch's, reduce-scatters the gradients of the split leaves and
 all-reduces those of the leaves the rules keep whole (one collective
 each), then runs AdamW on the rank's shards, whose clip takes the global
 norm. Whole leaves are checkpointed, gathered and written by rank 0.
+
+On a model axis above 1 (``repro``'s production meshes) the leaves the
+train rules split on 'model' stay cut after the gather over 'data', and
+the loss runs tensor-parallel on the rank's model group
+(``sharding.tensor_parallel(..., mode="train")``: Megatron's conjugate
+collectives of ``launch.mesh`` inside autograd, the cross entropy
+vocab-parallel). Every rank of a model group then holds its shards'
+whole gradients, except where a leaf is whole on every rank but read in
+part (``partial_leaves``: inside a region split on 'model', such as GQA's
+wk/wv over KV heads that do not divide and its q/k norm scales): their
+gradients are partial sums, added over 'model' in one f32 all-reduce. A
+whole leaf that every rank reads alike (the norm scales before a split
+region, a mixer whose dims do not divide) already has its whole
+gradient and is not summed. Every family trains so: GQA, MLA, dense
+and MoE MLPs (the router's (T, E) logits gathered before the top-k, each
+rank weighing its experts' part), the RG-LRU, mLSTM and sLSTM, the
+vision and audio frontends and DeepSeek's MTP head.
 """
 from __future__ import annotations
 
@@ -41,15 +58,16 @@ from repro_torch.utils.tree import (flat_paths, tree_leaves, tree_map,
                                     tree_map_with_path)
 
 
-def loss_and_grads(lm: LM, params, batch, denoms=None, over_data=None):
-    """``lm.loss(params, batch, train=True, denoms=, over_data=)``, its
-    metrics and its gradient (a tree like ``params``; zeros for a leaf the
-    loss does not read), all detached."""
+def loss_and_grads(lm: LM, params, batch, denoms=None, over_data=None,
+                   mesh=None):
+    """``lm.loss(params, batch, train=True, denoms=, over_data=, mesh=)``,
+    its metrics and its gradient (a tree like ``params``; zeros for a leaf
+    the loss does not read), all detached."""
     params = tree_map(lambda p: p.detach().requires_grad_(), params)
     leaves = tree_leaves(params)
     with torch.enable_grad():
         loss, metrics = lm.loss(params, batch, train=True, denoms=denoms,
-                                over_data=over_data)
+                                over_data=over_data, mesh=mesh)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     by_id = {id(p): torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)}
@@ -57,16 +75,10 @@ def loss_and_grads(lm: LM, params, batch, denoms=None, over_data=None):
             tree_map(lambda p: by_id[id(p)], params))
 
 
-def train_splits(mesh, lm: LM):
-    """The dim each leaf of ``lm``'s params is cut on over 'data' under the
-    train rules (-1: whole), a tree like the params. Raises
-    ``NotImplementedError`` on a model axis above 1 (tensor-parallel
-    training is not ported)."""
-    if int(mesh.shape["model"]) != 1:
-        raise NotImplementedError(
-            f"training on a {mesh.shape['model']}-way model axis (repro's "
-            f"production mesh) is not ported: the port trains data-"
-            f"parallel on a (data, 1) mesh")
+def train_splits(mesh, lm: LM, axis: str = "data"):
+    """The dim each leaf of ``lm``'s params is cut on over ``axis`` ("data"
+    or "model") under the train rules (-1: whole), a tree like the
+    params."""
     from repro_torch.serving.sharding import param_shardings
 
     def walk(spec):
@@ -75,11 +87,78 @@ def train_splits(mesh, lm: LM):
         if isinstance(spec, list):
             return [walk(v) for v in spec]
         for dim, ax in enumerate(spec):
-            if ax == "data" or (isinstance(ax, tuple) and "data" in ax):
+            if ax == axis or (isinstance(ax, tuple) and axis in ax):
                 return dim
         return -1
 
     return walk(param_shardings(mesh, lm, mode="train"))
+
+
+def partial_leaves(mesh, lm: LM):
+    """A tree like the params: True for a leaf whose gradient on a rank is
+    a partial sum over the mesh's model ranks. Such a leaf is whole on
+    every rank (the train rules do not split it on 'model') but lies inside
+    a region split on 'model', where each rank reads its part of it: the
+    mixer and MLP modules name the leaves they read inside their regions
+    (``LM.region_reads``), such as GQA's wk/wv over KV heads that do not
+    divide and its q/k norm scales. Every other whole leaf (the norm scales
+    before a region, a mixer or MLP whose dims do not divide) is read
+    alike on every rank from replicated activations, and its gradient is
+    already whole. All False on a 1-way model axis."""
+    from repro_torch.configs.base import ATTN, MLA, SWIGLU, BlockDef
+    from repro_torch.sharding import tensor_parallel
+
+    dims = train_splits(mesh, lm, "model")
+    out = tree_map(lambda _: False, dims)
+    if int(mesh.shape["model"]) == 1:
+        return out
+    tp = tensor_parallel(lm.cfg, mesh, mode="train")
+
+    def block(d, bdef):
+        reads = lm.region_reads(bdef, d, tp)
+        return {part: {k: tree_map(lambda x: x < 0 and k in reads[part], v)
+                       for k, v in sub.items()} if part in reads
+                else tree_map(lambda _: False, sub)
+                for part, sub in d.items()}
+
+    out["stages"] = [
+        {f"b{i}": block(sd[f"b{i}"], bdef)
+         for i, bdef in enumerate(stage.blocks)}
+        for stage, sd in zip(lm.cfg.stages, dims["stages"])]
+    if "mtp" in dims:
+        mixer = MLA if lm.cfg.mla is not None else ATTN
+        out["mtp"]["block"] = block(dims["mtp"]["block"],
+                                    BlockDef(mixer=mixer, mlp=SWIGLU))
+    return out
+
+
+def sum_partials(mesh, grads, partial):
+    """``grads`` (leaves) with each ``partial`` leaf's gradient summed over
+    'model': one f32 all-reduce of them all, each back in its dtype."""
+    idx = [i for i, p in enumerate(partial) if p]
+    if not idx:
+        return list(grads)
+    out = list(grads)
+    flat = mesh.all_reduce(torch.cat([grads[i].float().reshape(-1)
+                                      for i in idx]), axis="model")
+    off = 0
+    for i in idx:
+        g = grads[i]
+        out[i] = flat[off:off + g.numel()].reshape(g.shape).to(g.dtype)
+        off += g.numel()
+    return out
+
+
+def clip_axes(mesh, lm: LM):
+    """A tree like the params: the mesh axes (of more than one rank) each
+    leaf is cut over under the train rules ("data", "model", "data,model"
+    or ""), which the clip's global norm sums its squares over
+    (``optim.adamw``)."""
+    wide = {a: int(mesh.shape[a]) > 1 for a in ("data", "model")}
+    return tree_map(lambda d, m: ",".join(
+        a for a, cut in (("data", d >= 0), ("model", m >= 0))
+        if cut and wide[a]),
+        train_splits(mesh, lm), train_splits(mesh, lm, "model"))
 
 
 def place_train_params(mesh, lm: LM, params):
@@ -103,17 +182,18 @@ def _by_dtype(tensors):
     return groups.values()
 
 
-def gather_whole(mesh, leaves, dims):
-    """Each leaf of ``leaves`` whole over 'data': a leaf cut on ``dims[i]``
-    (>= 0) is joined from every data rank's shard, one gather of the flat
-    shards a dtype; a whole leaf (-1) is returned as it is."""
+def gather_whole(mesh, leaves, dims, axis: str = "data"):
+    """Each leaf of ``leaves`` whole over ``axis``: a leaf cut on
+    ``dims[i]`` (>= 0) is joined from every rank's shard on the axis, one
+    gather of the flat shards a dtype; a whole leaf (-1) is returned as it
+    is."""
     out = list(leaves)
-    n = mesh.shape["data"]
+    n = mesh.shape[axis]
     cut = [i for i, d in enumerate(dims) if d >= 0]
     for idx in _by_dtype([leaves[i] for i in cut]):
         ts = [leaves[cut[j]] for j in idx]
         flat = torch.cat([t.reshape(-1) for t in ts])
-        every = mesh.gather(flat[None], 0, axis="data")     # (n, total)
+        every = mesh.gather(flat[None], 0, axis=axis)      # (n, total)
         off = 0
         for j, t in zip(idx, ts):
             k = dims[cut[j]]
@@ -187,26 +267,38 @@ def make_train_step(lm: LM, lr_schedule: Callable,
     return train_step
 
 
-def mesh_loss_and_grads(lm: LM, mesh, params, batch, dims=None):
-    """On a (data, 1) mesh: the global batch's loss and metrics (every
+def mesh_loss_and_grads(lm: LM, mesh, params, batch, dims=None,
+                        partial=None):
+    """On a (data, model) mesh: the global batch's loss and metrics (every
     rank's share summed over 'data') and this rank's shards of its
     gradient, from this rank's param shards and batch rows. ``dims``: the
-    leaves' split dims (``train_splits``' leaves)."""
+    leaves' split dims over 'data' (``train_splits``' leaves);
+    ``partial``: ``partial_leaves``' leaves."""
     if dims is None:
         dims = tree_leaves(train_splits(mesh, lm))
+    if partial is None:
+        partial = tree_leaves(partial_leaves(mesh, lm))
+    tensor = int(mesh.shape["model"]) > 1
+    # on a 1-way data axis every leaf is whole over it already
+    data = int(mesh.shape["data"]) > 1
 
     def over_data(t):
         return mesh.all_reduce(t, axis="data")
 
-    whole = rebuild(params, gather_whole(mesh, tree_leaves(params), dims))
+    whole = (rebuild(params, gather_whole(mesh, tree_leaves(params), dims))
+             if data else params)
     counts = over_data(lm.label_counts(batch))
     denoms = {"ce": counts[0]}
     if counts.numel() > 1:
         denoms["mtp"] = counts[1]
     loss, metrics, grads = loss_and_grads(lm, whole, batch, denoms,
-                                          over_data)
+                                          over_data,
+                                          mesh if tensor else None)
     del whole
-    grads = rebuild(params, reduce_grads(mesh, tree_leaves(grads), dims))
+    grads = tree_leaves(grads)
+    if data:
+        grads = reduce_grads(mesh, grads, dims)
+    grads = rebuild(params, sum_partials(mesh, grads, partial))
     names = list(metrics)
     shares = over_data(torch.stack([loss] + [metrics[k].float()
                                              for k in names]))
@@ -214,13 +306,13 @@ def mesh_loss_and_grads(lm: LM, mesh, params, batch, dims=None):
 
 
 def _mesh_train_step(lm, lr_schedule, weight_decay, grad_clip, mesh):
-    dims_tree = train_splits(mesh, lm)
-    dims = tree_leaves(dims_tree)
-    split = tree_map(lambda d: d >= 0, dims_tree)
+    dims = tree_leaves(train_splits(mesh, lm))
+    partial = tree_leaves(partial_leaves(mesh, lm))
+    split = clip_axes(mesh, lm)
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = mesh_loss_and_grads(lm, mesh, params, batch,
-                                                   dims)
+                                                   dims, partial)
         lr = lr_schedule(opt_state.step)
         params_new, opt_new = adamw_update(
             params, grads, opt_state, lr=lr, weight_decay=weight_decay,
@@ -264,28 +356,32 @@ class Trainer:
         self.opt_state_dtype = opt_state_dtype
         self.train_step = make_train_step(lm, lr_schedule, weight_decay,
                                           mesh=mesh)
-        self._dims = (None if mesh is None
-                      else tree_leaves(train_splits(mesh, lm)))
+        self._dims = None if mesh is None else {
+            axis: tree_leaves(train_splits(mesh, lm, axis))
+            for axis in ("data", "model")}
         self.history: list = []
 
     def init_state(self, seed: int):
         """Random params from ``seed`` (``LM.init``, drawn on the model's
         device; on a mesh this rank's shards of them) and a fresh AdamW
         state."""
-        params = self.lm.init(seed, on_device=True)
-        if self.mesh is not None:
-            params = place_train_params(self.mesh, self.lm, params)
+        params = self.lm.init(seed, on_device=True, mesh=self.mesh,
+                              mode="train")
         return params, adamw_init(params, self.opt_state_dtype)
 
     def whole_state(self, params, opt):
-        """(params, opt) with every leaf whole: on a mesh each data-split
-        leaf gathered over the data ranks (every rank takes part)."""
+        """(params, opt) with every leaf whole: on a mesh each split leaf
+        gathered over the data ranks, then the model ranks (every rank
+        takes part)."""
         if self.mesh is None:
             return params, opt
 
         def join(tree):
-            return rebuild(tree, gather_whole(self.mesh, tree_leaves(tree),
-                                              self._dims))
+            leaves = tree_leaves(tree)
+            for axis in ("data", "model"):
+                leaves = gather_whole(self.mesh, leaves, self._dims[axis],
+                                      axis)
+            return rebuild(tree, leaves)
 
         return join(params), opt._replace(mu=join(opt.mu), nu=join(opt.nu))
 

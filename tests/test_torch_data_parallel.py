@@ -104,10 +104,9 @@ def dp_worker(rank, out_dir, batches, ckpt_dir):
     from repro_torch.data.loader import ShardedLoader
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import adamw_init, adamw_update
-    from repro_torch.training.train_loop import (Trainer, make_train_step,
-                                                 place_train_params,
-                                                 train_splits)
-    from repro_torch.utils.tree import tree_map
+    from repro_torch.training.train_loop import (Trainer, clip_axes,
+                                                 make_train_step,
+                                                 place_train_params)
 
     mesh = make_host_mesh(1)
     rec = {}
@@ -129,9 +128,9 @@ def dp_worker(rank, out_dir, batches, ckpt_dir):
     params = place_train_params(mesh, lm, lm.init(0))
     rows = next(ShardedLoader(iter([batches["dense"]["even"]]), mesh=mesh))
     _, grads = _grads(mesh, lm, params, rows)
-    split = tree_map(lambda d: d >= 0, train_splits(mesh, lm))
     new, _ = adamw_update(params, grads, adamw_init(params), lr=1.0,
-                          eps=1.0, grad_clip=1e-2, mesh=mesh, split=split)
+                          eps=1.0, grad_clip=1e-2, mesh=mesh,
+                          split=clip_axes(mesh, lm))
     rec["clip"] = _whole(mesh, lm, new)
     # a checkpoint written by the ranks, then restored on them
     trainer = Trainer(lm, _schedule, ckpt_dir=ckpt_dir, ckpt_every=2,

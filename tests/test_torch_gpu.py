@@ -1809,6 +1809,10 @@ FLASH_BWD_CASES = [
     (1, 512, 512, 32, 8, 128, None),
     (1, 512, 512, 128, 128, 192, None),
     (1, 4096, 4096, 16, 1, 256, 2048),
+    # a rank's heads when training on a model axis: glm4-9b's 32 over 2 KV
+    # heads on 4 ranks (8 over 1), qwen3-4b's on 2 (16 over 4)
+    (1, 4096, 4096, 8, 1, 128, None),
+    (2, 256, 256, 16, 4, 128, None),
 ]
 
 
@@ -1887,9 +1891,10 @@ def test_flash_autograd_counts_launches_and_serving_writes_no_lse(
     assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
 
 
+# the last two: recurrentgemma-9b's width on a 2- and a 4-way model axis
 RGLRU_BWD_CASES = [(1, 512, 4096), (1, 4096, 4096), (2, 77, 4000),
                    (2, 77, 1001), (3, 1, 129), (1, 33, 128), (1, 65536, 128),
-                   (8, 2048, 1024)]
+                   (8, 2048, 1024), (1, 4096, 2048), (1, 4096, 1024)]
 
 
 @pytest.mark.parametrize("case", RGLRU_BWD_CASES,

@@ -231,7 +231,9 @@ def test_resumed_trainer_equals_the_uninterrupted_one(tmp_path):
 def test_train_cli_flags_against_repro(monkeypatch, capsys):
     """``python -m repro_torch.launch.train`` keeps ``repro``'s flags and
     their defaults, adds ``--device``, ``--mesh-data`` (the port's stand-in
-    for ``repro``'s device count) and ``--no-reduced``, refuses
+    for ``repro``'s device count), ``--mesh-model`` (its model axis),
+    ``--warm`` and ``--report`` (the timed steps' figures) and
+    ``--no-reduced``, refuses
     ``--production`` and ``--multi-pod`` (meshes: ROADMAP Queue 1), and a
     short run on the CPU logs steps 0, 10 and the last."""
     import argparse
@@ -256,7 +258,8 @@ def test_train_cli_flags_against_repro(monkeypatch, capsys):
     monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse)
     theirs, ours = ({a.dest: a for a in p._actions if a.dest != "help"}
                     for p in parsers)
-    assert set(ours) == set(theirs) | {"device", "mesh_data"}
+    assert set(ours) == set(theirs) | {"device", "mesh_data", "mesh_model",
+                                       "warm", "report"}
     for dest in ("arch", "steps", "batch", "seq", "lr", "production",
                  "multi_pod"):
         assert ours[dest].default == theirs[dest].default, dest
