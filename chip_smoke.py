@@ -261,6 +261,21 @@ share, peak, bytes a rank, collectives a step, the loss falling), then
 its 4-layer f32 cut held as (a). Phase 2 times flash, its backward and
 the scan's backward at a training rank's layouts
 (``check_tp_train_shapes``).
+Phase 25 is the production-mesh dry run (``check_dryrun``, in this
+process, no spawn): (a) each of the seven kernel wrappers (and flash's
+form with its log-sum-exp) at its main-path shape (``DRY_SHAPES``), a
+real launch against the same call on fake copies of its inputs: equal
+shapes, dtypes, strides and devices, the same FLOPs added, a count in
+``kernels.TRACED`` and none in ``LAUNCHES``; (b) ``DRY_ARCH`` x
+``DRY_SHAPE`` on rank 0 of the 16 x 16 mesh (``launch.dryrun.trace_step``
+over a fake 256-rank group), traced on fake CUDA tensors (the kernels'
+fake rules, forward and backward) and on fake CPU tensors (their plain
+versions): the same matrix-product FLOPs and collectives, with its
+roofline row and trace seconds (``DRY_LAYERS`` cuts its depth); (c)
+phase 24(b)'s (1, 4) glm4-9b step at B 4 x S 4,096 on fake CUDA: its
+all-reduces over 'model' equal 24(b)'s count (``DRY_TP``), its argument
+and temp bytes printed beside what 24(b) counted and measured. The
+``TRACED`` counts print on a line of their own before the card's name.
 
 Phase 2 also times ``cascade_gate`` at T = 1 (the serving gate) and
 T = 64 (the one-shot batch) over smollm's 49152-entry vocab in f32 and
@@ -8665,6 +8680,216 @@ def check_tp_training(torch, dev, seed, smi, recs=None, legs="ab"):
     return rec, dict(launches)
 
 
+# -- phase 25: the production-mesh dry run --------------------------------------
+
+# 25(a): each wrapper at its main-path shape (PERF.md §6's table), a real
+# launch against the same call on fake copies of its inputs
+DRY_SHAPES = {
+    "decode_attention": (8, 1, 9, 3, 1024, 64),          # B, T, H, KV, W, hd
+    "paged_decode_attention": (8, 1, 9, 3, 512, 16, 64, 64),  # .., N, bs, M, hd
+    "flash_attention": (1, 512, 512, 9, 3, 64),          # B, Sq, Sk, H, KV, hd
+    "flash_attention_lse": (8, 512, 512, 9, 3, 64),      # training's forward
+    "flash_attention_bwd": (8, 512, 512, 9, 3, 64),
+    "rglru_scan": (1, 4096, 4096),                       # B, S, W
+    "rglru_scan_bwd": (1, 4096, 4096),
+    "cascade_gate": (1, 49152, "bfloat16"),              # T, V
+}
+# 25(b): this arch x shape on the 16 x 16 mesh, traced on fake CUDA and
+# on fake CPU tensors; DRY_LAYERS cuts it to that many layers (None: whole)
+DRY_ARCH, DRY_SHAPE, DRY_LAYERS = "glm4-9b", "train_4k", None
+# 25(c): phase 24(b)'s step, glm4-9b whole on a (1, 4) mesh at B 4 x S
+# 4,096: its all-reduces over 'model' a step, and what 24(b) counted and
+# measured on four NVIDIA H100 80GB HBM3 at 700.00 W: weights + gradients
+# + moments a rank, GiB, and the peak a rank
+DRY_TP = {"batch": (4, 4096), "all_reduce/model": 206,
+          "counted_gib": (4.50, 4.50, 17.98), "peak_gib": 51.51}
+
+
+def _dry_inputs(torch, name, shape, dev):
+    """(call, inputs) of the wrapper ``name`` at ``shape`` on ``dev``:
+    positions in range, tables over the pool, f32 where a kernel takes
+    only f32."""
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.rglru_scan as rs
+    from repro_torch.kernels.cascade_gate import cascade_gate
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+
+    def randn(*s, dtype=bf):
+        return torch.randn(*s, generator=gen, device=dev).to(dtype)
+
+    if name == "decode_attention":
+        b, t, h, kv, w, hd = shape
+        pos = torch.arange(w, dtype=i32).repeat(b, 1).to(dev)
+        return decode_attention, (randn(b, t, h, hd), randn(b, w, kv, hd),
+                                  randn(b, w, kv, hd),
+                                  torch.full((b,), w - t, dtype=i32,
+                                             device=dev), pos)
+    if name == "paged_decode_attention":
+        b, t, h, kv, n, bs, m, hd = shape
+        pos = torch.arange(n * bs, dtype=i32).reshape(n, bs).to(dev)
+        tables = (torch.arange(b * m, dtype=i32).reshape(b, m) % n).to(dev)
+        return paged_decode_attention, (
+            randn(b, t, h, hd), randn(n, bs, kv, hd), randn(n, bs, kv, hd),
+            torch.full((b,), m * bs - t, dtype=i32, device=dev), pos, tables)
+    if name.startswith("flash"):
+        b, sq, sk, h, kv, hd = shape
+        qkv = (randn(b, sq, h, hd), randn(b, sk, kv, hd),
+               randn(b, sk, kv, hd))
+        if name == "flash_attention":
+            return fa.flash_attention, qkv
+        if name == "flash_attention_lse":
+            return (lambda q, k, v: fa._forward(
+                q, k, v, True, None, hd ** -0.5, with_lse=True)), qkv
+        out, lse = fa._forward(*qkv, True, None, hd ** -0.5, with_lse=True)
+        return fa.flash_attention_bwd, qkv + (out, lse, randn(b, sq, h, hd))
+    if name.startswith("rglru"):
+        b, s, w = shape
+        a = torch.rand(b, s, w, generator=gen, device=dev).mul(0.5).add(0.4)
+        x, h0 = randn(b, s, w, dtype=f32), randn(b, w, dtype=f32)
+        if name == "rglru_scan":
+            return rs.rglru_scan, (a, x, h0)
+        h, _ = rs._forward(a, x, h0)
+        return rs.rglru_scan_bwd, (a, h, h0, randn(b, s, w, dtype=f32),
+                                   randn(b, w, dtype=f32))
+    t, v, dtype = shape
+    return (lambda x: cascade_gate(x, 0.5, 0.1)), (
+        randn(t, v, dtype=getattr(torch, dtype)),)
+
+
+def _dry_rules(torch, dev):
+    """25(a): each wrapper's fake rule against a real launch at
+    ``DRY_SHAPES``: equal shapes, dtypes, strides and devices, the same
+    FLOPs added, a ``TRACED`` count and no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import kernels
+
+    for name, shape in DRY_SHAPES.items():
+        kernel = "flash_attention" if name == "flash_attention_lse" else name
+        fn, args = _dry_inputs(torch, name, shape, dev)
+        flops, launched = dict(kernels.FLOPS), kernels.LAUNCHES[kernel]
+        real = fn(*args)
+        torch.cuda.synchronize(dev)
+        real = real if isinstance(real, tuple) else (real,)
+        real_flops = kernels.FLOPS.get(kernel, 0) - flops.get(kernel, 0)
+        assert kernels.LAUNCHES[kernel] == launched + 1, name
+        with FakeTensorMode() as mode:
+            fakes = [mode.from_tensor(t) for t in args]
+            launches, traced = dict(kernels.LAUNCHES), kernels.TRACED[kernel]
+            flops = dict(kernels.FLOPS)
+            got = fn(*fakes)
+        got = got if isinstance(got, tuple) else (got,)
+        fake_flops = kernels.FLOPS.get(kernel, 0) - flops.get(kernel, 0)
+        meta = [[(tuple(t.shape), t.dtype, t.stride(), t.device)
+                 for t in ts] for ts in (got, real)]
+        assert meta[0] == meta[1], (name, meta)
+        assert kernels.LAUNCHES == launches, name
+        assert kernels.TRACED[kernel] == traced + 1, name
+        assert fake_flops == real_flops, (name, fake_flops, real_flops)
+        print(f"  25(a) {name} {shape}: fake rule == launch "
+              f"({', '.join(str(tuple(t.shape)) for t in real)}), "
+              f"FLOPs {fake_flops}, no launch")
+        del real, args, fakes, got
+    torch.cuda.empty_cache()
+
+
+def _dry_trace(torch, cfg, shape, mesh_shape, device):
+    """(record, op log) of one rank of a ``mesh_shape`` (data, model) fake
+    group tracing ``cfg``'s ``shape`` step on fake ``device`` tensors."""
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.fake import fake_mode, fake_world
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.launch.specs import make_step_fn
+    from repro_torch.models.model import LM
+
+    data, model = mesh_shape
+    with fake_world(data * model):
+        mesh = HostMesh(model, device=device)
+        with fake_mode(device):
+            lm = LM(cfg, device=device)
+            step, inputs = make_step_fn(lm, shape, mesh, device)
+            return trace_step(
+                step, inputs, params=inputs[0],
+                read=inputs[:2] if shape.mode == "decode" else inputs[0],
+                device=device, arch=DRY_ARCH, shape=shape.name,
+                mesh=f"{data}x{model}", devices=data * model,
+                mode=shape.mode, seq_len=shape.seq_len,
+                global_batch=shape.global_batch)
+
+
+def check_dryrun(torch, dev, seed, smi):
+    """Phase 25: (a) ``_dry_rules``; (b) ``DRY_ARCH`` x ``DRY_SHAPE`` on
+    the 16 x 16 mesh traced on fake CUDA (the kernels' fake rules, forward
+    and backward) and on fake CPU tensors (their plain versions): the same
+    matrix-product FLOPs and collectives, its roofline row; (c) phase
+    24(b)'s (1, 4) glm4-9b step on fake CUDA: its all-reduces over
+    'model' equal 24(b)'s count, its argument and temp bytes beside what
+    24(b) counted and measured. Returns its record."""
+    from repro_torch.analysis.roofline import (format_table,
+                                               roofline_from_record)
+    from repro_torch.configs.shapes import InputShape, get_shape
+    from repro_torch.launch.mesh import PRODUCTION_MESHES
+    from repro_torch.launch.specs import resolved_config
+
+    t0 = time.perf_counter()
+    _dry_rules(torch, dev)
+    rec = {"rules_s": time.perf_counter() - t0}
+    print(f"  25(a) {rec['rules_s']:.1f} s")
+    cfg = resolved_config(DRY_ARCH, DRY_SHAPE)
+    if DRY_LAYERS is not None:
+        cfg = _cut_stages(cfg, (DRY_LAYERS,))
+    shape = get_shape(DRY_SHAPE)
+    got = {}
+    for device in ("cuda", "cpu"):
+        got[device], _ = _dry_trace(torch, cfg, shape,
+                                    PRODUCTION_MESHES["pod16x16"], device)
+    a, b = got["cuda"], got["cpu"]
+    assert a["weighted"]["dot_flops"] == b["weighted"]["dot_flops"] > 0, \
+        (a["weighted"]["dot_flops"], b["weighted"]["dot_flops"])
+    assert a["collectives"] == b["collectives"], (a["collectives"],
+                                                  b["collectives"])
+    assert a["kernels"].get("flash_attention_bwd", 0) > 0, a["kernels"]
+    layers = "whole" if DRY_LAYERS is None else f"{DRY_LAYERS} layers"
+    gib = [a["memory"][k] / 2 ** 30 for k in ("argument_bytes_per_device",
+                                               "temp_bytes_per_device")]
+    coll = {k: v for k, v in a["collectives"].items() if v["count"]}
+    print(f"  25(b) {DRY_ARCH} ({layers}) x {DRY_SHAPE} x pod16x16, rank 0"
+          f": trace {a['trace_s']:.2f} s on fake cuda ({a['ops']} ops, "
+          f"kernels {a['kernels']}), {b['trace_s']:.2f} s on fake cpu; "
+          f"dot_flops {a['weighted']['dot_flops']:.6e} and collectives "
+          f"{coll} equal; args {gib[0]:.2f} + temp {gib[1]:.2f} GiB a rank "
+          f"(fake cuda), fits {a['fits']} [counted, not timed; {smi}]")
+    print("\n".join("    " + line for line in format_table(
+        [roofline_from_record(a)]).splitlines()))
+    rec["pod16x16"] = {"cuda": a, "cpu": b}
+    batch, seq = DRY_TP["batch"]
+    tp, log = _dry_trace(torch, resolved_config(DRY_ARCH, "train_4k"),
+                         InputShape(f"b{batch}s{seq}", seq, batch, "train"),
+                         (1, 4), "cuda")
+    counts = {e["op"].split("/", 1)[1]: e["n"] for e in log
+              if e["op"].startswith("collective/")}
+    assert counts.get("all_reduce/model") == DRY_TP["all_reduce/model"], \
+        counts
+    w, g, m = DRY_TP["counted_gib"]
+    args, temp = (tp["memory"][k] / 2 ** 30 for k in (
+        "argument_bytes_per_device", "temp_bytes_per_device"))
+    print(f"  25(c) {DRY_ARCH} whole on a fake (1, 4) mesh, B {batch} x S "
+          f"{seq}: {counts['all_reduce/model']} all-reduces over 'model' a "
+          f"step (24(b) counted {DRY_TP['all_reduce/model']}); argument "
+          f"bytes {args:.2f} GiB a rank (24(b): weights {w} + moments {m} = "
+          f"{w + m:.2f}, gradients {g} made in the step), temp peak "
+          f"{temp:.2f} GiB (+ args {args + temp:.2f}; 24(b) measured a "
+          f"{DRY_TP['peak_gib']} GiB peak on the cards); trace "
+          f"{tp['trace_s']:.2f} s")
+    rec["tp_1x4"] = tp
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8674,7 +8899,7 @@ def main() -> int:
                          "phase-10 ring traces on the device")
     ap.add_argument("--only", choices=["19", "19a", "20", "20a", "20c", "21",
                                        "21a", "21c", "22", "22b", "22c",
-                                       "23", "24", "24b"],
+                                       "23", "24", "24b", "25"],
                     help="run phase 1 and this phase alone, or its NCCL "
                          "meshes alone (19a, 20a, 21a), or 20(c), 21(c), "
                          "22(b), 22(c) and (d) (on one card with 24(a) in "
@@ -8723,7 +8948,10 @@ def main() -> int:
         raise AssertionError(f"bf16 tensor-core kernels spill: {spills}")
 
     if args.only:
-        if args.only == "23":
+        if args.only == "25":
+            phase("[25] the production-mesh dry run alone")
+            check_dryrun(torch, dev, args.seed, smi)
+        elif args.only == "23":
             phase("[23] supervised restart on the mesh alone")
             check_supervise(torch, dev, args.seed, smi)
         elif args.only.startswith("24"):
@@ -8942,6 +9170,14 @@ def main() -> int:
         None if gloo_recs[0] is None else gloo_recs)
     for name, n in tpt_launches.items():
         launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"[25] the production-mesh dry run: each kernel's fake rule "
+          f"against a real launch at its main-path shape; {DRY_ARCH} x "
+          f"{DRY_SHAPE} on one rank of the 16 x 16 mesh under fake CUDA and "
+          f"fake CPU tensors; phase 24(b)'s (1, 4) step under fake CUDA "
+          f"tensors")
+    dry_stats = check_dryrun(torch, dev, args.seed, smi)
     if args.profile:
         from repro_torch.configs import get_config
         from repro_torch.models.model import LM
@@ -9018,6 +9254,7 @@ def main() -> int:
                        "data_axis": dm_stats,
                        "supervise": sup_stats,
                        "tp_training": tpt_stats,
+                       "dryrun": dry_stats,
                        "zoo": zoo_stats, "baseline": baseline_stats,
                        "hybrid_model": hybrid_stats,
                        "hybrid_engine": hybrid_engine,
@@ -9027,6 +9264,8 @@ def main() -> int:
                                           cascade_stats.items()
                                           if k != "trace"}}, f, indent=1)
     phase("all phases passed")
+    from repro_torch.kernels import TRACED
+    print(json.dumps({"traced": TRACED}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,13 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """Validate a requested device: "cuda" needs a visible GPU (no silent
-    move to the CPU), and only "cuda" and "cpu" are supported."""
+    move to the CPU) unless a ``FakeTensorMode`` is active (fake CUDA
+    tensors need no card: ``launch.dryrun``), and only "cuda" and "cpu"
+    are supported."""
     dev = torch.device(device)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
+        from torch._guards import detect_fake_mode
+        if not torch.cuda.is_available() and detect_fake_mode() is None:
             raise RuntimeError(
                 "repro_torch runs on the GPU by default and no CUDA device "
                 "is visible; pass device='cpu' to run the plain versions")

@@ -28,21 +28,11 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig, apply_long_context
 from repro_torch.kernels import FLOPS
 from repro_torch.launch.mesh import (COLLECTIVE_BYTES, COLLECTIVES, HBM_BW,
                                      NVLINK_BW, PEAK_FLOPS_BF16)
+from repro_torch.launch.specs import resolved_config
 from repro_torch.models.param import EXPERT
-
-
-def resolved_config(arch: str, shape_name: str) -> ModelConfig:
-    """``arch``'s config for the input shape ``shape_name``: the long-context
-    variant for ``long_500k`` (``repro.launch.specs.resolved_config``)."""
-    cfg = get_config(arch)
-    if shape_name == "long_500k":
-        cfg = apply_long_context(cfg)
-    return cfg
 
 
 def _leaves(spec, axes):

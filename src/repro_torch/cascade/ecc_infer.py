@@ -88,9 +88,9 @@ class CascadeLM:
     def capacity(self, batch: int) -> int:
         return max(1, int(batch * self.capacity_frac))
 
-    def _edge_gate(self, edge_params, batch: dict):
+    def _edge_gate(self, edge_params, batch: dict, mesh=None):
         edge_logits, _ = self.edge.forward(edge_params, batch,
-                                           last_only=True)
+                                           last_only=True, mesh=mesh)
         edge_last = edge_logits[:, 0]                         # (B, V)
         conf, routes, counts = gate_logits(edge_last, self.thresholds)
         return edge_last, conf, routes, counts
@@ -101,35 +101,40 @@ class CascadeLM:
                 "accept": counts[ACCEPT], "drop": counts[DROP],
                 "escalate": counts[ESCALATE]}
 
-    def serve_step(self, edge_params, cloud_params, batch: dict):
+    def serve_step(self, edge_params, cloud_params, batch: dict, mesh=None):
         """batch['tokens']: (B, S) one-shot queries, and any other input
         the models take (``image_embeds``; ``labels`` is not one). Returns
         a dict of final predictions, per-request route codes and counts
         (from the kernel), and boundary-traffic bytes, all as device
-        tensors."""
+        tensors. ``mesh``: both models' params are this rank's shards and
+        their forwards run on it (``LM.forward``'s ``mesh``)."""
         tokens = batch["tokens"]
         b, s = tokens.shape[:2]
         cap = self.capacity(b)
-        edge_last, conf, routes, counts = self._edge_gate(edge_params, batch)
+        edge_last, conf, routes, counts = self._edge_gate(edge_params, batch,
+                                                          mesh)
         routing = compact_escalations(routes == ESCALATE, cap)
         cloud_batch = {k: gather_compacted(v, routing, cap)
                        for k, v in batch.items() if k != "labels"}
         cloud_logits, _ = self.cloud.forward(cloud_params, cloud_batch,
-                                             last_only=True)
+                                             last_only=True, mesh=mesh)
         final = scatter_back(edge_last, cloud_logits[:, 0], routing)
         wan_bytes = torch.clamp(counts[ESCALATE], max=cap) * _wan_row_bytes(s)
         return self._result(final, edge_last, conf, routes, counts,
                             wan_bytes)
 
-    def lockstep_step(self, edge_params, cloud_params, batch: dict):
+    def lockstep_step(self, edge_params, cloud_params, batch: dict,
+                      mesh=None):
         """Paper-faithful baseline (no compaction): the cloud model sees the
         full batch; the gate only selects which logits win. Same accuracy,
-        strictly more cloud compute and boundary bytes."""
+        strictly more cloud compute and boundary bytes. ``mesh``: as in
+        ``serve_step``."""
         tokens = batch["tokens"]
         b, s = tokens.shape[:2]
-        edge_last, conf, routes, counts = self._edge_gate(edge_params, batch)
+        edge_last, conf, routes, counts = self._edge_gate(edge_params, batch,
+                                                          mesh)
         cloud_logits, _ = self.cloud.forward(cloud_params, batch,
-                                             last_only=True)
+                                             last_only=True, mesh=mesh)
         esc = (routes == ESCALATE)[:, None]
         final = torch.where(esc, cloud_logits[:, 0], edge_last)
         wan_bytes = torch.tensor(b * _wan_row_bytes(s), dtype=torch.int32,

@@ -16,12 +16,22 @@ module), which is what the mode counts when the plain version runs on
 the CPU: a step's count (``analysis.roofline.step_record``) is the same on
 both paths. The scan and the gate compute elementwise, which the mode
 counts as nothing, and add nothing.
+
+``TRACED`` counts the calls that met a fake tensor (``torch._subclasses.
+FakeTensor``, the production-mesh dry run of ``launch.dryrun``): each
+wrapper's CUDA branch runs its input checks, returns empty outputs with the
+launch's shapes, dtypes and strides, adds to ``FLOPS`` what the launch
+adds, and counts the call here (``traced``), never in ``LAUNCHES``. It
+reads no data pointer, asks the device nothing and runs no plain version.
+This is the kernel's shape rule, not a fallback: a real CUDA tensor still
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 LAUNCHES: Dict[str, int] = {"cascade_gate": 0, "decode_attention": 0,
                              "flash_attention": 0, "flash_attention_bwd": 0,
@@ -33,14 +43,33 @@ FLOPS: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
                          "flash_attention_bwd": 0,
                          "paged_decode_attention": 0}
 
+# calls of each wrapper on fake tensors (shape rules, no launch)
+TRACED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+
 _SUPPORTED = (torch.bfloat16, torch.float32)
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        TRACED[name] = 0
     for name in FLOPS:
         FLOPS[name] = 0
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (shapes and dtypes, no storage)."""
+    return isinstance(t, FakeTensor)
+
+
+def traced(name: str, outputs, flops: int = 0):
+    """A kernel's call on fake tensors: counted in ``TRACED``, its
+    ``flops`` added to ``FLOPS`` as its launch adds them; returns
+    ``outputs``."""
+    TRACED[name] += 1
+    if flops:
+        FLOPS[name] += flops
+    return outputs
 
 
 def check_cuda_tensors(name: str, floats: dict, ints: dict) -> None:
@@ -64,13 +93,22 @@ def check_cuda_tensors(name: str, floats: dict, ints: dict) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+def misaligned(t: torch.Tensor) -> bool:
+    """Whether ``t``'s first element is off a 16-byte boundary. A fake
+    tensor has no address: its offset into its storage tells, as the
+    allocator aligns every storage."""
+    if is_fake(t):
+        return bool(t.storage_offset() * t.element_size() % 16)
+    return bool(t.data_ptr() % 16)
+
+
 def check_cuda_inputs(name: str, floats: dict, ints: dict, head_dim: int):
     """The attention kernels' inputs: ``check_cuda_tensors``, and K and V
     16-byte aligned (the kernels read them in 16-byte vectors), head_dim a
     multiple of 8 and at most 256."""
     check_cuda_tensors(name, floats, ints)
     for key in ("k", "v"):
-        if floats[key].data_ptr() % 16:
+        if misaligned(floats[key]):
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
     if head_dim % 8 or not 8 <= head_dim <= 256:
         raise ValueError(f"{name}: head_dim must be a multiple of 8 in "

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import (LAUNCHES, build, check_cuda_tensors,
-                                 raise_on_error)
+                                 is_fake, raise_on_error, traced)
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
@@ -128,6 +128,8 @@ def _launch(logits, hi: float, lo: float):
     counts = torch.empty((3,), dtype=torch.int32, device=dev)
     if t == 0:
         return conf, routes, counts.zero_()
+    if is_fake(logits):
+        return traced("cascade_gate", (conf, routes, counts))
     splits, split_len = gate_splits(
         t, v, logits.element_size(),
         torch.cuda.get_device_properties(dev).multi_processor_count)

@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import (FLOPS, LAUNCHES, build, check_cuda_inputs,
-                                 raise_on_error)
+                                 is_fake, misaligned, raise_on_error, traced)
 
 NEG_INF = -1e30
 
@@ -184,7 +184,7 @@ def _launch(q, k, v, qp, kp, window: Optional[int], scale: float,
     kv0, kv = (0, row) if kv_range is None else kv_range
     check_cuda_inputs("decode_attention", {"q": q, "k": k, "v": v},
                       {"q_pos": qp, "k_pos": kp}, hd)
-    if q.data_ptr() % 16:       # the bf16 kernel stages q by 16-byte copies
+    if misaligned(q):       # the bf16 kernel stages q by 16-byte copies
         q = q.clone()
     if k.shape != (b, w, row, hd) or v.shape != k.shape or h % kv \
             or not 0 <= kv0 < kv0 + kv <= row \
@@ -197,6 +197,9 @@ def _launch(q, k, v, qp, kp, window: Optional[int], scale: float,
     out = torch.empty_like(q)
     if out.numel() == 0 or w == 0:
         return out.zero_()
+    if is_fake(q):
+        return traced("decode_attention", out,
+                      decode_attention_flops(b, t, h, w, hd))
     lib = _lib()
     if q.dtype == torch.bfloat16:
         fn = lib.decode_attention_bf16
@@ -299,11 +302,14 @@ def _launch_paged(q, k, v, qp, kp, bt, window: Optional[int], scale: float,
             f"{tuple(k.shape)}, v {tuple(v.shape)}, q_pos {tuple(qp.shape)}"
             f", k_pos {tuple(kp.shape)}, block_tables {tuple(bt.shape)}, "
             f"kv_range {kv_range} do not form (B,T,H,hd)/(N,bs,KV,hd)/(B,M)")
-    if q.data_ptr() % 16:       # the bf16 kernel stages q by 16-byte copies
+    if misaligned(q):       # the bf16 kernel stages q by 16-byte copies
         q = q.clone()
     out = torch.empty_like(q)
     if out.numel() == 0 or m * bs == 0:
         return out.zero_()
+    if is_fake(q):
+        return traced("paged_decode_attention", out,
+                      decode_attention_flops(b, t, h, m * bs, hd))
     lib = _paged_lib()
     if q.dtype == torch.bfloat16:
         fn = lib.paged_decode_attention_bf16

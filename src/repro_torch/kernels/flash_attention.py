@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import (FLOPS, LAUNCHES, build, check_cuda_inputs,
-                                 raise_on_error)
+                                 is_fake, misaligned, raise_on_error, traced)
 
 NEG_INF = -1e30
 
@@ -189,7 +189,7 @@ def _launch(q, k, v, causal: bool, window: Optional[int], scale: float,
     """The forward kernel: out, and with ``with_lse`` (out, lse)."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    if q.data_ptr() % 16:       # the kernel stages q by 16-byte copies
+    if misaligned(q):           # the kernel stages q by 16-byte copies
         q = q.clone()
     check_cuda_inputs("flash_attention", {"q": q, "k": k, "v": v}, {}, hd)
     _check_shapes("flash_attention", q, k, v)
@@ -199,6 +199,9 @@ def _launch(q, k, v, causal: bool, window: Optional[int], scale: float,
     if out.numel() == 0 or sk == 0:
         out.zero_()
         return (out, lse.fill_(-torch.inf)) if with_lse else out
+    if is_fake(q):
+        return traced("flash_attention", (out, lse) if with_lse else out,
+                      flash_attention_flops(b, sq, sk, h, hd))
     lib = _lib()
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, b, sq, sk, h, kv, hd,
@@ -225,7 +228,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool,
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     # the tensor-core variant stages q, out and dout by 16-byte copies
-    q, out, dout = (t.clone() if t.data_ptr() % 16 else t
+    q, out, dout = (t.clone() if misaligned(t) else t
                     for t in (q, out, dout))
     check_cuda_inputs("flash_attention_bwd",
                       {"q": q, "k": k, "v": v, "out": out, "dout": dout}, {},
@@ -240,6 +243,9 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if is_fake(q):
+        return traced("flash_attention_bwd", (dq, dk, dv),
+                      flash_attention_bwd_flops(b, sq, sk, h, hd))
     delta = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
     fn = (lib.flash_attention_bwd_bf16 if q.dtype == torch.bfloat16

@@ -8,7 +8,10 @@ shape ``{"data": D, "model": M}``: rank r sits at data index ``r // M``
 and model index ``r % M``, as ``repro``'s device grid numbers them, so a
 dimension split over ("data", "model") gives rank r chunk r. NCCL on the
 card (each rank on its own card, or gloo with several ranks on one card,
-which is the only way one card sees real splits); gloo on the CPU.
+which is the only way one card sees real splits); gloo on the CPU; and
+``torch.distributed``'s ``fake`` backend for the production-mesh dry run
+(``launch.dryrun``: one rank of 256 or 512 traced under fake tensors,
+``make_production_mesh``), where every collective returns at once.
 
 Each collective names the axis it runs over: ``"model"`` (the default:
 the ranks of this rank's data row, as every call of the tensor-parallel
@@ -23,7 +26,9 @@ Float payloads reduce in float32 and are cast back, so a sum of bf16
 partials rounds once. A gather is NCCL's ``all_gather_into_tensor``; on
 gloo, which takes only ``all_reduce`` and ``broadcast`` on CUDA tensors,
 it is an ``all_reduce`` of a zero-filled full tensor holding each rank's
-slice (exact: a sum with zeros). ``COLLECTIVES`` counts the calls by kind
+slice (exact: a sum with zeros). The fake backend issues NCCL's forms, as
+the production mesh it stands for runs NCCL, so the calls and bytes it
+counts are the cards'. ``COLLECTIVES`` counts the calls by kind
 and axis ("all_reduce/data", ...), as ``kernels.LAUNCHES`` counts kernel
 launches, so a CUDA graph can say that it captured them; ``tally`` sums
 such counts by kind or by axis. ``COLLECTIVE_BYTES`` keeps, under the same
@@ -33,7 +38,8 @@ an HLO collective's result once; a host message (``broadcast_object``)
 moves no device bytes and adds none.
 
 The H100 figures below (the SXM data sheet) are what
-``repro_torch.analysis.roofline`` divides by.
+``repro_torch.analysis.roofline`` divides by, and ``HBM_PER_CARD`` what
+the dry run's ``fits`` compares a rank's bytes against.
 
 ``spawn`` starts N ranks as processes (``torch.multiprocessing``, each
 with its own rendezvous), and ``free_port`` finds a port for a TCP
@@ -43,6 +49,7 @@ from __future__ import annotations
 
 import datetime
 import gc
+import os
 import socket
 import time
 from typing import Callable, Dict, Optional, Sequence
@@ -66,6 +73,12 @@ _TRIVIAL = object()
 PEAK_FLOPS_BF16 = 989e12      # FLOP/s per card
 HBM_BW = 3.35e12              # bytes/s per card
 NVLINK_BW = 450e9             # bytes/s per card, one direction
+HBM_PER_CARD = 80 * 2 ** 30   # bytes of HBM3 per card
+
+# the production meshes (``repro.launch.mesh.make_production_mesh``):
+# (data, model) of one pod and of two; ``repro``'s 'pod' axis always splits
+# together with 'data' in its rules, so it folds into the data axis here
+PRODUCTION_MESHES = {"pod16x16": (16, 16), "pod2x16x16": (32, 16)}
 
 
 def _count(kind: str, axis: str, nbytes: int = 0) -> None:
@@ -113,12 +126,15 @@ class HostMesh(AbstractMesh):
     (default: every rank) and a data axis of the ranks over it. ``rank`` is
     this rank's place in the mesh (``data_rank * M + model_rank``);
     ``device`` is where its shards live (default: ``cuda:<rank>`` under
-    NCCL, the CPU under gloo). Host messages (``broadcast_object``) travel
-    on a gloo group of every rank, so they never queue behind the card's
-    work nor pair up with a model collective that a rank has still to
-    issue."""
+    NCCL, the CPU under gloo; the fake backend takes it explicitly). Host
+    messages (``broadcast_object``) travel on a gloo group of every rank,
+    so they never queue behind the card's work nor pair up with a model
+    collective that a rank has still to issue; the fake backend has no
+    such group (it cannot make a gloo one), and a dry run sends no host
+    message. ``tag`` names the mesh in a dry run's record."""
 
-    def __init__(self, model: Optional[int] = None, device=None, group=None):
+    def __init__(self, model: Optional[int] = None, device=None, group=None,
+                 tag: Optional[str] = None):
         if not dist.is_initialized():
             raise RuntimeError("HostMesh needs an initialised process group "
                                "(torch.distributed.init_process_group)")
@@ -133,7 +149,12 @@ class HostMesh(AbstractMesh):
         self.model_rank = self.rank % model
         self.data_rank = self.rank // model
         self.backend = dist.get_backend(group)
+        self.tag = tag
         if device is None:
+            if self.backend == "fake":
+                raise ValueError("a mesh over the fake backend needs its "
+                                 "device (cuda: the kernels' fake rules, "
+                                 "cpu: their plain versions)")
             device = (f"cuda:{self.rank}" if self.backend == "nccl"
                       else "cpu")
         self.device = torch.device(device)
@@ -157,8 +178,8 @@ class HostMesh(AbstractMesh):
             else:
                 made = [dist.new_group(ranks=r) for r in members]
                 self._groups[axis] = made[mine]
-        self._host = dist.new_group(ranks=None if group is None else ranks,
-                                    backend="gloo")
+        self._host = None if self.backend == "fake" else dist.new_group(
+            ranks=None if group is None else ranks, backend="gloo")
         if data > 1 and self.backend == "nccl":
             # NCCL makes a subgroup's communicator at its first collective,
             # which a CUDA graph's capture cannot be: make them now
@@ -166,6 +187,19 @@ class HostMesh(AbstractMesh):
                 if self._groups[axis] not in (group, _TRIVIAL):
                     dist.all_reduce(torch.zeros(1, device=self.device),
                                     group=self._groups[axis])
+
+    @property
+    def _nccl_forms(self) -> bool:
+        """Whether a gather and a reduce-scatter take NCCL's forms (NCCL,
+        and the fake backend that stands for it) or gloo's."""
+        return self.backend in ("nccl", "fake")
+
+    def _host_group(self):
+        if self._host is None:
+            raise RuntimeError("a mesh over the fake backend (the "
+                               "production-mesh dry run, launch.dryrun) "
+                               "sends no host message")
+        return self._host
 
     def axis_size(self, axis: str) -> int:
         """Ranks along ``axis`` ("model", "data" or "world")."""
@@ -205,7 +239,7 @@ class HostMesh(AbstractMesh):
         group = self._groups[axis]
         if group is _TRIVIAL:
             return x
-        if self.backend == "nccl":
+        if self._nccl_forms:
             out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                               dtype=x.dtype, device=x.device)
             dist.all_gather_into_tensor(out, x.contiguous(), group=group)
@@ -242,7 +276,7 @@ class HostMesh(AbstractMesh):
         if group is _TRIVIAL:
             return x[0]
         y = x.float() if x.is_floating_point() else x.clone()
-        if self.backend == "nccl":
+        if self._nccl_forms:
             out = torch.empty(y.shape[1:], dtype=y.dtype, device=y.device)
             dist.reduce_scatter_tensor(out, y.contiguous(), group=group)
             _count("reduce_scatter", axis, _nbytes(out))
@@ -254,13 +288,13 @@ class HostMesh(AbstractMesh):
 
     def barrier(self) -> None:
         """Wait until every rank of the mesh is here (on the host group)."""
-        dist.barrier(group=self._host)
+        dist.barrier(group=self._host_group())
 
     def broadcast_object(self, obj=None, src: int = 0):
         """``obj`` from rank ``src`` to every rank of the mesh (pickled, on
         the host group); the other ranks pass None and get it back."""
         box = [obj]
-        dist.broadcast_object_list(box, src=src, group=self._host)
+        dist.broadcast_object_list(box, src=src, group=self._host_group())
         _count("broadcast", "world")
         return box[0]
 
@@ -388,6 +422,32 @@ def make_host_mesh(model: int = 1, device=None) -> HostMesh:
     with a ``model``-way model axis and the other ranks' factor on
     ``data`` (``repro``'s ``make_host_mesh``: (n // model, model))."""
     return HostMesh(model, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> HostMesh:
+    """This rank's view of the production mesh over the initialised default
+    process group (``repro.launch.mesh.make_production_mesh``): (data 16,
+    model 16) over 256 ranks, or with ``multi_pod`` (data 32, model 16)
+    over 512, ``repro``'s (pod 2, data 16, model 16) with 'pod' folded into
+    'data'. Tagged ``pod16x16`` / ``pod2x16x16``. Under NCCL the default
+    device is this host's card ``LOCAL_RANK`` (as a launcher sets it);
+    the fake backend takes ``device`` explicitly. Any other world
+    raises."""
+    tag = "pod2x16x16" if multi_pod else "pod16x16"
+    data, model = PRODUCTION_MESHES[tag]
+    world = dist.get_world_size()
+    if world != data * model:
+        sizes = " and ".join(f"{d * m} ranks ({t})"
+                             for t, (d, m) in PRODUCTION_MESHES.items())
+        raise ValueError(f"the production meshes take {sizes}; this "
+                         f"process group has {world} (--multi-pod asks for "
+                         f"{data * model})")
+    if device is None and dist.get_backend() == "nccl":
+        local = os.environ.get("LOCAL_RANK")
+        device = torch.device("cuda", int(local) if local is not None else
+                              dist.get_rank() % torch.cuda.device_count())
+    return HostMesh(model, device=device, tag=tag)
 
 
 def free_port() -> int:

@@ -13,6 +13,8 @@ mesh of D × M ranks: data-parallel over D, tensor-parallel over M.
         --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
         --no-reduced --mesh-model 4 --batch 4 --seq 4096 --steps 12 --warm 2
+    torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train \
+        --production --arch glm4-9b --batch 256 --seq 4096
 
 The port of ``repro.launch.train`` with its flags and defaults. ``repro``
 builds a host mesh, ``make_host_mesh()`` over its device count, whose
@@ -28,15 +30,20 @@ rank 0 prints. ``--mesh-model M`` adds ``repro``'s model axis: D × M
 ranks on a (D, M) mesh, the params cut on 'model' by the train rules
 and the loss run tensor-parallel on each model group
 (``training.train_loop``).
-``--production`` and ``--multi-pod`` (256 and 512 devices) raise
-``NotImplementedError``: one process a rank cannot hold them, and their
-dry run is ROADMAP Queue 1's. ``--warm W`` times the steps after the
+``--production`` and ``--multi-pod`` train on ``repro``'s production
+meshes, (data 16, model 16) over 256 ranks and (data 32, model 16) over
+512 (``launch.mesh.make_production_mesh``), inside a process group that a
+launcher started (``torchrun``: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``
+and a rendezvous, read by ``env://``), one process a card; any other
+world raises. ``launch.dryrun`` traces one rank of that step on fake
+tensors, which is how it is checked without 256 cards. ``--warm W`` times the steps after the
 first W with CUDA events and prints ms a step, tokens/s, 6·N·D a step
 over the ranks' peak bf16 rate, peak memory, the weight, gradient and
 moment bytes a rank and a step's collectives (``--report`` writes them
 as JSON). ``--reduced`` trains the
-architecture's reduced config, as ``repro``'s default off
-``--production`` does, ``--no-reduced`` its full width and depth;
+architecture's reduced config, the default off ``--production`` as in
+``repro``, ``--no-reduced`` (the default on the production meshes) its
+full width and depth;
 ``--device`` is ``cuda`` (the hand-written kernels) or ``cpu`` (their
 plain versions). Weights are random from seed 0, the learning rate warms
 up over 10 steps and decays by a cosine to ``--steps``.
@@ -47,6 +54,7 @@ import argparse
 import itertools
 import json
 import math
+import os
 import time
 
 import torch
@@ -56,21 +64,22 @@ from repro_torch.configs import get_config
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.launch.mesh import (COLLECTIVES, PEAK_FLOPS_BF16,
-                                     make_host_mesh, spawn)
+                                     make_host_mesh, make_production_mesh,
+                                     spawn)
 from repro_torch.models.model import LM
 from repro_torch.optim import adamw_init, linear_warmup_cosine
 from repro_torch.training.train_loop import make_train_step
 from repro_torch.utils.tree import tree_leaves
 
-MESH_REFUSAL = ("the production meshes (256 and 512 devices) are not "
-                "ported: they need their dry run, one rank of the mesh "
-                "traced under fake tensors (ROADMAP Queue 1); the port "
-                "trains on --mesh-data D x --mesh-model M ranks")
+def _production(args) -> bool:
+    return args.production or args.multi_pod
 
 
 def _config(args):
     cfg = get_config(args.arch)
-    if args.reduced:
+    reduced = (not _production(args)) if args.reduced is None \
+        else args.reduced
+    if reduced:
         cfg = cfg.reduced()
     if cfg.frontend.kind != "none":
         raise NotImplementedError(
@@ -111,9 +120,6 @@ def global_batches(stream, batch: int, seq: int, mesh=None):
 def train(args, mesh=None) -> list:
     """Run ``args.steps`` steps (on ``mesh``: this rank's part of the
     mesh's run); returns the logged (step, loss) pairs."""
-    if args.production or args.multi_pod:
-        raise NotImplementedError(f"--production/--multi-pod: "
-                                  f"{MESH_REFUSAL}")
     dev = mesh.device if mesh is not None else resolve_device(args.device)
     cuda = dev.type == "cuda"
     if cuda:
@@ -205,12 +211,32 @@ def _train_rank(rank: int, args) -> None:
     train(args, make_host_mesh(args.mesh_model, device=device))
 
 
+def production_mesh(args):
+    """``--production`` / ``--multi-pod``: this process's rank of the
+    production mesh, over the default process group (one a launcher
+    started: ``env://``, NCCL, gloo with ``--device cpu``; a group already
+    initialised is taken as it is). A world of other than 256 or 512 ranks
+    raises (``make_production_mesh``)."""
+    if not torch.distributed.is_initialized():
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                "--production/--multi-pod run one process a card inside a "
+                "launcher's process group (torchrun: RANK, WORLD_SIZE, "
+                "LOCAL_RANK and a rendezvous); python -m "
+                "repro_torch.launch.dryrun traces one rank without one")
+        torch.distributed.init_process_group(
+            "gloo" if args.device == "cpu" else "nccl", init_method="env://")
+    device = "cpu" if args.device == "cpu" else None
+    if device is None and torch.distributed.get_backend() == "nccl":
+        torch.cuda.set_device(int(os.environ.get(
+            "LOCAL_RANK", torch.distributed.get_rank()
+            % torch.cuda.device_count())))
+    return make_production_mesh(multi_pod=args.multi_pod, device=device)
+
+
 def train_mesh(args) -> None:
     """``--mesh-data D --mesh-model M``: D × M ranks as processes, NCCL on
     D × M cards or gloo on the CPU."""
-    if args.production or args.multi_pod:
-        raise NotImplementedError(f"--production/--multi-pod: "
-                                  f"{MESH_REFUSAL}")
     _config(args)
     world = args.mesh_data * args.mesh_model
     backend = "gloo" if args.device == "cpu" else "nccl"
@@ -231,13 +257,15 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--production", action="store_true",
-                    help="the production mesh (not ported: raises)")
+                    help="the (16, 16) production mesh: 256 ranks of a "
+                         "launcher's process group")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="a multi-pod mesh (not ported: raises)")
+                    help="the (32, 16) multi-pod mesh: 512 ranks")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="train the reduced config (--no-reduced: full "
-                         "width and depth)")
+                    default=None,
+                    help="train the reduced config (the default off the "
+                         "production meshes; --no-reduced: full width and "
+                         "depth)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -257,7 +285,9 @@ def main(argv=None) -> None:
     ap.add_argument("--report", default=None,
                     help="with --warm, also write the figures here (JSON)")
     args = ap.parse_args(argv)
-    if args.mesh_data * args.mesh_model > 1:
+    if _production(args):
+        train(args, production_mesh(args))
+    elif args.mesh_data * args.mesh_model > 1:
         train_mesh(args)
     else:
         train(args)

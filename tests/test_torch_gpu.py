@@ -2513,3 +2513,144 @@ def test_gateway_warms_an_engine_on_the_card_before_its_first_step(cuda):
     for i, r in zip(ids, got):
         assert r.status == "done"
         np.testing.assert_array_equal(r.output, want[i].output)
+
+
+# -- the kernels' fake (shape) rules against real launches ---------------------
+
+def _fake_rule_inputs(name, shape, dev):
+    """Valid inputs of the wrapper ``name`` at ``shape``, on ``dev``, and the
+    call: positions in range, tables over the pool, f32 where the kernel
+    takes only f32."""
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.rglru_scan as rs
+
+    gen = torch.Generator().manual_seed(7)
+    bf = torch.bfloat16
+
+    def randn(*s, dtype=bf):
+        return torch.randn(*s, generator=gen).to(dtype).to(dev)
+
+    if name == "decode_attention":
+        b, t, h, kv, w, hd = shape
+        pos = torch.arange(w, dtype=torch.int32).repeat(b, 1).to(dev)
+        qp = torch.full((b,), w - t, dtype=torch.int32, device=dev)
+        args = (randn(b, t, h, hd), randn(b, w, kv, hd), randn(b, w, kv, hd),
+                qp, pos)
+        return decode_attention, args
+    if name == "paged_decode_attention":
+        b, t, h, kv, n, bs, m, hd = shape
+        pos = torch.arange(n * bs, dtype=torch.int32).reshape(n, bs).to(dev)
+        tables = torch.arange(b * m, dtype=torch.int32).reshape(b, m) % n
+        qp = torch.full((b,), m * bs - t, dtype=torch.int32, device=dev)
+        args = (randn(b, t, h, hd), randn(n, bs, kv, hd), randn(n, bs, kv, hd),
+                qp, pos, tables.to(dev))
+        return paged_decode_attention, args
+    if name in ("flash_attention", "flash_attention_lse"):
+        b, sq, sk, h, kv, hd = shape
+        args = (randn(b, sq, h, hd), randn(b, sk, kv, hd), randn(b, sk, kv, hd))
+        if name == "flash_attention":
+            return flash_attention, args
+        return (lambda q, k, v: fa._forward(q, k, v, True, None, hd ** -0.5,
+                                            with_lse=True)), args
+    if name == "flash_attention_bwd":
+        b, sq, sk, h, kv, hd = shape
+        q, k, v = (randn(b, sq, h, hd), randn(b, sk, kv, hd),
+                   randn(b, sk, kv, hd))
+        out, lse = fa._forward(q, k, v, True, None, hd ** -0.5, with_lse=True)
+        return flash_attention_bwd, (q, k, v, out, lse, randn(b, sq, h, hd))
+    if name in ("rglru_scan", "rglru_scan_bwd"):
+        b, s, w = shape
+        f32 = torch.float32
+        a = torch.rand(b, s, w, generator=gen).mul(0.5).add(0.4).to(dev)
+        x, h0 = randn(b, s, w, dtype=f32), randn(b, w, dtype=f32)
+        if name == "rglru_scan":
+            return rglru_scan, (a, x, h0)
+        h, _ = rs._forward(a, x, h0)
+        return rglru_scan_bwd, (a, h, h0, randn(b, s, w, dtype=f32),
+                                randn(b, w, dtype=f32))
+    t, v, dtype = shape
+    return (lambda x: cascade_gate(x, 0.5, 0.1)), (randn(t, v, dtype=dtype),)
+
+
+FAKE_RULE_CASES = [
+    ("decode_attention", (2, 1, 8, 2, 256, 64)),
+    ("decode_attention", (1, 4, 32, 2, 1024, 128)),
+    ("paged_decode_attention", (2, 1, 8, 2, 32, 16, 8, 64)),
+    ("paged_decode_attention", (1, 5, 16, 1, 64, 16, 16, 256)),
+    ("flash_attention", (2, 128, 128, 8, 2, 64)),
+    ("flash_attention", (1, 64, 300, 16, 1, 256)),
+    ("flash_attention_lse", (2, 128, 128, 8, 2, 64)),
+    ("flash_attention_lse", (1, 4096, 4096, 8, 1, 128)),
+    ("flash_attention_bwd", (2, 128, 128, 8, 2, 64)),
+    ("flash_attention_bwd", (1, 70, 150, 4, 2, 128)),
+    ("rglru_scan", (2, 100, 512)),
+    ("rglru_scan", (1, 4096, 1024)),
+    ("rglru_scan_bwd", (2, 77, 1001)),
+    ("rglru_scan_bwd", (1, 4096, 2048)),
+    ("cascade_gate", (5, 1000, torch.bfloat16)),
+    ("cascade_gate", (64, 32768, torch.float32)),
+]
+
+
+@pytest.mark.parametrize("name, shape", FAKE_RULE_CASES,
+                         ids=[f"{n}-{s}" for n, s in FAKE_RULE_CASES])
+def test_fake_rule_matches_a_real_launch(cuda, name, shape):
+    """A wrapper on fake copies of real CUDA inputs returns what its launch
+    returns in shape, dtype, stride and device, adds the launch's FLOPs to
+    ``FLOPS``, counts the call in ``TRACED`` and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import kernels
+
+    fn, args = _fake_rule_inputs(name, shape, cuda)
+    kernel = "flash_attention" if name == "flash_attention_lse" else name
+    flops = dict(kernels.FLOPS)
+    launches = dict(LAUNCHES)
+    real = fn(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel] == launches[kernel] + 1
+    real_flops = kernels.FLOPS.get(kernel, 0) - flops.get(kernel, 0)
+    real = real if isinstance(real, tuple) else (real,)
+    with FakeTensorMode() as mode:
+        fakes = [mode.from_tensor(t) for t in args]
+        launches, traced = dict(LAUNCHES), dict(kernels.TRACED)
+        flops = dict(kernels.FLOPS)
+        got = fn(*fakes)
+    got = got if isinstance(got, tuple) else (got,)
+    assert LAUNCHES == launches
+    assert kernels.TRACED[kernel] == traced[kernel] + 1
+    assert kernels.FLOPS.get(kernel, 0) - flops.get(kernel, 0) == real_flops
+    assert [(t.shape, t.dtype, t.stride(), t.device) for t in got] == \
+        [(t.shape, t.dtype, t.stride(), t.device) for t in real]
+
+
+def test_a_fake_cuda_train_trace_counts_the_fake_cpu_ones(cuda):
+    """A tiny train step traced on a fake (2, 2) mesh: on fake CUDA tensors
+    (the kernels' fake rules, forward and backward) it counts the FLOPs and
+    collectives of the same trace on fake CPU tensors (the plain
+    versions)."""
+    import dataclasses
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.fake import fake_mode, fake_world
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.launch.specs import make_step_fn
+    from repro_torch.models.model import LM
+
+    cfg = dataclasses.replace(tcfg.get_config("qwen3-4b").reduced(),
+                              param_dtype="float32")
+    shape = InputShape("tiny_train", 64, 8, "train")
+    recs = {}
+    with fake_world(4):
+        for dev in ("cpu", "cuda"):
+            mesh = HostMesh(2, device=dev)
+            with fake_mode(dev):
+                lm = LM(cfg, device=dev)
+                step, inputs = make_step_fn(lm, shape, mesh, dev)
+                recs[dev], _ = trace_step(step, inputs, params=inputs[0],
+                                          read=inputs[0], device=dev)
+    assert recs["cuda"]["kernels"]["flash_attention_bwd"] > 0
+    assert recs["cuda"]["weighted"]["dot_flops"] == \
+        recs["cpu"]["weighted"]["dot_flops"]
+    assert recs["cuda"]["collectives"] == recs["cpu"]["collectives"]

@@ -233,8 +233,8 @@ def test_train_cli_flags_against_repro(monkeypatch, capsys):
     their defaults, adds ``--device``, ``--mesh-data`` (the port's stand-in
     for ``repro``'s device count), ``--mesh-model`` (its model axis),
     ``--warm`` and ``--report`` (the timed steps' figures) and
-    ``--no-reduced``, refuses
-    ``--production`` and ``--multi-pod`` (meshes: ROADMAP Queue 1), and a
+    ``--no-reduced``; ``--production`` and ``--multi-pod`` want a
+    launcher's process group (outside one they raise and say so), and a
     short run on the CPU logs steps 0, 10 and the last."""
     import argparse
 
@@ -261,11 +261,11 @@ def test_train_cli_flags_against_repro(monkeypatch, capsys):
     assert set(ours) == set(theirs) | {"device", "mesh_data", "mesh_model",
                                        "warm", "report"}
     for dest in ("arch", "steps", "batch", "seq", "lr", "production",
-                 "multi_pod"):
+                 "multi_pod", "reduced"):
         assert ours[dest].default == theirs[dest].default, dest
     assert "--no-reduced" in ours["reduced"].option_strings
     for flag in ("--production", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
+        with pytest.raises(RuntimeError, match="launcher's process group"):
             ttrain.main([flag, "--device", "cpu"])
     ttrain.main(["--device", "cpu", "--steps", "12", "--batch", "2",
                  "--seq", "16"])
